@@ -3,19 +3,22 @@
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
 each kernel against its plain PyTorch version on the card, checks the
-ref49 likelihood anchor, and drives the port's main path — full-traversal
-evaluate, Newton-Raphson branch updates and a smoothing sweep — at a
-real per-GPU size (512 taxa x 131,072 DNA patterns in four GTR+G4
-partitions, f32).  Every phase is fatal: any failure exits non-zero
+ref49 likelihood anchors on both full-traversal tiers (`newview="chunk"`,
+kernel B1; `newview="whole"`, kernel B2), runs `-f e` on ref49 through the
+port's CLI, and drives the port's main paths — full-traversal evaluate,
+Newton-Raphson branch updates, a smoothing sweep and a model-optimization
+pass — at a real per-GPU size (512 taxa x 131,072 DNA patterns in four
+GTR+G4 partitions, f32).  Every phase is fatal: any failure exits non-zero
 before the result line.
 
     python3 chip_smoke.py [--seed N]     # one card
 
-Output: progress and numbers on the earlier lines; the card's name and
-power limit; one line {"kernels": [...]} with each kernel's launches on
-the main path, its agreement with the plain version, its time per full
-traversal, the plain version's time and the memory-traffic bound; last,
-{"ok": true, "device": {...}}.  Longer reports go to chiprun_out/.
+Output: progress and numbers on the earlier lines (each phase with its
+seconds); the card's name and power limit; one line {"kernels": [...]}
+with each kernel's launches on its paths, its agreement with the plain
+version, its time per full traversal, the plain version's time and the
+memory-traffic bound; last, {"ok": true, "device": {...}}.  The full
+report is written as JSON beside the script (see `main`).
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -34,6 +38,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 REF49 = os.path.join(HERE, "tests", "fixtures", "ref49")
 LNL_JAX_F64 = -16205.671707      # JAX package, CPU f64 (ROADMAP.md)
 LNL_REF_BINARY = -16205.671990   # reference ExaML binary (ref49/lnl.txt)
+MODOPT_EPSILON = 0.1             # the -f e model-optimization epsilon
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, published
 F32_FLOPS = 67e12                # H100 SXM, float32 outside tensor cores
 RTOL = {"float32": 1e-5, "float64": 1e-12}
@@ -41,7 +46,9 @@ RTOL = {"float32": 1e-5, "float64": 1e-12}
 TAXA, PARTITIONS, PART_WIDTH = 512, 4, 32768
 CHECK_BLOCKS = 1024     # site blocks of 128 in the kernel-vs-plain cases
 CHECK_WIDTH = 64        # chunk width of the kernel-vs-plain cases
+WHOLE_CHECK_BLOCKS = 256    # site blocks in the B2-vs-plain cases
 REPS = 5                # timed repeats
+NPHASES = 9
 
 
 class SmokeFailure(RuntimeError):
@@ -201,49 +208,195 @@ def phase_kernel_vs_plain(device, B: int, W: int, seed: int):
     return results
 
 
-# -- phase 4: ref49 anchor + NR + smoothing ----------------------------------
+# -- launch accounting ------------------------------------------------------
 
 
-def ref49_instance(dtype, device):
+def reset_counts() -> None:
+    from examl_tpu_torch.ops import engine, newview_chunk, newview_whole
+    newview_chunk.LAUNCHES = 0
+    newview_whole.LAUNCHES = 0
+    engine.FULL_TRAVERSALS = 0
+
+
+def read_counts() -> dict:
+    from examl_tpu_torch.ops import engine, newview_chunk, newview_whole
+    return {"b1": newview_chunk.LAUNCHES, "b2": newview_whole.LAUNCHES,
+            "full_traversals": engine.FULL_TRAVERSALS}
+
+
+def check_tier(counts: dict, tier: str, path: str) -> None:
+    """A whole-tier path launches B2 once per full traversal and B1 never;
+    a chunk-tier path never launches B2, and launches B1 when it runs a
+    full traversal."""
+    if tier == "whole":
+        check(counts["b1"] == 0, f"{path}: B1 launched {counts['b1']} "
+              "times on the whole tier")
+        check(counts["b2"] == counts["full_traversals"] > 0,
+              f"{path}: {counts['b2']} B2 launches for "
+              f"{counts['full_traversals']} full traversals")
+    else:
+        check(counts["b2"] == 0, f"{path}: B2 launched {counts['b2']} "
+              "times on the chunk tier")
+        check(counts["b1"] > 0 or counts["full_traversals"] == 0,
+              f"{path}: {counts['full_traversals']} full traversals "
+              "launched B1 no time")
+
+
+# -- phase 4: kernel B2 against its plain version ----------------------------
+
+
+def caterpillar_newick(n: int) -> str:
+    text = "t0"
+    for i in range(1, n):
+        text = f"({text},t{i})"
+    return text + ";"
+
+
+def whole_case(dtype_name: str, shape: str, rescale: bool, B: int,
+               seed: int, device):
+    """One kernel-vs-plain comparison of a whole traversal over B blocks
+    of 128 sites: a random 512-taxon tree rooted at its centroid (wide
+    waves), or a 64-taxon caterpillar rooted at its first tip (one entry
+    per wave, the most barriers).  Forced rescale scales the tip table by
+    0.75 * 2^(-E/2), so every tip/tip site rescales and tip/inner sites
+    rescale every few levels."""
+    import torch
+    from examl_tpu_torch import datatypes
+    from examl_tpu_torch.ops import newview_whole
+    from examl_tpu_torch.tree.topology import Tree
+    dtype = getattr(torch, dtype_name)
+    E = 256 if dtype == torch.float64 else 32
+    L, M = 128, 4
+    rng = np.random.default_rng(seed)
+    ntaxa = 512 if shape == "random" else 64
+    names = [f"t{i}" for i in range(ntaxa)]
+    if shape == "random":
+        tree = Tree.random(names, seed, 1)
+    else:
+        tree = Tree.from_newick(caterpillar_newick(ntaxa), names, 1)
+    for p, _ in tree.all_branches():
+        p.z[:] = [float(rng.uniform(0.05, 0.98))]
+    root = tree.centroid_branch() if shape == "random" else tree.start
+    flat = tree.flat_full_traversal(root)
+    _, dm = random_models(M, rng, dtype, device)
+    st = newview_whole.build_structure(flat, ntaxa, 1, device)
+    zl, zr = newview_whole.refresh_z(st, flat, 1)
+    pmat = newview_whole.whole_operands(dm, zl, zr, dtype, device)
+    table = torch.as_tensor(datatypes.DNA.tip_indicator_table(), dtype=dtype,
+                            device=device)
+    if rescale:
+        table = table * (0.75 * 2.0 ** (-E / 2))
+    n = flat.n
+    rows = n + 4
+    clv = torch.as_tensor(rng.uniform(0.0, 1.0, (rows, B, L, 4, 4)),
+                          dtype=dtype, device=device)
+    scaler = torch.as_tensor(rng.integers(0, 4, (rows, B, L)),
+                             dtype=torch.int32, device=device)
+    codes = torch.as_tensor(rng.choice([1, 2, 4, 8, 15, 5], (ntaxa, B, L)),
+                            dtype=torch.uint8, device=device)
+    block_part = torch.as_tensor(rng.integers(0, M, B), dtype=torch.int32,
+                                 device=device)
+    args = (codes, table, block_part, st.meta, st.l_code, st.r_code,
+            st.wave_start, pmat, E)
+    c_ref, s_ref = clv.clone(), scaler.clone()
+    newview_whole.whole_apply_plain(c_ref, s_ref, *args)
+    c_k, s_k = clv.clone(), scaler.clone()
+    newview_whole.whole_apply_cuda(c_k, s_k, *args)
+    sync(device)
+    tag = f"{shape} {dtype_name} rescale={rescale}"
+    mism = (s_k != s_ref).nonzero()
+    check(mism.shape[0] == 0, f"B2 {tag}: {mism.shape[0]} scaler "
+          f"mismatches, first at (row, block, lane) "
+          f"{mism[0].tolist() if mism.shape[0] else None}")
+    check(torch.equal(c_k[n:], clv[n:]) and torch.equal(s_k[n:], scaler[n:]),
+          f"B2 {tag}: kernel wrote outside rows [0, {n})")
+    diff = (c_k[:n] - c_ref[:n]).abs()
+    smax = c_ref[:n].abs().amax(dim=(3, 4), keepdim=True)
+    rel = float((diff / smax.clamp_min(torch.finfo(dtype).tiny)).max())
+    check(rel <= RTOL[dtype_name], f"B2 {tag}: CLV rel err {rel:.3e} > "
+          f"{RTOL[dtype_name]}")
+    return {"shape": shape, "dtype": dtype_name, "forced_rescale": rescale,
+            "entries": n, "waves": int(st.wave_start.shape[0] - 1),
+            "grid_blocks": newview_whole.LAST_GRID,
+            "max_abs_err": float(diff.max()), "max_rel_err": rel,
+            "max_scaler": int(s_ref[:n].max())}
+
+
+def phase_whole_vs_plain(device, B: int, seed: int):
+    results = []
+    for dtype_name in ("float32", "float64"):
+        for shape in ("random", "caterpillar"):
+            for rescale in (False, True):
+                r = whole_case(dtype_name, shape, rescale, B, seed, device)
+                if rescale:
+                    check(r["max_scaler"] > 0, f"B2 {shape} {dtype_name}: "
+                          "the forced-rescale case rescaled no site")
+                results.append(r)
+                log(f"  {shape:11s} {dtype_name:7s} rescale={rescale!s:5s} "
+                    f"entries={r['entries']} waves={r['waves']} "
+                    f"grid={r['grid_blocks']} blocks "
+                    f"max_abs_err={r['max_abs_err']:.3e} "
+                    f"max_rel_err={r['max_rel_err']:.3e} "
+                    f"max_scaler={r['max_scaler']}")
+    return results
+
+
+# -- phase 5: ref49 on the chunk tier: anchor, NR, smoothing --------------
+
+
+def refmodel():
+    """tests/refmodel.py by path: an installed package named `tests` may
+    shadow the repository's directory."""
     import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "refmodel", os.path.join(HERE, "tests", "refmodel.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def ref49_instance(dtype, device, newview: str = "chunk",
+                   reference_model: bool = True):
+    """The ref49 alignment and tree, under the reference binary's
+    optimized model (or the initial default model)."""
     from examl_tpu_torch.instance import PhyloInstance
     from examl_tpu_torch.io.bytefile import read_bytefile
     from examl_tpu_torch.transfer import install_model_params
-    # tests/refmodel.py by path: an installed package named `tests` may
-    # shadow the repository's directory.
-    spec = importlib.util.spec_from_file_location(
-        "refmodel", os.path.join(HERE, "tests", "refmodel.py"))
-    refmodel = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(refmodel)
-    parse_model_file = refmodel.parse_model_file
     inst = PhyloInstance(read_bytefile(os.path.join(REF49, "aln49.binary")),
-                         dtype=dtype, device=device)
-    install_model_params(inst, [(p.rates, p.freqs, p.alpha) for p in
-                                parse_model_file(os.path.join(REF49,
-                                                              "modelFile"))])
+                         dtype=dtype, device=device, newview=newview)
+    if reference_model:
+        params = refmodel().parse_model_file(os.path.join(REF49,
+                                                          "modelFile"))
+        install_model_params(inst, [(p.rates, p.freqs, p.alpha)
+                                    for p in params])
     with open(os.path.join(REF49, "TreeFile")) as f:
         tree = inst.tree_from_newick(f.read())
     return inst, tree
 
 
-def phase_anchor(device):
+def anchors(device, newview: str):
+    """ref49 lnL under the reference model: f64 within 2e-6 of the JAX
+    package, f32 within 2e-3 of the reference binary."""
     import torch
-    from examl_tpu_torch.optimize.branch import smooth_tree
     out = {}
-    inst, tree = ref49_instance(torch.float64, device)
-    l64 = inst.evaluate(tree, full=True)
-    out["lnl_f64"] = l64
-    log(f"  f64 lnL {l64!r} (JAX CPU f64 {LNL_JAX_F64}, "
-        f"diff {l64 - LNL_JAX_F64:.3e})")
-    check(abs(l64 - LNL_JAX_F64) <= 2e-6,
-          f"f64 anchor {l64} vs {LNL_JAX_F64}")
-    inst, tree = ref49_instance(torch.float32, device)
-    l32 = inst.evaluate(tree, full=True)
-    out["lnl_f32"] = l32
-    log(f"  f32 lnL {l32!r} (reference binary {LNL_REF_BINARY}, "
-        f"diff {l32 - LNL_REF_BINARY:.3e})")
-    check(abs(l32 - LNL_REF_BINARY) <= 2e-3,
-          f"f32 anchor {l32} vs {LNL_REF_BINARY}")
+    for dtype, ref, tol, name in (
+            (torch.float64, LNL_JAX_F64, 2e-6, "JAX CPU f64"),
+            (torch.float32, LNL_REF_BINARY, 2e-3, "reference binary")):
+        inst, tree = ref49_instance(dtype, device, newview)
+        lnl = inst.evaluate(tree, full=True)
+        key = "lnl_f64" if dtype == torch.float64 else "lnl_f32"
+        out[key] = lnl
+        log(f"  {newview} {key[4:]} lnL {lnl!r} ({name} {ref}, "
+            f"diff {lnl - ref:.3e})")
+        check(abs(lnl - ref) <= tol, f"{newview} {key[4:]} anchor {lnl} "
+              f"vs {ref}")
+    return out, inst, tree
+
+
+def phase_anchor(device):
+    from examl_tpu_torch.optimize.branch import smooth_tree
+    reset_counts()
+    out, inst, tree = anchors(device, "chunk")
     # Move off the optimum (every branch twice as long) so the NR step and
     # the sweep have lnL to gain beyond f32 evaluation noise.
     for p, _ in tree.all_branches():
@@ -260,10 +413,77 @@ def phase_anchor(device):
     log(f"  f32 perturbed {l0!r} -> makenewz {l1!r} -> smooth_tree {l2!r}")
     check(l1 >= l0, f"makenewz decreased lnL: {l0} -> {l1}")
     check(l2 >= l1, f"smooth_tree decreased lnL: {l1} -> {l2}")
+    out["launches"] = read_counts()
+    check_tier(out["launches"], "chunk", "ref49 chunk tier")
+    log(f"  launches {out['launches']}")
     return out
 
 
-# -- phase 5: real size --------------------------------------------------------
+# -- phase 6: ref49 on the whole tier: anchors, -f e through the CLI ---------
+
+
+def phase_ref49_whole(device, out_dir: str):
+    import torch
+    from examl_tpu_torch.cli import main as cli
+    from examl_tpu_torch.optimize import branch
+    reset_counts()
+    out, _, _ = anchors(device, "whole")
+    out["launches_anchors"] = read_counts()
+    check_tier(out["launches_anchors"], "whole", "ref49 whole anchors")
+    # -f e from the initial model (GTR rates 1, empirical frequencies,
+    # alpha 1), f32 on the card, through the port's CLI in-process.
+    inst, tree = ref49_instance(torch.float32, device, "whole",
+                                reference_model=False)
+    start = inst.evaluate(tree, full=True)
+    del inst, tree
+    workdir = os.path.join(out_dir, "fe_ref49")
+    # Time the branch-length smoothing inside the run (tree_evaluate looks
+    # smooth_tree up in its module at each call).
+    smooth = branch.smooth_tree
+    smooth_s = [0.0]
+
+    def timed_smooth(*a, **k):
+        t = time.perf_counter()
+        smooth(*a, **k)
+        sync(device)
+        smooth_s[0] += time.perf_counter() - t
+
+    branch.smooth_tree = timed_smooth
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        rc = cli.main(["-s", os.path.join(REF49, "aln49.binary"),
+                       "-t", os.path.join(REF49, "TreeFile"), "-n", "smoke",
+                       "-w", workdir, "-f", "e", "--newview", "whole"])
+        sync(device)
+    finally:
+        branch.smooth_tree = smooth
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    check(rc == 0, f"-f e through the CLI returned {rc}")
+    check_tier(counts, "whole", "-f e CLI")
+    with open(os.path.join(workdir, "ExaML_log.smoke")) as f:
+        final = float(f.read().split()[-1])
+    floor = LNL_REF_BINARY - MODOPT_EPSILON
+    check(final >= floor, f"-f e endpoint {final} below {floor}")
+    check(final >= start, f"-f e ended at {final}, below its start {start}")
+    params = refmodel().parse_model_file(
+        os.path.join(workdir, "ExaML_modelFile.smoke"))
+    check(len(params) == 4 and all(
+        p.alpha is not None and p.rates is not None and len(p.rates) == 6
+        and len(p.freqs) == 4 for p in params),
+        "ExaML_modelFile does not parse as four GTR+G partitions")
+    out.update(fe_start_lnl=start, fe_final_lnl=final, fe_wall_s=wall,
+               fe_smooth_s=smooth_s[0], fe_launches=counts)
+    log(f"  -f e (CLI, whole tier, f32): start {start!r} -> final "
+        f"{final!r} (floor {floor}); {wall:.1f} s, of which branch "
+        f"smoothing {smooth_s[0]:.1f} s; {counts['full_traversals']} full "
+        f"traversals, {counts['b2']} B2 launches, {counts['b1']} B1 "
+        f"launches")
+    return out
+
+
+# -- phases 7 and 8: real size, chunk and whole tiers -----------------------
 
 
 def synthetic_alignment(ntaxa: int, parts: int, width: int, seed: int):
@@ -315,40 +535,43 @@ def traversal_flops(flat, ntips: int, patterns: int, R: int, K: int) -> int:
         + flat.n * patterns * R * K
 
 
-def phase_real_size(device, ntaxa: int, parts: int, width: int, seed: int,
-                    reps: int):
-    import torch
-    from examl_tpu_torch.instance import PhyloInstance
-    from examl_tpu_torch.ops import fastpath, newview_chunk
-    from examl_tpu_torch.transfer import install_model_params
+def real_setup(ntaxa: int, parts: int, width: int, seed: int) -> dict:
+    """The real-size inputs both tiers share: alignment, per-partition
+    models (rates, freqs, alpha) and branch lengths, from the seed."""
     t0 = time.perf_counter()
     ad = synthetic_alignment(ntaxa, parts, width, seed)
     rng = np.random.default_rng(seed + 1)
-    inst = PhyloInstance(ad, dtype=torch.float32, device=device)
     params = []
     for _ in range(parts):
         rates = rng.uniform(0.3, 6.0, 6)
         rates[-1] = 1.0
         params.append((rates, rng.dirichlet(np.ones(4) * 5),
                        rng.uniform(0.2, 1.5)))
-    install_model_params(inst, params)
-    tree = inst.random_tree(seed)
-    for p, _ in tree.all_branches():
-        p.z[:] = [float(np.exp(-rng.exponential(0.08)))]
-    eng = inst.engines[4]
-    patterns = int(sum(p.width for p in ad.partitions))
-    setup_s = time.perf_counter() - t0
-    log(f"  {ntaxa} taxa x {patterns} patterns in {parts} partitions; "
-        f"arena {tuple(eng.clv.shape)} f32 "
-        f"({eng.clv.numel() * 4 / 1e9:.2f} GB); set-up {setup_s:.1f} s")
+    zs = np.exp(-rng.exponential(0.08, 2 * ntaxa - 3))
+    return {"ad": ad, "params": params, "zs": zs, "seed": seed,
+            "ntaxa": ntaxa, "parts": parts,
+            "patterns": int(sum(p.width for p in ad.partitions)),
+            "alignment_s": time.perf_counter() - t0}
 
-    # The main path, one path at a time: the count is set to 0 just
-    # before each path and read just after it.  Full traversals (evaluate)
-    # run the chunk program through B1; makenewz's partial traversals run
-    # the wave-scan tier in plain torch ops, so B1 is expected 0 times there.
-    launches = {}
-    newview_chunk.LAUNCHES = 0
-    lnl0 = inst.evaluate(tree, full=True)                  # warm-up
+
+def real_instance(setup: dict, device, newview: str):
+    import torch
+    from examl_tpu_torch.instance import PhyloInstance
+    from examl_tpu_torch.transfer import install_model_params
+    inst = PhyloInstance(setup["ad"], dtype=torch.float32, device=device,
+                         newview=newview)
+    install_model_params(inst, setup["params"])
+    tree = inst.random_tree(setup["seed"])
+    for (p, _), z in zip(tree.all_branches(), setup["zs"]):
+        p.z[:] = [float(z)]
+    return inst, tree
+
+
+def timed_evaluates(inst, tree, device, reps: int):
+    """One warm-up and `reps` timed full-traversal evaluates; returns
+    (lnL, wall seconds per run).  The float64 root sums use atomics on
+    the card, so repeats agree to rounding, not bit for bit."""
+    lnl0 = inst.evaluate(tree, full=True)
     sync(device)
     walls = []
     for _ in range(reps):
@@ -356,42 +579,111 @@ def phase_real_size(device, ntaxa: int, parts: int, width: int, seed: int,
         lnl = inst.evaluate(tree, full=True)
         sync(device)
         walls.append(time.perf_counter() - t1)
-    # The float64 root sums use atomics on the card, so repeats agree to
-    # rounding, not bit for bit.
     check(math.isfinite(lnl) and abs(lnl - lnl0) <= 1e-9 * abs(lnl0),
           f"repeated evaluate not stable: {lnl0} vs {lnl}")
-    launches["evaluate"] = newview_chunk.LAUNCHES
+    return lnl, walls
+
+
+def compare_arenas(ck, cp, sk, sp, what: str):
+    """Kernel rows against plain rows: scalers exactly equal (a site whose
+    maximum sits on the 2^-E threshold could rescale in one version and
+    not the other, as the FMA order differs; such a tie is reported as a
+    failure with its site), CLVs within the f32 tolerance of each site's
+    maximum.  Returns (max_rel_err, max_abs_err)."""
+    import torch
+    mism = (sk != sp).nonzero()
+    check(mism.shape[0] == 0, f"{what}: {mism.shape[0]} scaler "
+          f"mismatches, first at (row, block, lane) "
+          f"{mism[0].tolist() if mism.shape[0] else None}")
+    smax = cp.abs().amax(dim=(3, 4), keepdim=True).clamp_min(
+        torch.finfo(cp.dtype).tiny)
+    rel = float(((ck - cp).abs() / smax).max())
+    check(rel <= RTOL["float32"], f"{what}: kernel vs plain rel err "
+          f"{rel:.3e}")
+    return rel, float((ck - cp).abs().max())
+
+
+def traversal_bound(flat, setup: dict, eng) -> dict:
+    nbytes = traversal_bytes(flat, setup["ntaxa"], setup["patterns"], eng.R,
+                             eng.K, 4)
+    flops = traversal_flops(flat, setup["ntaxa"], setup["patterns"], eng.R,
+                            eng.K)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOPS * 1e3
+    return {"bytes_per_traversal": nbytes, "flops_per_traversal": flops,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def log_profile(profile: dict, kernel: str) -> None:
+    if profile["measured"]:
+        log(f"  profiled evaluate: wall {profile['wall_ms']:.2f} ms, device "
+            f"busy {profile['busy_ms']:.2f} ms (idle share "
+            f"{profile['idle_share']:.3f}), {kernel} "
+            f"{profile[kernel.lower() + '_ms']:.2f} ms")
+        for r in profile["top"]:
+            log(f"    {r['ms']:9.3f} ms  {r['calls']:5d}x  {r['name']}")
+    else:
+        log(f"  profiled evaluate: not measured ({profile['error']})")
+
+
+def phase_real_size(device, setup: dict, reps: int):
+    """The chunk tier at real size: evaluate, makenewz, kernel B1."""
+    import torch
+    from examl_tpu_torch.ops import fastpath, newview_chunk
+    t0 = time.perf_counter()
+    inst, tree = real_instance(setup, device, "chunk")
+    eng = inst.engines[4]
+    ntaxa, patterns = setup["ntaxa"], setup["patterns"]
+    setup_s = setup["alignment_s"] + time.perf_counter() - t0
+    log(f"  {ntaxa} taxa x {patterns} patterns in {setup['parts']} "
+        f"partitions; arena {tuple(eng.clv.shape)} f32 "
+        f"({eng.clv.numel() * 4 / 1e9:.2f} GB); set-up {setup_s:.1f} s")
+
+    # The main path, one path at a time: the counts are set to 0 just
+    # before each path and read just after it.  Full traversals (evaluate)
+    # run the chunk program through B1; makenewz's partial traversals run
+    # the wave-scan tier in plain torch ops, so B1 is expected 0 times there.
+    launches = {}
+    reset_counts()
+    lnl, walls = timed_evaluates(inst, tree, device, reps)
+    launches["evaluate"] = read_counts()
     branches = tree.all_branches()
-    picks = rng.choice(len(branches), 8, replace=False)
-    newview_chunk.LAUNCHES = 0
+    picks = np.random.default_rng(setup["seed"] + 2).choice(
+        len(branches), 8, replace=False)
+    reset_counts()
     t1 = time.perf_counter()
-    nr = []
     for i in picks:
         p, q = branches[int(i)]
         z = inst.makenewz(tree, p, q, list(p.z), maxiter=30)
         check(bool(np.all(np.isfinite(z))), f"makenewz gave {z}")
         p.z[:] = [float(v) for v in z]
-        nr.append(float(z[0]))
     sync(device)
     nr_s = time.perf_counter() - t1
-    launches["makenewz"] = newview_chunk.LAUNCHES
-    newview_chunk.LAUNCHES = 0
+    launches["makenewz"] = read_counts()
+    reset_counts()
     lnl_nr = inst.evaluate(tree, full=True)
     sync(device)
-    launches["evaluate"] += newview_chunk.LAUNCHES
-    check(launches["evaluate"] > 0,
+    after = read_counts()
+    for k in after:
+        launches["evaluate"][k] += after[k]
+    for path, counts in launches.items():
+        check_tier(counts, "chunk", f"real-size chunk {path}")
+    check(launches["evaluate"]["b1"] > 0,
           "the evaluate path launched kernel B1 no time")
+    check(launches["makenewz"]["b1"] == 0,
+          "makenewz's partial traversals launched B1")
     check(math.isfinite(lnl_nr) and lnl_nr >= lnl,
           f"lnL after makenewz {lnl_nr} vs {lnl}")
-    log(f"  lnL {lnl!r}; after 8 makenewz {lnl_nr!r}; B1 launches: "
-        f"evaluate {launches['evaluate']} (7 full traversals), "
-        f"makenewz {launches['makenewz']} (partial traversals in torch ops)")
+    log(f"  lnL {lnl!r}; after 8 makenewz {lnl_nr!r}; launches: "
+        f"evaluate {launches['evaluate']}, makenewz {launches['makenewz']} "
+        f"(partial traversals in torch ops)")
 
     # Kernel time against the plain version on one full traversal's
     # chunks, operands prebuilt, same inputs (these launches come after
     # the count was read).
     flat = tree.flat_full_traversal(tree.centroid_branch())
-    st = eng._fast_structure(flat)
+    st = eng._structure(flat)
     zl, zr = fastpath.refresh_z(st, flat, 1, eng.dtype, device)
     chunks = list(fastpath.iter_chunks(st.profile, st.base, st.lidx,
                                        st.ridx, st.lcode, st.rcode, zl, zr))
@@ -414,41 +706,23 @@ def phase_real_size(device, ntaxa: int, parts: int, width: int, seed: int,
                                    sc_p), device, max(1, reps // 2))
     rows = torch.as_tensor(np.sort(st.row_of[st.row_of >= 0]),
                            device=device)
-    ck, cp = clv_k[rows], clv_p[rows]
-    sk, sp = sc_k[rows], sc_p[rows]
-    # Scalers must agree exactly.  A site whose maximum sits on the 2^-E
-    # threshold could rescale in one version and not the other (the FMA
-    # order differs); such a tie is reported as a failure with its site.
-    mism = (sk != sp).nonzero()
-    check(mism.shape[0] == 0, f"full traversal: {mism.shape[0]} scaler "
-          f"mismatches, first at (row, block, lane) "
-          f"{mism[0].tolist() if mism.shape[0] else None}")
-    smax = cp.abs().amax(dim=(3, 4), keepdim=True).clamp_min(
-        torch.finfo(cp.dtype).tiny)
-    rel = float(((ck - cp).abs() / smax).max())
-    abs_err = float((ck - cp).abs().max())
-    check(rel <= RTOL["float32"], f"full traversal: kernel vs plain "
-          f"rel err {rel:.3e}")
+    rel, abs_err = compare_arenas(clv_k[rows], clv_p[rows], sc_k[rows],
+                                  sc_p[rows], "chunk full traversal")
+    del clv_k, sc_k, clv_p, sc_p
     profile = device_breakdown(lambda: inst.evaluate(tree, full=True),
                                device)
-    nbytes = traversal_bytes(flat, ntaxa, patterns, eng.R, eng.K, 4)
-    flops = traversal_flops(flat, ntaxa, patterns, eng.R, eng.K)
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / F32_FLOPS * 1e3
     eval_ms = float(np.mean(walls) * 1e3)
     updates = flat.n * patterns * eng.R * eng.K
     report = {
-        "ntaxa": ntaxa, "patterns": patterns, "partitions": parts,
+        "ntaxa": ntaxa, "patterns": patterns, "partitions": setup["parts"],
         "lnl": lnl, "lnl_after_makenewz": lnl_nr,
         "evaluate_ms": eval_ms, "evaluate_ms_runs": [w * 1e3 for w in walls],
         "site_clv_updates_per_s": updates / (eval_ms / 1e3),
         "makenewz_8_s": nr_s, "chunks_per_traversal": len(chunks),
         "entries": flat.n, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-        "bytes_per_traversal": nbytes, "flops_per_traversal": flops,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        **traversal_bound(flat, setup, eng),
         "max_rel_err": rel, "max_abs_err": abs_err,
-        "launches": launches["evaluate"], "launches_by_path": launches,
+        "launches": launches["evaluate"]["b1"], "launches_by_path": launches,
         "setup_s": setup_s, "profile": profile,
     }
     log(f"  evaluate {eval_ms:.2f} ms/full traversal "
@@ -457,15 +731,101 @@ def phase_real_size(device, ntaxa: int, parts: int, width: int, seed: int,
         f"{report['bound_ms']:.3f} ms ({report['bound_by']}); "
         f"{len(chunks)} chunks; kernel vs plain rel err {rel:.3e}, "
         f"scalers equal")
-    if profile["measured"]:
-        log(f"  profiled evaluate: wall {profile['wall_ms']:.2f} ms, device "
-            f"busy {profile['busy_ms']:.2f} ms (idle share "
-            f"{profile['idle_share']:.3f}), B1 {profile['b1_ms']:.2f} ms")
-        for r in profile["top"]:
-            log(f"    {r['ms']:9.3f} ms  {r['calls']:5d}x  {r['name']}")
-    else:
-        log(f"  profiled evaluate: not measured ({profile['error']})")
+    log_profile(profile, "B1")
     return report
+
+
+def phase_real_whole(device, setup: dict, reps: int, chunk_lnl: float):
+    """The whole tier at real size: evaluate against the chunk tier's lnL,
+    kernel B2 against its plain version, one opt_rates + opt_alphas pass."""
+    import torch
+    from examl_tpu_torch.ops import newview_whole
+    from examl_tpu_torch.optimize.model_opt import opt_alphas, opt_rates
+    inst, tree = real_instance(setup, device, "whole")
+    eng = inst.engines[4]
+    launches = {}
+    reset_counts()
+    lnl, walls = timed_evaluates(inst, tree, device, reps)
+    launches["evaluate"] = read_counts()
+    check_tier(launches["evaluate"], "whole", "real-size whole evaluate")
+    check(abs(lnl - chunk_lnl) <= 1e-6 * abs(chunk_lnl),
+          f"whole-tier lnL {lnl} vs chunk-tier {chunk_lnl}")
+    eval_ms = float(np.mean(walls) * 1e3)
+    log(f"  lnL {lnl!r} (chunk tier {chunk_lnl!r}, rel diff "
+        f"{(lnl - chunk_lnl) / abs(chunk_lnl):.2e}); evaluate "
+        f"{eval_ms:.2f} ms/full traversal; launches {launches['evaluate']}")
+
+    # Kernel B2 alone per traversal against the plain version, operands
+    # prebuilt, same inputs (after the count was read).
+    flat = tree.flat_full_traversal(tree.centroid_branch())
+    st = eng._structure(flat)
+    zl, zr = newview_whole.refresh_z(st, flat, 1)
+    pmat = newview_whole.whole_operands(eng.models, zl, zr, eng.dtype, device)
+    args = (eng.tips.codes, eng.tips.table, eng.block_part_i32, st.meta,
+            st.l_code, st.r_code, st.wave_start, pmat, eng.scale_exp)
+    clv_k = torch.zeros_like(eng.clv)
+    sc_k = torch.zeros_like(eng.scaler)
+    kernel_ms = time_ms(lambda: newview_whole.whole_apply_cuda(
+        clv_k, sc_k, *args), device, reps)
+    clv_p = torch.zeros_like(eng.clv)
+    sc_p = torch.zeros_like(eng.scaler)
+    plain_ms = time_ms(lambda: newview_whole.whole_apply_plain(
+        clv_p, sc_p, *args), device, max(1, reps // 2))
+    n = flat.n
+    rel, abs_err = compare_arenas(clv_k[:n], clv_p[:n], sc_k[:n], sc_p[:n],
+                                  "whole full traversal")
+    del clv_k, sc_k, clv_p, sc_p
+    profile = device_breakdown(lambda: inst.evaluate(tree, full=True),
+                               device)
+    bound = traversal_bound(flat, setup, eng)
+    log(f"  B2 {kernel_ms:.3f} ms (grid {newview_whole.LAST_GRID} blocks, "
+        f"{int(st.wave_start.shape[0]) - 1} waves), plain {plain_ms:.3f} "
+        f"ms, bound {bound['bound_ms']:.3f} ms ({bound['bound_by']}); "
+        f"kernel vs plain rel err {rel:.3e}, scalers equal")
+    log_profile(profile, "B2")
+
+    # One model-optimization pass: every Brent probe is push_models (host
+    # eigensystems) + a full traversal through B2.
+    host = [0.0]
+    push = inst.push_models
+
+    def timed_push(*a, **k):
+        t = time.perf_counter()
+        push(*a, **k)
+        host[0] += time.perf_counter() - t
+
+    inst.push_models = timed_push
+    before = inst.evaluate(tree, full=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    opt_rates(inst, tree)
+    opt_alphas(inst, tree)
+    sync(device)
+    opt_s = time.perf_counter() - t0
+    launches["opt_rates_alphas"] = read_counts()
+    check_tier(launches["opt_rates_alphas"], "whole",
+               "real-size opt_rates + opt_alphas")
+    after = inst.likelihood
+    check(after >= before - 1e-9 * abs(before),
+          f"opt_rates + opt_alphas decreased lnL: {before} -> {after}")
+    full = launches["opt_rates_alphas"]["full_traversals"]
+    log(f"  opt_rates + opt_alphas: lnL {before!r} -> {after!r}; {opt_s:.2f} "
+        f"s, {full} full traversals ({opt_s * 1e3 / full:.2f} ms each, of "
+        f"which push_models {host[0] * 1e3 / full:.2f} ms on the host)")
+    return {
+        "lnl": lnl, "chunk_lnl": chunk_lnl, "evaluate_ms": eval_ms,
+        "evaluate_ms_runs": [w * 1e3 for w in walls],
+        "site_clv_updates_per_s": n * setup["patterns"] * eng.R * eng.K
+        / (eval_ms / 1e3),
+        "entries": n, "waves": int(st.wave_start.shape[0]) - 1,
+        "grid_blocks": newview_whole.LAST_GRID, "kernel_ms": kernel_ms,
+        "plain_ms": plain_ms, **bound, "max_rel_err": rel,
+        "max_abs_err": abs_err, "launches_by_path": launches,
+        "profile": profile, "opt_lnl_before": before,
+        "opt_lnl_after": after, "opt_s": opt_s,
+        "opt_full_traversals": full, "opt_ms_per_probe": opt_s * 1e3 / full,
+        "opt_push_models_ms_per_probe": host[0] * 1e3 / full,
+    }
 
 
 def device_breakdown(fn, device, top: int = 8) -> dict:
@@ -500,9 +860,10 @@ def device_breakdown(fn, device, top: int = 8) -> dict:
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     b1 = sum(r[1] for r in rows if "newview_chunk" in r[0])
+    b2 = sum(r[1] for r in rows if "newview_whole" in r[0])
     return {"measured": True, "wall_ms": wall_ms, "busy_ms": busy,
             "idle_share": max(0.0, 1.0 - busy / wall_ms),
-            "b1_ms": b1, "top": [{"name": k[:120], "ms": ms, "calls": n}
+            "b1_ms": b1, "b2_ms": b2, "top": [{"name": k[:120], "ms": ms, "calls": n}
                                  for k, ms, n in rows[:top]]}
 
 
@@ -536,39 +897,67 @@ def main(argv=None) -> int:
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     t_start = time.perf_counter()
+    phase_s = {}
+    last = [time.perf_counter(), None]
+
+    def phase(title: str) -> None:
+        """Close the running phase (log its seconds) and open the next."""
+        now = time.perf_counter()
+        if last[1] is not None:
+            phase_s[last[1]] = now - last[0]
+            log(f"  ({now - last[0]:.1f} s)")
+        last[:] = [now, title]
+        log(f"[{len(phase_s) + 1}/{NPHASES}] {title}")
+
     try:
-        log("[1/6] device")
+        phase("device")
         smi = nvidia_smi_line()
         log(f"  {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
             f"CUDA {torch.version.cuda}")
 
-        log("[2/6] build")
-        t0 = time.perf_counter()
+        phase("build")
         _build.build_all()
-        build_s = time.perf_counter() - t0
-        log(f"  built {_build.sources()} in {build_s:.1f} s")
+        log(f"  built {_build.sources()}")
         for name in _build.sources():
+            inst = ""          # mangled template arguments, e.g. fLi4ELi4E
             for line in _build.build_log(name).splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"  ptxas {name}: {line.strip()}")
+                m = re.search(r"_kernelI(\w*?)EEv", line)
+                if "Compiling entry function" in line and m:
+                    inst = m.group(1)
+                elif "registers" in line or "spill" in line:
+                    log(f"  ptxas {name}<{inst}>: {line.strip()}")
 
-        log("[3/6] kernel B1 vs plain, kinds 0/1/2, f32 and f64")
+        phase("kernel B1 vs plain, kinds 0/1/2, f32 and f64")
         cases = phase_kernel_vs_plain(device, CHECK_BLOCKS, CHECK_WIDTH,
                                       args.seed)
 
-        log("[4/6] ref49 anchor, makenewz, smooth_tree")
+        phase("kernel B2 vs plain, random 512 and caterpillar 64, f32 and "
+              "f64")
+        whole_cases = phase_whole_vs_plain(device, WHOLE_CHECK_BLOCKS,
+                                           args.seed)
+
+        phase("ref49, chunk tier: anchors, makenewz, smooth_tree")
         anchor = phase_anchor(device)
 
-        log("[5/6] real size")
-        real = phase_real_size(device, TAXA, PARTITIONS, PART_WIDTH,
-                               args.seed, REPS)
+        phase("ref49, whole tier: anchors, -f e through the CLI")
+        anchor_whole = phase_ref49_whole(device, out_dir)
+
+        phase("real size, chunk tier")
+        setup = real_setup(TAXA, PARTITIONS, PART_WIDTH, args.seed)
+        real = phase_real_size(device, setup, REPS)
+
+        phase("real size, whole tier")
+        real_whole = phase_real_whole(device, setup, REPS, real["lnl"])
+
+        phase("report")
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
 
-    log("[6/6] report")
-    report = {"device": smi, "build_s": build_s, "kernel_cases": cases,
-              "anchor": anchor, "real_size": real,
+    report = {"device": smi, "phase_s": phase_s, "kernel_cases": cases,
+              "whole_cases": whole_cases, "anchor": anchor,
+              "anchor_whole": anchor_whole, "real_size": real,
+              "real_size_whole": real_whole,
               "wall_s": time.perf_counter() - t_start}
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
@@ -576,7 +965,15 @@ def main(argv=None) -> int:
         "evaluate_ms", "site_clv_updates_per_s", "makenewz_8_s", "lnl",
         "chunks_per_traversal", "entries", "launches_by_path",
         "setup_s")}}))
-    kern = {
+    log(json.dumps({"real_size_whole": {k: real_whole[k] for k in (
+        "evaluate_ms", "site_clv_updates_per_s", "lnl", "entries", "waves",
+        "grid_blocks", "launches_by_path", "opt_s", "opt_full_traversals",
+        "opt_ms_per_probe", "opt_push_models_ms_per_probe")}}))
+    # B2's launches: every whole-tier path of this run, each counted from
+    # 0 just before it and read just after it.
+    b2_paths = [anchor_whole["launches_anchors"], anchor_whole["fe_launches"],
+                *real_whole["launches_by_path"].values()]
+    kernels = [{
         "name": "newview_chunk",
         "route": "cuda",
         "source": "examl_tpu_torch/csrc/newview_chunk.cu",
@@ -589,9 +986,22 @@ def main(argv=None) -> int:
         "bound_ms": real["bound_ms"],
         "bound_by": real["bound_by"],
         "library_ms": None,
-    }
+    }, {
+        "name": "newview_whole",
+        "route": "cuda",
+        "source": "examl_tpu_torch/csrc/newview_whole.cu",
+        "replaces": "examl_tpu/ops/pallas_whole.py:99",
+        "launches": sum(c["b2"] for c in b2_paths),
+        "max_abs_err": max([real_whole["max_abs_err"]]
+                           + [c["max_abs_err"] for c in whole_cases]),
+        "ms": real_whole["kernel_ms"],
+        "plain_ms": real_whole["plain_ms"],
+        "bound_ms": real_whole["bound_ms"],
+        "bound_by": real_whole["bound_by"],
+        "library_ms": None,
+    }]
     print(smi)
-    print(json.dumps({"kernels": [kern]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

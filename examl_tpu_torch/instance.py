@@ -29,7 +29,9 @@ class PhyloInstance:
                  = None, device=None, ncat: int = 4,
                  use_median: bool = False,
                  per_partition_branches: bool = False,
-                 block_multiple: int = 1):
+                 block_multiple: int = 1, newview: str = "chunk"):
+        """newview: the engines' full-traversal tier, "chunk" (kernel B1)
+        or "whole" (kernel B2), see ops/engine.py."""
         self.device = config.resolve_device(device)
         self.dtype = dtype if dtype is not None else \
             config.default_dtype(self.device)
@@ -64,7 +66,7 @@ class PhyloInstance:
                 bucket, [self.models[g] for g in bucket.part_ids],
                 alignment.ntaxa, num_branch_slots=self.num_branch_slots,
                 branch_indices=branch_indices, dtype=self.dtype,
-                device=self.device)
+                device=self.device, newview=newview)
 
         self.per_partition_lnl = np.full(M, np.nan)
         self.likelihood = np.nan
@@ -74,8 +76,10 @@ class PhyloInstance:
 
     # -- model push --------------------------------------------------------
 
-    def push_models(self) -> None:
+    def push_models(self, only_states=None) -> None:
         for states, bucket in self.buckets.items():
+            if only_states is not None and states not in only_states:
+                continue
             self.engines[states].set_models(
                 [self.models[g] for g in bucket.part_ids])
 
@@ -105,21 +109,31 @@ class PhyloInstance:
         """Make slot's CLV valid (reference newviewGeneric)."""
         self.run_traversal(self._collect(tree, slot, full=False))
 
-    def run_traversal(self, entries, full: bool = False) -> None:
+    def run_traversal(self, entries, only_states=None,
+                      full: bool = False) -> None:
         if not len(entries):
             return
-        for eng in self.engines.values():
+        for states, eng in self.engines.items():
+            if only_states is not None and states not in only_states:
+                continue
             eng.run_traversal(entries, full=full)
 
     # -- likelihood --------------------------------------------------------
 
     def evaluate(self, tree: Tree, p: Optional[Node] = None,
-                 full: bool = False) -> float:
+                 full: bool = False, only_states=None) -> float:
         """lnL at branch (p, p.back); reference evaluateGeneric
         (`evaluateGenericSpecial.c:897-1001`).  Full traversals root at
         the topological centroid by default (lnL is rooting-invariant;
-        the centroid minimizes the wave depth) and take the chunk
-        program through kernel B1."""
+        the centroid minimizes the wave depth) and take the engines'
+        `newview` tier.
+
+        only_states restricts traversal+evaluation to the named state
+        buckets (the reference's executeModel masking during model
+        optimization): other partitions keep their cached lnL, which stays
+        valid because their parameters and the tree are unchanged.  Callers
+        must finish with an unrestricted evaluate before changing topology.
+        """
         if p is None:
             p = tree.centroid_branch() if full else tree.start
         q = p.back
@@ -128,12 +142,19 @@ class PhyloInstance:
         else:
             entries = (self._collect(tree, p, full)
                        + self._collect(tree, q, full))
-        for eng in self.engines.values():
+        per_part = self.per_partition_lnl
+        for states, eng in self.engines.items():
+            if only_states is not None and states not in only_states:
+                continue
             vals = eng.traverse_evaluate(entries, p.number, q.number, p.z,
                                          full=full)
             for li, gid in enumerate(eng.bucket.part_ids):
-                self.per_partition_lnl[gid] = vals[li]
-        self.likelihood = float(self.per_partition_lnl.sum())
+                per_part[gid] = vals[li]
+        if only_states is not None and np.isnan(per_part).any():
+            raise RuntimeError(
+                "restricted evaluate before any unrestricted one: cached "
+                "per-partition lnL is uninitialized for the skipped buckets")
+        self.likelihood = float(per_part.sum())
         return self.likelihood
 
     # -- branch-length optimization (Newton-Raphson) ------------------------

@@ -27,6 +27,7 @@ FLAGS = [ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
          "-Xptxas", "-v"]
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_IP = ctypes.POINTER(ctypes.c_int)
 # C signatures of every exported function, by library.
 SIGNATURES = {
     "newview_chunk": {
@@ -35,6 +36,12 @@ SIGNATURES = {
         "examl_newview_chunk_f64": ([_I] + [_P] * 10 + [_I] * 8
                                     + [_D, _D, _P], _I),
         "examl_cuda_error_string": ([_I], ctypes.c_char_p),
+    },
+    "newview_whole": {
+        "examl_newview_whole_f32": ([_P] * 10 + [_I] * 7
+                                    + [_D, _D, _P, _IP], _I),
+        "examl_newview_whole_f64": ([_P] * 10 + [_I] * 7
+                                    + [_D, _D, _P, _IP], _I),
     },
 }
 

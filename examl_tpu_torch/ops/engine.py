@@ -7,10 +7,11 @@ inner nodes only, plus slack rows for the fast path's padded chunk writes
 and one scratch row; tips live as uint8 codes with an indicator table;
 the scaler is int32 `[rows, B, lane]`.  Row assignment is a host map
 (`row_map`): a full traversal relays the rows out in wave order (the
-bounded chunk layout of ops/fastpath.py, run through kernel B1), and
-partial traversals — makenewz, new_view — update rows in place through
-the map on the wave-scan tier (plain torch ops), as the JAX engine runs
-its XLA scan tier there.
+bounded chunk layout of ops/fastpath.py, run through kernel B1 — or,
+with `newview="whole"`, the flat schedule of ops/newview_whole.py, run
+as one launch of kernel B2), and partial traversals — makenewz,
+new_view — update rows in place through the map on the wave-scan tier
+(plain torch ops), as the JAX engine runs its XLA scan tier there.
 """
 
 from __future__ import annotations
@@ -23,11 +24,16 @@ import torch
 
 from examl_tpu_torch import config, datatypes
 from examl_tpu_torch.models.gtr import ModelParams
-from examl_tpu_torch.ops import fastpath, kernels
+from examl_tpu_torch.ops import fastpath, kernels, newview_whole
 from examl_tpu_torch.ops.kernels import DeviceModels, Traversal
 from examl_tpu_torch.parallel.packing import PackedBucket
 from examl_tpu_torch.tree.topology import FlatTraversal, Tree, TraversalEntry
 from examl_tpu_torch.utils import next_pow2, z_slots
+
+NEWVIEW_TIERS = ("chunk", "whole")
+# Full traversals dispatched on either tier (a plain count, read by
+# chip_smoke.py beside each kernel's launch count).
+FULL_TRAVERSALS = 0
 
 
 def stack_models(models: Sequence[ModelParams],
@@ -63,7 +69,15 @@ class LikelihoodEngine:
                  ntips: int, num_branch_slots: int = 1,
                  branch_indices: Optional[Sequence[int]] = None,
                  dtype: Optional[torch.dtype] = None, device=None,
-                 scale_exp: Optional[int] = None, wave_width: int = 8):
+                 scale_exp: Optional[int] = None, wave_width: int = 8,
+                 newview: str = "chunk"):
+        """newview selects the full-traversal tier: "chunk" (the bounded
+        chunk program through kernel B1) or "whole" (one launch of kernel
+        B2 per traversal) — the JAX engine's EXAML_PALLAS=1 | whole."""
+        if newview not in NEWVIEW_TIERS:
+            raise ValueError(f"newview={newview!r}, expected one of "
+                             f"{NEWVIEW_TIERS}")
+        self.newview = newview
         self.device = config.resolve_device(device)
         self.dtype = dtype if dtype is not None else \
             config.default_dtype(self.device)
@@ -81,8 +95,7 @@ class LikelihoodEngine:
         self.row_map = np.full(2 * ntips - 1, -1, dtype=np.int64)
         for num in range(ntips + 1, 2 * ntips - 1):
             self.row_map[num] = num - ntips - 1
-        self._sched_cache: "OrderedDict[bytes, fastpath.FastStructure]" = \
-            OrderedDict()
+        self._sched_cache: "OrderedDict[bytes, object]" = OrderedDict()
         self._sched_cache_cap = 8
 
         self.B, self.lane = bucket.num_blocks, bucket.lane
@@ -174,29 +187,36 @@ class LikelihoodEngine:
         return isinstance(entries, FlatTraversal) and \
             entries.n == self.n_inner
 
-    def _fast_structure(self, flat: FlatTraversal) -> fastpath.FastStructure:
-        """The cached layout of a topology signature (topology + root edge
-        only, so a stale structure can never be served)."""
+    def _structure(self, flat: FlatTraversal):
+        """The cached layout of a topology signature on this engine's
+        tier (topology + root edge only, so a stale structure can never
+        be served): a fastpath.FastStructure on the chunk tier, a
+        newview_whole.WholeStructure on the whole tier."""
         st = self._sched_cache.get(flat.topo_key)
         if st is not None:
             self._sched_cache.move_to_end(flat.topo_key)
             return st
-        st = fastpath.build_structure(flat, self.ntips, self.device)
-        if st.max_write > self.num_rows - 1:
-            raise RuntimeError(f"chunk layout writes row {st.max_write} of "
-                               f"a {self.num_rows}-row arena")
+        if self.newview == "whole":
+            st = newview_whole.build_structure(flat, self.ntips,
+                                               self.num_branch_slots,
+                                               self.device)
+        else:
+            st = fastpath.build_structure(flat, self.ntips, self.device)
+            if st.max_write > self.num_rows - 1:
+                raise RuntimeError(f"chunk layout writes row {st.max_write} "
+                                   f"of a {self.num_rows}-row arena")
         self._sched_cache[flat.topo_key] = st
         while len(self._sched_cache) > self._sched_cache_cap:
             self._sched_cache.popitem(last=False)
         return st
 
-    def _install_row_map(self, st: fastpath.FastStructure) -> None:
+    def _install_row_map(self, st) -> None:
         self.row_map[:st.row_of.shape[0]] = st.row_of
 
     def _run_fast(self, flat: FlatTraversal) -> None:
         """Full traversal through the bounded chunk program; installs the
         wave-ordered row map it wrote."""
-        st = self._fast_structure(flat)
+        st = self._structure(flat)
         zl, zr = fastpath.refresh_z(st, flat, self.num_branch_slots,
                                     self.dtype, self.device)
         apply = fastpath.chunk_applier(self.models, self.block_part_i32,
@@ -206,13 +226,34 @@ class LikelihoodEngine:
                               self.scaler, apply)
         self._install_row_map(st)
 
+    # -- whole-traversal tier (ops/newview_whole.py + kernel B2) -------------
+
+    def _run_whole(self, flat: FlatTraversal) -> None:
+        """Full traversal as one launch of kernel B2 (cached schedule,
+        fresh z); installs the schedule's row map (rows 0..E-1 in wave
+        order) once the launch went through."""
+        st = self._structure(flat)
+        zl, zr = newview_whole.refresh_z(st, flat, self.num_branch_slots)
+        pmat = newview_whole.whole_operands(self.models, zl, zr, self.dtype,
+                                            self.device)
+        newview_whole.whole_apply(self.clv, self.scaler, self.tips.codes,
+                                  self.tips.table, self.block_part_i32,
+                                  st.meta, st.l_code, st.r_code,
+                                  st.wave_start, pmat, self.scale_exp)
+        self._install_row_map(st)
+
     def run_traversal(self, entries, full: bool = False) -> None:
         """Recompute CLVs for `entries` — a TraversalEntry list, or a
-        `FlatTraversal` (full traversals take the chunk program)."""
+        `FlatTraversal` (full traversals take the `newview` tier)."""
+        global FULL_TRAVERSALS
         if not len(entries):
             return
         if full and self._fast_eligible(entries):
-            self._run_fast(entries)
+            FULL_TRAVERSALS += 1
+            if self.newview == "whole":
+                self._run_whole(entries)
+            else:
+                self._run_fast(entries)
             return
         if isinstance(entries, FlatTraversal):
             entries = entries.to_entries()

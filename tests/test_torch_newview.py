@@ -230,7 +230,7 @@ def test_cuda_wrapper_refuses_cpu_tensors():
 
 def test_build_is_keyed_on_source_hash():
     from examl_tpu_torch.ops import _build
-    assert _build.sources() == ["newview_chunk"]
+    assert _build.sources() == ["newview_chunk", "newview_whole"]
     path = _build._lib_path("newview_chunk")
     assert path == _build._lib_path("newview_chunk")
     assert path.parent == _build.BUILD_DIR
