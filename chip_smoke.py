@@ -4,12 +4,12 @@
 Builds the port's CUDA kernels from the sources in this checkout, holds
 each kernel against its plain PyTorch version on the card, checks the
 ref49 likelihood anchors on both full-traversal tiers (`newview="chunk"`,
-kernel B1; `newview="whole"`, kernel B2), runs `-f e` on ref49 through the
-port's CLI, and drives the port's main paths — full-traversal evaluate,
-Newton-Raphson branch updates, a smoothing sweep and a model-optimization
-pass — at a real per-GPU size (512 taxa x 131,072 DNA patterns in four
-GTR+G4 partitions, f32).  Every phase is fatal: any failure exits non-zero
-before the result line.
+the launch table through kernel B1; `newview="whole"`, kernel B2), runs
+`-f e` on ref49 through the port's CLI, and drives the port's main paths
+— full-traversal evaluate, Newton-Raphson branch updates, a smoothing
+sweep and a model-optimization pass — at a real per-GPU size (512 taxa x
+131,072 DNA patterns in four GTR+G4 partitions, f32).  Every phase is
+fatal: any failure exits non-zero before the result line.
 
     python3 chip_smoke.py [--seed N]     # one card
 
@@ -48,6 +48,7 @@ CHECK_BLOCKS = 1024     # site blocks of 128 in the kernel-vs-plain cases
 CHECK_WIDTH = 64        # chunk width of the kernel-vs-plain cases
 WHOLE_CHECK_BLOCKS = 256    # site blocks in the B2-vs-plain cases
 REPS = 5                # timed repeats
+REPEAT = 10             # launch-table rows repeated in one call (breakdown)
 NPHASES = 9
 
 
@@ -108,11 +109,19 @@ def random_models(M: int, rng, dtype, device, ncat: int = 4):
     return models, stack_models(models, [0] * M, dtype, device)
 
 
-def chunk_case(kind: int, dtype_name: str, rescale: bool, B: int, W: int,
-               seed: int, device):
-    """One kernel-vs-plain comparison of a chunk of width W over B blocks
-    of 128 sites; returns (max_abs_err, max_rel_err_per_site,
-    rescaled_sites)."""
+def b1_case(tag: str, launch_spec, dtype_name: str, rescale: bool, B: int,
+            W: int, seed: int, device, chained: bool = False):
+    """One kernel-vs-plain comparison of kernel B1 over a launch table.
+
+    launch_spec lists (kind, real) per launch.  Inner children of launch
+    0 (and of every launch unless `chained`) are rows of a random region
+    [0, 2W); chained launches read the rows the launch before wrote, so
+    the comparison fails if a launch reads before its predecessor's
+    writes are visible.  Each launch writes the next `real` rows after
+    2W, and W - real slack rows follow the last launch: rows past the
+    real ones must stay bit for bit untouched.  Forced rescale scales
+    each partition's P by f * 2^(-E/2), f in 0.25..4, so the children's
+    products straddle 2^-E.  Returns a result dict."""
     import torch
     from examl_tpu_torch import datatypes
     from examl_tpu_torch.ops import newview_chunk
@@ -123,88 +132,122 @@ def chunk_case(kind: int, dtype_name: str, rescale: bool, B: int, W: int,
     _, dm = random_models(M, rng, dtype, device)
     table = torch.as_tensor(datatypes.DNA.tip_indicator_table(), dtype=dtype,
                             device=device)
-    zl = torch.as_tensor(rng.uniform(0.05, 0.99, (W, 1)), dtype=dtype,
+    P = sum(r for _, r in launch_spec)
+    zl = torch.as_tensor(rng.uniform(0.05, 0.99, (P, 1)), dtype=dtype,
                          device=device)
-    zr = torch.as_tensor(rng.uniform(0.05, 0.99, (W, 1)), dtype=dtype,
+    zr = torch.as_tensor(rng.uniform(0.05, 0.99, (P, 1)), dtype=dtype,
                          device=device)
-    opl, opr = newview_chunk.chunk_operands(dm, table, kind, zl, zr)
+    pmat = newview_chunk.chunk_operands(dm, zl, zr)
     if rescale:
-        # Scale each partition's operands so the child products straddle
-        # 2^-E: sites of some partitions rescale, others do not.
         f = torch.as_tensor([0.25, 0.8, 1.5, 4.0], dtype=dtype,
                             device=device) * 2.0 ** (-E / 2)
-        opl = (opl * f.reshape((1, M) + (1,) * (opl.dim() - 2))).contiguous()
-        opr = (opr * f.reshape((1, M) + (1,) * (opr.dim() - 2))).contiguous()
-    rows = 3 * W + 1
-    clv = torch.as_tensor(rng.uniform(0.0, 1.0, (rows, B, L, R, K)),
-                          dtype=dtype, device=device)
-    scaler = torch.as_tensor(rng.integers(0, 4, (rows, B, L)),
-                             dtype=torch.int32, device=device)
-    codes = torch.as_tensor(rng.choice([1, 2, 4, 8, 15, 5], (ntips, B, L)),
-                            dtype=torch.uint8, device=device)
+        pmat = (pmat * f.reshape(1, 1, M, 1, 1, 1)).contiguous()
+    launch, lidx, ridx = [], [], []
+    row, slot, prev = 2 * W, 0, None
+    for kind, real in launch_spec:
+        src = (np.arange(prev[0], prev[0] + prev[1])
+               if chained and prev is not None else np.arange(2 * W))
+        lidx.append(rng.choice(src, real))
+        ridx.append(rng.choice(src, real))
+        launch.append((kind, row, slot, real))
+        prev = (row, real)
+        row += real
+        slot += real
+    rows = row + (W - launch_spec[-1][1]) + 1
+    launch = np.asarray(launch, np.int32)
+    # The arena-sized inputs are drawn on the card, from the same seed.
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    clv = torch.rand((rows, B, L, R, K), generator=gen, dtype=dtype,
+                     device=device)
+    scaler = torch.randint(0, 4, (rows, B, L), generator=gen,
+                           dtype=torch.int32, device=device)
+    codes = torch.as_tensor([1, 2, 4, 8, 15, 5], dtype=torch.uint8,
+                            device=device)[torch.randint(
+                                0, 6, (ntips, B, L), generator=gen,
+                                device=device)]
     block_part = torch.as_tensor(rng.integers(0, M, B), dtype=torch.int32,
                                  device=device)
     i32 = dict(dtype=torch.int32, device=device)
-    lidx = torch.as_tensor(rng.permutation(W), **i32)
-    ridx = torch.as_tensor(W + rng.permutation(W), **i32)
-    lcode = torch.as_tensor(rng.integers(0, ntips, W), **i32)
-    rcode = torch.as_tensor(rng.integers(0, ntips, W), **i32)
-    base = 2 * W
-    args = (codes, block_part, kind, base, lidx, ridx, lcode, rcode, opl,
-            opr, E)
+    args = (codes, table, block_part, launch,
+            torch.as_tensor(np.concatenate(lidx), **i32),
+            torch.as_tensor(np.concatenate(ridx), **i32),
+            torch.as_tensor(rng.integers(0, ntips, P), **i32),
+            torch.as_tensor(rng.integers(0, ntips, P), **i32), pmat, E)
     c_ref, s_ref = clv.clone(), scaler.clone()
     newview_chunk.chunk_apply_plain(c_ref, s_ref, *args)
     c_k, s_k = clv.clone(), scaler.clone()
     newview_chunk.chunk_apply_cuda(c_k, s_k, *args)
     sync(device)
-    out = slice(base, base + W)
-    check(torch.equal(s_k, s_ref), f"kind {kind} {dtype_name} rescale="
-          f"{rescale}: scaler differs at "
-          f"{int((s_k != s_ref).sum())} sites")
-    check(torch.equal(c_k[:base], c_ref[:base])
-          and torch.equal(c_k[base + W:], c_ref[base + W:]),
-          f"kind {kind} {dtype_name}: kernel wrote outside its rows")
+    what = f"B1 {tag} {dtype_name} rescale={rescale}"
+    mism = (s_k != s_ref).nonzero()
+    check(mism.shape[0] == 0, f"{what}: {mism.shape[0]} scaler mismatches, "
+          f"first at (row, block, lane) "
+          f"{mism[0].tolist() if mism.shape[0] else None}")
+    out = slice(2 * W, row)
+    check(torch.equal(c_k[:2 * W], clv[:2 * W])
+          and torch.equal(c_k[row:], clv[row:])
+          and torch.equal(s_k[row:], scaler[row:]),
+          f"{what}: kernel wrote outside its rows")
     diff = (c_k[out] - c_ref[out]).abs()
     smax = c_ref[out].abs().amax(dim=(3, 4), keepdim=True)
     rel = float((diff / smax.clamp_min(torch.finfo(dtype).tiny)).max())
-    check(rel <= RTOL[dtype_name], f"kind {kind} {dtype_name} rescale="
-          f"{rescale}: CLV rel err {rel:.3e} > {RTOL[dtype_name]}")
-    inc = int((s_ref[out] - kernels_scaler_sum(scaler, kind, lidx, ridx)
+    check(rel <= RTOL[dtype_name], f"{what}: CLV rel err {rel:.3e} > "
+          f"{RTOL[dtype_name]}")
+    inc = int((s_ref[out] - scaler_sums(s_ref, launch, args[4], args[5])
                ).sum())
-    return float(diff.max()), rel, inc
+    return {"case": tag, "dtype": dtype_name, "forced_rescale": rescale,
+            "launches": len(launch_spec), "entries": P, "blocks": B,
+            "tiles": P * B, "max_abs_err": float(diff.max()),
+            "max_rel_err": rel, "rescaled_sites": inc}
 
 
-def kernels_scaler_sum(scaler, kind, lidx, ridx):
-    """The children's scaler sum of a chunk (the part of the output
-    scaler that is not this chunk's rescale increment)."""
+def scaler_sums(scaler, launch, lidx, ridx):
+    """The children's scaler sums of a launch table's entries (the part
+    of each output scaler that is not its rescale increment), in output
+    row order, read from the finished scaler array: every row a launch
+    reads is either outside the table's rows or written once by an
+    earlier launch."""
     import torch
-    W = lidx.shape[0]
-    out = torch.zeros((W,) + scaler.shape[1:], dtype=scaler.dtype,
-                      device=scaler.device)
-    if kind == 2:
-        out += scaler[lidx.long()]
-    if kind >= 1:
-        out += scaler[ridx.long()]
-    return out
+    out = []
+    for kind, _, slot, real in launch.tolist():
+        s = torch.zeros((real,) + scaler.shape[1:], dtype=scaler.dtype,
+                        device=scaler.device)
+        if kind == 2:
+            s += scaler[lidx[slot:slot + real].long()]
+        if kind >= 1:
+            s += scaler[ridx[slot:slot + real].long()]
+        out.append(s)
+    return torch.cat(out)
 
 
 def phase_kernel_vs_plain(device, B: int, W: int, seed: int):
+    """Kinds 0/1/2 over W entries and B blocks (more tiles than the
+    persistent grid: the ring wraps many times), f32 and f64, with and
+    without forced rescale; then one entry over few blocks (fewer tiles
+    than CTAs), a chunk of real < W entries, and a chain of launches each
+    reading its predecessor's rows (run twice)."""
     results = []
-    for dtype_name in ("float32", "float64"):
-        for kind in (0, 1, 2):
-            for rescale in (False, True):
-                err, rel, inc = chunk_case(kind, dtype_name, rescale, B, W,
-                                           seed + kind, device)
-                if rescale:
-                    check(inc > 0, f"kind {kind} {dtype_name}: the "
-                          "forced-rescale case rescaled no site")
-                results.append({"kind": kind, "dtype": dtype_name,
-                                "forced_rescale": rescale,
-                                "max_abs_err": err, "max_rel_err": rel,
-                                "rescaled_sites": inc})
-                log(f"  kind {kind} {dtype_name:7s} rescale={rescale!s:5s} "
-                    f"max_abs_err={err:.3e} max_rel_err={rel:.3e} "
-                    f"rescaled_sites={inc}")
+    cases = [(f"kind {k}", [(k, W)], d, r, B, False)
+             for d in ("float32", "float64") for k in (0, 1, 2)
+             for r in (False, True)]
+    for d in ("float32", "float64"):
+        cases += [("real=1 few tiles", [(2, 1)], d, True, 64, False),
+                  ("real<W", [(1, W * 5 // 8)], d, True, B, False),
+                  ("chain", [(0, W), (1, 9), (2, 1), (2, 3), (2, W)], d,
+                   True, B // 4, True),
+                  ("chain again", [(0, W), (1, 9), (2, 1), (2, 3), (2, W)],
+                   d, True, B // 4, True)]
+    for i, (tag, spec, d, resc, blocks, chained) in enumerate(cases):
+        r = b1_case(tag, spec, d, resc, blocks, W, seed + i, device, chained)
+        if resc:
+            check(r["rescaled_sites"] > 0, f"B1 {tag} {d}: the forced-"
+                  "rescale case rescaled no site")
+        results.append(r)
+        log(f"  {tag:16s} {d:7s} rescale={resc!s:5s} launches="
+            f"{r['launches']} entries={r['entries']} tiles={r['tiles']} "
+            f"max_abs_err={r['max_abs_err']:.3e} max_rel_err="
+            f"{r['max_rel_err']:.3e} rescaled_sites={r['rescaled_sites']}")
     return results
 
 
@@ -216,18 +259,21 @@ def reset_counts() -> None:
     newview_chunk.LAUNCHES = 0
     newview_whole.LAUNCHES = 0
     engine.FULL_TRAVERSALS = 0
+    engine.CHUNK_LAUNCH_ROWS = 0
 
 
 def read_counts() -> dict:
     from examl_tpu_torch.ops import engine, newview_chunk, newview_whole
     return {"b1": newview_chunk.LAUNCHES, "b2": newview_whole.LAUNCHES,
-            "full_traversals": engine.FULL_TRAVERSALS}
+            "full_traversals": engine.FULL_TRAVERSALS,
+            "chunk_launch_rows": engine.CHUNK_LAUNCH_ROWS}
 
 
 def check_tier(counts: dict, tier: str, path: str) -> None:
     """A whole-tier path launches B2 once per full traversal and B1 never;
-    a chunk-tier path never launches B2, and launches B1 when it runs a
-    full traversal."""
+    a chunk-tier path never launches B2, and launches B1 exactly once per
+    launch-table row of its full traversals (every chunk with real
+    entries, no pad or replay chunk)."""
     if tier == "whole":
         check(counts["b1"] == 0, f"{path}: B1 launched {counts['b1']} "
               "times on the whole tier")
@@ -237,9 +283,11 @@ def check_tier(counts: dict, tier: str, path: str) -> None:
     else:
         check(counts["b2"] == 0, f"{path}: B2 launched {counts['b2']} "
               "times on the chunk tier")
-        check(counts["b1"] > 0 or counts["full_traversals"] == 0,
-              f"{path}: {counts['full_traversals']} full traversals "
-              "launched B1 no time")
+        check(counts["b1"] == counts["chunk_launch_rows"]
+              and (counts["b1"] > 0 or counts["full_traversals"] == 0),
+              f"{path}: {counts['b1']} B1 launches for "
+              f"{counts['chunk_launch_rows']} launch-table rows of "
+              f"{counts['full_traversals']} full traversals")
 
 
 # -- phase 4: kernel B2 against its plain version ----------------------------
@@ -535,6 +583,17 @@ def traversal_flops(flat, ntips: int, patterns: int, R: int, K: int) -> int:
         + flat.n * patterns * R * K
 
 
+def chunk_bytes(chunks, patterns: int, R: int, K: int, itemsize: int) -> int:
+    """Bytes a list of (kind, width) chunks moves when every slot runs:
+    each slot writes one CLV and scaler row, reads one per inner child
+    (kind of them) and 1-byte codes per tip child.  Over the launch table
+    (real widths) this is traversal_bytes; over the padded layout it
+    counts the pads, replays and width padding too."""
+    row = patterns * (R * K * itemsize + 4)
+    return sum(int(w) * ((1 + kind) * row + (2 - kind) * patterns)
+               for kind, w in chunks)
+
+
 def real_setup(ntaxa: int, parts: int, width: int, seed: int) -> dict:
     """The real-size inputs both tiers share: alignment, per-partition
     models (rates, freqs, alpha) and branch lengths, from the seed."""
@@ -615,12 +674,55 @@ def traversal_bound(flat, setup: dict, eng) -> dict:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
+def launch_breakdown(launch, args, clv, scaler, patterns: int, eng, device,
+                     reps: int) -> list:
+    """Kernel B1's time by kind and by real width: each launch-table row
+    timed on its own, as a table of that row repeated REPEAT times (one
+    host call, so the card and not the wrapper sets the pace; rerunning a
+    row rewrites its rows from unchanged inputs), summed per class with
+    the bytes it moves."""
+    from examl_tpu_torch.ops import newview_chunk
+    rows = launch.tolist()
+    ms = []
+    for r in rows:
+        rep = np.asarray([r] * REPEAT, np.int32)
+        ms.append(time_ms(lambda: newview_chunk.chunk_apply_cuda(
+            clv, scaler, *args[:3], rep, *args[4:]), device, reps) / REPEAT)
+    classes = [(f"kind {k}", lambda r, k=k: r[0] == k) for k in (0, 1, 2)]
+    classes += [(f"{lo}-{hi} entries" if hi < 1 << 30 else f">={lo} entries",
+                 lambda r, lo=lo, hi=hi: lo <= r[3] <= hi)
+                for lo, hi in ((1, 1), (2, 4), (5, 16), (17, 1 << 30))]
+    out = []
+    for name, member in classes:
+        sel = [i for i, r in enumerate(rows) if member(r)]
+        if not sel:
+            continue
+        nbytes = chunk_bytes([(rows[i][0], rows[i][3]) for i in sel],
+                             patterns, eng.R, eng.K, 4)
+        t = sum(ms[i] for i in sel)
+        out.append({"class": name, "launches": len(sel), "bytes": nbytes,
+                    "ms": t, "tb_per_s": nbytes / (t / 1e3) / 1e12})
+    return out
+
+
+def product_rate(clv, rows: int, device, reps: int) -> float:
+    """The card's rate, TB/s, for an elementwise product of two sets of
+    arena rows into a third (two reads and one write per value, B1's mix
+    for inner/inner entries): a yardstick for B1's TB/s."""
+    import torch
+    half = rows // 2
+    a, b = clv[:half], clv[half:2 * half]
+    out = torch.empty_like(a)
+    ms = time_ms(lambda: torch.mul(a, b, out=out), device, reps)
+    return 3 * a.numel() * a.element_size() / (ms / 1e3) / 1e12
+
+
 def log_profile(profile: dict, kernel: str) -> None:
     if profile["measured"]:
         log(f"  profiled evaluate: wall {profile['wall_ms']:.2f} ms, device "
             f"busy {profile['busy_ms']:.2f} ms (idle share "
-            f"{profile['idle_share']:.3f}), {kernel} "
-            f"{profile[kernel.lower() + '_ms']:.2f} ms")
+            f"{profile['idle_share']:.3f}) in {profile['launches']} device "
+            f"ops, {kernel} {profile[kernel.lower() + '_ms']:.2f} ms")
         for r in profile["top"]:
             log(f"    {r['ms']:9.3f} ms  {r['calls']:5d}x  {r['name']}")
     else:
@@ -640,9 +742,36 @@ def phase_real_size(device, setup: dict, reps: int):
         f"partitions; arena {tuple(eng.clv.shape)} f32 "
         f"({eng.clv.numel() * 4 / 1e9:.2f} GB); set-up {setup_s:.1f} s")
 
+    # What the card executes: the launch table against the padded layout.
+    flat = tree.flat_full_traversal(tree.centroid_branch())
+    st = eng._structure(flat)
+    launch = st.launch
+    padded = [(c.kind, c.width) for c in fastpath.iter_chunks(st.profile,
+                                                              st.base)]
+    layout = {
+        "launches": int(launch.shape[0]), "slots": int(launch[:, 3].sum()),
+        "padded_chunks": len(padded), "padded_slots": int(st.lidx.shape[0]),
+        "bytes": chunk_bytes([(k, r) for k, _, _, r in launch.tolist()],
+                             patterns, eng.R, eng.K, 4),
+        "padded_bytes": chunk_bytes(padded, patterns, eng.R, eng.K, 4),
+        "real_width_histogram": {str(w): int(c) for w, c in zip(
+            *np.unique(launch[:, 3], return_counts=True))},
+    }
+    bound = traversal_bound(flat, setup, eng)
+    check(layout["slots"] == flat.n, f"launch table writes {layout['slots']}"
+          f" slots for {flat.n} entries")
+    check(layout["bytes"] == bound["bytes_per_traversal"],
+          f"launch-table bytes {layout['bytes']} vs traversal bytes "
+          f"{bound['bytes_per_traversal']}")
+    log(f"  launch table: {layout['launches']} launches writing "
+        f"{layout['slots']} slots ({layout['bytes'] / 1e9:.2f} GB); padded "
+        f"layout: {layout['padded_chunks']} chunks, {layout['padded_slots']} "
+        f"slots ({layout['padded_bytes'] / 1e9:.2f} GB); real widths "
+        f"{layout['real_width_histogram']}")
+
     # The main path, one path at a time: the counts are set to 0 just
     # before each path and read just after it.  Full traversals (evaluate)
-    # run the chunk program through B1; makenewz's partial traversals run
+    # run the launch table through B1; makenewz's partial traversals run
     # the wave-scan tier in plain torch ops, so B1 is expected 0 times there.
     launches = {}
     reset_counts()
@@ -669,8 +798,10 @@ def phase_real_size(device, setup: dict, reps: int):
         launches["evaluate"][k] += after[k]
     for path, counts in launches.items():
         check_tier(counts, "chunk", f"real-size chunk {path}")
-    check(launches["evaluate"]["b1"] > 0,
-          "the evaluate path launched kernel B1 no time")
+    ev = launches["evaluate"]
+    check(ev["b1"] == ev["full_traversals"] * layout["launches"] > 0,
+          f"evaluate: {ev['b1']} B1 launches for {ev['full_traversals']} "
+          f"full traversals of {layout['launches']} launches")
     check(launches["makenewz"]["b1"] == 0,
           "makenewz's partial traversals launched B1")
     check(math.isfinite(lnl_nr) and lnl_nr >= lnl,
@@ -679,35 +810,40 @@ def phase_real_size(device, setup: dict, reps: int):
         f"evaluate {launches['evaluate']}, makenewz {launches['makenewz']} "
         f"(partial traversals in torch ops)")
 
-    # Kernel time against the plain version on one full traversal's
-    # chunks, operands prebuilt, same inputs (these launches come after
-    # the count was read).
-    flat = tree.flat_full_traversal(tree.centroid_branch())
-    st = eng._structure(flat)
+    # Kernel time against the plain version on one full traversal's launch
+    # table, operands prebuilt, same inputs (these launches come after the
+    # count was read).  The makenewz steps changed branch lengths, not the
+    # topology, so the structure is the same.
     zl, zr = fastpath.refresh_z(st, flat, 1, eng.dtype, device)
-    chunks = list(fastpath.iter_chunks(st.profile, st.base, st.lidx,
-                                       st.ridx, st.lcode, st.rcode, zl, zr))
-    ops = [newview_chunk.chunk_operands(eng.models, eng.tips.table, c.kind,
-                                        c.zl, c.zr) for c in chunks]
-
-    def run(fn, clv, scaler):
-        for c, (opl, opr) in zip(chunks, ops):
-            fn(clv, scaler, eng.tips.codes, eng.block_part_i32, c.kind,
-               c.base, c.lidx, c.ridx, c.lcode, c.rcode, opl, opr,
-               eng.scale_exp)
-
+    pmat = newview_chunk.chunk_operands(eng.models, zl, zr)
+    ops_profile = device_breakdown(
+        lambda: newview_chunk.chunk_operands(eng.models, zl, zr), device)
+    args = (eng.tips.codes, eng.tips.table, eng.block_part_i32, launch,
+            st.lidx, st.ridx, st.lcode, st.rcode, pmat, eng.scale_exp)
     clv_k = torch.zeros_like(eng.clv)
     sc_k = torch.zeros_like(eng.scaler)
-    kernel_ms = time_ms(lambda: run(newview_chunk.chunk_apply_cuda, clv_k,
-                                    sc_k), device, reps)
+    kernel_ms = time_ms(lambda: newview_chunk.chunk_apply_cuda(
+        clv_k, sc_k, *args), device, reps)
     clv_p = torch.zeros_like(eng.clv)
     sc_p = torch.zeros_like(eng.scaler)
-    plain_ms = time_ms(lambda: run(newview_chunk.chunk_apply_plain, clv_p,
-                                   sc_p), device, max(1, reps // 2))
+    plain_ms = time_ms(lambda: newview_chunk.chunk_apply_plain(
+        clv_p, sc_p, *args), device, max(1, reps // 2))
     rows = torch.as_tensor(np.sort(st.row_of[st.row_of >= 0]),
                            device=device)
     rel, abs_err = compare_arenas(clv_k[rows], clv_p[rows], sc_k[rows],
                                   sc_p[rows], "chunk full traversal")
+    # Once more from a fresh arena: a launch that read its predecessor's
+    # rows too early would show here as an occasional mismatch.
+    clv_k.zero_()
+    sc_k.zero_()
+    newview_chunk.chunk_apply_cuda(clv_k, sc_k, *args)
+    sync(device)
+    rel2, abs2 = compare_arenas(clv_k[rows], clv_p[rows], sc_k[rows],
+                                sc_p[rows], "chunk full traversal, again")
+    rel, abs_err = max(rel, rel2), max(abs_err, abs2)
+    breakdown = launch_breakdown(launch, args, clv_k, sc_k, patterns, eng,
+                                 device, reps)
+    product_tb = product_rate(eng.clv, layout["slots"], device, reps)
     del clv_k, sc_k, clv_p, sc_p
     profile = device_breakdown(lambda: inst.evaluate(tree, full=True),
                                device)
@@ -718,19 +854,33 @@ def phase_real_size(device, setup: dict, reps: int):
         "lnl": lnl, "lnl_after_makenewz": lnl_nr,
         "evaluate_ms": eval_ms, "evaluate_ms_runs": [w * 1e3 for w in walls],
         "site_clv_updates_per_s": updates / (eval_ms / 1e3),
-        "makenewz_8_s": nr_s, "chunks_per_traversal": len(chunks),
+        "makenewz_8_s": nr_s, "layout": layout,
+        "launches_per_traversal": layout["launches"],
         "entries": flat.n, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-        **traversal_bound(flat, setup, eng),
-        "max_rel_err": rel, "max_abs_err": abs_err,
+        "achieved_tb_per_s": layout["bytes"] / (kernel_ms / 1e3) / 1e12,
+        **bound, "max_rel_err": rel, "max_abs_err": abs_err,
         "launches": launches["evaluate"]["b1"], "launches_by_path": launches,
         "setup_s": setup_s, "profile": profile,
+        "operand_build_profile": ops_profile, "launch_breakdown": breakdown,
+        "product_tb_per_s": product_tb,
     }
-    log(f"  evaluate {eval_ms:.2f} ms/full traversal "
-        f"({report['site_clv_updates_per_s']:.3e} site-CLV updates/s); "
-        f"B1 {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-        f"{report['bound_ms']:.3f} ms ({report['bound_by']}); "
-        f"{len(chunks)} chunks; kernel vs plain rel err {rel:.3e}, "
-        f"scalers equal")
+    log(f"  evaluate {eval_ms:.2f} ms/full traversal (runs "
+        f"{', '.join(f'{w * 1e3:.2f}' for w in walls)}; "
+        f"{report['site_clv_updates_per_s']:.3e} site-CLV updates/s); "
+        f"B1 {kernel_ms:.3f} ms in {layout['launches']} launches "
+        f"({report['achieved_tb_per_s']:.3f} TB/s of "
+        f"{layout['bytes'] / 1e9:.2f} GB), plain {plain_ms:.3f} ms, bound "
+        f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}); kernel vs plain "
+        f"rel err {rel:.3e} (twice), scalers equal")
+    for row in breakdown:
+        log(f"  B1 {row['class']:>13s}: {row['launches']:3d} launches, "
+            f"{row['bytes'] / 1e9:5.2f} GB, {row['ms']:.3f} ms timed row by "
+            f"row ({row['tb_per_s']:.3f} TB/s)")
+    log(f"  yardstick: elementwise product of arena rows (2 reads, 1 write) "
+        f"{product_tb:.3f} TB/s")
+    if ops_profile["measured"]:
+        log(f"  operand build: {ops_profile['launches']} device ops, "
+            f"{ops_profile['busy_ms']:.3f} ms busy, per traversal")
     log_profile(profile, "B1")
     return report
 
@@ -863,8 +1013,29 @@ def device_breakdown(fn, device, top: int = 8) -> dict:
     b2 = sum(r[1] for r in rows if "newview_whole" in r[0])
     return {"measured": True, "wall_ms": wall_ms, "busy_ms": busy,
             "idle_share": max(0.0, 1.0 - busy / wall_ms),
-            "b1_ms": b1, "b2_ms": b2, "top": [{"name": k[:120], "ms": ms, "calls": n}
-                                 for k, ms, n in rows[:top]]}
+            "launches": sum(r[2] for r in rows), "b1_ms": b1, "b2_ms": b2,
+            "top": [{"name": k[:120], "ms": ms, "calls": n}
+                    for k, ms, n in rows[:top]]}
+
+
+def kernel_b1_config(lane: int = 128, codes: int = 16) -> list:
+    """Kernel B1's launch configuration per instance (dtype, kind) at the
+    engine's lane width and DNA's 16 tip codes: dynamic shared memory,
+    threads per CTA and resident CTAs per SM, from the occupancy API."""
+    import ctypes
+    from examl_tpu_torch.ops import _build
+    lib = _build.library("newview_chunk")
+    out = []
+    for f64, dtype in ((0, "float32"), (1, "float64")):
+        for kind in (0, 1, 2):
+            vals = (ctypes.c_int * 4)()
+            err = lib.examl_newview_chunk_config(f64, kind, lane, codes, vals)
+            check(err == 0, f"B1 {dtype} kind {kind} configuration failed: "
+                  f"CUDA error {err} ({_build.error_string(err)})")
+            out.append({"dtype": dtype, "kind": kind, "smem_bytes": vals[0],
+                        "threads": vals[1], "ctas_per_sm": vals[2],
+                        "sms": vals[3]})
+    return out
 
 
 def nvidia_smi_line() -> str:
@@ -926,8 +1097,14 @@ def main(argv=None) -> int:
                     inst = m.group(1)
                 elif "registers" in line or "spill" in line:
                     log(f"  ptxas {name}<{inst}>: {line.strip()}")
+        b1_config = kernel_b1_config()
+        for c in b1_config:
+            log(f"  B1 {c['dtype']} kind {c['kind']}: {c['smem_bytes']} B "
+                f"dynamic shared memory, {c['threads']} threads, "
+                f"{c['ctas_per_sm']} CTAs per SM x {c['sms']} SMs")
 
-        phase("kernel B1 vs plain, kinds 0/1/2, f32 and f64")
+        phase("kernel B1 vs plain: kinds 0/1/2, f32 and f64, real = 1, "
+              "real < W, chained launches")
         cases = phase_kernel_vs_plain(device, CHECK_BLOCKS, CHECK_WIDTH,
                                       args.seed)
 
@@ -954,7 +1131,8 @@ def main(argv=None) -> int:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
 
-    report = {"device": smi, "phase_s": phase_s, "kernel_cases": cases,
+    report = {"device": smi, "phase_s": phase_s, "b1_config": b1_config,
+              "kernel_cases": cases,
               "whole_cases": whole_cases, "anchor": anchor,
               "anchor_whole": anchor_whole, "real_size": real,
               "real_size_whole": real_whole,
@@ -963,8 +1141,8 @@ def main(argv=None) -> int:
         json.dump(report, f, indent=1)
     log(json.dumps({"real_size": {k: real[k] for k in (
         "evaluate_ms", "site_clv_updates_per_s", "makenewz_8_s", "lnl",
-        "chunks_per_traversal", "entries", "launches_by_path",
-        "setup_s")}}))
+        "layout", "entries", "kernel_ms", "achieved_tb_per_s",
+        "launches_by_path", "setup_s")}}))
     log(json.dumps({"real_size_whole": {k: real_whole[k] for k in (
         "evaluate_ms", "site_clv_updates_per_s", "lnl", "entries", "waves",
         "grid_blocks", "launches_by_path", "opt_s", "opt_full_traversals",

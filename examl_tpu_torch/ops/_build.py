@@ -31,10 +31,11 @@ _IP = ctypes.POINTER(ctypes.c_int)
 # C signatures of every exported function, by library.
 SIGNATURES = {
     "newview_chunk": {
-        "examl_newview_chunk_f32": ([_I] + [_P] * 10 + [_I] * 8
-                                    + [_D, _D, _P], _I),
-        "examl_newview_chunk_f64": ([_I] + [_P] * 10 + [_I] * 8
-                                    + [_D, _D, _P], _I),
+        "examl_newview_chunks_f32": ([_P] * 11 + [_I] * 7
+                                     + [_D, _D, _P, _IP], _I),
+        "examl_newview_chunks_f64": ([_P] * 11 + [_I] * 7
+                                     + [_D, _D, _P, _IP], _I),
+        "examl_newview_chunk_config": ([_I] * 4 + [_IP], _I),
         "examl_cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "newview_whole": {

@@ -7,11 +7,12 @@ inner nodes only, plus slack rows for the fast path's padded chunk writes
 and one scratch row; tips live as uint8 codes with an indicator table;
 the scaler is int32 `[rows, B, lane]`.  Row assignment is a host map
 (`row_map`): a full traversal relays the rows out in wave order (the
-bounded chunk layout of ops/fastpath.py, run through kernel B1 — or,
-with `newview="whole"`, the flat schedule of ops/newview_whole.py, run
-as one launch of kernel B2), and partial traversals — makenewz,
-new_view — update rows in place through the map on the wave-scan tier
-(plain torch ops), as the JAX engine runs its XLA scan tier there.
+bounded chunk layout of ops/fastpath.py, whose launch table runs through
+kernel B1 — or, with `newview="whole"`, the flat schedule of
+ops/newview_whole.py, run as one launch of kernel B2), and partial
+traversals — makenewz, new_view — update rows in place through the map
+on the wave-scan tier (plain torch ops), as the JAX engine runs its XLA
+scan tier there.
 """
 
 from __future__ import annotations
@@ -24,16 +25,19 @@ import torch
 
 from examl_tpu_torch import config, datatypes
 from examl_tpu_torch.models.gtr import ModelParams
-from examl_tpu_torch.ops import fastpath, kernels, newview_whole
+from examl_tpu_torch.ops import (fastpath, kernels, newview_chunk,
+                                 newview_whole)
 from examl_tpu_torch.ops.kernels import DeviceModels, Traversal
 from examl_tpu_torch.parallel.packing import PackedBucket
 from examl_tpu_torch.tree.topology import FlatTraversal, Tree, TraversalEntry
 from examl_tpu_torch.utils import next_pow2, z_slots
 
 NEWVIEW_TIERS = ("chunk", "whole")
-# Full traversals dispatched on either tier (a plain count, read by
-# chip_smoke.py beside each kernel's launch count).
+# Full traversals dispatched on either tier, and the launch-table rows
+# the chunk tier dispatched (plain counts, read by chip_smoke.py beside
+# each kernel's launch count).
 FULL_TRAVERSALS = 0
+CHUNK_LAUNCH_ROWS = 0
 
 
 def stack_models(models: Sequence[ModelParams],
@@ -109,7 +113,7 @@ class LikelihoodEngine:
         bp = torch.as_tensor(np.asarray(bucket.block_part, np.int64),
                              device=self.device)
         self.block_part = bp                         # torch-op indexing
-        self.block_part_i32 = bp.to(torch.int32)     # kernel B1 operand
+        self.block_part_i32 = bp.to(torch.int32)     # kernels B1, B2 operand
         self.weights = torch.as_tensor(
             np.asarray(bucket.weights, np.float64).reshape(self.B,
                                                            self.lane),
@@ -181,7 +185,7 @@ class LikelihoodEngine:
         kernels.traverse(self.models, self.block_part, self.tips, self.clv,
                          self.scaler, tv, self.scale_exp, self.ntips)
 
-    # -- fast full traversals (ops/fastpath.py + kernel B1) ------------------
+    # -- chunk-tier full traversals (ops/fastpath.py + kernel B1) ------------
 
     def _fast_eligible(self, entries) -> bool:
         return isinstance(entries, FlatTraversal) and \
@@ -214,16 +218,20 @@ class LikelihoodEngine:
         self.row_map[:st.row_of.shape[0]] = st.row_of
 
     def _run_fast(self, flat: FlatTraversal) -> None:
-        """Full traversal through the bounded chunk program; installs the
-        wave-ordered row map it wrote."""
+        """Full traversal on the chunk tier: one batched operand build, then
+        kernel B1 over the cached layout's launch table (every chunk with
+        real entries, from one host call); installs the wave-ordered row
+        map it wrote."""
+        global CHUNK_LAUNCH_ROWS
         st = self._structure(flat)
         zl, zr = fastpath.refresh_z(st, flat, self.num_branch_slots,
                                     self.dtype, self.device)
-        apply = fastpath.chunk_applier(self.models, self.block_part_i32,
-                                       self.tips, self.scale_exp)
-        fastpath.run_segments(st.profile, st.base, st.lidx, st.ridx,
-                              st.lcode, st.rcode, zl, zr, self.clv,
-                              self.scaler, apply)
+        pmat = newview_chunk.chunk_operands(self.models, zl, zr)
+        CHUNK_LAUNCH_ROWS += st.launch.shape[0]
+        newview_chunk.chunk_apply(self.clv, self.scaler, self.tips.codes,
+                                  self.tips.table, self.block_part_i32,
+                                  st.launch, st.lidx, st.ridx, st.lcode,
+                                  st.rcode, pmat, self.scale_exp)
         self._install_row_map(st)
 
     # -- whole-traversal tier (ops/newview_whole.py + kernel B2) -------------

@@ -2,18 +2,29 @@
 
 The port of `examl_tpu/ops/fastpath.py`.  The host half — width
 bucketing, chunk coalescing, scan-group segmentation, arena row
-assignment (`_plan_layout`, `build_structure`, `refresh_z`) — is copied
-verbatim, so both packages produce the identical chunk layout and the
-identical wave-ordered arena row map.  The device half runs each chunk
-through kernel B1 (`ops/newview_chunk.py`): on the card its hand-written
-CUDA kernel, on the CPU its plain PyTorch version.
+assignment (`_plan_layout`, `_finish_layout`, `_pack_structure`,
+`refresh_z`) — is copied verbatim, so both packages produce the identical
+chunk layout and the identical wave-ordered arena row map.
 
-The JAX package ran scan groups as one `lax.scan` per group; here
-`run_segments` is a Python loop over the same chunks in the same order
-(scan groups step-major, replay steps included), so execution order is
-chunk-for-chunk that of the JAX program.  Chunks are ordered launches on
-one stream; within a chunk no entry reads a row the chunk writes (the
-layout's promise, tested on the host for every slot, padding included).
+What the card executes is not that layout but its launch table
+(`launch_table`): one row `(kind, base, slot, real)` per chunk that has
+real entries, in execution order.  A real chunk's entries sit in packed
+slots `slot .. slot+real-1` and write rows `base .. base+real-1`; its
+width-padding slots, the scanned tail's pad chunks and the scan groups'
+replay steps get no launch.  Skipping them changes no row of `row_of`:
+in the padded layout every such row is last written by the chunk that
+owns it, or by that chunk's replay step from unchanged inputs (so with
+identical values); the other writes land in the slack region (pad
+chunks write from row n) or on rows that their owner, or its replay,
+writes afterwards, and nothing reads a row before its owner wrote it.
+The ladder, the pads and the replays exist for XLA, where a few fixed
+shapes keep the compile cache warm; a CUDA launch takes its width at run
+time.  The engine runs a traversal as one batched operand build and one
+call of kernel B1 over the launch table (`ops/newview_chunk.py`): on the
+card its hand-written CUDA kernel, on the CPU its plain PyTorch version.
+Launches are ordered on one stream; within a launch no entry reads a row
+the launch writes (the layout's promise, tested on the host for every
+slot, padding included).
 
 Layout notes (from the JAX package): waves of independent entries are
 split by tip case (kind 0 = tip-tip, 1 = tip-inner with the tip left,
@@ -32,7 +43,6 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from examl_tpu_torch.ops import kernels, newview_chunk
 from examl_tpu_torch.utils import bucket_len, next_pow2, z_slots
 
 # -- bounded-layout constants ----------------------------------------------
@@ -57,31 +67,28 @@ def slack_rows(ntips: int) -> int:
 
 
 class FastChunk(NamedTuple):
-    """One case-homogeneous batch of independent newview entries.
-
-    kind: 0 = tip-tip, 1 = tip-inner (tip is always the left child),
-    2 = inner-inner.  Index arrays are int32 tensors on the arena's
-    device, width-padded; `base` is a host int."""
+    """One chunk of the bounded layout in execution order (host ints):
+    `width` packed slots from `slot`, writing rows from `base`; kind 0 =
+    tip-tip, 1 = tip-inner (tip left), 2 = inner-inner."""
     kind: int
     width: int
-    base: int               # first arena row written
-    lidx: torch.Tensor      # [W] arena row of left child (kind 2)
-    ridx: torch.Tensor      # [W] arena row of right child (kind 1, 2)
-    lcode: torch.Tensor     # [W] 0-based tip index of left child (kind 0, 1)
-    rcode: torch.Tensor     # [W] 0-based tip index of right child (kind 0)
-    zl: torch.Tensor        # [W, C]
-    zr: torch.Tensor        # [W, C]
+    base: int
+    slot: int
 
 
 class FastStructure(NamedTuple):
     """The immutable half of a fast-path schedule: a function of topology
     + traversal root only, cacheable across branch-length-only
     traversals.  The packed per-slot child/code arrays are device
-    tensors; `base` stays on the host (it is a launch argument).  The
-    per-call half (packed zl/zr) is rebuilt by `refresh_z` through the
-    stored entry->slot map."""
+    tensors; `base` and `launch` stay on the host (`launch`, what the card
+    executes, is read by the kernel's host loop; see the module
+    docstring).  The per-call half (packed zl/zr) is rebuilt by
+    `refresh_z` through the stored entry->slot map."""
     profile: Tuple[tuple, ...]  # bucketed segment tuple
     base: np.ndarray            # [n_chunks] int32: first arena row written
+    launch: np.ndarray          # [n_launches, 4] int32: kind, base, slot,
+                                #     real width of each chunk with real
+                                #     entries, in execution order
     lidx: torch.Tensor          # [P] int32 packed left-child arena rows
     ridx: torch.Tensor          # [P]
     lcode: torch.Tensor         # [P] packed 0-based tip indices
@@ -328,6 +335,15 @@ def _finish_layout(profile, chunks, n: int) -> _Layout:
                    max_write=max_write)
 
 
+def launch_table(layout: _Layout) -> np.ndarray:
+    """The launch table of a layout: (kind, base, slot, real) of every
+    chunk with real entries, in execution order; pad chunks and replay
+    steps get no row (see the module docstring)."""
+    rows = [(c.kind, c.base, c.slot, c.real) for c in layout.chunks
+            if not c.pad and c.replay_of is None]
+    return np.asarray(rows, np.int32).reshape(-1, 4)
+
+
 def _layout_from_arrays(wave_id, el, er, lt, rt, child_nodes_key, n):
     """Shared planner front-end: group the (wave, kind)-sorted entries
     and plan.  Returns (layout, order, skey-derived group table pieces)
@@ -449,7 +465,8 @@ def build_structure(flat, ntips: int, device) -> FastStructure:
      z_swap) = structure_arrays(flat, ntips)
     packed = torch.from_numpy(np.stack([lidx, ridx, lcode, rcode])).to(
         device)
-    return FastStructure(profile=layout.profile, base=base, lidx=packed[0],
+    return FastStructure(profile=layout.profile, base=base,
+                         launch=launch_table(layout), lidx=packed[0],
                          ridx=packed[1], lcode=packed[2], rcode=packed[3],
                          row_of=row_of, z_src=z_src, z_swap=z_swap,
                          num_rows=flat.n, max_write=layout.max_write)
@@ -477,42 +494,14 @@ def refresh_z(st: FastStructure, flat, num_slots: int, dtype, device):
     return z[0], z[1]
 
 
-# -- execution ---------------------------------------------------------------
+# -- harness view ------------------------------------------------------------
 
 
-def chunk_applier(models: kernels.DeviceModels, block_part: torch.Tensor,
-                  tips: kernels.TipState, scale_exp: int):
-    """The single-chunk body: operand build (P matrices and ump tables,
-    torch ops) + kernel B1 (in-place arena write).  `block_part` is the
-    int32 block->partition map the kernel reads."""
-
-    def apply(clv, scaler, ch: FastChunk):
-        opl, opr = newview_chunk.chunk_operands(models, tips.table, ch.kind,
-                                                ch.zl, ch.zr)
-        return newview_chunk.chunk_apply(
-            clv, scaler, tips.codes, block_part, ch.kind, ch.base, ch.lidx,
-            ch.ridx, ch.lcode, ch.rcode, opl, opr, scale_exp)
-
-    return apply
-
-
-def iter_chunks(profile, base, lidx, ridx, lcode, rcode, zl, zr):
-    """The packed layout as FastChunks in execution order: unrolled
-    segments, then scan groups step-major with their replay steps — the
-    order the JAX package's segment program runs them in."""
+def iter_chunks(profile, base):
+    """Every chunk of the bounded layout as a FastChunk, in the order the
+    JAX package's segment program runs them: unrolled segments, then scan
+    groups step-major with their replay steps, pads included."""
     off = 0
     for cidx, (kind, W) in enumerate(iter_profile_chunks(profile)):
-        yield FastChunk(kind, W, int(base[cidx]), lidx[off:off + W],
-                        ridx[off:off + W], lcode[off:off + W],
-                        rcode[off:off + W], zl[off:off + W],
-                        zr[off:off + W])
+        yield FastChunk(kind, W, int(base[cidx]), off)
         off += W
-
-
-def run_segments(profile, base, lidx, ridx, lcode, rcode, zl, zr,
-                 clv, scaler, apply):
-    """Execute the bounded program over the packed layout, chunk by chunk
-    in order, updating the arena in place."""
-    for ch in iter_chunks(profile, base, lidx, ridx, lcode, rcode, zl, zr):
-        clv, scaler = apply(clv, scaler, ch)
-    return clv, scaler

@@ -113,8 +113,9 @@ def p_matrices_wave(models: DeviceModels, z: torch.Tensor) -> torch.Tensor:
     lz = torch.log(z[:, models.part_branch])                  # [W, M]
     d = torch.exp(models.eign[None] * models.gamma_rates[None, :, :, None]
                   * lz[:, :, None, None])                     # [W, M, R, K]
-    return torch.einsum("wmraj,mrjk->wmrak",
-                        models.ev[None] * d[:, :, :, None, :], models.ei)
+    # A broadcast matmul: one 4x4 product per (w, m, r), so a slot's P does
+    # not depend on how many slots are built with it.
+    return torch.matmul(models.ev[None] * d[:, :, :, None, :], models.ei)
 
 
 def apply_p(pmat: torch.Tensor, block_part: torch.Tensor,

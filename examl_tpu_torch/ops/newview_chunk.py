@@ -1,23 +1,31 @@
-"""Newview chunk kernel B1: its CUDA launch and its plain PyTorch version.
+"""Newview chunk kernel B1: its operands, its CUDA launch and its plain
+PyTorch version.
 
-One chunk of the bounded fast-path layout (ops/fastpath.py) is W
-independent newview entries of one tip case, `kind` 0 = tip/tip, 1 =
-tip/inner (the tip is always the left child), 2 = inner/inner.  Entry w
+A full traversal on the chunk tier is the launch table of the bounded
+fast-path layout (ops/fastpath.py): rows `(kind, base, slot, real)`, in
+order.  Each row is one chunk of `real` independent newview entries of
+one tip case, `kind` 0 = tip/tip, 1 = tip/inner (the tip is always the
+left child), 2 = inner/inner; entry w reads packed slot `slot + w` and
 writes arena row `base + w`:
 
-  inner child:  y[r, a] = sum_k P[part(b), r, a, k] * x[r, k]
-  tip child:    y[(r, a)] = ump[part(b), code, (r, a)]
+  child:   x = table[code] tiled over the R rates (tip), or the arena row
+           lidx / ridx of the slot (inner node, with its scaler)
+  apply:   y[r, a] = sum_k P[slot, side, part(b), r, a, k] * x[r, k]
   v = yl * yr;  where max |v| < 2^-E: v *= 2^E, scaler += 1
   scaler = scaler(left) + scaler(right) + that increment
 
-`ump[m, c, (r, a)] = sum_k tipvec[c, k] P[m, r, a, k]` is the MIC-style
-tip-product table (`mic_native_dna.c:132-165`); a tip child is a direct
-lookup into it.  The operands are per partition (`[W, M, ...]`), and
-`block_part` maps each block of 128 sites to its partition.
+The operands of a traversal are its P matrices `[P, 2, M, R, K, K]` over
+every packed slot, built by one batched `kernels.p_matrices_wave`
+(`chunk_operands`, the call `newview_whole.whole_operands` makes); a chunk
+reads its slots' slice.  A tip child is its indicator vector contracted
+with P, the same arithmetic as an inner child (kernel B2's formulation),
+so there is no tip-product table.  `block_part` maps each block of 128
+sites to its partition.
 
-`chunk_apply` launches the CUDA kernel (`csrc/newview_chunk.cu`) for a
-CUDA arena and takes the plain version for a CPU arena.  On a CUDA tensor
-it launches or raises; nothing falls back.  `LAUNCHES` counts kernel
+`chunk_apply` runs a traversal's launch table through the CUDA kernel
+(`csrc/newview_chunk.cu`, one host call launching every chunk) for a CUDA
+arena and through the plain version for a CPU arena.  On a CUDA tensor it
+launches or raises; nothing falls back.  `LAUNCHES` counts kernel
 launches (and nothing else), so a run can show that its path went
 through the kernel.
 """
@@ -26,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from examl_tpu_torch.ops import kernels
@@ -35,67 +44,72 @@ LAUNCHES = 0
 _SUPPORTED_RK = ((4, 4),)       # (R, K) instantiated in csrc/newview_chunk.cu
 
 
-def chunk_operands(models: kernels.DeviceModels, table: torch.Tensor,
-                   kind: int, zl: torch.Tensor, zr: torch.Tensor):
-    """(opl, opr) of one chunk: ump tables [W, M, C, R*K] for tip
-    children and per-rate P matrices [W, M, R, K, K] for inner children,
-    built from the chunk's branch vectors zl, zr [W, C]."""
-    pl = kernels.p_matrices_wave(models, zl)                  # [W,M,R,K,K]
-    pr = kernels.p_matrices_wave(models, zr)
-
-    def ump(p):
-        W, M, R, A, _ = p.shape
-        um = torch.einsum("ck,wmrak->wmcra", table, p)
-        return um.reshape(W, M, table.shape[0], R * A).contiguous()
-
-    opl = ump(pl) if kind <= 1 else pl.contiguous()
-    opr = ump(pr) if kind == 0 else pr.contiguous()
-    return opl, opr
+def chunk_operands(models: kernels.DeviceModels, zl: torch.Tensor,
+                   zr: torch.Tensor) -> torch.Tensor:
+    """Every P matrix of a traversal's packed slots, P[s, side, m, r, a, k]
+    [P, 2, M, R, K, K], from one batched p_matrices_wave over the packed
+    branch vectors zl, zr [P, C] (left and right interleaved per slot)."""
+    P = zl.shape[0]
+    p = kernels.p_matrices_wave(models, torch.stack([zl, zr], dim=1).reshape(
+        2 * P, zl.shape[1]))                               # [2P,M,R,K,K]
+    return p.reshape((P, 2) + tuple(p.shape[1:])).contiguous()
 
 
-def chunk_apply(clv, scaler, codes, block_part, kind: int, base: int,
-                lidx, ridx, lcode, rcode, opl, opr, scale_exp: int):
-    """Apply one chunk to the arena in place (see module docstring).
+def chunk_apply(clv, scaler, codes, table, block_part, launch, lidx, ridx,
+                lcode, rcode, pmat, scale_exp: int):
+    """Run a traversal's launch table on the arena in place (see module
+    docstring).
 
     clv [rows, B, lane, R, K]; scaler [rows, B, lane] int32; codes
-    [ntips, B, lane] uint8; block_part [B] int32; lidx/ridx (arena rows)
-    and lcode/rcode (tip indices) [W] int32; base the first row written."""
+    [ntips, B, lane] uint8; table [C, K]; block_part [B] int32; launch
+    [n, 4] int32 host array (kind, base, slot, real); lidx/ridx (arena
+    rows) and lcode/rcode (tip indices) [P] int32; pmat [P, 2, M, R, K, K].
+    """
     if clv.device.type == "cpu":
-        return chunk_apply_plain(clv, scaler, codes, block_part, kind,
-                                 base, lidx, ridx, lcode, rcode, opl, opr,
+        return chunk_apply_plain(clv, scaler, codes, table, block_part,
+                                 launch, lidx, ridx, lcode, rcode, pmat,
                                  scale_exp)
-    return chunk_apply_cuda(clv, scaler, codes, block_part, kind, base,
-                            lidx, ridx, lcode, rcode, opl, opr, scale_exp)
+    return chunk_apply_cuda(clv, scaler, codes, table, block_part, launch,
+                            lidx, ridx, lcode, rcode, pmat, scale_exp)
 
 
-def chunk_apply_plain(clv, scaler, codes, block_part, kind: int, base: int,
-                      lidx, ridx, lcode, rcode, opl, opr, scale_exp: int):
-    """The plain PyTorch version of kernel B1 (any device)."""
+def apply_chunk_plain(clv, scaler, codes, table, block_part, kind: int,
+                      base: int, slot: int, width: int, lidx, ridx, lcode,
+                      rcode, pmat, scale_exp: int):
+    """One chunk in torch ops: slots slot..slot+width-1 write rows
+    base..base+width-1 (any device, any K)."""
     rows, B, L, R, K = clv.shape
-    W = lidx.shape[0]
     bp = block_part.long()
-    wi = torch.arange(W, device=clv.device)[:, None, None]
+    s = slice(slot, slot + width)
 
-    def tip(op, code_idx):
-        c = codes[code_idx.long()].long()                     # [W, B, L]
-        return op[wi, bp[None, :, None], c].reshape(W, B, L, R, K)
+    def child(side, tip, idx, code):
+        p = pmat[s, side][:, bp]                              # [W,B,R,K,K]
+        if tip:
+            x = table[codes[code[s].long()].long()]           # [W,B,L,K]
+            x = x.unsqueeze(-2).expand(width, B, L, R, K)
+            sc = 0
+        else:
+            row = idx[s].long()
+            x = clv[row].to(pmat.dtype)
+            sc = scaler[row]
+        return torch.einsum("wbrak,wblrk->wblra", p, x), sc
 
-    def inner(op, idx):
-        x = clv[idx.long()].to(op.dtype)                      # [W,B,L,R,K]
-        return torch.einsum("wbrak,wblrk->wblra", op[:, bp], x)
-
-    zero = torch.zeros((W, B, L), dtype=torch.int32, device=clv.device)
-    if kind == 2:
-        yl, sl = inner(opl, lidx), scaler[lidx.long()]
-    else:
-        yl, sl = tip(opl, lcode), zero
-    if kind >= 1:
-        yr, sr = inner(opr, ridx), scaler[ridx.long()]
-    else:
-        yr, sr = tip(opr, rcode), zero
+    yl, sl = child(0, kind <= 1, lidx, lcode)
+    yr, sr = child(1, kind == 0, ridx, rcode)
     v, inc = kernels.rescale(yl * yr, scale_exp)
-    clv[base:base + W] = v.to(clv.dtype)
-    scaler[base:base + W] = sl + sr + inc
+    clv[base:base + width] = v.to(clv.dtype)
+    scaler[base:base + width] = sl + sr + inc
+    return clv, scaler
+
+
+def chunk_apply_plain(clv, scaler, codes, table, block_part, launch, lidx,
+                      ridx, lcode, rcode, pmat, scale_exp: int):
+    """The plain PyTorch version of kernel B1 over a launch table: one
+    gather, compute and scatter per chunk at its real width."""
+    for kind, base, slot, real in np.asarray(launch).tolist():
+        apply_chunk_plain(clv, scaler, codes, table, block_part, kind, base,
+                          slot, real, lidx, ridx, lcode, rcode, pmat,
+                          scale_exp)
     return clv, scaler
 
 
@@ -111,14 +125,33 @@ def _check(t, name, dtype, shape, device):
         raise ValueError(f"{name} is not contiguous")
 
 
-def chunk_apply_cuda(clv, scaler, codes, block_part, kind: int, base: int,
-                     lidx, ridx, lcode, rcode, opl, opr, scale_exp: int):
-    """Launch kernel B1 on the current stream (no synchronisation)."""
+def check_launch(launch, rows: int, slots: int) -> np.ndarray:
+    """The launch table as a contiguous int32 [n, 4] host array, each row
+    a known kind with 1 <= real, its rows inside the arena and its slots
+    inside the packed arrays."""
+    launch = np.ascontiguousarray(launch, dtype=np.int32)
+    if launch.ndim != 2 or launch.shape[1] != 4:
+        raise ValueError(f"launch table has shape {launch.shape}, expected "
+                         "[n, 4]")
+    kind, base, slot, real = launch.T.astype(np.int64)
+    bad = ((kind < 0) | (kind > 2) | (real < 1) | (base < 0)
+           | (base + real > rows) | (slot < 0) | (slot + real > slots))
+    if bad.any():
+        raise ValueError(f"launch table row {int(np.flatnonzero(bad)[0])} "
+                         f"{launch[bad][0].tolist()} is outside an arena of "
+                         f"{rows} rows and {slots} packed slots")
+    return launch
+
+
+def chunk_apply_cuda(clv, scaler, codes, table, block_part, launch, lidx,
+                     ridx, lcode, rcode, pmat, scale_exp: int):
+    """Launch kernel B1 once per launch-table row on the current stream,
+    from one host call (no synchronisation).  Every operand is checked
+    once per traversal."""
     global LAUNCHES
     from examl_tpu_torch.ops import _build
 
     rows, B, L, R, K = clv.shape
-    W = lidx.shape[0]
     dev = clv.device
     if dev.type != "cuda":
         raise ValueError(f"chunk_apply_cuda needs CUDA tensors, got {dev}")
@@ -126,43 +159,40 @@ def chunk_apply_cuda(clv, scaler, codes, block_part, kind: int, base: int,
         raise TypeError(f"arena dtype {clv.dtype} is not float32/float64")
     if (R, K) not in _SUPPORTED_RK:
         raise ValueError(f"(R, K) = {(R, K)} has no kernel instance")
-    if kind not in (0, 1, 2):
-        raise ValueError(f"chunk kind {kind}")
-    if not (0 <= base and base + W <= rows):
-        raise ValueError(f"chunk rows [{base}, {base + W}) outside arena "
-                         f"of {rows} rows")
-    M = opl.shape[1]
-    C = opl.shape[2] if kind <= 1 else 0      # tip-code count (tip kinds)
+    P = lidx.shape[0]
+    C = table.shape[0]
+    M = pmat.shape[2]
     _check(clv, "clv", clv.dtype, (rows, B, L, R, K), dev)
     _check(scaler, "scaler", torch.int32, (rows, B, L), dev)
     _check(codes, "codes", torch.uint8, (codes.shape[0], B, L), dev)
+    _check(table, "table", clv.dtype, (C, K), dev)
     _check(block_part, "block_part", torch.int32, (B,), dev)
     for name, t in (("lidx", lidx), ("ridx", ridx), ("lcode", lcode),
                     ("rcode", rcode)):
-        _check(t, name, torch.int32, (W,), dev)
-    tip_shape = (W, M, C, R * K)
-    inner_shape = (W, M, R, K, K)
-    _check(opl, "opl", clv.dtype, tip_shape if kind <= 1 else inner_shape,
-           dev)
-    _check(opr, "opr", clv.dtype, tip_shape if kind == 0 else inner_shape,
-           dev)
-    if clv.data_ptr() % 16:
-        raise ValueError("arena base address is not 16-byte aligned")
-    if W == 0:
+        _check(t, name, torch.int32, (P,), dev)
+    _check(pmat, "pmat", clv.dtype, (P, 2, M, R, K, K), dev)
+    for name, t in (("clv", clv), ("scaler", scaler), ("codes", codes),
+                    ("pmat", pmat)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} base address is not 16-byte aligned")
+    launch = check_launch(launch, rows, P)
+    if launch.shape[0] == 0:
         return clv, scaler
     lib = _build.library("newview_chunk")
-    fn = (lib.examl_newview_chunk_f32 if clv.dtype == torch.float32
-          else lib.examl_newview_chunk_f64)
+    fn = (lib.examl_newview_chunks_f32 if clv.dtype == torch.float32
+          else lib.examl_newview_chunks_f64)
+    launched = ctypes.c_int(0)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = fn(kind, clv.data_ptr(), scaler.data_ptr(), codes.data_ptr(),
-                 block_part.data_ptr(), lidx.data_ptr(), ridx.data_ptr(),
-                 lcode.data_ptr(), rcode.data_ptr(), opl.data_ptr(),
-                 opr.data_ptr(), base, W, B, L, M, C, R, K,
-                 ctypes.c_double(2.0 ** (-scale_exp)),
-                 ctypes.c_double(2.0 ** scale_exp), stream)
+        err = fn(clv.data_ptr(), scaler.data_ptr(), codes.data_ptr(),
+                 table.data_ptr(), block_part.data_ptr(), lidx.data_ptr(),
+                 ridx.data_ptr(), lcode.data_ptr(), rcode.data_ptr(),
+                 pmat.data_ptr(), launch.ctypes.data, launch.shape[0], B, L,
+                 M, C, R, K, ctypes.c_double(2.0 ** (-scale_exp)),
+                 ctypes.c_double(2.0 ** scale_exp), stream,
+                 ctypes.byref(launched))
+    LAUNCHES += launched.value
     if err != 0:
         raise RuntimeError(f"newview_chunk kernel launch failed: CUDA "
                            f"error {err} ({_build.error_string(err)})")
-    LAUNCHES += 1
     return clv, scaler

@@ -13,9 +13,9 @@ written by an earlier wave.  Entry e:
 
 The operands of a traversal are its P matrices `[E, 2, M, R, K, K]`, built
 by one batched `kernels.p_matrices_wave` over the 2E branch vectors
-(`whole_operands`); `block_part` maps each block of 128 sites to its
-partition.  Waves are `wave_start[w] .. wave_start[w+1]`, from the
-schedule's `sync` flags.
+(`whole_operands`, the chunk tier's build); `block_part` maps each block
+of 128 sites to its partition.  Waves are `wave_start[w] ..
+wave_start[w+1]`, from the schedule's `sync` flags.
 
 `whole_apply` launches the CUDA kernel (`csrc/newview_whole.cu`, one
 cooperative grid with a grid barrier per wave) for a CUDA arena and takes
@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from examl_tpu_torch.ops import kernels
-from examl_tpu_torch.ops.newview_chunk import _check
+from examl_tpu_torch.ops.newview_chunk import _check, chunk_operands
 from examl_tpu_torch.tree.topology import Tree, TraversalEntry
 from examl_tpu_torch.utils import z_slots
 
@@ -146,13 +146,10 @@ def refresh_z(st: WholeStructure, flat, num_slots: int):
 def whole_operands(models: kernels.DeviceModels, zl: np.ndarray,
                    zr: np.ndarray, dtype, device) -> torch.Tensor:
     """Every P matrix of a traversal, P[e, side, m, r, a, k]
-    [E, 2, M, R, K, K], from one batched p_matrices_wave over the 2E
-    branch vectors (left and right interleaved per entry)."""
-    E = zl.shape[0]
-    z = torch.from_numpy(np.stack([zl, zr], axis=1).reshape(2 * E, -1)).to(
-        device=device, dtype=dtype)
-    p = kernels.p_matrices_wave(models, z)                 # [2E,M,R,K,K]
-    return p.reshape((E, 2) + tuple(p.shape[1:])).contiguous()
+    [E, 2, M, R, K, K]: the schedule's branch vectors uploaded, then the
+    chunk tier's batched build (`newview_chunk.chunk_operands`)."""
+    z = torch.from_numpy(np.stack([zl, zr])).to(device=device, dtype=dtype)
+    return chunk_operands(models, z[0], z[1])
 
 
 def whole_apply(clv, scaler, codes, table, block_part, meta, l_code,

@@ -1,9 +1,10 @@
-"""Kernel B1's plain version and the port's chunk program against the JAX
+"""Kernel B1's plain version and the port's chunk tier against the JAX
 package, the chunk layout's race-freedom promise, and (on a card) the
 CUDA kernel against its plain version.
 
-* f64: the port's `chunk_apply_plain` through `fastpath.run_segments`
-  against `examl_tpu.ops.fastpath.run_chunks` (rtol 1e-12, scalers equal);
+* f64: the port's chunk tier (one batched operand build, then
+  `chunk_apply_plain` over the launch table) against
+  `examl_tpu.ops.fastpath.run_chunks` (rtol 1e-12, scalers equal);
 * f32: the same against the Pallas kernel in interpret mode,
   `pallas_newview.run_chunks(interpret=True)` (rtol 1e-6, atol 1e-7, as
   tests/test_pallas.py holds it);
@@ -12,7 +13,7 @@ CUDA kernel against its plain version.
   the property that lets a chunk's entries run concurrently on the card.
 
 The JAX package is imported inside the tests that use it, so that the
-card-only case runs on a machine without JAX:
+card-only cases run on a machine without JAX:
 `python -m pytest --noconftest -m cuda tests/test_torch_newview.py`.
 """
 
@@ -77,9 +78,11 @@ def _port_full_traversal(eng, state, ttree):
     zl, zr = tfast.refresh_z(st, flat, 1, tdt, CPU)
     clv = torch.zeros(tuple(eng.clv.shape), dtype=tdt)
     scaler = torch.zeros(tuple(eng.scaler.shape), dtype=torch.int32)
-    apply = tfast.chunk_applier(tm, tbp.to(torch.int32), tt, eng.scale_exp)
-    tfast.run_segments(st.profile, st.base, st.lidx, st.ridx, st.lcode,
-                       st.rcode, zl, zr, clv, scaler, apply)
+    pmat = newview_chunk.chunk_operands(tm, zl, zr)
+    newview_chunk.chunk_apply(clv, scaler, tt.codes, tt.table,
+                              tbp.to(torch.int32), st.launch, st.lidx,
+                              st.ridx, st.lcode, st.rcode, pmat,
+                              eng.scale_exp)
     return st, clv.numpy(), scaler.numpy()
 
 
@@ -176,21 +179,18 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("kind", [0, 1, 2])
-def test_cuda_kernel_matches_plain(cuda_device, kind, dtype):
-    rng = np.random.default_rng(kind)
-    dev = cuda_device
+def _kernel_case(dev, dtype, W, launch, seed):
+    """Random inputs for a launch table over packed slots [0, 2W): the
+    first W slots read rows [0, 2W) and write from row 2W; the next W
+    read the rows the first W wrote."""
+    rng = np.random.default_rng(seed)
     E = 256 if dtype == torch.float64 else 32
-    W, B, L, M, C, ntips = 16, 8, 128, 2, 16, 6
-    rows = 3 * W + 1
-    p = torch.as_tensor(rng.uniform(0, 1, (W, M, 4, 4, 4)), dtype=dtype,
-                        device=dev)
-    u = torch.as_tensor(rng.uniform(0, 1, (W, M, C, 16)), dtype=dtype,
-                        device=dev)
-    opl = u if kind <= 1 else p
-    opr = u if kind == 0 else p
+    B, L, M, C, ntips = 8, 128, 2, 16, 6
+    rows = 4 * W + 1
+    pmat = torch.as_tensor(rng.uniform(0, 1, (2 * W, 2, M, 4, 4, 4)),
+                           dtype=dtype, device=dev)
+    table = torch.as_tensor(rng.uniform(0, 1, (C, 4)), dtype=dtype,
+                            device=dev)
     clv = torch.as_tensor(rng.uniform(0, 1, (rows, B, L, 4, 4)), dtype=dtype,
                           device=dev) * 2.0 ** (-E / 2)
     scaler = torch.as_tensor(rng.integers(0, 3, (rows, B, L)),
@@ -198,21 +198,67 @@ def test_cuda_kernel_matches_plain(cuda_device, kind, dtype):
     codes = torch.as_tensor(rng.integers(0, C, (ntips, B, L)),
                             dtype=torch.uint8, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
-    args = (codes, torch.as_tensor(rng.integers(0, M, B), **i32), kind,
-            2 * W, torch.as_tensor(rng.permutation(W), **i32),
-            torch.as_tensor(W + rng.permutation(W), **i32),
-            torch.as_tensor(rng.integers(0, ntips, W), **i32),
-            torch.as_tensor(rng.integers(0, ntips, W), **i32), opl, opr, E)
+    lidx = np.concatenate([rng.permutation(W), 2 * W + rng.permutation(W)])
+    ridx = np.concatenate([W + rng.permutation(W), 2 * W + rng.permutation(W)])
+    args = (codes, table, torch.as_tensor(rng.integers(0, M, B), **i32),
+            np.asarray(launch, np.int32), torch.as_tensor(lidx, **i32),
+            torch.as_tensor(ridx, **i32),
+            torch.as_tensor(rng.integers(0, ntips, 2 * W), **i32),
+            torch.as_tensor(rng.integers(0, ntips, 2 * W), **i32), pmat, E)
+    return clv, scaler, args
+
+
+def _assert_kernel_matches_plain(clv, scaler, args, dtype, launches):
     c_ref, s_ref = clv.clone(), scaler.clone()
     newview_chunk.chunk_apply_plain(c_ref, s_ref, *args)
+    c_k, s_k = clv.clone(), scaler.clone()
     before = newview_chunk.LAUNCHES
-    newview_chunk.chunk_apply(clv, scaler, *args)
+    newview_chunk.chunk_apply(c_k, s_k, *args)
     torch.cuda.synchronize()
-    assert newview_chunk.LAUNCHES == before + 1
-    assert torch.equal(scaler, s_ref)
+    assert newview_chunk.LAUNCHES == before + launches
+    assert torch.equal(s_k, s_ref)
     smax = c_ref.abs().amax(dim=(3, 4), keepdim=True)
     rtol = 1e-12 if dtype == torch.float64 else 1e-5
-    assert bool(((clv - c_ref).abs() <= rtol * smax).all())
+    assert bool(((c_k - c_ref).abs() <= rtol * smax).all())
+    written = np.zeros(clv.shape[0], bool)
+    for _, base, _, real in np.asarray(args[3]).tolist():
+        written[base:base + real] = True
+    keep = torch.as_tensor(np.flatnonzero(~written), device=clv.device)
+    assert torch.equal(c_k[keep], clv[keep])
+    assert torch.equal(s_k[keep], scaler[keep])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", [0, 1, 2])
+@pytest.mark.parametrize("real", [1, 5, 16])
+def test_cuda_kernel_matches_plain(cuda_device, kind, dtype, real):
+    """One chunk of `real` entries in a layout of width 16: rows past the
+    real ones stay bit for bit untouched."""
+    W = 16
+    clv, scaler, args = _kernel_case(cuda_device, dtype, W,
+                                     [(kind, 2 * W, 0, real)], kind + real)
+    _assert_kernel_matches_plain(clv, scaler, args, dtype, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_kernel_chained_launches_match_plain(cuda_device, dtype):
+    """Each launch reads the rows the launch before it wrote."""
+    W = 16
+    launch = [(1, 2 * W, 0, W), (2, 3 * W, W, 3), (2, 3 * W + 3, W + 3, 1)]
+    clv, scaler, args = _kernel_case(cuda_device, dtype, W, launch, 7)
+    lidx = args[4].cpu().numpy()
+    ridx = args[5].cpu().numpy()
+    # Slots W..W+3 read rows 2W.. (written by the first launch); slot W+3
+    # reads a row of the second launch.
+    lidx[W:W + 3] = 2 * W + np.arange(3)
+    lidx[W + 3] = 3 * W + 1
+    ridx[W + 3] = 3 * W
+    dev = cuda_device
+    args = args[:4] + (torch.as_tensor(lidx, device=dev),
+                       torch.as_tensor(ridx, device=dev)) + args[6:]
+    _assert_kernel_matches_plain(clv, scaler, args, dtype, 3)
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():
@@ -223,9 +269,10 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         newview_chunk.chunk_apply_cuda(
             z, torch.zeros((4, 1, 128), dtype=torch.int32),
-            torch.zeros((3, 1, 128), dtype=torch.uint8),
-            torch.zeros(1, dtype=torch.int32), 2, 2, i32, i32, i32, i32,
-            torch.zeros((2, 1, 4, 4, 4)), torch.zeros((2, 1, 4, 4, 4)), 32)
+            torch.zeros((3, 1, 128), dtype=torch.uint8), torch.zeros((16, 4)),
+            torch.zeros(1, dtype=torch.int32),
+            np.asarray([(2, 2, 0, 2)], np.int32), i32, i32, i32, i32,
+            torch.zeros((2, 2, 1, 4, 4, 4)), 32)
 
 
 def test_build_is_keyed_on_source_hash():
