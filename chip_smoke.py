@@ -5,11 +5,14 @@ Builds the port's CUDA kernels from the sources in this checkout, holds
 each kernel against its plain PyTorch version on the card, checks the
 ref49 likelihood anchors on both full-traversal tiers (`newview="chunk"`,
 the launch table through kernel B1; `newview="whole"`, kernel B2), runs
-`-f e` on ref49 through the port's CLI, and drives the port's main paths
-— full-traversal evaluate, Newton-Raphson branch updates, a smoothing
-sweep and a model-optimization pass — at a real per-GPU size (512 taxa x
-131,072 DNA patterns in four GTR+G4 partitions, f32).  Every phase is
-fatal: any failure exits non-zero before the result line.
+`-f e` on ref49 through the port's CLI, runs the `-f d` SPR search
+through the CLI on an 8-taxon, four-partition alignment and restarts it
+with `-R` from its last-but-one checkpoint on the other tier, and drives
+the port's main paths — full-traversal evaluate, Newton-Raphson branch
+updates, the SPR scan's scored insertions, a model-optimization pass —
+at a real per-GPU size (512 taxa x 131,072 DNA patterns in four GTR+G4
+partitions, f32).  Every phase is fatal: any failure exits non-zero
+before the result line.
 
     python3 chip_smoke.py [--seed N]     # one card
 
@@ -49,7 +52,13 @@ CHECK_WIDTH = 64        # chunk width of the kernel-vs-plain cases
 WHOLE_CHECK_BLOCKS = 256    # site blocks in the B2-vs-plain cases
 REPS = 5                # timed repeats
 REPEAT = 10             # launch-table rows repeated in one call (breakdown)
-NPHASES = 9
+# The -f d run through the CLI: FD_TAXA taxa x 4 partitions of FD_WIDTH
+# DNA columns.  The taxa are cut by the run's time limit; the width by
+# the f64 re-evaluation check (abs 2e-3), which f32 evaluation of the
+# result tree no longer meets reliably at twice this width.
+FD_TAXA, FD_WIDTH = 8, 1024
+SCAN_SLOTS = 4          # pruned slots of the lazy real-size SPR scan
+NPHASES = 12
 
 
 class SmokeFailure(RuntimeError):
@@ -256,17 +265,23 @@ def phase_kernel_vs_plain(device, B: int, W: int, seed: int):
 
 def reset_counts() -> None:
     from examl_tpu_torch.ops import engine, newview_chunk, newview_whole
+    from examl_tpu_torch.search import spr
     newview_chunk.LAUNCHES = 0
     newview_whole.LAUNCHES = 0
     engine.FULL_TRAVERSALS = 0
+    engine.PARTIAL_TRAVERSALS = 0
     engine.CHUNK_LAUNCH_ROWS = 0
+    spr.INSERTIONS_SCORED = 0
 
 
 def read_counts() -> dict:
     from examl_tpu_torch.ops import engine, newview_chunk, newview_whole
+    from examl_tpu_torch.search import spr
     return {"b1": newview_chunk.LAUNCHES, "b2": newview_whole.LAUNCHES,
             "full_traversals": engine.FULL_TRAVERSALS,
-            "chunk_launch_rows": engine.CHUNK_LAUNCH_ROWS}
+            "partial_traversals": engine.PARTIAL_TRAVERSALS,
+            "chunk_launch_rows": engine.CHUNK_LAUNCH_ROWS,
+            "insertions_scored": spr.INSERTIONS_SCORED}
 
 
 def check_tier(counts: dict, tier: str, path: str) -> None:
@@ -531,7 +546,217 @@ def phase_ref49_whole(device, out_dir: str):
     return out
 
 
-# -- phases 7 and 8: real size, chunk and whole tiers -----------------------
+# -- phases 7 and 8: -f d through the CLI, and its -R restart ---------------
+
+
+def read_checkpoints(workdir: str) -> dict:
+    """{number: state} of the smoke run's checkpoint files."""
+    import gzip
+    out = {}
+    for name in os.listdir(workdir):
+        m = re.match(r"ExaML_binaryCheckpoint\.smoke\.ckpt_(\d+)\.json\.gz$",
+                     name)
+        if m:
+            with gzip.open(os.path.join(workdir, name), "rt") as f:
+                out[int(m.group(1))] = json.load(f)["state"]
+    return out
+
+
+def run_cli(argv, device, workdir: str):
+    """The port's CLI in-process on `device` (the card by default, as a
+    user runs it); returns (rc, wall s, counts, info-file text)."""
+    from examl_tpu_torch.cli import main as cli
+    reset_counts()
+    t0 = time.perf_counter()
+    rc = cli.main(argv + ["-n", "smoke", "-w", workdir],
+                  device=None if device.type == "cuda" else device)
+    sync(device)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    with open(os.path.join(workdir, "ExaML_info.smoke")) as f:
+        info = f.read()
+    return rc, wall, counts, info
+
+
+def reevaluate(workdir: str, aln: str, dtype, device):
+    """ExaML_result under ExaML_modelFile, evaluated afresh: (lnL,
+    instance, tree)."""
+    from examl_tpu_torch.instance import PhyloInstance
+    from examl_tpu_torch.io.bytefile import read_bytefile
+    from examl_tpu_torch.transfer import install_model_params
+    inst = PhyloInstance(read_bytefile(aln), dtype=dtype, device=device)
+    params = refmodel().parse_model_file(
+        os.path.join(workdir, "ExaML_modelFile.smoke"))
+    install_model_params(inst, [(p.rates, p.freqs, p.alpha)
+                                for p in params])
+    with open(os.path.join(workdir, "ExaML_result.smoke")) as f:
+        tree = inst.tree_from_newick(f.read())
+    return inst.evaluate(tree, full=True), inst, tree
+
+
+class SearchClock:
+    """Wall time of a search's parts, taken around the module functions the
+    search calls (each ends with a read-back to the host, and the wrapper
+    synchronizes): every branch-length smoothing (`smooth_tree`), model
+    optimization (`mod_opt`, whose own smoothing is counted apart), and
+    every scored insertion (`spr.test_insert`, which includes the
+    thorough arm's local smoothing)."""
+
+    def __init__(self, device):
+        from examl_tpu_torch.optimize import branch
+        from examl_tpu_torch.search import raxml_search, spr
+        self.s = {"smoothing": 0.0, "smoothing_in_mod_opt": 0.0,
+                  "mod_opt": 0.0, "insertions": 0.0}
+        self._in_mod_opt = False
+        self._patches = [(branch, "smooth_tree", "smoothing"),
+                         (raxml_search, "mod_opt", "mod_opt"),
+                         (spr, "test_insert", "insertions")]
+        self._saved = []
+        for mod, name, key in self._patches:
+            fn = getattr(mod, name)
+            self._saved.append((mod, name, fn))
+            setattr(mod, name, self._timed(fn, key, device))
+
+    def _timed(self, fn, key, device):
+        def run(*a, **k):
+            outer = self._in_mod_opt
+            if key == "mod_opt":
+                self._in_mod_opt = True
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                sync(device)
+                dt = time.perf_counter() - t
+                self.s[key] += dt
+                if key == "smoothing" and outer:
+                    self.s["smoothing_in_mod_opt"] += dt
+                self._in_mod_opt = outer
+        return run
+
+    def restore(self) -> None:
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+
+def phase_search(device, out_dir: str, seed: int):
+    """-f d -i 5 through the port's CLI on the chunk tier: FD_TAXA taxa x
+    4 GTR+G4 partitions of FD_WIDTH DNA columns from the seed, the seed's
+    random tree as the start."""
+    import torch
+    from examl_tpu_torch.io.bytefile import write_bytefile
+    from examl_tpu_torch.tree.topology import Tree
+    workdir = os.path.join(out_dir, "fd")
+    os.makedirs(workdir, exist_ok=True)
+    ad = synthetic_alignment(FD_TAXA, PARTITIONS, FD_WIDTH, seed)
+    aln = os.path.join(out_dir, "fd_aln.binary")
+    write_bytefile(aln, ad)
+    start = os.path.join(out_dir, "fd_start.nwk")
+    with open(start, "w") as f:
+        f.write(Tree.random(ad.taxon_names, seed, 1).to_newick(
+            ad.taxon_names) + "\n")
+    argv = ["-s", aln, "-t", start, "-i", "5"]
+    clock = SearchClock(device)
+    try:
+        rc, wall, counts, info = run_cli(argv, device, workdir)
+    finally:
+        clock.restore()
+    check(rc == 0, f"-f d through the CLI returned {rc}")
+    check_tier(counts, "chunk", "-f d CLI")
+    logged = [float(line.split()[1]) for line in open(os.path.join(
+        workdir, "ExaML_log.smoke")).read().splitlines()]
+    final = float(re.search(r"Likelihood of best tree: (\S+)",
+                            info).group(1))
+    check(final > logged[0], f"-f d ended at {final}, not above its start "
+          f"{logged[0]}")
+    lnl32, inst, tree = reevaluate(workdir, aln, torch.float32, device)
+    lnl64, _, _ = reevaluate(workdir, aln, torch.float64, device)
+    check(abs(lnl32 - final) <= 1e-6 * abs(final),
+          f"result re-evaluates to {lnl32} (f32) against the logged {final}")
+    check(abs(lnl64 - final) <= 2e-3,
+          f"result re-evaluates to {lnl64} (f64) against the logged {final}")
+    ckpts = read_checkpoints(workdir)
+    states = sorted(set(ckpts.values()))
+    check({"FAST_SPRS", "SLOW_SPRS"} <= set(states),
+          f"-f d wrote checkpoints of states {states} only")
+    fast = len(re.findall(r"^fast cycle \d+ start", info, re.M))
+    thorough = len(set(re.findall(r"^thorough cycle (\d+) radius", info,
+                                  re.M)))
+    # Host against device in the search's largest part: one smoothing
+    # sweep of the result tree, profiled.
+    from examl_tpu_torch.optimize.branch import smooth_tree
+    profile = device_breakdown(lambda: smooth_tree(inst, tree, 1), device)
+    del inst, tree
+    parts = dict(clock.s)
+    parts["brent_probes"] = parts["mod_opt"] - parts["smoothing_in_mod_opt"]
+    parts["other"] = wall - parts["smoothing"] - parts["brent_probes"] \
+        - parts["insertions"]
+    out = {"taxa": FD_TAXA, "patterns": int(sum(p.width for p in
+                                                ad.partitions)),
+           "wall_s": wall, "start_lnl": logged[0], "final_lnl": final,
+           "reevaluated_f32": lnl32, "reevaluated_f64": lnl64,
+           "launches": counts, "checkpoints": len(ckpts),
+           "checkpoint_states": states, "fast_iterations": fast,
+           "thorough_iterations": thorough, "parts_s": parts,
+           "smoothing_sweep_profile": profile, "aln": aln,
+           "start_tree": start, "workdir": workdir}
+    log(f"  {FD_TAXA} taxa x {out['patterns']} patterns: lnL {logged[0]!r} "
+        f"-> {final!r} in {wall:.1f} s; re-evaluated f32 {lnl32!r}, f64 "
+        f"{lnl64!r}; {fast} fast + {thorough} thorough iterations; "
+        f"{len(ckpts)} checkpoints ({', '.join(states)})")
+    log(f"  {counts['full_traversals']} full traversals, "
+        f"{counts['partial_traversals']} partial, "
+        f"{counts['insertions_scored']} insertions scored; B1 "
+        f"{counts['b1']} launches (= {counts['chunk_launch_rows']} "
+        f"launch-table rows), B2 {counts['b2']}")
+    log(f"  wall by part: smoothing {parts['smoothing']:.1f} s (of which "
+        f"inside mod_opt {parts['smoothing_in_mod_opt']:.1f} s), mod_opt's "
+        f"Brent probes {parts['brent_probes']:.1f} s, scored insertions "
+        f"{parts['insertions']:.1f} s, the rest {parts['other']:.1f} s")
+    if profile["measured"]:
+        log(f"  profiled smoothing sweep: wall {profile['wall_ms']:.1f} ms, "
+            f"device busy {profile['busy_ms']:.1f} ms (idle share "
+            f"{profile['idle_share']:.3f}) in {profile['launches']} device "
+            f"ops")
+    else:
+        log(f"  profiled smoothing sweep: not measured ({profile['error']})")
+    return out
+
+
+def phase_restart(device, out_dir: str, fd: dict):
+    """-R --newview whole from the -f d run's last-but-one checkpoint."""
+    import shutil
+    workdir = os.path.join(out_dir, "fd_restart")
+    shutil.rmtree(workdir, ignore_errors=True)
+    shutil.copytree(fd["workdir"], workdir)
+    ckpts = read_checkpoints(workdir)
+    check(len(ckpts) >= 2, f"-f d wrote {len(ckpts)} checkpoints")
+    keep = sorted(ckpts)[-2]
+    for n in ckpts:
+        if n > keep:
+            os.remove(os.path.join(
+                workdir, f"ExaML_binaryCheckpoint.smoke.ckpt_{n}.json.gz"))
+    argv = ["-s", fd["aln"], "-t", fd["start_tree"], "-i", "5", "-R",
+            "--newview", "whole"]
+    rc, wall, counts, info = run_cli(argv, device, workdir)
+    check(rc == 0, f"-R through the CLI returned {rc}")
+    check_tier(counts, "whole", "-R --newview whole")
+    m = re.search(r"restart from state (\S+) with likelihood (\S+)", info)
+    check(m is not None and m.group(1) == ckpts[keep],
+          f"-R did not resume at checkpoint {keep} ({ckpts[keep]})")
+    final = float(re.findall(r"Likelihood of best tree: (\S+)", info)[-1])
+    check(final >= fd["final_lnl"] - 0.5, f"-R ended at {final}, below the "
+          f"continuous run's {fd['final_lnl']} less 0.5")
+    log(f"  resumed at checkpoint {keep} ({m.group(1)}, lnL {m.group(2)}) "
+        f"-> {final!r} (continuous {fd['final_lnl']!r}) in {wall:.1f} s; "
+        f"{counts['full_traversals']} full traversals, B2 {counts['b2']} "
+        f"launches, B1 {counts['b1']}")
+    return {"checkpoint": keep, "state": m.group(1),
+            "resumed_lnl": float(m.group(2)), "final_lnl": final,
+            "wall_s": wall, "launches": counts}
+
+
+# -- phases 9 and 11: real size, chunk and whole tiers ---------------------
 
 
 def synthetic_alignment(ntaxa: int, parts: int, width: int, seed: int):
@@ -882,7 +1107,105 @@ def phase_real_size(device, setup: dict, reps: int):
         log(f"  operand build: {ops_profile['launches']} device ops, "
             f"{ops_profile['busy_ms']:.3f} ms busy, per traversal")
     log_profile(profile, "B1")
-    return report
+    return report, inst, tree
+
+
+# -- phase 10: the SPR scan at real size ------------------------------------
+
+
+def phase_spr_scan(device, inst, tree):
+    """The search's innermost step at real size: rearrange() over the
+    first SCAN_SLOTS inner slots of the SPR slot order that have subtrees
+    to prune (lazy, radius 1-5), then one slot thorough, with end_lh at
+    +inf so that no move commits; the tree and its lnL must come back
+    unchanged."""
+    from examl_tpu_torch.ops import engine
+    from examl_tpu_torch.search import snapshots, spr
+    lnl0 = inst.evaluate(tree, full=True)
+    sync(device)
+    before = snapshots.TreeSnapshot.capture(tree, lnl0)
+
+    def deep(p) -> bool:
+        return not tree.is_tip(p.number) and not (
+            tree.is_tip(p.next.back.number)
+            and tree.is_tip(p.next.next.back.number))
+
+    slots = [p for p in spr.dfs_slot_order(tree) if deep(p)][:SCAN_SLOTS + 1]
+    check(len(slots) == SCAN_SLOTS + 1, "too few inner slots to scan")
+    # Entries of the partial traversals (wave-scan tier), counted around
+    # the engine's own method.
+    entries = [0]
+    run_scan = engine.LikelihoodEngine._run_scan
+
+    def counted(self, ents):
+        entries[0] += len(ents)
+        return run_scan(self, ents)
+
+    def scan(ps, thorough: bool) -> dict:
+        ctx = spr.SprContext(inst, thorough=thorough, do_cutoff=False)
+        ctx.start_lh = ctx.end_lh = math.inf
+        reset_counts()
+        entries[0] = 0
+        t0 = time.perf_counter()
+        for p in ps:
+            ctx.best_of_node = -math.inf
+            spr.rearrange(inst, tree, ctx, p, 1, 5)
+        sync(device)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        n = counts["insertions_scored"]
+        check(n > 0, "the scan scored no insertion")
+        check(ctx.remove_node is not None and math.isfinite(ctx.best_of_node),
+              "the scan recorded no best move")
+        return {"slots": len(ps), "wall_s": wall, "insertions_scored": n,
+                "ms_per_insertion": wall * 1e3 / n,
+                "partial_traversals": counts["partial_traversals"],
+                "entries": entries[0], "entries_per_insertion":
+                entries[0] / n, "best_of_node": ctx.best_of_node,
+                "launches": counts}
+
+    engine.LikelihoodEngine._run_scan = counted
+    try:
+        lazy = scan(slots[:SCAN_SLOTS], thorough=False)
+        thorough = scan(slots[SCAN_SLOTS:], thorough=True)
+    finally:
+        engine.LikelihoodEngine._run_scan = run_scan
+    ctx = spr.SprContext(inst, do_cutoff=False)
+    ctx.start_lh = ctx.end_lh = math.inf
+    profile = device_breakdown(
+        lambda: spr.rearrange(inst, tree, ctx, slots[0], 1, 5), device)
+    after = snapshots.TreeSnapshot.capture(tree, lnl0)
+    check(after.key == before.key, "the scan changed the topology")
+    za = {tuple(sorted((u, v))): z for u, v, z in before.edges}
+    zb = {tuple(sorted((u, v))): z for u, v, z in after.edges}
+    check(za == zb, "the scan changed branch lengths")
+    reset_counts()
+    lnl1 = inst.evaluate(tree, full=True)
+    sync(device)
+    final_counts = read_counts()
+    check(abs(lnl1 - lnl0) <= 1e-9 * abs(lnl0),
+          f"lnL after the scan {lnl1} vs before {lnl0}")
+    for name, r in (("lazy", lazy), ("thorough", thorough)):
+        check(r["launches"]["b1"] == r["launches"]["b2"] == 0,
+              f"{name} scan launched a full-traversal kernel")
+        log(f"  {name}: {r['slots']} pruned slot(s), "
+            f"{r['insertions_scored']} insertions scored in "
+            f"{r['wall_s']:.2f} s ({r['ms_per_insertion']:.2f} ms each); "
+            f"{r['partial_traversals']} partial traversals, "
+            f"{r['entries_per_insertion']:.2f} entries per insertion")
+    log(f"  tree and lnL unchanged ({lnl0!r} -> {lnl1!r})")
+    if profile["measured"]:
+        log(f"  profiled lazy pruned node: wall {profile['wall_ms']:.1f} ms, "
+            f"device busy {profile['busy_ms']:.1f} ms (idle share "
+            f"{profile['idle_share']:.3f}) in {profile['launches']} device "
+            f"ops")
+        for r in profile["top"]:
+            log(f"    {r['ms']:9.3f} ms  {r['calls']:5d}x  {r['name']}")
+    else:
+        log(f"  profiled lazy pruned node: not measured ({profile['error']})")
+    return {"lnl_before": lnl0, "lnl_after": lnl1, "lazy": lazy,
+            "thorough": thorough, "profile": profile,
+            "evaluate_launches": final_counts}
 
 
 def phase_real_whole(device, setup: dict, reps: int, chunk_lnl: float):
@@ -1119,9 +1442,19 @@ def main(argv=None) -> int:
         phase("ref49, whole tier: anchors, -f e through the CLI")
         anchor_whole = phase_ref49_whole(device, out_dir)
 
+        phase("-f d through the CLI, chunk tier, f32")
+        search = phase_search(device, out_dir, args.seed)
+
+        phase("-R restart of -f d, whole tier")
+        restart = phase_restart(device, out_dir, search)
+
         phase("real size, chunk tier")
         setup = real_setup(TAXA, PARTITIONS, PART_WIDTH, args.seed)
-        real = phase_real_size(device, setup, REPS)
+        real, real_inst, real_tree = phase_real_size(device, setup, REPS)
+
+        phase("real size, SPR scan (rearrange, lazy and thorough)")
+        scan = phase_spr_scan(device, real_inst, real_tree)
+        del real_inst, real_tree
 
         phase("real size, whole tier")
         real_whole = phase_real_whole(device, setup, REPS, real["lnl"])
@@ -1134,7 +1467,8 @@ def main(argv=None) -> int:
     report = {"device": smi, "phase_s": phase_s, "b1_config": b1_config,
               "kernel_cases": cases,
               "whole_cases": whole_cases, "anchor": anchor,
-              "anchor_whole": anchor_whole, "real_size": real,
+              "anchor_whole": anchor_whole, "search": search,
+              "restart": restart, "real_size": real, "spr_scan": scan,
               "real_size_whole": real_whole,
               "wall_s": time.perf_counter() - t_start}
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
@@ -1147,16 +1481,28 @@ def main(argv=None) -> int:
         "evaluate_ms", "site_clv_updates_per_s", "lnl", "entries", "waves",
         "grid_blocks", "launches_by_path", "opt_s", "opt_full_traversals",
         "opt_ms_per_probe", "opt_push_models_ms_per_probe")}}))
-    # B2's launches: every whole-tier path of this run, each counted from
-    # 0 just before it and read just after it.
+    log(json.dumps({"search": {k: search[k] for k in (
+        "taxa", "patterns", "wall_s", "start_lnl", "final_lnl", "launches",
+        "checkpoints", "fast_iterations", "thorough_iterations")},
+        "restart": {k: restart[k] for k in (
+            "state", "final_lnl", "wall_s", "launches")},
+        "spr_scan": {k: {m: scan[k][m] for m in (
+            "insertions_scored", "ms_per_insertion",
+            "entries_per_insertion")} for k in ("lazy", "thorough")}}))
+    # Each kernel's launches on the main paths of this run, each path
+    # counted from 0 just before it and read just after it: B1 on the
+    # real-size evaluate path, -f d and the SPR scan's full evaluates; B2
+    # on every whole-tier path, the -R restart included.
+    b1_launches = (real["launches"] + search["launches"]["b1"]
+                   + scan["evaluate_launches"]["b1"])
     b2_paths = [anchor_whole["launches_anchors"], anchor_whole["fe_launches"],
-                *real_whole["launches_by_path"].values()]
+                restart["launches"], *real_whole["launches_by_path"].values()]
     kernels = [{
         "name": "newview_chunk",
         "route": "cuda",
         "source": "examl_tpu_torch/csrc/newview_chunk.cu",
         "replaces": "examl_tpu/ops/pallas_newview.py:67",
-        "launches": real["launches"],
+        "launches": b1_launches,
         "max_abs_err": max([real["max_abs_err"]]
                            + [c["max_abs_err"] for c in cases]),
         "ms": real["kernel_ms"],

@@ -1,16 +1,25 @@
-"""Tree-evaluation entry point, the `-f e` / `-f E` mode of the reference
-`examl` binary (`axml.c`: `get_args` :935-1302, `makeFileNames`
-:1316-1357, `optimizeTrees` :2251-2356).
+"""Inference entry point, the counterpart of the reference `examl`
+binary (`axml.c`: `get_args` :935-1302, `makeFileNames` :1316-1357, modes
+dispatched at `main` :2719-2781).
 
-    python -m examl_tpu_torch.cli.main -s aln.binary -t trees -n RUN \\
-        [-w DIR] [-f e|E] [-m GAMMA] [-M] [--newview chunk|whole]
+    python -m examl_tpu_torch.cli.main -s aln.binary -n RUN \\
+        [-t tree | -g constraint | -R] [-w DIR] [-f d|o|e|E] [-m GAMMA] \\
+        [-a] [-i radius] [-D] [-B N] [-M] [-p seed] [--newview chunk|whole]
 
-For each tree of the `-t` file: evaluate, smooth the branch lengths, then
-optimize the model (`mod_opt`); with `-f e` the trees after the first
-only re-smooth their branch lengths.  Outputs in DIR: ExaML_info.RUN
-(progress), ExaML_log.RUN ("seconds lnL" per tree), ExaML_TreeFile.RUN
-(one newick per tree) and ExaML_modelFile.RUN (the final model, in the
-reference's `printModelParams` layout).
+Modes: `-f d` (the default) runs the RAxML SPR hill climb
+(`search/raxml_search.py`) from the `-t` tree or from the random
+resolution of the `-g` constraint tree; `-f o` is the same search without
+the lnL-cutoff heuristic.  `-f e` / `-f E` evaluate each tree of the `-t`
+file: smooth its branch lengths and optimize the model (`mod_opt`); with
+`-f e` the trees after the first only re-smooth.  Every mode writes
+numbered checkpoints (`search/checkpoint.py`, the JAX package's format)
+and resumes from the newest one with `-R`.
+
+Outputs in DIR: ExaML_info.RUN (progress), ExaML_log.RUN ("seconds lnL"
+rows), ExaML_modelFile.RUN (the final model, in the reference's
+`printModelParams` layout); the search writes ExaML_result.RUN (the best
+tree), ExaML_goodTrees.RUN (`-B`) and ExaML_perGeneBranchLengths.RUN
+(`-M`); tree evaluation writes ExaML_TreeFile.RUN (one newick per tree).
 
 `--newview` selects the full-traversal tier: `chunk` (kernel B1) or
 `whole` (kernel B2, one launch per traversal).  `main` runs on the card
@@ -31,24 +40,46 @@ from examl_tpu_torch.ops.engine import NEWVIEW_TIERS
 
 # State letters of the model file's "rate X <-> Y" and "freq pi(X)" lines.
 _STATE_LETTERS = {"DNA": "ACGT", "AA": "ARNDCQEGHILKMFPSTWYV", "BIN": "01"}
+# Seconds between two mid-tree MOD_OPT checkpoints of -f e / -f E.
+MID_TREE_CHECKPOINT_S = 60.0
 
 
 def build_argparser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="examl_tpu_torch.cli.main",
-        description="maximum-likelihood tree evaluation on the GPU")
+        description="maximum-likelihood phylogenetic tree inference on the "
+                    "GPU")
     ap.add_argument("-s", dest="bytefile", required=True,
                     help="binary alignment file (byteFile)")
     ap.add_argument("-n", dest="run_id", required=True, help="run name")
-    ap.add_argument("-t", dest="tree_file", required=True,
-                    help="trees to evaluate (newick, one or more)")
+    ap.add_argument("-t", dest="tree_file", default=None,
+                    help="starting tree (-f d/o) or trees to evaluate "
+                         "(-f e/E), newick")
+    ap.add_argument("-R", dest="restart", action="store_true",
+                    help="restart from the newest checkpoint")
     ap.add_argument("-m", dest="model", default="GAMMA", choices=["GAMMA"],
                     help="rate heterogeneity model")
-    ap.add_argument("-f", dest="mode", default="e", choices=["e", "E"],
-                    help="e: optimize the model on the first tree only; "
-                         "E: optimize the model on every tree")
+    ap.add_argument("-a", dest="median", action="store_true",
+                    help="median instead of mean discrete gamma rates")
+    ap.add_argument("-f", dest="mode", default="d",
+                    choices=["d", "o", "e", "E"],
+                    help="d: SPR tree search; o: the search without the lnL "
+                         "cutoff; e: evaluate trees, optimizing the model "
+                         "on the first tree only; E: evaluate trees, "
+                         "optimizing the model on every tree")
+    ap.add_argument("-i", dest="initial", type=int, default=None,
+                    help="fixed initial rearrangement radius")
+    ap.add_argument("-D", dest="rf_convergence", action="store_true",
+                    help="stop when consecutive SPR cycles are <=1%% RF "
+                         "apart")
+    ap.add_argument("-B", dest="save_best", type=int, default=0,
+                    help="also report the N best distinct trees found")
     ap.add_argument("-M", dest="per_partition_bl", action="store_true",
                     help="estimate per-partition branch lengths")
+    ap.add_argument("-g", dest="constraint_file", default=None,
+                    help="multifurcating constraint tree")
+    ap.add_argument("-p", dest="seed", type=int, default=12345,
+                    help="random seed (constraint-tree resolution)")
     ap.add_argument("-w", dest="workdir", default=".",
                     help="output directory")
     ap.add_argument("--newview", default="chunk", choices=NEWVIEW_TIERS,
@@ -58,18 +89,22 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 class RunFiles:
-    """Output files (reference `makeFileNames`/`printBothOpen`)."""
+    """Output files (reference `makeFileNames`/`printBothOpen`).  On a -R
+    restart the info and log files are appended to, keeping the
+    interrupted run's history."""
 
-    def __init__(self, workdir: str, run_id: str):
+    def __init__(self, workdir: str, run_id: str, append: bool = False):
         os.makedirs(workdir, exist_ok=True)
         pre = os.path.join(workdir, "ExaML_")
         self.info_path = f"{pre}info.{run_id}"
         self.log_path = f"{pre}log.{run_id}"
+        self.result_path = f"{pre}result.{run_id}"
         self.model_path = f"{pre}modelFile.{run_id}"
         self.treefile_path = f"{pre}TreeFile.{run_id}"
         self.start_time = time.time()
-        for p in (self.info_path, self.log_path):
-            open(p, "w").close()
+        if not append:
+            for p in (self.info_path, self.log_path):
+                open(p, "w").close()
 
     def info(self, msg: str) -> None:
         print(msg)
@@ -79,6 +114,10 @@ class RunFiles:
     def log_lnl(self, lnl: float) -> None:
         with open(self.log_path, "a") as f:
             f.write(f"{time.time() - self.start_time:.6f} {lnl:.6f}\n")
+
+    def write_result(self, text: str) -> None:
+        with open(self.result_path, "w") as f:
+            f.write(text if text.endswith("\n") else text + "\n")
 
 
 def tree_length(tree, slot: int) -> float:
@@ -117,32 +156,191 @@ def _read_trees(path: str) -> List[str]:
     return [t.strip() + ";" for t in text.split(";") if t.strip()]
 
 
+def _load_constraint(args, inst):
+    from examl_tpu_torch.tree.constraint import load_constraint
+    with open(args.constraint_file) as f:
+        return load_constraint(f.read(), inst.alignment.taxon_names,
+                               args.seed, inst.num_branch_slots)
+
+
+def run_search(args, inst, files: RunFiles) -> int:
+    """-f d / -f o: the RAxML hill climb (reference `computeBIGRAPID`)."""
+    from examl_tpu_torch.search.checkpoint import CheckpointManager
+    from examl_tpu_torch.search.convergence import RfConvergence
+    from examl_tpu_torch.search.raxml_search import (SearchOptions,
+                                                     compute_big_rapid)
+
+    mgr = CheckpointManager(args.workdir, args.run_id, log=files.info)
+    resume = None
+    constraint = None
+    if args.restart:
+        tree = inst.random_tree(seed=args.seed)     # overwritten by restore
+        resume = mgr.restore(inst, tree)
+        if resume is None:
+            files.info("no checkpoint found; cannot restart")
+            return 1
+        files.info(f"restart from state {resume['state']} with likelihood "
+                   f"{inst.likelihood:.6f}")
+        if args.constraint_file:
+            # Keep enforcing the constraint after the restart: the
+            # restored tree already honors it, so only the checker is
+            # rebuilt (the random resolution is not redone).
+            _, constraint = _load_constraint(args, inst)
+            constraint._tree = tree
+    elif args.constraint_file:
+        tree, constraint = _load_constraint(args, inst)
+        inst.evaluate(tree, full=True)
+        files.info(f"constraint tree randomly resolved (seed {args.seed}), "
+                   f"lnL {inst.likelihood:.6f}")
+    else:
+        if not args.tree_file:
+            files.info("a starting tree (-t), a constraint tree (-g), or "
+                       "-R is required for the tree search")
+            return 1
+        tree = inst.tree_from_newick(_read_trees(args.tree_file)[0])
+        inst.evaluate(tree, full=True)
+        files.info(f"starting tree lnL {inst.likelihood:.6f}")
+    files.log_lnl(inst.likelihood)
+
+    def log(msg: str) -> None:
+        files.info(msg)
+        files.log_lnl(inst.likelihood)
+
+    opts = SearchOptions(
+        initial=args.initial if args.initial is not None else 10,
+        initial_set=args.initial is not None,
+        save_best_trees=args.save_best,
+        constraint=constraint,
+        do_cutoff=args.mode != "o",
+        search_convergence=args.rf_convergence,
+        log=log)
+    files.info("SPR lazy-arm scan: sequential")
+    conv = (RfConvergence(inst.alignment.ntaxa, log=files.info)
+            if args.rf_convergence else None)
+    if conv is not None and resume is not None:
+        blob = resume.get("extras", {}).get("rf_history")
+        if blob:
+            conv.load_blob(blob)
+            files.info("restored RF-convergence history from checkpoint")
+
+    def checkpoint_cb(state: str, extras: dict) -> None:
+        # The -D convergence evidence rides along with every checkpoint,
+        # so a restart keeps comparing against the pre-restart cycle.
+        if conv is not None:
+            extras = dict(extras, rf_history=conv.to_blob())
+        mgr.write(state, extras, inst, tree)
+
+    res = compute_big_rapid(inst, tree, opts, convergence_cb=conv,
+                            checkpoint_cb=checkpoint_cb, resume=resume)
+
+    files.info(f"Likelihood of best tree: {res.likelihood:.6f}")
+    files.write_result(tree.to_newick(inst.alignment.taxon_names))
+    _write_per_gene_trees(args, inst, tree, files)
+    write_model_params(files.model_path, inst, tree)
+    if res.good_trees:
+        good = os.path.join(args.workdir, f"ExaML_goodTrees.{args.run_id}")
+        with open(good, "w") as f:
+            for snap in res.good_trees:
+                snap.restore_into(tree)
+                f.write(tree.to_newick(inst.alignment.taxon_names) + "\n")
+        files.info(f"{len(res.good_trees)} other good trees written to "
+                   f"{good}")
+    return 0
+
+
+def _write_per_gene_trees(args, inst, tree, files: RunFiles) -> None:
+    """Under -M, write one tree per partition with that partition's own
+    branch lengths (reference `printTreePerGene`, `treeIO.c:348`)."""
+    if not args.per_partition_bl:
+        return
+    path = os.path.join(args.workdir,
+                        f"ExaML_perGeneBranchLengths.{args.run_id}")
+    with open(path, "w") as f:
+        for gid, part in enumerate(inst.alignment.partitions):
+            f.write(f"[partition {gid} {part.name}]\n")
+            f.write(tree.to_newick(inst.alignment.taxon_names,
+                                   branch_index=gid) + "\n")
+    files.info(f"Per-partition branch-length trees written to {path}")
+
+
 def run_tree_evaluation(args, inst, files: RunFiles) -> int:
     """-f e / -f E: optimize model+branches on each tree in the file
-    (reference `optimizeTrees`, `axml.c:2251-2356`)."""
+    (reference `optimizeTrees`, `axml.c:2251-2356`), checkpointing with the
+    MOD_OPT state per optimizer round (at most one per
+    MID_TREE_CHECKPOINT_S) and per finished tree (reference
+    `axml.h:655-659`, restart dispatch `searchAlgo.c:1730-1749`)."""
     from examl_tpu_torch.optimize.branch import tree_evaluate
     from examl_tpu_torch.optimize.model_opt import mod_opt
+    from examl_tpu_torch.search.checkpoint import CheckpointManager
 
+    if not args.tree_file:
+        files.info("tree evaluation mode requires -t")
+        return 1
     trees_txt = _read_trees(args.tree_file)
     if not trees_txt:
         files.info(f"no trees found in {args.tree_file}")
         return 1
     files.info(f"Found {len(trees_txt)} trees to evaluate")
     fast = args.mode == "e"
+    # Each checkpoint embeds the accumulated results, so only the last two
+    # are kept: disk use stays linear in the number of trees.
+    mgr = CheckpointManager(args.workdir, args.run_id, keep_last=2,
+                            log=files.info)
+    last_ckpt = [0.0]
+
+    start_i = 0
     results = []
     lnls = []
-    for i, text in enumerate(trees_txt):
-        tree = inst.tree_from_newick(text)
+    resumed_tree = None
+    if args.restart:
+        tree = inst.tree_from_newick(trees_txt[0])   # scaffold for restore
+        resume = mgr.restore(inst, tree)
+        if resume is None:
+            files.info("no checkpoint found; cannot restart")
+            return 1
+        if resume["state"] != "MOD_OPT":
+            files.info(f"checkpoint state {resume['state']} is not a "
+                       "tree-evaluation checkpoint")
+            return 1
+        ex = resume["extras"]
+        start_i = ex["tree_iteration"]
+        results = list(ex.get("results", []))
+        lnls = list(ex.get("lnls", []))
+        # Only a mid-optimization checkpoint carries a tree worth resuming
+        # into; a per-finished-tree checkpoint restarts at trees_txt[i+1].
+        resumed_tree = tree if ex.get("mid_tree") else None
+        files.info(f"restart at tree {start_i} with likelihood "
+                   f"{inst.likelihood:.6f}")
+
+    for i in range(start_i, len(trees_txt)):
+        if i == start_i and resumed_tree is not None:
+            tree = resumed_tree        # mid-optimization topology+branches
+        else:
+            tree = inst.tree_from_newick(trees_txt[i])
         inst.evaluate(tree, full=True)
+
+        def ckpt_cb(state: str, extras: dict, i=i, tree=tree) -> None:
+            if time.time() - last_ckpt[0] < MID_TREE_CHECKPOINT_S:
+                return
+            merged = dict(extras)
+            merged.update(tree_iteration=i, results=results, lnls=lnls,
+                          mid_tree=True)
+            mgr.write(state, merged, inst, tree)
+            last_ckpt[0] = time.time()
+
         if fast and i > 0:
             tree_evaluate(inst, tree, 2.0)
         else:
             tree_evaluate(inst, tree, 1.0)
-            mod_opt(inst, tree, 0.1)
+            mod_opt(inst, tree, 0.1, checkpoint_cb=ckpt_cb)
         files.info(f"Likelihood tree {i}: {inst.likelihood:.6f}")
         files.log_lnl(inst.likelihood)
         results.append(tree.to_newick(inst.alignment.taxon_names))
         lnls.append(inst.likelihood)
+        # Per-finished-tree checkpoint so a restart moves on to tree i+1.
+        mgr.write("MOD_OPT", {"tree_iteration": i + 1, "results": results,
+                              "lnls": lnls}, inst, tree)
+        last_ckpt[0] = time.time()
     best = max(range(len(lnls)), key=lambda i: lnls[i])
     files.info(f"Evaluated {len(lnls)} trees; best is tree {best} "
                f"with likelihood {lnls[best]:.6f}")
@@ -153,12 +351,12 @@ def run_tree_evaluation(args, inst, files: RunFiles) -> int:
 
 
 def main(argv=None, device=None) -> int:
-    """Run tree evaluation; `device` defaults to the card ("cuda")."""
+    """Run the mode `-f` names; `device` defaults to the card ("cuda")."""
     args = build_argparser().parse_args(argv)
     from examl_tpu_torch.instance import PhyloInstance
     from examl_tpu_torch.io.bytefile import read_bytefile
 
-    files = RunFiles(args.workdir, args.run_id)
+    files = RunFiles(args.workdir, args.run_id, append=args.restart)
     files.info(f"alignment: {args.bytefile}  mode: -f {args.mode}  "
                f"model: {args.model}  newview: {args.newview}")
     try:
@@ -168,10 +366,12 @@ def main(argv=None, device=None) -> int:
         return 1
     files.info(f"{data.ntaxa} taxa, {data.total_patterns} patterns, "
                f"{len(data.partitions)} partitions")
-    inst = PhyloInstance(data, device=device,
+    inst = PhyloInstance(data, device=device, use_median=args.median,
                          per_partition_branches=args.per_partition_bl,
                          newview=args.newview)
     files.info(f"device: {inst.device}  dtype: {inst.dtype}")
+    if args.mode in ("d", "o"):
+        return run_search(args, inst, files)
     return run_tree_evaluation(args, inst, files)
 
 

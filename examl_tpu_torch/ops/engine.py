@@ -33,10 +33,12 @@ from examl_tpu_torch.tree.topology import FlatTraversal, Tree, TraversalEntry
 from examl_tpu_torch.utils import next_pow2, z_slots
 
 NEWVIEW_TIERS = ("chunk", "whole")
-# Full traversals dispatched on either tier, and the launch-table rows
-# the chunk tier dispatched (plain counts, read by chip_smoke.py beside
-# each kernel's launch count).
+# Full traversals dispatched on either tier, partial traversals run on
+# the wave-scan tier, and the launch-table rows the chunk tier
+# dispatched (plain counts, read by chip_smoke.py beside each kernel's
+# launch count).
 FULL_TRAVERSALS = 0
+PARTIAL_TRAVERSALS = 0
 CHUNK_LAUNCH_ROWS = 0
 
 
@@ -253,7 +255,7 @@ class LikelihoodEngine:
     def run_traversal(self, entries, full: bool = False) -> None:
         """Recompute CLVs for `entries` — a TraversalEntry list, or a
         `FlatTraversal` (full traversals take the `newview` tier)."""
-        global FULL_TRAVERSALS
+        global FULL_TRAVERSALS, PARTIAL_TRAVERSALS
         if not len(entries):
             return
         if full and self._fast_eligible(entries):
@@ -265,6 +267,7 @@ class LikelihoodEngine:
             return
         if isinstance(entries, FlatTraversal):
             entries = entries.to_entries()
+        PARTIAL_TRAVERSALS += 1
         self._run_scan(entries)
 
     # -- evaluation ----------------------------------------------------------

@@ -6,8 +6,9 @@ JAX package's `EXAML_GRAD_SMOOTH=0` semantics): the reference's
 `searchAlgo.c:127-436, 2635-2650`) — repeated Newton-Raphson passes over
 every branch until no branch moves by more than `deltaz`, tracked per
 branch slot through the instance's `partition_smoothed` /
-`partition_converged` flags.  The whole-tree gradient route comes with
-the gradient kernels.
+`partition_converged` flags, plus the SPR search's local passes
+(`localSmooth`, `regionalSmooth`).  The whole-tree gradient route comes
+with the gradient kernels.
 """
 
 from __future__ import annotations
@@ -74,6 +75,57 @@ def smooth_tree(inst: PhyloInstance, tree: Tree, maxtimes: int) -> None:
         if _all_smoothed(inst):
             break
     inst.partition_converged[:] = False
+
+
+def local_smooth(inst: PhyloInstance, tree: Tree, p: Node,
+                 maxtimes: int) -> bool:
+    """Smooth only the three branches of inner node p (ref `localSmooth`)."""
+    if tree.is_tip(p.number):
+        return False
+    inst.partition_converged[:] = False
+    while maxtimes > 0:
+        maxtimes -= 1
+        inst.partition_smoothed[:] = True
+        for s in (p, p.next, p.next.next):
+            update_branch(inst, tree, s)
+        if _all_smoothed(inst):
+            break
+    inst.partition_smoothed[:] = False
+    inst.partition_converged[:] = False
+    return True
+
+
+def region_smooth(inst: PhyloInstance, tree: Tree, p: Node, region: int,
+                  maxtimes: int) -> bool:
+    """Smooth branches within `region` hops of branch (p, p.back)
+    (ref `regionalSmooth`, `searchAlgo.c:368-436`).  Iterative like
+    `smooth_subtree` — the same recursion-depth hazard, one level down."""
+    def smooth_region(s0: Node, region: int) -> None:
+        stack: List[Tuple[Node, int, bool]] = [(s0, region, False)]
+        while stack:
+            s, depth, expanded = stack.pop()
+            if expanded:
+                inst.new_view(tree, s)
+                continue
+            update_branch(inst, tree, s)
+            if depth > 0 and not tree.is_tip(s.number):
+                stack.append((s, depth, True))
+                stack.append((s.next.next.back, depth - 1, False))
+                stack.append((s.next.back, depth - 1, False))
+
+    if tree.is_tip(p.number) and tree.is_tip(p.back.number):
+        return False
+    inst.partition_converged[:] = False
+    while maxtimes > 0:
+        maxtimes -= 1
+        inst.partition_smoothed[:] = True
+        smooth_region(p, region)
+        smooth_region(p.back, region)
+        if _all_smoothed(inst):
+            break
+    inst.partition_smoothed[:] = False
+    inst.partition_converged[:] = False
+    return True
 
 
 def tree_evaluate(inst: PhyloInstance, tree: Tree,

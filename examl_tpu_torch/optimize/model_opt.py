@@ -163,10 +163,14 @@ def opt_freqs(inst: PhyloInstance, tree: Tree,
 
 
 def mod_opt(inst: PhyloInstance, tree: Tree, likelihood_epsilon: float,
-            max_rounds: int = 100) -> float:
+            max_rounds: int = 100, checkpoint_cb=None) -> float:
     """Round-robin parameter optimization until Delta lnL < epsilon
     (reference `modOpt`, `optimizeModel.c:2963-3133`).  Under GAMMA the
-    rate-heterogeneity step is the alpha Brent."""
+    rate-heterogeneity step is the alpha Brent.
+
+    checkpoint_cb(state, extras), when given, is invoked after every
+    optimization round — the reference's MOD_OPT checkpoint cadence in
+    tree-evaluation mode (`optimizeModel.c:2995-3010`, `axml.h:655-659`)."""
     inst.evaluate(tree, full=True)
     while max_rounds > 0:
         max_rounds -= 1
@@ -177,6 +181,8 @@ def mod_opt(inst: PhyloInstance, tree: Tree, likelihood_epsilon: float,
         tree_evaluate(inst, tree, 0.0625)
         opt_alphas(inst, tree)
         tree_evaluate(inst, tree, 0.1)
+        if checkpoint_cb is not None:
+            checkpoint_cb("MOD_OPT", {})
         if abs(current - inst.likelihood) <= likelihood_epsilon:
             break
     return inst.likelihood

@@ -1,0 +1,271 @@
+"""Checkpoint / restart subsystem.
+
+Reference semantics (ExaML `searchAlgo.c:1102-1750`, SURVEY §5.4):
+checkpoints cover every long-running phase (REARR_SETTING / FAST_SPRS /
+SLOW_SPRS / MOD_OPT), files are monotonically numbered and never
+overwritten, and a restart refuses mismatched command-line flags
+(`checkCommandLineArguments` :1383-1500).  State is serialized as
+gzipped JSON: edge-list tree snapshots, raw model parameters
+(rates/freqs/alpha; eigensystems are recomputed), search counters, and
+the best-tree list.
+
+The port of the single-writer path of `examl_tpu/search/checkpoint.py`,
+with the same file names, magic, version, sections and fingerprint keys,
+so a checkpoint written by either package restores in the other.  The
+world size is always 1 here (`nprocs`, allowlisted on restore as in the
+JAX package).  Models are GTR under GAMMA: a checkpoint carrying an LG4,
+automatic-protein or per-site-rate model is refused with
+NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import glob
+import gzip
+import json
+import os
+import re
+from typing import Optional
+
+import numpy as np
+
+from examl_tpu_torch.instance import PhyloInstance
+from examl_tpu_torch.models.gtr import build_model
+from examl_tpu_torch.search.snapshots import TreeSnapshot
+from examl_tpu_torch.tree.topology import Tree
+
+CKPT_VERSION = 1
+CKPT_MAGIC = "examl-tpu-checkpoint"
+
+# Fingerprint keys allowed to DIFFER between write and restore (the JAX
+# package's elastic-resume allowlist); everything else must match.
+ELASTIC_FP_KEYS = frozenset({"nprocs"})
+
+
+class CorruptCheckpoint(ValueError):
+    """A checkpoint file that cannot be parsed (truncated/corrupt gzip,
+    invalid JSON, missing magic or required sections) — the restore
+    fallback skips these; genuine config mismatches raise ValueError."""
+
+
+def _fingerprint(inst: PhyloInstance) -> dict:
+    """Alignment/flag identity that must match between run and restart."""
+    al = inst.alignment
+    return {
+        "ntaxa": al.ntaxa,
+        "partitions": [[p.name, p.states,
+                        int(p.global_weight_sum
+                            if p.global_weight_sum is not None
+                            else np.sum(p.weights))]
+                       for p in al.partitions],
+        "ncat": inst.ncat,
+        "use_median": inst.use_median,
+        "per_partition_branches": inst.per_partition_branches,
+        "rate_model": "GAMMA",
+        "nprocs": 1,
+    }
+
+
+def _models_blob(inst: PhyloInstance) -> list:
+    return [{"rates": np.asarray(m.rates).tolist(),
+             "freqs": np.asarray(m.freqs).tolist(),
+             "alpha": float(m.alpha),
+             "auto_name": None,
+             "auto_freqs": None}
+            for m in inst.models]
+
+
+def _restore_models(inst: PhyloInstance, blob: list) -> None:
+    for gid, d in enumerate(blob):
+        for key, model in (("lg4", "an LG4 model"),
+                           ("auto_name", "an automatic protein model"),
+                           ("rate_category", "the PSR rate model")):
+            if d.get(key):
+                raise NotImplementedError(
+                    f"checkpoint partition {gid} carries {model} "
+                    f"({key}={d[key]!r}); only GTR under GAMMA is ported")
+        part = inst.alignment.partitions[gid]
+        inst.models[gid] = build_model(
+            part.datatype, np.asarray(d["freqs"]),
+            rates=np.asarray(d["rates"]), alpha=d["alpha"],
+            ncat=inst.ncat, use_median=inst.use_median)
+    inst.push_models()
+
+
+class CheckpointManager:
+    """Writes numbered checkpoint files and restores the newest one.
+
+    Usage: mgr = CheckpointManager(workdir, run_id);
+    compute_big_rapid(..., checkpoint_cb=lambda state, extras:
+    mgr.write(state, extras, inst, tree)), and on restart
+    resume = mgr.restore(inst, tree).
+    """
+
+    FILE_RE = re.compile(r"\.ckpt_(\d+)\.json\.gz$")
+
+    def __init__(self, workdir: str, run_id: str,
+                 keep_last: Optional[int] = None, log=print):
+        self.workdir = workdir
+        self.run_id = run_id
+        # keep_last: prune checkpoints older than the newest N after each
+        # write (None = keep all, the search default mirroring the
+        # reference's never-overwritten numbered files).  Modes that write
+        # per work item (-f e over many trees) pass a small N so disk use
+        # stays linear.
+        self.keep_last = keep_last
+        self.log = log
+        os.makedirs(workdir, exist_ok=True)
+        self.counter = self._max_existing() + 1
+
+    def _pattern(self) -> str:
+        return os.path.join(self.workdir,
+                            f"ExaML_binaryCheckpoint.{self.run_id}"
+                            ".ckpt_*.json.gz")
+
+    def _numbers(self) -> list:
+        return [int(m.group(1)) for f in glob.glob(self._pattern())
+                if (m := self.FILE_RE.search(f))]
+
+    def _max_existing(self) -> int:
+        return max(self._numbers(), default=-1)
+
+    def path_for(self, n: int) -> str:
+        return os.path.join(self.workdir,
+                            f"ExaML_binaryCheckpoint.{self.run_id}"
+                            f".ckpt_{n}.json.gz")
+
+    # -- write --------------------------------------------------------------
+
+    def _fsync_file(self, path: str) -> None:
+        """fsync a CLOSED file (the gzip trailer is only written at close)
+        before the rename, so a hard kill or power loss cannot publish a
+        truncated file."""
+        fd = os.open(path, os.O_RDONLY)
+        try:
+            os.fsync(fd)
+        finally:
+            os.close(fd)
+
+    def _fsync_dir(self) -> None:
+        try:                        # directory-entry durability: best
+            dirfd = os.open(self.workdir, os.O_RDONLY)  # effort on
+            try:                    # filesystems that reject dir fsync
+                os.fsync(dirfd)
+            finally:
+                os.close(dirfd)
+        except OSError:
+            pass
+
+    def write(self, state: str, extras: dict, inst: PhyloInstance,
+              tree: Tree) -> str:
+        """Publish checkpoint number `counter`: a tmp file, fsynced, then
+        one atomic rename; an older checkpoint is never overwritten."""
+        tree_dict = TreeSnapshot.capture(
+            tree, getattr(inst, "likelihood", 0.0),
+            with_key=False).to_dict()
+        blob = {
+            "magic": CKPT_MAGIC,
+            "version": CKPT_VERSION,
+            "state": state,
+            "counter": self.counter,
+            "fingerprint": _fingerprint(inst),
+            "models": _models_blob(inst),
+            "tree": tree_dict,
+            "extras": extras,
+        }
+        path = self.path_for(self.counter)
+        tmp = path + ".tmp"
+        try:
+            with gzip.open(tmp, "wt") as f:
+                json.dump(blob, f)
+            self._fsync_file(tmp)
+            os.replace(tmp, path)
+        except OSError:
+            try:
+                os.unlink(tmp)
+            except OSError:
+                pass
+            raise
+        self._fsync_dir()
+        self.counter += 1
+        self._prune()
+        return path
+
+    def _prune(self) -> None:
+        """Remove every on-disk index older than the newest keep_last (a
+        crash between publish and prune, or a keep_last that shrank
+        across a restart, leaves older files that this sweep catches)."""
+        if self.keep_last is None:
+            return
+        cutoff = self.counter - self.keep_last
+        for n in self._numbers():
+            if n < cutoff:
+                try:
+                    os.remove(self.path_for(n))
+                except FileNotFoundError:
+                    pass
+
+    # -- restore ------------------------------------------------------------
+
+    def restore(self, inst: PhyloInstance, tree: Tree,
+                path: Optional[str] = None) -> Optional[dict]:
+        """Load the newest readable checkpoint into inst+tree; returns
+        the resume blob for compute_big_rapid, or None if no (intact)
+        checkpoint exists.
+
+        A checkpoint that fails to parse is skipped with a logged warning
+        and the next-newest numbered file is tried; an explicit `path`
+        disables the fallback.  Raises ValueError on an incompatible run
+        configuration (the reference aborts on mismatched restart
+        flags)."""
+        if path is not None:
+            return self._restore_one(inst, tree, path)
+        nums = sorted(self._numbers(), reverse=True)
+        for n in nums:
+            p = self.path_for(n)
+            try:
+                return self._restore_one(inst, tree, p)
+            except CorruptCheckpoint as exc:
+                self.log(f"checkpoint {p} unreadable ({exc}); falling back "
+                         "to the next-newest checkpoint")
+        if nums:
+            self.log(f"all {len(nums)} checkpoint(s) for run "
+                     f"'{self.run_id}' are unreadable; nothing to resume")
+        return None
+
+    def _restore_one(self, inst: PhyloInstance, tree: Tree,
+                     path: str) -> dict:
+        try:
+            with gzip.open(path, "rt") as f:
+                blob = json.load(f)
+        except (OSError, EOFError, ValueError) as exc:
+            # EOFError / gzip.BadGzipFile (an OSError): a truncated or
+            # garbage gzip stream; ValueError covers json.JSONDecodeError.
+            raise CorruptCheckpoint(f"{type(exc).__name__}: {exc}") \
+                from exc
+        if not isinstance(blob, dict) or blob.get("magic") != CKPT_MAGIC:
+            raise CorruptCheckpoint(f"not an examl-tpu checkpoint: {path}")
+        missing = [k for k in ("fingerprint", "models", "tree", "state")
+                   if k not in blob]
+        if missing:
+            raise CorruptCheckpoint(
+                f"checkpoint missing section(s) {missing}: {path}")
+        if blob.get("version") != CKPT_VERSION:
+            raise ValueError(f"checkpoint version {blob.get('version')} "
+                             f"unsupported")
+        fp_now = _fingerprint(inst)
+        fp_ckpt = blob["fingerprint"]
+        hard = [k for k in sorted(set(fp_now) | set(fp_ckpt))
+                if k not in ELASTIC_FP_KEYS
+                and not (k in fp_now and k in fp_ckpt
+                         and fp_now[k] == fp_ckpt[k])]
+        if hard:
+            raise ValueError(
+                "checkpoint was written for a different run configuration "
+                f"(mismatched section(s) {hard}: checkpoint {fp_ckpt} vs "
+                f"current {fp_now}); restart must use the same alignment, "
+                "partitions, and model flags")
+        _restore_models(inst, blob["models"])
+        TreeSnapshot.from_dict(blob["tree"]).restore_into(tree)
+        inst.evaluate(tree, full=True)
+        return {"state": blob["state"], "extras": blob["extras"]}

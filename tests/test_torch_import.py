@@ -41,6 +41,13 @@ def test_port_imports_no_jax_and_no_examl_tpu():
                  "examl_tpu_torch.optimize.brent",
                  "examl_tpu_torch.optimize.model_opt",
                  "examl_tpu_torch.cli.main",
+                 "examl_tpu_torch.cli.parse",
+                 "examl_tpu_torch.search.checkpoint",
+                 "examl_tpu_torch.search.convergence",
+                 "examl_tpu_torch.search.raxml_search",
+                 "examl_tpu_torch.search.snapshots",
+                 "examl_tpu_torch.search.spr",
+                 "examl_tpu_torch.tree.constraint",
                  "examl_tpu_torch.transfer"):
         assert name in out["modules"]
     assert out["leaked"] == []
