@@ -5,12 +5,14 @@ Builds the port's CUDA kernels from the sources in this checkout, holds
 each kernel against its plain PyTorch version on the card, checks the
 ref49 likelihood anchors on both full-traversal tiers (`newview="chunk"`,
 the launch table through kernel B1; `newview="whole"`, kernel B2), runs
-`-f e` on ref49 through the port's CLI, runs the `-f d` SPR search
-through the CLI on an 8-taxon, four-partition alignment and restarts it
-with `-R` from its last-but-one checkpoint on the other tier, and drives
-the port's main paths — full-traversal evaluate, Newton-Raphson branch
-updates, the SPR scan's scored insertions, a model-optimization pass —
-at a real per-GPU size (512 taxa x 131,072 DNA patterns in four GTR+G4
+`-f e` on ref49 through the port's CLI (GAMMA on the whole tier, then
+`-m PSR` on the wave-scan tier), runs the `-f d` SPR search through the
+CLI on an 8-taxon, four-partition alignment and restarts it with `-R`
+from its last-but-one checkpoint on the other tier, and drives the port's
+main paths — full-traversal evaluate, Newton-Raphson branch updates, the
+SPR scan's scored insertions, whole-tree gradients and the gradient
+smoothing route, a model-optimization pass, a PSR categorization round —
+at a real per-GPU size (512 taxa x 131,072 DNA patterns in four
 partitions, f32).  Every phase is fatal: any failure exits non-zero
 before the result line.
 
@@ -41,6 +43,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 REF49 = os.path.join(HERE, "tests", "fixtures", "ref49")
 LNL_JAX_F64 = -16205.671707      # JAX package, CPU f64 (ROADMAP.md)
 LNL_REF_BINARY = -16205.671990   # reference ExaML binary (ref49/lnl.txt)
+# The reference binary's -m PSR -f e endpoint on ref49 (ref49psr/lnl.txt)
+# and the one-sided margin tests/test_reference_parity.py allows below it.
+LNL_REF_PSR, PSR_MARGIN = -14702.970620, 1.0
+PSR_CATEGORIES = 25              # -c default: categories per partition
 MODOPT_EPSILON = 0.1             # the -f e model-optimization epsilon
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, published
 F32_FLOPS = 67e12                # H100 SXM, float32 outside tensor cores
@@ -58,7 +64,12 @@ REPEAT = 10             # launch-table rows repeated in one call (breakdown)
 # result tree no longer meets reliably at twice this width.
 FD_TAXA, FD_WIDTH = 8, 1024
 SCAN_SLOTS = 4          # pruned slots of the lazy real-size SPR scan
-NPHASES = 12
+GRAD_RTOL = 1e-3        # f32 against f64 whole-tree d1, of max |d1|
+# tree_evaluate's smooth_factor at real size: 8 smoothings, so at most 32
+# gradient sweeps (the default 32 smoothings run 128 sweeps there, cut by
+# the run's time limit).
+REAL_SMOOTH_FACTOR = 0.25
+NPHASES = 15
 
 
 class SmokeFailure(RuntimeError):
@@ -265,22 +276,30 @@ def phase_kernel_vs_plain(device, B: int, W: int, seed: int):
 
 def reset_counts() -> None:
     from examl_tpu_torch.ops import engine, newview_chunk, newview_whole
+    from examl_tpu_torch.optimize import branch
     from examl_tpu_torch.search import spr
     newview_chunk.LAUNCHES = 0
     newview_whole.LAUNCHES = 0
     engine.FULL_TRAVERSALS = 0
     engine.PARTIAL_TRAVERSALS = 0
     engine.CHUNK_LAUNCH_ROWS = 0
+    engine.GRAD_PASSES = 0
+    branch.GRAD_SWEEPS = 0
     spr.INSERTIONS_SCORED = 0
 
 
 def read_counts() -> dict:
+    """The counts since the last reset.  Under PSR every traversal, full
+    ones included, runs on the wave-scan tier and counts as partial."""
     from examl_tpu_torch.ops import engine, newview_chunk, newview_whole
+    from examl_tpu_torch.optimize import branch
     from examl_tpu_torch.search import spr
     return {"b1": newview_chunk.LAUNCHES, "b2": newview_whole.LAUNCHES,
             "full_traversals": engine.FULL_TRAVERSALS,
             "partial_traversals": engine.PARTIAL_TRAVERSALS,
             "chunk_launch_rows": engine.CHUNK_LAUNCH_ROWS,
+            "grad_passes": engine.GRAD_PASSES,
+            "grad_sweeps": branch.GRAD_SWEEPS,
             "insertions_scored": spr.INSERTIONS_SCORED}
 
 
@@ -478,7 +497,11 @@ def phase_anchor(device):
     check(l2 >= l1, f"smooth_tree decreased lnL: {l1} -> {l2}")
     out["launches"] = read_counts()
     check_tier(out["launches"], "chunk", "ref49 chunk tier")
-    log(f"  launches {out['launches']}")
+    check(out["launches"]["grad_passes"] == out["launches"]["grad_sweeps"]
+          > 0, f"smooth_tree took {out['launches']['grad_sweeps']} gradient "
+          f"sweeps with {out['launches']['grad_passes']} gradient passes")
+    log(f"  launches {out['launches']} (smooth_tree by whole-tree "
+        f"gradients: {out['launches']['grad_sweeps']} sweeps)")
     return out
 
 
@@ -536,13 +559,16 @@ def phase_ref49_whole(device, out_dir: str):
         p.alpha is not None and p.rates is not None and len(p.rates) == 6
         and len(p.freqs) == 4 for p in params),
         "ExaML_modelFile does not parse as four GTR+G partitions")
+    check(counts["grad_passes"] > 0, "-f e smoothed without a gradient pass")
     out.update(fe_start_lnl=start, fe_final_lnl=final, fe_wall_s=wall,
-               fe_smooth_s=smooth_s[0], fe_launches=counts)
+               fe_smooth_s=smooth_s[0], fe_smooth_share=smooth_s[0] / wall,
+               fe_launches=counts)
     log(f"  -f e (CLI, whole tier, f32): start {start!r} -> final "
         f"{final!r} (floor {floor}); {wall:.1f} s, of which branch "
-        f"smoothing {smooth_s[0]:.1f} s; {counts['full_traversals']} full "
-        f"traversals, {counts['b2']} B2 launches, {counts['b1']} B1 "
-        f"launches")
+        f"smoothing {smooth_s[0]:.1f} s ({smooth_s[0] / wall:.1%}: "
+        f"{counts['grad_sweeps']} gradient sweeps, {counts['grad_passes']} "
+        f"gradient passes); {counts['full_traversals']} full traversals, "
+        f"{counts['b2']} B2 launches, {counts['b1']} B1 launches")
     return out
 
 
@@ -682,10 +708,13 @@ def phase_search(device, out_dir: str, seed: int):
     fast = len(re.findall(r"^fast cycle \d+ start", info, re.M))
     thorough = len(set(re.findall(r"^thorough cycle (\d+) radius", info,
                                   re.M)))
-    # Host against device in the search's largest part: one smoothing
-    # sweep of the result tree, profiled.
-    from examl_tpu_torch.optimize.branch import smooth_tree
-    profile = device_breakdown(lambda: smooth_tree(inst, tree, 1), device)
+    # Host against device in full-tree smoothing: smooth_tree(.., 1) on the
+    # result tree (up to 4 gradient sweeps), profiled.
+    from examl_tpu_torch.optimize import branch
+    sweeps0 = branch.GRAD_SWEEPS
+    profile = device_breakdown(lambda: branch.smooth_tree(inst, tree, 1),
+                               device)
+    profile["sweeps"] = branch.GRAD_SWEEPS - sweeps0
     del inst, tree
     parts = dict(clock.s)
     parts["brent_probes"] = parts["mod_opt"] - parts["smoothing_in_mod_opt"]
@@ -706,7 +735,8 @@ def phase_search(device, out_dir: str, seed: int):
         f"{len(ckpts)} checkpoints ({', '.join(states)})")
     log(f"  {counts['full_traversals']} full traversals, "
         f"{counts['partial_traversals']} partial, "
-        f"{counts['insertions_scored']} insertions scored; B1 "
+        f"{counts['insertions_scored']} insertions scored, "
+        f"{counts['grad_sweeps']} gradient sweeps; B1 "
         f"{counts['b1']} launches (= {counts['chunk_launch_rows']} "
         f"launch-table rows), B2 {counts['b2']}")
     log(f"  wall by part: smoothing {parts['smoothing']:.1f} s (of which "
@@ -714,12 +744,13 @@ def phase_search(device, out_dir: str, seed: int):
         f"Brent probes {parts['brent_probes']:.1f} s, scored insertions "
         f"{parts['insertions']:.1f} s, the rest {parts['other']:.1f} s")
     if profile["measured"]:
-        log(f"  profiled smoothing sweep: wall {profile['wall_ms']:.1f} ms, "
-            f"device busy {profile['busy_ms']:.1f} ms (idle share "
+        log(f"  profiled smooth_tree(1), {profile['sweeps']} gradient "
+            f"sweeps: wall {profile['wall_ms']:.1f} ms, device busy "
+            f"{profile['busy_ms']:.1f} ms (idle share "
             f"{profile['idle_share']:.3f}) in {profile['launches']} device "
             f"ops")
     else:
-        log(f"  profiled smoothing sweep: not measured ({profile['error']})")
+        log(f"  profiled smooth_tree: not measured ({profile['error']})")
     return out
 
 
@@ -756,7 +787,7 @@ def phase_restart(device, out_dir: str, fd: dict):
             "wall_s": wall, "launches": counts}
 
 
-# -- phases 9 and 11: real size, chunk and whole tiers ---------------------
+# -- phases 10 and 13: real size, chunk and whole tiers --------------------
 
 
 def synthetic_alignment(ntaxa: int, parts: int, width: int, seed: int):
@@ -838,17 +869,30 @@ def real_setup(ntaxa: int, parts: int, width: int, seed: int) -> dict:
             "alignment_s": time.perf_counter() - t0}
 
 
-def real_instance(setup: dict, device, newview: str):
+def real_instance(setup: dict, device, newview: str, dtype=None,
+                  rate_model: str = "GAMMA"):
+    """The real-size instance on one tier (f32 unless `dtype` says), its
+    models, and the seed's random tree with the set-up's branch lengths.
+    Under PSR the models keep their rates and frequencies with one rate
+    category."""
     import torch
     from examl_tpu_torch.instance import PhyloInstance
     from examl_tpu_torch.transfer import install_model_params
-    inst = PhyloInstance(setup["ad"], dtype=torch.float32, device=device,
-                         newview=newview)
+    inst = PhyloInstance(setup["ad"], dtype=dtype or torch.float32,
+                         device=device, newview=newview,
+                         rate_model=rate_model)
     install_model_params(inst, setup["params"])
     tree = inst.random_tree(setup["seed"])
     for (p, _), z in zip(tree.all_branches(), setup["zs"]):
         p.z[:] = [float(z)]
     return inst, tree
+
+
+def copy_lengths(src, dst) -> None:
+    """Branch lengths of one tree onto another built the same way (the
+    same random tree of the same seed: the same branch order)."""
+    for (p, _), (q, _) in zip(src.all_branches(), dst.all_branches()):
+        q.z[:] = list(p.z)
 
 
 def timed_evaluates(inst, tree, device, reps: int):
@@ -1110,7 +1154,333 @@ def phase_real_size(device, setup: dict, reps: int):
     return report, inst, tree
 
 
-# -- phase 10: the SPR scan at real size ------------------------------------
+# -- phase 12: whole-tree gradients at real size -----------------------------
+
+
+def grad_pass_bytes(flat, ntips: int, patterns: int, R: int, K: int,
+                    itemsize: int) -> int:
+    """Modelled bytes of one whole-tree gradient pass (the JAX package's
+    obs/traffic.py `bytes_per_grad_pass`): the pre-order pass reads one
+    outroot row and two child partials per entry (tips as 1-byte codes)
+    and writes two outroot rows; the edge pass reads one outroot row and
+    one down partial with its scaler per edge."""
+    n = flat.n
+    tips = int((flat.left <= ntips).sum() + (flat.right <= ntips).sum())
+    clv_row = patterns * R * K * itemsize
+    sc_row = patterns * 4
+    inner_children = 2 * n - tips
+    pre = (3 * n * clv_row + inner_children * (clv_row + sc_row)
+           + tips * patterns)
+    return pre + (2 * n + 1) * (2 * clv_row + sc_row)
+
+
+def grad_pass_flops(flat, ntips: int, patterns: int, R: int, K: int) -> int:
+    """Floating-point operations of one gradient pass: per entry P applied
+    to the outroot partial and to each inner child (2*R*K*K per site) and
+    two products; per edge the sumtable's two contractions and product and
+    the three derivative sums."""
+    n = flat.n
+    tips = int((flat.left <= ntips).sum() + (flat.right <= ntips).sum())
+    rk, rkk = R * K, 2 * R * K * K
+    pre = (3 * n - tips) * patterns * rkk + 2 * n * patterns * rk
+    edges = (2 * n + 1) * patterns * (2 * rkk + 2 * rk + 3 * 2 * rk)
+    return pre + edges
+
+
+def phase_real_gradients(device, setup: dict, inst, tree, reps: int):
+    """Whole-tree gradients at real size on the chunk tier: one pass timed
+    and profiled against its bound, its f32 d1 against an f64 instance of
+    the same tree, then one gradient tree_evaluate (REAL_SMOOTH_FACTOR)
+    re-evaluated on the whole tier."""
+    import torch
+    from examl_tpu_torch.optimize.branch import tree_evaluate
+    from examl_tpu_torch.utils import z_slots
+    eng = inst.engines[4]
+    ntaxa, patterns = setup["ntaxa"], setup["patterns"]
+    p = tree.centroid_branch()
+    flat = tree.flat_full_traversal(p)
+    root_z = z_slots(p.z, 1)
+    launches = {}
+    reset_counts()
+    eng.run_traversal(flat, full=True)
+    d1, d2 = eng.whole_tree_gradients(flat, root_z)
+    sync(device)
+    launches["traversal_and_pass"] = read_counts()
+    check_tier(launches["traversal_and_pass"], "chunk",
+               "real-size gradient pass")
+    check(launches["traversal_and_pass"]["grad_passes"] == 1,
+          "one gradient pass expected")
+    E = 2 * ntaxa - 3
+    check(d1.shape == d2.shape == (E, 1) and bool(np.isfinite(d1).all())
+          and bool(np.isfinite(d2).all()), f"gradients {d1.shape} not finite")
+    # The pass alone (the arena stays current: the pass only reads it).
+    pass_ms = time_ms(lambda: eng.whole_tree_gradients(flat, root_z),
+                      device, reps)
+    profile = device_breakdown(
+        lambda: eng.whole_tree_gradients(flat, root_z), device)
+    nbytes = grad_pass_bytes(flat, ntaxa, patterns, eng.R, eng.K, 4)
+    flops = grad_pass_flops(flat, ntaxa, patterns, eng.R, eng.K)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOPS * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    tb_s = nbytes / (pass_ms / 1e3) / 1e12
+    outroot = eng._outroot_arena()
+    log(f"  outroot arena {tuple(outroot.shape)} f32 "
+        f"({outroot.numel() * 4 / 1e9:.2f} GB)")
+    log(f"  gradient pass: {pass_ms:.2f} ms for {E} edges "
+        f"({nbytes / 1e9:.2f} GB modelled, {tb_s:.3f} TB/s); bound "
+        f"{bound_ms:.2f} ms "
+        f"({'bytes' if bytes_ms >= ops_ms else 'operations'}), "
+        f"{bound_ms / pass_ms:.2f} of it")
+    if profile["measured"]:
+        log(f"  profiled pass: wall {profile['wall_ms']:.2f} ms, device busy "
+            f"{profile['busy_ms']:.2f} ms (idle share "
+            f"{profile['idle_share']:.3f}) in {profile['launches']} device "
+            f"ops")
+        for r in profile["top"]:
+            log(f"    {r['ms']:9.3f} ms  {r['calls']:5d}x  {r['name']}")
+    else:
+        log(f"  profiled pass: not measured ({profile['error']})")
+
+    # f32 against f64 on the same tree and branch lengths, every edge.
+    torch.cuda.reset_peak_memory_stats(device)
+    inst64, tree64 = real_instance(setup, device, "chunk", torch.float64)
+    copy_lengths(tree, tree64)
+    p64 = tree64.centroid_branch()
+    flat64 = tree64.flat_full_traversal(p64)
+    eng64 = inst64.engines[4]
+    eng64.run_traversal(flat64, full=True)
+    d1_64, _ = eng64.whole_tree_gradients(flat64, z_slots(p64.z, 1))
+    sync(device)
+    peak64 = torch.cuda.max_memory_allocated(device)
+    del inst64, tree64, eng64
+    torch.cuda.empty_cache()
+    gap = float(np.abs(d1 - d1_64).max() / np.abs(d1_64).max())
+    log(f"  f32 d1 against f64: max gap {gap:.3e} of max |d1| "
+        f"({float(np.abs(d1_64).max()):.4e}); bound {GRAD_RTOL}; peak device "
+        f"memory with both instances {peak64 / 1e9:.2f} GB")
+    check(gap <= GRAD_RTOL, f"f32 gradients {gap:.3e} of max |d1| away "
+          f"from f64")
+
+    # One tree_evaluate by gradients, re-evaluated on the whole tier.
+    before = inst.evaluate(tree, full=True)
+    sync(device)
+    reset_counts()
+    t0 = time.perf_counter()
+    after = tree_evaluate(inst, tree, REAL_SMOOTH_FACTOR)
+    sync(device)
+    smooth_s = time.perf_counter() - t0
+    launches["tree_evaluate"] = counts = read_counts()
+    check_tier(counts, "chunk", "real-size gradient tree_evaluate")
+    check(counts["grad_passes"] == counts["grad_sweeps"] > 0,
+          f"tree_evaluate: {counts['grad_sweeps']} sweeps, "
+          f"{counts['grad_passes']} gradient passes")
+    check(math.isfinite(after) and after > before,
+          f"gradient tree_evaluate did not raise lnL: {before} -> {after}")
+    whole_inst, whole_tree = real_instance(setup, device, "whole")
+    copy_lengths(tree, whole_tree)
+    reset_counts()
+    whole_lnl = whole_inst.evaluate(whole_tree, full=True)
+    sync(device)
+    launches["whole_reevaluate"] = read_counts()
+    check_tier(launches["whole_reevaluate"], "whole",
+               "real-size whole re-evaluation")
+    del whole_inst, whole_tree
+    torch.cuda.empty_cache()
+    check(abs(whole_lnl - after) <= 1e-6 * abs(after),
+          f"smoothed tree re-evaluates to {whole_lnl} on the whole tier "
+          f"against {after}")
+    log(f"  tree_evaluate: lnL {before!r} -> {after!r} in {smooth_s:.2f} s; "
+        f"{counts['grad_sweeps']} gradient sweeps, "
+        f"{counts['full_traversals']} full traversals, B1 {counts['b1']} "
+        f"launches (= {counts['chunk_launch_rows']} launch-table rows); "
+        f"whole tier re-evaluates to {whole_lnl!r}")
+    return {"edges": E, "pass_ms": pass_ms, "bytes_per_pass": nbytes,
+            "flops_per_pass": flops, "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "achieved_tb_per_s": tb_s, "profile": profile,
+            "d1_gap_f64": gap,
+            "max_abs_d1": float(np.abs(d1_64).max()),
+            "peak_bytes_with_f64": peak64,
+            "lnl_before": before, "lnl_after": after,
+            "whole_lnl": whole_lnl, "tree_evaluate_s": smooth_s,
+            "sweeps": counts["grad_sweeps"], "launches_by_path": launches}
+
+
+# -- phases 9 and 14: PSR, ref49 -f e through the CLI and at real size -------
+
+
+class PsrClock:
+    """Wall time of a PSR run's parts, taken around the functions it
+    calls (each ends with a read-back, and the wrapper synchronizes): the
+    engines' rate scans (one per grid chunk, with its width), branch-length
+    smoothing, and the continuous category-rate refinement."""
+
+    def __init__(self, device):
+        from examl_tpu_torch.ops import engine
+        from examl_tpu_torch.optimize import branch, model_opt
+        self.s = {"rate_scan": 0.0, "smoothing": 0.0, "refine": 0.0}
+        self.scans = []
+        self._saved = []
+        for obj, name, key in ((engine.LikelihoodEngine, "rate_scan",
+                                "rate_scan"),
+                               (branch, "smooth_tree", "smoothing"),
+                               (model_opt, "refine_category_rates",
+                                "refine")):
+            fn = getattr(obj, name)
+            self._saved.append((obj, name, fn))
+            setattr(obj, name, self._timed(fn, key, device))
+
+    def _timed(self, fn, key, device):
+        def run(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                sync(device)
+                dt = time.perf_counter() - t
+                self.s[key] += dt
+                if key == "rate_scan":
+                    self.scans.append((int(a[-1].shape[-1]), dt))
+        return run
+
+    def restore(self) -> None:
+        for obj, name, fn in self._saved:
+            setattr(obj, name, fn)
+
+
+def model_file_categories(path: str) -> list:
+    with open(path) as f:
+        text = f.read()
+    return [int(c) for c in re.findall(r"^categories: (\d+)$", text, re.M)]
+
+
+def phase_ref49_psr(device, out_dir: str):
+    """-m PSR -f e on ref49 through the port's CLI, f32 on the card; every
+    traversal on the wave-scan tier (kernels B1 and B2 serve GAMMA)."""
+    from examl_tpu_torch.instance import PhyloInstance
+    from examl_tpu_torch.io.bytefile import read_bytefile
+    aln = os.path.join(REF49, "aln49.binary")
+    inst = PhyloInstance(read_bytefile(aln), device=device,
+                         rate_model="PSR")
+    with open(os.path.join(REF49, "TreeFile")) as f:
+        start = inst.evaluate(inst.tree_from_newick(f.read()), full=True)
+    del inst
+    workdir = os.path.join(out_dir, "psr_ref49")
+    clock = PsrClock(device)
+    try:
+        rc, wall, counts, info = run_cli(
+            ["-s", aln, "-t", os.path.join(REF49, "TreeFile"), "-f", "e",
+             "-m", "PSR"], device, workdir)
+    finally:
+        clock.restore()
+    check(rc == 0, f"-m PSR -f e through the CLI returned {rc}")
+    check(counts["b1"] == counts["b2"] == counts["full_traversals"] == 0,
+          f"-m PSR ran a full-traversal kernel: {counts}")
+    check(counts["grad_passes"] > 0, "-m PSR smoothed without gradients")
+    final = float(re.search(r"Likelihood tree 0: (\S+)", info).group(1))
+    floor = LNL_REF_PSR - PSR_MARGIN
+    check(final >= start, f"-m PSR -f e ended at {final}, below its start "
+          f"{start}")
+    check(final >= floor, f"-m PSR -f e endpoint {final} below {floor}")
+    cats = model_file_categories(os.path.join(workdir,
+                                              "ExaML_modelFile.smoke"))
+    check(len(cats) == 4 and all(1 <= c <= PSR_CATEGORIES for c in cats),
+          f"ExaML_modelFile categories {cats}")
+    parts = dict(clock.s)
+    parts["brent_probes_and_rest"] = wall - parts["rate_scan"] \
+        - parts["smoothing"]
+    log(f"  -m PSR -f e (CLI, wave-scan tier, f32): start {start!r} -> "
+        f"final {final!r} (floor {floor}); {wall:.1f} s: rate scans "
+        f"{parts['rate_scan']:.1f} s ({len(clock.scans)} grid chunks), "
+        f"smoothing {parts['smoothing']:.1f} s ({counts['grad_sweeps']} "
+        f"gradient sweeps), Brent probes and the rest "
+        f"{parts['brent_probes_and_rest']:.1f} s (of which the category "
+        f"refinement {parts['refine']:.1f} s, its smoothing excluded); "
+        f"{counts['partial_traversals']} wave-scan traversals; categories "
+        f"per partition {cats}")
+    return {"start_lnl": start, "final_lnl": final, "floor": floor,
+            "wall_s": wall, "parts_s": parts, "rate_scan_chunks":
+            len(clock.scans), "categories": cats, "launches": counts}
+
+
+def phase_real_psr(device, setup: dict):
+    """PSR at real size (the phase-10 data, f32, wave-scan tier): one
+    gradient tree_evaluate (REAL_SMOOTH_FACTOR), then one categorization
+    round.  The round runs
+    on smoothed branches, as in `-f e`: from the unsmoothed random tree the
+    first round's coarse rate grid loses lnL and is rejected."""
+    import torch
+    from examl_tpu_torch.optimize.branch import tree_evaluate
+    from examl_tpu_torch.optimize.psr import optimize_rate_categories
+    torch.cuda.reset_peak_memory_stats(device)
+    inst, tree = real_instance(setup, device, "chunk", rate_model="PSR")
+    eng = inst.engines[4]
+    l0 = inst.evaluate(tree, full=True)
+    sync(device)
+    reset_counts()
+    t0 = time.perf_counter()
+    l1 = tree_evaluate(inst, tree, REAL_SMOOTH_FACTOR)
+    sync(device)
+    smooth_s = time.perf_counter() - t0
+    smooth_counts = read_counts()
+    check(smooth_counts["b1"] == smooth_counts["b2"] == 0
+          and smooth_counts["grad_passes"] > 0,
+          f"PSR tree_evaluate counts {smooth_counts}")
+    check(math.isfinite(l1) and l1 > l0,
+          f"PSR tree_evaluate did not raise lnL: {l0} -> {l1}")
+    clock = PsrClock(device)
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        l2 = optimize_rate_categories(inst, tree)
+        sync(device)
+    finally:
+        clock.restore()
+    round_s = time.perf_counter() - t0
+    counts = read_counts()
+    check(counts["b1"] == counts["b2"] == 0, f"PSR launched B1/B2: {counts}")
+    check(math.isfinite(l2) and l2 >= l1,
+          f"the categorization round lowered lnL: {l1} -> {l2}")
+    num = den = 0.0
+    for gid, part in enumerate(inst.alignment.partitions):
+        w = np.asarray(part.weights, np.float64)
+        num += float(w @ inst.per_site_rates[gid][inst.rate_category[gid]])
+        den += float(w.sum())
+    check(abs(num / den - 1.0) <= 1e-6, f"weighted mean site rate "
+          f"{num / den}")
+    cats = [len(r) for r in inst.per_site_rates]
+    check(all(1 <= c <= PSR_CATEGORIES for c in cats),
+          f"categories per partition {cats}")
+    full_chunks = [dt for g, dt in clock.scans if g > 1]
+    chunk_ms = (float(np.mean(full_chunks)) * 1e3 if full_chunks
+                else float("nan"))
+    peak = torch.cuda.max_memory_allocated(device)
+    scan_bytes = eng.num_rows * eng.B * eng.lane * 8 * eng.K * 4
+    log(f"  arena {tuple(eng.clv.shape)} ({eng.clv.numel() * 4 / 1e9:.2f} "
+        f"GB), rate-scan arena for 8 rates {scan_bytes / 1e9:.2f} GB")
+    log(f"  tree_evaluate by gradients: lnL "
+        f"{l0!r} -> {l1!r} in {smooth_s:.2f} s, "
+        f"{smooth_counts['grad_sweeps']} sweeps")
+    log(f"  categorization round: lnL {l1!r} -> {l2!r} "
+        f"({'accepted' if l2 > l1 else 'rejected'}) in {round_s:.2f} s, "
+        f"{len(clock.scans)} rate scans (grid widths "
+        f"{[g for g, _ in clock.scans]}), {chunk_ms:.1f} ms per grid chunk "
+        f"of 8, scans {clock.s['rate_scan']:.2f} s; categories {cats}; "
+        f"weighted mean rate {num / den!r}; peak device memory "
+        f"{peak / 1e9:.2f} GB")
+    del inst, tree
+    torch.cuda.empty_cache()
+    return {"lnl_start": l0, "lnl_after_smooth": l1, "lnl_after_round": l2,
+            "round_accepted": l2 > l1, "round_s": round_s,
+            "rate_scans": clock.scans, "rate_scan_s": clock.s["rate_scan"],
+            "ms_per_grid_chunk": chunk_ms, "grid_chunks": len(full_chunks),
+            "categories": cats, "mean_rate": num / den,
+            "tree_evaluate_s": smooth_s,
+            "sweeps": smooth_counts["grad_sweeps"], "peak_bytes": peak,
+            "launches": {"tree_evaluate": smooth_counts, "round": counts}}
+
+# -- phase 11: the SPR scan at real size ------------------------------------
 
 
 def phase_spr_scan(device, inst, tree):
@@ -1448,16 +1818,27 @@ def main(argv=None) -> int:
         phase("-R restart of -f d, whole tier")
         restart = phase_restart(device, out_dir, search)
 
+        phase("ref49 -m PSR -f e through the CLI, wave-scan tier, f32")
+        psr49 = phase_ref49_psr(device, out_dir)
+
         phase("real size, chunk tier")
         setup = real_setup(TAXA, PARTITIONS, PART_WIDTH, args.seed)
         real, real_inst, real_tree = phase_real_size(device, setup, REPS)
 
         phase("real size, SPR scan (rearrange, lazy and thorough)")
         scan = phase_spr_scan(device, real_inst, real_tree)
+
+        phase("real size, whole-tree gradients and gradient smoothing")
+        grad = phase_real_gradients(device, setup, real_inst, real_tree,
+                                    REPS)
         del real_inst, real_tree
+        torch.cuda.empty_cache()
 
         phase("real size, whole tier")
         real_whole = phase_real_whole(device, setup, REPS, real["lnl"])
+
+        phase("real size, PSR: gradient smoothing, a categorization round")
+        real_psr = phase_real_psr(device, setup)
 
         phase("report")
     except SmokeFailure as exc:
@@ -1468,8 +1849,9 @@ def main(argv=None) -> int:
               "kernel_cases": cases,
               "whole_cases": whole_cases, "anchor": anchor,
               "anchor_whole": anchor_whole, "search": search,
-              "restart": restart, "real_size": real, "spr_scan": scan,
-              "real_size_whole": real_whole,
+              "restart": restart, "psr_ref49": psr49, "real_size": real,
+              "spr_scan": scan, "real_size_gradients": grad,
+              "real_size_whole": real_whole, "real_size_psr": real_psr,
               "wall_s": time.perf_counter() - t_start}
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
@@ -1489,14 +1871,31 @@ def main(argv=None) -> int:
         "spr_scan": {k: {m: scan[k][m] for m in (
             "insertions_scored", "ms_per_insertion",
             "entries_per_insertion")} for k in ("lazy", "thorough")}}))
+    log(json.dumps({"real_size_gradients": {k: grad[k] for k in (
+        "edges", "pass_ms", "bound_ms", "bound_by", "achieved_tb_per_s",
+        "d1_gap_f64", "tree_evaluate_s", "sweeps", "lnl_before",
+        "lnl_after")},
+        "psr_ref49": {k: psr49[k] for k in (
+            "start_lnl", "final_lnl", "wall_s", "parts_s", "categories")},
+        "real_size_psr": {k: real_psr[k] for k in (
+            "round_s", "ms_per_grid_chunk", "grid_chunks", "categories",
+            "tree_evaluate_s", "sweeps", "peak_bytes")}}))
     # Each kernel's launches on the main paths of this run, each path
     # counted from 0 just before it and read just after it: B1 on the
-    # real-size evaluate path, -f d and the SPR scan's full evaluates; B2
-    # on every whole-tier path, the -R restart included.
+    # real-size evaluate path, -f d, the SPR scan's full evaluates and the
+    # real-size gradient paths (the gradient pass's full traversal, the
+    # gradient tree_evaluate); B2 on every whole-tier path, the -R restart
+    # and the re-evaluation of the gradient-smoothed tree included.  The
+    # PSR paths launch neither (their traversals run on the wave-scan
+    # tier).
+    grad_paths = grad["launches_by_path"]
     b1_launches = (real["launches"] + search["launches"]["b1"]
-                   + scan["evaluate_launches"]["b1"])
+                   + scan["evaluate_launches"]["b1"]
+                   + grad_paths["traversal_and_pass"]["b1"]
+                   + grad_paths["tree_evaluate"]["b1"])
     b2_paths = [anchor_whole["launches_anchors"], anchor_whole["fe_launches"],
-                restart["launches"], *real_whole["launches_by_path"].values()]
+                restart["launches"], grad_paths["whole_reevaluate"],
+                *real_whole["launches_by_path"].values()]
     kernels = [{
         "name": "newview_chunk",
         "route": "cuda",

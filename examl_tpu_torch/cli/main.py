@@ -3,8 +3,9 @@ binary (`axml.c`: `get_args` :935-1302, `makeFileNames` :1316-1357, modes
 dispatched at `main` :2719-2781).
 
     python -m examl_tpu_torch.cli.main -s aln.binary -n RUN \\
-        [-t tree | -g constraint | -R] [-w DIR] [-f d|o|e|E] [-m GAMMA] \\
-        [-a] [-i radius] [-D] [-B N] [-M] [-p seed] [--newview chunk|whole]
+        [-t tree | -g constraint | -R] [-w DIR] [-f d|o|e|E] \\
+        [-m GAMMA|PSR] [-c categories] [-a] [-i radius] [-D] [-B N] [-M] \\
+        [-p seed] [--newview chunk|whole]
 
 Modes: `-f d` (the default) runs the RAxML SPR hill climb
 (`search/raxml_search.py`) from the `-t` tree or from the random
@@ -15,9 +16,13 @@ file: smooth its branch lengths and optimize the model (`mod_opt`); with
 numbered checkpoints (`search/checkpoint.py`, the JAX package's format)
 and resumes from the newest one with `-R`.
 
+`-m PSR` replaces the discrete gamma model by per-site rates grouped
+into at most `-c` categories (25 by default) per partition.
+
 Outputs in DIR: ExaML_info.RUN (progress), ExaML_log.RUN ("seconds lnL"
 rows), ExaML_modelFile.RUN (the final model, in the reference's
-`printModelParams` layout); the search writes ExaML_result.RUN (the best
+`printModelParams` layout; under PSR the category count and rates take
+the alpha line's place); the search writes ExaML_result.RUN (the best
 tree), ExaML_goodTrees.RUN (`-B`) and ExaML_perGeneBranchLengths.RUN
 (`-M`); tree evaluation writes ExaML_TreeFile.RUN (one newick per tree).
 
@@ -57,8 +62,11 @@ def build_argparser() -> argparse.ArgumentParser:
                          "(-f e/E), newick")
     ap.add_argument("-R", dest="restart", action="store_true",
                     help="restart from the newest checkpoint")
-    ap.add_argument("-m", dest="model", default="GAMMA", choices=["GAMMA"],
+    ap.add_argument("-m", dest="model", default="GAMMA",
+                    choices=["GAMMA", "PSR"],
                     help="rate heterogeneity model")
+    ap.add_argument("-c", dest="categories", type=int, default=25,
+                    help="maximum PSR rate categories")
     ap.add_argument("-a", dest="median", action="store_true",
                     help="median instead of mean discrete gamma rates")
     ap.add_argument("-f", dest="mode", default="d",
@@ -138,7 +146,13 @@ def write_model_params(path: str, inst, tree) -> None:
             slot = gid if inst.per_partition_branches else 0
             f.write(f"\n\nModel Parameters of Partition {gid}, Name: "
                     f"{part.name}, Type of Data: {name}\n")
-            f.write(f"alpha: {m.alpha:.6f}\n")
+            if inst.psr:
+                psr = inst.per_site_rates[gid]
+                f.write(f"categories: {len(psr)}\n")
+                f.write("category rates: "
+                        + " ".join(f"{r:.6f}" for r in psr) + "\n")
+            else:
+                f.write(f"alpha: {m.alpha:.6f}\n")
             f.write(f"Tree-Length: {tree_length(tree, slot):.6f}\n")
             pairs = [(a, b) for a in range(m.states)
                      for b in range(a + 1, m.states)]
@@ -368,7 +382,8 @@ def main(argv=None, device=None) -> int:
                f"{len(data.partitions)} partitions")
     inst = PhyloInstance(data, device=device, use_median=args.median,
                          per_partition_branches=args.per_partition_bl,
-                         newview=args.newview)
+                         newview=args.newview, rate_model=args.model,
+                         psr_categories=args.categories)
     files.info(f"device: {inst.device}  dtype: {inst.dtype}")
     if args.mode in ("d", "o"):
         return run_search(args, inst, files)

@@ -1,8 +1,9 @@
 """PhyloInstance: alignment + models + likelihood engines behind one facade.
 
-The port of the GTR+GAMMA subset of `examl_tpu/instance.py`: owns the
-per-partition model parameters, the packed site buckets (one engine per
-state count) and the CLV orientation bookkeeping against a host `Tree`
+The port of the GTR subset of `examl_tpu/instance.py`, under GAMMA or PSR
+rate heterogeneity: owns the per-partition model parameters, the per-site
+rate state under PSR, the packed site buckets (one engine per state
+count) and the CLV orientation bookkeeping against a host `Tree`
 (reference `evaluateGeneric`, `newviewGeneric`, `makenewzGeneric`,
 `axml.h:1223-1256`).
 """
@@ -24,14 +25,39 @@ from examl_tpu_torch.tree.topology import Node, Tree, TraversalEntry
 from examl_tpu_torch.utils import z_slots
 
 
+def packed_site_rates(bucket, per_site_rates, rate_category) -> np.ndarray:
+    """Packed per-site rate multipliers [B, lane] for a bucket (padding
+    sites keep rate 1): `perSiteRates[rateCategory]` scattered through the
+    bucket's layout."""
+    packed = np.ones(bucket.num_sites)
+    for li, gid in enumerate(bucket.part_ids):
+        packed[bucket.site_indices(li)] = \
+            per_site_rates[gid][rate_category[gid]]
+    return packed.reshape(bucket.num_blocks, bucket.lane)
+
+
 class PhyloInstance:
     def __init__(self, alignment: AlignmentData, dtype: Optional[torch.dtype]
                  = None, device=None, ncat: int = 4,
                  use_median: bool = False,
                  per_partition_branches: bool = False,
-                 block_multiple: int = 1, newview: str = "chunk"):
+                 block_multiple: int = 1, newview: str = "chunk",
+                 grad_smooth: bool = True, rate_model: str = "GAMMA",
+                 psr_categories: int = 25):
         """newview: the engines' full-traversal tier, "chunk" (kernel B1)
-        or "whole" (kernel B2), see ops/engine.py."""
+        or "whole" (kernel B2), see ops/engine.py.  grad_smooth: full-tree
+        smoothing by whole-tree gradients (True, the JAX package's
+        default) or branch by branch (False, its EXAML_GRAD_SMOOTH=0).
+        rate_model: "GAMMA" or "PSR" (per-site rates, at most
+        `psr_categories` categories per partition; one rate category)."""
+        if rate_model not in ("GAMMA", "PSR"):
+            raise ValueError(f"unknown rate model {rate_model!r}")
+        self.rate_model = rate_model
+        self.psr = rate_model == "PSR"
+        if self.psr:
+            ncat = 1                      # one rate per site, weight 1
+        self.psr_categories = psr_categories
+        self.grad_smooth = grad_smooth
         self.device = config.resolve_device(device)
         self.dtype = dtype if dtype is not None else \
             config.default_dtype(self.device)
@@ -47,6 +73,10 @@ class PhyloInstance:
         # all 1.0, empirical frequencies, alpha 1.0.
         self.models: List[ModelParams] = []
         for part in alignment.partitions:
+            if part.lg4 and self.psr:
+                raise ValueError(
+                    "LG4 models are not supported under PSR (the reference "
+                    "likewise restricts LG4 to GAMMA)")
             if part.lg4 or part.auto or (part.datatype.name == "AA"
                                          and part.model_name != "GTR"):
                 raise NotImplementedError(
@@ -66,7 +96,21 @@ class PhyloInstance:
                 bucket, [self.models[g] for g in bucket.part_ids],
                 alignment.ntaxa, num_branch_slots=self.num_branch_slots,
                 branch_indices=branch_indices, dtype=self.dtype,
-                device=self.device, newview=newview)
+                device=self.device, newview=newview, psr=self.psr)
+
+        # PSR per-site rate state (reference patrat / rateCategory /
+        # perSiteRates, `axml.h:585-600`), host copies per partition:
+        # patrat holds each site's un-snapped scan optimum, the sites
+        # evaluate under per_site_rates[rate_category].
+        if self.psr:
+            widths = [p.width for p in alignment.partitions]
+            self.patrat = [np.ones(w) for w in widths]
+            self.site_lhs = [np.zeros(w) for w in widths]
+            self.rate_category = [np.zeros(w, dtype=np.int32)
+                                  for w in widths]
+            self.per_site_rates = [np.ones(1) for _ in alignment.partitions]
+            self.psr_invocations = 0
+            self.cat_opt_rounds = 0
 
         self.per_partition_lnl = np.full(M, np.nan)
         self.likelihood = np.nan
@@ -87,6 +131,26 @@ class PhyloInstance:
         self.models[gid] = model
         if push:
             self.push_models()
+
+    def push_site_rates(self) -> None:
+        """Install the categorized per-site rates into the engines (PSR):
+        sites evaluate under their category's representative rate
+        (`perSiteRates[rateCategory]`); patrat only seeds the next scan."""
+        if not self.psr:
+            raise RuntimeError("site rates belong to the PSR model")
+        for states, bucket in self.buckets.items():
+            self.engines[states].set_site_rates(packed_site_rates(
+                bucket, self.per_site_rates, self.rate_category))
+
+    def psr_packed_weights(self, bucket) -> np.ndarray:
+        """Packed pattern weights [B, lane] of a bucket (PSR rate scan)."""
+        return np.asarray(bucket.weights, dtype=np.float64).reshape(
+            bucket.num_blocks, bucket.lane)
+
+    def psr_pattern_weights(self, gid: int) -> np.ndarray:
+        """Pattern weights of partition `gid` (PSR normalization)."""
+        return np.asarray(self.alignment.partitions[gid].weights,
+                          dtype=np.float64)
 
     # -- tree construction -------------------------------------------------
 

@@ -1,7 +1,7 @@
 """LikelihoodEngine: the CLV arena of one state-count bucket and the
 traversal / evaluation / branch-derivative entry points over it.
 
-The port of the GAMMA, single-device, dense-arena subset of
+The port of the GAMMA and PSR, single-device, dense-arena subset of
 `examl_tpu/ops/engine.py`.  The arena is `[rows, B, lane, R, K]` holding
 inner nodes only, plus slack rows for the fast path's padded chunk writes
 and one scratch row; tips live as uint8 codes with an indicator table;
@@ -12,7 +12,11 @@ kernel B1 — or, with `newview="whole"`, the flat schedule of
 ops/newview_whole.py, run as one launch of kernel B2), and partial
 traversals — makenewz, new_view — update rows in place through the map
 on the wave-scan tier (plain torch ops), as the JAX engine runs its XLA
-scan tier there.
+scan tier there.  Under the PSR model (`psr=True`) every traversal takes
+the wave-scan tier, as in the JAX engine: kernels B1 and B2 serve GAMMA
+only.  `whole_tree_gradients` gives every branch's derivatives from one
+pre-order pass over the current arena (ops/gradient.py) and
+`rate_scan` every site's lnL under a grid of candidate rates (PSR).
 """
 
 from __future__ import annotations
@@ -25,28 +29,33 @@ import torch
 
 from examl_tpu_torch import config, datatypes
 from examl_tpu_torch.models.gtr import ModelParams
-from examl_tpu_torch.ops import (fastpath, kernels, newview_chunk,
+from examl_tpu_torch.ops import (fastpath, gradient, kernels, newview_chunk,
                                  newview_whole)
-from examl_tpu_torch.ops.kernels import DeviceModels, Traversal
+from examl_tpu_torch.ops.kernels import (DeviceModels, OutrootTraversal,
+                                         Traversal)
 from examl_tpu_torch.parallel.packing import PackedBucket
 from examl_tpu_torch.tree.topology import FlatTraversal, Tree, TraversalEntry
 from examl_tpu_torch.utils import next_pow2, z_slots
 
 NEWVIEW_TIERS = ("chunk", "whole")
 # Full traversals dispatched on either tier, partial traversals run on
-# the wave-scan tier, and the launch-table rows the chunk tier
-# dispatched (plain counts, read by chip_smoke.py beside each kernel's
-# launch count).
+# the wave-scan tier, the launch-table rows the chunk tier dispatched,
+# and whole-tree gradient passes (plain counts, read by chip_smoke.py
+# beside each kernel's launch count).
 FULL_TRAVERSALS = 0
 PARTIAL_TRAVERSALS = 0
 CHUNK_LAUNCH_ROWS = 0
+GRAD_PASSES = 0
+# Entries kept per topology-keyed cache (layouts, gradient plans).
+SCHED_CACHE_CAP = 8
 
 
 def stack_models(models: Sequence[ModelParams],
                  branch_indices: Sequence[int], dtype: torch.dtype,
-                 device) -> DeviceModels:
+                 device, psr: bool = False) -> DeviceModels:
     """Stack per-partition models into [M, R, ...] tensors (plain models:
-    one eigensystem tiled over the R rate categories, weights 1/R)."""
+    one eigensystem tiled over the R rate categories, weights 1/R; under
+    PSR one category of weight 1)."""
     R = models[0].ncat
     if any(m.ncat != R for m in models):
         raise ValueError("all partitions of a bucket need the same ncat")
@@ -64,7 +73,8 @@ def stack_models(models: Sequence[ModelParams],
         ei=arr([per_cat(m, "ei") for m in models]),
         freqs=arr([per_cat(m, "freqs") for m in models]),
         gamma_rates=arr([m.gamma_rates for m in models]),
-        rate_weights=arr([np.full(R, 1.0 / R) for _ in models]),
+        rate_weights=arr([np.ones(R) if psr else np.full(R, 1.0 / R)
+                          for _ in models]),
         part_branch=torch.as_tensor(np.asarray(branch_indices, np.int64),
                                     device=device),
     )
@@ -76,14 +86,17 @@ class LikelihoodEngine:
                  branch_indices: Optional[Sequence[int]] = None,
                  dtype: Optional[torch.dtype] = None, device=None,
                  scale_exp: Optional[int] = None, wave_width: int = 8,
-                 newview: str = "chunk"):
+                 newview: str = "chunk", psr: bool = False):
         """newview selects the full-traversal tier: "chunk" (the bounded
         chunk program through kernel B1) or "whole" (one launch of kernel
-        B2 per traversal) — the JAX engine's EXAML_PALLAS=1 | whole."""
+        B2 per traversal) — the JAX engine's EXAML_PALLAS=1 | whole.
+        psr: per-site rates (CAT); every traversal then takes the
+        wave-scan tier."""
         if newview not in NEWVIEW_TIERS:
             raise ValueError(f"newview={newview!r}, expected one of "
                              f"{NEWVIEW_TIERS}")
         self.newview = newview
+        self.psr = psr
         self.device = config.resolve_device(device)
         self.dtype = dtype if dtype is not None else \
             config.default_dtype(self.device)
@@ -95,14 +108,18 @@ class LikelihoodEngine:
         self.wave_width = wave_width
         self.num_parts = bucket.num_parts
         self.n_inner = max(ntips - 2, 1)
-        self.fast_slack = fastpath.slack_rows(ntips)
+        self.fast_slack = 0 if psr else fastpath.slack_rows(ntips)
         self.num_rows = self.n_inner + self.fast_slack + 1
         self.scratch_row = self.num_rows - 1
         self.row_map = np.full(2 * ntips - 1, -1, dtype=np.int64)
         for num in range(ntips + 1, 2 * ntips - 1):
             self.row_map[num] = num - ntips - 1
+        # Layouts of the full-traversal tier and whole-tree gradient plans
+        # (ops/gradient.py), each keyed by topology signature (_cached),
+        # and the outroot arena, made at the first gradient pass.
         self._sched_cache: "OrderedDict[bytes, object]" = OrderedDict()
-        self._sched_cache_cap = 8
+        self._grad_structs: "OrderedDict[bytes, object]" = OrderedDict()
+        self._outroot: Optional[torch.Tensor] = None
 
         self.B, self.lane = bucket.num_blocks, bucket.lane
         self.R = models[0].ncat
@@ -111,7 +128,12 @@ class LikelihoodEngine:
             branch_indices = [0] * self.num_parts
         self._branch_indices = list(branch_indices)
         self.models = stack_models(models, self._branch_indices, self.dtype,
-                                   self.device)
+                                   self.device, psr)
+        # Per-site rate multipliers [B, lane, 1] under PSR (None selects
+        # the GAMMA form of every kernel).
+        self.site_rates = (torch.ones((self.B, self.lane, 1),
+                                      dtype=self.dtype, device=self.device)
+                           if psr else None)
         bp = torch.as_tensor(np.asarray(bucket.block_part, np.int64),
                              device=self.device)
         self.block_part = bp                         # torch-op indexing
@@ -138,11 +160,20 @@ class LikelihoodEngine:
         codes = torch.as_tensor(
             self.bucket.tip_codes.astype(np.uint8).reshape(
                 self.ntips, self.B, self.lane), device=self.device)
-        return kernels.TipState(codes=codes, table=table)
+        return kernels.tip_state(codes, table)
 
     def set_models(self, models: Sequence[ModelParams]) -> None:
         self.models = stack_models(models, self._branch_indices, self.dtype,
-                                   self.device)
+                                   self.device, self.psr)
+
+    def set_site_rates(self, rates: np.ndarray) -> None:
+        """Install per-site rate multipliers [B, lane] (PSR model)."""
+        if not self.psr:
+            raise RuntimeError("site rates need an engine built with psr")
+        self.site_rates = torch.as_tensor(
+            np.asarray(rates, dtype=np.float64).reshape(self.B, self.lane,
+                                                        1),
+            dtype=self.dtype, device=self.device)
 
     # -- wave-scan tier (partial traversals) --------------------------------
 
@@ -185,36 +216,47 @@ class LikelihoodEngine:
     def _run_scan(self, entries: List[TraversalEntry]) -> None:
         tv = self._traversal_arrays(entries)
         kernels.traverse(self.models, self.block_part, self.tips, self.clv,
-                         self.scaler, tv, self.scale_exp, self.ntips)
+                         self.scaler, tv, self.scale_exp, self.ntips,
+                         self.site_rates)
 
     # -- chunk-tier full traversals (ops/fastpath.py + kernel B1) ------------
 
     def _fast_eligible(self, entries) -> bool:
-        return isinstance(entries, FlatTraversal) and \
+        return not self.psr and isinstance(entries, FlatTraversal) and \
             entries.n == self.n_inner
 
-    def _structure(self, flat: FlatTraversal):
-        """The cached layout of a topology signature on this engine's
-        tier (topology + root edge only, so a stale structure can never
-        be served): a fastpath.FastStructure on the chunk tier, a
-        newview_whole.WholeStructure on the whole tier."""
-        st = self._sched_cache.get(flat.topo_key)
+    @staticmethod
+    def _cached(cache: "OrderedDict[bytes, object]", flat: FlatTraversal,
+                build):
+        """The entry of `cache` for flat's topology signature (topology +
+        root edge only, so a stale entry can never be served), built on a
+        miss; the least recently used of more than SCHED_CACHE_CAP goes."""
+        st = cache.get(flat.topo_key)
         if st is not None:
-            self._sched_cache.move_to_end(flat.topo_key)
+            cache.move_to_end(flat.topo_key)
             return st
-        if self.newview == "whole":
-            st = newview_whole.build_structure(flat, self.ntips,
-                                               self.num_branch_slots,
-                                               self.device)
-        else:
-            st = fastpath.build_structure(flat, self.ntips, self.device)
-            if st.max_write > self.num_rows - 1:
-                raise RuntimeError(f"chunk layout writes row {st.max_write} "
-                                   f"of a {self.num_rows}-row arena")
-        self._sched_cache[flat.topo_key] = st
-        while len(self._sched_cache) > self._sched_cache_cap:
-            self._sched_cache.popitem(last=False)
+        st = cache[flat.topo_key] = build()
+        while len(cache) > SCHED_CACHE_CAP:
+            cache.popitem(last=False)
         return st
+
+    def _build_structure(self, flat: FlatTraversal):
+        if self.newview == "whole":
+            return newview_whole.build_structure(flat, self.ntips,
+                                                 self.num_branch_slots,
+                                                 self.device)
+        st = fastpath.build_structure(flat, self.ntips, self.device)
+        if st.max_write > self.num_rows - 1:
+            raise RuntimeError(f"chunk layout writes row {st.max_write} "
+                               f"of a {self.num_rows}-row arena")
+        return st
+
+    def _structure(self, flat: FlatTraversal):
+        """The layout of flat's topology on this engine's tier: a
+        fastpath.FastStructure on the chunk tier, a
+        newview_whole.WholeStructure on the whole tier."""
+        return self._cached(self._sched_cache, flat,
+                            lambda: self._build_structure(flat))
 
     def _install_row_map(self, st) -> None:
         self.row_map[:st.row_of.shape[0]] = st.row_of
@@ -281,7 +323,7 @@ class LikelihoodEngine:
         out = kernels.root_log_likelihood(
             self.models, self.block_part, self.weights, self.tips, self.clv,
             self.scaler, self._gidx(p_num), self._gidx(q_num), self._z(z),
-            self.num_parts, self.scale_exp, self.ntips)
+            self.num_parts, self.scale_exp, self.ntips, self.site_rates)
         return out.cpu().numpy()
 
     def traverse_evaluate(self, entries, p_num: int, q_num: int,
@@ -302,7 +344,8 @@ class LikelihoodEngine:
     def branch_derivatives(self, st: torch.Tensor, z: Sequence[float]):
         d1, d2 = kernels.nr_derivatives(self.models, self.block_part,
                                         self.weights, st, self._z(z),
-                                        self.num_branch_slots)
+                                        self.num_branch_slots,
+                                        self.site_rates)
         return d1.cpu().numpy(), d2.cpu().numpy()
 
     def newton_branch(self, entries: List[TraversalEntry], p_num: int,
@@ -317,4 +360,92 @@ class LikelihoodEngine:
         return kernels.newton_raphson_branch(
             self.models, self.block_part, self.weights, st,
             np.asarray(z0, np.float64), np.full(C, maxiter, np.int64),
-            np.asarray(conv_mask, bool), C)
+            np.asarray(conv_mask, bool), C, self.site_rates)
+
+    # -- PSR rate-grid scan ----------------------------------------------
+
+    def rate_scan(self, entries: List[TraversalEntry], p_num: int,
+                  q_num: int, z: Sequence[float],
+                  grid: np.ndarray) -> np.ndarray:
+        """Per-site lnL under each candidate rate: grid [B, lane, G] ->
+        [B, lane, G] (float64).  `entries` must be a full traversal for
+        the branch (p, q).  One traversal over a scratch arena [rows, B,
+        lane, G, K], made for the call, replaces the reference's per-site
+        `evaluatePartialGeneric` scan (`optimizeModel.c:1792-1922`)."""
+        if not self.psr:
+            raise RuntimeError("the rate scan needs an engine built with "
+                               "psr")
+        G = grid.shape[2]
+        tv = self._traversal_arrays(entries)
+        grid_dev = torch.as_tensor(np.asarray(grid, dtype=np.float64),
+                                   dtype=self.dtype, device=self.device)
+        clv = torch.zeros((self.num_rows, self.B, self.lane, G, self.K),
+                          dtype=self.dtype, device=self.device)
+        scaler = torch.zeros((self.num_rows, self.B, self.lane),
+                             dtype=torch.int32, device=self.device)
+        kernels.traverse(self.models, self.block_part, self.tips, clv,
+                         scaler, tv, self.scale_exp, self.ntips, grid_dev)
+        out = kernels.per_rate_site_lnls(
+            self.models, self.block_part, self.tips, clv, scaler,
+            self._gidx(p_num), self._gidx(q_num), self._z(z), grid_dev,
+            self.scale_exp, self.ntips)
+        return out.cpu().numpy()
+
+    # -- whole-tree analytic gradients (ops/gradient.py) --------------------
+
+    def _outroot_arena(self) -> torch.Tensor:
+        """The outroot arena [2*ntips-1, B, lane, R, K]: one row per node
+        (number - 1), the last row scratch.  Every pass writes each row it
+        reads first, so the arena is made once and reused."""
+        if self._outroot is None:
+            self._outroot = torch.zeros(
+                (2 * self.ntips - 1, self.B, self.lane, self.R, self.K),
+                dtype=self.dtype, device=self.device)
+        return self._outroot
+
+    def whole_tree_gradients(self, flat: FlatTraversal, root_z):
+        """(d1, d2) [E, C] float64: the lnL's gradient and curvature with
+        respect to lz = log z for every branch of the full traversal
+        `flat`, from one pre-order pass and one batched edge-derivative
+        pass.
+
+        Edge order: edge 0 is the traversal's root edge; edges 1+2i /
+        2+2i are entry i's left / right child branches (flat order).
+        Precondition: the CLV arena is current for `flat` (a
+        `run_traversal(flat, full=True)` on any tier just ran; the gather
+        indices resolve through the row map that traversal installed);
+        `root_z` is the root edge's branch vector."""
+        global GRAD_PASSES
+        C = self.num_branch_slots
+        gs = self._cached(self._grad_structs, flat,
+                          lambda: gradient.build_structure(flat,
+                                                           self.wave_width))
+        pre, ex_rows, ey_gidx, ez = gradient.grad_arrays(
+            gs, flat, self.row_map, C, root_z)
+        dev = self.device
+        idx = torch.from_numpy(np.stack(pre[:5])).to(dev)
+        zs = torch.from_numpy(np.stack(pre[5:])).to(device=dev,
+                                                   dtype=self.dtype)
+        tvp = OutrootTraversal(up_row=idx[0], lrow=idx[1], rrow=idx[2],
+                               left=idx[3], right=idx[4], zu=zs[0],
+                               zl=zs[1], zr=zs[2])
+        eidx = torch.from_numpy(np.stack([ex_rows, ey_gidx])).to(dev)
+        ezd = torch.from_numpy(ez).to(device=dev, dtype=self.dtype)
+        out = self._outroot_arena()
+        p, q = gs.roots
+        dq, _ = kernels.gather_child(self.tips, self.clv, self.scaler,
+                                     self._gidx(q), self.ntips)
+        dp, _ = kernels.gather_child(self.tips, self.clv, self.scaler,
+                                     self._gidx(p), self.ntips)
+        out[p - 1] = dq.to(out.dtype)
+        out[q - 1] = dp.to(out.dtype)
+        kernels.outroot_pass(self.models, self.block_part, self.tips,
+                             self.clv, self.scaler, out, tvp, self.scale_exp,
+                             self.ntips, self.site_rates)
+        d1, d2 = gradient.edge_gradients(
+            self.models, self.block_part, self.weights, self.tips, self.clv,
+            self.scaler, out, eidx[0], eidx[1], ezd, C, self.ntips,
+            self.site_rates)
+        GRAD_PASSES += 1
+        d = torch.stack([d1, d2]).cpu().numpy()
+        return d[0], d[1]

@@ -1,4 +1,4 @@
-"""Plain PyTorch kernels of the likelihood engine (GAMMA models).
+"""Plain PyTorch kernels of the likelihood engine (GAMMA and PSR models).
 
 The torch counterpart of `examl_tpu/ops/kernels.py`: one kernel set over a
 packed site axis laid out as [B blocks x lane], with per-partition P
@@ -14,6 +14,12 @@ when every entry of a site's CLV drops below 2^-E the site is multiplied
 by 2^E and an integer per-(node, site) scaler increments; lnL adds
 scaler * log(2^-E).  E is 256 for float64 and 32 for float32
 (`config.scale_exponent`).
+
+Under the PSR (CAT) model every site carries its own rate multiplier
+(`site_rates` [B, lane, R], R = 1 except inside the rate-grid scan), so
+the transition matrix differs per site and is applied in factorized form
+(`psr_decay`, `apply_p_factorized`) instead of being built.  Every kernel
+that takes `site_rates=None` runs the GAMMA form.
 
 Root likelihoods and branch derivatives are summed over sites in float64
 whatever the compute dtype, as the JAX package does whenever x64 is live.
@@ -59,9 +65,19 @@ class Traversal(NamedTuple):
 
 
 class TipState(NamedTuple):
-    """Tip data: packed codes + indicator lookup table."""
+    """Tip data: packed codes + indicator lookup table (what kernels B1 and
+    B2 read), and the codes' indicator vectors, table[codes], which the
+    torch ops gather by tip row as they gather arena rows: a per-site
+    lookup of 16-byte table rows is far slower on the card (PERF.md §6).
+    The vectors take K values per tip and site, a quarter of an inner
+    node's CLV row under GAMMA."""
     codes: torch.Tensor        # [ntips, B, lane] uint8 state codes
     table: torch.Tensor        # [num_codes, K] 0/1 indicator vectors
+    vectors: torch.Tensor      # [ntips, B, lane, K] table[codes]
+
+
+def tip_state(codes: torch.Tensor, table: torch.Tensor) -> TipState:
+    return TipState(codes=codes, table=table, vectors=table[codes.long()])
 
 
 def scale_constants(scale_exp: int):
@@ -70,35 +86,45 @@ def scale_constants(scale_exp: int):
     return 2.0 ** (-e), 2.0 ** e, -e * math.log(2.0)
 
 
+def _child_index(idx: torch.Tensor, ntips: int, rows: int):
+    """(is_tip, tip index, inner arena row) of gather indices idx [...]."""
+    return (idx < ntips, idx.clamp(0, ntips - 1),
+            (idx - ntips).clamp(0, rows - 1))
+
+
+def _gather(tips: TipState, clv: torch.Tensor, is_tip: torch.Tensor,
+            tip_idx: torch.Tensor, inner_idx: torch.Tensor) -> torch.Tensor:
+    """Child CLVs [..., B, lane, R, K]: tips expanded from their codes
+    through the indicator table, inner nodes read from the arena."""
+    R = clv.shape[3]
+    tip_clv = tips.vectors[tip_idx]                      # [..., B, lane, K]
+    tip_clv = tip_clv.unsqueeze(-2).expand(
+        tip_clv.shape[:-1] + (R, tip_clv.shape[-1]))
+    inner_clv = clv[inner_idx].to(tips.table.dtype)
+    return torch.where(is_tip[..., None, None, None, None], tip_clv,
+                       inner_clv)
+
+
 def gather_child(tips: TipState, clv: torch.Tensor, scaler: torch.Tensor,
                  idx: torch.Tensor, ntips: int):
     """CLV + scaler of child nodes given gather indices idx [...].
 
     Tips (idx < ntips) materialize their indicator vectors from the code
     table (scaler 0); inner nodes read arena row idx - ntips."""
-    R = clv.shape[3]
     idx = torch.as_tensor(idx, dtype=torch.int64, device=clv.device)
-    is_tip = idx < ntips
-    tip_idx = idx.clamp(0, ntips - 1)
-    codes = tips.codes[tip_idx].long()                   # [..., B, lane]
-    tip_clv = tips.table[codes]                          # [..., B, lane, K]
-    tip_clv = tip_clv.unsqueeze(-2).expand(
-        tip_clv.shape[:-1] + (R, tip_clv.shape[-1]))
-    inner_idx = (idx - ntips).clamp(0, clv.shape[0] - 1)
-    inner_clv = clv[inner_idx].to(tips.table.dtype)
-    sel = is_tip[..., None, None, None, None]
-    x = torch.where(sel, tip_clv, inner_clv)
-    sc = torch.where(is_tip[..., None, None], torch.zeros_like(
-        scaler[inner_idx]), scaler[inner_idx])
+    is_tip, tip_idx, inner_idx = _child_index(idx, ntips, clv.shape[0])
+    x = _gather(tips, clv, is_tip, tip_idx, inner_idx)
+    sc = scaler[inner_idx].masked_fill(is_tip[..., None, None], 0)
     return x, sc
 
 
 def branch_decay(models: DeviceModels, z: torch.Tensor) -> torch.Tensor:
-    """d[m, r, j] = exp(eign_rj * rate_r * log z_m), the eigenvalue decay
-    (z: [C] per-branch-slot values; each partition selects its slot)."""
-    lz = torch.log(z[models.part_branch])                     # [M]
+    """d[..., m, r, j] = exp(eign_rj * rate_r * log z_m), the eigenvalue
+    decay (z: [..., C] per-branch-slot values; each partition selects its
+    slot)."""
+    lz = torch.log(z[..., models.part_branch])                # [..., M]
     return torch.exp(models.eign * models.gamma_rates[:, :, None]
-                     * lz[:, None, None])                     # [M, R, K]
+                     * lz[..., :, None, None])                # [..., M, R, K]
 
 
 def p_matrices(models: DeviceModels, z: torch.Tensor) -> torch.Tensor:
@@ -124,6 +150,32 @@ def apply_p(pmat: torch.Tensor, block_part: torch.Tensor,
     return torch.einsum("brak,blrk->blra", pmat[block_part], x)
 
 
+def psr_decay(models: DeviceModels, block_part: torch.Tensor,
+              site_rates: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """Per-site eigenvalue decay d[..., b, l, r, j] = exp(eign_j *
+    rate_blr * log z): the PSR analogue of `branch_decay` (reference
+    per-site `patrat`/`rateCategory`, `optimizeModel.c:1792-2507`).
+    site_rates [B, lane, R] (R = 1 in normal PSR compute, R = G in the
+    rate-grid scan); z [..., C].  PSR models are single-category: the
+    category-0 eigensystem serves every site."""
+    zb = z[..., models.part_branch][..., block_part]          # [..., B]
+    lz = torch.log(zb)
+    eb = models.eign[block_part][:, 0, :]                     # [B, K]
+    return torch.exp(eb[:, None, None, :] * site_rates[:, :, :, None]
+                     * lz[..., :, None, None, None])          # [..., B,l,R,K]
+
+
+def apply_p_factorized(models: DeviceModels, block_part: torch.Tensor,
+                       d: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """y = EV . (d * (EI . x)) with the per-site decay d [..., B, lane, R,
+    K]: P(z, r_site) applied without building per-site matrices."""
+    eib = models.ei[block_part][:, 0]                         # [B, K, K]
+    evb = models.ev[block_part][:, 0]
+    u = torch.einsum("bjk,...blrk->...blrj", eib, x)
+    u = u * d
+    return torch.einsum("baj,...blrj->...blra", evb, u)
+
+
 def rescale(v: torch.Tensor, scale_exp: int, state_dims=(-2, -1)):
     """Multiply sites whose max |v| falls below 2^-E by 2^E; returns
     (v, increment) with the increment an int32 0/1 per site."""
@@ -134,49 +186,179 @@ def rescale(v: torch.Tensor, scale_exp: int, state_dims=(-2, -1)):
     return v, needs.to(torch.int32)
 
 
+class Transport:
+    """P(z) applied to the entries of every step of a traversal, with the
+    operands that do not change between steps built once.
+
+    z [L, N, C]: L steps of N entries; `transport(step, x)` applies
+    P(z[step, n]) to x[n] for x [N, B, lane, R, K].  Under GAMMA the P
+    matrices of every step are built at once (one broadcast matmul per
+    slot, as `p_matrices_wave`); under PSR (site_rates given) the
+    per-block eigensystem, eign x rate per site and log z of every step
+    are taken once, and a step costs the decay and the two factorized
+    contractions of `psr_decay` / `apply_p_factorized`, in their order of
+    operations."""
+
+    def __init__(self, models: DeviceModels, block_part: torch.Tensor,
+                 z: torch.Tensor, site_rates=None):
+        self.block_part = block_part
+        self.psr = site_rates is not None
+        if not self.psr:
+            L, N, C = z.shape
+            p = p_matrices_wave(models, z.reshape(L * N, C))
+            self.p = p.reshape((L, N) + p.shape[1:])      # [L,N,M,R,K,K]
+            return
+        eb = models.eign[block_part][:, 0, :]             # [B, K]
+        self.rate_eign = eb[:, None, None, :] * site_rates[:, :, :, None]
+        self.lz = torch.log(z[..., models.part_branch][..., block_part])
+        self.ei = models.ei[block_part][:, 0]             # [B, K, K]
+        self.ev = models.ev[block_part][:, 0]
+
+    def __call__(self, step: int, x: torch.Tensor) -> torch.Tensor:
+        if not self.psr:
+            return torch.einsum("wbrak,wblrk->wblra",
+                                self.p[step][:, self.block_part], x)
+        d = torch.exp(self.rate_eign
+                      * self.lz[step][:, :, None, None, None])  # [N,B,l,R,K]
+        u = torch.einsum("bjk,...blrk->...blrj", self.ei, x) * d
+        return torch.einsum("baj,...blrj->...blra", self.ev, u)
+
+
+def _combine(y: torch.Tensor, scale_exp: int):
+    """Parent CLVs from the transported children y = [left; right]."""
+    W = y.shape[0] // 2
+    return rescale(y[:W] * y[W:], scale_exp)
+
+
 def newview_wave(models: DeviceModels, block_part: torch.Tensor,
                  xl: torch.Tensor, xr: torch.Tensor,
-                 zl: torch.Tensor, zr: torch.Tensor, scale_exp: int):
+                 zl: torch.Tensor, zr: torch.Tensor, scale_exp: int,
+                 site_rates=None):
     """Combine child CLVs into parent CLVs for one wave of W entries.
 
     xl, xr: [W, B, lane, R, K]; zl, zr: [W, C].  Returns (clv [W,B,lane,
     R,K], scale_inc [W,B,lane]).  Reference `newviewGAMMA_FLEX`
-    (`newviewGenericSpecial.c:430-682`) batched over independent entries.
+    (`newviewGenericSpecial.c:430-682`), or the CAT kernels when
+    site_rates is given, batched over independent entries (both children
+    in one batch, as `traverse` runs them).
     """
-    pl = p_matrices_wave(models, zl)[:, block_part]           # [W,B,R,K,K]
-    pr = p_matrices_wave(models, zr)[:, block_part]
-    yl = torch.einsum("wbrak,wblrk->wblra", pl, xl)
-    yr = torch.einsum("wbrak,wblrk->wblra", pr, xr)
-    return rescale(yl * yr, scale_exp)
+    transport = Transport(models, block_part, torch.cat([zl, zr])[None],
+                          site_rates)
+    return _combine(transport(0, torch.cat([xl, xr])), scale_exp)
 
 
 def traverse(models: DeviceModels, block_part: torch.Tensor, tips: TipState,
              clv: torch.Tensor, scaler: torch.Tensor, tv: Traversal,
-             scale_exp: int, ntips: int):
+             scale_exp: int, ntips: int, site_rates=None):
     """Execute a wave-scheduled traversal in place: a loop over waves,
-    each one gather per child, a batched newview, and one scatter.
+    each one gather of both children, one batched newview, and one
+    scatter.  Index tensors and the transport operands of every step are
+    prepared once, before the loop.
 
     Padding entries write the scratch row (duplicate scatter indices
     there only; its value is never read).  Reference `newviewIterative`
     (`newviewGenericSpecial.c:917-1515`)."""
+    W = tv.parent.shape[1]
+    is_tip, tip_idx, inner_idx = _child_index(
+        torch.cat([tv.left, tv.right], dim=1), ntips, clv.shape[0])
+    transport = Transport(models, block_part,
+                          torch.cat([tv.zl, tv.zr], dim=1), site_rates)
     for step in range(tv.parent.shape[0]):
+        x = _gather(tips, clv, is_tip[step], tip_idx[step], inner_idx[step])
+        sc = scaler[inner_idx[step]].masked_fill(
+            is_tip[step][:, None, None], 0)
+        v, inc = _combine(transport(step, x), scale_exp)
         parent = tv.parent[step]
-        xl, sl = gather_child(tips, clv, scaler, tv.left[step], ntips)
-        xr, sr = gather_child(tips, clv, scaler, tv.right[step], ntips)
-        v, inc = newview_wave(models, block_part, xl, xr, tv.zl[step],
-                              tv.zr[step], scale_exp)
         clv[parent] = v.to(clv.dtype)
-        scaler[parent] = sl + sr + inc
+        scaler[parent] = sc[:W] + sc[W:] + inc
     return clv, scaler
+
+
+class OutrootTraversal(NamedTuple):
+    """Pre-order traversal descriptor [L, W] (host-built by
+    ops/gradient.py): the post-order wave schedule walked in reverse wave
+    order, each entry emitting the root-directed (outroot) partials of its
+    two children.  `up_row`/`lrow`/`rrow` index the outroot arena (node
+    number - 1; every node has a row, the last row is scratch);
+    `left`/`right` are gather indices against the post-order CLV arena
+    (`gather_child`'s convention).  `zu` is the branch above the entry's
+    parent node (the root edge's z for the two root-adjacent entries).
+    Padding entries read and write the scratch row."""
+    up_row: torch.Tensor       # [L, W] int64
+    lrow: torch.Tensor         # [L, W] int64
+    rrow: torch.Tensor         # [L, W] int64
+    left: torch.Tensor         # [L, W] int64
+    right: torch.Tensor        # [L, W] int64
+    zu: torch.Tensor           # [L, W, C]
+    zl: torch.Tensor           # [L, W, C]
+    zr: torch.Tensor           # [L, W, C]
+
+
+def _sibling(yu: torch.Tensor, y: torch.Tensor, scale_exp: int):
+    """(out_l, out_r) from the transported parent partial yu and the
+    transported children y = [left; right], rescaled without counts."""
+    W = yu.shape[0]
+    return (rescale(yu * y[W:], scale_exp)[0],
+            rescale(yu * y[:W], scale_exp)[0])
+
+
+def outroot_wave(models: DeviceModels, block_part: torch.Tensor,
+                 xu: torch.Tensor, xl: torch.Tensor, xr: torch.Tensor,
+                 zu: torch.Tensor, zl: torch.Tensor, zr: torch.Tensor,
+                 scale_exp: int, site_rates=None):
+    """Sibling combine for one wave of W pre-order entries.
+
+    xu: the parent's outroot partial [W, B, lane, R, K] (the complement of
+    the parent's subtree, at the far end of the parent's upper branch);
+    xl, xr: the children's post-order CLVs.  Returns (out_l, out_r) with
+    out_l = (P(zu) xu) * (P(zr) xr), the complement of the left child's
+    subtree located at the parent, and out_r symmetrically (Ji et al.
+    2303.04390's pre-order recursion).
+
+    Values are rescaled with newview's threshold and multiplier but no
+    counts are kept: every consumer is a dsite/lsite ratio in which
+    per-site scale factors cancel."""
+    yu = Transport(models, block_part, zu[None], site_rates)(0, xu)
+    y = Transport(models, block_part, torch.cat([zl, zr])[None],
+                  site_rates)(0, torch.cat([xl, xr]))
+    return _sibling(yu, y, scale_exp)
+
+
+def outroot_pass(models: DeviceModels, block_part: torch.Tensor,
+                 tips: TipState, clv: torch.Tensor, scaler: torch.Tensor,
+                 out: torch.Tensor, tv: OutrootTraversal, scale_exp: int,
+                 ntips: int, site_rates=None) -> torch.Tensor:
+    """Execute a pre-order traversal in place: a loop over the reversed
+    waves, each one batched `outroot_wave` step, filling the outroot arena
+    `out` [2*ntips-1, B, lane, R, K] (rows by node number - 1, last row
+    scratch).  `out` arrives with the two root rows set (out[p-1] = D(q),
+    out[q-1] = D(p)); `clv` and `scaler` are only read."""
+    is_tip, tip_idx, inner_idx = _child_index(
+        torch.cat([tv.left, tv.right], dim=1), ntips, clv.shape[0])
+    up = Transport(models, block_part, tv.zu, site_rates)
+    down = Transport(models, block_part, torch.cat([tv.zl, tv.zr], dim=1),
+                     site_rates)
+    for step in range(tv.up_row.shape[0]):
+        x = _gather(tips, clv, is_tip[step], tip_idx[step], inner_idx[step])
+        ol, orr = _sibling(up(step, out[tv.up_row[step]]), down(step, x),
+                           scale_exp)
+        out[tv.lrow[step]] = ol.to(out.dtype)
+        out[tv.rrow[step]] = orr.to(out.dtype)
+    return out
 
 
 def site_likelihoods(models: DeviceModels, block_part: torch.Tensor,
                      xp: torch.Tensor, xq: torch.Tensor,
-                     z: torch.Tensor) -> torch.Tensor:
+                     z: torch.Tensor, site_rates=None) -> torch.Tensor:
     """Per-site likelihood L[b,l] at the root branch (p,q) with branch z:
     L = sum_r w_r sum_k f_k * xp_k * (P(z) xq)_k (reference
-    `evaluateGAMMA_FLEX`, `evaluateGenericSpecial.c:154-231`)."""
-    y = apply_p(p_matrices(models, z), block_part, xq)        # [B,l,R,K]
+    `evaluateGAMMA_FLEX`, `evaluateGenericSpecial.c:154-231`, or the CAT
+    evaluate kernels when site_rates is given)."""
+    if site_rates is None:
+        y = apply_p(p_matrices(models, z), block_part, xq)    # [B,l,R,K]
+    else:
+        d = psr_decay(models, block_part, site_rates, z)
+        y = apply_p_factorized(models, block_part, d, xq)
     fb = models.freqs[block_part]                             # [B, R, K]
     wb = models.rate_weights[block_part]                      # [B, R]
     return torch.einsum("brk,blrk->bl", fb * wb[:, :, None], xp * y)
@@ -184,30 +366,57 @@ def site_likelihoods(models: DeviceModels, block_part: torch.Tensor,
 
 def _segment_sum(values: torch.Tensor, seg: torch.Tensor,
                  num: int) -> torch.Tensor:
-    out = torch.zeros(num, dtype=values.dtype, device=values.device)
-    return out.index_add_(0, seg, values)
+    """Sums of values[..., i] over segments seg[i], along the last axis."""
+    out = torch.zeros(values.shape[:-1] + (num,), dtype=values.dtype,
+                      device=values.device)
+    return out.index_add_(values.dim() - 1, seg, values)
+
+
+def per_rate_site_lnls(models: DeviceModels, block_part: torch.Tensor,
+                       tips: TipState, clv: torch.Tensor,
+                       scaler: torch.Tensor, p_idx, q_idx, z: torch.Tensor,
+                       site_rates: torch.Tensor, scale_exp: int,
+                       ntips: int) -> torch.Tensor:
+    """Per-site, per-rate-candidate log likelihood [B, lane, R] (float64):
+    the batched replacement for the reference's per-site rate scan
+    (`evaluatePartialGeneric` once per site per trial rate,
+    `optimizeModel.c:1792-1922`) — one traversal per rate-grid chunk
+    gives every site's lnL under every candidate rate."""
+    xp, sp = gather_child(tips, clv, scaler, p_idx, ntips)
+    xq, sq = gather_child(tips, clv, scaler, q_idx, ntips)
+    d = psr_decay(models, block_part, site_rates, z)
+    y = apply_p_factorized(models, block_part, d, xq)
+    fb = models.freqs[block_part][:, 0]                       # [B, K]
+    lsite = torch.einsum("bk,blrk->blr", fb, xp * y)          # [B, lane, R]
+    _, _, log_min = scale_constants(scale_exp)
+    sc = (sp + sq).to(ACC)                                    # [B, lane]
+    lsite = lsite.clamp_min(torch.finfo(lsite.dtype).tiny)
+    return torch.log(lsite).to(ACC) + sc[:, :, None] * log_min
 
 
 def root_log_likelihood(models: DeviceModels, block_part: torch.Tensor,
                         weights: torch.Tensor, tips: TipState,
                         clv: torch.Tensor, scaler: torch.Tensor,
                         p_idx, q_idx, z: torch.Tensor, num_parts: int,
-                        scale_exp: int, ntips: int) -> torch.Tensor:
+                        scale_exp: int, ntips: int,
+                        site_rates=None) -> torch.Tensor:
     """Per-partition log likelihoods [M] (float64) after a traversal;
     p_idx/q_idx are gather indices (reference `evaluateGeneric`,
     `evaluateGenericSpecial.c:897-1001`)."""
     xp, sp = gather_child(tips, clv, scaler, p_idx, ntips)
     xq, sq = gather_child(tips, clv, scaler, q_idx, ntips)
     return root_log_likelihood_from(models, block_part, weights, xp, sp,
-                                    xq, sq, z, num_parts, scale_exp)
+                                    xq, sq, z, num_parts, scale_exp,
+                                    site_rates)
 
 
 def root_log_likelihood_from(models: DeviceModels, block_part: torch.Tensor,
                              weights: torch.Tensor, xp, sp, xq, sq,
                              z: torch.Tensor, num_parts: int,
-                             scale_exp: int) -> torch.Tensor:
+                             scale_exp: int,
+                             site_rates=None) -> torch.Tensor:
     """root_log_likelihood over pre-gathered root CLVs."""
-    lsite = site_likelihoods(models, block_part, xp, xq, z)
+    lsite = site_likelihoods(models, block_part, xp, xq, z, site_rates)
     _, _, log_min = scale_constants(scale_exp)
     lsite = lsite.clamp_min(torch.finfo(lsite.dtype).tiny)
     site_lnl = weights.to(ACC) * (torch.log(lsite).to(ACC)
@@ -217,39 +426,50 @@ def root_log_likelihood_from(models: DeviceModels, block_part: torch.Tensor,
 
 def sumtable(models: DeviceModels, block_part: torch.Tensor,
              xp: torch.Tensor, xq: torch.Tensor) -> torch.Tensor:
-    """st[b,l,r,j] = (sum_k f_rk xp_k ev_r[k,j]) * (sum_k ei_r[j,k] xq_k),
-    so L(lz) = sum_j st_j exp(eign_rj rate_r lz) per site (reference
-    `makenewzIterative`, `makenewzGenericSpecial.c:251-326`)."""
+    """st[...,b,l,r,j] = (sum_k f_rk xp_k ev_r[k,j]) * (sum_k ei_r[j,k]
+    xq_k), so L(lz) = sum_j st_j exp(eign_rj rate_r lz) per site
+    (reference `makenewzIterative`, `makenewzGenericSpecial.c:251-326`);
+    xp, xq [..., B, lane, R, K]."""
     evb = models.ev[block_part]                               # [B, R, K, K]
     eib = models.ei[block_part]
     fb = models.freqs[block_part]                             # [B, R, K]
-    ap = torch.einsum("blrk,brkj->blrj", xp * fb[:, None], evb)
-    bq = torch.einsum("brjk,blrk->blrj", eib, xq)
+    ap = torch.einsum("...blrk,brkj->...blrj", xp * fb[:, None], evb)
+    bq = torch.einsum("brjk,...blrk->...blrj", eib, xq)
     return ap * bq
 
 
 def nr_derivatives(models: DeviceModels, block_part: torch.Tensor,
                    weights: torch.Tensor, st: torch.Tensor, z: torch.Tensor,
-                   num_slots: int):
-    """(lnL', lnL'') w.r.t. lz summed over sites, per branch slot [C],
-    in float64 (reference `coreGAMMA_FLEX` + derivative Allreduce,
-    `makenewzGenericSpecial.c:394-619, 1241-1248`)."""
+                   num_slots: int, site_rates=None):
+    """(lnL', lnL'') w.r.t. lz summed over sites, per branch slot, in
+    float64 (reference `coreGAMMA_FLEX` / `coreGTRCAT` + derivative
+    Allreduce, `makenewzGenericSpecial.c:394-619, 1241-1248`).  st [...,
+    B, lane, R, K] and z [..., C] may carry leading batch axes (one
+    branch per index); the result is [..., C] each."""
     wb = models.rate_weights[block_part]                      # [B, R]
-    d = branch_decay(models, z)                               # [M, R, K]
-    e1 = models.eign * models.gamma_rates[:, :, None]         # [M, R, K]
-    db = d[block_part] * wb[:, :, None]                       # [B, R, K]
-    e1b = e1[block_part]
-    lsite = torch.einsum("blrj,brj->bl", st, db)
-    dsite = torch.einsum("blrj,brj->bl", st, db * e1b)
-    d2site = torch.einsum("blrj,brj->bl", st, db * e1b * e1b)
+    if site_rates is None:
+        d = branch_decay(models, z)                           # [..., M,R,K]
+        e1 = models.eign * models.gamma_rates[:, :, None]     # [M, R, K]
+        db = d[..., block_part, :, :] * wb[:, :, None]        # [..., B,R,K]
+        e1b = e1[block_part]
+        eq = "...blrj,...brj->...bl"
+    else:
+        d = psr_decay(models, block_part, site_rates, z)      # [...,B,l,R,K]
+        e1b = (models.eign[block_part][:, 0][:, None, None, :]
+               * site_rates[:, :, :, None])                   # [B, l, R, K]
+        db = d * wb[:, None, :, None]
+        eq = "...blrj,...blrj->...bl"
+    lsite = torch.einsum(eq, st, db)
+    dsite = torch.einsum(eq, st, db * e1b)
+    d2site = torch.einsum(eq, st, db * e1b * e1b)
     lsite = lsite.clamp_min(torch.finfo(lsite.dtype).tiny)
     dlnl = (dsite / lsite).to(ACC)
     d2lnl = (d2site / lsite).to(ACC) - dlnl * dlnl
     wacc = weights.to(ACC)
     M = models.eign.shape[0]
-    d1 = _segment_sum(_segment_sum((wacc * dlnl).sum(dim=1), block_part, M),
-                      models.part_branch, num_slots)
-    d2 = _segment_sum(_segment_sum((wacc * d2lnl).sum(dim=1), block_part,
+    d1 = _segment_sum(_segment_sum((wacc * dlnl).sum(dim=-1), block_part,
+                                   M), models.part_branch, num_slots)
+    d2 = _segment_sum(_segment_sum((wacc * d2lnl).sum(dim=-1), block_part,
                                    M), models.part_branch, num_slots)
     return d1, d2
 
@@ -257,7 +477,8 @@ def nr_derivatives(models: DeviceModels, block_part: torch.Tensor,
 def newton_raphson_branch(models: DeviceModels, block_part: torch.Tensor,
                           weights: torch.Tensor, st: torch.Tensor,
                           z0: np.ndarray, maxiters0: np.ndarray,
-                          conv0: np.ndarray, num_slots: int) -> np.ndarray:
+                          conv0: np.ndarray, num_slots: int,
+                          site_rates=None) -> np.ndarray:
     """Branch-length Newton-Raphson to convergence per branch slot.
 
     The iteration state lives on the host in float64 and each iteration
@@ -283,7 +504,8 @@ def newton_raphson_branch(models: DeviceModels, block_part: torch.Tensor,
         z = np.clip(z, ZMIN, ZMAX)
         d1, d2 = nr_derivatives(
             models, block_part, weights, st,
-            torch.as_tensor(z, dtype=st.dtype, device=st.device), num_slots)
+            torch.as_tensor(z, dtype=st.dtype, device=st.device), num_slots,
+            site_rates)
         d1 = d1.cpu().numpy()
         d2 = d2.cpu().numpy()
         active = ~outer & ~curvat

@@ -1,14 +1,26 @@
-"""Branch-length smoothing passes over the tree (per-branch route).
+"""Branch-length smoothing passes over the tree.
 
-The port of the per-branch half of `examl_tpu/optimize/branch.py` (the
-JAX package's `EXAML_GRAD_SMOOTH=0` semantics): the reference's
+The port of `examl_tpu/optimize/branch.py`: the reference's
 `update`/`smooth`/`smoothTree`/`treeEvaluate` (ExaML
-`searchAlgo.c:127-436, 2635-2650`) — repeated Newton-Raphson passes over
-every branch until no branch moves by more than `deltaz`, tracked per
-branch slot through the instance's `partition_smoothed` /
-`partition_converged` flags, plus the SPR search's local passes
-(`localSmooth`, `regionalSmooth`).  The whole-tree gradient route comes
-with the gradient kernels.
+`searchAlgo.c:127-436, 2635-2650`) — repeated passes over every branch
+until no branch moves by more than `deltaz`, tracked per branch slot
+through the instance's `partition_smoothed` / `partition_converged`
+flags, plus the SPR search's local passes (`localSmooth`,
+`regionalSmooth`).
+
+Two routes for the full-tree pass (`smooth_tree`), chosen by the
+instance's `grad_smooth` (the JAX package's EXAML_GRAD_SMOOTH):
+
+* WHOLE-TREE GRADIENT (the default): per sweep, one full traversal and
+  one whole-tree gradient pass per engine (ops/gradient.py) give (d1, d2)
+  for all 2n-3 branches, then one batched damped-Newton update moves
+  every branch at once; sweeps repeat to the same DELTAZ criterion.
+* PER-BRANCH (the reference's, `grad_smooth=False`): one partial
+  traversal + sumtable + Newton solve per branch per sweep.  The local
+  and regional passes always take it (a handful of branches).
+
+Unlike the JAX package, a failed gradient pass raises: there is no
+per-branch fallback behind it.
 """
 
 from __future__ import annotations
@@ -17,10 +29,17 @@ from typing import List, Tuple
 
 import numpy as np
 
-from examl_tpu_torch.constants import DELTAZ, SMOOTHINGS
+from examl_tpu_torch.constants import DELTAZ, SMOOTHINGS, ZMAX, ZMIN
 from examl_tpu_torch.instance import PhyloInstance
+from examl_tpu_torch.ops import gradient
 from examl_tpu_torch.tree.topology import Node, Tree
 from examl_tpu_torch.utils import z_slots
+
+# Largest per-branch step scale of the gradient route (the JAX package's
+# EXAML_GRAD_DAMPING default).
+GRAD_DAMPING = 1.0
+# Gradient-route sweeps run (a plain count, read by chip_smoke.py).
+GRAD_SWEEPS = 0
 
 
 def update_branch(inst: PhyloInstance, tree: Tree, p: Node) -> None:
@@ -63,10 +82,111 @@ def _all_smoothed(inst: PhyloInstance) -> bool:
     return result
 
 
+# -- whole-tree gradient smoothing (ops/gradient.py) -------------------------
+
+
+def _slot_facing(tree: Tree, child: int, parent: int) -> Node:
+    """The slot at `child` whose back is `parent` — the Node owning the
+    branch's shared z list (hookup aliases both endpoints' z to one list,
+    so writing through either slot updates the branch)."""
+    if tree.is_tip(child):
+        return tree.nodep[child]
+    for sl in tree.slots(child):
+        if sl.back is not None and sl.back.number == parent:
+            return sl
+    raise KeyError(f"no slot at node {child} faces node {parent}")
+
+
+def _edge_slots(tree: Tree, flat, p: Node) -> List[Node]:
+    """Node slots in the engine's edge order (ops/gradient.py): edge 0
+    the traversal's root edge, then each entry's (left, right) child
+    branches in flat order."""
+    slots = [p]
+    for v, l, r in zip(flat.parent.tolist(), flat.left.tolist(),
+                       flat.right.tolist()):
+        slots.append(_slot_facing(tree, l, v))
+        slots.append(_slot_facing(tree, r, v))
+    return slots
+
+
+def tree_gradients(inst: PhyloInstance, tree: Tree):
+    """Analytic (d1, d2) w.r.t. lz for every branch, with the Node slots
+    owning them: per engine one full traversal and one whole-tree
+    gradient pass.  Mixed state buckets sum their per-engine derivatives
+    (the cross-engine sum `makenewz` takes per NR iteration)."""
+    p = tree.centroid_branch()
+    flat = tree.flat_full_traversal(p)
+    root_z = z_slots(p.z, inst.num_branch_slots)
+    d1 = d2 = None
+    for eng in inst.engines.values():
+        eng.run_traversal(flat, full=True)
+        e1, e2 = eng.whole_tree_gradients(flat, root_z)
+        d1 = e1 if d1 is None else d1 + e1
+        d2 = e2 if d2 is None else d2 + e2
+    slots = _edge_slots(tree, flat, p)
+    assert len(slots) == d1.shape[0], (len(slots), d1.shape)
+    return slots, d1, d2
+
+
+def gradient_smooth_tree(inst: PhyloInstance, tree: Tree,
+                         maxtimes: int) -> bool:
+    """Simultaneous whole-tree branch-length optimization: per sweep one
+    gradient pass (all branches at once) and one batched damped-Newton
+    update (`gradient.newton_step`, the reference NR body's single
+    iteration vectorized over edges), to the per-branch route's DELTAZ
+    movement criterion.
+
+    Simultaneous (Jacobi-style) updates can make an adjacent branch pair
+    overshoot in antiphase where the sequential solve damps through the
+    coupling, so each branch carries an Rprop-style step scale in lz
+    space: a direction flip between sweeps halves it, a consistent
+    direction grows it back (x1.2, capped at GRAD_DAMPING).  The budget is
+    4 x `maxtimes` single-step sweeps against the per-branch route's
+    `maxtimes` full-solve sweeps; returns False if branches still moved at
+    the end."""
+    global GRAD_SWEEPS
+    C = inst.num_branch_slots
+    scale = prev_step = None
+    for _ in range(max(1, 4 * maxtimes)):
+        inst.partition_smoothed[:] = True
+        slots, d1, d2 = tree_gradients(inst, tree)
+        z0 = np.clip(np.stack([z_slots(s.z, C) for s in slots]),
+                     ZMIN, ZMAX)
+        znew = gradient.newton_step(z0, d1, d2)
+        step = np.log(znew) - np.log(z0)
+        if scale is None:
+            scale = np.full_like(step, GRAD_DAMPING)
+        else:
+            flip = prev_step * step < 0.0
+            scale = np.maximum(
+                np.where(flip, scale * 0.5,
+                         np.minimum(scale * 1.2, GRAD_DAMPING)), 1.0 / 64)
+        prev_step = step
+        zapp = np.clip(z0 * np.exp(step * scale), ZMIN, ZMAX)
+        upd = ~inst.partition_converged
+        zapp = np.where(upd[None, :], zapp, z0)
+        moved = np.abs(zapp - z0) > DELTAZ
+        inst.partition_smoothed &= ~(upd & moved.any(axis=0))
+        for i, s in enumerate(slots):
+            s.z[:] = zapp[i].tolist()
+        GRAD_SWEEPS += 1
+        if _all_smoothed(inst):
+            return True
+    return False
+
+
 def smooth_tree(inst: PhyloInstance, tree: Tree, maxtimes: int) -> None:
-    """Smoothing passes over every branch (ref `smoothTree`): tree.start
-    is tip 1, so one descent from start.back covers every branch."""
+    """Smoothing passes over every branch (ref `smoothTree`), by
+    whole-tree gradients unless the instance was built with
+    `grad_smooth=False`.  A gradient run whose sweep budget runs out is
+    accepted, as the per-branch route accepts its own maxtimes.  The
+    per-branch route descends once from start.back (tree.start is tip 1)
+    and so covers every branch."""
     inst.partition_converged[:] = False
+    if inst.grad_smooth:
+        gradient_smooth_tree(inst, tree, maxtimes)
+        inst.partition_converged[:] = False
+        return
     p = tree.start
     while maxtimes > 0:
         maxtimes -= 1

@@ -10,9 +10,9 @@ below the caller's epsilon.  All groups' Brent probes are batched into one
 evaluation per step (see optimize/brent.py); every probe is a full
 traversal on the engines' `newview` tier.
 
-The port of the GAMMA subset of `examl_tpu/optimize/model_opt.py`.  The
-LG4X, PSR and automatic protein-model branches come later with those
-models: `PhyloInstance` refuses them at construction.
+The port of the GTR subset of `examl_tpu/optimize/model_opt.py`, under
+GAMMA or PSR.  The LG4X and automatic protein-model branches come later
+with those models: `PhyloInstance` refuses them at construction.
 """
 
 from __future__ import annotations
@@ -27,6 +27,9 @@ from examl_tpu_torch.models.gtr import (n_exchange, with_alpha, with_freqs,
                                         with_rates)
 from examl_tpu_torch.optimize.branch import tree_evaluate
 from examl_tpu_torch.optimize.brent import minimize_vector
+from examl_tpu_torch.optimize.psr import (MAX_CAT_ROUNDS,
+                                          optimize_rate_categories,
+                                          refine_category_rates)
 from examl_tpu_torch.tree.topology import Tree
 
 MODEL_EPSILON = 0.0001
@@ -166,12 +169,18 @@ def mod_opt(inst: PhyloInstance, tree: Tree, likelihood_epsilon: float,
             max_rounds: int = 100, checkpoint_cb=None) -> float:
     """Round-robin parameter optimization until Delta lnL < epsilon
     (reference `modOpt`, `optimizeModel.c:2963-3133`).  Under GAMMA the
-    rate-heterogeneity step is the alpha Brent.
+    rate-heterogeneity step is the alpha Brent; under PSR it is a rate
+    categorization round, capped at 3 per call as the reference's
+    `catOpt < 3` (`optimizeModel.c:3100-3110`), after which the
+    categories' rates are refined as continuous parameters
+    (`psr.refine_category_rates`).
 
     checkpoint_cb(state, extras), when given, is invoked after every
     optimization round — the reference's MOD_OPT checkpoint cadence in
     tree-evaluation mode (`optimizeModel.c:2995-3010`, `axml.h:655-659`)."""
     inst.evaluate(tree, full=True)
+    if inst.psr:
+        inst.cat_opt_rounds = 0
     while max_rounds > 0:
         max_rounds -= 1
         current = inst.likelihood
@@ -179,8 +188,15 @@ def mod_opt(inst: PhyloInstance, tree: Tree, likelihood_epsilon: float,
         tree_evaluate(inst, tree, 0.0625)
         opt_freqs(inst, tree)
         tree_evaluate(inst, tree, 0.0625)
-        opt_alphas(inst, tree)
-        tree_evaluate(inst, tree, 0.1)
+        if inst.psr:
+            if inst.cat_opt_rounds < MAX_CAT_ROUNDS:
+                optimize_rate_categories(inst, tree)
+                inst.cat_opt_rounds += 1
+            else:
+                refine_category_rates(inst, tree)
+        else:
+            opt_alphas(inst, tree)
+            tree_evaluate(inst, tree, 0.1)
         if checkpoint_cb is not None:
             checkpoint_cb("MOD_OPT", {})
         if abs(current - inst.likelihood) <= likelihood_epsilon:

@@ -13,9 +13,9 @@ The port of the single-writer path of `examl_tpu/search/checkpoint.py`,
 with the same file names, magic, version, sections and fingerprint keys,
 so a checkpoint written by either package restores in the other.  The
 world size is always 1 here (`nprocs`, allowlisted on restore as in the
-JAX package).  Models are GTR under GAMMA: a checkpoint carrying an LG4,
-automatic-protein or per-site-rate model is refused with
-NotImplementedError.
+JAX package).  Models are GTR under GAMMA or PSR (the per-site rate state
+rides in each partition's model entry); a checkpoint carrying an LG4 or
+automatic-protein model is refused with NotImplementedError.
 """
 
 from __future__ import annotations
@@ -61,35 +61,60 @@ def _fingerprint(inst: PhyloInstance) -> dict:
         "ncat": inst.ncat,
         "use_median": inst.use_median,
         "per_partition_branches": inst.per_partition_branches,
-        "rate_model": "GAMMA",
+        "rate_model": inst.rate_model,
         "nprocs": 1,
     }
 
 
 def _models_blob(inst: PhyloInstance) -> list:
-    return [{"rates": np.asarray(m.rates).tolist(),
+    out = []
+    for gid, m in enumerate(inst.models):
+        d = {"rates": np.asarray(m.rates).tolist(),
              "freqs": np.asarray(m.freqs).tolist(),
              "alpha": float(m.alpha),
              "auto_name": None,
              "auto_freqs": None}
-            for m in inst.models]
+        if inst.psr:
+            # Per-site rate state: the categories, their rates, and
+            # patrat, the un-snapped per-site scan optima (reference
+            # patrat vs perSiteRates, `axml.h:585-600`).
+            d["rate_category"] = inst.rate_category[gid].tolist()
+            d["per_site_rates"] = inst.per_site_rates[gid].tolist()
+            d["patrat"] = inst.patrat[gid].tolist()
+        out.append(d)
+    return out
 
 
 def _restore_models(inst: PhyloInstance, blob: list) -> None:
     for gid, d in enumerate(blob):
         for key, model in (("lg4", "an LG4 model"),
-                           ("auto_name", "an automatic protein model"),
-                           ("rate_category", "the PSR rate model")):
+                           ("auto_name", "an automatic protein model")):
             if d.get(key):
                 raise NotImplementedError(
                     f"checkpoint partition {gid} carries {model} "
-                    f"({key}={d[key]!r}); only GTR under GAMMA is ported")
+                    f"({key}={d[key]!r}); only GTR models are ported")
         part = inst.alignment.partitions[gid]
         inst.models[gid] = build_model(
             part.datatype, np.asarray(d["freqs"]),
             rates=np.asarray(d["rates"]), alpha=d["alpha"],
             ncat=inst.ncat, use_median=inst.use_median)
+        if inst.psr and "rate_category" in d:
+            # A section whose length is not the partition's pattern count
+            # was written for another alignment layout: refuse it.
+            cat = np.asarray(d["rate_category"], dtype=np.int32)
+            if cat.size != part.width:
+                raise ValueError(
+                    f"checkpoint section models[{gid}].rate_category "
+                    f"carries {cat.size} sites but partition "
+                    f"'{part.name}' has {part.width} patterns")
+            inst.rate_category[gid] = cat
+            inst.per_site_rates[gid] = np.asarray(d["per_site_rates"])
+            inst.patrat[gid] = np.asarray(
+                d.get("patrat", inst.per_site_rates[gid][
+                    inst.rate_category[gid]].tolist()))
     inst.push_models()
+    if inst.psr:
+        inst.push_site_rates()
 
 
 class CheckpointManager:

@@ -6,9 +6,10 @@ fields of the model stack, the tip codes and indicator table, the block
 device.  `install_model_params` loads per-partition model parameters
 into a `PhyloInstance`, either as complete `ModelParams` field sets
 (eigensystems carried exactly) or as (rates, freqs, alpha) triples that
-the port's own `build_model` turns into models.  With these, two
-implementations can be held on exactly the same numbers; the tree
-travels as a Newick string with lengths.
+the port's own `build_model` turns into models.  `install_psr_state`
+loads a PSR instance's per-site rate state (patrat, rate categories,
+category rates).  With these, two implementations can be held on exactly
+the same numbers; the tree travels as a Newick string with lengths.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import numpy as np
 import torch
 
 from examl_tpu_torch.models.gtr import ModelParams, build_model
-from examl_tpu_torch.ops.kernels import DeviceModels, TipState
+from examl_tpu_torch.ops.kernels import DeviceModels, TipState, tip_state
 
 MODEL_FIELDS = ("eign", "ev", "ei", "freqs", "gamma_rates", "rate_weights",
                 "part_branch")
@@ -42,10 +43,8 @@ def state_from_numpy(arrays: Mapping[str, np.ndarray], device,
         **{k: f(k) for k in MODEL_FIELDS[:-1]},
         part_branch=torch.as_tensor(np.asarray(arrays["part_branch"],
                                                np.int64), device=device))
-    tips = TipState(
-        codes=torch.as_tensor(np.array(arrays["codes"], np.uint8),
-                              device=device),
-        table=f("table"))
+    tips = tip_state(torch.as_tensor(np.array(arrays["codes"], np.uint8),
+                                     device=device), f("table"))
     block_part = torch.as_tensor(np.asarray(arrays["block_part"], np.int64),
                                  device=device)
     return models, tips, block_part, f("weights")
@@ -84,3 +83,30 @@ def install_model_params(inst, params: Sequence[ParamSet]) -> None:
         inst.models[gid] = model_from_params(ps, part.datatype, inst.ncat,
                                              inst.use_median)
     inst.push_models()
+
+
+def install_psr_state(inst, patrat: Sequence[np.ndarray],
+                      rate_category: Sequence[np.ndarray],
+                      per_site_rates: Sequence[np.ndarray]) -> None:
+    """Overwrite the per-site rate state of a PSR `inst`, one array per
+    partition each (patrat [W] float, rate_category [W] int, category
+    rates [ncat] float), and push the categorized rates."""
+    if not inst.psr:
+        raise ValueError("the instance was not built with rate_model='PSR'")
+    for name, arrs in (("patrat", patrat), ("rate_category", rate_category),
+                       ("per_site_rates", per_site_rates)):
+        if len(arrs) != inst.num_parts:
+            raise ValueError(f"{len(arrs)} {name} arrays for "
+                             f"{inst.num_parts} partitions")
+    for gid, part in enumerate(inst.alignment.partitions):
+        cat = np.array(rate_category[gid], dtype=np.int32)
+        rates = np.array(per_site_rates[gid], dtype=np.float64)
+        pr = np.array(patrat[gid], dtype=np.float64)
+        if cat.shape != (part.width,) or pr.shape != (part.width,):
+            raise ValueError(f"partition {gid} has {part.width} patterns")
+        if cat.size and not 0 <= cat.min() <= cat.max() < rates.size:
+            raise ValueError(f"partition {gid}: categories out of range")
+        inst.patrat[gid] = pr
+        inst.rate_category[gid] = cat
+        inst.per_site_rates[gid] = rates
+    inst.push_site_rates()

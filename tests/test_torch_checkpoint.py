@@ -3,9 +3,10 @@
 * A checkpoint written by the port restores in the JAX package's
   CheckpointManager, and one written by the JAX package restores in the
   port: model, tree and lnL (rtol 1e-10) come across both ways, and the
-  extras unchanged;
-* a configuration mismatch raises ValueError, a model the port lacks
-  NotImplementedError;
+  extras unchanged; so does a PSR checkpoint with its per-site rate
+  state (categories, their rates, patrat), both ways;
+* a configuration mismatch (a PSR checkpoint for a GAMMA run included)
+  raises ValueError, a model the port lacks NotImplementedError;
 * the counter resumes numbering, `keep_last` prunes, a corrupt newest file
   falls back to the next one;
 * the RF-convergence blob round-trips through JSON and equals JAX's;
@@ -244,3 +245,82 @@ def test_restart_reaches_continuous_result(tmp_path):
     res2 = compute_big_rapid(inst2, tree2, SearchOptions(**opts),
                              resume=resume)
     assert res2.likelihood >= res.likelihood - 0.5
+
+
+def _psr_pair(seed=5):
+    """A port and a JAX PSR instance on one two-partition alignment, each
+    with its own per-site rate state drawn from `seed` (categories, their
+    rates and patrat differ between the two, so a restore has to carry
+    them)."""
+    names, seqs = _dna(10, 120)
+    from examl_tpu.io.partitions import PartitionSpec as JSpec
+    from examl_tpu_torch.io.partitions import PartitionSpec
+    cols = [np.arange(0, 60), np.arange(60, 120)]
+    tinst = PhyloInstance(build_alignment_data(names, seqs, [
+        PartitionSpec(f"p{g}", "DNA", "GTR", cols[g]) for g in range(2)]),
+        dtype=torch.float64, device="cpu", rate_model="PSR")
+    jinst = JaxInstance(jbuild_alignment(names, seqs, [
+        JSpec(f"p{g}", "DNA", "GTR", cols[g]) for g in range(2)]),
+        dtype=jnp.float64, rate_model="PSR")
+    rng = np.random.default_rng(seed)
+    for inst in (tinst, jinst):
+        for gid, part in enumerate(inst.alignment.partitions):
+            inst.per_site_rates[gid] = np.sort(rng.uniform(0.1, 3.0, 4))
+            inst.rate_category[gid] = rng.integers(
+                0, 4, part.width).astype(np.int32)
+            inst.patrat[gid] = rng.uniform(0.1, 3.0, part.width)
+        inst.push_site_rates()
+    install_model_params(tinst, PARAMS)
+    for gid, (rates, freqs, alpha) in enumerate(PARAMS):
+        jinst.models[gid] = jbuild_model(
+            jinst.alignment.partitions[gid].datatype, np.asarray(freqs),
+            rates=np.asarray(rates), alpha=alpha, ncat=1)
+    jinst.push_models()
+    return tinst, jinst
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_psr_checkpoint_crosses_both_ways(tmp_path, writer):
+    tinst, jinst = _psr_pair()
+    other_port, other_jax = _psr_pair(seed=9)
+    port = (tinst, checkpoint.CheckpointManager, topology_key)
+    jax_ = (jinst, jcheckpoint.CheckpointManager, jtopology_key)
+    if writer == "port":
+        (src, src_mgr, src_key), (_, dst_mgr, dst_key) = port, jax_
+        dst = other_jax
+    else:
+        (src, src_mgr, src_key), (_, dst_mgr, dst_key) = jax_, port
+        dst = other_port
+    src_tree = src.random_tree(seed=3)
+    lnl = src.evaluate(src_tree, full=True)
+    src_mgr(str(tmp_path), "psr").write("MOD_OPT", {"tree_iteration": 1},
+                                        src, src_tree)
+    dst_tree = dst.random_tree(seed=8)
+    resume = dst_mgr(str(tmp_path), "psr").restore(dst, dst_tree)
+    assert resume["state"] == "MOD_OPT"
+    assert dst.likelihood == pytest.approx(lnl, rel=1e-10)
+    assert dst_key(dst_tree) == src_key(src_tree)
+    for gid in range(2):
+        np.testing.assert_array_equal(dst.rate_category[gid],
+                                      src.rate_category[gid])
+        np.testing.assert_array_equal(dst.per_site_rates[gid],
+                                      src.per_site_rates[gid])
+        np.testing.assert_array_equal(dst.patrat[gid], src.patrat[gid])
+    (path,) = glob.glob(str(tmp_path / "*.json.gz"))
+    with gzip.open(path, "rt") as f:
+        blob = json.load(f)
+    assert blob["fingerprint"]["rate_model"] == "PSR"
+    assert {"rate_category", "per_site_rates", "patrat"} <= \
+        blob["models"][0].keys()
+
+
+def test_psr_checkpoint_refused_by_gamma_run(tmp_path):
+    tinst, _ = _psr_pair()
+    tree = tinst.random_tree(seed=3)
+    tinst.evaluate(tree, full=True)
+    checkpoint.CheckpointManager(str(tmp_path), "r").write(
+        "MOD_OPT", {}, tinst, tree)
+    gamma = _port()
+    with pytest.raises(ValueError, match="rate_model"):
+        checkpoint.CheckpointManager(str(tmp_path), "r").restore(
+            gamma, gamma.random_tree(seed=1))

@@ -7,6 +7,9 @@ port, on both full-traversal tiers.
   written tree reproduces the logged lnL within 1e-3 (the files round to
   6 decimals).  MOD_OPT checkpoints are written, and `-R` from the one
   taken after the first tree resumes at the second tree.
+* `-m PSR -f e`: the model file carries each partition's categories, and
+  the written trees re-evaluate to the logged lnLs under the run's final
+  model and per-site rates.
 * `-f d -i 5 -B 3` (the default mode): the result, log, model and
   goodTrees files; the final lnL above the first, and the result tree
   re-evaluating to it under the written model.  `-R` from a middle
@@ -269,3 +272,39 @@ def test_parse_writes_jax_bytefile(tmp_path):
     assert port == (tmp_path / "jax.binary").read_bytes()
     data = read_bytefile(str(tmp_path / "port.binary"))
     assert [p.name for p in data.partitions] == ["a", "b"]
+
+
+def test_psr_tree_evaluation_end_to_end(tmp_path):
+    """-m PSR -f e: the model file carries each partition's categories and
+    their rates, and the written tree under the run's final model and
+    per-site rate state (restored from the run's last checkpoint)
+    re-evaluates to the logged lnL."""
+    from examl_tpu_torch.search.checkpoint import CheckpointManager
+    aln, trees = _inputs(tmp_path)
+    out = str(tmp_path / "out")
+    rc = main(["-s", aln, "-t", trees, "-n", "T", "-w", out, "-f", "e",
+               "-m", "PSR", "-c", "6"], device="cpu")
+    assert rc == 0
+    info = open(os.path.join(out, "ExaML_info.T")).read()
+    assert "model: PSR" in info
+    text = open(os.path.join(out, "ExaML_modelFile.T")).read()
+    cats = [int(c) for c in re.findall(r"^categories: (\d+)$", text, re.M)]
+    rates = re.findall(r"^category rates: (.*)$", text, re.M)
+    assert len(cats) == len(rates) == 2
+    assert all(1 <= c <= 6 for c in cats) and max(cats) > 1
+    assert [len(r.split()) for r in rates] == cats
+    assert "alpha:" not in text
+    params = parse_model_file(os.path.join(out, "ExaML_modelFile.T"))
+    assert all(len(p.rates) == 6 and p.alpha is None for p in params)
+    logged = _logged(out)
+    assert len(logged) == 2
+    inst = PhyloInstance(read_bytefile(aln), dtype=torch.float64,
+                         device="cpu", rate_model="PSR")
+    scaffold = inst.random_tree(seed=5)
+    resume = CheckpointManager(out, "T").restore(inst, scaffold)
+    assert resume["extras"]["tree_iteration"] == 2
+    newicks = open(os.path.join(out, "ExaML_TreeFile.T")).read().split()
+    for i in range(2):
+        tree = inst.tree_from_newick(newicks[i])
+        assert inst.evaluate(tree, full=True) == pytest.approx(logged[i],
+                                                               abs=1e-3)

@@ -37,9 +37,11 @@ def test_port_imports_no_jax_and_no_examl_tpu():
     for name in ("examl_tpu_torch.instance", "examl_tpu_torch.ops.engine",
                  "examl_tpu_torch.ops.newview_chunk",
                  "examl_tpu_torch.ops.newview_whole",
+                 "examl_tpu_torch.ops.gradient",
                  "examl_tpu_torch.optimize.branch",
                  "examl_tpu_torch.optimize.brent",
                  "examl_tpu_torch.optimize.model_opt",
+                 "examl_tpu_torch.optimize.psr",
                  "examl_tpu_torch.cli.main",
                  "examl_tpu_torch.cli.parse",
                  "examl_tpu_torch.search.checkpoint",

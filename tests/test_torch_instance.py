@@ -89,10 +89,11 @@ def _synthetic(ntaxa, nsites, seed, parts=1):
             build_alignment_data(names, seqs, tspecs))
 
 
-def _pair(ntaxa, nsites, seed, parts=1, **kw):
+def _pair(ntaxa, nsites, seed, parts=1, grad_smooth=True, **kw):
     jad, tad = _synthetic(ntaxa, nsites, seed, parts)
     jinst = JaxInstance(jad, dtype=jnp.float64, **kw)
-    tinst = PhyloInstance(tad, dtype=torch.float64, device="cpu", **kw)
+    tinst = PhyloInstance(tad, dtype=torch.float64, device="cpu",
+                          grad_smooth=grad_smooth, **kw)
     rng = np.random.default_rng(seed + 100)
     params = []
     for _ in range(parts):
@@ -118,7 +119,7 @@ def _pair(ntaxa, nsites, seed, parts=1, **kw):
 
 def test_smooth_tree_sweep_matches_jax_per_branch(monkeypatch):
     monkeypatch.setenv("EXAML_GRAD_SMOOTH", "0")
-    jinst, jtree, tinst, ttree = _pair(16, 400, 3)
+    jinst, jtree, tinst, ttree = _pair(16, 400, 3, grad_smooth=False)
     jl0 = jinst.evaluate(jtree, full=True)
     tl0 = tinst.evaluate(ttree, full=True)
     assert tl0 == pytest.approx(jl0, rel=1e-10)

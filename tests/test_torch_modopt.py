@@ -5,8 +5,10 @@
 * a restricted (`only_states`) evaluate equals the unrestricted one, and
   refuses to run before any unrestricted evaluate;
 * `mod_opt(inst, tree, 0.1, max_rounds=2)` on two synthetic DNA partitions
-  (one with optimized frequencies) on both port tiers against the JAX
-  package with per-branch smoothing (EXAML_GRAD_SMOOTH=0): final lnL at
+  (one with optimized frequencies) on both port tiers, with per-branch
+  smoothing on both sides (the port's `grad_smooth=False`, the JAX
+  package's EXAML_GRAD_SMOOTH=0; tests/test_torch_psr.py holds a PSR
+  `mod_opt` on the default gradient route): final lnL at
   rtol 1e-9, each partition's alpha, rates and frequencies at rtol 1e-6,
   and the number of evaluations within 1% of JAX's.  Brent is a
   trajectory: here the two packages' per-partition lnLs differ by one
@@ -123,7 +125,7 @@ def test_mod_opt_matches_jax(jax_endpoint, newview):
     jl, jcalls, jmodels = jax_endpoint
     _, tad = _synthetic()
     tinst = PhyloInstance(tad, dtype=torch.float64, device="cpu",
-                          newview=newview)
+                          newview=newview, grad_smooth=False)
     ttree = tinst.random_tree(2)
     l0 = tinst.evaluate(ttree, full=True)
     calls = _counted(tinst)

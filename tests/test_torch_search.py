@@ -4,7 +4,9 @@ Both packages build their trees from the same newick text: the SPR slot
 order follows the order in which a tree was built, so trees drawn by each
 package's `random_tree` would be searched in a different order.  The JAX
 side runs the sequential SPR arm with per-branch smoothing
-(EXAML_BATCH_SCAN=0, EXAML_GRAD_SMOOTH=0), the semantics the port has.
+(EXAML_BATCH_SCAN=0, EXAML_GRAD_SMOOTH=0), the port side its per-branch
+route (`grad_smooth=False`); tests/test_torch_gradient.py holds the two
+packages' default gradient routes together.
 
 * snapshots: the round trip restores the likelihood; `topology_key`,
   BestList ranks and InfoList contents equal JAX's;
@@ -77,7 +79,8 @@ def _pair(ntaxa, nsites, tree_seed, seed=42):
     jinst = JaxInstance(jbuild_alignment(names, seqs), dtype=jnp.float64)
     newick = jinst.random_tree(seed=tree_seed).to_newick(names)
     tinst = PhyloInstance(build_alignment_data(names, seqs),
-                          dtype=torch.float64, device="cpu")
+                          dtype=torch.float64, device="cpu",
+                          grad_smooth=False)
     return (jinst, jinst.tree_from_newick(newick), tinst,
             tinst.tree_from_newick(newick))
 
@@ -159,7 +162,8 @@ def test_rearrange_matches_jax(smoothed_pair, thorough):
     _, seqs = _correlated_dna(10, 150)
     jinst = JaxInstance(jbuild_alignment(names, seqs), dtype=jnp.float64)
     tinst = PhyloInstance(build_alignment_data(names, seqs),
-                          dtype=torch.float64, device="cpu")
+                          dtype=torch.float64, device="cpu",
+                          grad_smooth=False)
     jtree = jinst.tree_from_newick(newick)
     ttree = tinst.tree_from_newick(newick)
     jl = jinst.evaluate(jtree, full=True)

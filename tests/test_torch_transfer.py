@@ -1,5 +1,6 @@
-"""examl_tpu_torch.transfer: engine state and model parameters carried
-from the JAX package into the port as numpy arrays."""
+"""examl_tpu_torch.transfer: engine state, model parameters and PSR
+per-site rate state carried from the JAX package into the port as numpy
+arrays."""
 
 import dataclasses
 
@@ -100,3 +101,43 @@ def test_install_model_params_matches_jax(form):
         jinst.evaluate(jtree, full=True), rel=1e-10)
     with pytest.raises(ValueError):
         install_model_params(tinst, params * 2)
+
+
+def test_install_psr_state_carries_jax_state():
+    """A JAX PSR instance's per-site rate state carried into the port
+    gives the JAX lnL on the same tree."""
+    from examl_tpu_torch.transfer import install_psr_state
+    names, seqs = _data(8, 10, 160)
+    jinst = JaxInstance(jbuild(names, seqs), dtype=jnp.float64,
+                        rate_model="PSR")
+    rng = np.random.default_rng(2)
+    W = jinst.alignment.partitions[0].width
+    jinst.per_site_rates[0] = np.array([0.2, 0.9, 1.7, 3.1])
+    jinst.rate_category[0] = rng.integers(0, 4, W).astype(np.int32)
+    jinst.patrat[0] = rng.uniform(0.1, 3.0, W)
+    jinst.push_site_rates()
+    newick = jinst.random_tree(3).to_newick(names)
+    jtree = jinst.tree_from_newick(newick)
+    tinst = PhyloInstance(build_alignment_data(names, seqs),
+                          dtype=torch.float64, device="cpu",
+                          rate_model="PSR")
+    assert tinst.ncat == 1
+    install_psr_state(tinst, jinst.patrat, jinst.rate_category,
+                      jinst.per_site_rates)
+    np.testing.assert_array_equal(tinst.rate_category[0],
+                                  jinst.rate_category[0])
+    np.testing.assert_array_equal(tinst.patrat[0], jinst.patrat[0])
+    ttree = tinst.tree_from_newick(newick)
+    assert tinst.evaluate(ttree, full=True) == pytest.approx(
+        jinst.evaluate(jtree, full=True), rel=1e-10)
+    with pytest.raises(ValueError, match="patterns"):
+        install_psr_state(tinst, [jinst.patrat[0][:-1]],
+                          jinst.rate_category, jinst.per_site_rates)
+    with pytest.raises(ValueError, match="out of range"):
+        install_psr_state(tinst, jinst.patrat, jinst.rate_category,
+                          [jinst.per_site_rates[0][:1]])
+    gamma = PhyloInstance(build_alignment_data(names, seqs),
+                          dtype=torch.float64, device="cpu")
+    with pytest.raises(ValueError, match="PSR"):
+        install_psr_state(gamma, jinst.patrat, jinst.rate_category,
+                          jinst.per_site_rates)
