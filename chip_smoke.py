@@ -13,8 +13,13 @@ main paths — full-traversal evaluate, Newton-Raphson branch updates, the
 SPR scan's scored insertions, whole-tree gradients and the gradient
 smoothing route, a model-optimization pass, a PSR categorization round —
 at a real per-GPU size (512 taxa x 131,072 DNA patterns in four
-partitions, f32).  Every phase is fatal: any failure exits non-zero
-before the result line.
+partitions, f32).  Kernels B1 and B2 are held against their plain
+versions at K = 4 (DNA), 20 (amino acids) and 2 (binary); `-f e` runs
+through the CLI on amino-acid and binary data (WAG, LG+F, LG4M, LG4X,
+AUTO and a binary partition), and the amino-acid path runs at real size
+(512 taxa x 32,768 amino-acid patterns in four partitions plus 32,768
+binary ones) on both tiers.  Every phase is fatal: any failure exits
+non-zero before the result line.
 
     python3 chip_smoke.py [--seed N]     # one card
 
@@ -22,7 +27,8 @@ Output: progress and numbers on the earlier lines (each phase with its
 seconds); the card's name and power limit; one line {"kernels": [...]}
 with each kernel's launches on its paths, its agreement with the plain
 version, its time per full traversal, the plain version's time and the
-memory-traffic bound; last, {"ok": true, "device": {...}}.  The full
+memory-traffic bound, in total and by instance K (`by_K`); last,
+{"ok": true, "device": {...}}.  The full
 report is written as JSON beside the script (see `main`).
 """
 
@@ -53,9 +59,13 @@ F32_FLOPS = 67e12                # H100 SXM, float32 outside tensor cores
 RTOL = {"float32": 1e-5, "float64": 1e-12}
 # The real-size run: 512 taxa x 4 partitions of 32,768 DNA patterns.
 TAXA, PARTITIONS, PART_WIDTH = 512, 4, 32768
-CHECK_BLOCKS = 1024     # site blocks of 128 in the kernel-vs-plain cases
+# Site blocks of 128 in the kernel-vs-plain cases, by state count (the
+# amino-acid cases cut to fit the f64 arenas and the plain version's
+# temporaries in memory; B1's K = 20 tiles are a quarter block, so 128
+# blocks still give 8,192 tiles an entry).
+CHECK_BLOCKS = {4: 1024, 20: 128, 2: 1024}
 CHECK_WIDTH = 64        # chunk width of the kernel-vs-plain cases
-WHOLE_CHECK_BLOCKS = 256    # site blocks in the B2-vs-plain cases
+WHOLE_CHECK_BLOCKS = {4: 256, 20: 32, 2: 256}   # the B2-vs-plain cases
 REPS = 5                # timed repeats
 REPEAT = 10             # launch-table rows repeated in one call (breakdown)
 # The -f d run through the CLI: FD_TAXA taxa x 4 partitions of FD_WIDTH
@@ -69,7 +79,18 @@ GRAD_RTOL = 1e-3        # f32 against f64 whole-tree d1, of max |d1|
 # gradient sweeps (the default 32 smoothings run 128 sweeps there, cut by
 # the run's time limit).
 REAL_SMOOTH_FACTOR = 0.25
-NPHASES = 15
+# -f e through the CLI on amino-acid and binary data: AA_TAXA taxa, five
+# amino-acid partitions of AA_CLI_WIDTH columns and a binary one of
+# BIN_CLI_WIDTH.
+AA_TAXA, AA_CLI_WIDTH, BIN_CLI_WIDTH = 24, 200, 400
+AA_LETTERS = "ARNDCQEGHILKMFPSTWYV"
+# The real-size amino-acid instance: AA_REAL_TAXA taxa, four amino-acid
+# partitions of AA_REAL_WIDTH patterns (one per model) and a binary one of
+# BIN_REAL_WIDTH: a quarter of the DNA cell's 131,072 patterns at five
+# times the bytes a pattern, an arena of 6.0 GB against DNA's 4.8 GB.
+AA_REAL_TAXA, AA_REAL_WIDTH, BIN_REAL_WIDTH = 512, 8192, 32768
+AA_REAL_MODELS = ("WAG", "LG", "LG4M", "LG4X")
+NPHASES = 17
 
 
 class SmokeFailure(RuntimeError):
@@ -115,22 +136,35 @@ def time_ms(fn, device, reps: int) -> float:
 # -- phase 3: kernel B1 against its plain version ---------------------------
 
 
-def random_models(M: int, rng, dtype, device, ncat: int = 4):
+# Kernel instances by state count: the data type, and the tip codes the
+# kernel-vs-plain cases draw (DNA: A, C, G, T, N and a two-state code; all
+# 23 amino-acid codes; binary 0, 1 and the gap).
+STATES = (4, 20, 2)
+CASE_CODES = {4: [1, 2, 4, 8, 15, 5], 20: list(range(23)), 2: [1, 2, 3]}
+
+
+def datatype_of(K: int):
     from examl_tpu_torch import datatypes
-    from examl_tpu_torch.models.gtr import build_model
+    return {4: datatypes.DNA, 20: datatypes.AA, 2: datatypes.BINARY}[K]
+
+
+def random_models(M: int, rng, dtype, device, ncat: int = 4, K: int = 4):
+    """M random GTR+G models of K states (the last exchangeability 1)."""
+    from examl_tpu_torch.models.gtr import build_model, n_exchange
     from examl_tpu_torch.ops.engine import stack_models
     models = []
     for _ in range(M):
-        rates = rng.uniform(0.3, 6.0, 6)
+        rates = rng.uniform(0.3, 6.0, n_exchange(K))
         rates[-1] = 1.0
-        models.append(build_model(datatypes.DNA, rng.dirichlet(np.ones(4) * 5),
+        models.append(build_model(datatype_of(K),
+                                  rng.dirichlet(np.ones(K) * 5),
                                   rates=rates, alpha=rng.uniform(0.2, 1.5),
                                   ncat=ncat))
     return models, stack_models(models, [0] * M, dtype, device)
 
 
 def b1_case(tag: str, launch_spec, dtype_name: str, rescale: bool, B: int,
-            W: int, seed: int, device, chained: bool = False):
+            W: int, seed: int, device, chained: bool = False, K: int = 4):
     """One kernel-vs-plain comparison of kernel B1 over a launch table.
 
     launch_spec lists (kind, real) per launch.  Inner children of launch
@@ -143,15 +177,14 @@ def b1_case(tag: str, launch_spec, dtype_name: str, rescale: bool, B: int,
     each partition's P by f * 2^(-E/2), f in 0.25..4, so the children's
     products straddle 2^-E.  Returns a result dict."""
     import torch
-    from examl_tpu_torch import datatypes
     from examl_tpu_torch.ops import newview_chunk
     dtype = getattr(torch, dtype_name)
     E = 256 if dtype == torch.float64 else 32
-    L, R, K, M, ntips = 128, 4, 4, 4, 16
+    L, R, M, ntips = 128, 4, 4, 16
     rng = np.random.default_rng(seed)
-    _, dm = random_models(M, rng, dtype, device)
-    table = torch.as_tensor(datatypes.DNA.tip_indicator_table(), dtype=dtype,
-                            device=device)
+    _, dm = random_models(M, rng, dtype, device, K=K)
+    table = torch.as_tensor(datatype_of(K).tip_indicator_table(),
+                            dtype=dtype, device=device)
     P = sum(r for _, r in launch_spec)
     zl = torch.as_tensor(rng.uniform(0.05, 0.99, (P, 1)), dtype=dtype,
                          device=device)
@@ -182,10 +215,10 @@ def b1_case(tag: str, launch_spec, dtype_name: str, rescale: bool, B: int,
                      device=device)
     scaler = torch.randint(0, 4, (rows, B, L), generator=gen,
                            dtype=torch.int32, device=device)
-    codes = torch.as_tensor([1, 2, 4, 8, 15, 5], dtype=torch.uint8,
+    codes = torch.as_tensor(CASE_CODES[K], dtype=torch.uint8,
                             device=device)[torch.randint(
-                                0, 6, (ntips, B, L), generator=gen,
-                                device=device)]
+                                0, len(CASE_CODES[K]), (ntips, B, L),
+                                generator=gen, device=device)]
     block_part = torch.as_tensor(rng.integers(0, M, B), dtype=torch.int32,
                                  device=device)
     i32 = dict(dtype=torch.int32, device=device)
@@ -199,7 +232,7 @@ def b1_case(tag: str, launch_spec, dtype_name: str, rescale: bool, B: int,
     c_k, s_k = clv.clone(), scaler.clone()
     newview_chunk.chunk_apply_cuda(c_k, s_k, *args)
     sync(device)
-    what = f"B1 {tag} {dtype_name} rescale={rescale}"
+    what = f"B1 K={K} {tag} {dtype_name} rescale={rescale}"
     mism = (s_k != s_ref).nonzero()
     check(mism.shape[0] == 0, f"{what}: {mism.shape[0]} scaler mismatches, "
           f"first at (row, block, lane) "
@@ -216,7 +249,8 @@ def b1_case(tag: str, launch_spec, dtype_name: str, rescale: bool, B: int,
           f"{RTOL[dtype_name]}")
     inc = int((s_ref[out] - scaler_sums(s_ref, launch, args[4], args[5])
                ).sum())
-    return {"case": tag, "dtype": dtype_name, "forced_rescale": rescale,
+    return {"K": K, "case": tag, "dtype": dtype_name,
+            "forced_rescale": rescale,
             "launches": len(launch_spec), "entries": P, "blocks": B,
             "tiles": P * B, "max_abs_err": float(diff.max()),
             "max_rel_err": rel, "rescaled_sites": inc}
@@ -241,33 +275,37 @@ def scaler_sums(scaler, launch, lidx, ridx):
     return torch.cat(out)
 
 
-def phase_kernel_vs_plain(device, B: int, W: int, seed: int):
-    """Kinds 0/1/2 over W entries and B blocks (more tiles than the
-    persistent grid: the ring wraps many times), f32 and f64, with and
-    without forced rescale; then one entry over few blocks (fewer tiles
-    than CTAs), a chunk of real < W entries, and a chain of launches each
-    reading its predecessor's rows (run twice)."""
+def phase_kernel_vs_plain(device, blocks: dict, W: int, seed: int):
+    """For each instance K (blocks[K] blocks of 128 sites): kinds 0/1/2
+    over W entries (more tiles than the persistent grid: the ring wraps
+    many times), f32 and f64, with and without forced rescale; then one
+    entry over few blocks (fewer tiles than CTAs), a chunk of real < W
+    entries, and a chain of launches each reading its predecessor's rows
+    (run twice)."""
     results = []
-    cases = [(f"kind {k}", [(k, W)], d, r, B, False)
-             for d in ("float32", "float64") for k in (0, 1, 2)
-             for r in (False, True)]
-    for d in ("float32", "float64"):
-        cases += [("real=1 few tiles", [(2, 1)], d, True, 64, False),
-                  ("real<W", [(1, W * 5 // 8)], d, True, B, False),
-                  ("chain", [(0, W), (1, 9), (2, 1), (2, 3), (2, W)], d,
-                   True, B // 4, True),
-                  ("chain again", [(0, W), (1, 9), (2, 1), (2, 3), (2, W)],
-                   d, True, B // 4, True)]
-    for i, (tag, spec, d, resc, blocks, chained) in enumerate(cases):
-        r = b1_case(tag, spec, d, resc, blocks, W, seed + i, device, chained)
-        if resc:
-            check(r["rescaled_sites"] > 0, f"B1 {tag} {d}: the forced-"
-                  "rescale case rescaled no site")
-        results.append(r)
-        log(f"  {tag:16s} {d:7s} rescale={resc!s:5s} launches="
-            f"{r['launches']} entries={r['entries']} tiles={r['tiles']} "
-            f"max_abs_err={r['max_abs_err']:.3e} max_rel_err="
-            f"{r['max_rel_err']:.3e} rescaled_sites={r['rescaled_sites']}")
+    for K in STATES:
+        B = blocks[K]
+        cases = [(f"kind {k}", [(k, W)], d, r, B, False)
+                 for d in ("float32", "float64") for k in (0, 1, 2)
+                 for r in (False, True)]
+        for d in ("float32", "float64"):
+            chain = [(0, W), (1, 9), (2, 1), (2, 3), (2, W)]
+            cases += [("real=1 few tiles", [(2, 1)], d, True, 64, False),
+                      ("real<W", [(1, W * 5 // 8)], d, True, B, False),
+                      ("chain", chain, d, True, max(B // 4, 8), True),
+                      ("chain again", chain, d, True, max(B // 4, 8), True)]
+        for i, (tag, spec, d, resc, nb, chained) in enumerate(cases):
+            r = b1_case(tag, spec, d, resc, nb, W, seed + i, device, chained,
+                        K)
+            if resc:
+                check(r["rescaled_sites"] > 0, f"B1 K={K} {tag} {d}: the "
+                      "forced-rescale case rescaled no site")
+            results.append(r)
+            log(f"  K={K:2d} {tag:16s} {d:7s} rescale={resc!s:5s} launches="
+                f"{r['launches']} entries={r['entries']} tiles="
+                f"{r['tiles']} max_abs_err={r['max_abs_err']:.3e} "
+                f"max_rel_err={r['max_rel_err']:.3e} rescaled_sites="
+                f"{r['rescaled_sites']}")
     return results
 
 
@@ -280,6 +318,8 @@ def reset_counts() -> None:
     from examl_tpu_torch.search import spr
     newview_chunk.LAUNCHES = 0
     newview_whole.LAUNCHES = 0
+    newview_chunk.LAUNCHES_BY_K.clear()
+    newview_whole.LAUNCHES_BY_K.clear()
     engine.FULL_TRAVERSALS = 0
     engine.PARTIAL_TRAVERSALS = 0
     engine.CHUNK_LAUNCH_ROWS = 0
@@ -295,12 +335,21 @@ def read_counts() -> dict:
     from examl_tpu_torch.optimize import branch
     from examl_tpu_torch.search import spr
     return {"b1": newview_chunk.LAUNCHES, "b2": newview_whole.LAUNCHES,
+            "b1_by_K": dict(newview_chunk.LAUNCHES_BY_K),
+            "b2_by_K": dict(newview_whole.LAUNCHES_BY_K),
             "full_traversals": engine.FULL_TRAVERSALS,
             "partial_traversals": engine.PARTIAL_TRAVERSALS,
             "chunk_launch_rows": engine.CHUNK_LAUNCH_ROWS,
             "grad_passes": engine.GRAD_PASSES,
             "grad_sweeps": branch.GRAD_SWEEPS,
             "insertions_scored": spr.INSERTIONS_SCORED}
+
+
+def add_counts(a: dict, b: dict) -> dict:
+    """The counts of two runs of one path, summed (launches by K too)."""
+    return {k: ({K: a[k].get(K, 0) + b[k].get(K, 0)
+                 for K in set(a[k]) | set(b[k])}
+                if isinstance(a[k], dict) else a[k] + b[k]) for k in a}
 
 
 def check_tier(counts: dict, tier: str, path: str) -> None:
@@ -335,7 +384,7 @@ def caterpillar_newick(n: int) -> str:
 
 
 def whole_case(dtype_name: str, shape: str, rescale: bool, B: int,
-               seed: int, device):
+               seed: int, device, K: int = 4):
     """One kernel-vs-plain comparison of a whole traversal over B blocks
     of 128 sites: a random 512-taxon tree rooted at its centroid (wide
     waves), or a 64-taxon caterpillar rooted at its first tip (one entry
@@ -343,7 +392,6 @@ def whole_case(dtype_name: str, shape: str, rescale: bool, B: int,
     0.75 * 2^(-E/2), so every tip/tip site rescales and tip/inner sites
     rescale every few levels."""
     import torch
-    from examl_tpu_torch import datatypes
     from examl_tpu_torch.ops import newview_whole
     from examl_tpu_torch.tree.topology import Tree
     dtype = getattr(torch, dtype_name)
@@ -360,21 +408,21 @@ def whole_case(dtype_name: str, shape: str, rescale: bool, B: int,
         p.z[:] = [float(rng.uniform(0.05, 0.98))]
     root = tree.centroid_branch() if shape == "random" else tree.start
     flat = tree.flat_full_traversal(root)
-    _, dm = random_models(M, rng, dtype, device)
+    _, dm = random_models(M, rng, dtype, device, K=K)
     st = newview_whole.build_structure(flat, ntaxa, 1, device)
     zl, zr = newview_whole.refresh_z(st, flat, 1)
     pmat = newview_whole.whole_operands(dm, zl, zr, dtype, device)
-    table = torch.as_tensor(datatypes.DNA.tip_indicator_table(), dtype=dtype,
-                            device=device)
+    table = torch.as_tensor(datatype_of(K).tip_indicator_table(),
+                            dtype=dtype, device=device)
     if rescale:
         table = table * (0.75 * 2.0 ** (-E / 2))
     n = flat.n
     rows = n + 4
-    clv = torch.as_tensor(rng.uniform(0.0, 1.0, (rows, B, L, 4, 4)),
+    clv = torch.as_tensor(rng.uniform(0.0, 1.0, (rows, B, L, 4, K)),
                           dtype=dtype, device=device)
     scaler = torch.as_tensor(rng.integers(0, 4, (rows, B, L)),
                              dtype=torch.int32, device=device)
-    codes = torch.as_tensor(rng.choice([1, 2, 4, 8, 15, 5], (ntaxa, B, L)),
+    codes = torch.as_tensor(rng.choice(CASE_CODES[K], (ntaxa, B, L)),
                             dtype=torch.uint8, device=device)
     block_part = torch.as_tensor(rng.integers(0, M, B), dtype=torch.int32,
                                  device=device)
@@ -385,7 +433,7 @@ def whole_case(dtype_name: str, shape: str, rescale: bool, B: int,
     c_k, s_k = clv.clone(), scaler.clone()
     newview_whole.whole_apply_cuda(c_k, s_k, *args)
     sync(device)
-    tag = f"{shape} {dtype_name} rescale={rescale}"
+    tag = f"K={K} {shape} {dtype_name} rescale={rescale}"
     mism = (s_k != s_ref).nonzero()
     check(mism.shape[0] == 0, f"B2 {tag}: {mism.shape[0]} scaler "
           f"mismatches, first at (row, block, lane) "
@@ -397,29 +445,33 @@ def whole_case(dtype_name: str, shape: str, rescale: bool, B: int,
     rel = float((diff / smax.clamp_min(torch.finfo(dtype).tiny)).max())
     check(rel <= RTOL[dtype_name], f"B2 {tag}: CLV rel err {rel:.3e} > "
           f"{RTOL[dtype_name]}")
-    return {"shape": shape, "dtype": dtype_name, "forced_rescale": rescale,
+    return {"K": K, "shape": shape, "dtype": dtype_name,
+            "forced_rescale": rescale,
             "entries": n, "waves": int(st.wave_start.shape[0] - 1),
             "grid_blocks": newview_whole.LAST_GRID,
             "max_abs_err": float(diff.max()), "max_rel_err": rel,
             "max_scaler": int(s_ref[:n].max())}
 
 
-def phase_whole_vs_plain(device, B: int, seed: int):
+def phase_whole_vs_plain(device, blocks: dict, seed: int):
     results = []
-    for dtype_name in ("float32", "float64"):
-        for shape in ("random", "caterpillar"):
-            for rescale in (False, True):
-                r = whole_case(dtype_name, shape, rescale, B, seed, device)
-                if rescale:
-                    check(r["max_scaler"] > 0, f"B2 {shape} {dtype_name}: "
-                          "the forced-rescale case rescaled no site")
-                results.append(r)
-                log(f"  {shape:11s} {dtype_name:7s} rescale={rescale!s:5s} "
-                    f"entries={r['entries']} waves={r['waves']} "
-                    f"grid={r['grid_blocks']} blocks "
-                    f"max_abs_err={r['max_abs_err']:.3e} "
-                    f"max_rel_err={r['max_rel_err']:.3e} "
-                    f"max_scaler={r['max_scaler']}")
+    for K in STATES:
+        for dtype_name in ("float32", "float64"):
+            for shape in ("random", "caterpillar"):
+                for rescale in (False, True):
+                    r = whole_case(dtype_name, shape, rescale, blocks[K],
+                                   seed, device, K)
+                    if rescale:
+                        check(r["max_scaler"] > 0, f"B2 K={K} {shape} "
+                              f"{dtype_name}: the forced-rescale case "
+                              "rescaled no site")
+                    results.append(r)
+                    log(f"  K={K:2d} {shape:11s} {dtype_name:7s} "
+                        f"rescale={rescale!s:5s} entries={r['entries']} "
+                        f"waves={r['waves']} grid={r['grid_blocks']} blocks "
+                        f"max_abs_err={r['max_abs_err']:.3e} "
+                        f"max_rel_err={r['max_rel_err']:.3e} "
+                        f"max_scaler={r['max_scaler']}")
     return results
 
 
@@ -931,11 +983,12 @@ def compare_arenas(ck, cp, sk, sp, what: str):
     return rel, float((ck - cp).abs().max())
 
 
-def traversal_bound(flat, setup: dict, eng) -> dict:
-    nbytes = traversal_bytes(flat, setup["ntaxa"], setup["patterns"], eng.R,
-                             eng.K, 4)
-    flops = traversal_flops(flat, setup["ntaxa"], setup["patterns"], eng.R,
-                            eng.K)
+def traversal_bound(flat, setup: dict, eng, patterns=None) -> dict:
+    """The least time of one full traversal of engine `eng` (f32) over
+    `patterns` real patterns (default: the whole set-up's)."""
+    patterns = setup["patterns"] if patterns is None else patterns
+    nbytes = traversal_bytes(flat, setup["ntaxa"], patterns, eng.R, eng.K, 4)
+    flops = traversal_flops(flat, setup["ntaxa"], patterns, eng.R, eng.K)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / F32_FLOPS * 1e3
     return {"bytes_per_traversal": nbytes, "flops_per_traversal": flops,
@@ -1063,8 +1116,7 @@ def phase_real_size(device, setup: dict, reps: int):
     lnl_nr = inst.evaluate(tree, full=True)
     sync(device)
     after = read_counts()
-    for k in after:
-        launches["evaluate"][k] += after[k]
+    launches["evaluate"] = add_counts(launches["evaluate"], after)
     for path, counts in launches.items():
         check_tier(counts, "chunk", f"real-size chunk {path}")
     ev = launches["evaluate"]
@@ -1480,6 +1532,371 @@ def phase_real_psr(device, setup: dict):
             "sweeps": smooth_counts["grad_sweeps"], "peak_bytes": peak,
             "launches": {"tree_evaluate": smooth_counts, "round": counts}}
 
+# -- phases 15 and 16: amino-acid and binary data ----------------------------
+
+
+def state_columns(ntaxa: int, width: int, rng, states: int,
+                  flip: float = 0.15) -> np.ndarray:
+    """[ntaxa, width] state indices of correlated random columns: a shared
+    walk over the taxa, each taxon changing a `flip` share of its
+    predecessor's states."""
+    out = np.empty((ntaxa, width), np.int64)
+    cur = rng.integers(0, states, width)
+    for t in range(ntaxa):
+        change = rng.random(width) < flip
+        cur = np.where(change, rng.integers(0, states, width), cur)
+        out[t] = cur
+    return out
+
+
+def write_phylip(path: str, names, letters: str, cols: np.ndarray) -> None:
+    table = np.frombuffer(letters.encode(), np.uint8)
+    with open(path, "w") as f:
+        f.write(f"{len(names)} {cols.shape[1]}\n")
+        for name, row in zip(names, cols):
+            f.write(f"{name} {table[row].tobytes().decode()}\n")
+
+
+def phase_aa_cli(device, out_dir: str, seed: int):
+    """-f e through the port's CLI on amino-acid and binary data, chunk
+    tier, f32: AA_TAXA taxa, five amino-acid partitions of AA_CLI_WIDTH
+    columns (WAG, LG+F, LG4M, LG4X, AUTO under --auto-prot ml) parsed by
+    `cli.parse -m PROT` with a partition file, and one binary partition of
+    BIN_CLI_WIDTH columns parsed by `cli.parse -m BIN`, merged into one
+    byteFile.  The endpoint is re-evaluated on the whole tier from the
+    run's last checkpoint."""
+    from examl_tpu_torch.cli import parse
+    from examl_tpu_torch.instance import PhyloInstance
+    from examl_tpu_torch.io.alignment import AlignmentData
+    from examl_tpu_torch.io.bytefile import read_bytefile, write_bytefile
+    from examl_tpu_torch.search.checkpoint import CheckpointManager
+    from examl_tpu_torch.tree.topology import Tree
+    workdir = os.path.join(out_dir, "fe_aa")
+    os.makedirs(workdir, exist_ok=True)
+
+    def path(name):
+        return os.path.join(workdir, name)
+
+    rng = np.random.default_rng(seed + 3)
+    names = [f"t{i}" for i in range(AA_TAXA)]
+    models = ["WAG", "LGF", "LG4M", "LG4X", "AUTO"]
+    write_phylip(path("aa.phy"), names, AA_LETTERS, state_columns(
+        AA_TAXA, len(models) * AA_CLI_WIDTH, rng, 20))
+    write_phylip(path("bin.phy"), names, "01", state_columns(
+        AA_TAXA, BIN_CLI_WIDTH, rng, 2))
+    with open(path("aa.model"), "w") as f:
+        for i, m in enumerate(models):
+            f.write(f"{m}, p_{m.lower()} = {i * AA_CLI_WIDTH + 1}-"
+                    f"{(i + 1) * AA_CLI_WIDTH}\n")
+    for argv in (["-s", path("aa.phy"), "-m", "PROT", "-q", path("aa.model"),
+                  "-n", path("aa")],
+                 ["-s", path("bin.phy"), "-m", "BIN", "-n", path("bin")]):
+        rc = parse.main(argv)
+        check(rc == 0, f"cli.parse {argv} returned {rc}")
+    ad = read_bytefile(path("aa.binary"))
+    bd = read_bytefile(path("bin.binary"))
+    aln = path("aa_bin.binary")
+    write_bytefile(aln, AlignmentData(ad.taxon_names,
+                                      ad.partitions + bd.partitions))
+    start_tree = path("start.nwk")
+    with open(start_tree, "w") as f:
+        f.write(Tree.random(names, seed, 1).to_newick(names) + "\n")
+    inst = PhyloInstance(read_bytefile(aln), device=device)
+    check(sorted(inst.engines) == [2, 20], f"buckets {sorted(inst.engines)}")
+    with open(start_tree) as f:
+        start = inst.evaluate(inst.tree_from_newick(f.read()), full=True)
+    del inst
+    rc, wall, counts, info = run_cli(
+        ["-s", aln, "-t", start_tree, "-f", "e", "--auto-prot", "ml"],
+        device, workdir)
+    check(rc == 0, f"AA + BIN -f e through the CLI returned {rc}")
+    check_tier(counts, "chunk", "AA + BIN -f e CLI")
+    for K in (20, 2):
+        check(counts["b1_by_K"].get(K, 0) > 0,
+              f"AA + BIN -f e: no B1 launch at K = {K} ({counts})")
+    final = float(re.search(r"Likelihood tree 0: (\S+)", info).group(1))
+    check(final >= start, f"AA + BIN -f e ended at {final}, below its "
+          f"start {start}")
+    # The endpoint on the whole tier, from the run's last checkpoint.
+    inst = PhyloInstance(read_bytefile(aln), device=device, newview="whole")
+    with open(start_tree) as f:
+        tree = inst.tree_from_newick(f.read())
+    check(CheckpointManager(workdir, "smoke").restore(inst, tree)
+          is not None, "AA + BIN -f e left no checkpoint")
+    reset_counts()
+    whole = inst.evaluate(tree, full=True)
+    sync(device)
+    whole_counts = read_counts()
+    check_tier(whole_counts, "whole", "AA + BIN re-evaluation")
+    for K in (20, 2):
+        check(whole_counts["b2_by_K"].get(K, 0) > 0,
+              f"AA + BIN re-evaluation: no B2 launch at K = {K}")
+    check(abs(whole - final) <= 1e-6 * abs(final),
+          f"AA + BIN endpoint re-evaluates to {whole} on the whole tier "
+          f"against {final}")
+    gid = models.index("AUTO")
+    chosen, freqs = inst.auto_prot_models[gid], inst.auto_prot_freqs[gid]
+    lg4x = inst.models[models.index("LG4X")]
+    rates = [float(r) for r in lg4x.gamma_rates]
+    weights = [float(w) for w in lg4x.rate_weights]
+    del inst, tree
+    with open(path("ExaML_modelFile.smoke")) as f:
+        text = f.read()
+    printed = re.findall(r"Substitution Matrix: (\S+)", text)
+    check(printed == ["WAG", "LG", "LG4M", "LG4X", chosen],
+          f"model file names {printed}, AUTO chose {chosen}")
+    check("LG4X category rates:" in text
+          and "LG4X category weights:" in text,
+          "the model file lacks LG4X's rates and weights")
+    log(f"  {AA_TAXA} taxa, 5 x {AA_CLI_WIDTH} AA + {BIN_CLI_WIDTH} binary "
+        f"columns: lnL {start!r} -> {final!r} in {wall:.1f} s; whole tier "
+        f"re-evaluates to {whole!r}")
+    log(f"  AUTO chose {chosen} ({freqs} frequencies); LG4X category rates "
+        f"{[round(r, 6) for r in rates]}, weights "
+        f"{[round(w, 6) for w in weights]}")
+    log(f"  {counts['full_traversals']} full traversals, "
+        f"{counts['grad_sweeps']} gradient sweeps; B1 launches by K "
+        f"{counts['b1_by_K']} (= {counts['chunk_launch_rows']} launch-table "
+        f"rows); the re-evaluation's B2 launches by K "
+        f"{whole_counts['b2_by_K']}")
+    return {"taxa": AA_TAXA, "aa_width": AA_CLI_WIDTH,
+            "bin_width": BIN_CLI_WIDTH, "start_lnl": start,
+            "final_lnl": final, "whole_lnl": whole, "wall_s": wall,
+            "auto_choice": chosen, "auto_freqs": freqs,
+            "lg4x_rates": rates, "lg4x_weights": weights,
+            "launches": counts, "whole_launches": whole_counts}
+
+
+def aa_setup(seed: int) -> dict:
+    """The real-size amino-acid instance's inputs: AA_REAL_TAXA taxa, four
+    amino-acid partitions of AA_REAL_WIDTH patterns (WAG, LG, LG4M, LG4X)
+    and one binary partition of BIN_REAL_WIDTH patterns, correlated random
+    columns from the seed; alphas, LG4X's rates and weights, and branch
+    lengths from the seed too."""
+    from examl_tpu_torch import datatypes
+    from examl_tpu_torch.io.alignment import (AlignmentData, PartitionData,
+                                              compress_patterns,
+                                              empirical_frequencies)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 5)
+    parts = []
+    specs = [(m, datatypes.AA, AA_REAL_WIDTH) for m in AA_REAL_MODELS]
+    specs.append(("BIN", datatypes.BINARY, BIN_REAL_WIDTH))
+    for m, dt, width in specs:
+        cols = state_columns(AA_REAL_TAXA, width, rng, dt.states)
+        codes = (cols if dt is datatypes.AA else cols + 1).astype(np.uint8)
+        pats, wts = compress_patterns(codes)
+        parts.append(PartitionData(
+            name=f"p_{m.lower()}", datatype=dt,
+            model_name="GTR" if dt is datatypes.BINARY else m,
+            patterns=pats, weights=wts,
+            empirical_freqs=empirical_frequencies(pats, wts, dt),
+            use_empirical_freqs=dt is datatypes.BINARY,
+            optimize_freqs=False, lg4=m.startswith("LG4")))
+    ad = AlignmentData([f"t{i}" for i in range(AA_REAL_TAXA)], parts)
+    alphas = rng.uniform(0.3, 1.5, len(parts))
+    zs = np.exp(-rng.exponential(0.08, 2 * AA_REAL_TAXA - 3))
+    return {"ad": ad, "alphas": alphas, "zs": zs, "seed": seed,
+            "ntaxa": AA_REAL_TAXA, "parts": len(parts),
+            "patterns": int(sum(p.width for p in parts)),
+            "alignment_s": time.perf_counter() - t0}
+
+
+def aa_instance(setup: dict, device, newview: str):
+    """The real-size amino-acid + binary instance on one tier (f32) with
+    the set-up's models and the seed's random tree."""
+    from examl_tpu_torch.instance import PhyloInstance
+    from examl_tpu_torch.models.gtr import with_alpha
+    from examl_tpu_torch.models.lg4 import (LG4Params, lg4_with_alpha,
+                                            lg4x_with_rates,
+                                            lg4x_with_weights)
+    inst = PhyloInstance(setup["ad"], device=device, newview=newview)
+    for gid, a in enumerate(setup["alphas"]):
+        m = inst.models[gid]
+        if isinstance(m, LG4Params):
+            m = lg4_with_alpha(m, float(a))
+            if m.is_lg4x:
+                m = lg4x_with_weights(m, np.array([0.15, 0.35, 0.3, 0.2]))
+                m = lg4x_with_rates(m, np.array([0.1, 0.5, 1.2, 2.8]))
+        else:
+            m = with_alpha(m, float(a))
+        inst.models[gid] = m
+    inst.push_models()
+    tree = inst.random_tree(setup["seed"])
+    for (p, _), z in zip(tree.all_branches(), setup["zs"]):
+        p.z[:] = [float(z)]
+    return inst, tree
+
+
+def time_kernels(inst, tree, setup, device, tier: str, reps: int) -> dict:
+    """Per engine (state count K) of a real-size instance: the tier's
+    kernel alone on one full traversal, operands prebuilt, against its
+    plain version on the same inputs (scalers equal, rows within the f32
+    tolerance of each site's max) and the traversal's bound."""
+    import torch
+    from examl_tpu_torch.ops import fastpath, newview_chunk, newview_whole
+    flat = tree.flat_full_traversal(tree.centroid_branch())
+    out = {}
+    for K, eng in sorted(inst.engines.items()):
+        st = eng._structure(flat)
+        if tier == "chunk":
+            zl, zr = fastpath.refresh_z(st, flat, 1, eng.dtype, device)
+            pmat = newview_chunk.chunk_operands(eng.models, zl, zr)
+            args = (eng.tips.codes, eng.tips.table, eng.block_part_i32,
+                    st.launch, st.lidx, st.ridx, st.lcode, st.rcode, pmat,
+                    eng.scale_exp)
+            kernel, plain = (newview_chunk.chunk_apply_cuda,
+                             newview_chunk.chunk_apply_plain)
+            rows = torch.as_tensor(np.sort(st.row_of[st.row_of >= 0]),
+                                   device=device)
+        else:
+            zl, zr = newview_whole.refresh_z(st, flat, 1)
+            pmat = newview_whole.whole_operands(eng.models, zl, zr,
+                                                eng.dtype, device)
+            args = (eng.tips.codes, eng.tips.table, eng.block_part_i32,
+                    st.meta, st.l_code, st.r_code, st.wave_start, pmat,
+                    eng.scale_exp)
+            kernel, plain = (newview_whole.whole_apply_cuda,
+                             newview_whole.whole_apply_plain)
+            rows = torch.arange(flat.n, device=device)
+        clv_k = torch.zeros_like(eng.clv)
+        sc_k = torch.zeros_like(eng.scaler)
+        kernel_ms = time_ms(lambda: kernel(clv_k, sc_k, *args), device, reps)
+        clv_p = torch.zeros_like(eng.clv)
+        sc_p = torch.zeros_like(eng.scaler)
+        plain_ms = time_ms(lambda: plain(clv_p, sc_p, *args), device,
+                           max(1, reps // 2))
+        rel, abs_err = compare_arenas(clv_k[rows], clv_p[rows], sc_k[rows],
+                                      sc_p[rows], f"{tier} K={K} real size")
+        patterns = int(sum(setup["ad"].partitions[g].width
+                           for g in eng.bucket.part_ids))
+        breakdown = (launch_breakdown(st.launch, args, clv_k, sc_k, patterns,
+                                      eng, device, reps)
+                     if tier == "chunk" else None)
+        del clv_k, sc_k, clv_p, sc_p, pmat
+        torch.cuda.empty_cache()
+        bound = traversal_bound(flat, setup, eng, patterns)
+        out[K] = {"patterns": patterns, "kernel_ms": kernel_ms,
+                  "plain_ms": plain_ms, "max_rel_err": rel,
+                  "max_abs_err": abs_err, "arena_bytes":
+                  eng.clv.numel() * eng.clv.element_size(), **bound}
+        if tier == "chunk":
+            out[K]["launches_per_traversal"] = int(st.launch.shape[0])
+            out[K]["launch_breakdown"] = breakdown
+        else:
+            out[K]["grid_blocks"] = newview_whole.LAST_GRID
+        log(f"  {tier} K={K:2d}: {patterns} patterns, arena "
+            f"{out[K]['arena_bytes'] / 1e9:.2f} GB; kernel {kernel_ms:.3f} "
+            f"ms per traversal, plain {plain_ms:.3f} ms, bound "
+            f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}: "
+            f"{bound['bytes_per_traversal'] / 1e9:.2f} GB, "
+            f"{bound['flops_per_traversal'] / 1e12:.2f} TFLOP), "
+            f"{bound['bound_ms'] / kernel_ms:.2f} of it; kernel vs plain rel "
+            f"err {rel:.3e}, scalers equal")
+        for row in breakdown or ():
+            log(f"    B1 K={K:2d} {row['class']:>13s}: {row['launches']:3d} "
+                f"launches, {row['bytes'] / 1e9:5.2f} GB, {row['ms']:.3f} ms "
+                f"timed row by row ({row['tb_per_s']:.3f} TB/s)")
+    return out
+
+
+def phase_real_aa(device, seed: int, reps: int):
+    """Amino-acid and binary data at real size, f32, on both tiers:
+    evaluate (lnL, ms, site-CLV updates/s), each engine's kernel against
+    its plain version and its bound, one whole-tree gradient pass (ms and
+    peak memory), chunk against whole lnL, and one model-optimization
+    pass (opt_alphas + opt_lg4x) on the whole tier with its ms per Brent
+    probe."""
+    import torch
+    from examl_tpu_torch.optimize.model_opt import opt_alphas, opt_lg4x
+    from examl_tpu_torch.utils import z_slots
+    setup = aa_setup(seed)
+    want = len(AA_REAL_MODELS) * AA_REAL_WIDTH + BIN_REAL_WIDTH
+    check(setup["patterns"] == want, f"the real-size AA alignment "
+          f"compressed to {setup['patterns']} patterns, not {want}")
+    out = {"setup_s": setup["alignment_s"], "taxa": setup["ntaxa"],
+           "patterns": setup["patterns"], "launches_by_path": {}}
+    paths = out["launches_by_path"]
+    for tier in ("chunk", "whole"):
+        inst, tree = aa_instance(setup, device, tier)
+        if tier == "chunk":
+            log(f"  {setup['ntaxa']} taxa x {setup['patterns']} patterns "
+                f"({len(AA_REAL_MODELS)} x {AA_REAL_WIDTH} amino-acid: "
+                f"{', '.join(AA_REAL_MODELS)}; {BIN_REAL_WIDTH} binary); "
+                f"set-up {setup['alignment_s']:.1f} s")
+        reset_counts()
+        lnl, walls = timed_evaluates(inst, tree, device, reps)
+        paths[f"{tier}_evaluate"] = counts = read_counts()
+        check_tier(counts, tier, f"real-size AA {tier} evaluate")
+        key = "b1_by_K" if tier == "chunk" else "b2_by_K"
+        check(all(counts[key].get(K, 0) > 0 for K in (20, 2)),
+              f"real-size AA {tier} evaluate launches by K {counts[key]}")
+        eval_ms = float(np.mean(walls) * 1e3)
+        flat = tree.flat_full_traversal(tree.centroid_branch())
+        updates = sum(flat.n * int(sum(setup["ad"].partitions[g].width
+                                       for g in e.bucket.part_ids))
+                      * e.R * e.K for e in inst.engines.values())
+        out[tier] = {"lnl": lnl, "evaluate_ms": eval_ms,
+                     "evaluate_ms_runs": [w * 1e3 for w in walls],
+                     "site_clv_updates_per_s": updates / (eval_ms / 1e3)}
+        log(f"  {tier}: lnL {lnl!r}; evaluate {eval_ms:.2f} ms per full "
+            f"traversal ({out[tier]['site_clv_updates_per_s']:.3e} site-CLV "
+            f"updates/s); launches by K {counts[key]}")
+        out[tier]["profile"] = profile = device_breakdown(
+            lambda: inst.evaluate(tree, full=True), device)
+        log_profile(profile, "B1" if tier == "chunk" else "B2")
+        out[tier]["kernels"] = time_kernels(inst, tree, setup, device, tier,
+                                            reps)
+        if tier == "chunk":
+            # One whole-tree gradient pass on the amino-acid engine.
+            eng = inst.engines[20]
+            p = tree.centroid_branch()
+            flat = tree.flat_full_traversal(p)
+            torch.cuda.reset_peak_memory_stats(device)
+            eng.run_traversal(flat, full=True)
+            d1, d2 = eng.whole_tree_gradients(flat, z_slots(p.z, 1))
+            check(bool(np.isfinite(d1).all() and np.isfinite(d2).all()),
+                  "real-size AA gradients are not finite")
+            grad_ms = time_ms(lambda: eng.whole_tree_gradients(
+                flat, z_slots(p.z, 1)), device, 2)
+            peak = torch.cuda.max_memory_allocated(device)
+            out["gradient_pass_ms"] = grad_ms
+            out["gradient_peak_bytes"] = peak
+            log(f"  whole-tree gradient pass (K = 20, {flat.n} entries, "
+                f"{2 * flat.n + 1} edges): {grad_ms:.1f} ms; peak device "
+                f"memory {peak / 1e9:.2f} GB (outroot arena "
+                f"{eng._outroot_arena().numel() * 4 / 1e9:.2f} GB)")
+            chunk_lnl = lnl
+        else:
+            check(abs(lnl - chunk_lnl) <= 1e-6 * abs(chunk_lnl),
+                  f"real-size AA whole-tier lnL {lnl} vs chunk {chunk_lnl}")
+            out["chunk_whole_rel_diff"] = (lnl - chunk_lnl) / abs(chunk_lnl)
+            before = inst.evaluate(tree, full=True)
+            reset_counts()
+            t0 = time.perf_counter()
+            opt_alphas(inst, tree)
+            opt_lg4x(inst, tree)
+            sync(device)
+            opt_s = time.perf_counter() - t0
+            paths["opt_alphas_lg4x"] = counts = read_counts()
+            check_tier(counts, "whole", "real-size AA opt_alphas + opt_lg4x")
+            after = inst.likelihood
+            check(after >= before - 1e-6 * abs(before),
+                  f"opt_alphas + opt_lg4x lowered lnL: {before} -> {after}")
+            probes = counts["full_traversals"]
+            out["opt"] = {"lnl_before": before, "lnl_after": after,
+                          "s": opt_s, "full_traversals": probes,
+                          "ms_per_probe": opt_s * 1e3 / probes}
+            log(f"  opt_alphas + opt_lg4x: lnL {before!r} -> {after!r} in "
+                f"{opt_s:.2f} s, {probes} full traversals "
+                f"({opt_s * 1e3 / probes:.2f} ms per Brent probe; B2 by K "
+                f"{counts['b2_by_K']})")
+        del inst, tree
+        torch.cuda.empty_cache()
+    log(f"  chunk vs whole lnL rel diff {out['chunk_whole_rel_diff']:.2e}")
+    return out
+
+
 # -- phase 11: the SPR scan at real size ------------------------------------
 
 
@@ -1711,24 +2128,143 @@ def device_breakdown(fn, device, top: int = 8) -> dict:
                     for k, ms, n in rows[:top]]}
 
 
-def kernel_b1_config(lane: int = 128, codes: int = 16) -> list:
-    """Kernel B1's launch configuration per instance (dtype, kind) at the
-    engine's lane width and DNA's 16 tip codes: dynamic shared memory,
-    threads per CTA and resident CTAs per SM, from the occupancy API."""
+def kernel_b1_config(lane: int = 128) -> list:
+    """Kernel B1's launch configuration per instance (dtype, K, kind) at
+    the engine's lane width and the data type's tip codes (16 DNA, 23
+    amino-acid, 4 binary): sites per tile, ring stages, dynamic shared
+    memory, threads per CTA and resident CTAs per SM, from the occupancy
+    API."""
     import ctypes
     from examl_tpu_torch.ops import _build
     lib = _build.library("newview_chunk")
     out = []
     for f64, dtype in ((0, "float32"), (1, "float64")):
-        for kind in (0, 1, 2):
-            vals = (ctypes.c_int * 4)()
-            err = lib.examl_newview_chunk_config(f64, kind, lane, codes, vals)
-            check(err == 0, f"B1 {dtype} kind {kind} configuration failed: "
-                  f"CUDA error {err} ({_build.error_string(err)})")
-            out.append({"dtype": dtype, "kind": kind, "smem_bytes": vals[0],
-                        "threads": vals[1], "ctas_per_sm": vals[2],
-                        "sms": vals[3]})
+        for K in STATES:
+            codes = datatype_of(K).num_codes
+            for kind in (0, 1, 2):
+                vals = (ctypes.c_int * 6)()
+                err = lib.examl_newview_chunk_config(f64, 4, K, kind, lane,
+                                                     codes, vals)
+                check(err == 0, f"B1 {dtype} K={K} kind {kind} "
+                      f"configuration failed: CUDA error {err} "
+                      f"({_build.error_string(err)})")
+                out.append({"dtype": dtype, "K": K, "codes": codes,
+                            "kind": kind, "smem_bytes": vals[0],
+                            "threads": vals[1], "ctas_per_sm": vals[2],
+                            "sms": vals[3], "tile_sites": vals[4],
+                            "stages": vals[5]})
     return out
+
+
+def ptxas_lines(text: str) -> list:
+    """(instance, line) for every register and spill line of a -Xptxas -v
+    report; the instance is the kernel's mangled template arguments, e.g.
+    fLi4ELi20E for <float, 4, 20>."""
+    out, inst = [], ""
+    for line in text.splitlines():
+        m = re.search(r"_kernelI(\w*?)EEv", line)
+        if "Compiling entry function" in line and m:
+            inst = m.group(1)
+        elif "registers" in line or "spill" in line:
+            out.append((inst, line.strip()))
+    return out
+
+
+def start_register_body_build(build):
+    """Compile kernel B2 once more with its register body at K = 20 too
+    (-DEXAML_WHOLE_RK_IN_REGISTERS), for the compiler's spill report only:
+    the body the amino-acid instances would have without the rate-by-rate
+    one.  Runs beside the real build; nothing loads its output."""
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cubin = build.BUILD_DIR / "newview_whole_register_body.cubin"
+    return subprocess.Popen(
+        [build.nvcc_path(), build.ARCH, "-std=c++17", "-O3", "-cubin",
+         "-Xptxas", "-v", "-DEXAML_WHOLE_RK_IN_REGISTERS", "-o", str(cubin),
+         str(build.CSRC / "newview_whole.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def finish_register_body_build(proc) -> list:
+    out, _ = proc.communicate(timeout=600)
+    check(proc.returncode == 0, f"register-body build of B2 failed:\n{out}")
+    return ptxas_lines(out)
+
+
+def kernels_line(real, real_whole, search, scan, grad, anchor_whole,
+                 restart, aa_cli, real_aa, cases, whole_cases) -> list:
+    """The kernels line: each kernel's row, with its instances by K."""
+    # Each kernel's launches on the main paths of this run, each path
+    # counted from 0 just before it and read just after it: B1 on the
+    # real-size evaluate path, -f d, the SPR scan's full evaluates and the
+    # real-size gradient paths (the gradient pass's full traversal, the
+    # gradient tree_evaluate), the amino-acid and binary -f e and the
+    # real-size amino-acid evaluate; B2 on every whole-tier path, the -R
+    # restart, the re-evaluation of the gradient-smoothed tree and of the
+    # amino-acid -f e endpoint and the amino-acid model optimization
+    # included.  The PSR paths launch neither (their traversals run on the
+    # wave-scan tier).  `by_K` splits each kernel's row by instance: the
+    # launches by state count, and its real-size time, plain time and
+    # bound (DNA from phases 10 and 13, amino acids and binary from phase
+    # 16).
+    grad_paths = grad["launches_by_path"]
+    aa_paths = real_aa["launches_by_path"]
+    b1_paths = [real["launches_by_path"]["evaluate"], search["launches"],
+                scan["evaluate_launches"], grad_paths["traversal_and_pass"],
+                grad_paths["tree_evaluate"], aa_cli["launches"],
+                aa_paths["chunk_evaluate"]]
+    b2_paths = [anchor_whole["launches_anchors"], anchor_whole["fe_launches"],
+                restart["launches"], grad_paths["whole_reevaluate"],
+                *real_whole["launches_by_path"].values(),
+                aa_cli["whole_launches"], aa_paths["whole_evaluate"],
+                aa_paths["opt_alphas_lg4x"]]
+
+    def by_k(key, paths, dna, tier, checks):
+        """Each instance's launches on the main paths, its real-size time
+        against its plain version and its bound, its largest error."""
+        out = {}
+        for K in STATES:
+            m = dna if K == 4 else real_aa[tier]["kernels"][K]
+            out[str(K)] = {
+                "launches": sum(c[key].get(K, 0) for c in paths),
+                "max_abs_err": max([m["max_abs_err"]] + [
+                    c["max_abs_err"] for c in checks if c["K"] == K]),
+                "ms": m["kernel_ms"], "plain_ms": m["plain_ms"],
+                "bound_ms": m["bound_ms"], "bound_by": m["bound_by"]}
+        return out
+
+    b1_by_k = by_k("b1_by_K", b1_paths, real, "chunk", cases)
+    b2_by_k = by_k("b2_by_K", b2_paths, real_whole, "whole", whole_cases)
+    for name, rows in (("B1", b1_by_k), ("B2", b2_by_k)):
+        for K, r in rows.items():
+            check(r["launches"] > 0, f"{name} K={K}: no launch on the main "
+                  "paths")
+    return [{
+        "name": "newview_chunk",
+        "route": "cuda",
+        "source": "examl_tpu_torch/csrc/newview_chunk.cu",
+        "replaces": "examl_tpu/ops/pallas_newview.py:67",
+        "launches": sum(c["b1"] for c in b1_paths),
+        "max_abs_err": max(r["max_abs_err"] for r in b1_by_k.values()),
+        "ms": real["kernel_ms"],
+        "plain_ms": real["plain_ms"],
+        "bound_ms": real["bound_ms"],
+        "bound_by": real["bound_by"],
+        "library_ms": None,
+        "by_K": b1_by_k,
+    }, {
+        "name": "newview_whole",
+        "route": "cuda",
+        "source": "examl_tpu_torch/csrc/newview_whole.cu",
+        "replaces": "examl_tpu/ops/pallas_whole.py:99",
+        "launches": sum(c["b2"] for c in b2_paths),
+        "max_abs_err": max(r["max_abs_err"] for r in b2_by_k.values()),
+        "ms": real_whole["kernel_ms"],
+        "plain_ms": real_whole["plain_ms"],
+        "bound_ms": real_whole["bound_ms"],
+        "bound_by": real_whole["bound_by"],
+        "library_ms": None,
+        "by_K": b2_by_k,
+    }]
 
 
 def nvidia_smi_line() -> str:
@@ -1780,21 +2316,23 @@ def main(argv=None) -> int:
             f"CUDA {torch.version.cuda}")
 
         phase("build")
+        register_body = start_register_body_build(_build)
         _build.build_all()
         log(f"  built {_build.sources()}")
-        for name in _build.sources():
-            inst = ""          # mangled template arguments, e.g. fLi4ELi4E
-            for line in _build.build_log(name).splitlines():
-                m = re.search(r"_kernelI(\w*?)EEv", line)
-                if "Compiling entry function" in line and m:
-                    inst = m.group(1)
-                elif "registers" in line or "spill" in line:
-                    log(f"  ptxas {name}<{inst}>: {line.strip()}")
+        ptxas = {name: ptxas_lines(_build.build_log(name))
+                 for name in _build.sources()}
+        ptxas["newview_whole (register body at K = 20)"] = \
+            finish_register_body_build(register_body)
+        for name, lines in ptxas.items():
+            for inst, line in lines:
+                log(f"  ptxas {name}<{inst}>: {line}")
         b1_config = kernel_b1_config()
         for c in b1_config:
-            log(f"  B1 {c['dtype']} kind {c['kind']}: {c['smem_bytes']} B "
-                f"dynamic shared memory, {c['threads']} threads, "
-                f"{c['ctas_per_sm']} CTAs per SM x {c['sms']} SMs")
+            log(f"  B1 {c['dtype']} K={c['K']} ({c['codes']} codes) kind "
+                f"{c['kind']}: {c['tile_sites']}-site tiles, {c['stages']} "
+                f"stages, {c['smem_bytes']} B dynamic shared memory, "
+                f"{c['threads']} threads, {c['ctas_per_sm']} CTAs per SM x "
+                f"{c['sms']} SMs")
 
         phase("kernel B1 vs plain: kinds 0/1/2, f32 and f64, real = 1, "
               "real < W, chained launches")
@@ -1840,7 +2378,17 @@ def main(argv=None) -> int:
         phase("real size, PSR: gradient smoothing, a categorization round")
         real_psr = phase_real_psr(device, setup)
 
+        phase("AA + BIN -f e through the CLI (WAG, LG+F, LG4M, LG4X, "
+              "AUTO), chunk tier, f32")
+        aa_cli = phase_aa_cli(device, out_dir, args.seed)
+
+        phase("real size, amino-acid and binary data, both tiers")
+        real_aa = phase_real_aa(device, args.seed, REPS)
+
         phase("report")
+        kernels = kernels_line(real, real_whole, search, scan, grad,
+                               anchor_whole, restart, aa_cli, real_aa, cases,
+                               whole_cases)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -1852,6 +2400,7 @@ def main(argv=None) -> int:
               "restart": restart, "psr_ref49": psr49, "real_size": real,
               "spr_scan": scan, "real_size_gradients": grad,
               "real_size_whole": real_whole, "real_size_psr": real_psr,
+              "aa_cli": aa_cli, "real_size_aa": real_aa, "ptxas": ptxas,
               "wall_s": time.perf_counter() - t_start}
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
@@ -1880,49 +2429,6 @@ def main(argv=None) -> int:
         "real_size_psr": {k: real_psr[k] for k in (
             "round_s", "ms_per_grid_chunk", "grid_chunks", "categories",
             "tree_evaluate_s", "sweeps", "peak_bytes")}}))
-    # Each kernel's launches on the main paths of this run, each path
-    # counted from 0 just before it and read just after it: B1 on the
-    # real-size evaluate path, -f d, the SPR scan's full evaluates and the
-    # real-size gradient paths (the gradient pass's full traversal, the
-    # gradient tree_evaluate); B2 on every whole-tier path, the -R restart
-    # and the re-evaluation of the gradient-smoothed tree included.  The
-    # PSR paths launch neither (their traversals run on the wave-scan
-    # tier).
-    grad_paths = grad["launches_by_path"]
-    b1_launches = (real["launches"] + search["launches"]["b1"]
-                   + scan["evaluate_launches"]["b1"]
-                   + grad_paths["traversal_and_pass"]["b1"]
-                   + grad_paths["tree_evaluate"]["b1"])
-    b2_paths = [anchor_whole["launches_anchors"], anchor_whole["fe_launches"],
-                restart["launches"], grad_paths["whole_reevaluate"],
-                *real_whole["launches_by_path"].values()]
-    kernels = [{
-        "name": "newview_chunk",
-        "route": "cuda",
-        "source": "examl_tpu_torch/csrc/newview_chunk.cu",
-        "replaces": "examl_tpu/ops/pallas_newview.py:67",
-        "launches": b1_launches,
-        "max_abs_err": max([real["max_abs_err"]]
-                           + [c["max_abs_err"] for c in cases]),
-        "ms": real["kernel_ms"],
-        "plain_ms": real["plain_ms"],
-        "bound_ms": real["bound_ms"],
-        "bound_by": real["bound_by"],
-        "library_ms": None,
-    }, {
-        "name": "newview_whole",
-        "route": "cuda",
-        "source": "examl_tpu_torch/csrc/newview_whole.cu",
-        "replaces": "examl_tpu/ops/pallas_whole.py:99",
-        "launches": sum(c["b2"] for c in b2_paths),
-        "max_abs_err": max([real_whole["max_abs_err"]]
-                           + [c["max_abs_err"] for c in whole_cases]),
-        "ms": real_whole["kernel_ms"],
-        "plain_ms": real_whole["plain_ms"],
-        "bound_ms": real_whole["bound_ms"],
-        "bound_by": real_whole["bound_by"],
-        "library_ms": None,
-    }]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,7 @@ dispatched at `main` :2719-2781).
     python -m examl_tpu_torch.cli.main -s aln.binary -n RUN \\
         [-t tree | -g constraint | -R] [-w DIR] [-f d|o|e|E] \\
         [-m GAMMA|PSR] [-c categories] [-a] [-i radius] [-D] [-B N] [-M] \\
-        [-p seed] [--newview chunk|whole]
+        [-p seed] [--newview chunk|whole] [--auto-prot ml|bic|aic|aicc]
 
 Modes: `-f d` (the default) runs the RAxML SPR hill climb
 (`search/raxml_search.py`) from the `-t` tree or from the random
@@ -17,7 +17,10 @@ numbered checkpoints (`search/checkpoint.py`, the JAX package's format)
 and resumes from the newest one with `-R`.
 
 `-m PSR` replaces the discrete gamma model by per-site rates grouped
-into at most `-c` categories (25 by default) per partition.
+into at most `-c` categories (25 by default) per partition.  Partitions
+are DNA, binary or amino-acid (GTR, an empirical matrix, LG4M/LG4X, or
+AUTO, which `mod_opt` resolves to the best matrix by `--auto-prot`'s
+criterion, ML by default), as the byteFile names them.
 
 Outputs in DIR: ExaML_info.RUN (progress), ExaML_log.RUN ("seconds lnL"
 rows), ExaML_modelFile.RUN (the final model, in the reference's
@@ -41,6 +44,7 @@ import time
 from typing import List
 
 from examl_tpu_torch.constants import ZMAX, ZMIN
+from examl_tpu_torch.models.lg4 import LG4Params
 from examl_tpu_torch.ops.engine import NEWVIEW_TIERS
 
 # State letters of the model file's "rate X <-> Y" and "freq pi(X)" lines.
@@ -93,6 +97,9 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--newview", default="chunk", choices=NEWVIEW_TIERS,
                     help="full-traversal tier: chunk (kernel B1) or whole "
                          "(kernel B2)")
+    ap.add_argument("--auto-prot", dest="auto_prot", default="ml",
+                    choices=["ml", "bic", "aic", "aicc"],
+                    help="criterion for AUTO protein model selection")
     return ap
 
 
@@ -137,7 +144,10 @@ def tree_length(tree, slot: int) -> float:
 
 def write_model_params(path: str, inst, tree) -> None:
     """Final model parameters in the reference's layout
-    (`printModelParams`, `axml.c:1733-1835`)."""
+    (`printModelParams`, `axml.c:1733-1835`): an amino-acid partition
+    names its matrix (AUTO's choice for an AUTO partition; an LG4 model's
+    rate lines are its first category's matrix), LG4X adds its free
+    category rates and weights."""
     with open(path, "w") as f:
         for gid, (part, m) in enumerate(
                 zip(inst.alignment.partitions, inst.models)):
@@ -146,6 +156,10 @@ def write_model_params(path: str, inst, tree) -> None:
             slot = gid if inst.per_partition_branches else 0
             f.write(f"\n\nModel Parameters of Partition {gid}, Name: "
                     f"{part.name}, Type of Data: {name}\n")
+            if name == "AA":
+                f.write("Substitution Matrix: "
+                        f"{inst.auto_prot_models.get(gid, part.model_name)}"
+                        "\n")
             if inst.psr:
                 psr = inst.per_site_rates[gid]
                 f.write(f"categories: {len(psr)}\n")
@@ -153,6 +167,11 @@ def write_model_params(path: str, inst, tree) -> None:
                         + " ".join(f"{r:.6f}" for r in psr) + "\n")
             else:
                 f.write(f"alpha: {m.alpha:.6f}\n")
+            if isinstance(m, LG4Params) and m.is_lg4x:
+                f.write("LG4X category rates: " + " ".join(
+                    f"{r:.6f}" for r in m.gamma_rates) + "\n")
+                f.write("LG4X category weights: " + " ".join(
+                    f"{w:.6f}" for w in m.rate_weights) + "\n")
             f.write(f"Tree-Length: {tree_length(tree, slot):.6f}\n")
             pairs = [(a, b) for a in range(m.states)
                      for b in range(a + 1, m.states)]
@@ -384,6 +403,7 @@ def main(argv=None, device=None) -> int:
                          per_partition_branches=args.per_partition_bl,
                          newview=args.newview, rate_model=args.model,
                          psr_categories=args.categories)
+    inst.auto_prot_criterion = args.auto_prot
     files.info(f"device: {inst.device}  dtype: {inst.dtype}")
     if args.mode in ("d", "o"):
         return run_search(args, inst, files)

@@ -15,11 +15,15 @@
 //   scaler = scaler(left) + scaler(right) + that increment.
 //
 // Bound.  Memory bandwidth.  Per site an entry reads two child rows
-// (R*K values, 64 B in f32) or a 1-byte code per tip child, plus the
-// children's int32 scalers, and writes one row and one scaler, against at
-// most 2*R*K*K = 128 FMAs: about one FMA per byte, 1/60 of the card's f32
-// balance, so tensor cores buy nothing.  A real-size traversal (512 taxa
-// x 131,072 patterns, f32) needs 9.14 GB: 2.73 ms at 3.35 TB/s.
+// (R*K values, 64 B in f32 for DNA) or a 1-byte code per tip child, plus
+// the children's int32 scalers, and writes one row and one scaler,
+// against at most 2*R*K*K FMAs: for DNA 128, about one FMA per byte, 1/60
+// of the card's f32 balance, so tensor cores buy nothing.  A real-size
+// DNA traversal (512 taxa x 131,072 patterns, f32) needs 9.14 GB: 2.73 ms
+// at 3.35 TB/s.  At K = 20 an inner/inner entry costs 3,200 FMAs per
+// site against about 970 B, 6.6 flops per byte against the card's f32
+// balance of 20 (67e12 / 3.35e12): still bound by bytes, the operations
+// taking about half the bytes' time over a traversal.
 //
 // Why this design (each part against a measured loss; NVIDIA H100 80GB
 // HBM3 at 700 W, chip_smoke.py phase 7; numbers in PERF.md):
@@ -34,9 +38,10 @@
 //    (22 of one entry, 19 of two); this kernel takes its width at run
 //    time, so a launch covers exactly real x B tiles.  That alone took
 //    the first body to 4.04 ms.
-// 2. Tiles and threads.  A tile is (entry, block b of L = 128 sites); for
-//    one inner child it is one contiguous slab of the arena row (8 KB in
-//    f32), a 512 B scaler slab, or a 128 B code slab for a tip.  One
+// 2. Tiles and threads.  A tile is (entry, block b of L = 128 sites; a
+//    quarter block at K = 20, point 7); for one inner child it is one
+//    contiguous slab of the arena row (8 KB in f32 for DNA), a 512 B
+//    scaler slab, or a 128 B code slab for a tip.  One
 //    thread per (site, rate): the R lanes of a site are neighbours, each
 //    holds the K values of its rate, so a warp reads and writes 512
 //    contiguous bytes with 16-byte accesses (the first body had one thread
@@ -76,8 +81,20 @@
 // 6. No 64-bit division per tile.  The tile walk steps (entry, block) by
 //    subtraction (`Tile`); the per-tile 64-bit div/mod it replaced cost
 //    the latency-bound tip/tip tiles most: 3.70 -> 3.53 ms a traversal.
-// 7. f32 and f64, R and K are template parameters; (R, K) = (4, 4) is
-//    instantiated, and no index hard-codes K.
+// 7. f32 and f64, R and K are template parameters; (R, K) = (4, 2),
+//    (4, 4) and (4, 20) are instantiated (GAMMA over binary, DNA and
+//    amino-acid data: GTR, the empirical matrices, LG4M/LG4X, whose
+//    per-rate matrices the per-rate P already carries), and no index
+//    hard-codes K.  At K = 20 a tile is 32 sites, not the block's 128
+//    (`Geom`): a 128-site stage would hold 80 KB of child slabs in f32,
+//    and three stages would not fit a block's shared memory; the tile is
+//    still one contiguous slab per child.  A thread keeps one child's K
+//    values and the running product y(left) * y(right), never both
+//    children's y, so the f64 instance holds 2K doubles, not 4K.  The
+//    tip-product table u costs C*R*K*K FMAs per tile and tip child (C =
+//    23 amino-acid codes: as many as the per-site products of a 32-site
+//    tile); it stays.  At K = 2 a rate's values are 8 bytes in f32, so
+//    load_vec takes its scalar path; slabs stay 16-byte multiples.
 //
 // Measured in one call: the first body over the launch table 4.03-4.04 ms
 // per real-size traversal, this body 3.53 ms (2.59 TB/s; chip_smoke.py
@@ -101,8 +118,20 @@
 
 namespace {
 
-constexpr int kStages = 3;                  // ring depth
-constexpr int kMaxThreads = 128 * 4 + 32;   // L*R consumers + 1 producer warp
+// Geometry of an instance.  A tile is kTile consecutive sites of one
+// 128-lane block (the whole block for K <= 4); its consumers are one
+// thread per (site, rate), plus one producer warp.  At K = 20 a stage of
+// 128 sites would hold two 40 KB child slabs in f32 (80 KB in f64) and
+// three stages would not fit the 227 KB of shared memory a block can
+// have, so an amino-acid tile is 32 sites: 33 KB per stage in f32 (two
+// CTAs per SM), 67 KB in f64 (one CTA per SM).
+template <typename T, int R, int K>
+struct Geom {
+  static constexpr int kTile = K >= 16 ? 32 : 128;      // sites per tile
+  static constexpr int kStages = 3;                     // ring depth
+  static constexpr int kThreads = kTile * R + 32;       // + producer warp
+  static constexpr int kMinBlocks = K >= 16 && sizeof(T) == 8 ? 1 : 2;
+};
 
 template <typename T> struct Vec16;
 template <> struct Vec16<float> { using type = float4; };
@@ -163,6 +192,22 @@ __device__ __forceinline__ void apply_p(const T* p, const T (&x)[K],
 #pragma unroll
     for (int k = 1; k < K; ++k) acc = fma(row[k], x[k], acc);
     y[a] = acc;
+  }
+}
+
+// v[a] *= sum_k P[a*K + k] * x[k]: the right child's product, multiplied
+// into the left child's (the same FMA chain as apply_p).
+template <typename T, int K>
+__device__ __forceinline__ void apply_p_mul(const T* p, const T (&x)[K],
+                                            T (&v)[K]) {
+#pragma unroll
+  for (int a = 0; a < K; ++a) {
+    T row[K];
+    load_vec<T, K>(p + a * K, row);
+    T acc = row[0] * x[0];
+#pragma unroll
+    for (int k = 1; k < K; ++k) acc = fma(row[k], x[k], acc);
+    v[a] *= acc;
   }
 }
 
@@ -238,9 +283,10 @@ __device__ __forceinline__ void allow_dependent_grid() {
 
 __host__ __device__ constexpr int align128(int x) { return (x + 127) & ~127; }
 
-// Byte offsets inside one ring stage.  xl / xr hold a child's CLV slab
-// [L][R][K] (inner) or its code slab [L] (tip); sl / sr the inner
-// children's scaler slabs [L]; p the entry's two P blocks [2][R][K][K];
+// Byte offsets inside one ring stage of a tile of L sites.  xl / xr hold
+// a child's CLV slab [L][R][K] (inner) or its code slab [L] (tip); sl / sr
+// the inner children's scaler slabs [L]; p the entry's two P blocks
+// [2][R][K][K];
 // u the tile's tip products [tip children][C][R][K] (kinds 0 and 1),
 // built by the consumers from p and the table.  tx counts the bytes the
 // bulk copies bring in.
@@ -269,10 +315,11 @@ __host__ __device__ Stage stage_layout(int L, int C) {
 }
 
 // [full barriers | empty barriers] (128 B) | table [C][K] | kStages stages
+// of a tile of TL sites.
 template <typename T, int R, int K, int KIND>
-__host__ __device__ int smem_bytes(int L, int C) {
+__host__ __device__ int smem_bytes(int TL, int C) {
   return 128 + align128(C * K * (int)sizeof(T)) +
-         kStages * stage_layout<T, R, K, KIND>(L, C).bytes;
+         Geom<T, R, K>::kStages * stage_layout<T, R, K, KIND>(TL, C).bytes;
 }
 
 // Barrier 1 over the consumer warps only (the producer warp never waits
@@ -294,35 +341,39 @@ struct Operands {
   const int32_t* rcode;
   const T* pmat;                // [P, 2, M, R, K, K]
   int B, L, M, C;
+  int TL, NT;                   // sites per tile, tiles per entry
   T minlik, two_e;
 };
 
-// The CTA's current tile (entry w, block b), walked with a grid stride;
-// stepping by subtraction keeps 64-bit division out of the loops.
+// The CTA's current tile (entry w, tile b of the entry's NT), walked with
+// a grid stride; stepping by subtraction keeps 64-bit division out of the
+// loops.
 struct Tile {
   int w, b;
-  __device__ explicit Tile(int B) : w(blockIdx.x / B), b(blockIdx.x % B) {}
-  __device__ void advance(int B) {
+  __device__ explicit Tile(int NT) : w(blockIdx.x / NT), b(blockIdx.x % NT) {}
+  __device__ void advance(int NT) {
     b += gridDim.x;
-    while (b >= B) {
-      b -= B;
+    while (b >= NT) {
+      b -= NT;
       ++w;
     }
   }
 };
 
 template <typename T, int R, int K, int KIND>
-__global__ void __launch_bounds__(kMaxThreads, 2)
+__global__ void __launch_bounds__((Geom<T, R, K>::kThreads),
+                                  (Geom<T, R, K>::kMinBlocks))
     newview_chunk_kernel(const Operands<T> op, int base, int slot, int real) {
   constexpr int PN = R * K * K;               // per-rate P, one partition
+  constexpr int kStages = Geom<T, R, K>::kStages;
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + kStages;
   T* s_tab = reinterpret_cast<T*>(smem + 128);
   unsigned char* ring = smem + 128 + align128(op.C * K * (int)sizeof(T));
-  const int B = op.B, L = op.L;
-  const Stage lay = stage_layout<T, R, K, KIND>(L, op.C);
-  const int consumers = L * R;
+  const int L = op.L, TL = op.TL, NT = op.NT;
+  const Stage lay = stage_layout<T, R, K, KIND>(TL, op.C);
+  const int consumers = TL * R;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
 
@@ -338,20 +389,20 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
   __syncthreads();
   wait_for_prior_grid();        // the previous launch's rows are written
 
+  const size_t S = (size_t)op.B * L;          // sites per row
   if (tid >= consumers) {
     // Producer warp: lane 0 keeps the ring full.
-    const size_t S = (size_t)B * L;           // sites per row
-    const uint32_t clv_b = (uint32_t)(L * R * K * sizeof(T));
-    Tile tile(B);
-    for (int i = 0; tile.w < real; ++i, tile.advance(B)) {
+    const uint32_t clv_b = (uint32_t)(TL * R * K * sizeof(T));
+    Tile tile(NT);
+    for (int i = 0; tile.w < real; ++i, tile.advance(NT)) {
       if (lane == 0) {
         const int s = i % kStages;
-        const int w = tile.w, b = tile.b;
+        const int w = tile.w;
         const int sl = slot + w;
-        const size_t site0 = (size_t)b * L;   // first site of the block
+        const size_t site0 = (size_t)tile.b * TL;   // first site of the tile
         const int lrow = KIND == 2 ? op.lidx[sl] : op.lcode[sl];
         const int rrow = KIND >= 1 ? op.ridx[sl] : op.rcode[sl];
-        const int m = op.block_part[b];
+        const int m = op.block_part[site0 / L];
         const T* gp = op.pmat + ((size_t)sl * 2 * op.M + m) * PN;
         if (i >= kStages) mbar_wait(&empty[s], ((i / kStages) - 1) & 1);
         unsigned char* st = ring + (size_t)s * lay.bytes;
@@ -362,19 +413,19 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
         if constexpr (KIND == 2) {
           bulk_load(st + lay.xl, op.clv + ((size_t)lrow * S + site0) * R * K,
                     clv_b, &full[s]);
-          bulk_load(st + lay.sl, op.scaler + (size_t)lrow * S + site0, 4 * L,
-                    &full[s]);
+          bulk_load(st + lay.sl, op.scaler + (size_t)lrow * S + site0,
+                    4 * TL, &full[s]);
         } else {
-          bulk_load(st + lay.xl, op.codes + (size_t)lrow * S + site0, L,
+          bulk_load(st + lay.xl, op.codes + (size_t)lrow * S + site0, TL,
                     &full[s]);
         }
         if constexpr (KIND >= 1) {
           bulk_load(st + lay.xr, op.clv + ((size_t)rrow * S + site0) * R * K,
                     clv_b, &full[s]);
-          bulk_load(st + lay.sr, op.scaler + (size_t)rrow * S + site0, 4 * L,
-                    &full[s]);
+          bulk_load(st + lay.sr, op.scaler + (size_t)rrow * S + site0,
+                    4 * TL, &full[s]);
         } else {
-          bulk_load(st + lay.xr, op.codes + (size_t)rrow * S + site0, L,
+          bulk_load(st + lay.xr, op.codes + (size_t)rrow * S + site0, TL,
                     &full[s]);
         }
       }
@@ -382,28 +433,31 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
     }
     allow_dependent_grid();     // every tile of this CTA is issued
   } else {
-    // Consumer warps: thread (site l, rate r).
+    // Consumer warps: thread (site l of the tile, rate r).
     const int l = tid / R, r = tid % R;
-    Tile tile(B);
+    Tile tile(NT);
     for (int i = 0; tile.w < real; ++i) {
       const int s = i % kStages;
-      const int w = tile.w, b = tile.b;
-      tile.advance(B);
+      const int w = tile.w;
+      const size_t site0 = (size_t)tile.b * TL;
+      tile.advance(NT);
       if (tile.w >= real) allow_dependent_grid();   // this CTA's last tile
       mbar_wait(&full[s], (i / kStages) & 1);
       unsigned char* st = ring + (size_t)s * lay.bytes;
       const T* p = reinterpret_cast<const T*>(st + lay.p) + r * K * K;
-      T yl[K], yr[K];
+      // v holds the left child's y, then y(left) * y(right): one child's K
+      // values at a time besides it.
+      T v[K];
       int sc = 0;
       if constexpr (KIND <= 1) {
         // A tip child's y depends only on (code, rate): the consumers
         // build u[side][c][r][a] = sum_k P[side][r][a][k] * table[c][k]
         // for every code once per tile (the same FMA chain as per site),
         // then each thread looks its code up.
-        constexpr int NT = 2 - KIND;            // tip children
+        constexpr int NT2 = 2 - KIND;           // tip children
         T* u = reinterpret_cast<T*>(st + lay.u);
         const T* pb = reinterpret_cast<const T*>(st + lay.p);
-        for (int q = tid; q < NT * op.C * R * K; q += consumers) {
+        for (int q = tid; q < NT2 * op.C * R * K; q += consumers) {
           const int side = q / (op.C * R * K);
           const int rem = q - side * op.C * R * K;
           const int c = rem / (R * K), ra = rem - c * (R * K);
@@ -416,30 +470,32 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
           u[q] = acc;
         }
         consumer_sync(consumers);
-        load_vec<T, K>(u + ((int)st[lay.xl + l] * R + r) * K, yl);
-        if constexpr (KIND == 0)
+        load_vec<T, K>(u + ((int)st[lay.xl + l] * R + r) * K, v);
+        if constexpr (KIND == 0) {
+          T y[K];
           load_vec<T, K>(u + (((size_t)op.C + st[lay.xr + l]) * R + r) * K,
-                         yr);
+                         y);
+#pragma unroll
+          for (int a = 0; a < K; ++a) v[a] *= y[a];
+        }
       } else {
         T x[K];
         load_vec<T, K>(reinterpret_cast<const T*>(st + lay.xl) + tid * K, x);
         sc += reinterpret_cast<const int32_t*>(st + lay.sl)[l];
-        apply_p<T, K>(p, x, yl);
+        apply_p<T, K>(p, x, v);
       }
       if constexpr (KIND >= 1) {
         T x[K];
         load_vec<T, K>(reinterpret_cast<const T*>(st + lay.xr) + tid * K, x);
         sc += reinterpret_cast<const int32_t*>(st + lay.sr)[l];
-        apply_p<T, K>(p + PN, x, yr);
+        apply_p_mul<T, K>(p + PN, x, v);
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with s
 
-      T v[K];
       T vmax = T(0);
 #pragma unroll
       for (int a = 0; a < K; ++a) {
-        v[a] = yl[a] * yr[a];
         const T u = fabs(v[a]);
         vmax = u > vmax ? u : vmax;
       }
@@ -453,9 +509,9 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
 #pragma unroll
         for (int a = 0; a < K; ++a) v[a] *= op.two_e;
       }
-      const size_t out = (size_t)(base + w) * B + b;   // (row, block)
-      store_vec<T, K>(op.clv + (out * L * R + tid) * K, v);
-      if (r == 0) op.scaler[out * L + l] = sc + (needs ? 1 : 0);
+      const size_t out = (size_t)(base + w) * S + site0;  // (row, site)
+      store_vec<T, K>(op.clv + (out * R + tid) * K, v);
+      if (r == 0) op.scaler[out + l] = sc + (needs ? 1 : 0);
     }
   }
   __syncthreads();              // every stage consumed, every copy landed
@@ -467,11 +523,14 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
   }
 }
 
-// Per-instance launch configuration: dynamic shared memory, threads and
-// resident CTAs per SM for (device, L, C), cached across calls (the
-// shared-memory attribute is set per device).
+// Per-instance launch configuration: the tile (sites TL <= the lane width
+// L, dividing it), dynamic shared memory, threads and resident CTAs per
+// SM for (device, L, C), cached across calls (the shared-memory attribute
+// is set per device).  A configuration whose shared memory exceeds what a
+// block may opt into on this device is refused before any launch.
 struct Config {
-  int dev = -1, L = -1, C = -1, smem = 0, threads = 0, per_sm = 0, sms = 0;
+  int dev = -1, L = -1, C = -1, tile = 0, stages = 0, smem = 0,
+      threads = 0, per_sm = 0, sms = 0;
 };
 
 template <typename T, int R, int K, int KIND>
@@ -484,20 +543,29 @@ cudaError_t configure(int L, int C, Config& cfg) {
     cfg = cached;
     return cudaSuccess;
   }
-  if (L < 32 || L % 16 || L * R % 32 || L * R + 32 > kMaxThreads)
+  constexpr int kTile = Geom<T, R, K>::kTile;
+  const int TL = L < kTile ? L : kTile;
+  if (TL < 16 || TL % 16 || L % TL || TL * R % 32 || C < 1)
     return cudaErrorInvalidValue;
   Config c;
   c.dev = dev;
   c.L = L;
   c.C = C;
-  c.smem = smem_bytes<T, R, K, KIND>(L, C);
-  c.threads = L * R + 32;
+  c.tile = TL;
+  c.stages = Geom<T, R, K>::kStages;
+  c.smem = smem_bytes<T, R, K, KIND>(TL, C);
+  c.threads = TL * R + 32;
+  int optin = 0;
   auto kern = newview_chunk_kernel<T, R, K, KIND>;
   err = cudaDeviceGetAttribute(&c.sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kern,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               c.smem);
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  if (c.smem > optin) return cudaErrorInvalidConfiguration;
+  err = cudaFuncSetAttribute(kern,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             c.smem);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&c.per_sm, kern,
                                                         c.threads, c.smem);
@@ -509,12 +577,14 @@ cudaError_t configure(int L, int C, Config& cfg) {
 }
 
 template <typename T, int R, int K, int KIND>
-cudaError_t launch_one(const Operands<T>& op, int base, int slot, int real,
+cudaError_t launch_one(Operands<T> op, int base, int slot, int real,
                        bool dependent, cudaStream_t stream) {
   Config c;
   cudaError_t err = configure<T, R, K, KIND>(op.L, op.C, c);
   if (err != cudaSuccess) return err;
-  const long long tiles = (long long)real * op.B;
+  op.TL = c.tile;
+  op.NT = op.B * (op.L / c.tile);
+  const long long tiles = (long long)real * op.NT;
   const long long resident = (long long)c.per_sm * c.sms;
   cudaLaunchConfig_t lc = {};
   lc.gridDim = dim3((unsigned)(tiles < resident ? tiles : resident));
@@ -584,27 +654,41 @@ int dispatch(void* clv, void* scaler, const void* codes, const void* table,
   op.C = C;
   op.minlik = static_cast<T>(minlik);
   op.two_e = static_cast<T>(two_e);
+  op.TL = op.NT = 0;            // set per instance by launch_one
+  const int32_t* rows = static_cast<const int32_t*>(launch);
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (R == 4 && K == 2)
+    return launch_all<T, 4, 2>(op, rows, n, st, launched);
   if (R == 4 && K == 4)
-    return launch_all<T, 4, 4>(op, static_cast<const int32_t*>(launch), n,
-                               reinterpret_cast<cudaStream_t>(stream),
-                               launched);
+    return launch_all<T, 4, 4>(op, rows, n, st, launched);
+  if (R == 4 && K == 20)
+    return launch_all<T, 4, 20>(op, rows, n, st, launched);
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename T>
-int config_of(int kind, int L, int C, int* out) {
-  Config c;
-  cudaError_t err;
+template <typename T, int R, int K>
+cudaError_t config_rk(int kind, int L, int C, Config& c) {
   switch (kind) {
-    case 0: err = configure<T, 4, 4, 0>(L, C, c); break;
-    case 1: err = configure<T, 4, 4, 1>(L, C, c); break;
-    case 2: err = configure<T, 4, 4, 2>(L, C, c); break;
-    default: return (int)cudaErrorInvalidValue;
+    case 0: return configure<T, R, K, 0>(L, C, c);
+    case 1: return configure<T, R, K, 1>(L, C, c);
+    case 2: return configure<T, R, K, 2>(L, C, c);
+    default: return cudaErrorInvalidValue;
   }
+}
+
+template <typename T>
+int config_of(int R, int K, int kind, int L, int C, int* out) {
+  Config c;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (R == 4 && K == 2) err = config_rk<T, 4, 2>(kind, L, C, c);
+  if (R == 4 && K == 4) err = config_rk<T, 4, 4>(kind, L, C, c);
+  if (R == 4 && K == 20) err = config_rk<T, 4, 20>(kind, L, C, c);
   out[0] = c.smem;
   out[1] = c.threads;
   out[2] = c.per_sm;
   out[3] = c.sms;
+  out[4] = c.tile;
+  out[5] = c.stages;
   return (int)err;
 }
 
@@ -638,12 +722,14 @@ int examl_newview_chunks_f64(void* clv, void* scaler, const void* codes,
                           minlik, two_e, stream, launched);
 }
 
-// The (R, K) = (4, 4) launch configuration of one instance for lane width
-// L and C tip codes: out = {dynamic shared memory bytes, threads per CTA,
-// resident CTAs per SM, SMs}.
-int examl_newview_chunk_config(int f64, int kind, int L, int C, int* out) {
-  return f64 ? config_of<double>(kind, L, C, out)
-             : config_of<float>(kind, L, C, out);
+// The launch configuration of one instance (R rates, K states, kind) for
+// lane width L and C tip codes: out = {dynamic shared memory bytes,
+// threads per CTA, resident CTAs per SM, SMs, sites per tile, ring
+// stages}.
+int examl_newview_chunk_config(int f64, int R, int K, int kind, int L, int C,
+                               int* out) {
+  return f64 ? config_of<double>(R, K, kind, L, C, out)
+             : config_of<float>(R, K, kind, L, C, out);
 }
 
 const char* examl_cuda_error_string(int err) {

@@ -39,6 +39,17 @@
 // first design is simple and right; cp.async staging of child rows and
 // wider tiles per thread are later work.
 //
+// Instances: (R, K) = (4, 2), (4, 4) and (4, 20), f32 and f64 (GAMMA over
+// binary, DNA and amino-acid data).  For K <= 4 a thread holds its site's
+// R*K values of x, yl, yr and v in registers.  At K = 20 that is 320
+// values, over the 255 registers a thread may have in f32 and far over in
+// f64, so the amino-acid body (`site_by_rate`) goes rate by rate: one
+// rate's x and product v (2K values) at a time, each rate's v written to
+// the parent row as it is done, the site's max over all R*K values kept,
+// and a site under 2^-E rescaled afterwards from its own row.  Compiling
+// with -DEXAML_WHOLE_RK_IN_REGISTERS keeps the register body at K = 20 too
+// (for comparing the compiler's spill report only).
+//
 // The arena and the scaler are read and written inside one launch, so
 // they carry no __restrict__ / read-only-cache qualifiers: a row is read
 // only after the barrier that follows its write.
@@ -145,6 +156,129 @@ __device__ __forceinline__ void child(
   apply_p<T, R, K>(s_p, x, y);
 }
 
+// One rate of one child of one site: y[a] = sum_k P_r[a][k] * x[k] with x
+// the child's K values of rate r (a tip's indicator row is the same for
+// every rate); with MUL the result multiplies into y instead.
+template <typename T, int K, bool MUL>
+__device__ __forceinline__ void child_rate(const T* pr, const T (&x)[K],
+                                           T (&y)[K]) {
+#pragma unroll
+  for (int a = 0; a < K; ++a) {
+    const T* row = pr + a * K;
+    T acc = row[0] * x[0];
+#pragma unroll
+    for (int k = 1; k < K; ++k) acc = fma(row[k], x[k], acc);
+    if constexpr (MUL)
+      y[a] *= acc;
+    else
+      y[a] = acc;
+  }
+}
+
+// The child's K values of rate r: its arena row's slice, or the tip's
+// indicator row.
+template <typename T, int R, int K>
+__device__ __forceinline__ void child_x(const T* clv, const T* s_tab,
+                                        const uint8_t* __restrict__ codes,
+                                        int is_tip, int row, int tip,
+                                        size_t S, size_t site, int r,
+                                        T (&x)[K]) {
+  if (is_tip) {
+    load_row<T, K>(s_tab + (int)codes[(size_t)tip * S + site] * K, x);
+  } else {
+    load_row<T, K>(clv + ((size_t)row * S + site) * (R * K) + r * K, x);
+  }
+}
+
+// Whether a site's R*K values stay in registers (the DNA and binary
+// body) or go rate by rate (amino acids: R*K = 80 values a child would
+// hold x, yl, yr and v, over 255 registers in f32 and far more in f64).
+template <typename T, int R, int K>
+constexpr bool kByRate =
+#ifdef EXAML_WHOLE_RK_IN_REGISTERS
+    false;
+#else
+    K >= 16;
+#endif
+
+// One entry at one site, every value in registers (R*K small: DNA and
+// binary data).  me = the entry's meta row (l_tip, r_tip, l_row, r_row,
+// w_row, ...).
+template <typename T, int R, int K>
+__device__ __forceinline__ void site_in_registers(
+    T* clv, int32_t* scaler, const uint8_t* __restrict__ codes,
+    const T* s_tab, const T* s_p, const int32_t* __restrict__ me, int lc,
+    int rc, size_t S, size_t site, T minlik, T two_e) {
+  constexpr int RK = R * K;
+  constexpr int PN = R * K * K;
+  T yl[RK], yr[RK];
+  int sc = 0;
+  child<T, R, K>(clv, scaler, codes, s_tab, s_p, me[0], me[2], lc, S, site,
+                 yl, sc);
+  child<T, R, K>(clv, scaler, codes, s_tab, s_p + PN, me[1], me[3], rc, S,
+                 site, yr, sc);
+  T v[RK];
+  T vmax = T(0);
+#pragma unroll
+  for (int j = 0; j < RK; ++j) {
+    v[j] = yl[j] * yr[j];
+    const T a = fabs(v[j]);
+    vmax = a > vmax ? a : vmax;
+  }
+  const bool needs = vmax < minlik;
+  if (needs) {
+#pragma unroll
+    for (int j = 0; j < RK; ++j) v[j] *= two_e;
+  }
+  const size_t out = (size_t)me[4];
+  store_row<T, RK>(clv + (out * S + site) * RK, v);
+  scaler[out * S + site] = sc + (needs ? 1 : 0);
+}
+
+// One entry at one site, rate by rate (amino acids): y(left) * y(right)
+// of rate r is written to the parent row at once and the site's max taken
+// over all R*K values; a site under 2^-E then rescales its own row in a
+// second pass (reading back what this thread wrote), so the rule and the
+// values stay the plain version's while a thread holds one rate's x and
+// v (2K values) at a time.
+template <typename T, int R, int K>
+__device__ __forceinline__ void site_by_rate(
+    T* clv, int32_t* scaler, const uint8_t* __restrict__ codes,
+    const T* s_tab, const T* s_p, const int32_t* __restrict__ me, int lc,
+    int rc, size_t S, size_t site, T minlik, T two_e) {
+  constexpr int PN = R * K * K;
+  T* o = clv + ((size_t)me[4] * S + site) * (R * K);
+  T vmax = T(0);
+#pragma unroll 1
+  for (int r = 0; r < R; ++r) {
+    T x[K], v[K];
+    child_x<T, R, K>(clv, s_tab, codes, me[0], me[2], lc, S, site, r, x);
+    child_rate<T, K, false>(s_p + r * K * K, x, v);
+    child_x<T, R, K>(clv, s_tab, codes, me[1], me[3], rc, S, site, r, x);
+    child_rate<T, K, true>(s_p + PN + r * K * K, x, v);
+#pragma unroll
+    for (int a = 0; a < K; ++a) {
+      const T u = fabs(v[a]);
+      vmax = u > vmax ? u : vmax;
+    }
+    store_row<T, K>(o + r * K, v);
+  }
+  int sc = (me[0] ? 0 : scaler[(size_t)me[2] * S + site]) +
+           (me[1] ? 0 : scaler[(size_t)me[3] * S + site]);
+  if (vmax < minlik) {
+    ++sc;
+#pragma unroll 1
+    for (int r = 0; r < R; ++r) {
+      T v[K];
+      load_row<T, K>(o + r * K, v);
+#pragma unroll
+      for (int a = 0; a < K; ++a) v[a] *= two_e;
+      store_row<T, K>(o + r * K, v);
+    }
+  }
+  scaler[(size_t)me[4] * S + site] = sc;
+}
+
 template <typename T, int R, int K>
 __global__ void newview_whole_kernel(
     T* clv, int32_t* scaler, const uint8_t* __restrict__ codes,
@@ -153,7 +287,6 @@ __global__ void newview_whole_kernel(
     const int32_t* __restrict__ r_code,
     const int32_t* __restrict__ wave_start, const T* __restrict__ pmat,
     int nwaves, int B, int L, int M, int C, T minlik, T two_e) {
-  constexpr int RK = R * K;
   constexpr int PN = R * K * K;               // per-rate P, one partition
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* s_p = reinterpret_cast<T*>(smem_raw);    // [2][PN]: left, right
@@ -183,28 +316,14 @@ __global__ void newview_whole_kernel(
       if (active) {
         const int32_t* me = meta + (size_t)e * 8;
         const size_t site = (size_t)b * L + l;
-        T yl[RK], yr[RK];
-        int sc = 0;
-        child<T, R, K>(clv, scaler, codes, s_tab, s_p, me[0], me[2],
-                       l_code[e], S, site, yl, sc);
-        child<T, R, K>(clv, scaler, codes, s_tab, s_p + PN, me[1], me[3],
-                       r_code[e], S, site, yr, sc);
-        T v[RK];
-        T vmax = T(0);
-#pragma unroll
-        for (int j = 0; j < RK; ++j) {
-          v[j] = yl[j] * yr[j];
-          const T a = fabs(v[j]);
-          vmax = a > vmax ? a : vmax;
-        }
-        const bool needs = vmax < minlik;
-        if (needs) {
-#pragma unroll
-          for (int j = 0; j < RK; ++j) v[j] *= two_e;
-        }
-        const size_t out = (size_t)me[4];
-        store_row<T, RK>(clv + (out * S + site) * RK, v);
-        scaler[out * S + site] = sc + (needs ? 1 : 0);
+        if constexpr (kByRate<T, R, K>)
+          site_by_rate<T, R, K>(clv, scaler, codes, s_tab, s_p, me,
+                                l_code[e], r_code[e], S, site, minlik,
+                                two_e);
+        else
+          site_in_registers<T, R, K>(clv, scaler, codes, s_tab, s_p, me,
+                                     l_code[e], r_code[e], S, site, minlik,
+                                     two_e);
       }
     }
     grid.sync();                              // wave w is written
@@ -266,10 +385,18 @@ int dispatch(void* clv, void* scaler, const void* codes, const void* table,
              const void* r_code, const void* wave_start, const void* pmat,
              int nwaves, int B, int L, int M, int C, int R, int K,
              double minlik, double two_e, void* stream, int* grid_out) {
+  if (R == 4 && K == 2)
+    return launch<T, 4, 2>(clv, scaler, codes, table, block_part, meta,
+                           l_code, r_code, wave_start, pmat, nwaves, B, L,
+                           M, C, minlik, two_e, stream, grid_out);
   if (R == 4 && K == 4)
     return launch<T, 4, 4>(clv, scaler, codes, table, block_part, meta,
                            l_code, r_code, wave_start, pmat, nwaves, B, L,
                            M, C, minlik, two_e, stream, grid_out);
+  if (R == 4 && K == 20)
+    return launch<T, 4, 20>(clv, scaler, codes, table, block_part, meta,
+                            l_code, r_code, wave_start, pmat, nwaves, B, L,
+                            M, C, minlik, two_e, stream, grid_out);
   *grid_out = 0;
   return (int)cudaErrorInvalidValue;
 }

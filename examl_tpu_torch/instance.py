@@ -1,9 +1,10 @@
 """PhyloInstance: alignment + models + likelihood engines behind one facade.
 
-The port of the GTR subset of `examl_tpu/instance.py`, under GAMMA or PSR
-rate heterogeneity: owns the per-partition model parameters, the per-site
-rate state under PSR, the packed site buckets (one engine per state
-count) and the CLV orientation bookkeeping against a host `Tree`
+The port of the single-device `examl_tpu/instance.py`, under GAMMA or PSR
+rate heterogeneity: owns the per-partition model parameters (GTR,
+empirical protein matrices, LG4M/LG4X, AUTO's current choice), the
+per-site rate state under PSR, the packed site buckets (one engine per
+state count) and the CLV orientation bookkeeping against a host `Tree`
 (reference `evaluateGeneric`, `newviewGeneric`, `makenewzGeneric`,
 `axml.h:1223-1256`).
 """
@@ -18,7 +19,9 @@ import torch
 from examl_tpu_torch import config
 from examl_tpu_torch.constants import ZMAX, ZMIN
 from examl_tpu_torch.io.alignment import AlignmentData
+from examl_tpu_torch.models import protein
 from examl_tpu_torch.models.gtr import ModelParams, build_model
+from examl_tpu_torch.models.lg4 import build_lg4
 from examl_tpu_torch.ops.engine import LikelihoodEngine
 from examl_tpu_torch.parallel.packing import pack_partitions
 from examl_tpu_torch.tree.topology import Node, Tree, TraversalEntry
@@ -70,20 +73,40 @@ class PhyloInstance:
         self.num_branch_slots = M if per_partition_branches else 1
 
         # Initial models (reference initModel `models.c:4180`): GTR rates
-        # all 1.0, empirical frequencies, alpha 1.0.
+        # all 1.0, empirical frequencies (or the protein matrix's own),
+        # alpha 1.0.  AUTO partitions start from WAG (reference
+        # `models.c:4222`) until auto_protein replaces them in mod_opt.
         self.models: List[ModelParams] = []
-        for part in alignment.partitions:
-            if part.lg4 and self.psr:
-                raise ValueError(
-                    "LG4 models are not supported under PSR (the reference "
-                    "likewise restricts LG4 to GAMMA)")
-            if part.lg4 or part.auto or (part.datatype.name == "AA"
-                                         and part.model_name != "GTR"):
-                raise NotImplementedError(
-                    f"partition {part.name}: only GTR models are ported "
-                    f"(got {part.model_name})")
+        self.auto_prot_models: Dict[int, str] = {
+            gid: "WAG" for gid, p in enumerate(alignment.partitions)
+            if p.auto}
+        self.auto_prot_freqs: Dict[int, str] = {
+            gid: "fixed" for gid in self.auto_prot_models}
+        self.auto_prot_criterion = "ml"
+        for gid, part in enumerate(alignment.partitions):
+            name = self.auto_prot_models.get(gid, part.model_name)
+            if part.lg4:
+                if self.psr:
+                    raise ValueError(
+                        "LG4 models are not supported under PSR (the "
+                        "reference likewise restricts LG4 to GAMMA)")
+                if ncat != 4:
+                    raise ValueError("LG4 models require 4 rate categories")
+                if part.optimize_freqs or part.use_empirical_freqs:
+                    raise ValueError(
+                        f"partition {part.name}: LG4 models carry one "
+                        "frequency vector per rate category; the F/X "
+                        "frequency suffixes are not applicable")
+                self.models.append(build_lg4(name, alpha=1.0,
+                                             use_median=use_median))
+                continue
+            rates, freqs = None, part.empirical_freqs
+            if part.datatype.name == "AA" and name != "GTR":
+                rates, model_freqs = protein.get_matrix(name)
+                if not part.use_empirical_freqs and not part.optimize_freqs:
+                    freqs = model_freqs
             self.models.append(build_model(
-                part.datatype, part.empirical_freqs, alpha=1.0, ncat=ncat,
+                part.datatype, freqs, rates=rates, alpha=1.0, ncat=ncat,
                 use_median=use_median))
 
         self.buckets = pack_partitions(alignment.partitions,

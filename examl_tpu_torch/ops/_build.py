@@ -35,7 +35,7 @@ SIGNATURES = {
                                      + [_D, _D, _P, _IP], _I),
         "examl_newview_chunks_f64": ([_P] * 11 + [_I] * 7
                                      + [_D, _D, _P, _IP], _I),
-        "examl_newview_chunk_config": ([_I] * 4 + [_IP], _I),
+        "examl_newview_chunk_config": ([_I] * 6 + [_IP], _I),
         "examl_cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "newview_whole": {

@@ -14,9 +14,14 @@ traversals — makenewz, new_view — update rows in place through the map
 on the wave-scan tier (plain torch ops), as the JAX engine runs its XLA
 scan tier there.  Under the PSR model (`psr=True`) every traversal takes
 the wave-scan tier, as in the JAX engine: kernels B1 and B2 serve GAMMA
-only.  `whole_tree_gradients` gives every branch's derivatives from one
-pre-order pass over the current arena (ops/gradient.py) and
-`rate_scan` every site's lnL under a grid of candidate rates (PSR).
+only, with instances for R = 4 rates of K = 2 (binary), 4 (DNA) and 20
+(amino-acid: GTR, empirical matrices, LG4M/LG4X) states.  An engine on
+the card whose (R, K) has no instance is refused when it is built (the
+CLI always uses R = 4; only ncat != 4 from Python reaches that), never
+sent to another tier.  `whole_tree_gradients` gives every branch's
+derivatives from one pre-order pass over the current arena
+(ops/gradient.py) and `rate_scan` every site's lnL under a grid of
+candidate rates (PSR).
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import torch
 
 from examl_tpu_torch import config, datatypes
 from examl_tpu_torch.models.gtr import ModelParams
+from examl_tpu_torch.models.lg4 import LG4Params
 from examl_tpu_torch.ops import (fastpath, gradient, kernels, newview_chunk,
                                  newview_whole)
 from examl_tpu_torch.ops.kernels import (DeviceModels, OutrootTraversal,
@@ -53,9 +59,11 @@ SCHED_CACHE_CAP = 8
 def stack_models(models: Sequence[ModelParams],
                  branch_indices: Sequence[int], dtype: torch.dtype,
                  device, psr: bool = False) -> DeviceModels:
-    """Stack per-partition models into [M, R, ...] tensors (plain models:
-    one eigensystem tiled over the R rate categories, weights 1/R; under
-    PSR one category of weight 1)."""
+    """Stack per-partition models into [M, R, ...] tensors: an LG4 model
+    gives one eigensystem and frequency vector per rate category and its
+    own category weights (LG4X's are free); a plain model tiles its one
+    eigensystem over the R categories, weights 1/R; under PSR there is
+    one category of weight 1."""
     R = models[0].ncat
     if any(m.ncat != R for m in models):
         raise ValueError("all partitions of a bucket need the same ncat")
@@ -64,8 +72,17 @@ def stack_models(models: Sequence[ModelParams],
         return torch.as_tensor(np.stack(xs), dtype=dtype, device=device)
 
     def per_cat(m, field):
+        if isinstance(m, LG4Params):
+            return np.stack(getattr(m, field + "_list"))
         v = getattr(m, field)
         return np.broadcast_to(v, (R,) + v.shape)
+
+    def weights_of(m):
+        if psr:
+            return np.ones(R)
+        if isinstance(m, LG4Params):
+            return np.asarray(m.rate_weights)
+        return np.full(R, 1.0 / R)
 
     return DeviceModels(
         eign=arr([per_cat(m, "eign") for m in models]),
@@ -73,8 +90,7 @@ def stack_models(models: Sequence[ModelParams],
         ei=arr([per_cat(m, "ei") for m in models]),
         freqs=arr([per_cat(m, "freqs") for m in models]),
         gamma_rates=arr([m.gamma_rates for m in models]),
-        rate_weights=arr([np.ones(R) if psr else np.full(R, 1.0 / R)
-                          for _ in models]),
+        rate_weights=arr([weights_of(m) for m in models]),
         part_branch=torch.as_tensor(np.asarray(branch_indices, np.int64),
                                     device=device),
     )
@@ -124,6 +140,14 @@ class LikelihoodEngine:
         self.B, self.lane = bucket.num_blocks, bucket.lane
         self.R = models[0].ncat
         self.K = bucket.states
+        tier = newview_whole if newview == "whole" else newview_chunk
+        if (self.device.type == "cuda" and not psr
+                and not tier.supported(self.R, self.K)):
+            raise ValueError(
+                f"kernel {'B2' if newview == 'whole' else 'B1'} has no "
+                f"instance for (R, K) = ({self.R}, {self.K}): full "
+                f"traversals on the {newview} tier need 4 rate categories "
+                "of 2, 4 or 20 states")
         if branch_indices is None:
             branch_indices = [0] * self.num_parts
         self._branch_indices = list(branch_indices)

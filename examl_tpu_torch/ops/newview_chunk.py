@@ -27,7 +27,8 @@ sites to its partition.
 arena and through the plain version for a CPU arena.  On a CUDA tensor it
 launches or raises; nothing falls back.  `LAUNCHES` counts kernel
 launches (and nothing else), so a run can show that its path went
-through the kernel.
+through the kernel; `LAUNCHES_BY_K` counts the same launches by state
+count.
 """
 
 from __future__ import annotations
@@ -40,8 +41,16 @@ import torch
 from examl_tpu_torch.ops import kernels
 
 LAUNCHES = 0
+LAUNCHES_BY_K: dict = {}     # the same launches by state count K
 
-_SUPPORTED_RK = ((4, 4),)       # (R, K) instantiated in csrc/newview_chunk.cu
+# (R, K) instantiated in csrc/newview_chunk.cu: GAMMA's four rates over
+# binary, DNA and amino-acid states.
+_SUPPORTED_RK = ((4, 2), (4, 4), (4, 20))
+
+
+def supported(R: int, K: int) -> bool:
+    """Whether the CUDA kernel has an instance for R rates x K states."""
+    return (R, K) in _SUPPORTED_RK
 
 
 def chunk_operands(models: kernels.DeviceModels, zl: torch.Tensor,
@@ -157,7 +166,7 @@ def chunk_apply_cuda(clv, scaler, codes, table, block_part, launch, lidx,
         raise ValueError(f"chunk_apply_cuda needs CUDA tensors, got {dev}")
     if clv.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"arena dtype {clv.dtype} is not float32/float64")
-    if (R, K) not in _SUPPORTED_RK:
+    if not supported(R, K):
         raise ValueError(f"(R, K) = {(R, K)} has no kernel instance")
     P = lidx.shape[0]
     C = table.shape[0]
@@ -192,6 +201,7 @@ def chunk_apply_cuda(clv, scaler, codes, table, block_part, launch, lidx,
                  ctypes.c_double(2.0 ** scale_exp), stream,
                  ctypes.byref(launched))
     LAUNCHES += launched.value
+    LAUNCHES_BY_K[K] = LAUNCHES_BY_K.get(K, 0) + launched.value
     if err != 0:
         raise RuntimeError(f"newview_chunk kernel launch failed: CUDA "
                            f"error {err} ({_build.error_string(err)})")

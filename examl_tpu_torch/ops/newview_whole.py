@@ -21,8 +21,9 @@ wave_start[w+1]`, from the schedule's `sync` flags.
 cooperative grid with a grid barrier per wave) for a CUDA arena and takes
 the plain version (a loop over waves in torch ops) for a CPU arena.  On a
 CUDA tensor it launches or raises; nothing falls back.  `LAUNCHES` counts
-kernel launches and nothing else; `LAST_GRID` is the cooperative grid of
-the last launch, in blocks.
+kernel launches and nothing else (`LAUNCHES_BY_K` the same by state
+count); `LAST_GRID` is the cooperative grid of the last launch, in
+blocks.
 """
 
 from __future__ import annotations
@@ -39,9 +40,17 @@ from examl_tpu_torch.tree.topology import Tree, TraversalEntry
 from examl_tpu_torch.utils import z_slots
 
 LAUNCHES = 0
+LAUNCHES_BY_K: dict = {}     # the same launches by state count K
 LAST_GRID = 0
 
-_SUPPORTED_RK = ((4, 4),)       # (R, K) instantiated in csrc/newview_whole.cu
+# (R, K) instantiated in csrc/newview_whole.cu: GAMMA's four rates over
+# binary, DNA and amino-acid states.
+_SUPPORTED_RK = ((4, 2), (4, 4), (4, 20))
+
+
+def supported(R: int, K: int) -> bool:
+    """Whether the CUDA kernel has an instance for R rates x K states."""
+    return (R, K) in _SUPPORTED_RK
 
 
 class FlatSchedule(NamedTuple):
@@ -212,7 +221,7 @@ def whole_apply_cuda(clv, scaler, codes, table, block_part, meta, l_code,
         raise ValueError(f"whole_apply_cuda needs CUDA tensors, got {dev}")
     if clv.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"arena dtype {clv.dtype} is not float32/float64")
-    if (R, K) not in _SUPPORTED_RK:
+    if not supported(R, K):
         raise ValueError(f"(R, K) = {(R, K)} has no kernel instance")
     E = meta.shape[0]
     nwaves = wave_start.shape[0] - 1
@@ -252,5 +261,6 @@ def whole_apply_cuda(clv, scaler, codes, table, block_part, meta, l_code,
         raise RuntimeError(f"newview_whole cooperative launch failed: CUDA "
                            f"error {err} ({_build.error_string(err)})")
     LAUNCHES += 1
+    LAUNCHES_BY_K[K] = LAUNCHES_BY_K.get(K, 0) + 1
     LAST_GRID = grid.value
     return clv, scaler

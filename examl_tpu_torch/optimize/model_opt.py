@@ -10,13 +10,15 @@ below the caller's epsilon.  All groups' Brent probes are batched into one
 evaluation per step (see optimize/brent.py); every probe is a full
 traversal on the engines' `newview` tier.
 
-The port of the GTR subset of `examl_tpu/optimize/model_opt.py`, under
-GAMMA or PSR.  The LG4X and automatic protein-model branches come later
-with those models: `PhyloInstance` refuses them at construction.
+The port of `examl_tpu/optimize/model_opt.py`, under GAMMA or PSR: GTR
+rates, empirical protein matrices (rates fixed), LG4M (alpha) and LG4X
+(free category rates and weights, `opt_lg4x`), and AUTO partitions'
+matrix choice (`optimize/auto_protein.py`) once per round.
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Callable, List, Sequence
 
 import numpy as np
@@ -25,6 +27,10 @@ from examl_tpu_torch.constants import ALPHA_MAX, ALPHA_MIN, RATE_MAX, RATE_MIN
 from examl_tpu_torch.instance import PhyloInstance
 from examl_tpu_torch.models.gtr import (n_exchange, with_alpha, with_freqs,
                                         with_rates)
+from examl_tpu_torch.models.lg4 import (LG4X_RATE_MAX, LG4X_RATE_MIN,
+                                        LG4Params, lg4_with_alpha,
+                                        lg4x_with_rates, lg4x_with_weights)
+from examl_tpu_torch.optimize.auto_protein import auto_protein
 from examl_tpu_torch.optimize.branch import tree_evaluate
 from examl_tpu_torch.optimize.brent import minimize_vector
 from examl_tpu_torch.optimize.psr import (MAX_CAT_ROUNDS,
@@ -127,16 +133,70 @@ def opt_rates(inst: PhyloInstance, tree: Tree,
 
 def opt_alphas(inst: PhyloInstance, tree: Tree,
                tol: float = MODEL_EPSILON) -> None:
-    """Gamma-shape Brent for every partition."""
-    groups = [[gid] for gid in range(inst.num_parts)]
+    """Gamma-shape Brent for every partition except LG4X (whose category
+    rates are free parameters optimized by opt_lg4x instead)."""
+    groups = [[gid] for gid in range(inst.num_parts)
+              if not (isinstance(inst.models[gid], LG4Params)
+                      and inst.models[gid].is_lg4x)]
+    if not groups:
+        return
 
     def get0(gid):
         return float(inst.models[gid].alpha)
 
     def setv(gid, v):
-        inst.models[gid] = with_alpha(inst.models[gid], v)
+        m = inst.models[gid]
+        inst.models[gid] = (lg4_with_alpha(m, v)
+                            if isinstance(m, LG4Params) else with_alpha(m, v))
 
     _opt_param(inst, tree, groups, get0, setv, ALPHA_MIN, ALPHA_MAX, tol)
+
+
+def opt_lg4x(inst: PhyloInstance, tree: Tree,
+             tol: float = MODEL_EPSILON) -> None:
+    """LG4X free category rates + weights (reference `optLG4X` +
+    `optimizeWeights`, `optimizeModel.c:1114-1132`): per round, Brent each
+    of the 4 rates then each of the 4 weight exponents."""
+    gids = [gid for gid in range(inst.num_parts)
+            if isinstance(inst.models[gid], LG4Params)
+            and inst.models[gid].is_lg4x]
+    if not gids:
+        return
+    groups = [[g] for g in gids]
+
+    # Trial rate vectors derive from a per-k base snapshot, not from the
+    # trial-mutated model: normalization rescales all four rates, so the
+    # objective must be a pure function of the Brent variable and the
+    # reject-restore (setv(v0)) must reproduce the base exactly.
+    for k in range(4):
+        base = {g: np.asarray(inst.models[g].gamma_rates).copy()
+                for g in gids}
+
+        def get0(gid, k=k):
+            return float(base[gid][k])
+
+        def setv(gid, v, k=k):
+            rates = base[gid].copy()
+            rates[k] = v
+            inst.models[gid] = lg4x_with_rates(inst.models[gid], rates)
+
+        _opt_param(inst, tree, groups, get0, setv, LG4X_RATE_MIN,
+                   LG4X_RATE_MAX, tol, only_states={20}, coherent=k > 0)
+
+    exponents = {g: np.log(np.maximum(inst.models[g].rate_weights, 1e-12))
+                 for g in gids}
+    for k in range(4):
+        def get0(gid, k=k):
+            return float(exponents[gid][k])
+
+        def setv(gid, v, k=k):
+            exponents[gid][k] = v
+            e = exponents[gid] - exponents[gid].max()
+            inst.models[gid] = lg4x_with_weights(inst.models[gid],
+                                                 np.exp(e))
+
+        _opt_param(inst, tree, groups, get0, setv, FREQ_EXP_MIN,
+                   FREQ_EXP_MAX, tol, only_states={20}, coherent=True)
 
 
 def opt_freqs(inst: PhyloInstance, tree: Tree,
@@ -166,14 +226,18 @@ def opt_freqs(inst: PhyloInstance, tree: Tree,
 
 
 def mod_opt(inst: PhyloInstance, tree: Tree, likelihood_epsilon: float,
-            max_rounds: int = 100, checkpoint_cb=None) -> float:
+            max_rounds: int = 100, auto_protein_fn=None,
+            checkpoint_cb=None) -> float:
     """Round-robin parameter optimization until Delta lnL < epsilon
     (reference `modOpt`, `optimizeModel.c:2963-3133`).  Under GAMMA the
-    rate-heterogeneity step is the alpha Brent; under PSR it is a rate
-    categorization round, capped at 3 per call as the reference's
-    `catOpt < 3` (`optimizeModel.c:3100-3110`), after which the
-    categories' rates are refined as continuous parameters
-    (`psr.refine_category_rates`).
+    rate-heterogeneity step is the alpha Brent, then LG4X's free category
+    rates and weights; under PSR it is a rate categorization round,
+    capped at 3 per call as the reference's `catOpt < 3`
+    (`optimizeModel.c:3100-3110`), after which the categories' rates are
+    refined as continuous parameters (`psr.refine_category_rates`).
+    AUTO partitions choose their matrix after the rates in every round
+    (`auto_protein_fn`, by default `auto_protein` under the instance's
+    `auto_prot_criterion`).
 
     checkpoint_cb(state, extras), when given, is invoked after every
     optimization round — the reference's MOD_OPT checkpoint cadence in
@@ -181,10 +245,16 @@ def mod_opt(inst: PhyloInstance, tree: Tree, likelihood_epsilon: float,
     inst.evaluate(tree, full=True)
     if inst.psr:
         inst.cat_opt_rounds = 0
+    if auto_protein_fn is None and any(
+            p.auto for p in inst.alignment.partitions):
+        auto_protein_fn = partial(auto_protein,
+                                  criterion=inst.auto_prot_criterion)
     while max_rounds > 0:
         max_rounds -= 1
         current = inst.likelihood
         opt_rates(inst, tree)
+        if auto_protein_fn is not None:
+            auto_protein_fn(inst, tree)
         tree_evaluate(inst, tree, 0.0625)
         opt_freqs(inst, tree)
         tree_evaluate(inst, tree, 0.0625)
@@ -196,6 +266,7 @@ def mod_opt(inst: PhyloInstance, tree: Tree, likelihood_epsilon: float,
                 refine_category_rates(inst, tree)
         else:
             opt_alphas(inst, tree)
+            opt_lg4x(inst, tree)
             tree_evaluate(inst, tree, 0.1)
         if checkpoint_cb is not None:
             checkpoint_cb("MOD_OPT", {})

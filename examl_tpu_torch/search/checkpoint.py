@@ -13,9 +13,10 @@ The port of the single-writer path of `examl_tpu/search/checkpoint.py`,
 with the same file names, magic, version, sections and fingerprint keys,
 so a checkpoint written by either package restores in the other.  The
 world size is always 1 here (`nprocs`, allowlisted on restore as in the
-JAX package).  Models are GTR under GAMMA or PSR (the per-site rate state
-rides in each partition's model entry); a checkpoint carrying an LG4 or
-automatic-protein model is refused with NotImplementedError.
+JAX package).  A partition's model entry holds its rates, frequencies
+and alpha (GTR or an empirical protein matrix, with AUTO's current
+choice in `auto_name`/`auto_freqs`, and under PSR the per-site rate
+state), or for LG4M/LG4X its name, alpha, category rates and weights.
 """
 
 from __future__ import annotations
@@ -31,7 +32,9 @@ import numpy as np
 
 from examl_tpu_torch.instance import PhyloInstance
 from examl_tpu_torch.models.gtr import build_model
+from examl_tpu_torch.models.lg4 import LG4Params
 from examl_tpu_torch.search.snapshots import TreeSnapshot
+from examl_tpu_torch.transfer import lg4_from_params
 from examl_tpu_torch.tree.topology import Tree
 
 CKPT_VERSION = 1
@@ -69,11 +72,16 @@ def _fingerprint(inst: PhyloInstance) -> dict:
 def _models_blob(inst: PhyloInstance) -> list:
     out = []
     for gid, m in enumerate(inst.models):
+        if isinstance(m, LG4Params):
+            out.append({"lg4": m.name, "alpha": float(m.alpha),
+                        "gamma_rates": np.asarray(m.gamma_rates).tolist(),
+                        "rate_weights": np.asarray(m.rate_weights).tolist()})
+            continue
         d = {"rates": np.asarray(m.rates).tolist(),
              "freqs": np.asarray(m.freqs).tolist(),
              "alpha": float(m.alpha),
-             "auto_name": None,
-             "auto_freqs": None}
+             "auto_name": inst.auto_prot_models.get(gid),
+             "auto_freqs": inst.auto_prot_freqs.get(gid)}
         if inst.psr:
             # Per-site rate state: the categories, their rates, and
             # patrat, the un-snapped per-site scan optima (reference
@@ -87,13 +95,14 @@ def _models_blob(inst: PhyloInstance) -> list:
 
 def _restore_models(inst: PhyloInstance, blob: list) -> None:
     for gid, d in enumerate(blob):
-        for key, model in (("lg4", "an LG4 model"),
-                           ("auto_name", "an automatic protein model")):
-            if d.get(key):
-                raise NotImplementedError(
-                    f"checkpoint partition {gid} carries {model} "
-                    f"({key}={d[key]!r}); only GTR models are ported")
         part = inst.alignment.partitions[gid]
+        if d.get("lg4"):
+            inst.models[gid] = lg4_from_params(d, inst.use_median)
+            continue
+        if d.get("auto_name"):
+            inst.auto_prot_models[gid] = d["auto_name"]
+        if d.get("auto_freqs"):
+            inst.auto_prot_freqs[gid] = d["auto_freqs"]
         inst.models[gid] = build_model(
             part.datatype, np.asarray(d["freqs"]),
             rates=np.asarray(d["rates"]), alpha=d["alpha"],

@@ -5,8 +5,10 @@ fields of the model stack, the tip codes and indicator table, the block
 ->partition map and the pattern weights), into the port's tensors on a
 device.  `install_model_params` loads per-partition model parameters
 into a `PhyloInstance`, either as complete `ModelParams` field sets
-(eigensystems carried exactly) or as (rates, freqs, alpha) triples that
-the port's own `build_model` turns into models.  `install_psr_state`
+(eigensystems carried exactly), as (rates, freqs, alpha) triples that
+the port's own `build_model` turns into models (empirical protein
+matrices included), or as LG4 sets (name, alpha, four category rates,
+four weights).  `install_psr_state`
 loads a PSR instance's per-site rate state (patrat, rate categories,
 category rates).  With these, two implementations can be held on exactly
 the same numbers; the tree travels as a Newick string with lengths.
@@ -14,12 +16,14 @@ the same numbers; the tree travels as a Newick string with lengths.
 
 from __future__ import annotations
 
+from dataclasses import replace
 from typing import Mapping, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from examl_tpu_torch.models.gtr import ModelParams, build_model
+from examl_tpu_torch.models.lg4 import LG4Params, build_lg4
 from examl_tpu_torch.ops.kernels import DeviceModels, TipState, tip_state
 
 MODEL_FIELDS = ("eign", "ev", "ei", "freqs", "gamma_rates", "rate_weights",
@@ -50,18 +54,35 @@ def state_from_numpy(arrays: Mapping[str, np.ndarray], device,
     return models, tips, block_part, f("weights")
 
 
-ParamSet = Union[ModelParams, Mapping[str, object],
+ParamSet = Union[ModelParams, LG4Params, Mapping[str, object],
                  Tuple[Sequence[float], Sequence[float], float]]
 
 
+def lg4_from_params(params: Mapping[str, object],
+                    use_median: bool = False) -> LG4Params:
+    """An LG4 model from its name, alpha, four category rates and four
+    category weights (`{"lg4": "LG4M" | "LG4X", "alpha": a, "gamma_rates":
+    [4], "rate_weights": [4]}`, the checkpoint's LG4 section): the
+    matrices come from the port's own protein data."""
+    m = build_lg4(str(params["lg4"]), alpha=float(params["alpha"]),
+                  use_median=use_median)
+    return replace(m, gamma_rates=np.array(params["gamma_rates"],
+                                           dtype=np.float64),
+                   rate_weights=np.array(params["rate_weights"],
+                                         dtype=np.float64))
+
+
 def model_from_params(params: ParamSet, datatype, ncat: int = 4,
-                      use_median: bool = False) -> ModelParams:
-    """A port ModelParams from a ModelParams, a field mapping or a
-    (rates, freqs, alpha) triple (rates None keeps the all-ones GTR
-    exchangeabilities)."""
-    if isinstance(params, ModelParams):
+                      use_median: bool = False):
+    """A port model from a ModelParams or LG4Params, a field mapping (an
+    LG4 mapping as `lg4_from_params` takes it) or a (rates, freqs, alpha)
+    triple (rates None keeps the all-ones GTR exchangeabilities; an
+    empirical protein matrix travels as its rates and frequencies)."""
+    if isinstance(params, (ModelParams, LG4Params)):
         return params
     if isinstance(params, Mapping):
+        if params.get("lg4"):
+            return lg4_from_params(params, use_median)
         fields = {k: (np.array(v, dtype=np.float64)
                       if isinstance(v, (np.ndarray, list, tuple)) else v)
                   for k, v in params.items()}

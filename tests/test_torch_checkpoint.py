@@ -6,7 +6,8 @@
   extras unchanged; so does a PSR checkpoint with its per-site rate
   state (categories, their rates, patrat), both ways;
 * a configuration mismatch (a PSR checkpoint for a GAMMA run included)
-  raises ValueError, a model the port lacks NotImplementedError;
+  raises ValueError; an AUTO partition's choice restores (LG4 and AUTO
+  checkpoints across the packages: tests/test_torch_protein.py);
 * the counter resumes numbering, `keep_last` prunes, a corrupt newest file
   falls back to the next one;
 * the RF-convergence blob round-trips through JSON and equals JAX's;
@@ -175,10 +176,13 @@ def test_mismatch_and_missing_model_refused(tmp_path):
     blob["models"][1]["auto_name"] = "WAG"
     with gzip.open(path, "wt") as f:
         json.dump(blob, f)
+    # An automatic protein model's choice is no longer a model the port
+    # lacks: the section restores, its choice carried as the JAX package
+    # carries it.
     inst = _port()
-    with pytest.raises(NotImplementedError, match="automatic protein"):
-        checkpoint.CheckpointManager(str(tmp_path), "run").restore(
-            inst, inst.random_tree(seed=1))
+    checkpoint.CheckpointManager(str(tmp_path), "run").restore(
+        inst, inst.random_tree(seed=1))
+    assert inst.auto_prot_models == {1: "WAG"}
 
 
 def test_counter_keep_last_and_corrupt_fallback(tmp_path):

@@ -42,6 +42,9 @@ def test_port_imports_no_jax_and_no_examl_tpu():
                  "examl_tpu_torch.optimize.brent",
                  "examl_tpu_torch.optimize.model_opt",
                  "examl_tpu_torch.optimize.psr",
+                 "examl_tpu_torch.optimize.auto_protein",
+                 "examl_tpu_torch.models.protein",
+                 "examl_tpu_torch.models.lg4",
                  "examl_tpu_torch.cli.main",
                  "examl_tpu_torch.cli.parse",
                  "examl_tpu_torch.search.checkpoint",

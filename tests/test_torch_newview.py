@@ -7,7 +7,8 @@ CUDA kernel against its plain version.
   `examl_tpu.ops.fastpath.run_chunks` (rtol 1e-12, scalers equal);
 * f32: the same against the Pallas kernel in interpret mode,
   `pallas_newview.run_chunks(interpret=True)` (rtol 1e-6, atol 1e-7, as
-  tests/test_pallas.py holds it);
+  tests/test_pallas.py holds it); at K = 20 and K = 2 rows within 1e-4
+  (AA) and 1e-5 (binary) of each site's max, scalers equal;
 * every slot of every chunk of the bounded layout, padding and replay
   slots included, reads only rows outside the rows its chunk writes —
   the property that lets a chunk's entries run concurrently on the card.
@@ -29,14 +30,20 @@ from examl_tpu_torch.tree.topology import Tree
 CPU = torch.device("cpu")
 
 
-def _alignment(ntaxa, nsites, seed):
+# Alphabet of the synthetic alignments by data type, the gap last.
+ALPHABETS = {"DNA": "ACGT-", "AA": "ARNDCQEGHILKMFPSTWYV-", "BIN": "01-"}
+
+
+def _alignment(ntaxa, nsites, seed, datatype="DNA"):
     from examl_tpu.io.alignment import build_alignment_data
     rng = np.random.default_rng(seed)
     names = [f"t{i}" for i in range(ntaxa)]
-    seqs = ["".join("ACGT-"[c] for c in rng.choice(5, nsites,
-                                                   p=[.24] * 4 + [.04]))
+    chars = ALPHABETS[datatype]
+    n = len(chars) - 1
+    seqs = ["".join(chars[c] for c in rng.choice(n + 1, nsites,
+                                                 p=[.96 / n] * n + [.04]))
             for _ in names]
-    return build_alignment_data(names, seqs)
+    return build_alignment_data(names, seqs, datatype_name=datatype)
 
 
 def _random_lengths(trees, seed):
@@ -50,13 +57,14 @@ def _random_lengths(trees, seed):
             bl[i][0].z[:] = [z]
 
 
-def _paired(dtype, ntaxa, nsites, seed):
+def _paired(dtype, ntaxa, nsites, seed, datatype="DNA"):
     """A JAX engine, a JAX tree, the port's state from that engine, and the
     port tree built the same way."""
     import jax.numpy as jnp
     from examl_tpu.instance import PhyloInstance as JaxInstance
-    jinst = JaxInstance(_alignment(ntaxa, nsites, seed), dtype=dtype)
-    eng = jinst.engines[4]
+    jinst = JaxInstance(_alignment(ntaxa, nsites, seed, datatype),
+                        dtype=dtype)
+    (eng,) = jinst.engines.values()
     jtree = jinst.random_tree(seed)
     ttree = Tree.random(jinst.alignment.taxon_names, seed, 1)
     _random_lengths([jtree, ttree], seed)
@@ -145,6 +153,29 @@ def test_chunk_program_matches_pallas_interpret_f32():
                   rtol=1e-6, atol=1e-7)
 
 
+@pytest.mark.parametrize("datatype,rtol", [("AA", 1e-4), ("BIN", 1e-5)])
+def test_chunk_program_matches_pallas_interpret_f32_aa_and_binary(datatype,
+                                                                  rtol):
+    """The K = 20 and K = 2 domains of the Pallas kernel: rows within rtol
+    of each site's max (AA 1e-4 as tests/test_torch_whole.py holds the
+    whole tier; binary 1e-5 as DNA), scalers equal."""
+    import jax.numpy as jnp
+    from examl_tpu.ops import pallas_newview
+    eng, jtree, state, ttree = _paired(jnp.float32, 24, 300, 1, datatype)
+    assert eng.clv.shape[-1] == {"AA": 20, "BIN": 2}[datatype]
+    sched = _jax_schedule(eng, jtree)
+    jclv, jsc = pallas_newview.run_chunks(
+        eng.models, eng.block_part, eng.tips, jnp.array(eng.clv),
+        jnp.array(eng.scaler), sched.chunks, eng.scale_exp, interpret=True)
+    st, tclv, tsc = _port_full_traversal(eng, state, ttree)
+    jclv, jsc = np.asarray(jclv), np.asarray(jsc)
+    for num, jrow in sched.row_of.items():
+        trow = st.row_of[num]
+        np.testing.assert_array_equal(tsc[trow], jsc[jrow])
+        smax = np.abs(jclv[jrow]).max(axis=(2, 3), keepdims=True)
+        assert np.all(np.abs(tclv[trow] - jclv[jrow]) <= rtol * smax)
+
+
 @pytest.mark.parametrize("ntaxa,seed", [(12, 0), (37, 1), (100, 2),
                                         (512, 3), (512, 4)])
 def test_layout_chunks_never_read_their_own_rows(ntaxa, seed):
@@ -179,19 +210,19 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _kernel_case(dev, dtype, W, launch, seed):
+def _kernel_case(dev, dtype, W, launch, seed, K=4, C=16):
     """Random inputs for a launch table over packed slots [0, 2W): the
     first W slots read rows [0, 2W) and write from row 2W; the next W
-    read the rows the first W wrote."""
+    read the rows the first W wrote.  K states, C tip codes."""
     rng = np.random.default_rng(seed)
     E = 256 if dtype == torch.float64 else 32
-    B, L, M, C, ntips = 8, 128, 2, 16, 6
+    B, L, M, ntips = 8, 128, 2, 6
     rows = 4 * W + 1
-    pmat = torch.as_tensor(rng.uniform(0, 1, (2 * W, 2, M, 4, 4, 4)),
+    pmat = torch.as_tensor(rng.uniform(0, 1, (2 * W, 2, M, 4, K, K)) * 4 / K,
                            dtype=dtype, device=dev)
-    table = torch.as_tensor(rng.uniform(0, 1, (C, 4)), dtype=dtype,
+    table = torch.as_tensor(rng.uniform(0, 1, (C, K)), dtype=dtype,
                             device=dev)
-    clv = torch.as_tensor(rng.uniform(0, 1, (rows, B, L, 4, 4)), dtype=dtype,
+    clv = torch.as_tensor(rng.uniform(0, 1, (rows, B, L, 4, K)), dtype=dtype,
                           device=dev) * 2.0 ** (-E / 2)
     scaler = torch.as_tensor(rng.integers(0, 3, (rows, B, L)),
                              dtype=torch.int32, device=dev)
@@ -259,6 +290,23 @@ def test_cuda_kernel_chained_launches_match_plain(cuda_device, dtype):
     args = args[:4] + (torch.as_tensor(lidx, device=dev),
                        torch.as_tensor(ridx, device=dev)) + args[6:]
     _assert_kernel_matches_plain(clv, scaler, args, dtype, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,C", [(20, 23), (2, 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", [0, 1, 2])
+def test_cuda_kernel_matches_plain_aa_and_binary(cuda_device, K, C, dtype,
+                                                  kind):
+    """The K = 20 and K = 2 instances: a chunk of 5 of 16 entries, then a
+    chain of launches reading their predecessors' rows."""
+    W = 16
+    clv, scaler, args = _kernel_case(cuda_device, dtype, W,
+                                     [(kind, 2 * W, 0, 5)], kind + K, K, C)
+    _assert_kernel_matches_plain(clv, scaler, args, dtype, 1)
+    launch = [(kind, 2 * W, 0, W), (2, 3 * W, W, W)]
+    clv, scaler, args = _kernel_case(cuda_device, dtype, W, launch, K, K, C)
+    _assert_kernel_matches_plain(clv, scaler, args, dtype, 2)
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():

@@ -262,5 +262,6 @@ def test_lg4_under_psr_is_refused():
     assert data.partitions[0].lg4
     with pytest.raises(ValueError, match="PSR"):
         PhyloInstance(data, device="cpu", rate_model="PSR")
-    with pytest.raises(NotImplementedError):
-        PhyloInstance(data, device="cpu")
+    # Under GAMMA the same partition builds its four-matrix model.
+    inst = PhyloInstance(data, device="cpu")
+    assert type(inst.models[0]).__name__ == "LG4Params"

@@ -6,10 +6,11 @@ version.
   (meta, codes, zl/zr, row_of) on random topologies and a caterpillar,
   and the cached structure's `refresh_z` equals a fresh build;
 * f32: `whole_apply_plain` against `pallas_whole.run_flat(interpret=True)`
-  on DNA and AA (scalers equal; rows at rtol 1e-5 of each site's max for
-  DNA, 1e-4 for AA: with K = 20 the JAX f32 rows themselves lie 1.7e-5
-  from the port's f64 rows after 9 waves, and 1e-4 is the bound
-  tests/test_pallas.py holds the JAX B2 to against its chunk tier);
+  on DNA, AA and binary data (scalers equal; rows at rtol 1e-5 of each
+  site's max for DNA and binary, 1e-4 for AA: with K = 20 the JAX f32 rows
+  themselves lie 1.7e-5 from the port's f64 rows after 9 waves, and 1e-4
+  is the bound tests/test_pallas.py holds the JAX B2 to against its chunk
+  tier);
 * f64: the same against the JAX scan tier (`kernels.traverse`, rows by
   the engine's row map) at rtol 1e-12, with a forced-rescale case;
 * the engine with `newview="whole"`: lnL against the JAX engine (f64 rtol
@@ -110,7 +111,8 @@ def _jax_instance(datatype, ntaxa, nsites, seed, dtype):
     from examl_tpu.instance import PhyloInstance as JaxInstance
     from examl_tpu.io.alignment import build_alignment_data
     rng = np.random.default_rng(seed)
-    alphabet = {"AA": "ARNDCQEGHILKMFPSTWYV", "DNA": "ACGT"}[datatype]
+    alphabet = {"AA": "ARNDCQEGHILKMFPSTWYV", "DNA": "ACGT",
+                "BIN": "01"}[datatype]
     names = [f"t{i}" for i in range(ntaxa)]
     seqs = ["".join(alphabet[c]
                     for c in rng.integers(0, len(alphabet), nsites))
@@ -153,7 +155,8 @@ def _compare_rows(pairs, tclv, tsc, jclv, jsc, rtol):
 
 
 @pytest.mark.parametrize("datatype,ntaxa,nsites,seed,rtol", [
-    ("DNA", 20, 500, 5, 1e-5), ("AA", 24, 300, 1, 1e-4)])
+    ("DNA", 20, 500, 5, 1e-5), ("AA", 24, 300, 1, 1e-4),
+    ("BIN", 24, 300, 2, 1e-5)])
 def test_plain_matches_pallas_whole_interpret_f32(datatype, ntaxa, nsites,
                                                   seed, rtol):
     import jax.numpy as jnp
@@ -315,6 +318,63 @@ def test_cuda_kernel_matches_plain(cuda_device, dtype, ntaxa, shape):
     smax = c_ref[:n].abs().amax(dim=(3, 4), keepdim=True)
     rtol = 1e-12 if dtype == torch.float64 else 1e-5
     assert bool(((clv[:n] - c_ref[:n]).abs() <= rtol * smax).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,codes", [(20, list(range(23))), (2, [1, 2, 3])])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_kernel_matches_plain_aa_and_binary(cuda_device, K, codes,
+                                                  dtype):
+    """The K = 20 and K = 2 instances on a random 64-taxon tree and a
+    24-taxon caterpillar, every tip/tip site forced to rescale."""
+    from examl_tpu_torch import datatypes
+    from examl_tpu_torch.models.gtr import build_model, n_exchange
+    from examl_tpu_torch.ops.engine import stack_models
+    dev = cuda_device
+    dt = {20: datatypes.AA, 2: datatypes.BINARY}[K]
+    E = 256 if dtype == torch.float64 else 32
+    B, L, M = 4, 128, 2
+    for ntaxa, shape in ((64, "random"), (24, "caterpillar")):
+        rng = np.random.default_rng(ntaxa + K)
+        names = [f"t{i}" for i in range(ntaxa)]
+        tree = (Tree.from_newick(_caterpillar(ntaxa), names, 1)
+                if shape == "caterpillar" else Tree.random(names, 1, 1))
+        for p, _ in tree.all_branches():
+            p.z[:] = [float(rng.uniform(0.05, 0.98))]
+        flat = tree.flat_full_traversal(tree.centroid_branch())
+        models = [build_model(dt, rng.dirichlet(np.ones(K) * 5),
+                              rates=rng.uniform(0.3, 6.0, n_exchange(K)),
+                              alpha=float(rng.uniform(0.2, 1.5)))
+                  for _ in range(M)]
+        dm = stack_models(models, [0] * M, dtype, dev)
+        st = newview_whole.build_structure(flat, ntaxa, 1, dev)
+        zl, zr = newview_whole.refresh_z(st, flat, 1)
+        pmat = newview_whole.whole_operands(dm, zl, zr, dtype, dev)
+        table = torch.as_tensor(dt.tip_indicator_table(), dtype=dtype,
+                                device=dev) * 0.75 * 2.0 ** (-E / 2)
+        rows = ntaxa + 2
+        clv = torch.as_tensor(rng.uniform(0, 1, (rows, B, L, 4, K)),
+                              dtype=dtype, device=dev)
+        scaler = torch.as_tensor(rng.integers(0, 3, (rows, B, L)),
+                                 dtype=torch.int32, device=dev)
+        tips = torch.as_tensor(rng.choice(codes, (ntaxa, B, L)),
+                               dtype=torch.uint8, device=dev)
+        args = (tips, table, torch.as_tensor(rng.integers(0, M, B),
+                                             dtype=torch.int32, device=dev),
+                st.meta, st.l_code, st.r_code, st.wave_start, pmat, E)
+        c_ref, s_ref = clv.clone(), scaler.clone()
+        newview_whole.whole_apply_plain(c_ref, s_ref, *args)
+        before = newview_whole.LAUNCHES
+        newview_whole.whole_apply(clv, scaler, *args)
+        torch.cuda.synchronize()
+        assert newview_whole.LAUNCHES == before + 1
+        assert torch.equal(scaler, s_ref)
+        n = flat.n
+        assert int(s_ref[:n].sum()) > 0
+        assert torch.equal(clv[n:], c_ref[n:])
+        smax = c_ref[:n].abs().amax(dim=(3, 4), keepdim=True)
+        rtol = 1e-12 if dtype == torch.float64 else 1e-5
+        assert bool(((clv[:n] - c_ref[:n]).abs() <= rtol * smax).all())
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():
