@@ -61,8 +61,8 @@ RTOL = {"float32": 1e-5, "float64": 1e-12}
 TAXA, PARTITIONS, PART_WIDTH = 512, 4, 32768
 # Site blocks of 128 in the kernel-vs-plain cases, by state count (the
 # amino-acid cases cut to fit the f64 arenas and the plain version's
-# temporaries in memory; B1's K = 20 tiles are a quarter block, so 128
-# blocks still give 8,192 tiles an entry).
+# temporaries in memory; at 128 blocks a 64-entry launch of B1 still has
+# 8,192 tiles of K = 20 in f32, 32,768 in f64, against 132 CTAs).
 CHECK_BLOCKS = {4: 1024, 20: 128, 2: 1024}
 CHECK_WIDTH = 64        # chunk width of the kernel-vs-plain cases
 WHOLE_CHECK_BLOCKS = {4: 256, 20: 32, 2: 256}   # the B2-vs-plain cases
@@ -230,7 +230,7 @@ def b1_case(tag: str, launch_spec, dtype_name: str, rescale: bool, B: int,
     c_ref, s_ref = clv.clone(), scaler.clone()
     newview_chunk.chunk_apply_plain(c_ref, s_ref, *args)
     c_k, s_k = clv.clone(), scaler.clone()
-    newview_chunk.chunk_apply_cuda(c_k, s_k, *args)
+    newview_chunk.chunk_apply(c_k, s_k, *args)
     sync(device)
     what = f"B1 K={K} {tag} {dtype_name} rescale={rescale}"
     mism = (s_k != s_ref).nonzero()
@@ -431,7 +431,7 @@ def whole_case(dtype_name: str, shape: str, rescale: bool, B: int,
     c_ref, s_ref = clv.clone(), scaler.clone()
     newview_whole.whole_apply_plain(c_ref, s_ref, *args)
     c_k, s_k = clv.clone(), scaler.clone()
-    newview_whole.whole_apply_cuda(c_k, s_k, *args)
+    newview_whole.whole_apply(c_k, s_k, *args)
     sync(device)
     tag = f"K={K} {shape} {dtype_name} rescale={rescale}"
     mism = (s_k != s_ref).nonzero()
@@ -891,6 +891,14 @@ def traversal_flops(flat, ntips: int, patterns: int, R: int, K: int) -> int:
         + flat.n * patterns * R * K
 
 
+def chunk_flops(chunks, patterns: int, R: int, K: int) -> int:
+    """Floating-point operations of a list of (kind, width) chunks, as
+    traversal_flops counts them: 2*R*K*K per inner child (kind of them)
+    and site, R*K products per entry and site."""
+    return sum(int(w) * patterns * (kind * 2 * R * K * K + R * K)
+               for kind, w in chunks)
+
+
 def chunk_bytes(chunks, patterns: int, R: int, K: int, itemsize: int) -> int:
     """Bytes a list of (kind, width) chunks moves when every slot runs:
     each slot writes one CLV and scaler row, reads one per inner child
@@ -1002,7 +1010,8 @@ def launch_breakdown(launch, args, clv, scaler, patterns: int, eng, device,
     timed on its own, as a table of that row repeated REPEAT times (one
     host call, so the card and not the wrapper sets the pace; rerunning a
     row rewrites its rows from unchanged inputs), summed per class with
-    the bytes it moves."""
+    the bytes it moves.  `args` are chunk_apply_cuda's, the tip products
+    prebuilt."""
     from examl_tpu_torch.ops import newview_chunk
     rows = launch.tolist()
     ms = []
@@ -1019,11 +1028,14 @@ def launch_breakdown(launch, args, clv, scaler, patterns: int, eng, device,
         sel = [i for i, r in enumerate(rows) if member(r)]
         if not sel:
             continue
-        nbytes = chunk_bytes([(rows[i][0], rows[i][3]) for i in sel],
-                             patterns, eng.R, eng.K, 4)
+        chunks = [(rows[i][0], rows[i][3]) for i in sel]
+        nbytes = chunk_bytes(chunks, patterns, eng.R, eng.K, 4)
+        flops = chunk_flops(chunks, patterns, eng.R, eng.K)
         t = sum(ms[i] for i in sel)
         out.append({"class": name, "launches": len(sel), "bytes": nbytes,
-                    "ms": t, "tb_per_s": nbytes / (t / 1e3) / 1e12})
+                    "flops": flops, "ms": t,
+                    "tb_per_s": nbytes / (t / 1e3) / 1e12,
+                    "tflop_per_s": flops / (t / 1e3) / 1e12})
     return out
 
 
@@ -1141,10 +1153,15 @@ def phase_real_size(device, setup: dict, reps: int):
         lambda: newview_chunk.chunk_operands(eng.models, zl, zr), device)
     args = (eng.tips.codes, eng.tips.table, eng.block_part_i32, launch,
             st.lidx, st.ridx, st.lcode, st.rcode, pmat, eng.scale_exp)
+    u = newview_chunk.tip_products(pmat, eng.tips.table)
+    kargs = (args[0], u) + args[2:]           # chunk_apply_cuda's operands
     clv_k = torch.zeros_like(eng.clv)
     sc_k = torch.zeros_like(eng.scaler)
-    kernel_ms = time_ms(lambda: newview_chunk.chunk_apply_cuda(
+    # B1's time is chunk_apply's: the tip products and the kernel.
+    kernel_ms = time_ms(lambda: newview_chunk.chunk_apply(
         clv_k, sc_k, *args), device, reps)
+    tip_ms = time_ms(lambda: newview_chunk.tip_products(
+        pmat, eng.tips.table), device, reps)
     clv_p = torch.zeros_like(eng.clv)
     sc_p = torch.zeros_like(eng.scaler)
     plain_ms = time_ms(lambda: newview_chunk.chunk_apply_plain(
@@ -1157,12 +1174,12 @@ def phase_real_size(device, setup: dict, reps: int):
     # rows too early would show here as an occasional mismatch.
     clv_k.zero_()
     sc_k.zero_()
-    newview_chunk.chunk_apply_cuda(clv_k, sc_k, *args)
+    newview_chunk.chunk_apply(clv_k, sc_k, *args)
     sync(device)
     rel2, abs2 = compare_arenas(clv_k[rows], clv_p[rows], sc_k[rows],
                                 sc_p[rows], "chunk full traversal, again")
     rel, abs_err = max(rel, rel2), max(abs_err, abs2)
-    breakdown = launch_breakdown(launch, args, clv_k, sc_k, patterns, eng,
+    breakdown = launch_breakdown(launch, kargs, clv_k, sc_k, patterns, eng,
                                  device, reps)
     product_tb = product_rate(eng.clv, layout["slots"], device, reps)
     del clv_k, sc_k, clv_p, sc_p
@@ -1178,6 +1195,7 @@ def phase_real_size(device, setup: dict, reps: int):
         "makenewz_8_s": nr_s, "layout": layout,
         "launches_per_traversal": layout["launches"],
         "entries": flat.n, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+        "tip_products_ms": tip_ms,
         "achieved_tb_per_s": layout["bytes"] / (kernel_ms / 1e3) / 1e12,
         **bound, "max_rel_err": rel, "max_abs_err": abs_err,
         "launches": launches["evaluate"]["b1"], "launches_by_path": launches,
@@ -1188,7 +1206,8 @@ def phase_real_size(device, setup: dict, reps: int):
     log(f"  evaluate {eval_ms:.2f} ms/full traversal (runs "
         f"{', '.join(f'{w * 1e3:.2f}' for w in walls)}; "
         f"{report['site_clv_updates_per_s']:.3e} site-CLV updates/s); "
-        f"B1 {kernel_ms:.3f} ms in {layout['launches']} launches "
+        f"B1 {kernel_ms:.3f} ms (tip products {tip_ms:.3f} ms of it) in "
+        f"{layout['launches']} launches "
         f"({report['achieved_tb_per_s']:.3f} TB/s of "
         f"{layout['bytes'] / 1e9:.2f} GB), plain {plain_ms:.3f} ms, bound "
         f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}); kernel vs plain "
@@ -1196,7 +1215,8 @@ def phase_real_size(device, setup: dict, reps: int):
     for row in breakdown:
         log(f"  B1 {row['class']:>13s}: {row['launches']:3d} launches, "
             f"{row['bytes'] / 1e9:5.2f} GB, {row['ms']:.3f} ms timed row by "
-            f"row ({row['tb_per_s']:.3f} TB/s)")
+            f"row ({row['tb_per_s']:.3f} TB/s, {row['tflop_per_s']:.2f} "
+            f"TFLOP/s)")
     log(f"  yardstick: elementwise product of arena rows (2 reads, 1 write) "
         f"{product_tb:.3f} TB/s")
     if ops_profile["measured"]:
@@ -1730,9 +1750,11 @@ def aa_instance(setup: dict, device, newview: str):
 
 def time_kernels(inst, tree, setup, device, tier: str, reps: int) -> dict:
     """Per engine (state count K) of a real-size instance: the tier's
-    kernel alone on one full traversal, operands prebuilt, against its
-    plain version on the same inputs (scalers equal, rows within the f32
-    tolerance of each site's max) and the traversal's bound."""
+    kernel on one full traversal, P prebuilt, through the entry point the
+    engine calls (which builds the tip operand, timed also on its own),
+    against its plain version on the same inputs (scalers equal, rows
+    within the f32 tolerance of each site's max) and the traversal's
+    bound."""
     import torch
     from examl_tpu_torch.ops import fastpath, newview_chunk, newview_whole
     flat = tree.flat_full_traversal(tree.centroid_branch())
@@ -1745,8 +1767,9 @@ def time_kernels(inst, tree, setup, device, tier: str, reps: int) -> dict:
             args = (eng.tips.codes, eng.tips.table, eng.block_part_i32,
                     st.launch, st.lidx, st.ridx, st.lcode, st.rcode, pmat,
                     eng.scale_exp)
-            kernel, plain = (newview_chunk.chunk_apply_cuda,
-                             newview_chunk.chunk_apply_plain)
+            kernel, plain, tip = (newview_chunk.chunk_apply,
+                                  newview_chunk.chunk_apply_plain,
+                                  newview_chunk.tip_products)
             rows = torch.as_tensor(np.sort(st.row_of[st.row_of >= 0]),
                                    device=device)
         else:
@@ -1756,12 +1779,15 @@ def time_kernels(inst, tree, setup, device, tier: str, reps: int) -> dict:
             args = (eng.tips.codes, eng.tips.table, eng.block_part_i32,
                     st.meta, st.l_code, st.r_code, st.wave_start, pmat,
                     eng.scale_exp)
-            kernel, plain = (newview_whole.whole_apply_cuda,
-                             newview_whole.whole_apply_plain)
+            kernel, plain, tip = (newview_whole.whole_apply,
+                                  newview_whole.whole_apply_plain,
+                                  newview_whole.tip_operand)
             rows = torch.arange(flat.n, device=device)
         clv_k = torch.zeros_like(eng.clv)
         sc_k = torch.zeros_like(eng.scaler)
         kernel_ms = time_ms(lambda: kernel(clv_k, sc_k, *args), device, reps)
+        tip_ms = (time_ms(lambda: tip(pmat, eng.tips.table), device, reps)
+                  if tier == "chunk" or eng.K >= 16 else None)
         clv_p = torch.zeros_like(eng.clv)
         sc_p = torch.zeros_like(eng.scaler)
         plain_ms = time_ms(lambda: plain(clv_p, sc_p, *args), device,
@@ -1770,16 +1796,22 @@ def time_kernels(inst, tree, setup, device, tier: str, reps: int) -> dict:
                                       sc_p[rows], f"{tier} K={K} real size")
         patterns = int(sum(setup["ad"].partitions[g].width
                            for g in eng.bucket.part_ids))
-        breakdown = (launch_breakdown(st.launch, args, clv_k, sc_k, patterns,
-                                      eng, device, reps)
-                     if tier == "chunk" else None)
+        breakdown = (launch_breakdown(
+            st.launch, (args[0], tip(pmat, eng.tips.table)) + args[2:],
+            clv_k, sc_k, patterns, eng, device, reps)
+            if tier == "chunk" else None)
         del clv_k, sc_k, clv_p, sc_p, pmat
         torch.cuda.empty_cache()
         bound = traversal_bound(flat, setup, eng, patterns)
         out[K] = {"patterns": patterns, "kernel_ms": kernel_ms,
+                  "tip_products_ms": tip_ms,
                   "plain_ms": plain_ms, "max_rel_err": rel,
                   "max_abs_err": abs_err, "arena_bytes":
-                  eng.clv.numel() * eng.clv.element_size(), **bound}
+                  eng.clv.numel() * eng.clv.element_size(), **bound,
+                  "achieved_tb_per_s": bound["bytes_per_traversal"]
+                  / (kernel_ms / 1e3) / 1e12,
+                  "achieved_tflop_per_s": bound["flops_per_traversal"]
+                  / (kernel_ms / 1e3) / 1e12}
         if tier == "chunk":
             out[K]["launches_per_traversal"] = int(st.launch.shape[0])
             out[K]["launch_breakdown"] = breakdown
@@ -1787,16 +1819,21 @@ def time_kernels(inst, tree, setup, device, tier: str, reps: int) -> dict:
             out[K]["grid_blocks"] = newview_whole.LAST_GRID
         log(f"  {tier} K={K:2d}: {patterns} patterns, arena "
             f"{out[K]['arena_bytes'] / 1e9:.2f} GB; kernel {kernel_ms:.3f} "
-            f"ms per traversal, plain {plain_ms:.3f} ms, bound "
+            f"ms per traversal (tip products "
+            f"{'none' if tip_ms is None else f'{tip_ms:.3f} ms'} of it), "
+            f"plain {plain_ms:.3f} ms, bound "
             f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}: "
             f"{bound['bytes_per_traversal'] / 1e9:.2f} GB, "
             f"{bound['flops_per_traversal'] / 1e12:.2f} TFLOP), "
-            f"{bound['bound_ms'] / kernel_ms:.2f} of it; kernel vs plain rel "
-            f"err {rel:.3e}, scalers equal")
+            f"{bound['bound_ms'] / kernel_ms:.2f} of it; "
+            f"{out[K]['achieved_tb_per_s']:.3f} TB/s, "
+            f"{out[K]['achieved_tflop_per_s']:.2f} TFLOP/s; kernel vs plain "
+            f"rel err {rel:.3e}, scalers equal")
         for row in breakdown or ():
             log(f"    B1 K={K:2d} {row['class']:>13s}: {row['launches']:3d} "
                 f"launches, {row['bytes'] / 1e9:5.2f} GB, {row['ms']:.3f} ms "
-                f"timed row by row ({row['tb_per_s']:.3f} TB/s)")
+                f"timed row by row ({row['tb_per_s']:.3f} TB/s, "
+                f"{row['tflop_per_s']:.2f} TFLOP/s)")
     return out
 
 
@@ -2025,7 +2062,7 @@ def phase_real_whole(device, setup: dict, reps: int, chunk_lnl: float):
             st.l_code, st.r_code, st.wave_start, pmat, eng.scale_exp)
     clv_k = torch.zeros_like(eng.clv)
     sc_k = torch.zeros_like(eng.scaler)
-    kernel_ms = time_ms(lambda: newview_whole.whole_apply_cuda(
+    kernel_ms = time_ms(lambda: newview_whole.whole_apply(
         clv_k, sc_k, *args), device, reps)
     clv_p = torch.zeros_like(eng.clv)
     sc_p = torch.zeros_like(eng.scaler)
@@ -2170,26 +2207,6 @@ def ptxas_lines(text: str) -> list:
     return out
 
 
-def start_register_body_build(build):
-    """Compile kernel B2 once more with its register body at K = 20 too
-    (-DEXAML_WHOLE_RK_IN_REGISTERS), for the compiler's spill report only:
-    the body the amino-acid instances would have without the rate-by-rate
-    one.  Runs beside the real build; nothing loads its output."""
-    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cubin = build.BUILD_DIR / "newview_whole_register_body.cubin"
-    return subprocess.Popen(
-        [build.nvcc_path(), build.ARCH, "-std=c++17", "-O3", "-cubin",
-         "-Xptxas", "-v", "-DEXAML_WHOLE_RK_IN_REGISTERS", "-o", str(cubin),
-         str(build.CSRC / "newview_whole.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-
-
-def finish_register_body_build(proc) -> list:
-    out, _ = proc.communicate(timeout=600)
-    check(proc.returncode == 0, f"register-body build of B2 failed:\n{out}")
-    return ptxas_lines(out)
-
-
 def kernels_line(real, real_whole, search, scan, grad, anchor_whole,
                  restart, aa_cli, real_aa, cases, whole_cases) -> list:
     """The kernels line: each kernel's row, with its instances by K."""
@@ -2220,7 +2237,8 @@ def kernels_line(real, real_whole, search, scan, grad, anchor_whole,
 
     def by_k(key, paths, dna, tier, checks):
         """Each instance's launches on the main paths, its real-size time
-        against its plain version and its bound, its largest error."""
+        (and the tip products' part of it) against its plain version and
+        its bound, its largest error."""
         out = {}
         for K in STATES:
             m = dna if K == 4 else real_aa[tier]["kernels"][K]
@@ -2228,7 +2246,9 @@ def kernels_line(real, real_whole, search, scan, grad, anchor_whole,
                 "launches": sum(c[key].get(K, 0) for c in paths),
                 "max_abs_err": max([m["max_abs_err"]] + [
                     c["max_abs_err"] for c in checks if c["K"] == K]),
-                "ms": m["kernel_ms"], "plain_ms": m["plain_ms"],
+                "ms": m["kernel_ms"],
+                "tip_products_ms": m.get("tip_products_ms"),
+                "plain_ms": m["plain_ms"],
                 "bound_ms": m["bound_ms"], "bound_by": m["bound_by"]}
         return out
 
@@ -2316,13 +2336,10 @@ def main(argv=None) -> int:
             f"CUDA {torch.version.cuda}")
 
         phase("build")
-        register_body = start_register_body_build(_build)
         _build.build_all()
         log(f"  built {_build.sources()}")
         ptxas = {name: ptxas_lines(_build.build_log(name))
                  for name in _build.sources()}
-        ptxas["newview_whole (register body at K = 20)"] = \
-            finish_register_body_build(register_body)
         for name, lines in ptxas.items():
             for inst, line in lines:
                 log(f"  ptxas {name}<{inst}>: {line}")

@@ -16,16 +16,20 @@ writes arena row `base + w`:
 
 The operands of a traversal are its P matrices `[P, 2, M, R, K, K]` over
 every packed slot, built by one batched `kernels.p_matrices_wave`
-(`chunk_operands`, the call `newview_whole.whole_operands` makes); a chunk
-reads its slots' slice.  A tip child is its indicator vector contracted
-with P, the same arithmetic as an inner child (kernel B2's formulation),
-so there is no tip-product table.  `block_part` maps each block of 128
-sites to its partition.
+(`chunk_operands`, the call `newview_whole.whole_operands` makes), and
+`block_part` maps each block of 128 sites to its partition.  The kernel
+also reads the tip products `u = tip_products(pmat, table)`
+`[P, 2, M, C, R, K]`, u[s, side, m, c, r, a] = sum_k P[s, side, m, r, a, k]
+* table[c, k]: a tip child's y for every code, built once per traversal
+(the JAX package's `_ump`), so the kernel looks a tip child's y up
+instead of contracting it.  A chunk reads its slots' slices.
 
 `chunk_apply` runs a traversal's launch table through the CUDA kernel
 (`csrc/newview_chunk.cu`, one host call launching every chunk) for a CUDA
-arena and through the plain version for a CPU arena.  On a CUDA tensor it
-launches or raises; nothing falls back.  `LAUNCHES` counts kernel
+arena, after building u, and through the plain version for a CPU arena.
+The plain version contracts a tip's indicator vector with P as it does an
+inner child, so holding the kernel against it also holds u.  On a CUDA
+tensor it launches or raises; nothing falls back.  `LAUNCHES` counts kernel
 launches (and nothing else), so a run can show that its path went
 through the kernel; `LAUNCHES_BY_K` counts the same launches by state
 count.
@@ -64,6 +68,14 @@ def chunk_operands(models: kernels.DeviceModels, zl: torch.Tensor,
     return p.reshape((P, 2) + tuple(p.shape[1:])).contiguous()
 
 
+def tip_products(pmat: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """u[s, side, m, c, r, a] = sum_k P[s, side, m, r, a, k] * table[c, k]
+    [P, 2, M, C, R, K]: every tip child's y by code, from one batched
+    einsum over a traversal's P (`chunk_operands` or `whole_operands`) and
+    the [C, K] tip table."""
+    return torch.einsum("psmrak,ck->psmcra", pmat, table).contiguous()
+
+
 def chunk_apply(clv, scaler, codes, table, block_part, launch, lidx, ridx,
                 lcode, rcode, pmat, scale_exp: int):
     """Run a traversal's launch table on the arena in place (see module
@@ -78,8 +90,9 @@ def chunk_apply(clv, scaler, codes, table, block_part, launch, lidx, ridx,
         return chunk_apply_plain(clv, scaler, codes, table, block_part,
                                  launch, lidx, ridx, lcode, rcode, pmat,
                                  scale_exp)
-    return chunk_apply_cuda(clv, scaler, codes, table, block_part, launch,
-                            lidx, ridx, lcode, rcode, pmat, scale_exp)
+    return chunk_apply_cuda(clv, scaler, codes, tip_products(pmat, table),
+                            block_part, launch, lidx, ridx, lcode, rcode,
+                            pmat, scale_exp)
 
 
 def apply_chunk_plain(clv, scaler, codes, table, block_part, kind: int,
@@ -152,11 +165,12 @@ def check_launch(launch, rows: int, slots: int) -> np.ndarray:
     return launch
 
 
-def chunk_apply_cuda(clv, scaler, codes, table, block_part, launch, lidx,
+def chunk_apply_cuda(clv, scaler, codes, u, block_part, launch, lidx,
                      ridx, lcode, rcode, pmat, scale_exp: int):
     """Launch kernel B1 once per launch-table row on the current stream,
-    from one host call (no synchronisation).  Every operand is checked
-    once per traversal."""
+    from one host call (no synchronisation).  Takes `chunk_apply`'s
+    operands with the tip products u [P, 2, M, C, R, K] in place of the
+    table.  Every operand is checked once per traversal."""
     global LAUNCHES
     from examl_tpu_torch.ops import _build
 
@@ -168,20 +182,23 @@ def chunk_apply_cuda(clv, scaler, codes, table, block_part, launch, lidx,
         raise TypeError(f"arena dtype {clv.dtype} is not float32/float64")
     if not supported(R, K):
         raise ValueError(f"(R, K) = {(R, K)} has no kernel instance")
+    if u.dim() != 6:
+        raise ValueError(f"u has shape {tuple(u.shape)}, expected "
+                         "[P, 2, M, C, R, K]")
     P = lidx.shape[0]
-    C = table.shape[0]
+    C = u.shape[3]
     M = pmat.shape[2]
     _check(clv, "clv", clv.dtype, (rows, B, L, R, K), dev)
     _check(scaler, "scaler", torch.int32, (rows, B, L), dev)
     _check(codes, "codes", torch.uint8, (codes.shape[0], B, L), dev)
-    _check(table, "table", clv.dtype, (C, K), dev)
     _check(block_part, "block_part", torch.int32, (B,), dev)
     for name, t in (("lidx", lidx), ("ridx", ridx), ("lcode", lcode),
                     ("rcode", rcode)):
         _check(t, name, torch.int32, (P,), dev)
     _check(pmat, "pmat", clv.dtype, (P, 2, M, R, K, K), dev)
+    _check(u, "u", clv.dtype, (P, 2, M, C, R, K), dev)
     for name, t in (("clv", clv), ("scaler", scaler), ("codes", codes),
-                    ("pmat", pmat)):
+                    ("pmat", pmat), ("u", u)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} base address is not 16-byte aligned")
     launch = check_launch(launch, rows, P)
@@ -194,7 +211,7 @@ def chunk_apply_cuda(clv, scaler, codes, table, block_part, launch, lidx,
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = fn(clv.data_ptr(), scaler.data_ptr(), codes.data_ptr(),
-                 table.data_ptr(), block_part.data_ptr(), lidx.data_ptr(),
+                 u.data_ptr(), block_part.data_ptr(), lidx.data_ptr(),
                  ridx.data_ptr(), lcode.data_ptr(), rcode.data_ptr(),
                  pmat.data_ptr(), launch.ctypes.data, launch.shape[0], B, L,
                  M, C, R, K, ctypes.c_double(2.0 ** (-scale_exp)),

@@ -19,7 +19,11 @@ wave_start[w+1]`, from the schedule's `sync` flags.
 
 `whole_apply` launches the CUDA kernel (`csrc/newview_whole.cu`, one
 cooperative grid with a grid barrier per wave) for a CUDA arena and takes
-the plain version (a loop over waves in torch ops) for a CPU arena.  On a
+the plain version (a loop over waves in torch ops) for a CPU arena.  For
+a tip child the kernel reads `tip_operand(pmat, table)`: at K >= 16 the
+tip products `newview_chunk.tip_products` `[E, 2, M, C, R, K]`, built
+once per traversal, whose rows are a tip's y; at K <= 4 the [C, K] table,
+whose rows the kernel contracts with P as the plain version does.  On a
 CUDA tensor it launches or raises; nothing falls back.  `LAUNCHES` counts
 kernel launches and nothing else (`LAUNCHES_BY_K` the same by state
 count); `LAST_GRID` is the cooperative grid of the last launch, in
@@ -35,7 +39,8 @@ import numpy as np
 import torch
 
 from examl_tpu_torch.ops import kernels
-from examl_tpu_torch.ops.newview_chunk import _check, chunk_operands
+from examl_tpu_torch.ops.newview_chunk import (_check, chunk_operands,
+                                               tip_products)
 from examl_tpu_torch.tree.topology import Tree, TraversalEntry
 from examl_tpu_torch.utils import z_slots
 
@@ -46,11 +51,22 @@ LAST_GRID = 0
 # (R, K) instantiated in csrc/newview_whole.cu: GAMMA's four rates over
 # binary, DNA and amino-acid states.
 _SUPPORTED_RK = ((4, 2), (4, 4), (4, 20))
+# State counts from which the CUDA kernel runs its blocked body and takes a
+# tip child's y from the tip products (kBlocked in csrc/newview_tile.cuh).
+_BLOCKED_K = 16
 
 
 def supported(R: int, K: int) -> bool:
     """Whether the CUDA kernel has an instance for R rates x K states."""
     return (R, K) in _SUPPORTED_RK
+
+
+def tip_operand(pmat: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """What the CUDA kernel reads for a tip child: the tip products
+    [E, 2, M, C, R, K] at K >= 16, else the [C, K] table itself."""
+    if table.shape[1] >= _BLOCKED_K:
+        return tip_products(pmat, table)
+    return table
 
 
 class FlatSchedule(NamedTuple):
@@ -173,8 +189,9 @@ def whole_apply(clv, scaler, codes, table, block_part, meta, l_code,
     if clv.device.type == "cpu":
         return whole_apply_plain(clv, scaler, codes, table, block_part, meta,
                                  l_code, r_code, wave_start, pmat, scale_exp)
-    return whole_apply_cuda(clv, scaler, codes, table, block_part, meta,
-                            l_code, r_code, wave_start, pmat, scale_exp)
+    return whole_apply_cuda(clv, scaler, codes, tip_operand(pmat, table),
+                            block_part, meta, l_code, r_code, wave_start,
+                            pmat, scale_exp)
 
 
 def whole_apply_plain(clv, scaler, codes, table, block_part, meta, l_code,
@@ -208,10 +225,11 @@ def whole_apply_plain(clv, scaler, codes, table, block_part, meta, l_code,
     return clv, scaler
 
 
-def whole_apply_cuda(clv, scaler, codes, table, block_part, meta, l_code,
+def whole_apply_cuda(clv, scaler, codes, tips, block_part, meta, l_code,
                      r_code, wave_start, pmat, scale_exp: int):
     """Launch kernel B2 cooperatively on the current stream (no
-    synchronisation)."""
+    synchronisation).  Takes `whole_apply`'s operands with
+    `tip_operand(pmat, table)` in place of the table."""
     global LAUNCHES, LAST_GRID
     from examl_tpu_torch.ops import _build
 
@@ -225,23 +243,31 @@ def whole_apply_cuda(clv, scaler, codes, table, block_part, meta, l_code,
         raise ValueError(f"(R, K) = {(R, K)} has no kernel instance")
     E = meta.shape[0]
     nwaves = wave_start.shape[0] - 1
-    C = table.shape[0]
     M = pmat.shape[2]
+    blocked = K >= _BLOCKED_K
+    if tips.dim() != (6 if blocked else 2):
+        raise ValueError(f"tips has shape {tuple(tips.shape)}, expected "
+                         + ("[E, 2, M, C, R, K]" if blocked else "[C, K]"))
+    C = tips.shape[3] if blocked else tips.shape[0]
     if E > rows:
         raise ValueError(f"{E} entries write rows beyond an arena of "
                          f"{rows} rows")
     _check(clv, "clv", clv.dtype, (rows, B, L, R, K), dev)
     _check(scaler, "scaler", torch.int32, (rows, B, L), dev)
     _check(codes, "codes", torch.uint8, (codes.shape[0], B, L), dev)
-    _check(table, "table", clv.dtype, (C, K), dev)
+    _check(tips, "tips", clv.dtype,
+           (E, 2, M, C, R, K) if blocked else (C, K), dev)
     _check(block_part, "block_part", torch.int32, (B,), dev)
     _check(meta, "meta", torch.int32, (E, 8), dev)
     _check(l_code, "l_code", torch.int32, (E,), dev)
     _check(r_code, "r_code", torch.int32, (E,), dev)
     _check(wave_start, "wave_start", torch.int32, (nwaves + 1,), dev)
     _check(pmat, "pmat", clv.dtype, (E, 2, M, R, K, K), dev)
-    if clv.data_ptr() % 16:
-        raise ValueError("arena base address is not 16-byte aligned")
+    aligned = (("clv", clv), ("scaler", scaler), ("codes", codes),
+               ("pmat", pmat)) + ((("tips", tips),) if blocked else ())
+    for name, t in aligned:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} base address is not 16-byte aligned")
     if E == 0:
         return clv, scaler
     lib = _build.library("newview_whole")
@@ -251,8 +277,8 @@ def whole_apply_cuda(clv, scaler, codes, table, block_part, meta, l_code,
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = fn(clv.data_ptr(), scaler.data_ptr(), codes.data_ptr(),
-                 table.data_ptr(), block_part.data_ptr(), meta.data_ptr(),
-                 l_code.data_ptr(), r_code.data_ptr(),
+                 tips.data_ptr(), block_part.data_ptr(),
+                 meta.data_ptr(), l_code.data_ptr(), r_code.data_ptr(),
                  wave_start.data_ptr(), pmat.data_ptr(), nwaves, B, L, M,
                  C, R, K, ctypes.c_double(2.0 ** (-scale_exp)),
                  ctypes.c_double(2.0 ** scale_exp), stream,

@@ -298,15 +298,23 @@ def test_cuda_kernel_chained_launches_match_plain(cuda_device, dtype):
 @pytest.mark.parametrize("kind", [0, 1, 2])
 def test_cuda_kernel_matches_plain_aa_and_binary(cuda_device, K, C, dtype,
                                                   kind):
-    """The K = 20 and K = 2 instances: a chunk of 5 of 16 entries, then a
-    chain of launches reading their predecessors' rows."""
+    """The K = 20 and K = 2 instances, every tip code drawn (ambiguity
+    codes included): a chunk of 1 and of 5 of 16 entries, then a chain of
+    launches reading their predecessors' rows; the children's values sit
+    around 2^-E/2, so some sites rescale and some do not."""
     W = 16
-    clv, scaler, args = _kernel_case(cuda_device, dtype, W,
-                                     [(kind, 2 * W, 0, 5)], kind + K, K, C)
-    _assert_kernel_matches_plain(clv, scaler, args, dtype, 1)
-    launch = [(kind, 2 * W, 0, W), (2, 3 * W, W, W)]
+    for real in (1, 5):
+        clv, scaler, args = _kernel_case(cuda_device, dtype, W,
+                                         [(kind, 2 * W, 0, real)],
+                                         kind + K + real, K, C)
+        _assert_kernel_matches_plain(clv, scaler, args, dtype, 1)
+    launch = [(kind, 2 * W, 0, W), (2, 3 * W, W, 3), (2, 3 * W + 3, W + 3, 1)]
     clv, scaler, args = _kernel_case(cuda_device, dtype, W, launch, K, K, C)
-    _assert_kernel_matches_plain(clv, scaler, args, dtype, 2)
+    lidx = args[4].cpu().numpy()
+    lidx[W:W + 3] = 2 * W + np.arange(3)
+    lidx[W + 3] = 3 * W + 1
+    args = args[:4] + (torch.as_tensor(lidx, device=cuda_device),) + args[5:]
+    _assert_kernel_matches_plain(clv, scaler, args, dtype, 3)
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():
@@ -331,3 +339,24 @@ def test_build_is_keyed_on_source_hash():
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("libnewview_chunk-")
     assert "-gencode=arch=compute_90a,code=sm_90a" in _build.FLAGS
+
+
+def test_ctypes_signatures_match_the_c_sources():
+    """Every exported function's ctypes argument list matches its C
+    declaration, parameter by parameter (a pointer, int, double or int*),
+    so a changed C interface cannot be called with a stale one."""
+    import ctypes
+    import re
+
+    from examl_tpu_torch.ops import _build
+    kinds = {"void*": ctypes.c_void_p, "int": ctypes.c_int,
+             "double": ctypes.c_double, "int*": ctypes.POINTER(ctypes.c_int)}
+    for name, fns in _build.SIGNATURES.items():
+        text = (_build.CSRC / f"{name}.cu").read_text()
+        for fn, (argtypes, _) in fns.items():
+            decl = re.search(rf"\b{fn}\(([^)]*)\)\s*{{", text)
+            assert decl, fn
+            params = [re.sub(r"\bconst\b|\s+\w+$|\s", "",
+                             p.strip()).replace("char*", "void*")
+                      for p in decl.group(1).split(",")]
+            assert [kinds[p] for p in params] == list(argtypes), fn

@@ -325,8 +325,10 @@ def test_cuda_kernel_matches_plain(cuda_device, dtype, ntaxa, shape):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_cuda_kernel_matches_plain_aa_and_binary(cuda_device, K, codes,
                                                   dtype):
-    """The K = 20 and K = 2 instances on a random 64-taxon tree and a
-    24-taxon caterpillar, every tip/tip site forced to rescale."""
+    """The K = 20 and K = 2 instances on a random 64-taxon tree, a 24-taxon
+    caterpillar rooted at its centroid and one rooted at its first tip
+    (every wave a single entry), every tip code drawn (ambiguity codes
+    included), every tip/tip site forced to rescale."""
     from examl_tpu_torch import datatypes
     from examl_tpu_torch.models.gtr import build_model, n_exchange
     from examl_tpu_torch.ops.engine import stack_models
@@ -334,14 +336,16 @@ def test_cuda_kernel_matches_plain_aa_and_binary(cuda_device, K, codes,
     dt = {20: datatypes.AA, 2: datatypes.BINARY}[K]
     E = 256 if dtype == torch.float64 else 32
     B, L, M = 4, 128, 2
-    for ntaxa, shape in ((64, "random"), (24, "caterpillar")):
+    for ntaxa, shape in ((64, "random"), (24, "caterpillar"),
+                         (24, "caterpillar from a tip")):
         rng = np.random.default_rng(ntaxa + K)
         names = [f"t{i}" for i in range(ntaxa)]
-        tree = (Tree.from_newick(_caterpillar(ntaxa), names, 1)
-                if shape == "caterpillar" else Tree.random(names, 1, 1))
+        tree = (Tree.random(names, 1, 1) if shape == "random"
+                else Tree.from_newick(_caterpillar(ntaxa), names, 1))
         for p, _ in tree.all_branches():
             p.z[:] = [float(rng.uniform(0.05, 0.98))]
-        flat = tree.flat_full_traversal(tree.centroid_branch())
+        flat = tree.flat_full_traversal(tree.start if shape.endswith("tip")
+                                        else tree.centroid_branch())
         models = [build_model(dt, rng.dirichlet(np.ones(K) * 5),
                               rates=rng.uniform(0.3, 6.0, n_exchange(K)),
                               alpha=float(rng.uniform(0.2, 1.5)))
