@@ -7,13 +7,18 @@ ref49 likelihood anchors on both full-traversal tiers (`newview="chunk"`,
 the launch table through kernel B1; `newview="whole"`, kernel B2), runs
 `-f e` on ref49 through the port's CLI (GAMMA on the whole tier, then
 `-m PSR` on the wave-scan tier), runs the `-f d` SPR search through the
-CLI on an 8-taxon, four-partition alignment and restarts it with `-R`
-from its last-but-one checkpoint on the other tier, and drives the port's
-main paths — full-traversal evaluate, Newton-Raphson branch updates, the
-SPR scan's scored insertions, whole-tree gradients and the gradient
+CLI on an 8-taxon, four-partition alignment (the batched SPR scan, the
+default on the card) and restarts it with `-R` from its last-but-one
+checkpoint on the other tier, runs `-f q` through the CLI on the same
+alignment (the batched quartet scorer, held against the sequential one),
+and drives the port's main paths — full-traversal evaluate,
+Newton-Raphson branch updates, the SPR scan's scored insertions on both
+routes (sequential and batched, each candidate held against the other),
+whole-tree gradients and the gradient
 smoothing route, a model-optimization pass, a PSR categorization round —
 at a real per-GPU size (512 taxa x 131,072 DNA patterns in four
-partitions, f32).  Kernels B1 and B2 are held against their plain
+partitions, f32), where the batched quartet scorer also scores 16 sets
+against the sequential one.  Kernels B1 and B2 are held against their plain
 versions at K = 4 (DNA), 20 (amino acids) and 2 (binary); `-f e` runs
 through the CLI on amino-acid and binary data (WAG, LG+F, LG4M, LG4X,
 AUTO and a binary partition), and the amino-acid path runs at real size
@@ -74,6 +79,16 @@ REPEAT = 10             # launch-table rows repeated in one call (breakdown)
 # result tree no longer meets reliably at twice this width.
 FD_TAXA, FD_WIDTH = 8, 1024
 SCAN_SLOTS = 4          # pruned slots of the lazy real-size SPR scan
+# Batched against sequential candidate lnLs (f32): about 50 times the
+# largest difference measured on the card (rel 2.1e-10).
+SCAN_RTOL = 1e-8
+# -f q: sets also scored by the sequential scorer, and the agreement asked
+# of the scorers (f32).
+FQ_SEQ_SETS, QUARTET_RTOL = 10, 1e-6
+# The batched quartet scorer at real width: REAL_FQ_SETS sets (one
+# JOB_CHUNK batch of 48 topologies), REAL_FQ_SEQ_SETS of them also by the
+# sequential scorer.
+REAL_FQ_SETS, REAL_FQ_SEQ_SETS = 16, 4
 GRAD_RTOL = 1e-3        # f32 against f64 whole-tree d1, of max |d1|
 # tree_evaluate's smooth_factor at real size: 8 smoothings, so at most 32
 # gradient sweeps (the default 32 smoothings run 128 sweeps there, cut by
@@ -90,7 +105,7 @@ AA_LETTERS = "ARNDCQEGHILKMFPSTWYV"
 # times the bytes a pattern, an arena of 6.0 GB against DNA's 4.8 GB.
 AA_REAL_TAXA, AA_REAL_WIDTH, BIN_REAL_WIDTH = 512, 8192, 32768
 AA_REAL_MODELS = ("WAG", "LG", "LG4M", "LG4X")
-NPHASES = 17
+NPHASES = 19
 
 
 class SmokeFailure(RuntimeError):
@@ -110,6 +125,17 @@ def sync(device) -> None:
     if device.type == "cuda":
         import torch
         torch.cuda.synchronize(device)
+
+
+def release_memory() -> None:
+    """Return the card memory of dropped instances: collect reference
+    cycles first (the profiler's traced frames keep a phase's locals
+    alive until the cycle collector runs, which would otherwise count
+    them in a later phase's peak memory), then empty the cache."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def time_ms(fn, device, reps: int) -> float:
@@ -315,7 +341,7 @@ def phase_kernel_vs_plain(device, blocks: dict, W: int, seed: int):
 def reset_counts() -> None:
     from examl_tpu_torch.ops import engine, newview_chunk, newview_whole
     from examl_tpu_torch.optimize import branch
-    from examl_tpu_torch.search import spr
+    from examl_tpu_torch.search import batchscan, quartets_batch, spr
     newview_chunk.LAUNCHES = 0
     newview_whole.LAUNCHES = 0
     newview_chunk.LAUNCHES_BY_K.clear()
@@ -326,14 +352,17 @@ def reset_counts() -> None:
     engine.GRAD_PASSES = 0
     branch.GRAD_SWEEPS = 0
     spr.INSERTIONS_SCORED = 0
+    batchscan.SCAN_CALLS = 0
+    quartets_batch.JOBS_SCORED = 0
 
 
 def read_counts() -> dict:
     """The counts since the last reset.  Under PSR every traversal, full
-    ones included, runs on the wave-scan tier and counts as partial."""
+    ones included, runs on the wave-scan tier and counts as partial, as
+    does each batched SPR scan call."""
     from examl_tpu_torch.ops import engine, newview_chunk, newview_whole
     from examl_tpu_torch.optimize import branch
-    from examl_tpu_torch.search import spr
+    from examl_tpu_torch.search import batchscan, quartets_batch, spr
     return {"b1": newview_chunk.LAUNCHES, "b2": newview_whole.LAUNCHES,
             "b1_by_K": dict(newview_chunk.LAUNCHES_BY_K),
             "b2_by_K": dict(newview_whole.LAUNCHES_BY_K),
@@ -342,7 +371,9 @@ def read_counts() -> dict:
             "chunk_launch_rows": engine.CHUNK_LAUNCH_ROWS,
             "grad_passes": engine.GRAD_PASSES,
             "grad_sweeps": branch.GRAD_SWEEPS,
-            "insertions_scored": spr.INSERTIONS_SCORED}
+            "insertions_scored": spr.INSERTIONS_SCORED,
+            "scan_calls": batchscan.SCAN_CALLS,
+            "quartet_jobs": quartets_batch.JOBS_SCORED}
 
 
 def add_counts(a: dict, b: dict) -> dict:
@@ -677,18 +708,22 @@ class SearchClock:
     search calls (each ends with a read-back to the host, and the wrapper
     synchronizes): every branch-length smoothing (`smooth_tree`), model
     optimization (`mod_opt`, whose own smoothing is counted apart), and
-    every scored insertion (`spr.test_insert`, which includes the
-    thorough arm's local smoothing)."""
+    every scored insertion: one at a time on the sequential arm
+    (`spr.test_insert`, which includes the thorough arm's local
+    smoothing), a pruned endpoint's window at a time on the batched one
+    (`batchscan.run_plan` / `run_plan_thorough`)."""
 
     def __init__(self, device):
         from examl_tpu_torch.optimize import branch
-        from examl_tpu_torch.search import raxml_search, spr
+        from examl_tpu_torch.search import batchscan, raxml_search, spr
         self.s = {"smoothing": 0.0, "smoothing_in_mod_opt": 0.0,
                   "mod_opt": 0.0, "insertions": 0.0}
         self._in_mod_opt = False
         self._patches = [(branch, "smooth_tree", "smoothing"),
                          (raxml_search, "mod_opt", "mod_opt"),
-                         (spr, "test_insert", "insertions")]
+                         (spr, "test_insert", "insertions"),
+                         (batchscan, "run_plan", "insertions"),
+                         (batchscan, "run_plan_thorough", "insertions")]
         self._saved = []
         for mod, name, key in self._patches:
             fn = getattr(mod, name)
@@ -718,9 +753,9 @@ class SearchClock:
 
 
 def phase_search(device, out_dir: str, seed: int):
-    """-f d -i 5 through the port's CLI on the chunk tier: FD_TAXA taxa x
-    4 GTR+G4 partitions of FD_WIDTH DNA columns from the seed, the seed's
-    random tree as the start."""
+    """-f d -i 5 through the port's CLI on the chunk tier and the default
+    (batched) SPR scan: FD_TAXA taxa x 4 GTR+G4 partitions of FD_WIDTH DNA
+    columns from the seed, the seed's random tree as the start."""
     import torch
     from examl_tpu_torch.io.bytefile import write_bytefile
     from examl_tpu_torch.tree.topology import Tree
@@ -741,6 +776,9 @@ def phase_search(device, out_dir: str, seed: int):
         clock.restore()
     check(rc == 0, f"-f d through the CLI returned {rc}")
     check_tier(counts, "chunk", "-f d CLI")
+    check("SPR lazy-arm scan: batched" in info and counts["scan_calls"] > 0,
+          "-f d on the card did not take the batched SPR scan "
+          f"({counts['scan_calls']} scan calls)")
     logged = [float(line.split()[1]) for line in open(os.path.join(
         workdir, "ExaML_log.smoke")).read().splitlines()]
     final = float(re.search(r"Likelihood of best tree: (\S+)",
@@ -787,7 +825,8 @@ def phase_search(device, out_dir: str, seed: int):
         f"{len(ckpts)} checkpoints ({', '.join(states)})")
     log(f"  {counts['full_traversals']} full traversals, "
         f"{counts['partial_traversals']} partial, "
-        f"{counts['insertions_scored']} insertions scored, "
+        f"{counts['insertions_scored']} insertions scored in "
+        f"{counts['scan_calls']} batched scan calls, "
         f"{counts['grad_sweeps']} gradient sweeps; B1 "
         f"{counts['b1']} launches (= {counts['chunk_launch_rows']} "
         f"launch-table rows), B2 {counts['b2']}")
@@ -837,6 +876,143 @@ def phase_restart(device, out_dir: str, fd: dict):
     return {"checkpoint": keep, "state": m.group(1),
             "resumed_lnl": float(m.group(2)), "final_lnl": final,
             "wall_s": wall, "launches": counts}
+
+
+# -- phase 17: -f q through the CLI ------------------------------------------
+
+
+def phase_quartets(device, out_dir: str, fd: dict):
+    """-f q through the port's CLI on the -f d phase's alignment and start
+    tree: the model optimized, then every one of the C(FD_TAXA, 4) sets
+    under its three topologies by the batched scorer, a QUARTETS
+    checkpoint every 30 sets.  The newest checkpoint is restored into a
+    fresh instance; there the batched scorer scores every row again
+    (against the file's values) and the sequential scorer the first
+    FQ_SEQ_SETS sets (against the batched values), both at rel
+    QUARTET_RTOL."""
+    import shutil
+    from examl_tpu_torch.instance import PhyloInstance
+    from examl_tpu_torch.io.bytefile import read_bytefile
+    from examl_tpu_torch.search import quartets, quartets_batch
+    from examl_tpu_torch.search.checkpoint import CheckpointManager
+    workdir = os.path.join(out_dir, "fq")
+    shutil.rmtree(workdir, ignore_errors=True)
+    argv = ["-s", fd["aln"], "-t", fd["start_tree"], "-f", "q", "-I", "30"]
+    rc, wall, counts, info = run_cli(argv, device, workdir)
+    check(rc == 0, f"-f q through the CLI returned {rc}")
+    check_tier(counts, "chunk", "-f q CLI")
+    check("quartet scoring: batched" in info,
+          "-f q on the card did not take the batched scorer")
+    with open(os.path.join(workdir, "ExaML_quartets.smoke")) as f:
+        rows = [line.rstrip("\n").split(": ") for line in f if "|" in line]
+    nsets = math.comb(FD_TAXA, 4)
+    check(len(rows) == 3 * nsets == counts["quartet_jobs"],
+          f"-f q wrote {len(rows)} rows and scored "
+          f"{counts['quartet_jobs']} jobs for {nsets} sets")
+    jobs = [tuple(int(t) for t in r[0].replace("|", " ").split())
+            for r in rows]
+    in_file = np.array([float(r[1]) for r in rows])
+    check(np.isfinite(in_file).all() and (in_file < 0).all(),
+          "-f q wrote a non-finite or non-negative lnL")
+    inst = PhyloInstance(read_bytefile(fd["aln"]), device=device)
+    tree = inst.random_tree(seed=0)
+    resume = CheckpointManager(workdir, "smoke").restore(inst, tree)
+    check(resume is not None and resume["state"] == "QUARTETS",
+          "no QUARTETS checkpoint to restore")
+    sync(device)
+    t0 = time.perf_counter()
+    batched = quartets_batch.score_jobs(inst, jobs)
+    sync(device)
+    batched_s = time.perf_counter() - t0
+    n = inst.alignment.ntaxa
+    q1, q2 = tree.nodep[n + 1], tree.nodep[n + 2]
+    t0 = time.perf_counter()
+    seq = np.array([quartets.quartet_likelihood(
+        inst, tree, q1, q2, *(tree.nodep[t] for t in job))
+        for job in jobs[:3 * FQ_SEQ_SETS]])
+    sync(device)
+    seq_s = time.perf_counter() - t0
+    rel_file = float(np.max(np.abs(batched - in_file) / np.abs(in_file)))
+    rel_seq = float(np.max(np.abs(batched[:seq.size] - seq) / np.abs(seq)))
+    check(rel_file <= QUARTET_RTOL, f"-f q rows re-scored at rel {rel_file}")
+    check(rel_seq <= QUARTET_RTOL, "batched and sequential quartet lnLs "
+          f"differ by rel {rel_seq:.3g}")
+    out = {"sets": nsets, "rows": len(rows), "wall_s": wall,
+           "launches": counts, "checkpoint_counter":
+           resume["extras"]["quartet_counter"],
+           "batched_ms_per_topology": batched_s * 1e3 / len(jobs),
+           "sequential_ms_per_topology": seq_s * 1e3 / seq.size,
+           "sequential_topologies": int(seq.size),
+           "rel_vs_file": rel_file, "rel_batched_vs_sequential": rel_seq,
+           "best_row": rows[int(np.argmax(in_file))]}
+    log(f"  {nsets} sets x 3 topologies in {wall:.1f} s through the CLI "
+        f"({counts['full_traversals']} full traversals, B1 {counts['b1']} "
+        f"launches); restored at set {out['checkpoint_counter']}: batched "
+        f"{out['batched_ms_per_topology']:.2f} ms per topology (rel "
+        f"{rel_file:.3g} to the file), sequential "
+        f"{out['sequential_ms_per_topology']:.2f} ms per topology on "
+        f"{seq.size} of them (rel {rel_seq:.3g} to the batched)")
+    return out
+
+
+# -- phase 18: the quartet scorers at real width ----------------------------
+
+
+def phase_real_quartets(device, setup: dict, seed: int):
+    """The batched quartet scorer on the real-size DNA instance of phase 10
+    (512 taxa x 131,072 patterns, built anew): REAL_FQ_SETS random 4-taxon
+    sets under their three topologies, one JOB_CHUNK batch, timed after a
+    warm-up call, with the device memory it takes above the instance's;
+    the sequential scorer on the first REAL_FQ_SEQ_SETS sets, held against
+    the batched lnLs at rel QUARTET_RTOL (it leaves the tree a quartet
+    scaffold, so the instance is dropped after)."""
+    import torch
+    from examl_tpu_torch.search import quartets, quartets_batch
+    inst, tree = real_instance(setup, device, "chunk")
+    n = inst.alignment.ntaxa
+    rng = np.random.default_rng(seed)
+    sets = [tuple(sorted(int(t) for t in rng.choice(n, 4, replace=False)
+                         + 1)) for _ in range(REAL_FQ_SETS)]
+    jobs = [j for s in sets for j in quartets_batch.three_topology_jobs(*s)]
+    check(len(jobs) == quartets_batch.JOB_CHUNK,
+          f"{len(jobs)} jobs, not one batch of {quartets_batch.JOB_CHUNK}")
+    quartets_batch.score_jobs(inst, jobs)
+    sync(device)
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    batched = quartets_batch.score_jobs(inst, jobs)
+    sync(device)
+    batched_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device) - base
+    check(np.isfinite(batched).all() and (batched < 0).all(),
+          "the batched scorer gave a non-finite or non-negative lnL")
+    q1, q2 = tree.nodep[n + 1], tree.nodep[n + 2]
+    nseq = 3 * REAL_FQ_SEQ_SETS
+    t0 = time.perf_counter()
+    seq = np.array([quartets.quartet_likelihood(
+        inst, tree, q1, q2, *(tree.nodep[t] for t in job))
+        for job in jobs[:nseq]])
+    sync(device)
+    seq_s = time.perf_counter() - t0
+    rel = float(np.max(np.abs(batched[:nseq] - seq) / np.abs(seq)))
+    check(rel <= QUARTET_RTOL, "batched and sequential quartet lnLs at real "
+          f"width differ by rel {rel:.3g}")
+    out = {"taxa": n, "patterns": int(sum(
+        p.width for p in inst.alignment.partitions)),
+        "sets": len(sets), "topologies": len(jobs),
+        "batched_ms_per_topology": batched_s * 1e3 / len(jobs),
+        "sequential_ms_per_topology": seq_s * 1e3 / nseq,
+        "sequential_topologies": nseq, "peak_bytes": int(peak),
+        "rel_batched_vs_sequential": rel}
+    log(f"  {len(sets)} sets x 3 topologies at {out['patterns']} patterns: "
+        f"batched {out['batched_ms_per_topology']:.2f} ms per topology, "
+        f"{peak / 1e9:.2f} GB above the instance; sequential "
+        f"{out['sequential_ms_per_topology']:.2f} ms per topology on "
+        f"{nseq} of them (rel {rel:.3g} to the batched)")
+    del inst, tree
+    release_memory()
+    return out
 
 
 # -- phases 10 and 13: real size, chunk and whole tiers --------------------
@@ -1326,7 +1502,7 @@ def phase_real_gradients(device, setup: dict, inst, tree, reps: int):
     sync(device)
     peak64 = torch.cuda.max_memory_allocated(device)
     del inst64, tree64, eng64
-    torch.cuda.empty_cache()
+    release_memory()
     gap = float(np.abs(d1 - d1_64).max() / np.abs(d1_64).max())
     log(f"  f32 d1 against f64: max gap {gap:.3e} of max |d1| "
         f"({float(np.abs(d1_64).max()):.4e}); bound {GRAD_RTOL}; peak device "
@@ -1358,7 +1534,7 @@ def phase_real_gradients(device, setup: dict, inst, tree, reps: int):
     check_tier(launches["whole_reevaluate"], "whole",
                "real-size whole re-evaluation")
     del whole_inst, whole_tree
-    torch.cuda.empty_cache()
+    release_memory()
     check(abs(whole_lnl - after) <= 1e-6 * abs(after),
           f"smoothed tree re-evaluates to {whole_lnl} on the whole tier "
           f"against {after}")
@@ -1542,7 +1718,7 @@ def phase_real_psr(device, setup: dict):
         f"weighted mean rate {num / den!r}; peak device memory "
         f"{peak / 1e9:.2f} GB")
     del inst, tree
-    torch.cuda.empty_cache()
+    release_memory()
     return {"lnl_start": l0, "lnl_after_smooth": l1, "lnl_after_round": l2,
             "round_accepted": l2 > l1, "round_s": round_s,
             "rate_scans": clock.scans, "rate_scan_s": clock.s["rate_scan"],
@@ -1801,7 +1977,7 @@ def time_kernels(inst, tree, setup, device, tier: str, reps: int) -> dict:
             clv_k, sc_k, patterns, eng, device, reps)
             if tier == "chunk" else None)
         del clv_k, sc_k, clv_p, sc_p, pmat
-        torch.cuda.empty_cache()
+        release_memory()
         bound = traversal_bound(flat, setup, eng, patterns)
         out[K] = {"patterns": patterns, "kernel_ms": kernel_ms,
                   "tip_products_ms": tip_ms,
@@ -1929,7 +2105,7 @@ def phase_real_aa(device, seed: int, reps: int):
                 f"({opt_s * 1e3 / probes:.2f} ms per Brent probe; B2 by K "
                 f"{counts['b2_by_K']})")
         del inst, tree
-        torch.cuda.empty_cache()
+        release_memory()
     log(f"  chunk vs whole lnL rel diff {out['chunk_whole_rel_diff']:.2e}")
     return out
 
@@ -1938,13 +2114,19 @@ def phase_real_aa(device, seed: int, reps: int):
 
 
 def phase_spr_scan(device, inst, tree):
-    """The search's innermost step at real size: rearrange() over the
-    first SCAN_SLOTS inner slots of the SPR slot order that have subtrees
-    to prune (lazy, radius 1-5), then one slot thorough, with end_lh at
-    +inf so that no move commits; the tree and its lnL must come back
-    unchanged."""
+    """The search's innermost step at real size, on both routes over the
+    same pruned slots: the first SCAN_SLOTS inner slots of the SPR slot
+    order that have subtrees to prune, lazy (radius 1-5), then one slot
+    thorough, each by the sequential arm (`spr.rearrange`) and by the
+    batched one (`spr.rearrange_batched`), with end_lh at +inf so that no
+    move commits and the cutoff off so that both scan the same window.
+    Both routes are warmed up on one pruned node first.  Every
+    candidate's batched lnL is held against its sequential one (rel
+    SCAN_RTOL), and each slot's best move must be the same on both routes
+    (or, where they differ, tie within SCAN_RTOL in the sequential
+    scores); the tree and its lnL must come back unchanged."""
     from examl_tpu_torch.ops import engine
-    from examl_tpu_torch.search import snapshots, spr
+    from examl_tpu_torch.search import batchscan, snapshots, spr
     lnl0 = inst.evaluate(tree, full=True)
     sync(device)
     before = snapshots.TreeSnapshot.capture(tree, lnl0)
@@ -1957,23 +2139,60 @@ def phase_spr_scan(device, inst, tree):
     slots = [p for p in spr.dfs_slot_order(tree) if deep(p)][:SCAN_SLOTS + 1]
     check(len(slots) == SCAN_SLOTS + 1, "too few inner slots to scan")
     # Entries of the partial traversals (wave-scan tier), counted around
-    # the engine's own method.
+    # the engine's own methods, and each candidate's lnL by (subtree root,
+    # insertion slot), recorded around the two arms' scoring functions
+    # (test_insert leaves the candidate's lnL in inst.likelihood).
     entries = [0]
+    scores = {}
     run_scan = engine.LikelihoodEngine._run_scan
+    scan_setup = engine.LikelihoodEngine._scan_setup
+    test_insert = spr.test_insert
+    run_plan, run_thorough = batchscan.run_plan, batchscan.run_plan_thorough
 
     def counted(self, ents):
         entries[0] += len(ents)
         return run_scan(self, ents)
 
-    def scan(ps, thorough: bool) -> dict:
+    def counted_setup(self, plan):
+        entries[0] += len(plan.down_entries) + len(plan.up_entries)
+        return scan_setup(self, plan)
+
+    def recorded_insert(inst_, tree_, ctx, p, q):
+        out = test_insert(inst_, tree_, ctx, p, q)
+        scores[(p.back.number, id(q))] = inst_.likelihood
+        return out
+
+    def record_plan(plan, lnls):
+        for c, lnl in zip(plan.candidates, lnls):
+            scores[(plan.s_num, id(c.q_slot))] = float(lnl)
+
+    def recorded_plan(inst_, tree_, plan):
+        lnls = run_plan(inst_, tree_, plan)
+        record_plan(plan, lnls)
+        return lnls
+
+    def recorded_thorough(inst_, tree_, plan):
+        lnls, es = run_thorough(inst_, tree_, plan)
+        record_plan(plan, lnls)
+        return lnls, es
+
+    def scan(ps, thorough: bool, batched: bool) -> dict:
         ctx = spr.SprContext(inst, thorough=thorough, do_cutoff=False)
         ctx.start_lh = ctx.end_lh = math.inf
+        scores.clear()
         reset_counts()
         entries[0] = 0
+        best = []
         t0 = time.perf_counter()
         for p in ps:
             ctx.best_of_node = -math.inf
-            spr.rearrange(inst, tree, ctx, p, 1, 5)
+            if batched:
+                spr.rearrange_batched(inst, tree, ctx, p, 1, 5,
+                                      thorough=thorough)
+            else:
+                spr.rearrange(inst, tree, ctx, p, 1, 5)
+            best.append((ctx.remove_node.back.number,
+                         id(ctx.insert_node)))
         sync(device)
         wall = time.perf_counter() - t0
         counts = read_counts()
@@ -1981,23 +2200,87 @@ def phase_spr_scan(device, inst, tree):
         check(n > 0, "the scan scored no insertion")
         check(ctx.remove_node is not None and math.isfinite(ctx.best_of_node),
               "the scan recorded no best move")
+        check(len(scores) == n, f"{n} insertions scored, {len(scores)} "
+              "recorded")
+        check((counts["scan_calls"] > 0) == batched,
+              f"{counts['scan_calls']} batched scan calls")
         return {"slots": len(ps), "wall_s": wall, "insertions_scored": n,
                 "ms_per_insertion": wall * 1e3 / n,
+                "ms_per_pruned_node": wall * 1e3 / len(ps),
+                "scan_calls": counts["scan_calls"],
                 "partial_traversals": counts["partial_traversals"],
                 "entries": entries[0], "entries_per_insertion":
                 entries[0] / n, "best_of_node": ctx.best_of_node,
-                "launches": counts}
+                "launches": counts, "scores": dict(scores), "best": best}
 
+    def compare(seq: dict, bat: dict, name: str) -> float:
+        s, b = seq.pop("scores"), bat.pop("scores")
+        check(set(s) == set(b), f"{name}: the routes scored different "
+              f"windows ({len(s)} and {len(b)} candidates)")
+        rel = max(abs(b[k] - s[k]) / abs(s[k]) for k in s)
+        check(rel <= SCAN_RTOL, f"{name}: batched and sequential lnLs differ "
+              f"by rel {rel:.3g} (> {SCAN_RTOL})")
+        check(abs(bat["best_of_node"] - seq["best_of_node"])
+              <= SCAN_RTOL * abs(seq["best_of_node"]),
+              f"{name}: best_of_node {bat['best_of_node']} batched, "
+              f"{seq['best_of_node']} sequential")
+        same = 0
+        for ks, kb in zip(seq.pop("best"), bat.pop("best")):
+            same += ks == kb
+            check(ks == kb or abs(s[kb] - s[ks]) <= SCAN_RTOL * abs(s[ks]),
+                  f"{name}: the batched route's best move (subtree "
+                  f"{kb[0]}) has the sequential lnL {s[kb]!r}, the "
+                  f"sequential best (subtree {ks[0]}) {s[ks]!r}")
+        bat["same_best_move"] = seq["same_best_move"] = same
+        return rel
+
+    # One untimed lazy pruned node on each route first: the batched route's
+    # first call grows the arena by its scan region and meets cold code
+    # paths, which the timed slots should not carry.
+    for fn in (spr.rearrange, spr.rearrange_batched):
+        ctx = spr.SprContext(inst, thorough=False, do_cutoff=False)
+        ctx.start_lh = ctx.end_lh = math.inf
+        fn(inst, tree, ctx, slots[0], 1, 5)
+    sync(device)
     engine.LikelihoodEngine._run_scan = counted
+    engine.LikelihoodEngine._scan_setup = counted_setup
+    spr.test_insert = recorded_insert
+    batchscan.run_plan = recorded_plan
+    batchscan.run_plan_thorough = recorded_thorough
     try:
-        lazy = scan(slots[:SCAN_SLOTS], thorough=False)
-        thorough = scan(slots[SCAN_SLOTS:], thorough=True)
+        routes = {}
+        for arm, ps in (("lazy", slots[:SCAN_SLOTS]),
+                        ("thorough", slots[SCAN_SLOTS:])):
+            seq = scan(ps, arm == "thorough", batched=False)
+            bat = scan(ps, arm == "thorough", batched=True)
+            rel = compare(seq, bat, arm)
+            routes[arm] = {"sequential": seq, "batched": bat,
+                           "max_rel_diff": rel,
+                           "speedup_per_insertion":
+                           seq["ms_per_insertion"] / bat["ms_per_insertion"]}
     finally:
         engine.LikelihoodEngine._run_scan = run_scan
-    ctx = spr.SprContext(inst, do_cutoff=False)
-    ctx.start_lh = ctx.end_lh = math.inf
-    profile = device_breakdown(
-        lambda: spr.rearrange(inst, tree, ctx, slots[0], 1, 5), device)
+        engine.LikelihoodEngine._scan_setup = scan_setup
+        spr.test_insert = test_insert
+        batchscan.run_plan, batchscan.run_plan_thorough = (run_plan,
+                                                           run_thorough)
+    # One pruned node profiled on each lazy route (radius 1-5), and the
+    # thorough slot on the batched route at radius 1-1, one chunk of
+    # candidates (at 1-5 its ~10^5 device ops take the profiler over a
+    # minute to sum up).
+    profiles = {}
+    for route, fn, thorough, p, maxtrav in (
+            ("sequential", spr.rearrange, False, slots[0], 5),
+            ("batched", spr.rearrange_batched, False, slots[0], 5),
+            ("batched thorough, radius 1-1", spr.rearrange_batched, True,
+             slots[SCAN_SLOTS], 1)):
+        ctx = spr.SprContext(inst, thorough=thorough, do_cutoff=False)
+        ctx.start_lh = ctx.end_lh = math.inf
+        kw = {"thorough": True} if thorough else {}
+        n0 = spr.INSERTIONS_SCORED
+        profiles[route] = device_breakdown(
+            lambda: fn(inst, tree, ctx, p, 1, maxtrav, **kw), device)
+        profiles[route]["insertions"] = spr.INSERTIONS_SCORED - n0
     after = snapshots.TreeSnapshot.capture(tree, lnl0)
     check(after.key == before.key, "the scan changed the topology")
     za = {tuple(sorted((u, v))): z for u, v, z in before.edges}
@@ -2009,27 +2292,39 @@ def phase_spr_scan(device, inst, tree):
     final_counts = read_counts()
     check(abs(lnl1 - lnl0) <= 1e-9 * abs(lnl0),
           f"lnL after the scan {lnl1} vs before {lnl0}")
-    for name, r in (("lazy", lazy), ("thorough", thorough)):
-        check(r["launches"]["b1"] == r["launches"]["b2"] == 0,
-              f"{name} scan launched a full-traversal kernel")
-        log(f"  {name}: {r['slots']} pruned slot(s), "
-            f"{r['insertions_scored']} insertions scored in "
-            f"{r['wall_s']:.2f} s ({r['ms_per_insertion']:.2f} ms each); "
-            f"{r['partial_traversals']} partial traversals, "
-            f"{r['entries_per_insertion']:.2f} entries per insertion")
+    for arm, r in routes.items():
+        for route in ("sequential", "batched"):
+            x = r[route]
+            check(x["launches"]["b1"] == x["launches"]["b2"] == 0,
+                  f"{arm} {route} scan launched a full-traversal kernel")
+            log(f"  {arm} {route}: {x['slots']} pruned slot(s), "
+                f"{x['insertions_scored']} insertions scored in "
+                f"{x['wall_s']:.2f} s ({x['ms_per_pruned_node']:.2f} ms per "
+                f"pruned node, {x['ms_per_insertion']:.3f} ms per "
+                f"insertion); {x['partial_traversals']} partial "
+                f"traversals, {x['entries_per_insertion']:.2f} entries per "
+                "insertion")
+        log(f"  {arm}: batched {r['speedup_per_insertion']:.2f}x the "
+            "sequential rate per insertion; largest rel lnL difference "
+            f"{r['max_rel_diff']:.3g}; the same best move on "
+            f"{r['batched']['same_best_move']} of {r['batched']['slots']} "
+            "slot(s)")
     log(f"  tree and lnL unchanged ({lnl0!r} -> {lnl1!r})")
-    if profile["measured"]:
-        log(f"  profiled lazy pruned node: wall {profile['wall_ms']:.1f} ms, "
-            f"device busy {profile['busy_ms']:.1f} ms (idle share "
-            f"{profile['idle_share']:.3f}) in {profile['launches']} device "
-            f"ops")
-        for r in profile["top"]:
-            log(f"    {r['ms']:9.3f} ms  {r['calls']:5d}x  {r['name']}")
-    else:
-        log(f"  profiled lazy pruned node: not measured ({profile['error']})")
-    return {"lnl_before": lnl0, "lnl_after": lnl1, "lazy": lazy,
-            "thorough": thorough, "profile": profile,
-            "evaluate_launches": final_counts}
+    for route, profile in profiles.items():
+        if profile["measured"]:
+            log(f"  profiled pruned node, {route}: "
+                f"{profile['insertions']} insertions, wall "
+                f"{profile['wall_ms']:.1f} ms, device busy "
+                f"{profile['busy_ms']:.1f} ms (idle share "
+                f"{profile['idle_share']:.3f}) in {profile['launches']} "
+                "device ops")
+            for r in profile["top"]:
+                log(f"    {r['ms']:9.3f} ms  {r['calls']:5d}x  {r['name']}")
+        else:
+            log(f"  profiled pruned node, {route}: not measured "
+                f"({profile['error']})")
+    return {"lnl_before": lnl0, "lnl_after": lnl1, **routes,
+            "profile": profiles, "evaluate_launches": final_counts}
 
 
 def phase_real_whole(device, setup: dict, reps: int, chunk_lnl: float):
@@ -2208,27 +2503,27 @@ def ptxas_lines(text: str) -> list:
 
 
 def kernels_line(real, real_whole, search, scan, grad, anchor_whole,
-                 restart, aa_cli, real_aa, cases, whole_cases) -> list:
+                 restart, aa_cli, real_aa, fq, cases, whole_cases) -> list:
     """The kernels line: each kernel's row, with its instances by K."""
     # Each kernel's launches on the main paths of this run, each path
     # counted from 0 just before it and read just after it: B1 on the
     # real-size evaluate path, -f d, the SPR scan's full evaluates and the
     # real-size gradient paths (the gradient pass's full traversal, the
-    # gradient tree_evaluate), the amino-acid and binary -f e and the
-    # real-size amino-acid evaluate; B2 on every whole-tier path, the -R
-    # restart, the re-evaluation of the gradient-smoothed tree and of the
-    # amino-acid -f e endpoint and the amino-acid model optimization
-    # included.  The PSR paths launch neither (their traversals run on the
-    # wave-scan tier).  `by_K` splits each kernel's row by instance: the
-    # launches by state count, and its real-size time, plain time and
-    # bound (DNA from phases 10 and 13, amino acids and binary from phase
-    # 16).
+    # gradient tree_evaluate), the amino-acid and binary -f e, the
+    # real-size amino-acid evaluate and -f q's model optimization; B2 on
+    # every whole-tier path, the -R restart, the re-evaluation of the
+    # gradient-smoothed tree and of the amino-acid -f e endpoint and the
+    # amino-acid model optimization included.  The PSR paths launch
+    # neither (their traversals run on the wave-scan tier).  `by_K` splits
+    # each kernel's row by instance: the launches by state count, and its
+    # real-size time, plain time and bound (DNA from phases 10 and 13,
+    # amino acids and binary from phase 16).
     grad_paths = grad["launches_by_path"]
     aa_paths = real_aa["launches_by_path"]
     b1_paths = [real["launches_by_path"]["evaluate"], search["launches"],
                 scan["evaluate_launches"], grad_paths["traversal_and_pass"],
                 grad_paths["tree_evaluate"], aa_cli["launches"],
-                aa_paths["chunk_evaluate"]]
+                aa_paths["chunk_evaluate"], fq["launches"]]
     b2_paths = [anchor_whole["launches_anchors"], anchor_whole["fe_launches"],
                 restart["launches"], grad_paths["whole_reevaluate"],
                 *real_whole["launches_by_path"].values(),
@@ -2367,7 +2662,7 @@ def main(argv=None) -> int:
         phase("ref49, whole tier: anchors, -f e through the CLI")
         anchor_whole = phase_ref49_whole(device, out_dir)
 
-        phase("-f d through the CLI, chunk tier, f32")
+        phase("-f d through the CLI, chunk tier, batched SPR scan, f32")
         search = phase_search(device, out_dir, args.seed)
 
         phase("-R restart of -f d, whole tier")
@@ -2380,14 +2675,15 @@ def main(argv=None) -> int:
         setup = real_setup(TAXA, PARTITIONS, PART_WIDTH, args.seed)
         real, real_inst, real_tree = phase_real_size(device, setup, REPS)
 
-        phase("real size, SPR scan (rearrange, lazy and thorough)")
+        phase("real size, SPR scan (lazy and thorough, sequential and "
+              "batched)")
         scan = phase_spr_scan(device, real_inst, real_tree)
 
         phase("real size, whole-tree gradients and gradient smoothing")
         grad = phase_real_gradients(device, setup, real_inst, real_tree,
                                     REPS)
         del real_inst, real_tree
-        torch.cuda.empty_cache()
+        release_memory()
 
         phase("real size, whole tier")
         real_whole = phase_real_whole(device, setup, REPS, real["lnl"])
@@ -2402,10 +2698,18 @@ def main(argv=None) -> int:
         phase("real size, amino-acid and binary data, both tiers")
         real_aa = phase_real_aa(device, args.seed, REPS)
 
+        phase("-f q through the CLI (batched and sequential scorers), "
+              "chunk tier, f32")
+        fq = phase_quartets(device, out_dir, search)
+
+        phase("real size, quartet scorers (batched and sequential), chunk "
+              "tier, f32")
+        real_fq = phase_real_quartets(device, setup, args.seed)
+
         phase("report")
         kernels = kernels_line(real, real_whole, search, scan, grad,
-                               anchor_whole, restart, aa_cli, real_aa, cases,
-                               whole_cases)
+                               anchor_whole, restart, aa_cli, real_aa, fq,
+                               cases, whole_cases)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -2417,7 +2721,9 @@ def main(argv=None) -> int:
               "restart": restart, "psr_ref49": psr49, "real_size": real,
               "spr_scan": scan, "real_size_gradients": grad,
               "real_size_whole": real_whole, "real_size_psr": real_psr,
-              "aa_cli": aa_cli, "real_size_aa": real_aa, "ptxas": ptxas,
+              "aa_cli": aa_cli, "real_size_aa": real_aa, "quartets": fq,
+              "real_size_quartets": real_fq,
+              "ptxas": ptxas,
               "wall_s": time.perf_counter() - t_start}
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
@@ -2434,9 +2740,17 @@ def main(argv=None) -> int:
         "checkpoints", "fast_iterations", "thorough_iterations")},
         "restart": {k: restart[k] for k in (
             "state", "final_lnl", "wall_s", "launches")},
-        "spr_scan": {k: {m: scan[k][m] for m in (
-            "insertions_scored", "ms_per_insertion",
-            "entries_per_insertion")} for k in ("lazy", "thorough")}}))
+        "spr_scan": {k: {"max_rel_diff": scan[k]["max_rel_diff"], **{
+            route: {m: scan[k][route][m] for m in (
+                "insertions_scored", "ms_per_insertion",
+                "ms_per_pruned_node", "entries_per_insertion")}
+            for route in ("sequential", "batched")}}
+            for k in ("lazy", "thorough")},
+        "quartets": {k: fq[k] for k in (
+            "rows", "wall_s", "batched_ms_per_topology",
+            "sequential_ms_per_topology", "rel_vs_file",
+            "rel_batched_vs_sequential")},
+        "real_size_quartets": real_fq}))
     log(json.dumps({"real_size_gradients": {k: grad[k] for k in (
         "edges", "pass_ms", "bound_ms", "bound_by", "achieved_tb_per_s",
         "d1_gap_f64", "tree_evaluate_s", "sweeps", "lnl_before",

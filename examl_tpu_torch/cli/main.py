@@ -3,18 +3,24 @@ binary (`axml.c`: `get_args` :935-1302, `makeFileNames` :1316-1357, modes
 dispatched at `main` :2719-2781).
 
     python -m examl_tpu_torch.cli.main -s aln.binary -n RUN \\
-        [-t tree | -g constraint | -R] [-w DIR] [-f d|o|e|E] \\
+        [-t tree | -g constraint | -R] [-w DIR] [-f d|o|e|E|q] \\
         [-m GAMMA|PSR] [-c categories] [-a] [-i radius] [-D] [-B N] [-M] \\
-        [-p seed] [--newview chunk|whole] [--auto-prot ml|bic|aic|aicc]
+        [-p seed] [-Y groups | -r N] [-I N] [-e epsilon] \\
+        [--newview chunk|whole] [--batch-scan auto|on|off] \\
+        [--auto-prot ml|bic|aic|aicc]
 
 Modes: `-f d` (the default) runs the RAxML SPR hill climb
 (`search/raxml_search.py`) from the `-t` tree or from the random
 resolution of the `-g` constraint tree; `-f o` is the same search without
 the lnL-cutoff heuristic.  `-f e` / `-f E` evaluate each tree of the `-t`
 file: smooth its branch lengths and optimize the model (`mod_opt`); with
-`-f e` the trees after the first only re-smooth.  Every mode writes
-numbered checkpoints (`search/checkpoint.py`, the JAX package's format)
-and resumes from the newest one with `-R`.
+`-f e` the trees after the first only re-smooth.  `-f q` optimizes the
+model on the `-t` tree (to `-e`'s lnL epsilon), then scores every
+4-taxon set under its three topologies (`search/quartets.py`): all sets,
+`-r N` random ones, or those the `-Y` grouping file's four groups give.
+Every mode writes numbered checkpoints (`search/checkpoint.py`, the JAX
+package's format; `-f q` every `-I` sets) and resumes from the newest one
+with `-R`.
 
 `-m PSR` replaces the discrete gamma model by per-site rates grouped
 into at most `-c` categories (25 by default) per partition.  Partitions
@@ -27,11 +33,15 @@ rows), ExaML_modelFile.RUN (the final model, in the reference's
 `printModelParams` layout; under PSR the category count and rates take
 the alpha line's place); the search writes ExaML_result.RUN (the best
 tree), ExaML_goodTrees.RUN (`-B`) and ExaML_perGeneBranchLengths.RUN
-(`-M`); tree evaluation writes ExaML_TreeFile.RUN (one newick per tree).
+(`-M`); tree evaluation writes ExaML_TreeFile.RUN (one newick per tree);
+quartet evaluation ExaML_quartets.RUN ("a b | c d: lnL" rows).
 
 `--newview` selects the full-traversal tier: `chunk` (kernel B1) or
-`whole` (kernel B2, one launch per traversal).  `main` runs on the card
-unless the caller passes `device="cpu"`.
+`whole` (kernel B2, one launch per traversal).  `--batch-scan` selects the
+SPR search's scan: `auto` (the default) batches it where the arenas live
+on the card and keeps it sequential on the CPU, `on` / `off` force it
+(`PhyloInstance(batch_scan=...)`).  `main` runs on the card unless the
+caller passes `device="cpu"`.
 """
 
 from __future__ import annotations
@@ -74,11 +84,15 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("-a", dest="median", action="store_true",
                     help="median instead of mean discrete gamma rates")
     ap.add_argument("-f", dest="mode", default="d",
-                    choices=["d", "o", "e", "E"],
+                    choices=["d", "o", "e", "E", "q"],
                     help="d: SPR tree search; o: the search without the lnL "
                          "cutoff; e: evaluate trees, optimizing the model "
                          "on the first tree only; E: evaluate trees, "
-                         "optimizing the model on every tree")
+                         "optimizing the model on every tree; q: quartets")
+    ap.add_argument("-e", dest="epsilon", type=float, default=0.1,
+                    help="lnL epsilon for quartet-mode model optimization "
+                         "(the search and tree-evaluation modes use the "
+                         "reference's fixed modOpt schedule)")
     ap.add_argument("-i", dest="initial", type=int, default=None,
                     help="fixed initial rearrangement radius")
     ap.add_argument("-D", dest="rf_convergence", action="store_true",
@@ -92,11 +106,23 @@ def build_argparser() -> argparse.ArgumentParser:
                     help="multifurcating constraint tree")
     ap.add_argument("-p", dest="seed", type=int, default=12345,
                     help="random seed (constraint-tree resolution)")
+    ap.add_argument("-Y", "-Q", dest="quartet_file", default=None,
+                    help="quartet grouping file (-f q; the reference "
+                         "spells this -Y, axml.c:1063)")
+    ap.add_argument("-r", dest="quartet_samples", type=int, default=0,
+                    help="number of random quartets to evaluate (-f q)")
+    ap.add_argument("-I", dest="quartet_ckpt_interval", type=int,
+                    default=10000,
+                    help="quartet checkpoint interval (-f q)")
     ap.add_argument("-w", dest="workdir", default=".",
                     help="output directory")
     ap.add_argument("--newview", default="chunk", choices=NEWVIEW_TIERS,
                     help="full-traversal tier: chunk (kernel B1) or whole "
                          "(kernel B2)")
+    ap.add_argument("--batch-scan", dest="batch_scan", default="auto",
+                    choices=["auto", "on", "off"],
+                    help="SPR scan: batched on the card and sequential on "
+                         "the CPU (auto), or forced on / off")
     ap.add_argument("--auto-prot", dest="auto_prot", default="ml",
                     choices=["ml", "bic", "aic", "aicc"],
                     help="criterion for AUTO protein model selection")
@@ -116,6 +142,7 @@ class RunFiles:
         self.result_path = f"{pre}result.{run_id}"
         self.model_path = f"{pre}modelFile.{run_id}"
         self.treefile_path = f"{pre}TreeFile.{run_id}"
+        self.quartets_path = f"{pre}quartets.{run_id}"
         self.start_time = time.time()
         if not append:
             for p in (self.info_path, self.log_path):
@@ -247,7 +274,10 @@ def run_search(args, inst, files: RunFiles) -> int:
         do_cutoff=args.mode != "o",
         search_convergence=args.rf_convergence,
         log=log)
-    files.info("SPR lazy-arm scan: sequential")
+    from examl_tpu_torch.search.spr import batched_scan_enabled
+    files.info("SPR lazy-arm scan: "
+               + ("batched (one dispatch per pruned node)"
+                  if batched_scan_enabled(inst) else "sequential"))
     conv = (RfConvergence(inst.alignment.ntaxa, log=files.info)
             if args.rf_convergence else None)
     if conv is not None and resume is not None:
@@ -385,7 +415,19 @@ def run_tree_evaluation(args, inst, files: RunFiles) -> int:
 
 def main(argv=None, device=None) -> int:
     """Run the mode `-f` names; `device` defaults to the card ("cuda")."""
-    args = build_argparser().parse_args(argv)
+    ap = build_argparser()
+    args = ap.parse_args(argv)
+    # The reference's quartet flag-combination checks (axml.c:1206-1222):
+    # -Y and -r belong to -f q only, and are mutually exclusive.
+    if args.quartet_file and args.mode != "q":
+        ap.error('you must specify "-Y quartetGroupingFileName" in '
+                 'combination with "-f q"')
+    if args.quartet_samples > 0 and args.mode != "q":
+        ap.error('you must specify "-r randomQuartetNumber" in '
+                 'combination with "-f q"')
+    if args.quartet_samples > 0 and args.quartet_file:
+        ap.error('you must specify either "-r randomQuartetNumber" or '
+                 '"-Y quartetGroupingFileName"')
     from examl_tpu_torch.instance import PhyloInstance
     from examl_tpu_torch.io.bytefile import read_bytefile
 
@@ -402,11 +444,16 @@ def main(argv=None, device=None) -> int:
     inst = PhyloInstance(data, device=device, use_median=args.median,
                          per_partition_branches=args.per_partition_bl,
                          newview=args.newview, rate_model=args.model,
-                         psr_categories=args.categories)
+                         psr_categories=args.categories,
+                         batch_scan={"auto": None, "on": True,
+                                     "off": False}[args.batch_scan])
     inst.auto_prot_criterion = args.auto_prot
     files.info(f"device: {inst.device}  dtype: {inst.dtype}")
     if args.mode in ("d", "o"):
         return run_search(args, inst, files)
+    if args.mode == "q":
+        from examl_tpu_torch.cli.quartets import run_quartets
+        return run_quartets(args, inst, files)
     return run_tree_evaluation(args, inst, files)
 
 

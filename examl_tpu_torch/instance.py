@@ -46,13 +46,22 @@ class PhyloInstance:
                  per_partition_branches: bool = False,
                  block_multiple: int = 1, newview: str = "chunk",
                  grad_smooth: bool = True, rate_model: str = "GAMMA",
-                 psr_categories: int = 25):
+                 psr_categories: int = 25,
+                 batch_scan: Optional[bool] = None,
+                 batch_thorough: Optional[bool] = None):
         """newview: the engines' full-traversal tier, "chunk" (kernel B1)
         or "whole" (kernel B2), see ops/engine.py.  grad_smooth: full-tree
         smoothing by whole-tree gradients (True, the JAX package's
         default) or branch by branch (False, its EXAML_GRAD_SMOOTH=0).
         rate_model: "GAMMA" or "PSR" (per-site rates, at most
-        `psr_categories` categories per partition; one rate category)."""
+        `psr_categories` categories per partition; one rate category).
+        batch_scan / batch_thorough: the SPR search's batched scan
+        (search/spr.py, the JAX package's EXAML_BATCH_SCAN /
+        EXAML_BATCH_THOROUGH): None follows the device (batched on the
+        card, sequential on the CPU); batch_scan=False keeps both arms
+        sequential, True batches the lazy arm anywhere; batch_thorough
+        True / False forces the thorough arm, which batches only with one
+        state bucket and one branch slot."""
         if rate_model not in ("GAMMA", "PSR"):
             raise ValueError(f"unknown rate model {rate_model!r}")
         self.rate_model = rate_model
@@ -61,6 +70,8 @@ class PhyloInstance:
             ncat = 1                      # one rate per site, weight 1
         self.psr_categories = psr_categories
         self.grad_smooth = grad_smooth
+        self.batch_scan = batch_scan
+        self.batch_thorough = batch_thorough
         self.device = config.resolve_device(device)
         self.dtype = dtype if dtype is not None else \
             config.default_dtype(self.device)

@@ -20,8 +20,11 @@ the card whose (R, K) has no instance is refused when it is built (the
 CLI always uses R = 4; only ncat != 4 from Python reaches that), never
 sent to another tier.  `whole_tree_gradients` gives every branch's
 derivatives from one pre-order pass over the current arena
-(ops/gradient.py) and `rate_scan` every site's lnL under a grid of
-candidate rates (PSR).
+(ops/gradient.py), `rate_scan` every site's lnL under a grid of
+candidate rates (PSR), and `batched_scan` / `batched_thorough` every
+candidate insertion of a pruned node (ops/scan.py), their uppass
+entries written on the wave-scan tier into a scan region above the
+arena's `num_rows` rows (`ensure_scan_rows`).
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ from examl_tpu_torch import config, datatypes
 from examl_tpu_torch.models.gtr import ModelParams
 from examl_tpu_torch.models.lg4 import LG4Params
 from examl_tpu_torch.ops import (fastpath, gradient, kernels, newview_chunk,
-                                 newview_whole)
+                                 newview_whole, scan)
 from examl_tpu_torch.ops.kernels import (DeviceModels, OutrootTraversal,
                                          Traversal)
 from examl_tpu_torch.parallel.packing import PackedBucket
@@ -136,6 +139,9 @@ class LikelihoodEngine:
         self._sched_cache: "OrderedDict[bytes, object]" = OrderedDict()
         self._grad_structs: "OrderedDict[bytes, object]" = OrderedDict()
         self._outroot: Optional[torch.Tensor] = None
+        # Rows of the batched SPR scan's region above num_rows
+        # (ensure_scan_rows).
+        self._scan_cap = 0
 
         self.B, self.lane = bucket.num_blocks, bucket.lane
         self.R = models[0].ncat
@@ -208,10 +214,16 @@ class LikelihoodEngine:
             return num - 1
         return self.ntips + int(self.row_map[num])
 
-    def _traversal_arrays(self, entries: List[TraversalEntry]) -> Traversal:
+    def _traversal_arrays(self, entries: List[TraversalEntry],
+                          parent_row=None, gidx=None) -> Traversal:
         """Wave-schedule entries into [L, W]: waves wider than
         `wave_width` split over several steps (their entries are
-        independent), narrow waves pad to W with scratch-row entries."""
+        independent), narrow waves pad to W with scratch-row entries.
+        parent_row(entry) / gidx(id) map an entry's parent to its arena row
+        and a child id to its gather index: by default through the row
+        map; the batched SPR scan also targets its scan region."""
+        parent_row = parent_row or (lambda e: self.row_map[e.parent])
+        gidx = gidx or self._gidx
         raw = Tree.schedule_waves(entries)
         cap = self.wave_width
         W = min(next_pow2(max((len(w) for w in raw), default=1)), cap)
@@ -225,9 +237,9 @@ class LikelihoodEngine:
         zr = np.ones((L, W, C), dtype=np.float64)
         for li, wave in enumerate(waves):
             for wi, e in enumerate(wave):
-                parent[li, wi] = self.row_map[e.parent]
-                left[li, wi] = self._gidx(e.left)
-                right[li, wi] = self._gidx(e.right)
+                parent[li, wi] = parent_row(e)
+                left[li, wi] = gidx(e.left)
+                right[li, wi] = gidx(e.right)
                 zl[li, wi, :] = z_slots(e.zl, C)
                 zr[li, wi, :] = z_slots(e.zr, C)
         idx = torch.from_numpy(np.stack([parent, left, right])).to(
@@ -385,6 +397,104 @@ class LikelihoodEngine:
             self.models, self.block_part, self.weights, st,
             np.asarray(z0, np.float64), np.full(C, maxiter, np.int64),
             np.asarray(conv_mask, bool), C, self.site_rates)
+
+    # -- batched SPR radius scan (ops/scan.py) ------------------------------
+
+    def ensure_scan_rows(self, n: int) -> int:
+        """Grow the arena by a scan region of >= n rows (a power of two, so
+        a search reallocates O(log n) times) and return the region's base
+        row.  The region lies above the `num_rows` rows that traversals,
+        the scratch row and the chunk layouts' slack use, so it is free
+        scratch between scan calls.  The arena and the scaler are replaced
+        by larger tensors, never kept elsewhere: every kernel reads
+        self.clv / self.scaler (and their row count) at its call."""
+        if n > self._scan_cap:
+            grow = next_pow2(n) - self._scan_cap
+            self.clv = torch.cat([self.clv, self.clv.new_zeros(
+                (grow,) + self.clv.shape[1:])])
+            self.scaler = torch.cat([self.scaler, self.scaler.new_zeros(
+                (grow,) + self.scaler.shape[1:])])
+            self._scan_cap += grow
+        return self.num_rows
+
+    def _scan_traversal_arrays(self, down_entries, up_entries,
+                               base: int) -> Traversal:
+        """The orientation fixes and the uppass entries wave-scheduled into
+        one Traversal.  Scan slot s gets the id SLOT0 + s, above the node
+        numbers, so Tree.schedule_waves resolves node->node, node->slot and
+        slot->slot dependencies alike; down entries write arena rows
+        through the row map, up entries the scan region from `base`."""
+        SLOT0 = 2 * self.ntips + 1
+
+        def ref_id(ref) -> int:
+            kind, v = ref
+            return SLOT0 + v if kind == "slot" else v
+
+        pseudo = list(down_entries) + [
+            TraversalEntry(SLOT0 + e.slot, ref_id(e.left), ref_id(e.right),
+                           e.zl, e.zr)
+            for e in up_entries]
+
+        def parent_row(e) -> int:
+            if e.parent >= SLOT0:
+                return base + (e.parent - SLOT0)
+            return self.row_map[e.parent]
+
+        def gidx(ident: int) -> int:
+            if ident >= SLOT0:
+                return self.ntips + base + (ident - SLOT0)
+            return self._gidx(ident)
+
+        return self._traversal_arrays(pseudo, parent_row, gidx)
+
+    def _scan_dispatch_arrays(self, plan, base: int):
+        """Gather indices [N] of the candidates' down(q) and uppass(q).
+        Unlike the JAX engine's, nothing is padded: torch ops take any
+        candidate count."""
+        qg = [self._gidx(c.q_num) for c in plan.candidates]
+        upg = [self.ntips + base + c.up_slot for c in plan.candidates]
+        idx = torch.as_tensor([qg, upg], dtype=torch.int64,
+                              device=self.device)
+        return idx[0], idx[1]
+
+    def _scan_setup(self, plan):
+        """(traversal, qg, upg) of a plan, the scan region grown to hold
+        its uppass entries; counted as one partial traversal."""
+        global PARTIAL_TRAVERSALS
+        base = self.ensure_scan_rows(len(plan.up_entries))
+        tv = self._scan_traversal_arrays(plan.down_entries, plan.up_entries,
+                                         base)
+        PARTIAL_TRAVERSALS += 1
+        return (tv,) + self._scan_dispatch_arrays(plan, base)
+
+    def batched_scan(self, plan) -> np.ndarray:
+        """The orientation fixes, the uppass traversal and every
+        candidate's lazy insertion score (ops/scan.py); returns
+        this engine's per-candidate lnL sums [N] (float64)."""
+        tv, qg, upg = self._scan_setup(plan)
+        C = self.num_branch_slots
+        zc = torch.as_tensor(np.stack([z_slots(c.z, C)
+                                       for c in plan.candidates]),
+                             dtype=self.dtype, device=self.device)
+        lnls = scan.scan_chunk(
+            self.models, self.block_part, self.weights, self.tips, self.clv,
+            self.scaler, tv, qg, upg, zc, self._gidx(plan.s_num),
+            self._z(plan.zp), self.scale_exp, self.ntips, self.site_rates)
+        return lnls.cpu().numpy()
+
+    def batched_thorough(self, plan, nr_iterations: int):
+        """The thorough-arm companion of `batched_scan`: triangle
+        Newton-Raphson (at most nr_iterations steps a solve), localSmooth
+        and the score per candidate; returns (lnls [N], smoothed branch
+        triplets [N, 3])."""
+        tv, qg, upg = self._scan_setup(plan)
+        zq0 = np.array([float(np.asarray(c.q_slot.z, np.float64)[0])
+                        for c in plan.candidates])
+        lnls, es = scan.thorough_chunk(
+            self.models, self.block_part, self.weights, self.tips, self.clv,
+            self.scaler, tv, qg, upg, zq0, self._gidx(plan.s_num),
+            self.scale_exp, self.ntips, nr_iterations, self.site_rates)
+        return lnls.cpu().numpy(), es
 
     # -- PSR rate-grid scan ----------------------------------------------
 

@@ -488,7 +488,13 @@ def newton_raphson_branch(models: DeviceModels, block_part: torch.Tensor,
     `lax.while_loop` applies them: the bad-curvature shortening z <- 0.37
     z + 0.63, the 0.25 zprev + 0.75 step cap, and the give-up-after-
     (maxiter+20) reset to z0.  Iterates z <- z * exp(-lnL'/lnL'') until
-    |z - zprev| <= zstep."""
+    |z - zprev| <= zstep.
+
+    Lanes: z0, maxiters0 and conv0 may be [N, C] with st [N, B, lane, R,
+    K], N independent branches solved at once (one read-back per
+    iteration for the whole batch).  A lane whose slots have all
+    converged is frozen while the others go on, as a `jax.vmap` of the
+    JAX loop freezes it; [C] is one lane."""
     z0 = np.asarray(z0, dtype=np.float64)
     z = z0.copy()
     zprev = z0.copy()
@@ -497,6 +503,8 @@ def newton_raphson_branch(models: DeviceModels, block_part: torch.Tensor,
     outer = np.asarray(conv0, dtype=bool).copy()
     curvat = np.ones_like(outer)
     while not outer.all():
+        live = ~outer.all(axis=-1, keepdims=True)
+        z_in = z
         fresh = ~outer & curvat
         zprev = np.where(fresh, z, zprev)
         zstep = np.where(fresh, (1.0 - ZMAX) * z + ZMIN, zstep)
@@ -530,4 +538,7 @@ def newton_raphson_branch(models: DeviceModels, block_part: torch.Tensor,
         gave_up = moving & (maxiters < -20)
         z = np.where(step & gave_up, z0, z2)
         outer = np.where(step, ~moving | gave_up, outer)
+        # A converged lane's other state is left as it was by the steps
+        # above; only the clip would move its z.
+        z = np.where(live, z, z_in)
     return z

@@ -191,12 +191,16 @@ class CheckpointManager:
             pass
 
     def write(self, state: str, extras: dict, inst: PhyloInstance,
-              tree: Tree) -> str:
+              tree: Tree, tree_dict: Optional[dict] = None) -> str:
         """Publish checkpoint number `counter`: a tmp file, fsynced, then
-        one atomic rename; an older checkpoint is never overwritten."""
-        tree_dict = TreeSnapshot.capture(
-            tree, getattr(inst, "likelihood", 0.0),
-            with_key=False).to_dict()
+        one atomic rename; an older checkpoint is never overwritten.
+        tree_dict replaces the captured tree: quartet mode's live tree is
+        a scaffold that an edge-list snapshot cannot represent, so it
+        checkpoints the comprehensive model tree instead."""
+        if tree_dict is None:
+            tree_dict = TreeSnapshot.capture(
+                tree, getattr(inst, "likelihood", 0.0),
+                with_key=False).to_dict()
         blob = {
             "magic": CKPT_MAGIC,
             "version": CKPT_VERSION,

@@ -8,8 +8,8 @@ checkpoint writes and RF-convergence checks are injected via callbacks so
 the checkpoint and bipartition subsystems stay decoupled.
 
 The port of `examl_tpu/search/raxml_search.py` without its tracing spans,
-counters and supervisor heartbeats; `rearrange` is the sequential
-`spr.rearrange`.
+counters and supervisor heartbeats; `rearrange` is `spr.rearrange_auto`
+(the batched scan on the card, the sequential arm on the CPU).
 """
 
 from __future__ import annotations
@@ -22,7 +22,8 @@ from examl_tpu_torch.instance import PhyloInstance
 from examl_tpu_torch.optimize.branch import tree_evaluate
 from examl_tpu_torch.optimize.model_opt import mod_opt
 from examl_tpu_torch.search.snapshots import BestList, InfoList
-from examl_tpu_torch.search.spr import (SprContext, dfs_slot_order, rearrange,
+from examl_tpu_torch.search.spr import (SprContext, dfs_slot_order,
+                                        rearrange_auto as rearrange,
                                         restore_tree_fast,
                                         save_candidate_topology)
 from examl_tpu_torch.tree.topology import Tree

@@ -11,10 +11,16 @@ The `lazy` mode (reference `Thorough == 0`) regrafts with sqrt-combined
 branch lengths and no Newton-Raphson; thorough mode optimizes the three
 branches around the insertion point (triangle solve + local smoothing).
 
-The port of the sequential arm of `examl_tpu/search/spr.py` (the JAX
-package's `EXAML_BATCH_SCAN=0` semantics): every candidate is scored
-one at a time, with the lnL-cutoff early-outs.  The partial traversals
-run on the engines' wave-scan tier.
+The port of `examl_tpu/search/spr.py`.  Two arms score the candidates
+of a pruned node: the sequential one (`rearrange`, the JAX package's
+`EXAML_BATCH_SCAN=0` semantics) one at a time with the lnL-cutoff
+early-outs, and the batched one (`rearrange_batched`,
+search/batchscan.py) the whole radius window in one engine call per
+pruned endpoint, lazy or thorough.  `rearrange_auto` picks between them
+as the JAX package does: batched where the arenas live on the card
+(or as `PhyloInstance(batch_scan=..., batch_thorough=...)` forces),
+sequential on the CPU.  The partial traversals of both run on the
+engines' wave-scan tier.
 """
 
 from __future__ import annotations
@@ -26,12 +32,13 @@ import numpy as np
 from examl_tpu_torch.constants import DEFAULTZ, SMOOTHINGS, UNLIKELY, ZMAX, ZMIN
 from examl_tpu_torch.instance import PhyloInstance
 from examl_tpu_torch.optimize.branch import local_smooth
+from examl_tpu_torch.search import batchscan
 from examl_tpu_torch.tree.topology import Node, Tree, hookup
 from examl_tpu_torch.utils import z_slots
 
 SPR_NR_ITERATIONS = 10      # NR iterations per insertion branch (ref axml.h:90)
-# Candidate insertions scored by test_insert (a plain count, read by
-# chip_smoke.py).
+# Candidate insertions scored, by test_insert or by the batched arm (a
+# plain count, read by chip_smoke.py).
 INSERTIONS_SCORED = 0
 
 
@@ -384,3 +391,155 @@ def dfs_slot_order(tree: Tree) -> List[Node]:
         stack.append(s.next.back)
     tips = [tree.nodep[i] for i in range(1, tree.ntips + 1)]
     return tips + inner
+
+
+def batched_scan_enabled(inst: PhyloInstance) -> bool:
+    """True when the lazy arm scores a pruned node's window in one batched
+    call (search/batchscan.py).  The batched window trades compute (the
+    whole radius window, no mid-descent lnL-cutoff early-outs) for
+    launches and host round trips, which wins on the card and loses on
+    the CPU, where the skipped work is the cheaper currency: by default
+    it follows the arenas' device.  `inst.batch_scan` False forces the
+    sequential arm everywhere, True the batched scan on any device (the
+    JAX package's EXAML_BATCH_SCAN=0 / 1)."""
+    if inst.batch_scan is not None:
+        return bool(inst.batch_scan)
+    return _on_accelerator(inst)
+
+
+def _on_accelerator(inst: PhyloInstance) -> bool:
+    """True when every engine's CLV arena lives on the card."""
+    return all(e.clv.device.type == "cuda" for e in inst.engines.values())
+
+
+def rearrange_batched(inst: PhyloInstance, tree: Tree, ctx: SprContext,
+                      p: Node, mintrav: int, maxtrav: int,
+                      thorough: bool = False) -> bool:
+    """`rearrange` with the candidate scoring batched into one engine call
+    per pruned endpoint (search/batchscan.py), for either arm: lazy
+    (sqrt-branch scores) or thorough (triangle Newton + localSmooth per
+    candidate).  The ctx contract is the sequential test_insert's:
+    best_of_node/end_lh/insert_node/remove_node/current_zqr (plus the
+    smoothed current_lzq/lzr/lzs triplet in thorough mode) and the cutoff
+    statistics lh_avg/lh_dec, with the whole radius window evaluated (the
+    sequential scan's mid-descent cutoff stops are a CPU-cost heuristic;
+    the batched window is a superset, so no move is ever missed).
+    """
+    if maxtrav < 1 or mintrav > maxtrav:
+        return False
+
+    def scan_one(prune: Node, mintrav_: int) -> None:
+        global INSERTIONS_SCORED
+        p1 = prune.next.back
+        p2 = prune.next.next.back
+        p1z = list(p1.z)
+        p2z = list(p2.z)
+        remove_node(inst, tree, ctx, prune)
+        plan = batchscan.plan_for_endpoints(
+            inst, tree, prune, p1, p2, mintrav_, maxtrav,
+            ctx.constraint, ctx.pruned_clusters)
+        if plan is not None:
+            if thorough:
+                lnls, es = batchscan.run_plan_thorough(inst, tree, plan)
+            else:
+                lnls = batchscan.run_plan(inst, tree, plan)
+                es = [None] * len(lnls)
+            INSERTIONS_SCORED += len(plan.candidates)
+            for cand, lnl, e in zip(plan.candidates, lnls, es):
+                lnl = float(lnl)
+                # test_insert's contract: start_lh is the CURRENT end_lh
+                # at each candidate (it rises mid-window), so the cutoff
+                # statistics feed the same auto-tuning as the sequential
+                # scan (`searchAlgo.c:710-742`).
+                start_lh = ctx.end_lh
+                if lnl > ctx.best_of_node:
+                    ctx.best_of_node = lnl
+                    ctx.insert_node = cand.q_slot
+                    ctx.remove_node = prune
+                    ctx.current_zqr = ctx.zqr.copy()
+                    if e is not None:
+                        ctx.current_lzq = np.full_like(ctx.current_lzq,
+                                                       e[0])
+                        ctx.current_lzr = np.full_like(ctx.current_lzr,
+                                                       e[1])
+                        ctx.current_lzs = np.full_like(ctx.current_lzs,
+                                                       e[2])
+                if lnl > ctx.end_lh:
+                    ctx.insert_node = cand.q_slot
+                    ctx.remove_node = prune
+                    ctx.current_zqr = ctx.zqr.copy()
+                    ctx.end_lh = lnl
+                if ctx.do_cutoff and lnl < start_lh:
+                    ctx.lh_avg += start_lh - lnl
+                    ctx.lh_dec += 1
+        hookup(prune.next, p1, p1z)
+        hookup(prune.next.next, p2, p2z)
+        # No eager new_view(prune): the x-flags heal themselves -- the
+        # next engine call (the second endpoint's plan, or the next
+        # pruned node's makenewz) folds prune's stale orientation into
+        # its own traversal entries (compute_traversal resolves
+        # staleness).  The sequential arm keeps the reference's eager
+        # newviewGeneric.
+
+    q = p.back
+    if not tree.is_tip(p.number):
+        p1 = p.next.back
+        p2 = p.next.next.back
+        if not tree.is_tip(p1.number) or not tree.is_tip(p2.number):
+            scan_one(p, mintrav)
+
+    if not tree.is_tip(q.number) and maxtrav > 0:
+        q1 = q.next.back
+        q2 = q.next.next.back
+
+        def has_depth(x: Node) -> bool:
+            return (not tree.is_tip(x.number)
+                    and (not tree.is_tip(x.next.back.number)
+                         or not tree.is_tip(x.next.next.back.number)))
+
+        if has_depth(q1) or has_depth(q2):
+            scan_one(q, max(mintrav, 2))
+    return True
+
+
+def thorough_batched_ok(inst: PhyloInstance) -> bool:
+    """True when the thorough arm runs batched.  It needs ONE state bucket
+    and ONE branch slot: its Newton-Raphson loops run per engine, so mixed
+    buckets (whose derivatives must sum across engines every iteration)
+    and per-partition branches (-M) keep the sequential arm.  GAMMA and
+    PSR both batch.  Like the lazy scan it follows the arenas' device by
+    default; `inst.batch_scan` False or `inst.batch_thorough` False turn
+    it off anywhere, `inst.batch_thorough` True turns it on wherever the
+    structural requirements hold (the JAX package's EXAML_BATCH_SCAN=0,
+    EXAML_BATCH_THOROUGH=0 / 1)."""
+    if inst.batch_thorough is False or inst.batch_scan is False:
+        return False
+    if not (len(inst.engines) == 1 and inst.num_branch_slots == 1):
+        return False
+    if inst.batch_thorough:
+        return True
+    return _on_accelerator(inst)
+
+
+def rearrange_batched_thorough(inst: PhyloInstance, tree: Tree,
+                               ctx: SprContext, p: Node, mintrav: int,
+                               maxtrav: int) -> bool:
+    """Thorough-arm batched rearrange (shared scaffolding above)."""
+    return rearrange_batched(inst, tree, ctx, p, mintrav, maxtrav,
+                             thorough=True)
+
+
+def rearrange_auto(inst: PhyloInstance, tree: Tree, ctx: SprContext,
+                   p: Node, mintrav: int, maxtrav: int) -> bool:
+    """The search's rearrange: the batched arm where `batched_scan_enabled`
+    / `thorough_batched_ok` select it, else the sequential one.  A failure
+    of the batched arm raises; it never gives way to the sequential
+    one."""
+    if ctx.thorough:
+        if thorough_batched_ok(inst):
+            return rearrange_batched_thorough(inst, tree, ctx, p,
+                                              mintrav, maxtrav)
+        return rearrange(inst, tree, ctx, p, mintrav, maxtrav)
+    if not batched_scan_enabled(inst):
+        return rearrange(inst, tree, ctx, p, mintrav, maxtrav)
+    return rearrange_batched(inst, tree, ctx, p, mintrav, maxtrav)

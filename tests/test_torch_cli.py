@@ -16,6 +16,9 @@ port, on both full-traversal tiers.
   checkpoint ends at least at the continuous run's lnL minus 0.5.
 * `-f o -g -p -D -M`: the constraint's random resolution and the other
   search flags, with the per-partition branch-length trees.
+* `--batch-scan on|off|auto`: the info file names the SPR scan's route
+  (auto is sequential on the CPU), and the batched scan runs only on
+  the route that says batched.
 * `cli/parse.py` writes a byteFile byte-equal to the JAX package's parser
   on the same PHYLIP and partition file.
 """
@@ -36,6 +39,7 @@ from examl_tpu_torch.instance import PhyloInstance
 from examl_tpu_torch.io.alignment import build_alignment_data
 from examl_tpu_torch.io.bytefile import read_bytefile, write_bytefile
 from examl_tpu_torch.io.partitions import PartitionSpec
+from examl_tpu_torch.search import batchscan
 from examl_tpu_torch.transfer import install_model_params
 from examl_tpu_torch.tree.topology import Tree
 from tests.refmodel import parse_model_file
@@ -225,6 +229,20 @@ def test_search_restart_from_middle_checkpoint(search_run, tmp_path):
     info = open(os.path.join(rout, "ExaML_info.T")).read()
     assert f"restart from state {ckpts[mid][0]}" in info
     assert _logged(rout)[-1] >= _logged(out)[-1] - 0.5
+
+
+@pytest.mark.parametrize("flag,route", [("on", "batched"),
+                                        ("off", "sequential"),
+                                        ("auto", "sequential")])
+def test_search_batch_scan_flag(tmp_path, flag, route):
+    aln, trees = _inputs(tmp_path, ntaxa=6, nsites=120)
+    out = str(tmp_path / "out")
+    calls = batchscan.SCAN_CALLS
+    assert main(["-s", aln, "-t", trees, "-n", "T", "-w", out, "-i", "2",
+                 "--batch-scan", flag], device="cpu") == 0
+    info = open(os.path.join(out, "ExaML_info.T")).read()
+    assert f"SPR lazy-arm scan: {route}" in info
+    assert (batchscan.SCAN_CALLS > calls) == (route == "batched")
 
 
 def test_search_flags_constraint_rf_per_partition(tmp_path):
