@@ -23,8 +23,14 @@ versions at K = 4 (DNA), 20 (amino acids) and 2 (binary); `-f e` runs
 through the CLI on amino-acid and binary data (WAG, LG+F, LG4M, LG4X,
 AUTO and a binary partition), and the amino-acid path runs at real size
 (512 taxa x 32,768 amino-acid patterns in four partitions plus 32,768
-binary ones) on both tiers.  Every phase is fatal: any failure exits
-non-zero before the result line.
+binary ones) on both tiers.  SEV memory saving (`-S`) runs at real width
+(512 taxa x 16 partitions of 8,192 patterns, each sequenced for one clade
+of the tree): the pool on the pooled tier against the dense arena on the
+chunk tier (lnL, Newton-Raphson, a batched lazy scan, the saving, pool
+and peak memory), then through the CLI at small size (`-f d`, `-R`,
+`-m PSR -f e`, `-f q`), with no newview kernel launched under `-S`.
+Every phase is fatal: any failure exits non-zero before the result
+line.
 
     python3 chip_smoke.py [--seed N]     # one card
 
@@ -72,6 +78,7 @@ CHECK_BLOCKS = {4: 1024, 20: 128, 2: 1024}
 CHECK_WIDTH = 64        # chunk width of the kernel-vs-plain cases
 WHOLE_CHECK_BLOCKS = {4: 256, 20: 32, 2: 256}   # the B2-vs-plain cases
 REPS = 5                # timed repeats
+SEV_REPS = 3            # timed repeats of phase 19's evaluates
 REPEAT = 10             # launch-table rows repeated in one call (breakdown)
 # The -f d run through the CLI: FD_TAXA taxa x 4 partitions of FD_WIDTH
 # DNA columns.  The taxa are cut by the run's time limit; the width by
@@ -105,7 +112,23 @@ AA_LETTERS = "ARNDCQEGHILKMFPSTWYV"
 # times the bytes a pattern, an arena of 6.0 GB against DNA's 4.8 GB.
 AA_REAL_TAXA, AA_REAL_WIDTH, BIN_REAL_WIDTH = 512, 8192, 32768
 AA_REAL_MODELS = ("WAG", "LG", "LG4M", "LG4X")
-NPHASES = 19
+# Phase 19, -S at real width: SEV_TAXA taxa, SEV_PARTS partitions of
+# SEV_WIDTH columns (64 blocks each), each sequenced for one clade of
+# SEV_CLADE taxa; pooled against dense at rel SEV_RTOL (f32: a dense
+# all-gap CLV is ~1 after rounding, a pooled one exactly 1), Newton-Raphson
+# on SEV_NEWTON branches, a lazy scan of SEV_SCAN_SLOTS pruned nodes.
+SEV_TAXA, SEV_PARTS, SEV_WIDTH = 512, 16, 8192
+SEV_CLADE = (64, 192)
+SEV_RTOL, SEV_MIN_SAVING = 1e-6, 0.5
+SEV_NEWTON, SEV_SCAN_SLOTS = 4, 2
+# Phase 20, -S through the CLI: the JAX package's tests/test_sev.py shape
+# (3 genes, each present in a third of the taxa, the gene clades as the
+# start tree), its taxa and columns cut by the phase's time (per-branch
+# smoothing under -S is host-bound), the saving asked of it (that
+# module's bound for a random tree) and the -f q sets.
+SEV_CLI_TAXA, SEV_CLI_GENES, SEV_CLI_WIDTH = 12, 3, 128
+SEV_CLI_MIN_SAVING, SEV_CLI_QUARTETS = 0.2, 30
+NPHASES = 21
 
 
 class SmokeFailure(RuntimeError):
@@ -348,6 +371,7 @@ def reset_counts() -> None:
     newview_whole.LAUNCHES_BY_K.clear()
     engine.FULL_TRAVERSALS = 0
     engine.PARTIAL_TRAVERSALS = 0
+    engine.POOLED_TRAVERSALS = 0
     engine.CHUNK_LAUNCH_ROWS = 0
     engine.GRAD_PASSES = 0
     branch.GRAD_SWEEPS = 0
@@ -359,7 +383,8 @@ def reset_counts() -> None:
 def read_counts() -> dict:
     """The counts since the last reset.  Under PSR every traversal, full
     ones included, runs on the wave-scan tier and counts as partial, as
-    does each batched SPR scan call."""
+    does each batched SPR scan call; under -S every traversal, full,
+    partial or a batched scan call's, counts as pooled."""
     from examl_tpu_torch.ops import engine, newview_chunk, newview_whole
     from examl_tpu_torch.optimize import branch
     from examl_tpu_torch.search import batchscan, quartets_batch, spr
@@ -368,6 +393,7 @@ def read_counts() -> dict:
             "b2_by_K": dict(newview_whole.LAUNCHES_BY_K),
             "full_traversals": engine.FULL_TRAVERSALS,
             "partial_traversals": engine.PARTIAL_TRAVERSALS,
+            "pooled_traversals": engine.POOLED_TRAVERSALS,
             "chunk_launch_rows": engine.CHUNK_LAUNCH_ROWS,
             "grad_passes": engine.GRAD_PASSES,
             "grad_sweeps": branch.GRAD_SWEEPS,
@@ -1105,18 +1131,18 @@ def real_setup(ntaxa: int, parts: int, width: int, seed: int) -> dict:
             "alignment_s": time.perf_counter() - t0}
 
 
-def real_instance(setup: dict, device, newview: str, dtype=None,
-                  rate_model: str = "GAMMA"):
-    """The real-size instance on one tier (f32 unless `dtype` says), its
-    models, and the seed's random tree with the set-up's branch lengths.
-    Under PSR the models keep their rates and frequencies with one rate
-    category."""
+def real_instance(setup: dict, device, newview, dtype=None,
+                  rate_model: str = "GAMMA", save_memory: bool = False):
+    """The real-size instance on one tier (f32 unless `dtype` says; the
+    pooled tier under save_memory, newview None), its models, and the
+    seed's random tree with the set-up's branch lengths.  Under PSR the
+    models keep their rates and frequencies with one rate category."""
     import torch
     from examl_tpu_torch.instance import PhyloInstance
     from examl_tpu_torch.transfer import install_model_params
     inst = PhyloInstance(setup["ad"], dtype=dtype or torch.float32,
                          device=device, newview=newview,
-                         rate_model=rate_model)
+                         rate_model=rate_model, save_memory=save_memory)
     install_model_params(inst, setup["params"])
     tree = inst.random_tree(setup["seed"])
     for (p, _), z in zip(tree.all_branches(), setup["zs"]):
@@ -1232,7 +1258,8 @@ def log_profile(profile: dict, kernel: str) -> None:
         log(f"  profiled evaluate: wall {profile['wall_ms']:.2f} ms, device "
             f"busy {profile['busy_ms']:.2f} ms (idle share "
             f"{profile['idle_share']:.3f}) in {profile['launches']} device "
-            f"ops, {kernel} {profile[kernel.lower() + '_ms']:.2f} ms")
+            f"ops, {kernel} {profile[kernel.lower() + '_ms']:.2f} ms in the "
+            f"trace ({profile[kernel.lower() + '_launches']} launched)")
         for r in profile["top"]:
             log(f"    {r['ms']:9.3f} ms  {r['calls']:5d}x  {r['name']}")
     else:
@@ -2366,6 +2393,11 @@ def phase_real_whole(device, setup: dict, reps: int, chunk_lnl: float):
     n = flat.n
     rel, abs_err = compare_arenas(clv_k[:n], clv_p[:n], sc_k[:n], sc_p[:n],
                                   "whole full traversal")
+    # B2's cooperative launch alone under the profiler, beside the
+    # evaluate's: whether the trace holds B2 at all (its time is the CUDA
+    # events' kernel_ms either way).
+    b2_probe = device_breakdown(
+        lambda: newview_whole.whole_apply(clv_k, sc_k, *args), device)
     del clv_k, sc_k, clv_p, sc_p
     profile = device_breakdown(lambda: inst.evaluate(tree, full=True),
                                device)
@@ -2375,6 +2407,14 @@ def phase_real_whole(device, setup: dict, reps: int, chunk_lnl: float):
         f"ms, bound {bound['bound_ms']:.3f} ms ({bound['bound_by']}); "
         f"kernel vs plain rel err {rel:.3e}, scalers equal")
     log_profile(profile, "B2")
+    if b2_probe["measured"]:
+        log(f"  profiled B2 launch alone: {b2_probe['b2_launches']} launched, "
+            f"{b2_probe['b2_ms']:.3f} ms of B2 in the trace, device busy "
+            f"{b2_probe['busy_ms']:.3f} ms in {b2_probe['launches']} device "
+            f"ops")
+    else:
+        log(f"  profiled B2 launch alone: no device time in the trace "
+            f"({b2_probe['error']}; {b2_probe.get('b2_launches')} launched)")
 
     # One model-optimization pass: every Brent probe is push_models (host
     # eigensystems) + a full traversal through B2.
@@ -2413,20 +2453,508 @@ def phase_real_whole(device, setup: dict, reps: int, chunk_lnl: float):
         "grid_blocks": newview_whole.LAST_GRID, "kernel_ms": kernel_ms,
         "plain_ms": plain_ms, **bound, "max_rel_err": rel,
         "max_abs_err": abs_err, "launches_by_path": launches,
-        "profile": profile, "opt_lnl_before": before,
+        "profile": profile, "b2_probe": b2_probe,
+        "opt_lnl_before": before,
         "opt_lnl_after": after, "opt_s": opt_s,
         "opt_full_traversals": full, "opt_ms_per_probe": opt_s * 1e3 / full,
         "opt_push_models_ms_per_probe": host[0] * 1e3 / full,
     }
 
 
+# -- phase 19: SEV (-S) at real width ----------------------------------------
+
+
+def subtree_tips(tree, s) -> frozenset:
+    """Tip numbers of the subtree at slot s (away from s.back)."""
+    out, stack = set(), [s]
+    while stack:
+        x = stack.pop()
+        if tree.is_tip(x.number):
+            out.add(x.number)
+        else:
+            stack += [x.next.back, x.next.next.back]
+    return frozenset(out)
+
+
+def informative_branches(tree, clades) -> list:
+    """The inner branches (p, q) with some partition sequenced on both
+    sides.  Along any other branch the lnL does not depend on z (every
+    partition is all gap on one side: its CLV there is 1 under -S, ~1
+    after rounding on the dense arena), so Newton-Raphson ends where
+    rounding sends it, and such branches are not compared."""
+    out = []
+    for p, q in tree.all_branches():
+        if tree.is_tip(p.number) or tree.is_tip(q.number):
+            continue
+        side = subtree_tips(tree, p)
+        if any(c & side and c - side for c in clades):
+            out.append((p, q))
+    return out
+
+
+def sev_setup(seed: int) -> dict:
+    """The gappy real-size inputs: SEV_PARTS partitions of SEV_WIDTH
+    columns on SEV_TAXA taxa, partition g sequenced (a correlated walk, as
+    synthetic_alignment's) only for the taxa of one clade of the seed's
+    random tree, drawn among the clades of SEV_CLADE taxa, and all gap for
+    every other taxon — a supermatrix whose genes were each sequenced for
+    one group; models and branch lengths from the seed, as real_setup's."""
+    from examl_tpu_torch import datatypes
+    from examl_tpu_torch.io.alignment import (AlignmentData, PartitionData,
+                                              compress_patterns,
+                                              empirical_frequencies)
+    from examl_tpu_torch.tree.topology import Tree
+    t0 = time.perf_counter()
+    names = [f"t{i}" for i in range(SEV_TAXA)]
+    tree = Tree.random(names, seed, 1)
+    lo, hi = SEV_CLADE
+    clades = sorted({t for p, q in tree.all_branches() for t in
+                     (subtree_tips(tree, p), subtree_tips(tree, q))
+                     if lo <= len(t) <= hi}, key=sorted)
+    check(len(clades) > 0, f"the seed's tree has no clade of {lo}-{hi} taxa")
+    rng = np.random.default_rng(seed + 2)
+    pick = rng.choice(len(clades), SEV_PARTS,
+                      replace=len(clades) < SEV_PARTS)
+    dna = np.array([1, 2, 4, 8], np.uint8)
+    parts, sizes = [], []
+    for g, c in enumerate(pick):
+        rows = np.asarray(sorted(clades[c]), np.int64) - 1
+        codes = np.full((SEV_TAXA, SEV_WIDTH), 15, np.uint8)
+        cur = rng.integers(0, 4, SEV_WIDTH)
+        for t in rows:
+            flip = rng.random(SEV_WIDTH) < 0.15
+            cur = np.where(flip, rng.integers(0, 4, SEV_WIDTH), cur)
+            codes[t] = dna[cur]
+        pats, wts = compress_patterns(codes)
+        parts.append(PartitionData(
+            name=f"g{g}", datatype=datatypes.DNA, model_name="GTR",
+            patterns=pats, weights=wts,
+            empirical_freqs=empirical_frequencies(pats, wts, datatypes.DNA),
+            use_empirical_freqs=True, optimize_freqs=False))
+        sizes.append(len(rows))
+    params = []
+    prng = np.random.default_rng(seed + 1)
+    for _ in range(SEV_PARTS):
+        rates = prng.uniform(0.3, 6.0, 6)
+        rates[-1] = 1.0
+        params.append((rates, prng.dirichlet(np.ones(4) * 5),
+                       prng.uniform(0.2, 1.5)))
+    zs = np.exp(-prng.exponential(0.08, 2 * SEV_TAXA - 3))
+    ad = AlignmentData(names, parts)
+    return {"ad": ad, "params": params, "zs": zs, "seed": seed,
+            "ntaxa": SEV_TAXA, "parts": SEV_PARTS, "clade_taxa": sizes,
+            "clades": [clades[c] for c in pick],
+            "patterns": int(sum(p.width for p in parts)),
+            "alignment_s": time.perf_counter() - t0}
+
+
+def phase_sev(device, seed: int, reps: int):
+    """SEV memory saving at real width: one -S instance (the pooled tier)
+    and one dense instance (the chunk tier, B1), both f32, on the gappy
+    set-up's data and tree.  Each instance's path (built, evaluated,
+    Newton-Raphson on SEV_NEWTON inner branches, a batched lazy scan of
+    SEV_SCAN_SLOTS pruned nodes at radius 1-5 after one untimed warm-up
+    node) reads the counts reset just before it.  Newton-Raphson runs on
+    the first inner branches with data on both sides (along the others
+    the lnL is flat in z; their count is reported).  The pooled lnL, the
+    branch lengths and every candidate lnL are held to the dense
+    instance's at rel SEV_RTOL, each slot's best move must be the same on
+    both (or tie within SEV_RTOL), the saving above SEV_MIN_SAVING, the
+    pool below the dense arena, and the -S path launches neither B1 nor
+    B2."""
+    import torch
+    from examl_tpu_torch.search import batchscan, spr
+    setup = sev_setup(seed)
+    release_memory()
+    out = {"taxa": SEV_TAXA, "parts": SEV_PARTS,
+           "patterns": setup["patterns"],
+           "clade_taxa": setup["clade_taxa"]}
+    scores = {}
+    run_plan = batchscan.run_plan
+
+    def recorded_plan(inst_, tree_, plan):
+        lnls = run_plan(inst_, tree_, plan)
+        for c, lnl in zip(plan.candidates, lnls):
+            scores[(plan.s_num, c.q_slot.number,
+                    c.q_slot.back.number)] = float(lnl)
+        return lnls
+
+    keep = []
+    for name, kw in (("sev", {"newview": None, "save_memory": True}),
+                     ("dense", {"newview": "chunk"})):
+        base = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_counts()
+        t0 = time.perf_counter()
+        inst, tree = real_instance(setup, device, **kw)
+        lnl, walls = timed_evaluates(inst, tree, device, reps)
+        peak = torch.cuda.max_memory_allocated(device) - base
+        build_s = time.perf_counter() - t0 - sum(walls)
+        eng = inst.engines[4]
+        r = {"lnl": lnl, "evaluate_ms": float(np.mean(walls) * 1e3),
+             "evaluate_ms_runs": [w * 1e3 for w in walls],
+             "peak_bytes": int(peak), "setup_s": build_s}
+        if name == "sev":
+            r["stats"] = eng.sev.stats()
+            r["pool_bytes"] = (eng.sev.pool.numel()
+                               * eng.sev.pool.element_size())
+            r["profile"] = device_breakdown(
+                lambda: inst.evaluate(tree, full=True), device)
+        else:
+            r["arena_bytes"] = eng.clv.numel() * eng.clv.element_size()
+        branches = informative_branches(tree, setup["clades"])
+        r["flat_branches"] = SEV_TAXA - 3 - len(branches)
+        branches = branches[:SEV_NEWTON]
+        t0 = time.perf_counter()
+        r["z"] = [float(inst.makenewz(tree, p, q, p.z, maxiter=16)[0])
+                  for p, q in branches]
+        sync(device)
+        r["makenewz_s"] = time.perf_counter() - t0
+
+        def deep(p) -> bool:
+            return not tree.is_tip(p.number) and not (
+                tree.is_tip(p.next.back.number)
+                and tree.is_tip(p.next.next.back.number))
+
+        slots = [p for p in spr.dfs_slot_order(tree)
+                 if deep(p)][:SEV_SCAN_SLOTS + 1]
+        check(len(slots) == SEV_SCAN_SLOTS + 1, "too few inner slots")
+        best = []
+        batchscan.run_plan = recorded_plan
+        try:
+            for i, p in enumerate(slots):
+                if i == 1:
+                    sync(device)
+                    scores.clear()
+                    n0 = spr.INSERTIONS_SCORED
+                    t0 = time.perf_counter()
+                ctx = spr.SprContext(inst, thorough=False, do_cutoff=False)
+                ctx.start_lh = ctx.end_lh = math.inf
+                ctx.best_of_node = -math.inf
+                spr.rearrange_batched(inst, tree, ctx, p, 1, 5)
+                if i:
+                    best.append((ctx.remove_node.back.number,
+                                 ctx.insert_node.number,
+                                 ctx.insert_node.back.number))
+            sync(device)
+            scan_s = time.perf_counter() - t0
+        finally:
+            batchscan.run_plan = run_plan
+        n = spr.INSERTIONS_SCORED - n0
+        check(n > 0 and len(scores) == n,
+              f"{name}: {n} insertions scored, {len(scores)} recorded")
+        counts = read_counts()
+        if name == "sev":
+            check(counts["b1"] == counts["b2"] == 0
+                  and counts["full_traversals"] == 0,
+                  f"the -S path launched a newview kernel: {counts}")
+            check(counts["pooled_traversals"] > 0,
+                  "the -S path ran no pooled traversal")
+            r["pool_bytes_after_scan"] = (eng.sev.pool.numel()
+                                          * eng.sev.pool.element_size())
+            r["stats_after_scan"] = eng.sev.stats()
+        else:
+            check_tier(counts, "chunk", "phase 19 dense path")
+            check(counts["pooled_traversals"] == 0,
+                  "the dense path ran a pooled traversal")
+        r.update(counts=counts, scan_s=scan_s, insertions=n,
+                 ms_per_insertion=scan_s * 1e3 / n,
+                 ms_per_pruned_node=scan_s * 1e3 / SEV_SCAN_SLOTS,
+                 scores=dict(scores), best=best)
+        out[name] = r
+        keep.append((inst, tree))
+    sev, dense = out["sev"], out["dense"]
+    rel = abs(sev["lnl"] - dense["lnl"]) / abs(dense["lnl"])
+    check(rel <= SEV_RTOL, f"pooled lnL {sev['lnl']} vs dense "
+          f"{dense['lnl']} (rel {rel:.3g})")
+    zrel = max(abs(a - b) / b for a, b in zip(sev["z"], dense["z"]))
+    check(zrel <= SEV_RTOL, f"makenewz: pooled {sev['z']} vs dense "
+          f"{dense['z']} (rel {zrel:.3g})")
+    s, d = sev.pop("scores"), dense.pop("scores")
+    check(set(s) == set(d), f"the instances scanned different windows "
+          f"({len(s)} and {len(d)} candidates)")
+    srel = max(abs(s[k] - d[k]) / abs(d[k]) for k in d)
+    check(srel <= SEV_RTOL, f"pooled and dense candidate lnLs differ by rel "
+          f"{srel:.3g}")
+    same = 0
+    for ks, kd in zip(sev.pop("best"), dense.pop("best")):
+        same += ks == kd
+        check(ks == kd or abs(d[ks] - d[kd]) <= SEV_RTOL * abs(d[kd]),
+              f"the pooled scan's best move {ks} has the dense lnL "
+              f"{d[ks]!r}, the dense best {kd} {d[kd]!r}")
+    st = sev["stats"]
+    check(st["saving_ratio"] > SEV_MIN_SAVING,
+          f"SEV saving {st['saving_ratio']:.3f} <= {SEV_MIN_SAVING}")
+    check(sev["pool_bytes"] < dense["arena_bytes"],
+          f"pool {sev['pool_bytes']} B not below the dense arena "
+          f"{dense['arena_bytes']} B")
+    dense_cells_bytes = st["dense_cells"] * st["cell_bytes"]
+    out.update(lnl_rel=rel, z_rel=zrel, candidates=len(d),
+               candidate_rel=srel, same_best_move=same,
+               dense_cells_bytes=dense_cells_bytes)
+    del keep
+    release_memory()
+    prof = sev["profile"]
+    log(f"  {SEV_TAXA} taxa x {setup['patterns']} patterns in {SEV_PARTS} "
+        f"partitions, each sequenced for one clade of "
+        f"{min(setup['clade_taxa'])}-{max(setup['clade_taxa'])} taxa")
+    log(f"  pooled lnL {sev['lnl']!r}, dense (B1) {dense['lnl']!r}, rel "
+        f"{rel:.2e}; makenewz on {SEV_NEWTON} branches rel {zrel:.2e} "
+        f"({sev['flat_branches']} of {SEV_TAXA - 3} inner branches have no "
+        "partition on both sides)")
+    log(f"  SEV: {st['allocated_cells']} of {st['dense_cells']} cells "
+        f"allocated (saving {st['saving_ratio']:.4f}); pool "
+        f"{sev['pool_bytes'] / 1e9:.3f} GB against the dense arena "
+        f"{dense['arena_bytes'] / 1e9:.3f} GB ({dense_cells_bytes / 1e9:.3f} "
+        f"GB without slack); peak memory -S {sev['peak_bytes'] / 1e9:.3f} GB, "
+        f"dense {dense['peak_bytes'] / 1e9:.3f} GB")
+    log(f"  full traversal + evaluate: pooled {sev['evaluate_ms']:.2f} ms, "
+        f"dense chunk tier {dense['evaluate_ms']:.2f} ms")
+    if prof["measured"]:
+        log(f"  profiled pooled evaluate: wall {prof['wall_ms']:.1f} ms, "
+            f"device busy {prof['busy_ms']:.1f} ms (idle share "
+            f"{prof['idle_share']:.3f}) in {prof['launches']} device ops")
+        for row in prof["top"]:
+            log(f"    {row['ms']:9.3f} ms  {row['calls']:5d}x  {row['name']}")
+    else:
+        log(f"  profiled pooled evaluate: not measured ({prof['error']})")
+    log(f"  batched lazy scan, {SEV_SCAN_SLOTS} pruned nodes, {len(d)} "
+        f"insertions: pooled {sev['ms_per_insertion']:.3f} ms per insertion "
+        f"({sev['ms_per_pruned_node']:.1f} ms per node), dense "
+        f"{dense['ms_per_insertion']:.3f} ms "
+        f"({dense['ms_per_pruned_node']:.1f} ms); candidate rel {srel:.2e}; the same best move on {same} of "
+        f"{SEV_SCAN_SLOTS}; pool after the scan "
+        f"{sev['pool_bytes_after_scan'] / 1e9:.3f} GB")
+    log(f"  counts -S {sev['counts']}")
+    return out
+
+
+# -- phase 20: -S through the CLI ---------------------------------------------
+
+
+def sev_cli_alignment(seed: int):
+    """The JAX package's tests/test_sev.py shape: SEV_CLI_TAXA taxa, SEV_CLI_
+    GENES genes of SEV_CLI_WIDTH columns, gene g sequenced for its share of
+    the taxa (a correlated walk, as synthetic_alignment's, where that
+    module draws independent columns: without a signal the PSR model
+    optimization runs to its round limit) and all gap for the rest."""
+    from examl_tpu_torch.io.alignment import build_alignment_data
+    from examl_tpu_torch.io.partitions import PartitionSpec
+    rng = np.random.default_rng(seed)
+    names = [f"t{i}" for i in range(SEV_CLI_TAXA)]
+    per = SEV_CLI_TAXA // SEV_CLI_GENES
+    seqs = ["" for _ in names]
+    for g in range(SEV_CLI_GENES):
+        cur = rng.integers(0, 4, SEV_CLI_WIDTH)
+        for i in range(SEV_CLI_TAXA):
+            if g * per <= i < (g + 1) * per:
+                flip = rng.random(SEV_CLI_WIDTH) < 0.15
+                cur = np.where(flip, rng.integers(0, 4, SEV_CLI_WIDTH), cur)
+                seqs[i] += "".join("ACGT"[b] for b in cur)
+            else:
+                seqs[i] += "-" * SEV_CLI_WIDTH
+    specs = [PartitionSpec(f"gene{g}", "DNA", "GTR",
+                           np.arange(g * SEV_CLI_WIDTH,
+                                     (g + 1) * SEV_CLI_WIDTH))
+             for g in range(SEV_CLI_GENES)]
+    return build_alignment_data(names, seqs, specs)
+
+
+def sev_cli_start(names) -> str:
+    """The start tree of phase 20: each gene's taxa a caterpillar clade
+    (the JAX package's tests/test_sev.py gene-clade tree), the clades
+    joined at the root."""
+    per = len(names) // SEV_CLI_GENES
+    clades = []
+    for g in range(SEV_CLI_GENES):
+        c = names[g * per]
+        for t in names[g * per + 1:(g + 1) * per]:
+            c = f"({c}:0.1,{t}:0.1)"
+        clades.append(c + ":0.1")
+    return "(" + ",".join(clades) + ");"
+
+
+def sev_saving(info: str) -> float:
+    """The saving on the info file's last SEV bucket line (fraction)."""
+    lines = re.findall(r"^SEV bucket states=\d+: \d+ of \d+ CLV cells "
+                       r"allocated \(([\d.]+)% saved\)$", info, re.M)
+    check("  SEV (-S) pool active for this bucket" in info.splitlines()
+          and len(lines) == 1, "the info file lacks the SEV lines")
+    return float(lines[0]) / 100.0
+
+
+def check_pooled(counts: dict, path: str) -> None:
+    check(counts["b1"] == counts["b2"] == counts["full_traversals"] == 0,
+          f"{path} launched a newview kernel: {counts}")
+    check(counts["pooled_traversals"] > 0, f"{path}: no pooled traversal")
+
+
+def phase_sev_cli(device, out_dir: str, seed: int):
+    """-S through the port's CLI at small size, f32 on the card: -f d -i 5
+    (the batched SPR scan over the pool), its endpoint re-evaluated on the
+    dense chunk tier and its last checkpoint restored there and under -S
+    (the pool's saving on the endpoint tree); -R -S from the last-but-one
+    checkpoint; -m PSR -f e -S; -f q -S -r SEV_CLI_QUARTETS (the
+    sequential scorer).  The saving asked of -m PSR, -f q and the endpoint
+    tree is SEV_CLI_MIN_SAVING; -f d's info line also counts the scan
+    region, dense by design, and is reported."""
+    import shutil
+    import torch
+    from examl_tpu_torch.instance import PhyloInstance
+    from examl_tpu_torch.io.bytefile import read_bytefile, write_bytefile
+    from examl_tpu_torch.search.checkpoint import CheckpointManager
+    ad = sev_cli_alignment(seed)
+    aln = os.path.join(out_dir, "sev_aln.binary")
+    write_bytefile(aln, ad)
+    start = os.path.join(out_dir, "sev_start.nwk")
+    with open(start, "w") as f:
+        f.write(sev_cli_start(ad.taxon_names) + "\n")
+    out = {"taxa": SEV_CLI_TAXA, "genes": SEV_CLI_GENES,
+           "width": SEV_CLI_WIDTH}
+
+    workdir = os.path.join(out_dir, "sev_fd")
+    shutil.rmtree(workdir, ignore_errors=True)
+    rc, wall, counts, info = run_cli(["-s", aln, "-t", start, "-i", "5",
+                                      "-S"], device, workdir)
+    check(rc == 0, f"-f d -S returned {rc}")
+    check_pooled(counts, "-f d -S")
+    check("SPR lazy-arm scan: batched" in info and counts["scan_calls"] > 0,
+          "-f d -S on the card did not take the batched SPR scan")
+    saving = sev_saving(info)
+    logged = [float(line.split()[1]) for line in open(os.path.join(
+        workdir, "ExaML_log.smoke")).read().splitlines()]
+    final = float(re.search(r"Likelihood of best tree: (\S+)",
+                            info).group(1))
+    check(final >= logged[0], f"-f d -S ended at {final}, below its start "
+          f"{logged[0]}")
+    reset_counts()
+    lnl_dense, _, _ = reevaluate(workdir, aln, torch.float32, device)
+    dense_counts = read_counts()
+    check_tier(dense_counts, "chunk", "-f d -S endpoint re-evaluated")
+    check(abs(lnl_dense - final) <= SEV_RTOL * abs(final),
+          f"-f d -S endpoint {final} re-evaluates to {lnl_dense} on the "
+          "dense chunk tier")
+    ckpts = read_checkpoints(workdir)
+    inst = PhyloInstance(read_bytefile(aln), device=device)
+    CheckpointManager(workdir, "smoke").restore(inst, inst.random_tree(0))
+    import gzip
+    with gzip.open(os.path.join(workdir, "ExaML_binaryCheckpoint.smoke."
+                                f"ckpt_{max(ckpts)}.json.gz"), "rt") as f:
+        ck_lnl = json.load(f)["tree"]["likelihood"]
+    check(abs(inst.likelihood - ck_lnl) <= SEV_RTOL * abs(ck_lnl),
+          f"last -S checkpoint (lnL {ck_lnl}) restores to "
+          f"{inst.likelihood} on the dense chunk tier")
+    # The pool's saving on the endpoint tree: the info line's ratio also
+    # counts the batched scan's region, which is dense by design and at
+    # this size holds more rows than the tree's nodes.
+    sinst = PhyloInstance(read_bytefile(aln), device=device,
+                          save_memory=True)
+    CheckpointManager(workdir, "smoke").restore(sinst,
+                                                sinst.random_tree(0))
+    end_saving = sinst.engines[4].sev.stats()["saving_ratio"]
+    check(end_saving > SEV_CLI_MIN_SAVING
+          and abs(sinst.likelihood - ck_lnl) <= SEV_RTOL * abs(ck_lnl),
+          f"last -S checkpoint restored under -S: lnL {sinst.likelihood} "
+          f"(checkpoint {ck_lnl}), saving {end_saving:.3f}")
+    del inst, sinst
+    out["fd"] = {"wall_s": wall, "start_lnl": logged[0], "final_lnl": final,
+                 "dense_reevaluated": lnl_dense,
+                 "dense_reevaluate_launches": dense_counts,
+                 "checkpoint_lnl": ck_lnl,
+                 "saving_with_scan_region": saving,
+                 "endpoint_saving": end_saving, "checkpoints": len(ckpts),
+                 "launches": counts}
+    log(f"  -f d -i 5 -S: lnL {logged[0]!r} -> {final!r} in {wall:.1f} s "
+        f"(saving {saving:.3f} with the scan region, {end_saving:.3f} on "
+        f"the endpoint tree; {counts['pooled_traversals']} pooled "
+        f"traversals, {counts['scan_calls']} batched scan calls, "
+        f"{counts['insertions_scored']} insertions); dense chunk tier "
+        f"re-evaluates {lnl_dense!r}, last checkpoint {ck_lnl!r}")
+
+    rdir = os.path.join(out_dir, "sev_restart")
+    shutil.rmtree(rdir, ignore_errors=True)
+    shutil.copytree(workdir, rdir)
+    check(len(ckpts) >= 2, f"-f d -S wrote {len(ckpts)} checkpoints")
+    kept = sorted(ckpts)[-2]
+    for n in ckpts:
+        if n > kept:
+            os.remove(os.path.join(
+                rdir, f"ExaML_binaryCheckpoint.smoke.ckpt_{n}.json.gz"))
+    rc, rwall, rcounts, rinfo = run_cli(["-s", aln, "-t", start, "-i", "5",
+                                         "-S", "-R"], device, rdir)
+    check(rc == 0, f"-R -S returned {rc}")
+    check_pooled(rcounts, "-R -S")
+    rfinal = float(re.findall(r"Likelihood of best tree: (\S+)", rinfo)[-1])
+    check(rfinal >= final - 0.5, f"-R -S ended at {rfinal}, below the "
+          f"continuous run's {final} less 0.5")
+    out["restart"] = {"checkpoint": kept, "final_lnl": rfinal,
+                      "wall_s": rwall, "launches": rcounts}
+    log(f"  -R -S from checkpoint {kept} ({ckpts[kept]}): {rfinal!r} in "
+        f"{rwall:.1f} s")
+
+    pdir = os.path.join(out_dir, "sev_psr")
+    shutil.rmtree(pdir, ignore_errors=True)
+    inst = PhyloInstance(read_bytefile(aln), device=device,
+                         rate_model="PSR", save_memory=True)
+    with open(start) as f:
+        pstart = inst.evaluate(inst.tree_from_newick(f.read()), full=True)
+    del inst
+    rc, pwall, pcounts, pinfo = run_cli(["-s", aln, "-t", start, "-f", "e",
+                                         "-m", "PSR", "-S"], device, pdir)
+    check(rc == 0, f"-m PSR -f e -S returned {rc}")
+    check_pooled(pcounts, "-m PSR -f e -S")
+    check(pcounts["grad_passes"] == 0, "-S smoothed by gradient passes")
+    pfinal = float(re.search(r"Likelihood tree 0: (\S+)", pinfo).group(1))
+    check(pfinal >= pstart, f"-m PSR -f e -S ended at {pfinal}, below its "
+          f"start {pstart}")
+    cats = model_file_categories(os.path.join(pdir, "ExaML_modelFile.smoke"))
+    check(len(cats) == SEV_CLI_GENES
+          and all(1 <= c <= PSR_CATEGORIES for c in cats),
+          f"-m PSR -f e -S categories {cats}")
+    psaving = sev_saving(pinfo)
+    check(psaving > SEV_CLI_MIN_SAVING, f"-m PSR -f e -S saved {psaving:.3f}")
+    out["psr"] = {"start_lnl": pstart, "final_lnl": pfinal, "wall_s": pwall,
+                  "categories": cats, "saving": psaving,
+                  "launches": pcounts}
+    log(f"  -m PSR -f e -S: {pstart!r} -> {pfinal!r} in {pwall:.1f} s, "
+        f"categories {cats}, saving {psaving:.3f}")
+
+    qdir = os.path.join(out_dir, "sev_fq")
+    shutil.rmtree(qdir, ignore_errors=True)
+    rc, qwall, qcounts, qinfo = run_cli(
+        ["-s", aln, "-t", start, "-f", "q", "-S", "-r",
+         str(SEV_CLI_QUARTETS)], device, qdir)
+    check(rc == 0, f"-f q -S returned {rc}")
+    check_pooled(qcounts, "-f q -S")
+    check("quartet scoring: sequential" in qinfo
+          and qcounts["quartet_jobs"] == 0,
+          "-f q -S did not take the sequential scorer")
+    with open(os.path.join(qdir, "ExaML_quartets.smoke")) as f:
+        rows = [float(line.split(": ")[1]) for line in f if "|" in line]
+    check(len(rows) == 3 * SEV_CLI_QUARTETS
+          and all(math.isfinite(v) and v < 0 for v in rows),
+          f"-f q -S wrote {len(rows)} rows, finite negative expected")
+    qsaving = sev_saving(qinfo)
+    check(qsaving > SEV_CLI_MIN_SAVING, f"-f q -S saved {qsaving:.3f}")
+    out["quartets"] = {"rows": len(rows), "wall_s": qwall, "saving": qsaving,
+                       "ms_per_topology": qwall * 1e3 / len(rows),
+                       "launches": qcounts}
+    log(f"  -f q -S -r {SEV_CLI_QUARTETS}: {len(rows)} rows in {qwall:.1f} s, "
+        f"saving {qsaving:.3f}")
+    return out
+
+
 def device_breakdown(fn, device, top: int = 8) -> dict:
     """Device time of one call of fn() by kernel, from torch.profiler:
     busy ms (sum of kernel self times), the wall ms of the call, the idle
-    share, and the top kernels.  The profiler is untried on every
-    machine, so a failure to trace is recorded as not measured."""
+    share, and the top kernels, beside the B1 and B2 launches the call
+    counted (so that a kernel launched but missing from the trace shows).
+    The profiler is untried on every machine, so a failure to trace is
+    recorded as not measured."""
     from torch.profiler import ProfilerActivity, profile
+    from examl_tpu_torch.ops import newview_chunk, newview_whole
     sync(device)
+    n1, n2 = newview_chunk.LAUNCHES, newview_whole.LAUNCHES
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -2434,6 +2962,8 @@ def device_breakdown(fn, device, top: int = 8) -> dict:
             fn()
             sync(device)
             wall_ms = (time.perf_counter() - t0) * 1e3
+        launched = {"b1_launches": newview_chunk.LAUNCHES - n1,
+                    "b2_launches": newview_whole.LAUNCHES - n2}
         rows = []
         for e in prof.key_averages():
             # Device-side events only: an operator's row repeats the time
@@ -2448,7 +2978,8 @@ def device_breakdown(fn, device, top: int = 8) -> dict:
     except (RuntimeError, AttributeError) as exc:
         return {"measured": False, "error": f"{type(exc).__name__}: {exc}"}
     if not rows:
-        return {"measured": False, "error": "no device time in the trace"}
+        return {"measured": False, "error": "no device time in the trace",
+                **launched}
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     b1 = sum(r[1] for r in rows if "newview_chunk" in r[0])
@@ -2456,7 +2987,7 @@ def device_breakdown(fn, device, top: int = 8) -> dict:
     return {"measured": True, "wall_ms": wall_ms, "busy_ms": busy,
             "idle_share": max(0.0, 1.0 - busy / wall_ms),
             "launches": sum(r[2] for r in rows), "b1_ms": b1, "b2_ms": b2,
-            "top": [{"name": k[:120], "ms": ms, "calls": n}
+            **launched, "top": [{"name": k[:120], "ms": ms, "calls": n}
                     for k, ms, n in rows[:top]]}
 
 
@@ -2503,7 +3034,8 @@ def ptxas_lines(text: str) -> list:
 
 
 def kernels_line(real, real_whole, search, scan, grad, anchor_whole,
-                 restart, aa_cli, real_aa, fq, cases, whole_cases) -> list:
+                 restart, aa_cli, real_aa, fq, sev, sev_cli, cases,
+                 whole_cases) -> list:
     """The kernels line: each kernel's row, with its instances by K."""
     # Each kernel's launches on the main paths of this run, each path
     # counted from 0 just before it and read just after it: B1 on the
@@ -2513,8 +3045,10 @@ def kernels_line(real, real_whole, search, scan, grad, anchor_whole,
     # real-size amino-acid evaluate and -f q's model optimization; B2 on
     # every whole-tier path, the -R restart, the re-evaluation of the
     # gradient-smoothed tree and of the amino-acid -f e endpoint and the
-    # amino-acid model optimization included.  The PSR paths launch
-    # neither (their traversals run on the wave-scan tier).  `by_K` splits
+    # amino-acid model optimization included; B1 also on the dense
+    # instance's path of phase 19 and the dense re-evaluation of phase
+    # 20's -S endpoint.  The PSR and -S paths launch neither (their
+    # traversals run on the wave-scan and pooled tiers).  `by_K` splits
     # each kernel's row by instance: the launches by state count, and its
     # real-size time, plain time and bound (DNA from phases 10 and 13,
     # amino acids and binary from phase 16).
@@ -2523,7 +3057,9 @@ def kernels_line(real, real_whole, search, scan, grad, anchor_whole,
     b1_paths = [real["launches_by_path"]["evaluate"], search["launches"],
                 scan["evaluate_launches"], grad_paths["traversal_and_pass"],
                 grad_paths["tree_evaluate"], aa_cli["launches"],
-                aa_paths["chunk_evaluate"], fq["launches"]]
+                aa_paths["chunk_evaluate"], fq["launches"],
+                sev["dense"]["counts"],
+                sev_cli["fd"]["dense_reevaluate_launches"]]
     b2_paths = [anchor_whole["launches_anchors"], anchor_whole["fe_launches"],
                 restart["launches"], grad_paths["whole_reevaluate"],
                 *real_whole["launches_by_path"].values(),
@@ -2706,10 +3242,17 @@ def main(argv=None) -> int:
               "tier, f32")
         real_fq = phase_real_quartets(device, setup, args.seed)
 
+        phase("-S at real width: the SEV pool against the dense arena "
+              "(pooled tier, chunk tier), f32")
+        sev = phase_sev(device, args.seed, SEV_REPS)
+
+        phase("-S through the CLI: -f d, -R, -m PSR -f e, -f q; f32")
+        sev_cli = phase_sev_cli(device, out_dir, args.seed)
+
         phase("report")
         kernels = kernels_line(real, real_whole, search, scan, grad,
                                anchor_whole, restart, aa_cli, real_aa, fq,
-                               cases, whole_cases)
+                               sev, sev_cli, cases, whole_cases)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -2722,8 +3265,8 @@ def main(argv=None) -> int:
               "spr_scan": scan, "real_size_gradients": grad,
               "real_size_whole": real_whole, "real_size_psr": real_psr,
               "aa_cli": aa_cli, "real_size_aa": real_aa, "quartets": fq,
-              "real_size_quartets": real_fq,
-              "ptxas": ptxas,
+              "real_size_quartets": real_fq, "sev": sev,
+              "sev_cli": sev_cli, "ptxas": ptxas,
               "wall_s": time.perf_counter() - t_start}
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
@@ -2760,6 +3303,24 @@ def main(argv=None) -> int:
         "real_size_psr": {k: real_psr[k] for k in (
             "round_s", "ms_per_grid_chunk", "grid_chunks", "categories",
             "tree_evaluate_s", "sweeps", "peak_bytes")}}))
+    log(json.dumps({"sev": {
+        "taxa": sev["taxa"], "patterns": sev["patterns"],
+        "saving_ratio": sev["sev"]["stats"]["saving_ratio"],
+        "allocated_cells": sev["sev"]["stats"]["allocated_cells"],
+        "dense_cells": sev["sev"]["stats"]["dense_cells"],
+        "pool_bytes": sev["sev"]["pool_bytes"],
+        "pool_bytes_after_scan": sev["sev"]["pool_bytes_after_scan"],
+        "dense_arena_bytes": sev["dense"]["arena_bytes"],
+        "peak_bytes": {k: sev[k]["peak_bytes"] for k in ("sev", "dense")},
+        "evaluate_ms": {k: sev[k]["evaluate_ms"] for k in ("sev", "dense")},
+        "ms_per_insertion": {k: sev[k]["ms_per_insertion"]
+                             for k in ("sev", "dense")},
+        "lnl_rel": sev["lnl_rel"], "z_rel": sev["z_rel"],
+        "candidate_rel": sev["candidate_rel"],
+        "same_best_move": sev["same_best_move"],
+        "idle_share": sev["sev"]["profile"].get("idle_share"),
+        "cli": {k: {m: v[m] for m in ("wall_s", "final_lnl") if m in v}
+                for k, v in sev_cli.items() if isinstance(v, dict)}}}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,7 @@ dispatched at `main` :2719-2781).
     python -m examl_tpu_torch.cli.main -s aln.binary -n RUN \\
         [-t tree | -g constraint | -R] [-w DIR] [-f d|o|e|E|q] \\
         [-m GAMMA|PSR] [-c categories] [-a] [-i radius] [-D] [-B N] [-M] \\
-        [-p seed] [-Y groups | -r N] [-I N] [-e epsilon] \\
+        [-S] [-p seed] [-Y groups | -r N] [-I N] [-e epsilon] \\
         [--newview chunk|whole] [--batch-scan auto|on|off] \\
         [--auto-prot ml|bic|aic|aicc]
 
@@ -36,8 +36,15 @@ tree), ExaML_goodTrees.RUN (`-B`) and ExaML_perGeneBranchLengths.RUN
 (`-M`); tree evaluation writes ExaML_TreeFile.RUN (one newick per tree);
 quartet evaluation ExaML_quartets.RUN ("a b | c d: lnL" rows).
 
-`--newview` selects the full-traversal tier: `chunk` (kernel B1) or
-`whole` (kernel B2, one launch per traversal).  `--batch-scan` selects the
+`-S` is ExaML's memory saving for gappy alignments: CLVs live in a
+block-cell pool that stores no (node, block) cell whose subtree is all
+gap there (ops/sev.py), and every traversal runs on the pooled wave-scan
+tier, with no newview kernel, as the JAX package runs it; the info file
+reports each bucket's pool and, at the end, the cells it allocated.
+
+`--newview` selects the full-traversal tier: `chunk` (kernel B1, the
+default) or `whole` (kernel B2, one launch per traversal); `-S` takes
+neither.  `--batch-scan` selects the
 SPR search's scan: `auto` (the default) batches it where the arenas live
 on the card and keeps it sequential on the CPU, `on` / `off` force it
 (`PhyloInstance(batch_scan=...)`).  `main` runs on the card unless the
@@ -55,7 +62,7 @@ from typing import List
 
 from examl_tpu_torch.constants import ZMAX, ZMIN
 from examl_tpu_torch.models.lg4 import LG4Params
-from examl_tpu_torch.ops.engine import NEWVIEW_TIERS
+from examl_tpu_torch.ops.engine import NEWVIEW_TIERS, POOLED_TIER
 
 # State letters of the model file's "rate X <-> Y" and "freq pi(X)" lines.
 _STATE_LETTERS = {"DNA": "ACGT", "AA": "ARNDCQEGHILKMFPSTWYV", "BIN": "01"}
@@ -102,6 +109,8 @@ def build_argparser() -> argparse.ArgumentParser:
                     help="also report the N best distinct trees found")
     ap.add_argument("-M", dest="per_partition_bl", action="store_true",
                     help="estimate per-partition branch lengths")
+    ap.add_argument("-S", dest="save_memory", action="store_true",
+                    help="memory saving for gappy alignments")
     ap.add_argument("-g", dest="constraint_file", default=None,
                     help="multifurcating constraint tree")
     ap.add_argument("-p", dest="seed", type=int, default=12345,
@@ -116,9 +125,9 @@ def build_argparser() -> argparse.ArgumentParser:
                     help="quartet checkpoint interval (-f q)")
     ap.add_argument("-w", dest="workdir", default=".",
                     help="output directory")
-    ap.add_argument("--newview", default="chunk", choices=NEWVIEW_TIERS,
-                    help="full-traversal tier: chunk (kernel B1) or whole "
-                         "(kernel B2)")
+    ap.add_argument("--newview", default=None, choices=NEWVIEW_TIERS,
+                    help="full-traversal tier: chunk (kernel B1, the "
+                         "default) or whole (kernel B2); not with -S")
     ap.add_argument("--batch-scan", dest="batch_scan", default="auto",
                     choices=["auto", "on", "off"],
                     help="SPR scan: batched on the card and sequential on "
@@ -413,6 +422,42 @@ def run_tree_evaluation(args, inst, files: RunFiles) -> int:
     return 0
 
 
+def _packing_report(inst, files: RunFiles) -> None:
+    """Startup site-packing report (the reference's `printAssignments` /
+    `printLoad`, `partitionAssignment.c:461-502`; here the load is lane
+    padding per state bucket), with the SEV pool noted under -S."""
+    for states, bucket in sorted(inst.buckets.items()):
+        true_sites = int(sum(bucket.part_widths))
+        padded = bucket.num_sites
+        files.info(
+            f"bucket states={states}: {bucket.num_parts} partitions, "
+            f"{true_sites} patterns -> {bucket.num_blocks} blocks x "
+            f"{bucket.lane} lanes ({padded - true_sites} padding sites, "
+            f"{100.0 * (padded - true_sites) / padded:.1f}% pad)")
+        if inst.save_memory:
+            files.info("  SEV (-S) pool active for this bucket")
+
+
+def _sev_report(inst, files: RunFiles) -> None:
+    """Each bucket's SEV pool at the end of a -S run."""
+    for states, eng in inst.engines.items():
+        st = eng.sev.stats()
+        files.info(
+            f"SEV bucket states={states}: {st['allocated_cells']} of "
+            f"{st['dense_cells']} CLV cells allocated "
+            f"({100.0 * st['saving_ratio']:.1f}% saved)")
+
+
+def run_mode(args, inst, files: RunFiles) -> int:
+    """The mode `-f` names, on a built instance."""
+    if args.mode in ("d", "o"):
+        return run_search(args, inst, files)
+    if args.mode == "q":
+        from examl_tpu_torch.cli.quartets import run_quartets
+        return run_quartets(args, inst, files)
+    return run_tree_evaluation(args, inst, files)
+
+
 def main(argv=None, device=None) -> int:
     """Run the mode `-f` names; `device` defaults to the card ("cuda")."""
     ap = build_argparser()
@@ -428,12 +473,17 @@ def main(argv=None, device=None) -> int:
     if args.quartet_samples > 0 and args.quartet_file:
         ap.error('you must specify either "-r randomQuartetNumber" or '
                  '"-Y quartetGroupingFileName"')
+    if args.save_memory and args.newview is not None:
+        ap.error(f"--newview {args.newview} cannot combine with -S: kernels "
+                 "B1 and B2 have no pooled form, so -S runs every traversal "
+                 "on the pooled wave-scan tier")
     from examl_tpu_torch.instance import PhyloInstance
     from examl_tpu_torch.io.bytefile import read_bytefile
 
     files = RunFiles(args.workdir, args.run_id, append=args.restart)
+    tier = args.newview or (POOLED_TIER if args.save_memory else "chunk")
     files.info(f"alignment: {args.bytefile}  mode: -f {args.mode}  "
-               f"model: {args.model}  newview: {args.newview}")
+               f"model: {args.model}  newview: {tier}")
     try:
         data = read_bytefile(args.bytefile)
     except ValueError as exc:
@@ -446,15 +496,15 @@ def main(argv=None, device=None) -> int:
                          newview=args.newview, rate_model=args.model,
                          psr_categories=args.categories,
                          batch_scan={"auto": None, "on": True,
-                                     "off": False}[args.batch_scan])
+                                     "off": False}[args.batch_scan],
+                         save_memory=args.save_memory)
     inst.auto_prot_criterion = args.auto_prot
     files.info(f"device: {inst.device}  dtype: {inst.dtype}")
-    if args.mode in ("d", "o"):
-        return run_search(args, inst, files)
-    if args.mode == "q":
-        from examl_tpu_torch.cli.quartets import run_quartets
-        return run_quartets(args, inst, files)
-    return run_tree_evaluation(args, inst, files)
+    _packing_report(inst, files)
+    rc = run_mode(args, inst, files)
+    if inst.save_memory:
+        _sev_report(inst, files)
+    return rc
 
 
 if __name__ == "__main__":

@@ -1,8 +1,9 @@
 """PhyloInstance: alignment + models + likelihood engines behind one facade.
 
 The port of the single-device `examl_tpu/instance.py`, under GAMMA or PSR
-rate heterogeneity: owns the per-partition model parameters (GTR,
-empirical protein matrices, LG4M/LG4X, AUTO's current choice), the
+rate heterogeneity, on dense CLV arenas or SEV pools (`-S`): owns the
+per-partition model parameters (GTR, empirical protein matrices,
+LG4M/LG4X, AUTO's current choice), the
 per-site rate state under PSR, the packed site buckets (one engine per
 state count) and the CLV orientation bookkeeping against a host `Tree`
 (reference `evaluateGeneric`, `newviewGeneric`, `makenewzGeneric`,
@@ -44,13 +45,18 @@ class PhyloInstance:
                  = None, device=None, ncat: int = 4,
                  use_median: bool = False,
                  per_partition_branches: bool = False,
-                 block_multiple: int = 1, newview: str = "chunk",
+                 block_multiple: int = 1, newview: Optional[str] = None,
                  grad_smooth: bool = True, rate_model: str = "GAMMA",
                  psr_categories: int = 25,
                  batch_scan: Optional[bool] = None,
-                 batch_thorough: Optional[bool] = None):
-        """newview: the engines' full-traversal tier, "chunk" (kernel B1)
-        or "whole" (kernel B2), see ops/engine.py.  grad_smooth: full-tree
+                 batch_thorough: Optional[bool] = None,
+                 save_memory: bool = False):
+        """newview: the engines' full-traversal tier, "chunk" (kernel B1,
+        the default) or "whole" (kernel B2), see ops/engine.py.
+        save_memory: SEV memory saving (the CLI's -S): every engine keeps
+        its CLVs in a block-cell pool (ops/sev.py) and runs every
+        traversal on the pooled wave-scan tier; a kernel tier named with
+        it is refused.  grad_smooth: full-tree
         smoothing by whole-tree gradients (True, the JAX package's
         default) or branch by branch (False, its EXAML_GRAD_SMOOTH=0).
         rate_model: "GAMMA" or "PSR" (per-site rates, at most
@@ -70,6 +76,7 @@ class PhyloInstance:
             ncat = 1                      # one rate per site, weight 1
         self.psr_categories = psr_categories
         self.grad_smooth = grad_smooth
+        self.save_memory = save_memory       # SEV mode (ops/sev.py)
         self.batch_scan = batch_scan
         self.batch_thorough = batch_thorough
         self.device = config.resolve_device(device)
@@ -130,7 +137,8 @@ class PhyloInstance:
                 bucket, [self.models[g] for g in bucket.part_ids],
                 alignment.ntaxa, num_branch_slots=self.num_branch_slots,
                 branch_indices=branch_indices, dtype=self.dtype,
-                device=self.device, newview=newview, psr=self.psr)
+                device=self.device, newview=newview, psr=self.psr,
+                save_memory=save_memory)
 
         # PSR per-site rate state (reference patrat / rateCategory /
         # perSiteRates, `axml.h:585-600`), host copies per partition:

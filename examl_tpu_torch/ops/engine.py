@@ -25,6 +25,16 @@ candidate rates (PSR), and `batched_scan` / `batched_thorough` every
 candidate insertion of a pruned node (ops/scan.py), their uppass
 entries written on the wave-scan tier into a scan region above the
 arena's `num_rows` rows (`ensure_scan_rows`).
+
+Under SEV memory saving (`save_memory=True`, the CLI's `-S`) there is no
+dense arena: inner CLVs live in a block-cell pool (ops/sev.py) and every
+traversal, full or partial, runs on the wave-scan tier through the slot
+maps (`kernels.traverse_pooled`) — the "pooled" tier, chosen at
+construction as the JAX engine chooses it (it runs no Pallas under
+`-S`); kernels B1 and B2 have no pooled form and are never launched.
+The scaler stays dense, and the batched scan's region is carved from the
+pool.  The whole-tree gradient pass needs the dense arena, so `-S`
+smoothing takes the per-branch route (optimize/branch.py).
 """
 
 from __future__ import annotations
@@ -42,17 +52,21 @@ from examl_tpu_torch.ops import (fastpath, gradient, kernels, newview_chunk,
                                  newview_whole, scan)
 from examl_tpu_torch.ops.kernels import (DeviceModels, OutrootTraversal,
                                          Traversal)
+from examl_tpu_torch.ops.sev import SevState
 from examl_tpu_torch.parallel.packing import PackedBucket
 from examl_tpu_torch.tree.topology import FlatTraversal, Tree, TraversalEntry
 from examl_tpu_torch.utils import next_pow2, z_slots
 
 NEWVIEW_TIERS = ("chunk", "whole")
-# Full traversals dispatched on either tier, partial traversals run on
-# the wave-scan tier, the launch-table rows the chunk tier dispatched,
-# and whole-tree gradient passes (plain counts, read by chip_smoke.py
-# beside each kernel's launch count).
+POOLED_TIER = "pooled"          # every traversal under save_memory (-S)
+# Full traversals dispatched on either kernel tier, partial traversals
+# run on the wave-scan tier, traversals of the pooled tier (-S: full and
+# partial, the batched scan's included), the launch-table rows the chunk
+# tier dispatched, and whole-tree gradient passes (plain counts, read by
+# chip_smoke.py beside each kernel's launch count).
 FULL_TRAVERSALS = 0
 PARTIAL_TRAVERSALS = 0
+POOLED_TRAVERSALS = 0
 CHUNK_LAUNCH_ROWS = 0
 GRAD_PASSES = 0
 # Entries kept per topology-keyed cache (layouts, gradient plans).
@@ -105,13 +119,25 @@ class LikelihoodEngine:
                  branch_indices: Optional[Sequence[int]] = None,
                  dtype: Optional[torch.dtype] = None, device=None,
                  scale_exp: Optional[int] = None, wave_width: int = 8,
-                 newview: str = "chunk", psr: bool = False):
+                 newview: Optional[str] = None, psr: bool = False,
+                 save_memory: bool = False):
         """newview selects the full-traversal tier: "chunk" (the bounded
-        chunk program through kernel B1) or "whole" (one launch of kernel
-        B2 per traversal) — the JAX engine's EXAML_PALLAS=1 | whole.
-        psr: per-site rates (CAT); every traversal then takes the
-        wave-scan tier."""
-        if newview not in NEWVIEW_TIERS:
+        chunk program through kernel B1, the default) or "whole" (one
+        launch of kernel B2 per traversal) — the JAX engine's
+        EXAML_PALLAS=1 | whole.  psr: per-site rates (CAT); every
+        traversal then takes the wave-scan tier.  save_memory: SEV (-S),
+        the block-cell pool and the "pooled" tier; a kernel tier named
+        with it is refused."""
+        if save_memory:
+            if newview not in (None, POOLED_TIER):
+                raise ValueError(
+                    f"newview={newview!r} with save_memory: kernels B1 "
+                    "and B2 have no pooled form; -S runs every traversal "
+                    f"on the {POOLED_TIER!r} wave-scan tier")
+            newview = POOLED_TIER
+        elif newview is None:
+            newview = "chunk"
+        elif newview not in NEWVIEW_TIERS:
             raise ValueError(f"newview={newview!r}, expected one of "
                              f"{NEWVIEW_TIERS}")
         self.newview = newview
@@ -127,7 +153,8 @@ class LikelihoodEngine:
         self.wave_width = wave_width
         self.num_parts = bucket.num_parts
         self.n_inner = max(ntips - 2, 1)
-        self.fast_slack = 0 if psr else fastpath.slack_rows(ntips)
+        self.fast_slack = (0 if psr or save_memory
+                           else fastpath.slack_rows(ntips))
         self.num_rows = self.n_inner + self.fast_slack + 1
         self.scratch_row = self.num_rows - 1
         self.row_map = np.full(2 * ntips - 1, -1, dtype=np.int64)
@@ -147,7 +174,7 @@ class LikelihoodEngine:
         self.R = models[0].ncat
         self.K = bucket.states
         tier = newview_whole if newview == "whole" else newview_chunk
-        if (self.device.type == "cuda" and not psr
+        if (self.device.type == "cuda" and not psr and not save_memory
                 and not tier.supported(self.R, self.K)):
             raise ValueError(
                 f"kernel {'B2' if newview == 'whole' else 'B1'} has no "
@@ -173,8 +200,17 @@ class LikelihoodEngine:
                                                            self.lane),
             dtype=self.dtype, device=self.device)
         self.tips = self._build_tip_state()
-        self.clv = torch.zeros((self.num_rows, self.B, self.lane, self.R,
-                                self.K), dtype=self.dtype, device=self.device)
+        if save_memory:
+            self.clv = None
+            self.sev = SevState(bucket.tip_codes,
+                                self._datatype().undetermined_code,
+                                self.num_rows, self.B, self.lane, self.R,
+                                self.K, self.dtype, self.device)
+        else:
+            self.sev = None
+            self.clv = torch.zeros((self.num_rows, self.B, self.lane,
+                                    self.R, self.K), dtype=self.dtype,
+                                   device=self.device)
         self.scaler = torch.zeros((self.num_rows, self.B, self.lane),
                                   dtype=torch.int32, device=self.device)
 
@@ -204,6 +240,23 @@ class LikelihoodEngine:
             np.asarray(rates, dtype=np.float64).reshape(self.B, self.lane,
                                                         1),
             dtype=self.dtype, device=self.device)
+
+    # -- CLV state: the dense arena or the SEV pool ---------------------------
+
+    def _store(self):
+        """The CLV store every torch op reads and writes: the dense arena,
+        or under -S the pool with its current slot maps."""
+        if self.sev is None:
+            return kernels.DenseArena(self.clv)
+        if self.sev.pool is None:
+            self.sev.sync()
+        return kernels.CellPool(self.sev.pool, self.sev.slot_read,
+                                self.sev.slot_write)
+
+    def _gather(self, num: int):
+        """(CLV, scaler) of node num's current orientation."""
+        return kernels.gather_from(self.tips, self._store(), self.scaler,
+                                   self._gidx(num), self.ntips)
 
     # -- wave-scan tier (partial traversals) --------------------------------
 
@@ -251,9 +304,9 @@ class LikelihoodEngine:
 
     def _run_scan(self, entries: List[TraversalEntry]) -> None:
         tv = self._traversal_arrays(entries)
-        kernels.traverse(self.models, self.block_part, self.tips, self.clv,
-                         self.scaler, tv, self.scale_exp, self.ntips,
-                         self.site_rates)
+        kernels.traverse_store(self.models, self.block_part, self.tips,
+                               self._store(), self.scaler, tv,
+                               self.scale_exp, self.ntips, self.site_rates)
 
     # -- chunk-tier full traversals (ops/fastpath.py + kernel B1) ------------
 
@@ -333,8 +386,16 @@ class LikelihoodEngine:
     def run_traversal(self, entries, full: bool = False) -> None:
         """Recompute CLVs for `entries` — a TraversalEntry list, or a
         `FlatTraversal` (full traversals take the `newview` tier)."""
-        global FULL_TRAVERSALS, PARTIAL_TRAVERSALS
+        global FULL_TRAVERSALS, PARTIAL_TRAVERSALS, POOLED_TRAVERSALS
         if not len(entries):
+            return
+        if self.sev is not None:
+            if isinstance(entries, FlatTraversal):
+                entries = entries.to_entries()
+            POOLED_TRAVERSALS += 1
+            self.sev.update_for_entries(entries)
+            self.sev.sync()
+            self._run_scan(entries)
             return
         if full and self._fast_eligible(entries):
             FULL_TRAVERSALS += 1
@@ -356,10 +417,11 @@ class LikelihoodEngine:
 
     def evaluate(self, p_num: int, q_num: int, z: Sequence[float]) -> np.ndarray:
         """Per-partition lnL [M] at branch (p,q); CLVs must be current."""
-        out = kernels.root_log_likelihood(
-            self.models, self.block_part, self.weights, self.tips, self.clv,
-            self.scaler, self._gidx(p_num), self._gidx(q_num), self._z(z),
-            self.num_parts, self.scale_exp, self.ntips, self.site_rates)
+        xp, sp = self._gather(p_num)
+        xq, sq = self._gather(q_num)
+        out = kernels.root_log_likelihood_from(
+            self.models, self.block_part, self.weights, xp, sp, xq, sq,
+            self._z(z), self.num_parts, self.scale_exp, self.site_rates)
         return out.cpu().numpy()
 
     def traverse_evaluate(self, entries, p_num: int, q_num: int,
@@ -371,10 +433,8 @@ class LikelihoodEngine:
     # -- branch derivatives ----------------------------------------------
 
     def make_sumtable(self, p_num: int, q_num: int) -> torch.Tensor:
-        xp, _ = kernels.gather_child(self.tips, self.clv, self.scaler,
-                                     self._gidx(p_num), self.ntips)
-        xq, _ = kernels.gather_child(self.tips, self.clv, self.scaler,
-                                     self._gidx(q_num), self.ntips)
+        xp, _ = self._gather(p_num)
+        xq, _ = self._gather(q_num)
         return kernels.sumtable(self.models, self.block_part, xp, xq)
 
     def branch_derivatives(self, st: torch.Tensor, z: Sequence[float]):
@@ -407,7 +467,20 @@ class LikelihoodEngine:
         the scratch row and the chunk layouts' slack use, so it is free
         scratch between scan calls.  The arena and the scaler are replaced
         by larger tensors, never kept elsewhere: every kernel reads
-        self.clv / self.scaler (and their row count) at its call."""
+        self.clv / self.scaler (and their row count) at its call.
+
+        Under -S the region is carved from the pool (`SevState.
+        ensure_scan_rows`: a real cell in every block, rows below the
+        node rows in the slot maps), and the dense scaler grows with it
+        to the slot maps' row count, so that the scan rows' scalers have
+        rows to go to."""
+        if self.sev is not None:
+            base = self.sev.ensure_scan_rows(n)
+            grow = self.sev.num_rows - self.scaler.shape[0]
+            if grow > 0:
+                self.scaler = torch.cat([self.scaler, self.scaler.new_zeros(
+                    (grow,) + self.scaler.shape[1:])])
+            return base
         if n > self._scan_cap:
             grow = next_pow2(n) - self._scan_cap
             self.clv = torch.cat([self.clv, self.clv.new_zeros(
@@ -459,12 +532,18 @@ class LikelihoodEngine:
 
     def _scan_setup(self, plan):
         """(traversal, qg, upg) of a plan, the scan region grown to hold
-        its uppass entries; counted as one partial traversal."""
-        global PARTIAL_TRAVERSALS
+        its uppass entries; counted as one partial traversal (a pooled one
+        under -S, where the orientation fixes' cells are allocated
+        first)."""
+        global PARTIAL_TRAVERSALS, POOLED_TRAVERSALS
+        if self.sev is not None:
+            self.sev.update_for_entries(plan.down_entries)
+            POOLED_TRAVERSALS += 1
+        else:
+            PARTIAL_TRAVERSALS += 1
         base = self.ensure_scan_rows(len(plan.up_entries))
         tv = self._scan_traversal_arrays(plan.down_entries, plan.up_entries,
                                          base)
-        PARTIAL_TRAVERSALS += 1
         return (tv,) + self._scan_dispatch_arrays(plan, base)
 
     def batched_scan(self, plan) -> np.ndarray:
@@ -477,9 +556,10 @@ class LikelihoodEngine:
                                        for c in plan.candidates]),
                              dtype=self.dtype, device=self.device)
         lnls = scan.scan_chunk(
-            self.models, self.block_part, self.weights, self.tips, self.clv,
-            self.scaler, tv, qg, upg, zc, self._gidx(plan.s_num),
-            self._z(plan.zp), self.scale_exp, self.ntips, self.site_rates)
+            self.models, self.block_part, self.weights, self.tips,
+            self._store(), self.scaler, tv, qg, upg, zc,
+            self._gidx(plan.s_num), self._z(plan.zp), self.scale_exp,
+            self.ntips, self.site_rates)
         return lnls.cpu().numpy()
 
     def batched_thorough(self, plan, nr_iterations: int):
@@ -491,9 +571,10 @@ class LikelihoodEngine:
         zq0 = np.array([float(np.asarray(c.q_slot.z, np.float64)[0])
                         for c in plan.candidates])
         lnls, es = scan.thorough_chunk(
-            self.models, self.block_part, self.weights, self.tips, self.clv,
-            self.scaler, tv, qg, upg, zq0, self._gidx(plan.s_num),
-            self.scale_exp, self.ntips, nr_iterations, self.site_rates)
+            self.models, self.block_part, self.weights, self.tips,
+            self._store(), self.scaler, tv, qg, upg, zq0,
+            self._gidx(plan.s_num), self.scale_exp, self.ntips,
+            nr_iterations, self.site_rates)
         return lnls.cpu().numpy(), es
 
     # -- PSR rate-grid scan ----------------------------------------------
@@ -505,7 +586,9 @@ class LikelihoodEngine:
         [B, lane, G] (float64).  `entries` must be a full traversal for
         the branch (p, q).  One traversal over a scratch arena [rows, B,
         lane, G, K], made for the call, replaces the reference's per-site
-        `evaluatePartialGeneric` scan (`optimizeModel.c:1792-1922`)."""
+        `evaluatePartialGeneric` scan (`optimizeModel.c:1792-1922`).
+        Under -S too the scratch arena is dense and the pool is not read
+        (the PSR optimizer caps G at 2 there)."""
         if not self.psr:
             raise RuntimeError("the rate scan needs an engine built with "
                                "psr")
@@ -550,6 +633,10 @@ class LikelihoodEngine:
         indices resolve through the row map that traversal installed);
         `root_z` is the root edge's branch vector."""
         global GRAD_PASSES
+        if self.sev is not None:
+            raise RuntimeError("the whole-tree gradient pass needs the "
+                               "dense arena; -S SEV pools keep the "
+                               "per-branch route")
         C = self.num_branch_slots
         gs = self._cached(self._grad_structs, flat,
                           lambda: gradient.build_structure(flat,

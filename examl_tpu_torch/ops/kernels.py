@@ -86,36 +86,97 @@ def scale_constants(scale_exp: int):
     return 2.0 ** (-e), 2.0 ** e, -e * math.log(2.0)
 
 
+class DenseArena(NamedTuple):
+    """Inner CLVs in a dense arena [rows, B, lane, R, K]: row r is clv[r]."""
+    clv: torch.Tensor
+
+    @property
+    def rows(self) -> int:
+        return self.clv.shape[0]
+
+    @property
+    def ncat(self) -> int:
+        return self.clv.shape[3]
+
+    def read(self, rows: torch.Tensor) -> torch.Tensor:
+        return self.clv[rows]
+
+    def write(self, rows: torch.Tensor, v: torch.Tensor) -> None:
+        self.clv[rows] = v.to(self.clv.dtype)
+
+
+class CellPool(NamedTuple):
+    """Inner CLVs in an SEV block-cell pool (`-S`, ops/sev.py): row r's
+    block b lives in cell slot_read[r, b] of pool [S, lane, R, K] when
+    read, slot_write[r, b] when written.  All-gap (row, block) cells read
+    the shared constant all-ones cell 0 — the form of the reference's one
+    shared `gapColumn` CLV per node (`newviewGenericSpecial.c:139-160`) —
+    and write the scratch cell 1, whose content is never read."""
+    pool: torch.Tensor          # [S, lane, R, K]
+    slot_read: torch.Tensor     # [rows, B] int64
+    slot_write: torch.Tensor    # [rows, B] int64
+
+    @property
+    def rows(self) -> int:
+        return self.slot_read.shape[0]
+
+    @property
+    def ncat(self) -> int:
+        return self.pool.shape[2]
+
+    def read(self, rows: torch.Tensor) -> torch.Tensor:
+        return self.pool[self.slot_read[rows]]
+
+    def write(self, rows: torch.Tensor, v: torch.Tensor) -> None:
+        self.pool[self.slot_write[rows]] = v.to(self.pool.dtype)
+
+
 def _child_index(idx: torch.Tensor, ntips: int, rows: int):
     """(is_tip, tip index, inner arena row) of gather indices idx [...]."""
     return (idx < ntips, idx.clamp(0, ntips - 1),
             (idx - ntips).clamp(0, rows - 1))
 
 
-def _gather(tips: TipState, clv: torch.Tensor, is_tip: torch.Tensor,
+def _gather(tips: TipState, store, is_tip: torch.Tensor,
             tip_idx: torch.Tensor, inner_idx: torch.Tensor) -> torch.Tensor:
     """Child CLVs [..., B, lane, R, K]: tips expanded from their codes
-    through the indicator table, inner nodes read from the arena."""
-    R = clv.shape[3]
+    through the indicator table, inner nodes read from the store (a
+    DenseArena or a CellPool)."""
+    R = store.ncat
     tip_clv = tips.vectors[tip_idx]                      # [..., B, lane, K]
     tip_clv = tip_clv.unsqueeze(-2).expand(
         tip_clv.shape[:-1] + (R, tip_clv.shape[-1]))
-    inner_clv = clv[inner_idx].to(tips.table.dtype)
+    inner_clv = store.read(inner_idx).to(tips.table.dtype)
     return torch.where(is_tip[..., None, None, None, None], tip_clv,
                        inner_clv)
 
 
-def gather_child(tips: TipState, clv: torch.Tensor, scaler: torch.Tensor,
-                 idx: torch.Tensor, ntips: int):
+def gather_from(tips: TipState, store, scaler: torch.Tensor,
+                idx: torch.Tensor, ntips: int):
     """CLV + scaler of child nodes given gather indices idx [...].
 
     Tips (idx < ntips) materialize their indicator vectors from the code
-    table (scaler 0); inner nodes read arena row idx - ntips."""
-    idx = torch.as_tensor(idx, dtype=torch.int64, device=clv.device)
-    is_tip, tip_idx, inner_idx = _child_index(idx, ntips, clv.shape[0])
-    x = _gather(tips, clv, is_tip, tip_idx, inner_idx)
+    table (scaler 0); inner nodes read row idx - ntips of the store."""
+    idx = torch.as_tensor(idx, dtype=torch.int64, device=scaler.device)
+    is_tip, tip_idx, inner_idx = _child_index(idx, ntips, store.rows)
+    x = _gather(tips, store, is_tip, tip_idx, inner_idx)
     sc = scaler[inner_idx].masked_fill(is_tip[..., None, None], 0)
     return x, sc
+
+
+def gather_child(tips: TipState, clv: torch.Tensor, scaler: torch.Tensor,
+                 idx: torch.Tensor, ntips: int):
+    """`gather_from` a dense arena clv [rows, B, lane, R, K]."""
+    return gather_from(tips, DenseArena(clv), scaler, idx, ntips)
+
+
+def gather_child_pooled(tips: TipState, pool: torch.Tensor,
+                        slot_read: torch.Tensor, scaler: torch.Tensor,
+                        idx: torch.Tensor, ntips: int):
+    """`gather_from` an SEV pool [S, lane, R, K] through its read slot map
+    [rows, B] (all-gap cells read the constant all-ones cell)."""
+    return gather_from(tips, CellPool(pool, slot_read, slot_read), scaler,
+                       idx, ntips)
 
 
 def branch_decay(models: DeviceModels, z: torch.Tensor) -> torch.Tensor:
@@ -247,31 +308,58 @@ def newview_wave(models: DeviceModels, block_part: torch.Tensor,
     return _combine(transport(0, torch.cat([xl, xr])), scale_exp)
 
 
-def traverse(models: DeviceModels, block_part: torch.Tensor, tips: TipState,
-             clv: torch.Tensor, scaler: torch.Tensor, tv: Traversal,
-             scale_exp: int, ntips: int, site_rates=None):
-    """Execute a wave-scheduled traversal in place: a loop over waves,
-    each one gather of both children, one batched newview, and one
-    scatter.  Index tensors and the transport operands of every step are
-    prepared once, before the loop.
+def traverse_store(models: DeviceModels, block_part: torch.Tensor,
+                   tips: TipState, store, scaler: torch.Tensor,
+                   tv: Traversal, scale_exp: int, ntips: int,
+                   site_rates=None) -> None:
+    """Execute a wave-scheduled traversal in place over a CLV store (a
+    DenseArena or a CellPool): a loop over waves, each one gather of both
+    children, one batched newview, and one scatter.  Index tensors and
+    the transport operands of every step are prepared once, before the
+    loop.
 
     Padding entries write the scratch row (duplicate scatter indices
-    there only; its value is never read).  Reference `newviewIterative`
+    there only; its value is never read), as do a pool's all-gap cells
+    (the scratch cell).  Reference `newviewIterative`
     (`newviewGenericSpecial.c:917-1515`)."""
     W = tv.parent.shape[1]
     is_tip, tip_idx, inner_idx = _child_index(
-        torch.cat([tv.left, tv.right], dim=1), ntips, clv.shape[0])
+        torch.cat([tv.left, tv.right], dim=1), ntips, store.rows)
     transport = Transport(models, block_part,
                           torch.cat([tv.zl, tv.zr], dim=1), site_rates)
     for step in range(tv.parent.shape[0]):
-        x = _gather(tips, clv, is_tip[step], tip_idx[step], inner_idx[step])
+        x = _gather(tips, store, is_tip[step], tip_idx[step],
+                    inner_idx[step])
         sc = scaler[inner_idx[step]].masked_fill(
             is_tip[step][:, None, None], 0)
         v, inc = _combine(transport(step, x), scale_exp)
         parent = tv.parent[step]
-        clv[parent] = v.to(clv.dtype)
+        store.write(parent, v)
         scaler[parent] = sc[:W] + sc[W:] + inc
+
+
+def traverse(models: DeviceModels, block_part: torch.Tensor, tips: TipState,
+             clv: torch.Tensor, scaler: torch.Tensor, tv: Traversal,
+             scale_exp: int, ntips: int, site_rates=None):
+    """`traverse_store` on a dense arena clv; returns (clv, scaler)."""
+    traverse_store(models, block_part, tips, DenseArena(clv), scaler, tv,
+                   scale_exp, ntips, site_rates)
     return clv, scaler
+
+
+def traverse_pooled(models: DeviceModels, block_part: torch.Tensor,
+                    tips: TipState, pool: torch.Tensor,
+                    slot_read: torch.Tensor, slot_write: torch.Tensor,
+                    scaler: torch.Tensor, tv: Traversal, scale_exp: int,
+                    ntips: int, site_rates=None):
+    """SEV traversal: `traverse_store` on a block-cell pool, all-gap
+    subtrees costing one shared cell of memory — the reference's `-S`
+    design (`axml.c:2152-2171`, `_GAPPED_SAVE` kernels) as pool
+    indirection.  Returns (pool, scaler)."""
+    traverse_store(models, block_part, tips,
+                   CellPool(pool, slot_read, slot_write), scaler, tv,
+                   scale_exp, ntips, site_rates)
+    return pool, scaler
 
 
 class OutrootTraversal(NamedTuple):
@@ -339,7 +427,8 @@ def outroot_pass(models: DeviceModels, block_part: torch.Tensor,
     down = Transport(models, block_part, torch.cat([tv.zl, tv.zr], dim=1),
                      site_rates)
     for step in range(tv.up_row.shape[0]):
-        x = _gather(tips, clv, is_tip[step], tip_idx[step], inner_idx[step])
+        x = _gather(tips, DenseArena(clv), is_tip[step], tip_idx[step],
+                    inner_idx[step])
         ol, orr = _sibling(up(step, out[tv.up_row[step]]), down(step, x),
                            scale_exp)
         out[tv.lrow[step]] = ol.to(out.dtype)

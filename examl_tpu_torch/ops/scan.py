@@ -5,11 +5,13 @@ The search layer (search/batchscan.py) plans a pruned node's candidate
 insertions; `LikelihoodEngine.batched_scan` / `batched_thorough` turn the
 plan into a traversal and gather indices and call `scan_chunk` /
 `thorough_chunk` here.  Both are plain torch ops on the engine's tensors
-(the JAX package's `scan_program` / `thorough_program` bodies, dense
-arena, one device).  The lane helpers apply P matrices, sum per-lane
-lnLs and run Newton-Raphson over T independent branches at once
-(`kernels.newton_raphson_branch` with a lane axis); search/quartets_batch.py
-scores its quartet jobs with them.
+(the JAX package's `scan_program` / `thorough_program` bodies, one
+device), reading and writing CLVs through the engine's store: the dense
+arena, or under `-S` the SEV pool through its slot maps
+(`kernels.DenseArena` / `kernels.CellPool`).  The lane helpers apply P
+matrices, sum per-lane lnLs and run Newton-Raphson over T independent
+branches at once (`kernels.newton_raphson_branch` with a lane axis);
+search/quartets_batch.py scores its quartet jobs with them.
 """
 
 from __future__ import annotations
@@ -54,26 +56,26 @@ def lane_lnls(models, block_part, weights, xp, xq, sc, scale_exp: int):
     return site_lnl.sum(dim=(1, 2))
 
 
-def scan_chunk(models, block_part, weights, tips, clv, scaler, tv, qg, upg,
-               zc, s_idx: int, zp, scale_exp: int, ntips: int,
+def scan_chunk(models, block_part, weights, tips, store, scaler, tv, qg,
+               upg, zc, s_idx: int, zp, scale_exp: int, ntips: int,
                site_rates=None) -> torch.Tensor:
     """The lazy arm's device body for one plan: the orientation fixes and
-    the uppass entries (traversal tv, into clv/scaler in place), the
+    the uppass entries (traversal tv, into store/scaler in place), the
     subtree operand u = P(zp) down(s), then per chunk of CAND_CHUNK
     candidates P(z') applied to down(q) (gather indices qg [N]) and to
     uppass(q) (upg [N]) with z' = zc [N, C], the rescale and the weighted
     site sum.  Returns the candidates' lnLs [N] (float64, on the device)."""
-    kernels.traverse(models, block_part, tips, clv, scaler, tv, scale_exp,
-                     ntips, site_rates)
-    xs, ss = kernels.gather_child(tips, clv, scaler, s_idx, ntips)
+    kernels.traverse_store(models, block_part, tips, store, scaler, tv,
+                           scale_exp, ntips, site_rates)
+    xs, ss = kernels.gather_from(tips, store, scaler, s_idx, ntips)
     u = lane_papply(models, block_part, site_rates, zp[None], xs)[0]
     out = []
     for lo in range(0, qg.shape[0], CAND_CHUNK):
         z = zc[lo:lo + CAND_CHUNK]
-        xq, sq = kernels.gather_child(tips, clv, scaler,
-                                      qg[lo:lo + CAND_CHUNK], ntips)
-        xr, sr = kernels.gather_child(tips, clv, scaler,
-                                      upg[lo:lo + CAND_CHUNK], ntips)
+        xq, sq = kernels.gather_from(tips, store, scaler,
+                                     qg[lo:lo + CAND_CHUNK], ntips)
+        xr, sr = kernels.gather_from(tips, store, scaler,
+                                     upg[lo:lo + CAND_CHUNK], ntips)
         v, inc = kernels.rescale(lane_papply(models, block_part, site_rates,
                                              z, xq) * u, scale_exp)
         y = lane_papply(models, block_part, site_rates, z, xr)
@@ -115,7 +117,7 @@ def triangle(zqr, zqs, zrs):
     return e1, e2, e3
 
 
-def thorough_chunk(models, block_part, weights, tips, clv, scaler, tv, qg,
+def thorough_chunk(models, block_part, weights, tips, store, scaler, tv, qg,
                    upg, zq0, s_idx: int, scale_exp: int, ntips: int,
                    nr_iterations: int, site_rates=None
                    ) -> Tuple[torch.Tensor, np.ndarray]:
@@ -133,10 +135,10 @@ def thorough_chunk(models, block_part, weights, tips, clv, scaler, tv, qg,
 
     Newton derivatives do not depend on the operands' scaler counts (a
     per-site constant factor), so only the final lnL applies them."""
-    kernels.traverse(models, block_part, tips, clv, scaler, tv, scale_exp,
-                     ntips, site_rates)
-    xs, ss = kernels.gather_child(tips, clv, scaler, s_idx, ntips)
-    dt, dev = clv.dtype, clv.device
+    kernels.traverse_store(models, block_part, tips, store, scaler, tv,
+                           scale_exp, ntips, site_rates)
+    xs, ss = kernels.gather_from(tips, store, scaler, s_idx, ntips)
+    dt, dev = xs.dtype, xs.device
 
     def papply(e: np.ndarray, x: torch.Tensor) -> torch.Tensor:
         z = torch.as_tensor(e, dtype=dt, device=dev)[:, None]
@@ -148,10 +150,10 @@ def thorough_chunk(models, block_part, weights, tips, clv, scaler, tv, qg,
 
     lnls, es = [], []
     for lo in range(0, qg.shape[0], TH_CHUNK):
-        xq, sq = kernels.gather_child(tips, clv, scaler,
-                                      qg[lo:lo + TH_CHUNK], ntips)
-        xr, sr = kernels.gather_child(tips, clv, scaler,
-                                      upg[lo:lo + TH_CHUNK], ntips)
+        xq, sq = kernels.gather_from(tips, store, scaler,
+                                     qg[lo:lo + TH_CHUNK], ntips)
+        xr, sr = kernels.gather_from(tips, store, scaler,
+                                     upg[lo:lo + TH_CHUNK], ntips)
         e1, e2, e3 = triangle(
             nr(xq, xr, zq0[lo:lo + TH_CHUNK], nr_iterations),
             nr(xq, xs, DEFAULTZ, nr_iterations),

@@ -19,13 +19,15 @@ instance's `grad_smooth` (the JAX package's EXAML_GRAD_SMOOTH):
   traversal + sumtable + Newton solve per branch per sweep.  The local
   and regional passes always take it (a handful of branches).
 
-Unlike the JAX package, a failed gradient pass raises: there is no
-per-branch fallback behind it.
+`grad_smooth_ineligible` decides up front where the gradient pass cannot
+serve an instance (under `-S` there is no dense arena for it), and the
+per-branch route runs there.  Unlike the JAX package, a failed gradient
+pass raises: there is no per-branch fallback behind it.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -83,6 +85,14 @@ def _all_smoothed(inst: PhyloInstance) -> bool:
 
 
 # -- whole-tree gradient smoothing (ops/gradient.py) -------------------------
+
+
+def grad_smooth_ineligible(inst: PhyloInstance) -> Optional[str]:
+    """None when the whole-tree gradient pass can serve this instance,
+    else the reason the per-branch route is kept."""
+    if inst.save_memory:
+        return "-S SEV pools keep the per-branch Newton path"
+    return None
 
 
 def _slot_facing(tree: Tree, child: int, parent: int) -> Node:
@@ -178,12 +188,13 @@ def gradient_smooth_tree(inst: PhyloInstance, tree: Tree,
 def smooth_tree(inst: PhyloInstance, tree: Tree, maxtimes: int) -> None:
     """Smoothing passes over every branch (ref `smoothTree`), by
     whole-tree gradients unless the instance was built with
-    `grad_smooth=False`.  A gradient run whose sweep budget runs out is
-    accepted, as the per-branch route accepts its own maxtimes.  The
-    per-branch route descends once from start.back (tree.start is tip 1)
-    and so covers every branch."""
+    `grad_smooth=False` or `grad_smooth_ineligible` names a reason.  A
+    gradient run whose sweep budget runs out is accepted, as the
+    per-branch route accepts its own maxtimes.  The per-branch route
+    descends once from start.back (tree.start is tip 1) and so covers
+    every branch."""
     inst.partition_converged[:] = False
-    if inst.grad_smooth:
+    if inst.grad_smooth and grad_smooth_ineligible(inst) is None:
         gradient_smooth_tree(inst, tree, maxtimes)
         inst.partition_converged[:] = False
         return

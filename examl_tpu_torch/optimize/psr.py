@@ -62,6 +62,12 @@ def _scan_partition_rates(inst: PhyloInstance, tree: Tree,
     p, entries = tree.full_traversal()
     up = upper * np.arange(1, RATE_STEPS + 1)
     down = -lower * np.arange(1, RATE_STEPS + 1)
+    if inst.save_memory:
+        # The rate scan's scratch CLV is dense [rows, B, lane, G, K]
+        # (engine.rate_scan), G times a single-rate dense arena; -S runs
+        # exist because dense does not fit, so the transient peak stays
+        # at ~2 dense arenas.
+        grid_chunk = min(grid_chunk, 2)
 
     for states, bucket in inst.buckets.items():
         eng = inst.engines[states]

@@ -20,8 +20,9 @@ with a lane per job (the lane helpers of ops/scan.py).  Scaling is
 omitted: a 4-taxon product of two P-applied tip vectors stays far above
 every rescale threshold.
 
-Eligible with one state bucket, one branch slot and GAMMA rates; the
-sequential scorer (search/quartets.py) serves everything else.  Output
+Eligible with one state bucket, one branch slot, GAMMA rates and no SEV
+pool (`-S`, as in the JAX package); the sequential scorer
+(search/quartets.py) serves everything else.  Output
 rows and their order are the sequential scorer's.
 """
 
@@ -43,8 +44,8 @@ JOBS_SCORED = 0
 
 def batch_eligible(inst) -> bool:
     """True when `compute_quartets` scores in batches: GAMMA, one branch
-    slot, one state bucket."""
-    if inst.psr or inst.num_branch_slots != 1:
+    slot, one state bucket, no SEV pool."""
+    if inst.psr or inst.num_branch_slots != 1 or inst.save_memory:
         return False
     return len(inst.engines) == 1
 

@@ -408,8 +408,9 @@ def batched_scan_enabled(inst: PhyloInstance) -> bool:
 
 
 def _on_accelerator(inst: PhyloInstance) -> bool:
-    """True when every engine's CLV arena lives on the card."""
-    return all(e.clv.device.type == "cuda" for e in inst.engines.values())
+    """True when every engine's CLV state (the dense arena, or the SEV
+    pool under -S) lives on the card."""
+    return all(e.device.type == "cuda" for e in inst.engines.values())
 
 
 def rearrange_batched(inst: PhyloInstance, tree: Tree, ctx: SprContext,

@@ -38,6 +38,7 @@ def test_port_imports_no_jax_and_no_examl_tpu():
                  "examl_tpu_torch.ops.newview_chunk",
                  "examl_tpu_torch.ops.newview_whole",
                  "examl_tpu_torch.ops.gradient",
+                 "examl_tpu_torch.ops.sev",
                  "examl_tpu_torch.optimize.branch",
                  "examl_tpu_torch.optimize.brent",
                  "examl_tpu_torch.optimize.model_opt",

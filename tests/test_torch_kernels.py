@@ -2,7 +2,8 @@
 
 The same inputs, made with numpy from a seed, go through both packages in
 float64 on the CPU: arena rows at rtol 1e-12, lnL and derivative sums at
-rtol 1e-10, scalers exactly equal (including a forced-rescale case).
+rtol 1e-10, scalers exactly equal (including a forced-rescale case); the
+SEV pool's traversal and gather through a random cell map likewise.
 """
 
 import jax.numpy as jnp
@@ -130,6 +131,56 @@ def test_traverse_rows_and_scalers_match(case):
                                rtol=1e-12, atol=0)
     if rescale:
         assert int(tsc.sum()) > 0
+
+
+@pytest.mark.parametrize("case", ["plain", "forced_rescale"])
+def test_traverse_pooled_matches(case):
+    """The SEV pool's traversal and gather (`traverse_pooled`,
+    `gather_child_pooled`) on one random cell map: a third of the (row,
+    block) cells unmapped (read as the all-ones cell 0, written to the
+    scratch cell 1), every data cell at rtol 1e-12 of JAX's, scalers
+    equal."""
+    rescale = case == "forced_rescale"
+    jm, jt, tm, tt, bp, tbp, _, _ = _state(
+        3, table_scale=2.0 ** -90 if rescale else 1.0)
+    (par, lft, rgt, zl, zr), pi, qi = _traversal(3, 1)
+    rows = NTIPS - 1
+    rng = np.random.default_rng(4)
+    mapped = rng.random((rows, B)) < 2 / 3
+    cell_of = np.where(mapped, np.cumsum(mapped).reshape(rows, B) + 1, -1)
+    slot_read = np.where(mapped, cell_of, 0)
+    slot_write = np.where(mapped, cell_of, 1)
+    cells = int(mapped.sum()) + 2
+    pool = np.zeros((cells, LANE, 4, 4))
+    pool[0] = 1.0
+    jtv = jk.Traversal(*(jnp.asarray(a) for a in (par, lft, rgt, zl, zr)))
+    jpool, jsc = jk.traverse_pooled(
+        jm, jnp.asarray(bp), jt, jnp.asarray(pool), jnp.asarray(slot_read),
+        jnp.asarray(slot_write), jnp.zeros((rows, B, LANE), jnp.int32), jtv,
+        256, NTIPS)
+    ttv = tk.Traversal(*(torch.as_tensor(a).long() for a in (par, lft, rgt)),
+                       torch.as_tensor(zl), torch.as_tensor(zr))
+    tslot_read = torch.as_tensor(slot_read)
+    tpool, tsc = tk.traverse_pooled(
+        tm, tbp, tt, torch.as_tensor(pool), tslot_read,
+        torch.as_tensor(slot_write), torch.zeros((rows, B, LANE),
+                                                 dtype=torch.int32), ttv,
+        256, NTIPS)
+    data = np.arange(cells) != 1            # the scratch cell excluded
+    np.testing.assert_allclose(tpool.numpy()[data], np.asarray(jpool)[data],
+                               rtol=1e-12, atol=0)
+    real = slice(0, NTIPS - 2)
+    np.testing.assert_array_equal(tsc.numpy()[real], np.asarray(jsc)[real])
+    if rescale:
+        assert int(tsc.sum()) > 0
+    for idx in (pi, qi):
+        jx, js = jk.gather_child_pooled(jt, jpool, jnp.asarray(slot_read),
+                                        jsc, idx, NTIPS)
+        tx, ts = tk.gather_child_pooled(tt, tpool, tslot_read, tsc, idx,
+                                        NTIPS)
+        np.testing.assert_allclose(tx.numpy(), np.asarray(jx), rtol=1e-12,
+                                   atol=0)
+        np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
 
 
 def test_newview_wave_matches():
