@@ -7,7 +7,7 @@ dispatched at `main` :2719-2781).
         [-m GAMMA|PSR] [-c categories] [-a] [-i radius] [-D] [-B N] [-M] \\
         [-S] [-p seed] [-Y groups | -r N] [-I N] [-e epsilon] \\
         [--newview chunk|whole] [--batch-scan auto|on|off] \\
-        [--auto-prot ml|bic|aic|aicc]
+        [--clv-dtype same|bf16] [--auto-prot ml|bic|aic|aicc]
 
 Modes: `-f d` (the default) runs the RAxML SPR hill climb
 (`search/raxml_search.py`) from the `-t` tree or from the random
@@ -47,8 +47,12 @@ default) or `whole` (kernel B2, one launch per traversal); `-S` takes
 neither.  `--batch-scan` selects the
 SPR search's scan: `auto` (the default) batches it where the arenas live
 on the card and keeps it sequential on the CPU, `on` / `off` force it
-(`PhyloInstance(batch_scan=...)`).  `main` runs on the card unless the
-caller passes `device="cpu"`.
+(`PhyloInstance(batch_scan=...)`).  `--clv-dtype bf16` stores the CLV
+arenas, their scan regions and `-S`'s pools in bfloat16 while computing
+in float32 (the JAX package's EXAML_CLV_DTYPE=bf16): full traversals run
+kernel B1's bfloat16-storage instances; it is refused with `--newview
+whole` and on a float64 run.  `main` runs on the card in float32 unless
+the caller passes `device="cpu"` (float64 there) or a `dtype`.
 """
 
 from __future__ import annotations
@@ -60,6 +64,7 @@ import sys
 import time
 from typing import List
 
+from examl_tpu_torch import config
 from examl_tpu_torch.constants import ZMAX, ZMIN
 from examl_tpu_torch.models.lg4 import LG4Params
 from examl_tpu_torch.ops.engine import NEWVIEW_TIERS, POOLED_TIER
@@ -132,6 +137,11 @@ def build_argparser() -> argparse.ArgumentParser:
                     choices=["auto", "on", "off"],
                     help="SPR scan: batched on the card and sequential on "
                          "the CPU (auto), or forced on / off")
+    ap.add_argument("--clv-dtype", dest="clv_dtype", default="same",
+                    choices=list(config.CLV_STORAGE_NAMES),
+                    help="CLV storage: the compute dtype (same) or "
+                         "bfloat16 with float32 compute (bf16); not with "
+                         "--newview whole")
     ap.add_argument("--auto-prot", dest="auto_prot", default="ml",
                     choices=["ml", "bic", "aic", "aicc"],
                     help="criterion for AUTO protein model selection")
@@ -458,8 +468,10 @@ def run_mode(args, inst, files: RunFiles) -> int:
     return run_tree_evaluation(args, inst, files)
 
 
-def main(argv=None, device=None) -> int:
-    """Run the mode `-f` names; `device` defaults to the card ("cuda")."""
+def main(argv=None, device=None, dtype=None) -> int:
+    """Run the mode `-f` names; `device` defaults to the card ("cuda"),
+    `dtype` to the device's compute dtype (`config.default_dtype`)."""
+    import torch
     ap = build_argparser()
     args = ap.parse_args(argv)
     # The reference's quartet flag-combination checks (axml.c:1206-1222):
@@ -477,6 +489,17 @@ def main(argv=None, device=None) -> int:
         ap.error(f"--newview {args.newview} cannot combine with -S: kernels "
                  "B1 and B2 have no pooled form, so -S runs every traversal "
                  "on the pooled wave-scan tier")
+    if dtype is None:
+        dtype = config.default_dtype(torch.device(
+            "cuda" if device is None else device))
+    try:
+        storage = config.clv_storage_dtype(dtype, args.clv_dtype)
+    except ValueError as exc:
+        ap.error(f"--clv-dtype {args.clv_dtype}: {exc}")
+    if storage != dtype and args.newview == "whole":
+        ap.error(f"--newview whole cannot combine with --clv-dtype "
+                 f"{args.clv_dtype}: kernel B2 has no bfloat16-storage "
+                 "instance, so full traversals take the chunk tier")
     from examl_tpu_torch.instance import PhyloInstance
     from examl_tpu_torch.io.bytefile import read_bytefile
 
@@ -491,15 +514,17 @@ def main(argv=None, device=None) -> int:
         return 1
     files.info(f"{data.ntaxa} taxa, {data.total_patterns} patterns, "
                f"{len(data.partitions)} partitions")
-    inst = PhyloInstance(data, device=device, use_median=args.median,
+    inst = PhyloInstance(data, dtype=dtype, device=device,
+                         use_median=args.median,
                          per_partition_branches=args.per_partition_bl,
                          newview=args.newview, rate_model=args.model,
                          psr_categories=args.categories,
                          batch_scan={"auto": None, "on": True,
                                      "off": False}[args.batch_scan],
-                         save_memory=args.save_memory)
+                         save_memory=args.save_memory, clv_dtype=storage)
     inst.auto_prot_criterion = args.auto_prot
-    files.info(f"device: {inst.device}  dtype: {inst.dtype}")
+    files.info(f"device: {inst.device}  dtype: {inst.dtype}  clv storage: "
+               f"{str(inst.storage_dtype).removeprefix('torch.')}")
     _packing_report(inst, files)
     rc = run_mode(args, inst, files)
     if inst.save_memory:

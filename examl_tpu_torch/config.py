@@ -33,6 +33,31 @@ def default_dtype(device: torch.device) -> torch.dtype:
 
 
 def scale_exponent(dtype: torch.dtype) -> int:
-    """Rescale exponent E (threshold 2^-E, multiplier 2^E): 256 for
-    float64 as the reference, 32 for float32, on every device."""
+    """Rescale exponent E (threshold 2^-E, multiplier 2^E) of a compute
+    dtype: 256 for float64 as the reference, 32 for float32, on every
+    device.  bfloat16 CLV storage keeps its compute dtype's E (bfloat16 has
+    float32's exponent range)."""
     return 256 if dtype == torch.float64 else 32
+
+
+CLV_STORAGE_NAMES = ("same", "bf16")
+
+
+def clv_storage_dtype(compute: torch.dtype, requested=None) -> torch.dtype:
+    """The dtype CLV arenas and SEV pools are stored in: the compute dtype
+    for None / "same", bfloat16 for "bf16" / "bfloat16" / torch.bfloat16
+    with float32 compute (the JAX package's EXAML_CLV_DTYPE=bf16,
+    `examl_tpu/ops/engine.py:159-175`: compute stays float32, reads
+    upcast after the load and writes round to nearest even after the
+    rescale).  A bfloat16 request with any other compute dtype raises:
+    unlike the JAX package, which ignores its environment switch there,
+    the port's switch is an explicit argument."""
+    if requested is None or requested == "same" or requested == compute:
+        return compute
+    if requested in ("bf16", "bfloat16", torch.bfloat16):
+        if compute != torch.float32:
+            raise ValueError(f"bfloat16 CLV storage needs float32 compute, "
+                             f"not {compute}")
+        return torch.bfloat16
+    raise ValueError(f"CLV storage {requested!r}: expected one of "
+                     f"{CLV_STORAGE_NAMES} or torch.bfloat16")

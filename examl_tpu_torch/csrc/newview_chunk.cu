@@ -91,14 +91,34 @@
 // 0.36).  ptxas: no K = 20 instance spills (f32 96 registers, f64 up to
 // 152).
 //
+// 7. bfloat16 storage (the JAX package's EXAML_CLV_DTYPE=bf16; its chunk
+//    program upcasts after the gather and rounds after the rescale,
+//    examl_tpu/ops/fastpath.py:741, :770-782).  The instances with
+//    storage type S = __nv_bfloat16 compute in T = float: the arena rows
+//    and the staged child slabs are bfloat16, P, the tip products, the
+//    FMA chains (k = 0..K-1, as in float32) and the rescale decision
+//    float32.  A staged slab widens exactly on its load from shared
+//    memory; each output is rounded to nearest even once, after the
+//    rescale (__float2bfloat16_rn, as torch's and JAX's casts round).  The
+//    geometry (tile, consumers, stages) is the float32 instance's; a slab
+//    is half as many bytes, so a stage is smaller and the ring holds the
+//    same depth in less shared memory.  Bound: bytes, as for float32,
+//    with 2-byte rows (a real-size DNA traversal moves 4.87 GB instead of
+//    9.14: 36 instead of 68 bytes per site and row, 1.45 ms).  Measured
+//    (NVIDIA H100 80GB HBM3 at 700 W, chip_smoke.py phase 21, in turns
+//    with float32 on one layout): K = 4 2.45 ms against 3.49, K = 20
+//    3.51 against 4.42 (bound 1.64 ms: at half the bytes the FMAs set
+//    the pace), K = 2 0.60 against 0.69 (launch-bound).
+//
 // The rescale rule and the scaler sum are B1's.  Within a launch no entry
 // reads a row the launch writes (the layout's promise, tested on the
 // host).  A barrier wait that has not completed after ~2^34 clock cycles
 // traps, so a protocol fault ends the launch with an error instead of
 // hanging the card.
 //
-// Interface: plain C, loaded with ctypes.  Every device pointer and the
-// stream arrive as void*, the launch table as a host int32 [n][4] array
+// Interface: plain C, loaded with ctypes, one entry point per storage
+// type (f32, f64, bf16).  Every device pointer and the stream arrive as
+// void*, the launch table as a host int32 [n][4] array
 // (kind, base, slot, real).  The function launches on the given stream,
 // does not synchronise, allocates nothing, counts the launches it made in
 // *launched and returns the first CUDA error.
@@ -171,23 +191,24 @@ __device__ __forceinline__ void apply_p_mul(const T* p, const T (&x)[K],
 // (the left child a tip for kinds 0 and 1, the right one for kind 0) |
 // for the blocked body's tip/tip kind, a [TL][R][K] output buffer (the
 // other kinds stage their output in the right child's slab).
-template <typename T, int R, int K, int KIND>
+template <typename S, typename T, int R, int K, int KIND>
 __host__ __device__ Stage chunk_stage(int TL, int C) {
-  return stage_layout<T, R, K>(KIND == 2 ? kInner : kTip,
-                               KIND >= 1 ? kInner : kTip, TL, C);
+  return stage_layout<T, R, K, S>(KIND == 2 ? kInner : kTip,
+                                  KIND >= 1 ? kInner : kTip, TL, C);
 }
 
-template <typename T, int R, int K, int KIND>
+template <typename S, typename T, int R, int K, int KIND>
 __host__ __device__ int smem_bytes(int TL, int C) {
   return 128 + Geom<T, R, K>::template stages<KIND>() *
-                   chunk_stage<T, R, K, KIND>(TL, C).bytes +
-         (kBlocked<K> && KIND == 0 ? align128(TL * R * K * (int)sizeof(T))
+                   chunk_stage<S, T, R, K, KIND>(TL, C).bytes +
+         (kBlocked<K> && KIND == 0 ? align128(TL * R * K * (int)sizeof(S))
                                    : 0);
 }
 
-template <typename T>
+// S: the arena's storage type; T: the compute type of P, u and the sums.
+template <typename S, typename T>
 struct Operands {
-  T* clv;                       // [rows, B, L, R, K]
+  S* clv;                       // [rows, B, L, R, K]
   int32_t* scaler;              // [rows, B, L]
   const uint8_t* codes;         // [ntips, B, L]
   const T* u;                   // [P, 2, M, C, R, K] tip products
@@ -203,10 +224,11 @@ struct Operands {
   T minlik, two_e;
 };
 
-template <typename T, int R, int K, int KIND>
+template <typename S, typename T, int R, int K, int KIND>
 __global__ void __launch_bounds__((Geom<T, R, K>::kThreads),
                                   (Geom<T, R, K>::kMinBlocks))
-    newview_chunk_kernel(const Operands<T> op, int base, int slot, int real) {
+    newview_chunk_kernel(const Operands<S, T> op, int base, int slot,
+                         int real) {
   constexpr int PN = R * K * K;               // per-rate P, one partition
   constexpr int kStages = Geom<T, R, K>::template stages<KIND>();
   constexpr bool kLTip = KIND <= 1, kRTip = KIND == 0;
@@ -232,12 +254,12 @@ __global__ void __launch_bounds__((Geom<T, R, K>::kThreads),
   __syncthreads();
   wait_for_prior_grid();        // the previous launch's rows are written
 
-  const size_t S = (size_t)op.B * L;          // sites per row
+  const size_t nsite = (size_t)op.B * L;      // sites per row
   const size_t UN = (size_t)op.C * R * K;     // tip products, one partition
   if (tid >= consumers) {
     // Producer warp: lane 0 keeps the ring full.
-    const uint32_t tx = side_tx<T, R, K>(kLTip, TL, op.C) +
-                        side_tx<T, R, K>(kRTip, TL, op.C);
+    const uint32_t tx = side_tx<T, R, K, S>(kLTip, TL, op.C) +
+                        side_tx<T, R, K, S>(kRTip, TL, op.C);
     Tile tile(NT);
     for (int i = 0; tile.w < real; ++i, tile.advance(NT)) {
       if (lane == 0) {
@@ -254,11 +276,11 @@ __global__ void __launch_bounds__((Geom<T, R, K>::kThreads),
         for (int side = 0; side < 2; ++side) {
           const bool tip = side == 0 ? kLTip : kRTip;
           const size_t e = ((size_t)sl * 2 + side) * op.M + m;
-          const size_t at = (size_t)rows[side] * S + site0;
-          load_side<T, R, K>(st, lay.side[side], tip, op.codes + at,
-                             op.u + e * UN, op.clv + at * R * K,
-                             op.scaler + at, op.pmat + e * PN, TL, op.C,
-                             &full[s]);
+          const size_t at = (size_t)rows[side] * nsite + site0;
+          load_side<T, R, K, S>(st, lay.side[side], tip, op.codes + at,
+                                op.u + e * UN, op.clv + at * R * K,
+                                op.scaler + at, op.pmat + e * PN, TL, op.C,
+                                &full[s]);
         }
       }
       __syncwarp();
@@ -269,17 +291,18 @@ __global__ void __launch_bounds__((Geom<T, R, K>::kThreads),
     Tile tile(NT);
     for (int i = 0; tile.w < real; ++i) {
       const int s = i % kStages;
-      const size_t out = (size_t)(base + tile.w) * S + (size_t)tile.b * TL;
+      const size_t out = (size_t)(base + tile.w) * nsite +
+                         (size_t)tile.b * TL;
       tile.advance(NT);
       if (tile.w >= real) allow_dependent_grid();   // this CTA's last tile
       mbar_wait(&full[s], (i / kStages) & 1);
       unsigned char* st = ring + (size_t)s * lay.bytes;
-      T* obuf = reinterpret_cast<T*>(
+      S* obuf = reinterpret_cast<S*>(
           KIND == 0 ? ring + (size_t)kStages * lay.bytes
                     : st + lay.side[1].x);
-      blocked_tile<T, R, K>(st, lay, kLTip, kRTip, ro, TL, &empty[s], obuf,
-                            op.clv + out * R * K, op.scaler + out, op.minlik,
-                            op.two_e);
+      blocked_tile<T, R, K, S>(st, lay, kLTip, kRTip, ro, TL, &empty[s],
+                               obuf, op.clv + out * R * K, op.scaler + out,
+                               op.minlik, op.two_e);
     }
   } else {
     // Consumer warps, K <= 4: thread (site l of the tile, rate r).
@@ -304,7 +327,8 @@ __global__ void __launch_bounds__((Geom<T, R, K>::kThreads),
                            ((int)st[ls.sc + l] * R + r) * K, v);
       } else {
         T x[K];
-        load_vec<T, K>(reinterpret_cast<const T*>(st + ls.x) + tid * K, x);
+        load_cvt<S, T, K>(reinterpret_cast<const S*>(st + ls.x) + tid * K,
+                          x);
         sc += reinterpret_cast<const int32_t*>(st + ls.sc)[l];
         apply_p<T, K>(reinterpret_cast<const T*>(st + ls.op) + r * K * K, x,
                       v);
@@ -317,7 +341,8 @@ __global__ void __launch_bounds__((Geom<T, R, K>::kThreads),
         for (int a = 0; a < K; ++a) v[a] *= y[a];
       } else {
         T x[K];
-        load_vec<T, K>(reinterpret_cast<const T*>(st + rs.x) + tid * K, x);
+        load_cvt<S, T, K>(reinterpret_cast<const S*>(st + rs.x) + tid * K,
+                          x);
         sc += reinterpret_cast<const int32_t*>(st + rs.sc)[l];
         apply_p_mul<T, K>(reinterpret_cast<const T*>(st + rs.op) + r * K * K,
                           x, v);
@@ -341,8 +366,8 @@ __global__ void __launch_bounds__((Geom<T, R, K>::kThreads),
 #pragma unroll
         for (int a = 0; a < K; ++a) v[a] *= op.two_e;
       }
-      const size_t out = (size_t)(base + w) * S + site0;  // (row, site)
-      store_vec<T, K>(op.clv + (out * R + tid) * K, v);
+      const size_t out = (size_t)(base + w) * nsite + site0;  // (row, site)
+      store_cvt<S, T, K>(op.clv + (out * R + tid) * K, v);
       if (r == 0) op.scaler[out + l] = sc + (needs ? 1 : 0);
     }
   }
@@ -365,7 +390,7 @@ struct Config {
       threads = 0, per_sm = 0, sms = 0;
 };
 
-template <typename T, int R, int K, int KIND>
+template <typename S, typename T, int R, int K, int KIND>
 cudaError_t configure(int L, int C, Config& cfg) {
   static Config cached;
   int dev = 0;
@@ -386,10 +411,10 @@ cudaError_t configure(int L, int C, Config& cfg) {
   c.C = C;
   c.tile = TL;
   c.stages = Geom<T, R, K>::template stages<KIND>();
-  c.smem = smem_bytes<T, R, K, KIND>(TL, C);
+  c.smem = smem_bytes<S, T, R, K, KIND>(TL, C);
   c.threads = TL * threads_per_site<T, R, K>() + 32;
   int optin = 0;
-  auto kern = newview_chunk_kernel<T, R, K, KIND>;
+  auto kern = newview_chunk_kernel<S, T, R, K, KIND>;
   err = cudaDeviceGetAttribute(&c.sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(
@@ -409,15 +434,15 @@ cudaError_t configure(int L, int C, Config& cfg) {
   return cudaSuccess;
 }
 
-template <typename T, int R, int K, int KIND>
-cudaError_t launch_one(Operands<T> op, int base, int slot, int real,
+template <typename S, typename T, int R, int K, int KIND>
+cudaError_t launch_one(Operands<S, T> op, int base, int slot, int real,
                        bool dependent, cudaStream_t stream) {
   Config c;
-  cudaError_t err = configure<T, R, K, KIND>(op.L, op.C, c);
+  cudaError_t err = configure<S, T, R, K, KIND>(op.L, op.C, c);
   if (err != cudaSuccess) return err;
   op.TL = c.tile;
   op.NT = op.B * (op.L / c.tile);
-  op.lay = chunk_stage<T, R, K, KIND>(c.tile, op.C);
+  op.lay = chunk_stage<S, T, R, K, KIND>(c.tile, op.C);
   const long long tiles = (long long)real * op.NT;
   const long long resident = (long long)c.per_sm * c.sms;
   cudaLaunchConfig_t lc = {};
@@ -430,12 +455,12 @@ cudaError_t launch_one(Operands<T> op, int base, int slot, int real,
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   lc.attrs = attr;
   lc.numAttrs = dependent ? 1 : 0;
-  return cudaLaunchKernelEx(&lc, newview_chunk_kernel<T, R, K, KIND>, op,
-                            base, slot, real);
+  return cudaLaunchKernelEx(&lc, newview_chunk_kernel<S, T, R, K, KIND>,
+                            op, base, slot, real);
 }
 
-template <typename T, int R, int K>
-int launch_all(const Operands<T>& op, const int32_t* launch, int n,
+template <typename S, typename T, int R, int K>
+int launch_all(const Operands<S, T>& op, const int32_t* launch, int n,
                cudaStream_t stream, int* launched) {
   for (int i = 0; i < n; ++i) {
     const int kind = launch[4 * i], base = launch[4 * i + 1];
@@ -445,13 +470,16 @@ int launch_all(const Operands<T>& op, const int32_t* launch, int n,
     cudaError_t err;
     switch (kind) {
       case 0:
-        err = launch_one<T, R, K, 0>(op, base, slot, real, dep, stream);
+        err = launch_one<S, T, R, K, 0>(op, base, slot, real, dep,
+                                          stream);
         break;
       case 1:
-        err = launch_one<T, R, K, 1>(op, base, slot, real, dep, stream);
+        err = launch_one<S, T, R, K, 1>(op, base, slot, real, dep,
+                                          stream);
         break;
       case 2:
-        err = launch_one<T, R, K, 2>(op, base, slot, real, dep, stream);
+        err = launch_one<S, T, R, K, 2>(op, base, slot, real, dep,
+                                          stream);
         break;
       default:
         return (int)cudaErrorInvalidValue;
@@ -463,7 +491,7 @@ int launch_all(const Operands<T>& op, const int32_t* launch, int n,
   return (int)cudaSuccess;
 }
 
-template <typename T>
+template <typename S, typename T>
 int dispatch(void* clv, void* scaler, const void* codes, const void* u,
              const void* block_part, const void* lidx, const void* ridx,
              const void* lcode, const void* rcode, const void* pmat,
@@ -471,8 +499,8 @@ int dispatch(void* clv, void* scaler, const void* codes, const void* u,
              int K, double minlik, double two_e, void* stream,
              int* launched) {
   *launched = 0;
-  Operands<T> op;
-  op.clv = static_cast<T*>(clv);
+  Operands<S, T> op;
+  op.clv = static_cast<S*>(clv);
   op.scaler = static_cast<int32_t*>(scaler);
   op.codes = static_cast<const uint8_t*>(codes);
   op.u = static_cast<const T*>(u);
@@ -492,31 +520,31 @@ int dispatch(void* clv, void* scaler, const void* codes, const void* u,
   const int32_t* rows = static_cast<const int32_t*>(launch);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (R == 4 && K == 2)
-    return launch_all<T, 4, 2>(op, rows, n, st, launched);
+    return launch_all<S, T, 4, 2>(op, rows, n, st, launched);
   if (R == 4 && K == 4)
-    return launch_all<T, 4, 4>(op, rows, n, st, launched);
+    return launch_all<S, T, 4, 4>(op, rows, n, st, launched);
   if (R == 4 && K == 20)
-    return launch_all<T, 4, 20>(op, rows, n, st, launched);
+    return launch_all<S, T, 4, 20>(op, rows, n, st, launched);
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename T, int R, int K>
+template <typename S, typename T, int R, int K>
 cudaError_t config_rk(int kind, int L, int C, Config& c) {
   switch (kind) {
-    case 0: return configure<T, R, K, 0>(L, C, c);
-    case 1: return configure<T, R, K, 1>(L, C, c);
-    case 2: return configure<T, R, K, 2>(L, C, c);
+    case 0: return configure<S, T, R, K, 0>(L, C, c);
+    case 1: return configure<S, T, R, K, 1>(L, C, c);
+    case 2: return configure<S, T, R, K, 2>(L, C, c);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
+template <typename S, typename T>
 int config_of(int R, int K, int kind, int L, int C, int* out) {
   Config c;
   cudaError_t err = cudaErrorInvalidValue;
-  if (R == 4 && K == 2) err = config_rk<T, 4, 2>(kind, L, C, c);
-  if (R == 4 && K == 4) err = config_rk<T, 4, 4>(kind, L, C, c);
-  if (R == 4 && K == 20) err = config_rk<T, 4, 20>(kind, L, C, c);
+  if (R == 4 && K == 2) err = config_rk<S, T, 4, 2>(kind, L, C, c);
+  if (R == 4 && K == 4) err = config_rk<S, T, 4, 4>(kind, L, C, c);
+  if (R == 4 && K == 20) err = config_rk<S, T, 4, 20>(kind, L, C, c);
   out[0] = c.smem;
   out[1] = c.threads;
   out[2] = c.per_sm;
@@ -538,9 +566,9 @@ int examl_newview_chunks_f32(void* clv, void* scaler, const void* codes,
                              int B, int L, int M, int C, int R, int K,
                              double minlik, double two_e, void* stream,
                              int* launched) {
-  return dispatch<float>(clv, scaler, codes, u, block_part, lidx, ridx,
-                         lcode, rcode, pmat, launch, n, B, L, M, C, R, K,
-                         minlik, two_e, stream, launched);
+  return dispatch<float, float>(clv, scaler, codes, u, block_part, lidx,
+                                ridx, lcode, rcode, pmat, launch, n, B, L,
+                                M, C, R, K, minlik, two_e, stream, launched);
 }
 
 int examl_newview_chunks_f64(void* clv, void* scaler, const void* codes,
@@ -551,19 +579,38 @@ int examl_newview_chunks_f64(void* clv, void* scaler, const void* codes,
                              int B, int L, int M, int C, int R, int K,
                              double minlik, double two_e, void* stream,
                              int* launched) {
-  return dispatch<double>(clv, scaler, codes, u, block_part, lidx, ridx,
-                          lcode, rcode, pmat, launch, n, B, L, M, C, R, K,
-                          minlik, two_e, stream, launched);
+  return dispatch<double, double>(clv, scaler, codes, u, block_part, lidx,
+                                  ridx, lcode, rcode, pmat, launch, n, B, L,
+                                  M, C, R, K, minlik, two_e, stream,
+                                  launched);
 }
 
-// The launch configuration of one instance (R rates, K states, kind) for
-// lane width L and C tip codes: out = {dynamic shared memory bytes,
-// threads per CTA, resident CTAs per SM, SMs, sites per tile, ring
-// stages}.
-int examl_newview_chunk_config(int f64, int R, int K, int kind, int L, int C,
-                               int* out) {
-  return f64 ? config_of<double>(R, K, kind, L, C, out)
-             : config_of<float>(R, K, kind, L, C, out);
+// A bfloat16 arena with float32 u, P and arithmetic (point 7).
+int examl_newview_chunks_bf16(void* clv, void* scaler, const void* codes,
+                              const void* u, const void* block_part,
+                              const void* lidx, const void* ridx,
+                              const void* lcode, const void* rcode,
+                              const void* pmat, const void* launch, int n,
+                              int B, int L, int M, int C, int R, int K,
+                              double minlik, double two_e, void* stream,
+                              int* launched) {
+  return dispatch<__nv_bfloat16, float>(
+      clv, scaler, codes, u, block_part, lidx, ridx, lcode, rcode, pmat,
+      launch, n, B, L, M, C, R, K, minlik, two_e, stream, launched);
+}
+
+// The launch configuration of one instance (storage 0 = f32, 1 = f64, 2 =
+// bf16 under f32; R rates, K states, kind) for lane width L and C tip
+// codes: out = {dynamic shared memory bytes, threads per CTA, resident
+// CTAs per SM, SMs, sites per tile, ring stages}.
+int examl_newview_chunk_config(int storage, int R, int K, int kind, int L,
+                               int C, int* out) {
+  switch (storage) {
+    case 0: return config_of<float, float>(R, K, kind, L, C, out);
+    case 1: return config_of<double, double>(R, K, kind, L, C, out);
+    case 2: return config_of<__nv_bfloat16, float>(R, K, kind, L, C, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 const char* examl_cuda_error_string(int err) {

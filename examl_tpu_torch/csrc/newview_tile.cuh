@@ -17,13 +17,28 @@
 // Every piece is 16-byte aligned and a multiple of 16 bytes, so each is
 // one cp.async.bulk copy; P at K >= 16 is R copies, one per rate, at the
 // bank-spread offsets of p_rate_offset.
+//
+// Storage and compute types.  The pieces that touch CLV rows take a
+// storage type S beside the compute type T (S defaults to T): the arena
+// rows, a child's staged slab and a staged output are in S; P, the tip
+// products, every FMA and the rescale decision are in T.  B2 and B1's
+// float32 / float64 instances have S = T; B1's bfloat16-storage instances
+// have S = __nv_bfloat16, T = float: a staged slab is converted on its
+// load from shared memory (exact), each output is rounded to nearest even
+// once, after the rescale (as torch's and JAX's casts round).
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+template <typename A, typename B>
+constexpr bool kSame = false;
+template <typename A>
+constexpr bool kSame<A, A> = true;
 
 // -- vector loads and stores -----------------------------------------------
 
@@ -31,6 +46,8 @@ template <typename T, int V> struct VecT;
 template <> struct VecT<float, 16> { using type = float4; };
 template <> struct VecT<double, 16> { using type = double2; };
 template <> struct VecT<float, 8> { using type = float2; };
+// 16 bytes of bfloat16 rows, moved as they are (blocked_store's copy).
+template <> struct VecT<__nv_bfloat16, 16> { using type = uint4; };
 
 __device__ __forceinline__ void unpack(const float4& u, float* d) {
   d[0] = u.x; d[1] = u.y; d[2] = u.z; d[3] = u.w;
@@ -93,6 +110,118 @@ __device__ __forceinline__ void store_vec(T* dst, const T (&src)[N]) {
   } else {
 #pragma unroll
     for (int i = 0; i < N; ++i) dst[i] = src[i];
+  }
+}
+
+// bfloat16 <-> float.  A bfloat16 is the upper half of a float, so a
+// 32-bit word w of two (element 0 in the low half) widens exactly by
+// shifts; two floats narrow to one word by __float2bfloat16_rn each.
+__device__ __forceinline__ float bf16_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+__device__ __forceinline__ uint32_t bf16_pack(float a, float b) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(a)) |
+         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(b)) << 16);
+}
+
+template <int W> struct Words;
+template <> struct Words<16> {
+  using type = uint4;
+  __device__ static void get(const uint4& v, uint32_t* w) {
+    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+  }
+  __device__ static uint4 make(const uint32_t* w) {
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+};
+template <> struct Words<8> {
+  using type = uint2;
+  __device__ static void get(const uint2& v, uint32_t* w) {
+    w[0] = v.x; w[1] = v.y;
+  }
+  __device__ static uint2 make(const uint32_t* w) {
+    return make_uint2(w[0], w[1]);
+  }
+};
+template <> struct Words<4> {
+  using type = uint32_t;
+  __device__ static void get(const uint32_t& v, uint32_t* w) { w[0] = v; }
+  __device__ static uint32_t make(const uint32_t* w) { return w[0]; }
+};
+
+// The widest access (16, 8 or 4 bytes, at most V) that N bfloat16 values
+// split into; 0 where only single values do.
+template <int N, int V>
+__host__ __device__ constexpr int bf16_access_bytes() {
+  return (V >= 16 && (2 * N) % 16 == 0) ? 16
+         : (V >= 8 && (2 * N) % 8 == 0) ? 8
+         : (2 * N) % 4 == 0             ? 4
+                                        : 0;
+}
+
+// N contiguous values of storage type S into compute type T: load_vec
+// where S = T, else N bfloat16 values widened to float.  The caller
+// guarantees the alignment of the access the widths pick.
+template <typename S, typename T, int N, int V = 16>
+__device__ __forceinline__ void load_cvt(const S* src, T (&dst)[N]) {
+  if constexpr (kSame<S, T>) {
+    load_vec<T, N, V>(src, dst);
+  } else {
+    static_assert(kSame<S, __nv_bfloat16> && kSame<T, float>,
+                  "storage types: T itself, or bfloat16 under float");
+    constexpr int W = bf16_access_bytes<N, V>();
+    if constexpr (W > 0) {
+      using Wt = Words<W>;
+      constexpr int nw = W / 4;
+      const typename Wt::type* s =
+          reinterpret_cast<const typename Wt::type*>(src);
+#pragma unroll
+      for (int i = 0; i < 2 * N / W; ++i) {
+        uint32_t w[nw];
+        Wt::get(s[i], w);
+#pragma unroll
+        for (int j = 0; j < nw; ++j) {
+          dst[i * 2 * nw + 2 * j] = bf16_lo(w[j]);
+          dst[i * 2 * nw + 2 * j + 1] = bf16_hi(w[j]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < N; ++i) dst[i] = __bfloat162float(src[i]);
+    }
+  }
+}
+
+// N compute values stored as S: store_vec where S = T, else rounded to
+// nearest even into bfloat16.
+template <typename S, typename T, int N, int V = 16>
+__device__ __forceinline__ void store_cvt(S* dst, const T (&src)[N]) {
+  if constexpr (kSame<S, T>) {
+    store_vec<T, N, V>(dst, src);
+  } else {
+    static_assert(kSame<S, __nv_bfloat16> && kSame<T, float>,
+                  "storage types: T itself, or bfloat16 under float");
+    constexpr int W = bf16_access_bytes<N, V>();
+    if constexpr (W > 0) {
+      using Wt = Words<W>;
+      constexpr int nw = W / 4;
+      typename Wt::type* d = reinterpret_cast<typename Wt::type*>(dst);
+#pragma unroll
+      for (int i = 0; i < 2 * N / W; ++i) {
+        uint32_t w[nw];
+#pragma unroll
+        for (int j = 0; j < nw; ++j)
+          w[j] = bf16_pack(src[i * 2 * nw + 2 * j],
+                           src[i * 2 * nw + 2 * j + 1]);
+        d[i] = Wt::make(w);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < N; ++i) dst[i] = __float2bfloat16_rn(src[i]);
+    }
   }
 }
 
@@ -217,10 +346,10 @@ struct Stage {
 // for both; B2, whose entries mix tip cases within a launch).
 enum SideMode { kTip = 0, kInner = 1, kEither = 2 };
 
-template <typename T, int R, int K>
+template <typename T, int R, int K, typename S = T>
 __host__ __device__ void side_bytes(int mode, int TL, int C, int* x, int* sc,
                                     int* op) {
-  const int clv = TL * R * K * (int)sizeof(T);
+  const int clv = TL * R * K * (int)sizeof(S);
   const int u = C * R * K * (int)sizeof(T);
   const int p = p_span<T, R, K>();
   *x = mode == kTip ? 0 : clv;
@@ -228,14 +357,14 @@ __host__ __device__ void side_bytes(int mode, int TL, int C, int* x, int* sc,
   *op = mode == kTip ? u : mode == kInner ? p : (u > p ? u : p);
 }
 
-template <typename T, int R, int K>
+template <typename T, int R, int K, typename S = T>
 __host__ __device__ Stage stage_layout(int lmode, int rmode, int TL, int C) {
   Stage s{};
   int off = 0;
   const int modes[2] = {lmode, rmode};
   for (int i = 0; i < 2; ++i) {
     int x, sc, op;
-    side_bytes<T, R, K>(modes[i], TL, C, &x, &sc, &op);
+    side_bytes<T, R, K, S>(modes[i], TL, C, &x, &sc, &op);
     s.side[i].x = off;
     off += align128(x);
     s.side[i].sc = off;
@@ -247,11 +376,12 @@ __host__ __device__ Stage stage_layout(int lmode, int rmode, int TL, int C) {
   return s;
 }
 
-// The bytes the copies of one side bring in.
-template <typename T, int R, int K>
+// The bytes the copies of one side bring in: the CLV slab in S, P and the
+// tip products in T.
+template <typename T, int R, int K, typename S = T>
 __host__ __device__ int side_tx(bool tip, int TL, int C) {
   return tip ? TL + C * R * K * (int)sizeof(T)
-             : TL * R * K * (int)sizeof(T) + 4 * TL + R * K * K *
+             : TL * R * K * (int)sizeof(S) + 4 * TL + R * K * K *
                                                           (int)sizeof(T);
 }
 
@@ -260,10 +390,10 @@ __host__ __device__ int side_tx(bool tip, int TL, int C) {
 // the CLV slab at `slab`, the scaler slab at `sc` and P at `p` (each
 // pointer already at the tile's first site / the entry's side and
 // partition).
-template <typename T, int R, int K>
+template <typename T, int R, int K, typename S = T>
 __device__ __forceinline__ void load_side(unsigned char* st, const Side& sd,
                                           bool tip, const uint8_t* codes,
-                                          const T* u, const T* slab,
+                                          const T* u, const S* slab,
                                           const int32_t* sc, const T* p,
                                           int TL, int C, uint64_t* bar) {
   if (tip) {
@@ -271,7 +401,7 @@ __device__ __forceinline__ void load_side(unsigned char* st, const Side& sd,
     bulk_load(st + sd.op, u, C * R * K * sizeof(T), bar);
     return;
   }
-  bulk_load(st + sd.x, slab, TL * R * K * sizeof(T), bar);
+  bulk_load(st + sd.x, slab, TL * R * K * sizeof(S), bar);
   bulk_load(st + sd.sc, sc, 4 * TL, bar);
   if constexpr (kBlocked<K>) {
 #pragma unroll
@@ -350,20 +480,20 @@ __device__ __forceinline__ Role blocked_role(int tid) {
 }
 
 // v[j][i] (= or *=) y of output a = h*A + i at site j, for an inner child
-// whose slab and P are staged in `st` at `sd`.
-template <typename T, int R, int K, bool MUL>
+// whose slab (in S) and P are staged in `st` at `sd`.
+template <typename T, int R, int K, bool MUL, typename S = T>
 __device__ __forceinline__ void blocked_inner(
     const unsigned char* st, const Side& sd, const Role& ro,
     const int (&site)[Blocked<T, R, K>::NS],
     T (&v)[Blocked<T, R, K>::NS][Blocked<T, R, K>::A]) {
   using G = Blocked<T, R, K>;
-  const T* slab = reinterpret_cast<const T*>(st + sd.x);
+  const S* slab = reinterpret_cast<const S*>(st + sd.x);
   const T* p = reinterpret_cast<const T*>(st + sd.op + ro.prate) +
                ro.h * G::A * K;
   T x[G::NS][K];
 #pragma unroll
   for (int j = 0; j < G::NS; ++j)
-    load_vec<T, K>(slab + (site[j] * R + ro.r) * K, x[j]);
+    load_cvt<S, T, K>(slab + (site[j] * R + ro.r) * K, x[j]);
   constexpr int per = 16 / sizeof(T);        // P values a 16-byte read
   static_assert(K % per == 0, "P rows are read 16 bytes at a time");
 #pragma unroll
@@ -414,7 +544,7 @@ __device__ __forceinline__ void blocked_tip(
   }
 }
 
-template <typename T, int R, int K, bool MUL>
+template <typename T, int R, int K, bool MUL, typename S = T>
 __device__ __forceinline__ void blocked_child(
     const unsigned char* st, const Side& sd, bool tip, const Role& ro,
     const int (&site)[Blocked<T, R, K>::NS],
@@ -423,7 +553,7 @@ __device__ __forceinline__ void blocked_child(
   if (tip) {
     blocked_tip<T, R, K, MUL>(st, sd, ro, site, v);
   } else {
-    blocked_inner<T, R, K, MUL>(st, sd, ro, site, v);
+    blocked_inner<T, R, K, MUL, S>(st, sd, ro, site, v);
     const int32_t* s = reinterpret_cast<const int32_t*>(st + sd.sc);
 #pragma unroll
     for (int j = 0; j < Blocked<T, R, K>::NS; ++j) sc[j] += s[site[j]];
@@ -433,17 +563,18 @@ __device__ __forceinline__ void blocked_child(
 // Rescale and store a thread's products: the max over a site's R*K values
 // is reduced over its kLanes neighbouring lanes; a site under 2^-E (minlik)
 // is multiplied by 2^E and its scaler adds 1.  The values go to `obuf`
-// ([TL][R][K] in shared memory) first, so that each warp then writes its
-// sites' rows to the parent row with contiguous 16-byte stores (a thread's
-// own A values are 40 bytes of a 320-byte site row in f32).  A warp's
-// sites are its own in `obuf` too: only __syncwarp orders the two steps.
+// ([TL][R][K] of S in shared memory, rounded there when S is narrower)
+// first, so that each warp then writes its sites' rows to the parent row
+// with contiguous 16-byte stores (a thread's own A values are 40 bytes
+// of a 320-byte site row in f32).  A warp's sites are its own in `obuf`
+// too: only __syncwarp orders the two steps.
 // `out` is the parent row at the tile's first site, `out_sc` its scaler
 // row there.
-template <typename T, int R, int K>
+template <typename T, int R, int K, typename S = T>
 __device__ __forceinline__ void blocked_store(
     T (&v)[Blocked<T, R, K>::NS][Blocked<T, R, K>::A], const Role& ro,
     const int (&site)[Blocked<T, R, K>::NS],
-    const int (&sc)[Blocked<T, R, K>::NS], int TL, T* obuf, T* out,
+    const int (&sc)[Blocked<T, R, K>::NS], int TL, S* obuf, S* out,
     int32_t* out_sc, T minlik, T two_e) {
   using G = Blocked<T, R, K>;
 #pragma unroll
@@ -464,15 +595,15 @@ __device__ __forceinline__ void blocked_store(
 #pragma unroll
       for (int i = 0; i < G::A; ++i) v[j][i] *= two_e;
     }
-    store_vec<T, G::A, G::V>(obuf + (site[j] * R + ro.r) * K + ro.h * G::A,
-                             v[j]);
+    store_cvt<S, T, G::A, G::V>(
+        obuf + (site[j] * R + ro.r) * K + ro.h * G::A, v[j]);
     if (ro.r == 0 && ro.h == 0) out_sc[site[j]] = sc[j] + (needs ? 1 : 0);
   }
   __syncwarp();
   // The warp's sites: kSites consecutive ones from site[j] of its lane 0.
   constexpr int kSites = 32 / G::kLanes;
-  constexpr int kVec = kSites * R * K * (int)sizeof(T) / 16;
-  using V4 = typename VecT<T, 16>::type;
+  constexpr int kVec = kSites * R * K * (int)sizeof(S) / 16;
+  using V4 = typename VecT<S, 16>::type;
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int j = 0; j < G::NS; ++j) {
@@ -491,10 +622,10 @@ __device__ __forceinline__ void blocked_store(
 // One staged tile through the blocked body: left child, right child
 // multiplied in, rescale and store (through `obuf`), then the stage
 // released (one arrival per consumer warp on `empty`).
-template <typename T, int R, int K>
+template <typename T, int R, int K, typename S = T>
 __device__ __forceinline__ void blocked_tile(
     const unsigned char* st, const Stage& lay, bool ltip, bool rtip,
-    const Role& ro, int TL, uint64_t* empty, T* obuf, T* out,
+    const Role& ro, int TL, uint64_t* empty, S* obuf, S* out,
     int32_t* out_sc, T minlik, T two_e) {
   using G = Blocked<T, R, K>;
   int site[G::NS];
@@ -502,11 +633,11 @@ __device__ __forceinline__ void blocked_tile(
   for (int j = 0; j < G::NS; ++j) site[j] = ro.sg + j * (TL / G::NS);
   T v[G::NS][G::A];
   int sc[G::NS] = {};
-  blocked_child<T, R, K, false>(st, lay.side[0], ltip, ro, site, v, sc);
-  blocked_child<T, R, K, true>(st, lay.side[1], rtip, ro, site, v, sc);
+  blocked_child<T, R, K, false, S>(st, lay.side[0], ltip, ro, site, v, sc);
+  blocked_child<T, R, K, true, S>(st, lay.side[1], rtip, ro, site, v, sc);
   __syncwarp();                 // the warp's reads of the stage are done
-  blocked_store<T, R, K>(v, ro, site, sc, TL, obuf, out, out_sc, minlik,
-                         two_e);
+  blocked_store<T, R, K, S>(v, ro, site, sc, TL, obuf, out, out_sc, minlik,
+                            two_e);
   if ((threadIdx.x & 31) == 0) mbar_arrive(empty);   // this warp is done
 }
 

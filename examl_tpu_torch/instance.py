@@ -50,9 +50,14 @@ class PhyloInstance:
                  psr_categories: int = 25,
                  batch_scan: Optional[bool] = None,
                  batch_thorough: Optional[bool] = None,
-                 save_memory: bool = False):
+                 save_memory: bool = False, clv_dtype=None):
         """newview: the engines' full-traversal tier, "chunk" (kernel B1,
         the default) or "whole" (kernel B2), see ops/engine.py.
+        clv_dtype: the CLV storage of every engine's arena, scan region
+        and SEV pool, None / "same" (the compute dtype) or bfloat16
+        ("bf16", torch.bfloat16) with float32 compute, the JAX package's
+        EXAML_CLV_DTYPE=bf16; bfloat16 with float64 compute or with the
+        whole tier raises (`config.clv_storage_dtype`).
         save_memory: SEV memory saving (the CLI's -S): every engine keeps
         its CLVs in a block-cell pool (ops/sev.py) and runs every
         traversal on the pooled wave-scan tier; a kernel tier named with
@@ -82,6 +87,7 @@ class PhyloInstance:
         self.device = config.resolve_device(device)
         self.dtype = dtype if dtype is not None else \
             config.default_dtype(self.device)
+        self.storage_dtype = config.clv_storage_dtype(self.dtype, clv_dtype)
         self.alignment = alignment
         self.ncat = ncat
         self.use_median = use_median
@@ -138,7 +144,7 @@ class PhyloInstance:
                 alignment.ntaxa, num_branch_slots=self.num_branch_slots,
                 branch_indices=branch_indices, dtype=self.dtype,
                 device=self.device, newview=newview, psr=self.psr,
-                save_memory=save_memory)
+                save_memory=save_memory, clv_dtype=self.storage_dtype)
 
         # PSR per-site rate state (reference patrat / rateCategory /
         # perSiteRates, `axml.h:585-600`), host copies per partition:

@@ -35,6 +35,16 @@ construction as the JAX engine chooses it (it runs no Pallas under
 The scaler stays dense, and the batched scan's region is carved from the
 pool.  The whole-tree gradient pass needs the dense arena, so `-S`
 smoothing takes the per-branch route (optimize/branch.py).
+
+With `clv_dtype=torch.bfloat16` (float32 compute only; the JAX engine's
+EXAML_CLV_DTYPE=bf16) the arena, its scan region and the SEV pool store
+bfloat16 while every computation stays float32: reads upcast after the
+load, writes round to nearest even after the rescale.  Full traversals
+then run the bfloat16-storage instances of kernel B1 on the chunk tier;
+the whole tier is refused (B2 has no such instance, and the JAX package
+runs Pallas only with float32 storage).  Scratch arenas that live inside
+one call (the outroot arena, the PSR rate scan's) keep the compute
+dtype, as in the JAX engine.
 """
 
 from __future__ import annotations
@@ -120,14 +130,16 @@ class LikelihoodEngine:
                  dtype: Optional[torch.dtype] = None, device=None,
                  scale_exp: Optional[int] = None, wave_width: int = 8,
                  newview: Optional[str] = None, psr: bool = False,
-                 save_memory: bool = False):
+                 save_memory: bool = False, clv_dtype=None):
         """newview selects the full-traversal tier: "chunk" (the bounded
         chunk program through kernel B1, the default) or "whole" (one
         launch of kernel B2 per traversal) — the JAX engine's
         EXAML_PALLAS=1 | whole.  psr: per-site rates (CAT); every
         traversal then takes the wave-scan tier.  save_memory: SEV (-S),
         the block-cell pool and the "pooled" tier; a kernel tier named
-        with it is refused."""
+        with it is refused.  clv_dtype: the CLV storage dtype
+        (`config.clv_storage_dtype`: None / "same", or bfloat16 with
+        float32 compute); bfloat16 with the whole tier is refused."""
         if save_memory:
             if newview not in (None, POOLED_TIER):
                 raise ValueError(
@@ -145,6 +157,12 @@ class LikelihoodEngine:
         self.device = config.resolve_device(device)
         self.dtype = dtype if dtype is not None else \
             config.default_dtype(self.device)
+        self.storage_dtype = config.clv_storage_dtype(self.dtype, clv_dtype)
+        if newview == "whole" and self.storage_dtype != self.dtype:
+            raise ValueError(
+                f"newview='whole' with {self.storage_dtype} CLV storage: "
+                "kernel B2 has no such instance; full traversals over a "
+                "bfloat16 arena take the chunk tier (kernel B1)")
         self.scale_exp = (scale_exp if scale_exp is not None
                           else config.scale_exponent(self.dtype))
         self.bucket = bucket
@@ -175,12 +193,13 @@ class LikelihoodEngine:
         self.K = bucket.states
         tier = newview_whole if newview == "whole" else newview_chunk
         if (self.device.type == "cuda" and not psr and not save_memory
-                and not tier.supported(self.R, self.K)):
+                and not tier.supported(self.R, self.K, self.storage_dtype)):
             raise ValueError(
                 f"kernel {'B2' if newview == 'whole' else 'B1'} has no "
-                f"instance for (R, K) = ({self.R}, {self.K}): full "
-                f"traversals on the {newview} tier need 4 rate categories "
-                "of 2, 4 or 20 states")
+                f"instance for (R, K) = ({self.R}, {self.K}) with "
+                f"{self.storage_dtype} storage: full traversals on the "
+                f"{newview} tier need 4 rate categories of 2, 4 or 20 "
+                "states")
         if branch_indices is None:
             branch_indices = [0] * self.num_parts
         self._branch_indices = list(branch_indices)
@@ -205,11 +224,12 @@ class LikelihoodEngine:
             self.sev = SevState(bucket.tip_codes,
                                 self._datatype().undetermined_code,
                                 self.num_rows, self.B, self.lane, self.R,
-                                self.K, self.dtype, self.device)
+                                self.K, self.storage_dtype, self.device)
         else:
             self.sev = None
             self.clv = torch.zeros((self.num_rows, self.B, self.lane,
-                                    self.R, self.K), dtype=self.dtype,
+                                    self.R, self.K),
+                                   dtype=self.storage_dtype,
                                    device=self.device)
         self.scaler = torch.zeros((self.num_rows, self.B, self.lane),
                                   dtype=torch.int32, device=self.device)
@@ -351,10 +371,11 @@ class LikelihoodEngine:
         self.row_map[:st.row_of.shape[0]] = st.row_of
 
     def _run_fast(self, flat: FlatTraversal) -> None:
-        """Full traversal on the chunk tier: one batched operand build, then
-        kernel B1 over the cached layout's launch table (every chunk with
-        real entries, from one host call); installs the wave-ordered row
-        map it wrote."""
+        """Full traversal on the chunk tier: one batched operand build (P in
+        the compute dtype), then kernel B1 over the cached layout's launch
+        table (every chunk with real entries, from one host call; the
+        instance of the arena's storage dtype); installs the wave-ordered
+        row map it wrote."""
         global CHUNK_LAUNCH_ROWS
         st = self._structure(flat)
         zl, zr = fastpath.refresh_z(st, flat, self.num_branch_slots,
@@ -612,8 +633,9 @@ class LikelihoodEngine:
 
     def _outroot_arena(self) -> torch.Tensor:
         """The outroot arena [2*ntips-1, B, lane, R, K]: one row per node
-        (number - 1), the last row scratch.  Every pass writes each row it
-        reads first, so the arena is made once and reused."""
+        (number - 1), the last row scratch, in the compute dtype whatever
+        the CLV storage (as the JAX engine's).  Every pass writes each row
+        it reads first, so the arena is made once and reused."""
         if self._outroot is None:
             self._outroot = torch.zeros(
                 (2 * self.ntips - 1, self.B, self.lane, self.R, self.K),

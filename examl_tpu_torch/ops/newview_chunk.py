@@ -32,7 +32,13 @@ inner child, so holding the kernel against it also holds u.  On a CUDA
 tensor it launches or raises; nothing falls back.  `LAUNCHES` counts kernel
 launches (and nothing else), so a run can show that its path went
 through the kernel; `LAUNCHES_BY_K` counts the same launches by state
-count.
+count and `LAUNCHES_BY_DTYPE` by the arena's storage dtype.
+
+The arena may store bfloat16 with float32 compute (the engine's
+`clv_dtype`, the JAX package's EXAML_CLV_DTYPE=bf16): P, the tip
+products, the arithmetic and the rescale decision stay float32, child
+rows are upcast after the load and each output is rounded to nearest even
+once, after the rescale.  The plain version does the same with `.to`.
 """
 
 from __future__ import annotations
@@ -46,15 +52,23 @@ from examl_tpu_torch.ops import kernels
 
 LAUNCHES = 0
 LAUNCHES_BY_K: dict = {}     # the same launches by state count K
+LAUNCHES_BY_DTYPE: dict = {}  # ... and by storage dtype ("bfloat16", ...)
 
 # (R, K) instantiated in csrc/newview_chunk.cu: GAMMA's four rates over
-# binary, DNA and amino-acid states.
+# binary, DNA and amino-acid states, each for every storage dtype below.
 _SUPPORTED_RK = ((4, 2), (4, 4), (4, 20))
+# Storage dtype -> (compute dtype, C entry point).
+_STORAGE = {torch.float32: (torch.float32, "examl_newview_chunks_f32"),
+            torch.float64: (torch.float64, "examl_newview_chunks_f64"),
+            torch.bfloat16: (torch.float32, "examl_newview_chunks_bf16")}
 
 
-def supported(R: int, K: int) -> bool:
-    """Whether the CUDA kernel has an instance for R rates x K states."""
-    return (R, K) in _SUPPORTED_RK
+def supported(R: int, K: int, storage=None) -> bool:
+    """Whether the CUDA kernel has an instance for R rates x K states with
+    CLVs stored in `storage` (float32, float64, or bfloat16 with float32
+    compute; None asks for the float32 instance)."""
+    return (R, K) in _SUPPORTED_RK and (storage is None
+                                        or storage in _STORAGE)
 
 
 def chunk_operands(models: kernels.DeviceModels, zl: torch.Tensor,
@@ -170,7 +184,9 @@ def chunk_apply_cuda(clv, scaler, codes, u, block_part, launch, lidx,
     """Launch kernel B1 once per launch-table row on the current stream,
     from one host call (no synchronisation).  Takes `chunk_apply`'s
     operands with the tip products u [P, 2, M, C, R, K] in place of the
-    table.  Every operand is checked once per traversal."""
+    table.  pmat and u are in the compute dtype of the arena's storage
+    dtype (float32 for a bfloat16 arena).  Every operand is checked once
+    per traversal."""
     global LAUNCHES
     from examl_tpu_torch.ops import _build
 
@@ -178,9 +194,11 @@ def chunk_apply_cuda(clv, scaler, codes, u, block_part, launch, lidx,
     dev = clv.device
     if dev.type != "cuda":
         raise ValueError(f"chunk_apply_cuda needs CUDA tensors, got {dev}")
-    if clv.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"arena dtype {clv.dtype} is not float32/float64")
-    if not supported(R, K):
+    if clv.dtype not in _STORAGE:
+        raise TypeError(f"arena dtype {clv.dtype} is not float32, float64 "
+                        "or bfloat16")
+    compute, entry = _STORAGE[clv.dtype]
+    if not supported(R, K, clv.dtype):
         raise ValueError(f"(R, K) = {(R, K)} has no kernel instance")
     if u.dim() != 6:
         raise ValueError(f"u has shape {tuple(u.shape)}, expected "
@@ -195,8 +213,8 @@ def chunk_apply_cuda(clv, scaler, codes, u, block_part, launch, lidx,
     for name, t in (("lidx", lidx), ("ridx", ridx), ("lcode", lcode),
                     ("rcode", rcode)):
         _check(t, name, torch.int32, (P,), dev)
-    _check(pmat, "pmat", clv.dtype, (P, 2, M, R, K, K), dev)
-    _check(u, "u", clv.dtype, (P, 2, M, C, R, K), dev)
+    _check(pmat, "pmat", compute, (P, 2, M, R, K, K), dev)
+    _check(u, "u", compute, (P, 2, M, C, R, K), dev)
     for name, t in (("clv", clv), ("scaler", scaler), ("codes", codes),
                     ("pmat", pmat), ("u", u)):
         if t.data_ptr() % 16:
@@ -205,8 +223,7 @@ def chunk_apply_cuda(clv, scaler, codes, u, block_part, launch, lidx,
     if launch.shape[0] == 0:
         return clv, scaler
     lib = _build.library("newview_chunk")
-    fn = (lib.examl_newview_chunks_f32 if clv.dtype == torch.float32
-          else lib.examl_newview_chunks_f64)
+    fn = getattr(lib, entry)
     launched = ctypes.c_int(0)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
@@ -219,6 +236,8 @@ def chunk_apply_cuda(clv, scaler, codes, u, block_part, launch, lidx,
                  ctypes.byref(launched))
     LAUNCHES += launched.value
     LAUNCHES_BY_K[K] = LAUNCHES_BY_K.get(K, 0) + launched.value
+    name = str(clv.dtype).removeprefix("torch.")
+    LAUNCHES_BY_DTYPE[name] = LAUNCHES_BY_DTYPE.get(name, 0) + launched.value
     if err != 0:
         raise RuntimeError(f"newview_chunk kernel launch failed: CUDA "
                            f"error {err} ({_build.error_string(err)})")

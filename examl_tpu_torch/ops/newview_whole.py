@@ -56,9 +56,12 @@ _SUPPORTED_RK = ((4, 2), (4, 4), (4, 20))
 _BLOCKED_K = 16
 
 
-def supported(R: int, K: int) -> bool:
-    """Whether the CUDA kernel has an instance for R rates x K states."""
-    return (R, K) in _SUPPORTED_RK
+def supported(R: int, K: int, storage=None) -> bool:
+    """Whether the CUDA kernel has an instance for R rates x K states with
+    CLVs stored in `storage` (float32 or float64, the compute dtype; None
+    asks for the float32 instance)."""
+    return (R, K) in _SUPPORTED_RK and storage in (None, torch.float32,
+                                                   torch.float64)
 
 
 def tip_operand(pmat: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
