@@ -81,10 +81,17 @@ TAXA, PARTITIONS, PART_WIDTH = 512, 4, 32768
 # 8,192 tiles of K = 20 in f32, 32,768 in f64, against 132 CTAs).
 CHECK_BLOCKS = {4: 1024, 20: 128, 2: 1024}
 CHECK_WIDTH = 64        # chunk width of the kernel-vs-plain cases
+# Blocks of the whole-traversal cases of phase 3 by (K, storage): a
+# quarter of the real-size DNA width at K = 4, the real amino-acid and
+# binary widths at K = 20 and 2, cut to 64 blocks for the f64 amino-acid
+# arena (three arenas of 1,023 rows must fit the card with the plain
+# version's temporaries).
+ROUTE_BLOCKS = {(K, d): (64 if (K, d) == (20, "float64") else 256)
+                for K in (4, 20, 2) for d in ("float32", "float64",
+                                               "bfloat16")}
 WHOLE_CHECK_BLOCKS = {4: 256, 20: 32, 2: 256}   # the B2-vs-plain cases
 REPS = 5                # timed repeats
 SEV_REPS = 3            # timed repeats of phase 19's evaluates
-REPEAT = 10             # launch-table rows repeated in one call (breakdown)
 # The -f d run through the CLI: FD_TAXA taxa x 4 partitions of FD_WIDTH
 # DNA columns.  The taxa are cut by the run's time limit; the width by
 # the f64 re-evaluation check (abs 2e-3), which f32 evaluation of the
@@ -243,7 +250,7 @@ def b1_case(tag: str, launch_spec, dtype_name: str, rescale: bool, B: int,
     one bfloat16 ulp of each site's maximum (compare_arenas).  Returns a
     result dict."""
     import torch
-    from examl_tpu_torch.ops import newview_chunk
+    from examl_tpu_torch.ops import fastpath, newview_chunk
     storage = getattr(torch, dtype_name)
     dtype = torch.float32 if storage == torch.bfloat16 else storage
     E = 256 if dtype == torch.float64 else 32
@@ -297,9 +304,14 @@ def b1_case(tag: str, launch_spec, dtype_name: str, rescale: bool, B: int,
     c_ref, s_ref = clv.clone(), scaler.clone()
     newview_chunk.chunk_apply_plain(c_ref, s_ref, *args)
     c_k, s_k = clv.clone(), scaler.clone()
-    newview_chunk.chunk_apply(c_k, s_k, *args)
+    flow = fastpath.dataflow(launch, args[4], args[5], device)
+    n0 = newview_chunk.LAUNCHES
+    newview_chunk.chunk_apply(c_k, s_k, *args, flow)
     sync(device)
+    launched = newview_chunk.LAUNCHES - n0
     what = f"B1 K={K} {tag} {dtype_name} rescale={rescale}"
+    check(launched == newview_chunk.table_launches(K, storage, len(launch)),
+          f"{what}: {launched} launches for a table of {len(launch)} rows")
     mism = (s_k != s_ref).nonzero()
     check(mism.shape[0] == 0, f"{what}: {mism.shape[0]} scaler mismatches, "
           f"first at (row, block, lane) "
@@ -323,7 +335,8 @@ def b1_case(tag: str, launch_spec, dtype_name: str, rescale: bool, B: int,
                ).sum())
     return {"K": K, "case": tag, "dtype": dtype_name,
             "forced_rescale": rescale,
-            "launches": len(launch_spec), "entries": P, "blocks": B,
+            "table_rows": len(launch_spec), "launches": launched,
+            "entries": P, "blocks": B,
             "tiles": P * B, "max_abs_err": abs_err,
             "max_rel_err": rel, "differing_cells": ndiff,
             "cells": (row - 2 * W) * B * L * R * K, "rescaled_sites": inc}
@@ -346,6 +359,122 @@ def scaler_sums(scaler, launch, lidx, ridx):
             s += scaler[ridx[slot:slot + real].long()]
         out.append(s)
     return torch.cat(out)
+
+
+def layout_case(dtype_name: str, K: int, shape: str, B: int, seed: int,
+                device, ntaxa: int = TAXA):
+    """A full traversal's launch table on the card: a random tree or a
+    caterpillar (one entry a wave on each side of its centroid) of
+    `ntaxa` taxa, its fastpath structure (with the dataflow operands), B
+    blocks of 128 sites in two partitions of random GTR+G models of K
+    states, random tip codes, and a tip table scaled by 2^-(E/2 + 1), so
+    every tip/tip product rescales.  Returns (clv, scaler, args of
+    chunk_apply, Dataflow, rows written)."""
+    import torch
+    from examl_tpu_torch.ops import fastpath, newview_chunk
+    from examl_tpu_torch.tree.topology import Tree
+    storage = getattr(torch, dtype_name)
+    dtype = torch.float32 if storage == torch.bfloat16 else storage
+    E = 256 if dtype == torch.float64 else 32
+    names = [f"t{i}" for i in range(ntaxa)]
+    tree = (Tree.from_newick(caterpillar_newick(ntaxa), names, 1)
+            if shape == "caterpillar" else Tree.random(names, seed, 1))
+    rng = np.random.default_rng(seed)
+    for p, _ in tree.all_branches():
+        p.z[:] = [float(rng.uniform(0.05, 0.98))]
+    flat = tree.flat_full_traversal(tree.centroid_branch())
+    st = fastpath.build_structure(flat, ntaxa, device)
+    _, dm = random_models(2, rng, dtype, device, K=K)
+    zl, zr = fastpath.refresh_z(st, flat, 1, dtype, device)
+    pmat = newview_chunk.chunk_operands(dm, zl, zr)
+    dt = datatype_of(K)
+    table = torch.as_tensor(dt.tip_indicator_table(), dtype=dtype,
+                            device=device) * 2.0 ** -(E // 2 + 1)
+    rows = ntaxa - 2 + fastpath.slack_rows(ntaxa) + 1
+    clv = torch.zeros((rows, B, 128, 4, K), dtype=storage, device=device)
+    scaler = torch.zeros((rows, B, 128), dtype=torch.int32, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    codes = torch.randint(0, dt.num_codes, (ntaxa, B, 128), generator=gen,
+                          device=device).to(torch.uint8)
+    bp = torch.as_tensor(np.arange(B) * 2 // B, dtype=torch.int32,
+                         device=device)
+    args = (codes, table, bp, st.launch, st.lidx, st.ridx, st.lcode,
+            st.rcode, pmat, E)
+    flow = newview_chunk.Dataflow(st.flow_rows, st.wait,
+                                  newview_chunk.Ready())
+    written = torch.as_tensor(np.sort(st.row_of[st.row_of >= 0]),
+                              device=device)
+    return clv, scaler, args, flow, written
+
+
+def phase_b1_routes(device, seed: int, reps: int) -> list:
+    """Every instance of B1 (K = 4, 20, 2 in float32, float64 and bfloat16
+    storage) over whole traversals of TAXA taxa through the route it
+    takes (newview_chunk.ROUTE): a random tree at ROUTE_BLOCKS and a
+    caterpillar at 8 blocks against the plain version, every tip/tip
+    product rescaled (scalers equal, rows within the storage's bound, the
+    differing cells counted); the random tree three times from the same
+    inputs with one Ready, bitwise equal; then both routes in turns (per
+    chunk, dataflow, dataflow, per chunk) on the random tree, rows of
+    both bitwise equal (route_turns)."""
+    import torch
+    from examl_tpu_torch.ops import newview_chunk as nc
+    out = []
+    for dname in ("float32", "float64", "bfloat16"):
+        for K in STATES:
+            r = {"dtype": dname, "K": K, "route": nc.ROUTE[(
+                K, getattr(torch, dname))]}
+            for shape, B in (("caterpillar", 8),
+                             ("random", ROUTE_BLOCKS[(K, dname)])):
+                clv, sc, args, flow, rows = layout_case(dname, K, shape, B,
+                                                        seed + K, device)
+                c_ref, s_ref = clv.clone(), sc.clone()
+                nc.chunk_apply_plain(c_ref, s_ref, *args)
+                c_k, s_k = clv.clone(), sc.clone()
+                n0 = nc.LAUNCHES
+                nc.chunk_apply(c_k, s_k, *args, flow)
+                sync(device)
+                what = f"B1 K={K} {dname} {shape} traversal"
+                check(nc.LAUNCHES - n0 == nc.table_launches(
+                    K, clv.dtype, len(args[3])), f"{what}: launches")
+                rel, abs_err, ndiff = compare_arenas(
+                    c_k[rows], c_ref[rows], s_k[rows], s_ref[rows], what)
+                check(int(s_ref[rows].sum()) > 0, f"{what}: no rescale")
+                r[shape] = {"blocks": B, "table_rows": len(args[3]),
+                            "max_rel_err": rel, "max_abs_err": abs_err,
+                            "differing_cells": ndiff,
+                            "cells": int(c_k[rows].numel())}
+                del c_ref, s_ref
+                if shape == "caterpillar":
+                    continue
+                for _ in range(2):
+                    c2, s2 = clv.clone(), sc.clone()
+                    nc.chunk_apply(c2, s2, *args, flow)
+                    sync(device)
+                    check(torch.equal(c2, c_k) and torch.equal(s2, s_k),
+                          f"{what}: a repeat is not bitwise equal")
+                    del c2, s2
+                r["turns"] = route_turns(clv, sc, args, flow, device, reps)
+                check(r["turns"]["bitwise_equal"],
+                      f"{what}: the routes' rows differ")
+                del clv, sc, c_k, s_k
+            release_memory()
+            t = r["turns"]
+            faster = "flow" if t["flow_ms"] <= t["chunks_ms"] else "chunks"
+            rel = max(r[k]["max_rel_err"] for k in ("random", "caterpillar"))
+            log(f"  K={K:2d} {dname:8s} route {r['route']:6s}: random "
+                f"{r['random']['table_rows']} rows x {r['random']['blocks']} "
+                f"blocks, caterpillar {r['caterpillar']['table_rows']} rows; "
+                f"vs plain rel {rel:.3e}, "
+                f"differing cells {r['random']['differing_cells']} + "
+                f"{r['caterpillar']['differing_cells']}; 3 runs bitwise "
+                f"equal; in turns per chunk {t['chunks_ms']:.3f} ms "
+                f"({t['launches']['chunks']} launches), dataflow "
+                f"{t['flow_ms']:.3f} ms (1 launch): {faster} faster"
+                + ("" if faster == r["route"] else " (route table differs)"))
+            out.append(r)
+    return out
 
 
 def phase_kernel_vs_plain(device, blocks: dict, W: int, seed: int,
@@ -375,8 +504,9 @@ def phase_kernel_vs_plain(device, blocks: dict, W: int, seed: int,
                 check(r["rescaled_sites"] > 0, f"B1 K={K} {tag} {d}: the "
                       "forced-rescale case rescaled no site")
             results.append(r)
-            log(f"  K={K:2d} {tag:16s} {d:8s} rescale={resc!s:5s} launches="
-                f"{r['launches']} entries={r['entries']} tiles="
+            log(f"  K={K:2d} {tag:16s} {d:8s} rescale={resc!s:5s} rows="
+                f"{r['table_rows']} launches={r['launches']} entries="
+                f"{r['entries']} tiles="
                 f"{r['tiles']} max_abs_err={r['max_abs_err']:.3e} "
                 f"max_rel_err={r['max_rel_err']:.3e} differing cells "
                 f"{r['differing_cells']} of {r['cells']}, rescaled_sites="
@@ -437,11 +567,19 @@ def add_counts(a: dict, b: dict) -> dict:
                 if isinstance(a[k], dict) else a[k] + b[k]) for k in a}
 
 
+def b1_per_table(eng, rows: int) -> int:
+    """B1's launches for one launch table of `rows` rows on engine eng's
+    instance: one on the dataflow route, one a row per chunk."""
+    from examl_tpu_torch.ops import newview_chunk
+    return newview_chunk.table_launches(eng.K, eng.clv.dtype, rows)
+
+
 def check_tier(counts: dict, tier: str, path: str) -> None:
     """A whole-tier path launches B2 once per full traversal and B1 never;
-    a chunk-tier path never launches B2, and launches B1 exactly once per
-    launch-table row of its full traversals (every chunk with real
-    entries, no pad or replay chunk)."""
+    a chunk-tier path never launches B2, and launches B1 at least once per
+    full traversal (a table on the dataflow route) and at most once per
+    launch-table row (every chunk with real entries on the per-chunk
+    route), so at all exactly when it ran a full traversal."""
     if tier == "whole":
         check(counts["b1"] == 0, f"{path}: B1 launched {counts['b1']} "
               "times on the whole tier")
@@ -451,8 +589,8 @@ def check_tier(counts: dict, tier: str, path: str) -> None:
     else:
         check(counts["b2"] == 0, f"{path}: B2 launched {counts['b2']} "
               "times on the chunk tier")
-        check(counts["b1"] == counts["chunk_launch_rows"]
-              and (counts["b1"] > 0 or counts["full_traversals"] == 0),
+        check(counts["full_traversals"] <= counts["b1"]
+              <= counts["chunk_launch_rows"],
               f"{path}: {counts['b1']} B1 launches for "
               f"{counts['chunk_launch_rows']} launch-table rows of "
               f"{counts['full_traversals']} full traversals")
@@ -882,8 +1020,8 @@ def phase_search(device, out_dir: str, seed: int):
         f"{counts['insertions_scored']} insertions scored in "
         f"{counts['scan_calls']} batched scan calls, "
         f"{counts['grad_sweeps']} gradient sweeps; B1 "
-        f"{counts['b1']} launches (= {counts['chunk_launch_rows']} "
-        f"launch-table rows), B2 {counts['b2']}")
+        f"{counts['b1']} launches for {counts['chunk_launch_rows']} "
+        f"launch-table rows, B2 {counts['b2']}")
     log(f"  wall by part: smoothing {parts['smoothing']:.1f} s (of which "
         f"inside mod_opt {parts['smoothing_in_mod_opt']:.1f} s), mod_opt's "
         f"Brent probes {parts['brent_probes']:.1f} s, scored insertions "
@@ -1216,18 +1354,21 @@ def compare_arenas(ck, cp, sk, sp, what: str):
     """Kernel rows against plain rows: scalers exactly equal (a site whose
     maximum sits on the 2^-E threshold could rescale in one version and
     not the other, as the FMA order differs; such a tie is reported as a
-    failure with its site), CLVs within the f32 tolerance of each site's
-    maximum; bfloat16 rows within one bfloat16 ulp of it (a float32 sum
-    in another order can round to the neighbouring bfloat16).  Returns
+    failure with its site), CLVs within the f32 (f64) tolerance of each
+    site's maximum; bfloat16 rows within one bfloat16 ulp of it (a float32
+    sum in another order can round to the neighbouring bfloat16).  Returns
     (max_rel_err, max_abs_err, differing cells)."""
     import torch
     mism = (sk != sp).nonzero()
     check(mism.shape[0] == 0, f"{what}: {mism.shape[0]} scaler "
           f"mismatches, first at (row, block, lane) "
           f"{mism[0].tolist() if mism.shape[0] else None}")
-    ck, cp, bf16 = ck.float(), cp.float(), ck.dtype == torch.bfloat16
+    bf16 = ck.dtype == torch.bfloat16
+    name = "float64" if ck.dtype == torch.float64 else "float32"
+    wide = getattr(torch, name)
+    ck, cp = ck.to(wide), cp.to(wide)
     smax = cp.abs().amax(dim=(3, 4), keepdim=True).clamp_min(
-        torch.finfo(torch.float32).tiny)
+        torch.finfo(wide).tiny)
     diff = (ck - cp).abs()
     rel = float((diff / smax).max())
     if bf16:
@@ -1235,7 +1376,7 @@ def compare_arenas(ck, cp, sk, sp, what: str):
               f"plain differ by more than one bfloat16 ulp of a site's max "
               f"(rel {rel:.3e})")
     else:
-        check(rel <= RTOL["float32"], f"{what}: kernel vs plain rel err "
+        check(rel <= RTOL[name], f"{what}: kernel vs plain rel err "
               f"{rel:.3e}")
     return rel, float(diff.max()), int((diff > 0).sum())
 
@@ -1257,19 +1398,15 @@ def traversal_bound(flat, setup: dict, eng, patterns=None) -> dict:
 
 def launch_breakdown(launch, args, clv, scaler, patterns: int, eng, device,
                      reps: int) -> list:
-    """Kernel B1's time by kind and by real width: each launch-table row
-    timed on its own, as a table of that row repeated REPEAT times (one
-    host call, so the card and not the wrapper sets the pace; rerunning a
-    row rewrites its rows from unchanged inputs), summed per class with
-    the bytes it moves.  `args` are chunk_apply_cuda's, the tip products
+    """Kernel B1's time by kind and by real width: each class's rows as a
+    table of their own through the instance's route (one dataflow launch,
+    or one launch a row), from the same inputs, with the bytes and flops
+    it moves.  A class's rows read rows outside the class from the arena
+    as it stands.  `args` are chunk_apply_cuda's, the tip products
     prebuilt."""
-    from examl_tpu_torch.ops import newview_chunk
+    from examl_tpu_torch.ops import fastpath, newview_chunk
     rows = launch.tolist()
-    ms = []
-    for r in rows:
-        rep = np.asarray([r] * REPEAT, np.int32)
-        ms.append(time_ms(lambda: newview_chunk.chunk_apply_cuda(
-            clv, scaler, *args[:3], rep, *args[4:]), device, reps) / REPEAT)
+    lidx, ridx = args[4].cpu().numpy(), args[5].cpu().numpy()
     classes = [(f"kind {k}", lambda r, k=k: r[0] == k) for k in (0, 1, 2)]
     classes += [(f"{lo}-{hi} entries" if hi < 1 << 30 else f">={lo} entries",
                  lambda r, lo=lo, hi=hi: lo <= r[3] <= hi)
@@ -1279,16 +1416,68 @@ def launch_breakdown(launch, args, clv, scaler, patterns: int, eng, device,
         sel = [i for i, r in enumerate(rows) if member(r)]
         if not sel:
             continue
+        sub = np.ascontiguousarray(launch[sel])
+        flow = fastpath.dataflow(sub, lidx, ridx, device)
+        t = time_ms(lambda: newview_chunk.chunk_apply_cuda(
+            clv, scaler, *args[:3], sub, *args[4:], flow), device, reps)
         chunks = [(rows[i][0], rows[i][3]) for i in sel]
         nbytes = chunk_bytes(chunks, patterns, eng.R, eng.K,
                              eng.clv.element_size())
         flops = chunk_flops(chunks, patterns, eng.R, eng.K)
-        t = sum(ms[i] for i in sel)
-        out.append({"class": name, "launches": len(sel), "bytes": nbytes,
+        out.append({"class": name, "rows": len(sel), "bytes": nbytes,
                     "flops": flops, "ms": t,
                     "tb_per_s": nbytes / (t / 1e3) / 1e12,
                     "tflop_per_s": flops / (t / 1e3) / 1e12})
     return out
+
+
+def host_and_card_ms(fn, device, reps: int) -> dict:
+    """One call's host time (the enqueue: perf_counter around the call,
+    no synchronisation, after a synchronised warm-up; mean of `reps`)
+    against its card time (time_ms, CUDA events)."""
+    host = []
+    for _ in range(reps):
+        sync(device)
+        t0 = time.perf_counter()
+        fn()
+        host.append((time.perf_counter() - t0) * 1e3)
+    sync(device)
+    return {"host_ms": float(np.mean(host)),
+            "event_ms": time_ms(fn, device, reps)}
+
+
+def route_turns(clv, scaler, args, flow, device, reps: int) -> dict:
+    """B1 over one launch table by both routes in turns (per chunk,
+    dataflow, dataflow, per chunk), each on an arena of its own shaped
+    like clv, the tip products built in each call as chunk_apply builds
+    them: each route's ms, the launches it makes, and whether the rows of
+    both are bitwise equal.  `args` are chunk_apply's (the table, not the
+    tip products), `flow` the table's Dataflow."""
+    import torch
+    from examl_tpu_torch.ops import newview_chunk as nc
+    launch = nc.check_launch(args[3], clv.shape[0], args[4].shape[0])
+    arenas = {q: (torch.zeros_like(clv), torch.zeros_like(scaler))
+              for q in ("chunks", "flow")}
+
+    def run(route):
+        c, s = arenas[route]
+        a = (args[0], nc.tip_products(args[8], args[1]), args[2], launch,
+             *args[4:])
+        if route == "flow":
+            return nc._launch_flow(c, s, *a, flow)
+        return nc._launch_chunks(c, s, *a)
+
+    launches = {q: run(q) for q in arenas}
+    sync(device)
+    same = all(torch.equal(arenas["flow"][i], arenas["chunks"][i])
+               for i in (0, 1))
+    runs = {"chunks": [], "flow": []}
+    for q in ("chunks", "flow", "flow", "chunks"):
+        runs[q].append(time_ms(lambda: run(q), device, reps))
+    del arenas
+    return {"chunks_ms": float(np.mean(runs["chunks"])),
+            "flow_ms": float(np.mean(runs["flow"])), "runs": runs,
+            "launches": launches, "bitwise_equal": same}
 
 
 def product_rate(clv, rows: int, device, reps: int) -> float:
@@ -1314,6 +1503,34 @@ def log_profile(profile: dict, kernel: str) -> None:
             log(f"    {r['ms']:9.3f} ms  {r['calls']:5d}x  {r['name']}")
     else:
         log(f"  profiled evaluate: not measured ({profile['error']})")
+
+
+def structure_host_ms(flat, ntaxa: int, device, reps: int) -> dict:
+    """Host time of the fastpath structure of one new topology, which the
+    engine builds once per topology it has not cached: the whole
+    build_structure (layout, launch table, dataflow table, one transfer,
+    synchronised) and its dataflow_table part alone, each the mean of
+    `reps` calls after one warm-up."""
+    from examl_tpu_torch.ops import fastpath
+    layout, _, _, lidx, ridx = fastpath.structure_arrays(flat, ntaxa)[:5]
+    launch = fastpath.launch_table(layout)
+
+    def mean_ms(fn):
+        fn()
+        sync(device)
+        runs = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            sync(device)
+            runs.append((time.perf_counter() - t0) * 1e3)
+        return float(np.mean(runs))
+
+    return {"table_rows": int(launch.shape[0]), "entries": flat.n,
+            "build_structure_ms": mean_ms(
+                lambda: fastpath.build_structure(flat, ntaxa, device)),
+            "dataflow_table_ms": mean_ms(
+                lambda: fastpath.dataflow_table(launch, lidx, ridx))}
 
 
 def phase_real_size(device, setup: dict, reps: int):
@@ -1355,6 +1572,20 @@ def phase_real_size(device, setup: dict, reps: int):
         f"layout: {layout['padded_chunks']} chunks, {layout['padded_slots']} "
         f"slots ({layout['padded_bytes'] / 1e9:.2f} GB); real widths "
         f"{layout['real_width_histogram']}")
+    # The host's share of a new topology: this tree and a caterpillar of
+    # as many taxa (the most table rows a topology of this size gives).
+    from examl_tpu_torch.tree.topology import Tree
+    cat = Tree.from_newick(caterpillar_newick(ntaxa),
+                           [f"t{i}" for i in range(ntaxa)], 1)
+    structure = {"random": structure_host_ms(flat, ntaxa, device, reps),
+                 "caterpillar": structure_host_ms(
+                     cat.flat_full_traversal(cat.centroid_branch()), ntaxa,
+                     device, reps)}
+    for shape, r in structure.items():
+        log(f"  new {shape} topology: build_structure "
+            f"{r['build_structure_ms']:.3f} ms on the host, of which "
+            f"dataflow_table {r['dataflow_table_ms']:.3f} ms "
+            f"({r['table_rows']} table rows, {r['entries']} entries)")
 
     # The main path, one path at a time: the counts are set to 0 just
     # before each path and read just after it.  Full traversals (evaluate)
@@ -1384,10 +1615,6 @@ def phase_real_size(device, setup: dict, reps: int):
     launches["evaluate"] = add_counts(launches["evaluate"], after)
     for path, counts in launches.items():
         check_tier(counts, "chunk", f"real-size chunk {path}")
-    ev = launches["evaluate"]
-    check(ev["b1"] == ev["full_traversals"] * layout["launches"] > 0,
-          f"evaluate: {ev['b1']} B1 launches for {ev['full_traversals']} "
-          f"full traversals of {layout['launches']} launches")
     check(launches["makenewz"]["b1"] == 0,
           "makenewz's partial traversals launched B1")
     check(math.isfinite(lnl_nr) and lnl_nr >= lnl,
@@ -1410,9 +1637,13 @@ def phase_real_size(device, setup: dict, reps: int):
     kargs = (args[0], u) + args[2:]           # chunk_apply_cuda's operands
     clv_k = torch.zeros_like(eng.clv)
     sc_k = torch.zeros_like(eng.scaler)
+    flow = newview_chunk.Dataflow(st.flow_rows, st.wait,
+                                  newview_chunk.Ready())
     # B1's time is chunk_apply's: the tip products and the kernel.
     kernel_ms = time_ms(lambda: newview_chunk.chunk_apply(
-        clv_k, sc_k, *args), device, reps)
+        clv_k, sc_k, *args, flow), device, reps)
+    host = host_and_card_ms(lambda: newview_chunk.chunk_apply(
+        clv_k, sc_k, *args, flow), device, reps)
     tip_ms = time_ms(lambda: newview_chunk.tip_products(
         pmat, eng.tips.table), device, reps)
     clv_p = torch.zeros_like(eng.clv)
@@ -1425,15 +1656,29 @@ def phase_real_size(device, setup: dict, reps: int):
                                      sc_p[rows], "chunk full traversal")
     # Once more from a fresh arena: a launch that read its predecessor's
     # rows too early would show here as an occasional mismatch.
+    # Its launches are this traversal's: the count's difference around it.
     clv_k.zero_()
     sc_k.zero_()
-    newview_chunk.chunk_apply(clv_k, sc_k, *args)
+    n0 = newview_chunk.LAUNCHES
+    newview_chunk.chunk_apply(clv_k, sc_k, *args, flow)
     sync(device)
+    per = newview_chunk.LAUNCHES - n0
+    ev = launches["evaluate"]
+    check(per == b1_per_table(eng, layout["launches"]),
+          f"one traversal launched B1 {per} times on the "
+          f"{newview_chunk.ROUTE[(eng.K, eng.clv.dtype)]} route for "
+          f"{layout['launches']} table rows")
+    check(ev["b1"] == ev["full_traversals"] * per > 0,
+          f"evaluate: {ev['b1']} B1 launches for {ev['full_traversals']} "
+          f"full traversals of {per} launches")
     rel2, abs2, _ = compare_arenas(clv_k[rows], clv_p[rows], sc_k[rows],
                                    sc_p[rows], "chunk full traversal, again")
     rel, abs_err = max(rel, rel2), max(abs_err, abs2)
     breakdown = launch_breakdown(launch, kargs, clv_k, sc_k, patterns, eng,
                                  device, reps)
+    turns = route_turns(eng.clv, eng.scaler, args, flow, device, reps)
+    check(turns["bitwise_equal"], "real-size DNA: the dataflow route's rows "
+          "differ from the per-chunk route's")
     product_tb = product_rate(eng.clv, layout["slots"], device, reps)
     del clv_k, sc_k, clv_p, sc_p
     profile = device_breakdown(lambda: inst.evaluate(tree, full=True),
@@ -1446,7 +1691,9 @@ def phase_real_size(device, setup: dict, reps: int):
         "evaluate_ms": eval_ms, "evaluate_ms_runs": [w * 1e3 for w in walls],
         "site_clv_updates_per_s": updates / (eval_ms / 1e3),
         "makenewz_8_s": nr_s, "layout": layout,
-        "launches_per_traversal": layout["launches"],
+        "structure_host": structure,
+        "launches_per_traversal": per, "host_vs_card": host,
+        "route_turns": turns,
         "entries": flat.n, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
         "tip_products_ms": tip_ms,
         "achieved_tb_per_s": layout["bytes"] / (kernel_ms / 1e3) / 1e12,
@@ -1456,20 +1703,25 @@ def phase_real_size(device, setup: dict, reps: int):
         "operand_build_profile": ops_profile, "launch_breakdown": breakdown,
         "product_tb_per_s": product_tb,
     }
+    log(f"  chunk_apply: host {host['host_ms']:.3f} ms a call against "
+        f"{host['event_ms']:.3f} ms on the card; routes in turns: per chunk "
+        f"{turns['chunks_ms']:.3f} ms ({turns['launches']['chunks']} "
+        f"launches), dataflow {turns['flow_ms']:.3f} ms "
+        f"({turns['launches']['flow']} launch), rows bitwise equal")
     log(f"  evaluate {eval_ms:.2f} ms/full traversal (runs "
         f"{', '.join(f'{w * 1e3:.2f}' for w in walls)}; "
         f"{report['site_clv_updates_per_s']:.3e} site-CLV updates/s); "
         f"B1 {kernel_ms:.3f} ms (tip products {tip_ms:.3f} ms of it) in "
-        f"{layout['launches']} launches "
+        f"{per} launch(es) for {layout['launches']} table rows "
         f"({report['achieved_tb_per_s']:.3f} TB/s of "
         f"{layout['bytes'] / 1e9:.2f} GB), plain {plain_ms:.3f} ms, bound "
         f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}); kernel vs plain "
         f"rel err {rel:.3e} (twice), scalers equal")
     for row in breakdown:
-        log(f"  B1 {row['class']:>13s}: {row['launches']:3d} launches, "
-            f"{row['bytes'] / 1e9:5.2f} GB, {row['ms']:.3f} ms timed row by "
-            f"row ({row['tb_per_s']:.3f} TB/s, {row['tflop_per_s']:.2f} "
-            f"TFLOP/s)")
+        log(f"  B1 {row['class']:>13s}: {row['rows']:3d} rows, "
+            f"{row['bytes'] / 1e9:5.2f} GB, {row['ms']:.3f} ms as a table of "
+            f"their own ({row['tb_per_s']:.3f} TB/s, {row['tflop_per_s']:.2f}"
+            f" TFLOP/s)")
     log(f"  yardstick: elementwise product of arena rows (2 reads, 1 write) "
         f"{product_tb:.3f} TB/s")
     if ops_profile["measured"]:
@@ -1618,7 +1870,7 @@ def phase_real_gradients(device, setup: dict, inst, tree, reps: int):
     log(f"  tree_evaluate: lnL {before!r} -> {after!r} in {smooth_s:.2f} s; "
         f"{counts['grad_sweeps']} gradient sweeps, "
         f"{counts['full_traversals']} full traversals, B1 {counts['b1']} "
-        f"launches (= {counts['chunk_launch_rows']} launch-table rows); "
+        f"launches for {counts['chunk_launch_rows']} launch-table rows; "
         f"whole tier re-evaluates to {whole_lnl!r}")
     return {"edges": E, "pass_ms": pass_ms, "bytes_per_pass": nbytes,
             "flops_per_pass": flops, "bound_ms": bound_ms,
@@ -1929,8 +2181,8 @@ def phase_aa_cli(device, out_dir: str, seed: int):
         f"{[round(w, 6) for w in weights]}")
     log(f"  {counts['full_traversals']} full traversals, "
         f"{counts['grad_sweeps']} gradient sweeps; B1 launches by K "
-        f"{counts['b1_by_K']} (= {counts['chunk_launch_rows']} launch-table "
-        f"rows); the re-evaluation's B2 launches by K "
+        f"{counts['b1_by_K']} for {counts['chunk_launch_rows']} launch-table "
+        f"rows; the re-evaluation's B2 launches by K "
         f"{whole_counts['b2_by_K']}")
     return {"taxa": AA_TAXA, "aa_width": AA_CLI_WIDTH,
             "bin_width": BIN_CLI_WIDTH, "start_lnl": start,
@@ -2023,9 +2275,11 @@ def time_kernels(inst, tree, setup, device, tier: str, reps: int) -> dict:
             args = (eng.tips.codes, eng.tips.table, eng.block_part_i32,
                     st.launch, st.lidx, st.ridx, st.lcode, st.rcode, pmat,
                     eng.scale_exp)
-            kernel, plain, tip = (newview_chunk.chunk_apply,
-                                  newview_chunk.chunk_apply_plain,
-                                  newview_chunk.tip_products)
+            flow = newview_chunk.Dataflow(st.flow_rows, st.wait,
+                                          newview_chunk.Ready())
+            kernel, plain, tip = (
+                lambda c, sc, *a: newview_chunk.chunk_apply(c, sc, *a, flow),
+                newview_chunk.chunk_apply_plain, newview_chunk.tip_products)
             rows = torch.as_tensor(np.sort(st.row_of[st.row_of >= 0]),
                                    device=device)
         else:
@@ -2041,7 +2295,19 @@ def time_kernels(inst, tree, setup, device, tier: str, reps: int) -> dict:
             rows = torch.arange(flat.n, device=device)
         clv_k = torch.zeros_like(eng.clv)
         sc_k = torch.zeros_like(eng.scaler)
+        # One traversal's launches: the kernel's count around one call.
+        counter = newview_chunk if tier == "chunk" else newview_whole
+        n0 = counter.LAUNCHES
+        kernel(clv_k, sc_k, *args)
+        sync(device)
+        per = counter.LAUNCHES - n0
+        expect = (b1_per_table(eng, int(st.launch.shape[0]))
+                  if tier == "chunk" else 1)
+        check(per == expect, f"{tier} K={K}: {per} launches for one "
+              f"traversal, expected {expect}")
         kernel_ms = time_ms(lambda: kernel(clv_k, sc_k, *args), device, reps)
+        host = host_and_card_ms(lambda: kernel(clv_k, sc_k, *args), device,
+                                reps)
         tip_ms = (time_ms(lambda: tip(pmat, eng.tips.table), device, reps)
                   if tier == "chunk" or eng.K >= 16 else None)
         clv_p = torch.zeros_like(eng.clv)
@@ -2053,26 +2319,32 @@ def time_kernels(inst, tree, setup, device, tier: str, reps: int) -> dict:
             f"{tier} K={K} {str(eng.clv.dtype)[6:]} real size")
         patterns = int(sum(setup["ad"].partitions[g].width
                            for g in eng.bucket.part_ids))
-        breakdown = (launch_breakdown(
-            st.launch, (args[0], tip(pmat, eng.tips.table)) + args[2:],
-            clv_k, sc_k, patterns, eng, device, reps)
-            if tier == "chunk" else None)
+        breakdown = turns = None
+        if tier == "chunk":
+            breakdown = launch_breakdown(
+                st.launch, (args[0], tip(pmat, eng.tips.table)) + args[2:],
+                clv_k, sc_k, patterns, eng, device, reps)
+            turns = route_turns(eng.clv, eng.scaler, args, flow, device,
+                                reps)
+            check(turns["bitwise_equal"], f"K={K}: the dataflow route's "
+                  "rows differ from the per-chunk route's")
         del clv_k, sc_k, clv_p, sc_p, pmat
         release_memory()
         bound = traversal_bound(flat, setup, eng, patterns)
         out[K] = {"patterns": patterns, "kernel_ms": kernel_ms,
-                  "tip_products_ms": tip_ms,
+                  "tip_products_ms": tip_ms, "host_vs_card": host,
                   "plain_ms": plain_ms, "max_rel_err": rel,
                   "max_abs_err": abs_err, "differing_cells": ndiff,
-                  "arena_bytes":
+                  "launches_per_traversal": per, "arena_bytes":
                   eng.clv.numel() * eng.clv.element_size(), **bound,
                   "achieved_tb_per_s": bound["bytes_per_traversal"]
                   / (kernel_ms / 1e3) / 1e12,
                   "achieved_tflop_per_s": bound["flops_per_traversal"]
                   / (kernel_ms / 1e3) / 1e12}
         if tier == "chunk":
-            out[K]["launches_per_traversal"] = int(st.launch.shape[0])
+            out[K]["table_rows"] = int(st.launch.shape[0])
             out[K]["launch_breakdown"] = breakdown
+            out[K]["route_turns"] = turns
         else:
             out[K]["grid_blocks"] = newview_whole.LAST_GRID
         log(f"  {tier} K={K:2d}: {patterns} patterns, arena "
@@ -2087,10 +2359,17 @@ def time_kernels(inst, tree, setup, device, tier: str, reps: int) -> dict:
             f"{out[K]['achieved_tb_per_s']:.3f} TB/s, "
             f"{out[K]['achieved_tflop_per_s']:.2f} TFLOP/s; kernel vs plain "
             f"rel err {rel:.3e} ({ndiff} cells differ), scalers equal")
+        log(f"    host {host['host_ms']:.3f} ms a call against "
+            f"{host['event_ms']:.3f} ms on the card"
+            + ("" if turns is None else
+               f"; {out[K]['launches_per_traversal']} launch(es) for "
+               f"{out[K]['table_rows']} table rows; routes in turns: per "
+               f"chunk {turns['chunks_ms']:.3f} ms, dataflow "
+               f"{turns['flow_ms']:.3f} ms, rows bitwise equal"))
         for row in breakdown or ():
-            log(f"    B1 K={K:2d} {row['class']:>13s}: {row['launches']:3d} "
-                f"launches, {row['bytes'] / 1e9:5.2f} GB, {row['ms']:.3f} ms "
-                f"timed row by row ({row['tb_per_s']:.3f} TB/s, "
+            log(f"    B1 K={K:2d} {row['class']:>13s}: {row['rows']:3d} "
+                f"rows, {row['bytes'] / 1e9:5.2f} GB, {row['ms']:.3f} ms as "
+                f"a table of their own ({row['tb_per_s']:.3f} TB/s, "
                 f"{row['tflop_per_s']:.2f} TFLOP/s)")
     return out
 
@@ -2439,6 +2718,11 @@ def phase_real_whole(device, setup: dict, reps: int, chunk_lnl: float):
             st.l_code, st.r_code, st.wave_start, pmat, eng.scale_exp)
     clv_k = torch.zeros_like(eng.clv)
     sc_k = torch.zeros_like(eng.scaler)
+    n0 = newview_whole.LAUNCHES
+    newview_whole.whole_apply(clv_k, sc_k, *args)
+    sync(device)
+    per = newview_whole.LAUNCHES - n0
+    check(per == 1, f"B2 launched {per} times for one traversal")
     kernel_ms = time_ms(lambda: newview_whole.whole_apply(
         clv_k, sc_k, *args), device, reps)
     clv_p = torch.zeros_like(eng.clv)
@@ -2506,6 +2790,7 @@ def phase_real_whole(device, setup: dict, reps: int, chunk_lnl: float):
         / (eval_ms / 1e3),
         "entries": n, "waves": int(st.wave_start.shape[0]) - 1,
         "grid_blocks": newview_whole.LAST_GRID, "kernel_ms": kernel_ms,
+        "launches_per_traversal": per,
         "plain_ms": plain_ms, **bound, "max_rel_err": rel,
         "max_abs_err": abs_err, "launches_by_path": launches,
         "profile": profile, "b2_probe": b2_probe,
@@ -3057,7 +3342,9 @@ def kernel_turns(inst32, tree32, inst16, tree16, device, reps: int) -> dict:
                          torch.zeros_like(eng.scaler), eng.tips.codes,
                          eng.tips.table, eng.block_part_i32, st.launch,
                          st.lidx, st.ridx, st.lcode, st.rcode, pmat,
-                         eng.scale_exp)
+                         eng.scale_exp,
+                         newview_chunk.Dataflow(st.flow_rows, st.wait,
+                                                newview_chunk.Ready()))
         for name in ("float32", "bfloat16", "bfloat16", "float32"):
             runs[name].append(time_ms(
                 lambda: newview_chunk.chunk_apply(*ops[name]), device, reps))
@@ -3072,7 +3359,7 @@ def kernel_turns(inst32, tree32, inst16, tree16, device, reps: int) -> dict:
 
 
 def phase_bf16(device, setup: dict, real: dict, real_aa: dict, fd: dict,
-               out_dir: str, seed: int, reps: int) -> dict:
+               out_dir: str, seed: int, reps: int, ptxas: dict) -> dict:
     """bfloat16 CLV storage (float32 compute): (a) each bfloat16 instance
     of B1 against its plain version (phase 3's cases: scalers equal,
     every cell within one bfloat16 ulp of its site's maximum, the
@@ -3092,6 +3379,17 @@ def phase_bf16(device, setup: dict, real: dict, real_aa: dict, fd: dict,
     out = {"cases": phase_kernel_vs_plain(device, CHECK_BLOCKS, CHECK_WIDTH,
                                           seed + 100, ("bfloat16",))}
     release_memory()
+    out["ptxas"] = spills = bf16_spills(ptxas)
+    for inst, r in sorted(spills.items()):
+        log(f"  ptxas {inst}: {r.get('registers')} registers, "
+            f"{r.get('spill_bytes')} bytes spilled")
+    check(len(spills) == 12, f"ptxas reports {len(spills)} bfloat16 "
+          "instances of B1, not 12 (3 kinds and the dataflow kernel at "
+          "K = 4, 20, 2)")
+    spilling = sorted(i for i, r in spills.items() if r.get("spill_bytes"))
+    check(not spilling and all("spill_bytes" in r for r in spills.values()),
+          f"bfloat16 instances of B1 spill or report no spill line: "
+          f"{spilling or sorted(spills)}")
 
     inst, tree = real_instance(setup, device, "chunk", clv_dtype=bf16)
     out["dna"] = bf16_real(inst, tree, setup, real["lnl"], device, reps,
@@ -3108,6 +3406,20 @@ def phase_bf16(device, setup: dict, real: dict, real_aa: dict, fd: dict,
     check(all(out["aa"]["counts"]["b1_by_K"].get(K, 0) > 0
               for K in (20, 2)), "real-size AA + BIN bf16: launches by K "
           f"{out['aa']['counts']['b1_by_K']}")
+    # The redesigned instances' targets (reported, not fatal): at least
+    # half the bound per real-size traversal, the tip products included.
+    out["targets"] = {}
+    for K, w in ((20, "aa"), (2, "aa"), (4, "dna")):
+        m = out[w]["kernels"][K]
+        out["targets"][K] = t = {
+            "ms": m["kernel_ms"], "bound_ms": m["bound_ms"],
+            "share": m["bound_ms"] / m["kernel_ms"],
+            "target_ms": 2 * m["bound_ms"],
+            "met": m["kernel_ms"] <= 2 * m["bound_ms"]}
+        log(f"  target bf16 K={K:2d}: {t['ms']:.3f} ms per traversal against "
+            f"a {t['bound_ms']:.3f} ms bound ({t['share']:.2f} of it), "
+            f"target {t['target_ms']:.3f} ms: "
+            f"{'met' if t['met'] else 'missed'}")
     inst32, tree32 = aa_instance(aa, device, "chunk")
     out["aa"]["turns"] = kernel_turns(inst32, tree32, inst, tree, device,
                                       reps)
@@ -3235,7 +3547,7 @@ def device_breakdown(fn, device, top: int = 8) -> dict:
 
 def kernel_b1_config(lane: int = 128) -> list:
     """Kernel B1's launch configuration per instance (storage dtype, K,
-    kind) at
+    kind 0..2 per chunk or 3 the dataflow kernel) at
     the engine's lane width and the data type's tip codes (16 DNA, 23
     amino-acid, 4 binary): sites per tile, ring stages, dynamic shared
     memory, threads per CTA and resident CTAs per SM, from the occupancy
@@ -3247,8 +3559,8 @@ def kernel_b1_config(lane: int = 128) -> list:
     for storage, dtype in ((0, "float32"), (1, "float64"), (2, "bfloat16")):
         for K in STATES:
             codes = datatype_of(K).num_codes
-            for kind in (0, 1, 2):
-                vals = (ctypes.c_int * 6)()
+            for kind in (0, 1, 2, 3):
+                vals = (ctypes.c_int * 7)()
                 err = lib.examl_newview_chunk_config(storage, 4, K, kind,
                                                      lane, codes, vals)
                 check(err == 0, f"B1 {dtype} K={K} kind {kind} "
@@ -3258,21 +3570,40 @@ def kernel_b1_config(lane: int = 128) -> list:
                             "kind": kind, "smem_bytes": vals[0],
                             "threads": vals[1], "ctas_per_sm": vals[2],
                             "sms": vals[3], "tile_sites": vals[4],
-                            "stages": vals[5]})
+                            "stages": vals[5], "tile_units": vals[6]})
     return out
 
 
 def ptxas_lines(text: str) -> list:
     """(instance, line) for every register and spill line of a -Xptxas -v
-    report; the instance is the kernel's mangled template arguments, e.g.
-    fLi4ELi20E for <float, 4, 20>."""
+    report; the instance is the kernel's name and mangled template
+    arguments, e.g. newview_flow_kernel:13__nv_bfloat16fLi4ELi20 for
+    <__nv_bfloat16, float, 4, 20>."""
     out, inst = [], ""
     for line in text.splitlines():
-        m = re.search(r"_kernelI(\w*?)EEv", line)
+        m = re.search(r"(newview_\w+?_kernel)I(\w*?)EEv", line)
         if "Compiling entry function" in line and m:
-            inst = m.group(1)
+            inst = f"{m.group(1)}:{m.group(2)}"
         elif "registers" in line or "spill" in line:
             out.append((inst, line.strip()))
+    return out
+
+
+def bf16_spills(ptxas: dict) -> dict:
+    """Each bfloat16-storage instance of B1 (both kernels): its registers
+    and its spill stores and loads in bytes, from the ptxas report."""
+    out = {}
+    for inst, line in ptxas.get("newview_chunk", []):
+        if "bfloat16" not in inst:
+            continue
+        r = out.setdefault(inst, {})
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            r["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            r["spill_bytes"] = int(m.group(1)) + int(m.group(2))
     return out
 
 
@@ -3321,6 +3652,7 @@ def kernels_line(real, real_whole, search, scan, grad, anchor_whole,
                 "launches": sum(c[key].get(K, 0) for c in paths),
                 "max_abs_err": max([m["max_abs_err"]] + [
                     c["max_abs_err"] for c in checks if c["K"] == K]),
+                "launches_per_traversal": m["launches_per_traversal"],
                 "ms": m["kernel_ms"],
                 "tip_products_ms": m.get("tip_products_ms"),
                 "plain_ms": m["plain_ms"],
@@ -3341,6 +3673,7 @@ def kernels_line(real, real_whole, search, scan, grad, anchor_whole,
             "max_abs_err": max([m["max_abs_err"]] + [
                 c["max_abs_err"] for c in bf16["cases"] if c["K"] == K]),
             "differing_cells": m["differing_cells"],
+            "launches_per_traversal": m["launches_per_traversal"],
             "ms": m["kernel_ms"], "tip_products_ms": m["tip_products_ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"]}
@@ -3450,16 +3783,22 @@ def main(argv=None) -> int:
                 log(f"  ptxas {name}<{inst}>: {line}")
         b1_config = kernel_b1_config()
         for c in b1_config:
-            log(f"  B1 {c['dtype']} K={c['K']} ({c['codes']} codes) kind "
-                f"{c['kind']}: {c['tile_sites']}-site tiles, {c['stages']} "
+            log(f"  B1 {c['dtype']} K={c['K']} ({c['codes']} codes) "
+                + (f"kind {c['kind']}: {c['tile_sites']}-site tiles"
+                   if c["kind"] < 3 else
+                   f"dataflow: tiles of {c['tile_units']} x "
+                   f"{c['tile_sites']} sites")
+                + f", {c['stages']} "
                 f"stages, {c['smem_bytes']} B dynamic shared memory, "
                 f"{c['threads']} threads, {c['ctas_per_sm']} CTAs per SM x "
                 f"{c['sms']} SMs")
 
         phase("kernel B1 vs plain: kinds 0/1/2, f32 and f64, real = 1, "
-              "real < W, chained launches")
+              "real < W, chained launches; whole traversals of every "
+              "instance through its route, both routes in turns")
         cases = phase_kernel_vs_plain(device, CHECK_BLOCKS, CHECK_WIDTH,
                                       args.seed)
+        b1_routes = phase_b1_routes(device, args.seed, REPS)
 
         phase("kernel B2 vs plain, random 512 and caterpillar 64, f32 and "
               "f64")
@@ -3526,7 +3865,7 @@ def main(argv=None) -> int:
         phase("bfloat16 CLV storage: B1's bf16 instances vs plain, real "
               "size DNA and AA + BIN, -f d and -S -f e through the CLI")
         bf16 = phase_bf16(device, setup, real, real_aa, search, out_dir,
-                          args.seed, REPS)
+                          args.seed, REPS, ptxas)
 
         phase("report")
         kernels = kernels_line(real, real_whole, search, scan, grad,
@@ -3537,7 +3876,7 @@ def main(argv=None) -> int:
         return 1
 
     report = {"device": smi, "phase_s": phase_s, "b1_config": b1_config,
-              "kernel_cases": cases,
+              "kernel_cases": cases, "b1_routes": b1_routes,
               "whole_cases": whole_cases, "anchor": anchor,
               "anchor_whole": anchor_whole, "search": search,
               "restart": restart, "psr_ref49": psr49, "real_size": real,

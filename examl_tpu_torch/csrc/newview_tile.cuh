@@ -431,22 +431,30 @@ struct Tile {
 // -- the register-blocked body (K >= 16) -----------------------------------
 //
 // A consumer thread owns one rate r, one half h of the K outputs a (A =
-// K/2 of them) and NS sites, sg + j*TL/NS (NS = 2 in f32, 1 in f64, whose
-// values take twice the registers).  Lanes run (rate, half, site group)
-// fastest first, so the R*H = 8 lanes of a site are neighbours (the
-// rescale's max is three shuffles) and a warp holds 4 sites of all 8
-// (rate, half) pairs.  For each output a the thread reads
-// P's row (r, a) from shared memory once and runs NS independent k-chains
-// with it, each k = 0..K-1 in order (apply_p's chain, so the values do not
-// change); the child's K values of each site stay in registers.  One
-// 16-byte read of P feeds 2 * NS * 4 = 16 flops of f32; a warp's 16-byte
-// reads of x touch 16 distinct pieces (4 sites x 4 rates, conflict-free:
-// a rate row is 80 bytes) and of P 8 (bank-spread by p_rate_offset).
+// K/2 of them) and NS sites, sg + j*TL/NS.  NS is a property of the
+// storage and compute types: 2 for f32 (16 consumer warps a 128-site tile,
+// 96 registers a thread), 1 for f64 (whose values take twice the
+// registers), 4 for bfloat16 storage under f32 (8 consumer warps, up to
+// 224 registers a thread: x[4][K] and v[4][K/2] in f32 registers with room
+// for the next P reads; at NS = 2 and 96 registers that instance spilled).
+// Lanes run (rate, half, site group) fastest first, so the R*H = 8 lanes
+// of a site are neighbours (the rescale's max is three shuffles) and a
+// warp holds 4 sites of all 8 (rate, half) pairs.  For each output a the
+// thread reads P's row (r, a) from shared memory once and runs NS
+// independent k-chains with it, each k = 0..K-1 in order (apply_p's chain,
+// so the values do not change); the child's K values of each site stay in
+// registers, widened to f32 once per tile (kept as packed bfloat16 pairs,
+// every FMA would need an integer unpack on the same issue port, halving
+// the FMA rate).  One 16-byte read of P feeds NS * 4 FMAs; a warp's
+// reads of x touch distinct pieces (4 sites x 4 rates, conflict-free: a
+// rate row is 80 bytes in f32, 40 in bfloat16) and of P 8 (bank-spread by
+// p_rate_offset).
 
-template <typename T, int R, int K>
+template <typename T, int R, int K, typename S = T>
 struct Blocked {
   static constexpr int H = 2;            // output halves a thread may own
-  static constexpr int NS = sizeof(T) == 8 ? 1 : 2;   // sites a thread owns
+  // Sites a thread owns.
+  static constexpr int NS = sizeof(T) == 8 ? 1 : sizeof(S) == 2 ? 4 : 2;
   static constexpr int A = K / H;        // outputs a thread owns
   static constexpr int kLanes = R * H;   // lanes of one site
   // Loads and stores of a thread's A outputs: 16 bytes where its half
@@ -463,17 +471,17 @@ struct Role {
 
 // Consumer threads a site: one per rate for K <= 4, R*H/NS in the blocked
 // body.
-template <typename T, int R, int K>
+template <typename T, int R, int K, typename S = T>
 __host__ __device__ constexpr int threads_per_site() {
   if constexpr (kBlocked<K>)
-    return R * Blocked<T, R, K>::H / Blocked<T, R, K>::NS;
+    return R * Blocked<T, R, K, S>::H / Blocked<T, R, K, S>::NS;
   else
     return R;
 }
 
-template <typename T, int R, int K>
+template <typename T, int R, int K, typename S = T>
 __device__ __forceinline__ Role blocked_role(int tid) {
-  using G = Blocked<T, R, K>;
+  using G = Blocked<T, R, K, S>;
   const int r = tid % R;
   return Role{r, (tid / R) % G::H, tid / G::kLanes,
               p_rate_offset<T, R, K>(r)};
@@ -484,9 +492,9 @@ __device__ __forceinline__ Role blocked_role(int tid) {
 template <typename T, int R, int K, bool MUL, typename S = T>
 __device__ __forceinline__ void blocked_inner(
     const unsigned char* st, const Side& sd, const Role& ro,
-    const int (&site)[Blocked<T, R, K>::NS],
-    T (&v)[Blocked<T, R, K>::NS][Blocked<T, R, K>::A]) {
-  using G = Blocked<T, R, K>;
+    const int (&site)[Blocked<T, R, K, S>::NS],
+    T (&v)[Blocked<T, R, K, S>::NS][Blocked<T, R, K, S>::A]) {
+  using G = Blocked<T, R, K, S>;
   const S* slab = reinterpret_cast<const S*>(st + sd.x);
   const T* p = reinterpret_cast<const T*>(st + sd.op + ro.prate) +
                ro.h * G::A * K;
@@ -522,12 +530,12 @@ __device__ __forceinline__ void blocked_inner(
 }
 
 // The same for a tip child: y = u[code][r][h*A ..].
-template <typename T, int R, int K, bool MUL>
+template <typename T, int R, int K, bool MUL, typename S = T>
 __device__ __forceinline__ void blocked_tip(
     const unsigned char* st, const Side& sd, const Role& ro,
-    const int (&site)[Blocked<T, R, K>::NS],
-    T (&v)[Blocked<T, R, K>::NS][Blocked<T, R, K>::A]) {
-  using G = Blocked<T, R, K>;
+    const int (&site)[Blocked<T, R, K, S>::NS],
+    T (&v)[Blocked<T, R, K, S>::NS][Blocked<T, R, K, S>::A]) {
+  using G = Blocked<T, R, K, S>;
   const uint8_t* codes = st + sd.sc;
   const T* u = reinterpret_cast<const T*>(st + sd.op) + ro.r * K + ro.h * G::A;
 #pragma unroll
@@ -547,16 +555,16 @@ __device__ __forceinline__ void blocked_tip(
 template <typename T, int R, int K, bool MUL, typename S = T>
 __device__ __forceinline__ void blocked_child(
     const unsigned char* st, const Side& sd, bool tip, const Role& ro,
-    const int (&site)[Blocked<T, R, K>::NS],
-    T (&v)[Blocked<T, R, K>::NS][Blocked<T, R, K>::A],
-    int (&sc)[Blocked<T, R, K>::NS]) {
+    const int (&site)[Blocked<T, R, K, S>::NS],
+    T (&v)[Blocked<T, R, K, S>::NS][Blocked<T, R, K, S>::A],
+    int (&sc)[Blocked<T, R, K, S>::NS]) {
   if (tip) {
-    blocked_tip<T, R, K, MUL>(st, sd, ro, site, v);
+    blocked_tip<T, R, K, MUL, S>(st, sd, ro, site, v);
   } else {
     blocked_inner<T, R, K, MUL, S>(st, sd, ro, site, v);
     const int32_t* s = reinterpret_cast<const int32_t*>(st + sd.sc);
 #pragma unroll
-    for (int j = 0; j < Blocked<T, R, K>::NS; ++j) sc[j] += s[site[j]];
+    for (int j = 0; j < Blocked<T, R, K, S>::NS; ++j) sc[j] += s[site[j]];
   }
 }
 
@@ -572,11 +580,11 @@ __device__ __forceinline__ void blocked_child(
 // row there.
 template <typename T, int R, int K, typename S = T>
 __device__ __forceinline__ void blocked_store(
-    T (&v)[Blocked<T, R, K>::NS][Blocked<T, R, K>::A], const Role& ro,
-    const int (&site)[Blocked<T, R, K>::NS],
-    const int (&sc)[Blocked<T, R, K>::NS], int TL, S* obuf, S* out,
+    T (&v)[Blocked<T, R, K, S>::NS][Blocked<T, R, K, S>::A], const Role& ro,
+    const int (&site)[Blocked<T, R, K, S>::NS],
+    const int (&sc)[Blocked<T, R, K, S>::NS], int TL, S* obuf, S* out,
     int32_t* out_sc, T minlik, T two_e) {
-  using G = Blocked<T, R, K>;
+  using G = Blocked<T, R, K, S>;
 #pragma unroll
   for (int j = 0; j < G::NS; ++j) {
     T vmax = T(0);
@@ -627,7 +635,7 @@ __device__ __forceinline__ void blocked_tile(
     const unsigned char* st, const Stage& lay, bool ltip, bool rtip,
     const Role& ro, int TL, uint64_t* empty, S* obuf, S* out,
     int32_t* out_sc, T minlik, T two_e) {
-  using G = Blocked<T, R, K>;
+  using G = Blocked<T, R, K, S>;
   int site[G::NS];
 #pragma unroll
   for (int j = 0; j < G::NS; ++j) site[j] = ro.sg + j * (TL / G::NS);

@@ -37,6 +37,12 @@ SIGNATURES = {
                                      + [_D, _D, _P, _IP], _I),
         "examl_newview_chunks_bf16": ([_P] * 11 + [_I] * 7
                                       + [_D, _D, _P, _IP], _I),
+        "examl_newview_flow_f32": ([_P] * 14 + [_I] * 10
+                                   + [_D, _D, _P, _IP], _I),
+        "examl_newview_flow_f64": ([_P] * 14 + [_I] * 10
+                                   + [_D, _D, _P, _IP], _I),
+        "examl_newview_flow_bf16": ([_P] * 14 + [_I] * 10
+                                    + [_D, _D, _P, _IP], _I),
         "examl_newview_chunk_config": ([_I] * 6 + [_IP], _I),
         "examl_cuda_error_string": ([_I], ctypes.c_char_p),
     },

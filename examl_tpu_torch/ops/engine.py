@@ -233,6 +233,9 @@ class LikelihoodEngine:
                                    device=self.device)
         self.scaler = torch.zeros((self.num_rows, self.B, self.lane),
                                   dtype=torch.int32, device=self.device)
+        # The arena's ready flags for kernel B1's dataflow launches (sized
+        # at the first one).
+        self.ready = newview_chunk.Ready()
 
     # -- construction helpers ---------------------------------------------
 
@@ -374,8 +377,9 @@ class LikelihoodEngine:
         """Full traversal on the chunk tier: one batched operand build (P in
         the compute dtype), then kernel B1 over the cached layout's launch
         table (every chunk with real entries, from one host call; the
-        instance of the arena's storage dtype); installs the wave-ordered
-        row map it wrote."""
+        instance of the arena's storage dtype, one dataflow launch reading
+        the structure's dataflow table and this arena's ready flags, or one
+        launch a row); installs the wave-ordered row map it wrote."""
         global CHUNK_LAUNCH_ROWS
         st = self._structure(flat)
         zl, zr = fastpath.refresh_z(st, flat, self.num_branch_slots,
@@ -385,7 +389,10 @@ class LikelihoodEngine:
         newview_chunk.chunk_apply(self.clv, self.scaler, self.tips.codes,
                                   self.tips.table, self.block_part_i32,
                                   st.launch, st.lidx, st.ridx, st.lcode,
-                                  st.rcode, pmat, self.scale_exp)
+                                  st.rcode, pmat, self.scale_exp,
+                                  newview_chunk.Dataflow(st.flow_rows,
+                                                         st.wait,
+                                                         self.ready))
         self._install_row_map(st)
 
     # -- whole-traversal tier (ops/newview_whole.py + kernel B2) -------------

@@ -22,9 +22,12 @@ shapes keep the compile cache warm; a CUDA launch takes its width at run
 time.  The engine runs a traversal as one batched operand build and one
 call of kernel B1 over the launch table (`ops/newview_chunk.py`): on the
 card its hand-written CUDA kernel, on the CPU its plain PyTorch version.
-Launches are ordered on one stream; within a launch no entry reads a row
-the launch writes (the layout's promise, tested on the host for every
-slot, padding included).
+Within a chunk no entry reads a row the chunk writes (the layout's
+promise, tested on the host for every slot, padding included), and every
+inner child a chunk reads is written by an earlier chunk of the table or
+not at all: so the card runs the table as one dataflow launch in which a
+tile waits only for its children's tiles (`dataflow_table` gives the
+wait bits), or as launches ordered on one stream.
 
 Layout notes (from the JAX package): waves of independent entries are
 split by tip case (kind 0 = tip-tip, 1 = tip-inner with the tip left,
@@ -43,6 +46,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from examl_tpu_torch.ops import newview_chunk
 from examl_tpu_torch.utils import bucket_len, next_pow2, z_slots
 
 # -- bounded-layout constants ----------------------------------------------
@@ -93,6 +97,8 @@ class FastStructure(NamedTuple):
     ridx: torch.Tensor          # [P]
     lcode: torch.Tensor         # [P] packed 0-based tip indices
     rcode: torch.Tensor         # [P]
+    flow_rows: torch.Tensor     # [n_launches + 1, 4] int32: dataflow_table
+    wait: torch.Tensor          # [P] int32: dataflow_table's wait bits
     row_of: np.ndarray          # [2*ntips-1] node number -> row (-1 tips)
     z_src: np.ndarray           # [P] flat-entry index per slot (-1 pad;
                                 #     replay slots repeat their source)
@@ -344,6 +350,67 @@ def launch_table(layout: _Layout) -> np.ndarray:
     return np.asarray(rows, np.int32).reshape(-1, 4)
 
 
+def dataflow_table(launch: np.ndarray, lidx: np.ndarray,
+                   ridx: np.ndarray):
+    """What kernel B1's dataflow launch reads beside a launch table: `rows`
+    [n + 1, 4] int32, each row (kind, base, slot, first) with `first` the
+    row's first entry in table order (prefix sums of `real`, from which
+    the kernel decodes its claims), and a last row (0, 0, 0, entries);
+    `wait` [P] int32 per packed slot, bit 0 set when the slot's left child
+    is an inner row that a row of the table writes (kind 2), bit 1 the
+    same for its right child (kinds 1 and 2).  The table is checked first
+    (newview_chunk.check_launch: no row written twice); a table row that
+    reads a row the same or a later table row writes cannot be ordered by
+    the dataflow and is refused.  One writer map (arena row -> table row)
+    serves the refusal and the wait bits, per entry in numpy."""
+    lidx, ridx = np.asarray(lidx, np.int64), np.asarray(ridx, np.int64)
+    launch = newview_chunk.check_launch(launch, None, lidx.shape[0])
+    n = launch.shape[0]
+    kind, base, slot, real = launch.T.astype(np.int64)
+    first = np.zeros(n + 1, np.int64)
+    np.cumsum(real, out=first[1:])
+    rows = np.zeros((n + 1, 4), np.int32)
+    rows[:n, :3] = launch[:, :3]
+    rows[:, 3] = first
+    # Entry e in table order: its table row, the arena row it writes, its
+    # packed slot.
+    row_e = np.repeat(np.arange(n), real)
+    off = np.arange(first[-1]) - np.repeat(first[:-1], real)
+    slot_e = np.repeat(slot, real) + off
+    target = np.repeat(base, real) + off
+    writer = np.full(int(target.max()) + 1 if n else 0, n, np.int64)
+    writer[target] = row_e
+    kind_e = np.repeat(kind, real)
+    bits = np.zeros(row_e.shape[0], np.int32)
+    late = np.zeros(row_e.shape[0], bool)
+    for bit, child, reads in ((1, lidx, kind_e == 2), (2, ridx, kind_e >= 1)):
+        c = child[slot_e]
+        inside = reads & (c >= 0) & (c < writer.shape[0])
+        w = np.where(inside, writer[np.where(inside, c, 0)], n)
+        late |= (w >= row_e) & (w < n)
+        bits |= bit * (w < n).astype(np.int32)
+    if late.any():
+        i = int(row_e[late].min())
+        raise ValueError(f"launch table row {i} {launch[i].tolist()} reads "
+                         "a row that it or a later table row writes")
+    wait = np.zeros(lidx.shape[0], np.int32)
+    wait[slot_e] = bits
+    return rows, wait
+
+
+def dataflow(launch, lidx, ridx, device) -> newview_chunk.Dataflow:
+    """The Dataflow of a launch table built outside the engine (whose
+    structures carry theirs): dataflow_table over host child arrays (or
+    tensors, copied to the host), placed on `device`, with ready flags of
+    its own."""
+    lidx = lidx.cpu().numpy() if torch.is_tensor(lidx) else lidx
+    ridx = ridx.cpu().numpy() if torch.is_tensor(ridx) else ridx
+    rows, wait = dataflow_table(launch, lidx, ridx)
+    return newview_chunk.Dataflow(torch.from_numpy(rows).to(device),
+                                  torch.from_numpy(wait).to(device),
+                                  newview_chunk.Ready())
+
+
 def _layout_from_arrays(wave_id, el, er, lt, rt, child_nodes_key, n):
     """Shared planner front-end: group the (wave, kind)-sorted entries
     and plan.  Returns (layout, order, skey-derived group table pieces)
@@ -463,13 +530,17 @@ def build_structure(flat, ntips: int, device) -> FastStructure:
     child/code arrays placed on `device` in one transfer."""
     (layout, row_of, base, lidx, ridx, lcode, rcode, z_src,
      z_swap) = structure_arrays(flat, ntips)
-    packed = torch.from_numpy(np.stack([lidx, ridx, lcode, rcode])).to(
-        device)
-    return FastStructure(profile=layout.profile, base=base,
-                         launch=launch_table(layout), lidx=packed[0],
-                         ridx=packed[1], lcode=packed[2], rcode=packed[3],
-                         row_of=row_of, z_src=z_src, z_swap=z_swap,
-                         num_rows=flat.n, max_write=layout.max_write)
+    launch = launch_table(layout)
+    flow_rows, wait = dataflow_table(launch, lidx, ridx)
+    packed = torch.from_numpy(np.stack([lidx, ridx, lcode, rcode,
+                                        wait])).to(device)
+    return FastStructure(profile=layout.profile, base=base, launch=launch,
+                         lidx=packed[0], ridx=packed[1], lcode=packed[2],
+                         rcode=packed[3],
+                         flow_rows=torch.from_numpy(flow_rows).to(device),
+                         wait=packed[4], row_of=row_of, z_src=z_src,
+                         z_swap=z_swap, num_rows=flat.n,
+                         max_write=layout.max_write)
 
 
 def refresh_z(st: FastStructure, flat, num_slots: int, dtype, device):

@@ -61,7 +61,7 @@ from examl_tpu_torch.instance import PhyloInstance
 from examl_tpu_torch.io.alignment import build_alignment_data
 from examl_tpu_torch.io.bytefile import read_bytefile, write_bytefile
 from examl_tpu_torch.io.partitions import PartitionSpec, parse_partition_file
-from examl_tpu_torch.ops import newview_chunk, newview_whole
+from examl_tpu_torch.ops import fastpath, newview_chunk, newview_whole
 from examl_tpu_torch.optimize import branch
 from examl_tpu_torch.search import batchscan, spr
 from examl_tpu_torch.transfer import install_model_params
@@ -557,9 +557,11 @@ def _assert_matches_plain(clv, scaler, args, launches):
     newview_chunk.chunk_apply_plain(c_ref, s_ref, *args)
     c_k, s_k = clv.clone(), scaler.clone()
     before = newview_chunk.LAUNCHES_BY_DTYPE.get("bfloat16", 0)
-    newview_chunk.chunk_apply(c_k, s_k, *args)
+    newview_chunk.chunk_apply(c_k, s_k, *args, fastpath.dataflow(
+        args[3], args[4], args[5], clv.device))
     torch.cuda.synchronize()
-    assert newview_chunk.LAUNCHES_BY_DTYPE["bfloat16"] == before + launches
+    assert newview_chunk.LAUNCHES_BY_DTYPE["bfloat16"] == before + (
+        newview_chunk.table_launches(clv.shape[-1], BF16, launches))
     assert torch.equal(s_k, s_ref)
     lidx, ridx = args[4].long(), args[5].long()
     rescaled = 0
@@ -614,3 +616,23 @@ def test_cuda_instance_runs_bf16_b1(cuda_device):
         lnl[str(dev)] = inst.evaluate(inst.random_tree(3), full=True)
     assert newview_chunk.LAUNCHES_BY_DTYPE["bfloat16"] > before
     assert lnl["cuda"] == pytest.approx(lnl["cpu"], rel=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["random", "caterpillar"])
+@pytest.mark.parametrize("K", [4, 20, 2])
+def test_cuda_bf16_flow_full_traversal_matches_plain(cuda_device, K, shape):
+    """A whole 512-taxon traversal with a bfloat16 arena (a random tree
+    and a caterpillar), every tip/tip product rescaled, against the plain
+    version: scalers equal, within one bfloat16 ulp of each site's max."""
+    from test_torch_newview import flow_case_matches_plain
+    flow_case_matches_plain(cuda_device, BF16, K, shape, K + 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [4, 20, 2])
+def test_cuda_bf16_flow_repeats_bitwise_and_epochs(cuda_device, K):
+    """20 runs bitwise equal; a second traversal on the same arena and
+    flags matches its plain version."""
+    from test_torch_newview import flow_repeats_and_epochs
+    flow_repeats_and_epochs(cuda_device, BF16, K, K + 5)

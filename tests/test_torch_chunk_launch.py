@@ -11,7 +11,14 @@
 * the batched operand build's slice for a chunk equals a per-chunk
   `p_matrices_wave` exactly;
 * the CUDA wrapper's launch-table check refuses rows outside the arena
-  or the packed arrays.
+  or the packed arrays and a row written twice, and the dataflow table a
+  read of a row that the same or a later table row writes;
+* the dataflow table (`fastpath.dataflow_table`): each row's first entry
+  and every slot's wait bits, on random trees, caterpillars and chained
+  and unchained hand-made tables; and a numpy simulation of the dataflow
+  launch's claim-and-wait protocol (a few CTAs claiming groups of tiles
+  in table order, each waiting on its children's groups over the same
+  sites) that never waits on a later claim and always finishes.
 
 No JAX here: the layout is the port's own copy of the JAX package's, and
 tests/test_torch_newview.py holds the chunk tier against JAX.
@@ -175,3 +182,170 @@ def test_check_launch_refuses_rows_outside_the_arena(row):
     np.testing.assert_array_equal(newview_chunk.check_launch(ok, 8, 6), ok)
     with pytest.raises(ValueError, match="launch table row 1"):
         newview_chunk.check_launch(np.asarray([ok[0], row]), 8, 6)
+
+
+@pytest.mark.parametrize("row,what", [
+    ((2, 1, 2, 2), "writes a row an other"),     # rows 1..2 written twice
+    ((2, 4, 2, 2), "reads a row that it or a later")])
+def test_check_launch_refuses_double_writes_and_reads_of_later_rows(row,
+                                                                   what):
+    """Rows 0-1 tip/tip, then a second row that writes row 1 again, or
+    whose slot 2 reads row 4, which that row writes itself: the double
+    write refused by check_launch (and so by the dataflow table), the read
+    by the dataflow table, which has the children."""
+    lidx = np.asarray([0, 0, 4, 5], np.int32)
+    ridx = np.asarray([0, 0, 0, 1], np.int32)
+    table = np.asarray([(0, 0, 0, 2), row], np.int32)
+    with pytest.raises(ValueError, match=what):
+        fastpath.dataflow_table(table, lidx, ridx)
+    if "later" in what:
+        np.testing.assert_array_equal(
+            newview_chunk.check_launch(table, 8, 4), table)
+        # A read of a row a later table row writes is refused as well.
+        later = np.asarray([(2, 2, 2, 2), (0, 4, 0, 2)], np.int32)
+        with pytest.raises(ValueError, match="row 0"):
+            fastpath.dataflow_table(later, lidx, ridx)
+    else:
+        with pytest.raises(ValueError, match=what):
+            newview_chunk.check_launch(table, 8, 4)
+
+
+def _caterpillar(ntaxa):
+    s = "(t0,t1)"
+    for i in range(2, ntaxa - 1):
+        s = f"({s},t{i})"
+    tree = Tree.from_newick(f"({s},t{ntaxa - 1});",
+                            [f"t{i}" for i in range(ntaxa)], 1)
+    return tree, tree.flat_full_traversal(tree.centroid_branch())
+
+
+def _flow_arrays(shape, ntaxa, seed):
+    _, flat = _caterpillar(ntaxa) if shape == "caterpillar" else _tree(
+        ntaxa, seed)
+    (layout, _, _, lidx, ridx, _, _, _, _) = fastpath.structure_arrays(
+        flat, ntaxa)
+    launch = fastpath.launch_table(layout)
+    rows, wait = fastpath.dataflow_table(launch, lidx, ridx)
+    return flat, launch, lidx, ridx, rows, wait
+
+
+@pytest.mark.parametrize("shape,ntaxa,seed", [
+    ("random", 12, 0), ("random", 100, 1), ("random", 512, 2),
+    ("caterpillar", 40, 0), ("caterpillar", 512, 0)])
+def test_dataflow_table_first_entries_and_wait_bits(shape, ntaxa, seed):
+    """rows = the table with each row's first entry (prefix sums of real)
+    and a last row holding the entry count; in a full traversal every
+    inner child of a table row waits and no tip does, and slots outside
+    the table's rows (padding, replays) wait for nothing."""
+    flat, launch, lidx, ridx, rows, wait = _flow_arrays(shape, ntaxa, seed)
+    assert rows.dtype == np.int32 and rows.shape == (launch.shape[0] + 1, 4)
+    np.testing.assert_array_equal(rows[:-1, :3], launch[:, :3])
+    np.testing.assert_array_equal(
+        rows[:, 3], np.concatenate([[0], np.cumsum(launch[:, 3])]))
+    assert rows[-1, 3] == flat.n
+    expect = np.zeros_like(wait)
+    for k, _, s, r in launch.tolist():
+        expect[s:s + r] = (1 if k == 2 else 0) | (2 if k >= 1 else 0)
+    np.testing.assert_array_equal(wait, expect)
+    if shape == "caterpillar":
+        # Rooted at its centroid, one entry a wave on each side: most
+        # rows have real <= 2.
+        assert (launch[:, 3] <= 2).sum() > launch.shape[0] // 2
+
+
+def test_dataflow_table_of_chained_and_unchained_tables():
+    """chip_smoke.py's b1_case shape: launch 0 reads a region that no row
+    writes (no waits); a chained launch reads its predecessor's rows (its
+    inner children wait); an unchained one reads the region again."""
+    W = 4
+    rng = np.random.default_rng(0)
+    spec = [(0, W), (1, 3), (2, 2), (2, W)]
+    launch, lidx, ridx = [], [], []
+    row, slot, prev = 2 * W, 0, None
+    for i, (kind, real) in enumerate(spec):
+        chained = i in (1, 2)
+        src = (np.arange(prev[0], prev[0] + prev[1]) if chained
+               else np.arange(2 * W))
+        lidx.append(rng.choice(src, real))
+        ridx.append(rng.choice(src, real))
+        launch.append((kind, row, slot, real))
+        prev = (row, real)
+        row += real
+        slot += real
+    launch = np.asarray(launch, np.int32)
+    lidx, ridx = np.concatenate(lidx), np.concatenate(ridx)
+    rows, wait = fastpath.dataflow_table(launch, lidx, ridx)
+    np.testing.assert_array_equal(rows[:, 3], [0, 4, 7, 9, 13])
+    np.testing.assert_array_equal(wait, [0] * 4 + [2] * 3 + [3] * 2
+                                  + [0] * 4)
+
+
+def _simulate(launch, lidx, ridx, wait, ng, ctas, hold, seed):
+    """The dataflow launch's protocol in numpy: `ctas` CTAs claim groups
+    q = entry x ng + g in table order, one at a time, each holding up to
+    `hold` claims (the kernel claims the next group while it stages the
+    current one's last tile), and complete their claims in order; a group
+    can complete once the groups (writer entry of each waited child, g)
+    are complete.  CTAs run in a random order.  Fails on a wait for a
+    later claim or on a deadlock."""
+    rng = np.random.default_rng(seed)
+    entries = int(launch[:, 3].sum())
+    writer = {}                     # arena row -> its entry
+    slot_of = np.empty(entries, np.int64)
+    e = 0
+    for _, b, s, r in launch.tolist():
+        for w in range(r):
+            writer[b + w] = e
+            slot_of[e] = s + w
+            e += 1
+    groups = entries * ng
+    deps = []
+    for q in range(groups):
+        e, g = divmod(q, ng)
+        sl = slot_of[e]
+        d = []
+        if wait[sl] & 1:
+            d.append(writer[int(lidx[sl])] * ng + g)
+        if wait[sl] & 2:
+            d.append(writer[int(ridx[sl])] * ng + g)
+        assert all(x < q for x in d), "a group waits on a later claim"
+        deps.append(d)
+    done = np.zeros(groups, bool)
+    counter, queues, steps = 0, [[] for _ in range(ctas)], 0
+    live = list(range(ctas))
+    while live:
+        steps += 1
+        assert steps < 50 * groups + 1000, "deadlock"
+        c = live[rng.integers(len(live))]
+        q = queues[c]
+        if len(q) < hold and counter < groups and rng.integers(2):
+            q.append(counter)
+            counter += 1
+        if not q:
+            if counter >= groups:
+                live.remove(c)
+            continue
+        if all(done[x] for x in deps[q[0]]):
+            done[q.pop(0)] = True
+    assert done.all()
+
+
+@pytest.mark.parametrize("shape,ntaxa,ng,ctas,hold", [
+    ("random", 100, 3, 5, 1), ("random", 100, 4, 7, 2),
+    ("caterpillar", 64, 2, 4, 1), ("caterpillar", 64, 8, 9, 2)])
+def test_dataflow_protocol_simulation(shape, ntaxa, ng, ctas, hold):
+    """Every inner child a table row writes is waited on, no tile waits on
+    a later claim, and CTAs that hold their claims in order always
+    finish, whatever order they run in."""
+    _, launch, lidx, ridx, _, wait = _flow_arrays(shape, ntaxa, 0)
+    written = np.zeros(int((launch[:, 1] + launch[:, 3]).max()), bool)
+    for _, b, _, r in launch.tolist():
+        written[b:b + r] = True
+    for k, _, s, r in launch.tolist():
+        for sl in range(s, s + r):
+            if k == 2:
+                assert bool(wait[sl] & 1) == bool(written[lidx[sl]])
+            if k >= 1:
+                assert bool(wait[sl] & 2) == bool(written[ridx[sl]])
+    for seed in range(3):
+        _simulate(launch, lidx, ridx, wait, ng, ctas, hold, seed)

@@ -244,9 +244,11 @@ def _assert_kernel_matches_plain(clv, scaler, args, dtype, launches):
     newview_chunk.chunk_apply_plain(c_ref, s_ref, *args)
     c_k, s_k = clv.clone(), scaler.clone()
     before = newview_chunk.LAUNCHES
-    newview_chunk.chunk_apply(c_k, s_k, *args)
+    newview_chunk.chunk_apply(c_k, s_k, *args, tfast.dataflow(
+        args[3], args[4], args[5], clv.device))
     torch.cuda.synchronize()
-    assert newview_chunk.LAUNCHES == before + launches
+    assert newview_chunk.LAUNCHES == before + newview_chunk.table_launches(
+        clv.shape[-1], clv.dtype, launches)
     assert torch.equal(s_k, s_ref)
     smax = c_ref.abs().amax(dim=(3, 4), keepdim=True)
     rtol = 1e-12 if dtype == torch.float64 else 1e-5
@@ -315,6 +317,141 @@ def test_cuda_kernel_matches_plain_aa_and_binary(cuda_device, K, C, dtype,
     lidx[W + 3] = 3 * W + 1
     args = args[:4] + (torch.as_tensor(lidx, device=cuda_device),) + args[5:]
     _assert_kernel_matches_plain(clv, scaler, args, dtype, 3)
+
+
+def _caterpillar_newick(n: int) -> str:
+    s = "(t0,t1)"
+    for i in range(2, n - 1):
+        s = f"({s},t{i})"
+    return f"({s},t{n - 1});"
+
+
+def layout_case(dev, storage, K, shape, seed, ntaxa=512, B=2):
+    """A full traversal's launch table on the card: a random tree or a
+    caterpillar (one entry a wave) of `ntaxa` taxa, rooted at its
+    centroid, its fastpath structure (the engine's Dataflow operands
+    included), random GTR+G models of K states in two partitions (float32
+    compute for a bfloat16 arena), and a tip table scaled by 2^-(E/2 + 1)
+    so every tip/tip product rescales.  Returns (clv, scaler, args, flow,
+    rows written)."""
+    from examl_tpu_torch import datatypes
+    from examl_tpu_torch.models.gtr import build_model, n_exchange
+    from examl_tpu_torch.ops.engine import stack_models
+    compute = torch.float32 if storage == torch.bfloat16 else storage
+    E = 256 if compute == torch.float64 else 32
+    dt = {4: datatypes.DNA, 20: datatypes.AA, 2: datatypes.BINARY}[K]
+    names = [f"t{i}" for i in range(ntaxa)]
+    tree = (Tree.from_newick(_caterpillar_newick(ntaxa), names, 1)
+            if shape == "caterpillar" else Tree.random(names, seed, 1))
+    rng = np.random.default_rng(seed)
+    for p, _ in tree.all_branches():
+        p.z[:] = [float(rng.uniform(0.05, 0.98))]
+    flat = tree.flat_full_traversal(tree.centroid_branch())
+    st = tfast.build_structure(flat, ntaxa, dev)
+    models = []
+    for _ in range(2):
+        rates = rng.uniform(0.3, 6.0, n_exchange(K))
+        rates[-1] = 1.0
+        models.append(build_model(dt, rng.dirichlet(np.ones(K) * 5),
+                                  rates=rates, alpha=rng.uniform(0.2, 1.5),
+                                  ncat=4))
+    dm = stack_models(models, [0, 0], compute, dev)
+    zl, zr = tfast.refresh_z(st, flat, 1, compute, dev)
+    pmat = newview_chunk.chunk_operands(dm, zl, zr)
+    table = torch.as_tensor(dt.tip_indicator_table(), dtype=compute,
+                            device=dev) * 2.0 ** -(E // 2 + 1)
+    L = 128
+    rows = ntaxa - 2 + tfast.slack_rows(ntaxa) + 1
+    clv = torch.zeros((rows, B, L, 4, K), dtype=storage, device=dev)
+    scaler = torch.zeros((rows, B, L), dtype=torch.int32, device=dev)
+    codes = torch.as_tensor(rng.integers(0, dt.num_codes, (ntaxa, B, L)),
+                            dtype=torch.uint8, device=dev)
+    bp = torch.as_tensor([0, 1][:B] + [1] * (B - 2), dtype=torch.int32,
+                         device=dev)
+    args = (codes, table, bp, st.launch, st.lidx, st.ridx, st.lcode,
+            st.rcode, pmat, E)
+    flow = newview_chunk.Dataflow(st.flow_rows, st.wait,
+                                  newview_chunk.Ready())
+    written = torch.as_tensor(np.sort(st.row_of[st.row_of >= 0]),
+                              device=dev)
+    return clv, scaler, args, flow, written
+
+
+def assert_rows_match(c_k, s_k, c_ref, s_ref, rows) -> int:
+    """Scalers equal, every written row within the storage type's bound of
+    its site's maximum (rel 1e-5 f32, 1e-12 f64, one bfloat16 ulp), at
+    least one site rescaled; returns the differing cells."""
+    assert torch.equal(s_k[rows], s_ref[rows])
+    assert int(s_ref[rows].sum()) > 0
+    ck, cp = c_k[rows].double(), c_ref[rows].double()
+    smax = cp.abs().amax(dim=(3, 4), keepdim=True)
+    diff = (ck - cp).abs()
+    if c_k.dtype == torch.bfloat16:
+        _, e = torch.frexp(smax)
+        bound = torch.ldexp(torch.ones_like(smax), e - 8)
+    else:
+        bound = (1e-12 if c_k.dtype == torch.float64 else 1e-5) * smax
+    assert bool((diff <= bound).all())
+    return int((diff > 0).sum())
+
+
+def flow_case_matches_plain(dev, storage, K, shape, seed):
+    clv, scaler, args, flow, rows = layout_case(dev, storage, K, shape, seed)
+    c_ref, s_ref = clv.clone(), scaler.clone()
+    newview_chunk.chunk_apply_plain(c_ref, s_ref, *args)
+    before = newview_chunk.LAUNCHES
+    newview_chunk.chunk_apply(clv, scaler, *args, flow)
+    torch.cuda.synchronize()
+    assert newview_chunk.LAUNCHES == before + newview_chunk.table_launches(
+        K, storage, len(args[3]))
+    assert_rows_match(clv, scaler, c_ref, s_ref, rows)
+
+
+def flow_repeats_and_epochs(dev, storage, K, seed):
+    """20 runs of one table from the same inputs are bitwise equal (a race
+    would show as an occasional difference); then a second traversal with
+    other P on the same arena and the same Ready flags: the first
+    traversal's flags must not satisfy its waits, so it matches its plain
+    version (on the per-chunk route no flag is used)."""
+    clv0, sc0, args, flow, rows = layout_case(dev, storage, K, "random",
+                                              seed)
+    first = None
+    for _ in range(20):
+        clv, scaler = clv0.clone(), sc0.clone()
+        newview_chunk.chunk_apply(clv, scaler, *args, flow)
+        if first is None:
+            first = (clv, scaler)
+        else:
+            assert torch.equal(clv, first[0])
+            assert torch.equal(scaler, first[1])
+    clv, scaler = first
+    c_ref, s_ref = clv.clone(), scaler.clone()
+    args2 = args[:8] + ((args[8] * 0.9).contiguous(), args[9])
+    newview_chunk.chunk_apply_plain(c_ref, s_ref, *args2)
+    newview_chunk.chunk_apply(clv, scaler, *args2, flow)
+    torch.cuda.synchronize()
+    flows = newview_chunk.ROUTE[(K, storage)] == "flow"
+    assert flow.ready.epoch == (21 if flows else 0)
+    assert_rows_match(clv, scaler, c_ref, s_ref, rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["random", "caterpillar"])
+@pytest.mark.parametrize("K", [4, 20, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_flow_full_traversal_matches_plain(cuda_device, dtype, K,
+                                                shape):
+    """A whole 512-taxon traversal (a random tree, and a caterpillar: one
+    entry a wave) through the instance's route, every tip/tip product
+    rescaled, against the plain version."""
+    flow_case_matches_plain(cuda_device, dtype, K, shape, K + 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [4, 20, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_flow_repeats_bitwise_and_epochs(cuda_device, dtype, K):
+    flow_repeats_and_epochs(cuda_device, dtype, K, K + 5)
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():
