@@ -32,7 +32,13 @@ and peak memory), then through the CLI at small size (`-f d`, `-R`,
 bfloat16 CLV storage (float32 compute) runs kernel B1's bfloat16
 instances: each against its plain version, the real-size DNA and AA +
 BIN instances against their float32-storage lnL, `-f d --clv-dtype bf16`
-and `-S -f e --clv-dtype bf16` through the CLI.
+and `-S -f e --clv-dtype bf16` through the CLI.  Site-parallel runs
+start two ranks (processes of this script, `--site-child`) in a gloo
+group that share the card: each rank reads its columns of the real-size
+DNA set-up and runs the main path on its block window, held against one
+process (the window's arena rows bit for bit), kernel B1 against its
+plain version on windows that end in a partial tile, and ref49 `-f e
+--newview whole` and `-f d` through the CLI over two ranks.
 Every phase is fatal: any failure exits non-zero before the result
 line.
 
@@ -55,6 +61,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -149,7 +156,21 @@ SEV_CLI_MIN_SAVING, SEV_CLI_QUARTETS = 0.2, 30
 # the 4.0 that tests/test_numerics.py holds the JAX package to on
 # testData/49.
 BF16_RTOL = 1e-3
-NPHASES = 22
+# Phase 22, site-parallel ranks: SITE_RANKS processes in a gloo group
+# sharing the card; each waits at most SITE_TIMEOUT_S.  The allreduce and
+# the Newton-Raphson iteration are timed as medians of so many calls;
+# the tail windows' alignments have TAIL_TAXA taxa.  SITE_DIGEST_SEED
+# seeds the arena digests' position weights.
+SITE_RANKS, SITE_TIMEOUT_S = 2, 300
+SITE_ALLREDUCE_CALLS, SITE_NR_CALLS = 60, 20
+TAIL_TAXA, SITE_DIGEST_SEED = 64, 12345
+# B1's instances held against their plain versions on the tail windows:
+# float32 K = 4 and 20 (one-unit tiles: no partial tile at block
+# granularity), and every dataflow instance whose tiles hold several
+# units (float32 K = 2, bfloat16 K = 4 and 2).
+TAIL_INSTANCES = (("float32", 4), ("float32", 20), ("float32", 2),
+                  ("bfloat16", 4), ("bfloat16", 2))
+NPHASES = 23
 
 
 class SmokeFailure(RuntimeError):
@@ -3498,6 +3519,534 @@ def phase_bf16(device, setup: dict, real: dict, real_aa: dict, fd: dict,
     return out
 
 
+# -- phase 22: site-parallel ranks --------------------------------------------
+
+
+def site_digests(x, rows, chunk: int = 32) -> list:
+    """A 64-bit digest of each of `rows` of x [rows, B, ...] (float32 or
+    int32): the row's bits as int32 words, each times a fixed odd
+    pseudo-random int64 weight of its position, summed modulo 2^64 (a sum
+    of integers, so the same in any order).  Two rows of the same shape
+    with one differing bit always differ in digest; rows differing in
+    several places collide with probability about 2^-64.  The weights
+    depend only on the position within the row, so a rank's window and
+    the same block range of the one-process arena are compared directly."""
+    import torch
+    gen = torch.Generator(device=x.device)
+    gen.manual_seed(SITE_DIGEST_SEED)
+    w = torch.randint(-2 ** 62, 2 ** 62, tuple(x.shape[1:]), generator=gen,
+                      device=x.device, dtype=torch.int64) | 1
+    out = []
+    for lo in range(0, rows.shape[0], chunk):
+        v = x[rows[lo:lo + chunk]].contiguous().view(torch.int32).to(
+            torch.int64)
+        out += (v * w).flatten(1).sum(dim=1).tolist()
+    return out
+
+
+def site_instance(data, setup: dict, device, **kw):
+    """The real-size f32 chunk-tier instance of `data` (the whole file or
+    a rank's columns), the set-up's models, and its random tree with the
+    set-up's branch lengths."""
+    import torch
+    from examl_tpu_torch.instance import PhyloInstance
+    from examl_tpu_torch.transfer import install_model_params
+    inst = PhyloInstance(data, dtype=torch.float32, device=device,
+                         newview="chunk", **kw)
+    install_model_params(inst, [(np.asarray(r), np.asarray(f), float(a))
+                                for r, f, a in setup["params"]])
+    return inst, site_tree(inst, setup)
+
+
+def site_tree(inst, setup: dict):
+    """The set-up's random tree with its branch lengths."""
+    tree = inst.random_tree(setup["seed"])
+    for (p, _), z in zip(tree.all_branches(), setup["zs"]):
+        p.z[:] = [float(z)]
+    return tree
+
+
+def site_path(inst, tree, device, windows) -> dict:
+    """The site-parallel main path, the same in the one process and on
+    each rank: a full-traversal evaluate (kernel B1 on the chunk tier),
+    the digests of the inner nodes' arena rows and scalers over each of
+    `windows` (block ranges of this instance's arena), one makenewz, one
+    whole-tree gradient pass and one batched lazy scan plan (which leaves
+    its node pruned); the counts are those of the whole path."""
+    from examl_tpu_torch.optimize.branch import tree_gradients
+    from examl_tpu_torch.search import batchscan, spr
+    import torch
+    eng = inst.engines[4]
+    ntaxa = inst.alignment.ntaxa
+    reset_counts()
+    lnl = inst.evaluate(tree, full=True)
+    sync(device)
+    rows = torch.as_tensor(eng.row_map[ntaxa + 1:], device=device)
+    digests = [{"clv": site_digests(eng.clv[:, b0:b1], rows),
+                "scaler": site_digests(eng.scaler[:, b0:b1], rows)}
+               for b0, b1 in windows]
+    p = tree.nodep[ntaxa + 3]
+    z = inst.makenewz(tree, p, p.back, list(p.z), maxiter=30)
+    _, d1, d2 = tree_gradients(inst, tree)
+    ctx = spr.SprContext(inst, thorough=False, do_cutoff=False)
+    s = next(tree.nodep[k] for k in tree.inner_numbers()
+             if not tree.is_tip(tree.nodep[k].next.back.number)
+             and not tree.is_tip(tree.nodep[k].next.next.back.number))
+    q1, q2 = s.next.back, s.next.next.back
+    spr.remove_node(inst, tree, ctx, s)
+    plan = batchscan.plan_for_endpoints(inst, tree, s, q1, q2, 1, 5)
+    cand = batchscan.run_plan(inst, tree, plan)
+    sync(device)
+    counts = read_counts()
+    check_tier(counts, "chunk", "site-parallel path")
+    return {"lnl": lnl, "pp": inst.per_partition_lnl.tolist(),
+            "digests": digests, "nr_z": [float(v) for v in z],
+            "d1": d1.ravel().tolist(), "d2": d2.ravel().tolist(),
+            "candidates": [float(v) for v in cand], "counts": counts,
+            "nr_branch": p.number}
+
+
+def tail_alignment(K: int, blocks: int, seed: int):
+    """TAIL_TAXA taxa of random K-state codes (DNA, amino acids or binary,
+    ~2% gaps) in three partitions of `blocks` blocks together, the first
+    straddling the middle (so both ranks of two hold part of it), each a
+    few columns short of its blocks; patterns uncompressed."""
+    from examl_tpu_torch.io.alignment import (AlignmentData, PartitionData,
+                                              empirical_frequencies)
+    rng = np.random.default_rng(seed)
+    half = blocks // 2
+    split = [half // 2 + 1, half - 1]
+    split.append(blocks - sum(split))
+    dt = datatype_of(K)
+    states = {4: np.array([1, 2, 4, 8], np.uint8), 2: np.array(
+        [1, 2], np.uint8), 20: np.arange(20, dtype=np.uint8)}[K]
+    parts = []
+    for g, nb in enumerate(split):
+        W = nb * 128 - 3
+        codes = states[rng.integers(0, K, (TAIL_TAXA, W))]
+        codes[rng.random((TAIL_TAXA, W)) < 0.02] = dt.undetermined_code
+        wts = np.ones(W, np.int64)
+        parts.append(PartitionData(
+            name=f"tail{g}", datatype=dt,
+            model_name="WAG" if K == 20 else "GTR", patterns=codes,
+            weights=wts, empirical_freqs=empirical_frequencies(codes, wts,
+                                                               dt),
+            use_empirical_freqs=K != 20, optimize_freqs=False))
+    return AlignmentData([f"t{i}" for i in range(TAIL_TAXA)], parts)
+
+
+def has_tail(blocks: int, tile) -> bool:
+    """Whether `blocks` blocks of 128 sites end in a partial dataflow tile
+    of B1 (tile = (units per tile, sites per unit))."""
+    units, sites = tile
+    return (blocks * (128 // sites)) % units != 0
+
+
+def tail_blocks(b1_config: list) -> dict:
+    """B1's dataflow tile (units per tile, sites per unit) per instance of
+    TAIL_INSTANCES, and the smallest window of 9 to 64 blocks that ends in
+    a partial tile of each instance that can have one (9 where none can:
+    an instance whose tile is one unit of 128 sites never has a partial
+    tile at block granularity)."""
+    tiles = {f"{d} K={K}": (c["tile_units"], c["tile_sites"])
+             for d, K in TAIL_INSTANCES for c in b1_config
+             if (c["dtype"], c["K"], c["kind"]) == (d, K, 3)}
+    possible = [t for t in tiles.values()
+                if any(has_tail(B, t) for B in range(9, 65))]
+    B = next((B for B in range(9, 65)
+              if all(has_tail(B, t) for t in possible)), 9)
+    return {"tiles": tiles, "window_blocks": B,
+            "tail": {k: has_tail(B, t) for k, t in tiles.items()}}
+
+
+def site_tail_check(path: str, storage: str, K: int, group, device,
+                    seed: int) -> dict:
+    """Kernel B1 (instance K, `storage` CLVs: float32 or bfloat16 with
+    float32 compute) against its plain version on this rank's window of a
+    tail alignment: the window's full traversal with random models and a
+    random tree, both on the same operands; scalers equal and no
+    differing cell."""
+    import torch
+    from examl_tpu_torch.instance import PhyloInstance
+    from examl_tpu_torch.io.bytefile import read_bytefile_for_process
+    from examl_tpu_torch.ops import fastpath, newview_chunk
+    data = read_bytefile_for_process(path, group.rank, group.size)
+    inst = PhyloInstance(data, dtype=torch.float32, device=device,
+                         newview="chunk", clv_dtype=getattr(torch, storage),
+                         local_window=(group.rank, group.size), group=group)
+    eng = inst.engines[K]
+    check(newview_chunk.ROUTE[(K, eng.clv.dtype)] == "flow",
+          f"{storage} K={K} is not on B1's dataflow route")
+    _, eng.models = random_models(eng.num_parts,
+                                  np.random.default_rng(seed), eng.dtype,
+                                  device, K=K)
+    tree = inst.random_tree(seed)
+    rng = np.random.default_rng(seed + 1)
+    for p, _ in tree.all_branches():
+        p.z[:] = [float(rng.uniform(0.05, 0.98))]
+    flat = tree.flat_full_traversal(tree.centroid_branch())
+    st = eng._structure(flat)
+    zl, zr = fastpath.refresh_z(st, flat, 1, eng.dtype, device)
+    pmat = newview_chunk.chunk_operands(eng.models, zl, zr)
+    args = (eng.tips.codes, eng.tips.table, eng.block_part_i32, st.launch,
+            st.lidx, st.ridx, st.lcode, st.rcode, pmat, eng.scale_exp)
+    clv_k, sc_k = torch.zeros_like(eng.clv), torch.zeros_like(eng.scaler)
+    clv_p, sc_p = torch.zeros_like(eng.clv), torch.zeros_like(eng.scaler)
+    newview_chunk.chunk_apply(clv_k, sc_k, *args, newview_chunk.Dataflow(
+        st.flow_rows, st.wait, newview_chunk.Ready()))
+    newview_chunk.chunk_apply_plain(clv_p, sc_p, *args)
+    sync(device)
+    rows = torch.as_tensor(np.sort(st.row_of[st.row_of >= 0]),
+                           device=device)
+    rel, abs_err, differing = compare_arenas(
+        clv_k[rows], clv_p[rows], sc_k[rows], sc_p[rows],
+        f"site-parallel tail window {storage} K={K}")
+    check(differing == 0, f"tail window {storage} K={K}: {differing} cells "
+          "differ between B1 and its plain version")
+    return {"instance": f"{storage} K={K}", "K": K, "blocks": eng.B,
+            "block_offset": eng.bucket.block_offset,
+            "max_abs_err": abs_err, "max_rel_err": rel,
+            "differing_cells": differing, "rows": int(rows.shape[0])}
+
+
+def median_ms(fn, n: int) -> float:
+    walls = []
+    for _ in range(n):
+        t = time.perf_counter()
+        fn()
+        walls.append(time.perf_counter() - t)
+    return float(np.median(walls) * 1e3)
+
+
+def site_rank_real(cfg: dict, group, device) -> dict:
+    """The real-size rank: its sliced read, the site-parallel path, and
+    (after the counts were read) the timings: kernel B1 over the window's
+    launch table, one allreduce of the per-partition lnL, and one
+    Newton-Raphson iteration's derivatives with and without their
+    allreduce.  Every rank makes the same calls."""
+    import torch
+    from examl_tpu_torch.io.bytefile import read_bytefile_for_process
+    from examl_tpu_torch.ops import fastpath, kernels, newview_chunk
+    t0 = time.perf_counter()
+    data = read_bytefile_for_process(cfg["aln"], group.rank, group.size)
+    inst, tree = site_instance(data, cfg, device,
+                               local_window=(group.rank, group.size),
+                               group=group)
+    eng = inst.engines[4]
+    setup_s = time.perf_counter() - t0
+    out = site_path(inst, tree, device, [(0, eng.B)])
+    out.update(rank=group.rank, device=str(device), blocks=eng.B,
+               block_offset=eng.bucket.block_offset,
+               columns=sum(p.width for p in data.partitions),
+               setup_s=setup_s)
+    tree = site_tree(inst, cfg)
+    flat = tree.flat_full_traversal(tree.centroid_branch())
+    inst.evaluate(tree, full=True)
+    st = eng._structure(flat)
+    zl, zr = fastpath.refresh_z(st, flat, 1, eng.dtype, device)
+    pmat = newview_chunk.chunk_operands(eng.models, zl, zr)
+    flow = newview_chunk.Dataflow(st.flow_rows, st.wait, eng.ready)
+    out["b1_ms"] = time_ms(lambda: newview_chunk.chunk_apply(
+        eng.clv, eng.scaler, eng.tips.codes, eng.tips.table,
+        eng.block_part_i32, st.launch, st.lidx, st.ridx, st.lcode,
+        st.rcode, pmat, eng.scale_exp, flow), device, REPS)
+    M = inst.num_parts
+    group.allreduce(np.zeros(M))
+    out["allreduce_ms"] = median_ms(lambda: group.allreduce(np.zeros(M)),
+                                    SITE_ALLREDUCE_CALLS)
+    p = tree.nodep[out["nr_branch"]]
+    inst.new_view(tree, p)
+    inst.new_view(tree, p.back)
+    sumt = eng.make_sumtable(p.number, p.back.number)
+    zt = eng._z(p.z)
+
+    def derivatives():
+        d1, d2 = kernels.nr_derivatives(eng.models, eng.block_part,
+                                        eng.weights, sumt, zt, 1, None)
+        return torch.stack([d1, d2]).cpu().numpy()
+
+    derivatives()
+    out["nr_iteration_ms"] = median_ms(derivatives, SITE_NR_CALLS)
+    out["nr_iteration_allreduce_ms"] = median_ms(
+        lambda: group.allreduce(derivatives()), SITE_NR_CALLS)
+    return out
+
+
+def site_child(mode: str, rank: int, port: int, arg: str) -> int:
+    """One rank of phase 22, in a process of its own: `real` (the
+    site-parallel main path at real size on this rank's sliced read, its
+    timings, and the tail windows) or `cli` (the port's CLI with the
+    launch flags).  Prints "SITE_RESULT {json}"."""
+    import types
+    from examl_tpu_torch.parallel import launch
+    if mode == "cli":
+        from examl_tpu_torch.cli import main as cli
+        argv = json.loads(arg) + ["--coordinator", f"127.0.0.1:{port}",
+                                  "--nprocs", str(SITE_RANKS),
+                                  "--procid", str(rank)]
+        reset_counts()
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        wall = time.perf_counter() - t0
+        print("SITE_RESULT " + json.dumps({"rc": rc, "wall_s": wall,
+                                           "counts": read_counts()}),
+              flush=True)
+        return rc
+    cfg = json.loads(arg)
+    group = launch.init_distributed(types.SimpleNamespace(
+        coordinator=f"127.0.0.1:{port}", nprocs=SITE_RANKS, procid=rank))
+    try:
+        device = launch.use_rank_device(rank)
+        out = site_rank_real(cfg, group, device)
+        release_memory()
+        out["tails"] = [site_tail_check(cfg["tails"][str(K)], d, K, group,
+                                        device, cfg["seed"] + K)
+                        for d, K in TAIL_INSTANCES]
+        out["collectives"] = group.collectives
+    finally:
+        launch.shutdown(group)
+    print("SITE_RESULT " + json.dumps(out), flush=True)
+    return 0
+
+
+def free_ports(n: int) -> list:
+    """n distinct free ports on 127.0.0.1, from below the kernel's usual
+    ephemeral range (32768-60999), so that no client socket of a group's
+    connections can take one before its rank 0 listens on it."""
+    import socket
+    rng = np.random.default_rng()
+    out = []
+    while len(out) < n:
+        port = int(rng.integers(20000, 32000))
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        if port not in out:
+            out.append(port)
+    return out
+
+
+def site_spawn(mode: str, arg: str, port: int) -> list:
+    """SITE_RANKS processes of `site_child(mode, ...)` whose group meets
+    at `port`, started now; call site_wait on the result."""
+    return [subprocess.Popen(
+        [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+         "--site-child", mode, "--site-rank", str(r), "--site-port",
+         str(port), "--site-arg", arg], cwd=HERE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(SITE_RANKS)]
+
+
+def site_wait(procs, what: str) -> list:
+    """Each rank's SITE_RESULT; a rank that fails or outlives
+    SITE_TIMEOUT_S fails the phase, and every rank is stopped."""
+    out = []
+    try:
+        for r, p in enumerate(procs):
+            try:
+                o, e = p.communicate(timeout=SITE_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                raise SmokeFailure(f"{what}: rank {r} ran past "
+                                   f"{SITE_TIMEOUT_S} s")
+            res = [json.loads(line[12:]) for line in o.splitlines()
+                   if line.startswith("SITE_RESULT ")]
+            check(p.returncode == 0 and len(res) == 1,
+                  f"{what}: rank {r} exited {p.returncode}: {e[-2000:]}")
+            out.append(res[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
+
+
+def site_rel(a, b) -> float:
+    """max |a - b| over max |b| (vectors whose entries pass through zero,
+    such as the gradients of optimized branches, in one norm)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1e-300))
+
+
+def phase_site_parallel(device, setup: dict, anchor_whole: dict, fd: dict,
+                        b1_config: list, smi: str, seed: int) -> dict:
+    """Two ranks (processes) in a gloo group over 127.0.0.1 share the one
+    card, rank r on cuda:(r mod device_count): the real-size DNA set-up
+    as a byteFile, each rank reading only its columns, against the one
+    process; B1 against its plain version on windows with a tail; and
+    the CLI's ref49 -f e (whole tier) and -f d over two ranks."""
+    import torch
+    from examl_tpu_torch.io.bytefile import read_bytefile, write_bytefile
+    from examl_tpu_torch.parallel.sharding import block_window
+    t0 = time.perf_counter()
+    work = os.path.join(HERE, "build", "site_parallel")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    aln = os.path.join(work, "real.binary")
+    write_bytefile(aln, setup["ad"])
+    tail = tail_blocks(b1_config)
+    tails = {}
+    for K in sorted({K for _, K in TAIL_INSTANCES}):
+        tails[str(K)] = os.path.join(work, f"tail{K}.binary")
+        write_bytefile(tails[str(K)], tail_alignment(
+            K, SITE_RANKS * tail["window_blocks"], seed + K))
+    cfg = {"aln": aln, "tails": tails, "seed": setup["seed"],
+           "params": [[np.asarray(r).tolist(), np.asarray(f).tolist(),
+                       float(a)] for r, f, a in setup["params"]],
+           "zs": np.asarray(setup["zs"]).tolist()}
+    fe_dir = os.path.join(work, "fe")
+    fd_dir = os.path.join(work, "fd")
+    fe = fd_ranks = real = []
+    ports = free_ports(3)
+    try:
+        # The CLI pairs start first: host-bound, they overlap the rest.
+        fe = site_spawn("cli", json.dumps([
+            "-s", os.path.join(REF49, "aln49.binary"), "-t",
+            os.path.join(REF49, "TreeFile"), "-n", "smoke", "-w", fe_dir,
+            "-f", "e", "--newview", "whole"]), ports[0])
+        fd_ranks = site_spawn("cli", json.dumps([
+            "-s", fd["aln"], "-t", fd["start_tree"], "-n", "smoke", "-w",
+            fd_dir, "-i", "5"]), ports[1])
+        # The one process over the whole file, packed as two ranks pack;
+        # its engine is freed before the ranks build theirs.
+        inst, tree = site_instance(read_bytefile(aln), cfg, device,
+                                   block_multiple=SITE_RANKS)
+        B = inst.engines[4].B
+        windows = [block_window(B, r, SITE_RANKS)
+                   for r in range(SITE_RANKS)]
+        one = site_path(inst, tree, device, windows)
+        del inst, tree
+        release_memory()
+        real = site_spawn("real", json.dumps(cfg), ports[2])
+        ranks = site_wait(real, "real-size ranks")
+        fe_res = site_wait(fe, "ref49 -f e ranks")
+        fd_res = site_wait(fd_ranks, "-f d ranks")
+    finally:
+        for p in fe + fd_ranks + real:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+    # Real size: the windows tile the one-process arena bit for bit.
+    reduced = ["lnl", "pp", "nr_z", "d1", "d2", "candidates"]
+    for r, res in enumerate(ranks):
+        check(res["blocks"] == windows[r][1] - windows[r][0]
+              and res["block_offset"] == windows[r][0],
+              f"rank {r} holds blocks {res['block_offset']}+{res['blocks']}"
+              f", not {windows[r]}")
+        for part in ("clv", "scaler"):
+            bad = int(np.sum(np.asarray(res["digests"][0][part], object)
+                             != np.asarray(one["digests"][r][part],
+                                           object)))
+            check(bad == 0, f"rank {r}: {bad} inner-node {part} rows differ "
+                  "from the one-process rows of its window")
+        check(res["counts"]["b1"] > 0, f"rank {r} launched no B1")
+    check(all(ranks[0][k] == ranks[1][k] for k in reduced),
+          "the ranks' reduced values differ")
+    check(ranks[0]["collectives"] == ranks[1]["collectives"],
+          f"ranks issued {ranks[0]['collectives']} and "
+          f"{ranks[1]['collectives']} collectives")
+    check(sum(res["columns"] for res in ranks) == setup["patterns"]
+          and max(res["columns"] for res in ranks) < setup["patterns"],
+          "the ranks' reads do not tile the alignment")
+    rel = {"lnl": site_rel(ranks[0]["pp"], one["pp"]),
+           "nr_z": site_rel(ranks[0]["nr_z"], one["nr_z"]),
+           "d1": site_rel(ranks[0]["d1"], one["d1"]),
+           "d2": site_rel(ranks[0]["d2"], one["d2"]),
+           "candidates": site_rel(ranks[0]["candidates"],
+                                  one["candidates"])}
+    check(abs(ranks[0]["lnl"] - one["lnl"]) <= 1e-9 * abs(one["lnl"])
+          and rel["lnl"] <= 1e-9, f"lnL {ranks[0]['lnl']!r} vs one process "
+          f"{one['lnl']!r} (per partition rel {rel['lnl']:.2e})")
+    for k in ("nr_z", "d1", "d2"):
+        check(rel[k] <= 1e-6, f"{k}: rel {rel[k]:.2e} against one process")
+    check(rel["candidates"] <= 1e-8,
+          f"candidate lnLs: rel {rel['candidates']:.2e} against one process")
+    check(any(tail["tail"].values()), "no instance's window ends in a "
+          f"partial tile ({tail['tiles']})")
+    for res in ranks:
+        for t in res["tails"]:
+            check(t["blocks"] == tail["window_blocks"],
+                  f"tail window {t['instance']}: {t['blocks']} blocks, "
+                  f"expected {tail['window_blocks']}")
+
+    # Through the CLI: -f e on ref49, whole tier.
+    floor = LNL_REF_BINARY - MODOPT_EPSILON
+    for r, res in enumerate(fe_res):
+        check_tier(res["counts"], "whole", f"ref49 -f e rank {r}")
+    with open(os.path.join(fe_dir, "ExaML_log.smoke")) as f:
+        fe_lnl = float(f.read().split()[-1])
+    check(fe_lnl >= floor, f"2-rank -f e endpoint {fe_lnl} below {floor}")
+    fe_rel = abs(fe_lnl - anchor_whole["fe_final_lnl"]) / abs(fe_lnl)
+    check(fe_rel <= 1e-6, f"2-rank -f e endpoint {fe_lnl!r} vs one process "
+          f"{anchor_whole['fe_final_lnl']!r} (rel {fe_rel:.2e})")
+    for d in (fe_dir, fd_dir):
+        names = set(os.listdir(d))
+        check({"ExaML_info.smoke", "ExaML_log.smoke",
+               "ExaML_modelFile.smoke"} <= names,
+              f"rank 0 wrote {sorted(names)} in {d}")
+        stray = [n for n in os.listdir(os.path.join(d, ".proc1"))
+                 if n.startswith("ExaML_")
+                 and not n.startswith("ExaML_binaryCheckpoint.")]
+        check(stray == [], f"rank 1 wrote {stray}")
+    # -f d on phase 7's alignment: the result re-evaluated by one process.
+    for r, res in enumerate(fd_res):
+        check_tier(res["counts"], "chunk", f"-f d rank {r}")
+    with open(os.path.join(fd_dir, "ExaML_info.smoke")) as f:
+        fd_lnl = float(re.search(r"Likelihood of best tree: (\S+)",
+                                 f.read()).group(1))
+    lnl32, _, _ = reevaluate(fd_dir, fd["aln"], torch.float32, device)
+    check(abs(lnl32 - fd_lnl) <= 1e-6 * abs(fd_lnl),
+          f"2-rank -f d result re-evaluates to {lnl32} against its {fd_lnl}")
+    release_memory()
+    wall = time.perf_counter() - t0
+    out = {"window_blocks": [res["blocks"] for res in ranks],
+           "one_process": {k: one[k] for k in ("lnl", "counts")},
+           "ranks": [{k: res[k] for k in (
+               "rank", "device", "blocks", "block_offset", "columns",
+               "setup_s", "lnl", "counts", "b1_ms", "allreduce_ms",
+               "nr_iteration_ms", "nr_iteration_allreduce_ms",
+               "collectives", "tails")} for res in ranks],
+           "rel": rel, "tail_tiles": tail,
+           "fe": {"lnl": fe_lnl, "rel_one_process": fe_rel,
+                  "wall_s": [res["wall_s"] for res in fe_res],
+                  "counts": [res["counts"] for res in fe_res]},
+           "fd": {"lnl": fd_lnl, "reevaluated_f32": lnl32,
+                  "wall_s": [res["wall_s"] for res in fd_res],
+                  "counts": [res["counts"] for res in fd_res]},
+           "wall_s": wall, "device": smi}
+    for res in ranks:
+        log(f"  rank {res['rank']} on {res['device']}: blocks "
+            f"{res['block_offset']}..{res['block_offset'] + res['blocks'] - 1}"
+            f" ({res['columns']} columns read); B1 {res['counts']['b1']} "
+            f"launches on the path, {res['b1_ms']:.3f} ms per traversal of "
+            f"its window; allreduce {res['allreduce_ms']:.3f} ms (median of "
+            f"{SITE_ALLREDUCE_CALLS}); NR iteration "
+            f"{res['nr_iteration_ms']:.3f} ms, "
+            f"{res['nr_iteration_allreduce_ms']:.3f} ms with its "
+            f"allreduce; {res['collectives']} collectives [{smi}]")
+        for t in res["tails"]:
+            units, sites = tail["tiles"][t["instance"]]
+            log(f"    tail window {t['instance']}: {t['blocks']} blocks from "
+                f"{t['block_offset']} (tiles of {units} x {sites} sites, "
+                + ("a partial last tile" if tail["tail"][t["instance"]] else
+                   "no partial tile possible")
+                + f"): B1 vs plain {t['differing_cells']} differing cells, "
+                "scalers equal")
+    log(f"  windows bit for bit equal to the one-process arena rows; lnL "
+        f"{ranks[0]['lnl']!r} vs {one['lnl']!r}; rel: per-partition lnL "
+        f"{rel['lnl']:.2e}, NR z {rel['nr_z']:.2e}, d1 {rel['d1']:.2e}, d2 "
+        f"{rel['d2']:.2e}, candidates {rel['candidates']:.2e}; both ranks "
+        "bitwise equal")
+    log(f"  CLI over 2 ranks: ref49 -f e --newview whole {fe_lnl!r} (one "
+        f"process {anchor_whole['fe_final_lnl']!r}, rel {fe_rel:.2e}) in "
+        f"{max(out['fe']['wall_s']):.1f} s; -f d -i 5 {fd_lnl!r}, "
+        f"re-evaluated {lnl32!r}, in {max(out['fd']['wall_s']):.1f} s; "
+        f"phase wall {wall:.1f} s [{smi}]")
+    return out
+
+
 def device_breakdown(fn, device, top: int = 8) -> dict:
     """Device time of one call of fn() by kernel, from torch.profiler:
     busy ms (sum of kernel self times), the wall ms of the call, the idle
@@ -3609,7 +4158,7 @@ def bf16_spills(ptxas: dict) -> dict:
 
 def kernels_line(real, real_whole, search, scan, grad, anchor_whole,
                  restart, aa_cli, real_aa, fq, sev, sev_cli, cases,
-                 whole_cases, bf16) -> list:
+                 whole_cases, bf16, site) -> list:
     """The kernels line: each kernel's row, with its instances by K; B1's
     bfloat16-storage instances in a row of their own."""
     # Each kernel's launches on the main paths of this run, each path
@@ -3622,8 +4171,10 @@ def kernels_line(real, real_whole, search, scan, grad, anchor_whole,
     # gradient-smoothed tree and of the amino-acid -f e endpoint and the
     # amino-acid model optimization included; B1 also on the dense
     # instance's path of phase 19 and the dense re-evaluation of phase
-    # 20's -S endpoint.  The PSR and -S paths launch neither (their
-    # traversals run on the wave-scan and pooled tiers).  `by_K` splits
+    # 20's -S endpoint; and on phase 22's ranks: B1 on each rank's
+    # real-size path and -f d, B2 on each rank's ref49 -f e.  The PSR and
+    # -S paths launch neither (their traversals run on the wave-scan and
+    # pooled tiers).  `by_K` splits
     # each kernel's row by instance: the launches by state count, and its
     # real-size time, plain time and bound (DNA from phases 10 and 13,
     # amino acids and binary from phase 16).
@@ -3640,6 +4191,16 @@ def kernels_line(real, real_whole, search, scan, grad, anchor_whole,
                 *real_whole["launches_by_path"].values(),
                 aa_cli["whole_launches"], aa_paths["whole_evaluate"],
                 aa_paths["opt_alphas_lg4x"]]
+
+    def by_int_k(counts):
+        """A rank's counts as read_counts gives them (JSON made the keys
+        of the by-K counts strings)."""
+        return dict(counts, **{k: {int(K): n for K, n in counts[k].items()}
+                               for k in ("b1_by_K", "b2_by_K")})
+
+    b1_paths += [by_int_k(r["counts"]) for r in site["ranks"]]
+    b1_paths += [by_int_k(c) for c in site["fd"]["counts"]]
+    b2_paths += [by_int_k(c) for c in site["fe"]["counts"]]
 
     def by_k(key, paths, dna, tier, checks):
         """Each instance's launches on the main paths, its real-size time
@@ -3737,6 +4298,12 @@ def nvidia_smi_line() -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    # One rank of phase 22 (started by the phase itself).
+    ap.add_argument("--site-child", choices=["real", "cli"],
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--site-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--site-port", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--site-arg", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
@@ -3751,6 +4318,14 @@ def main(argv=None) -> int:
         print(f"chip_smoke: examl_tpu_torch not found beside this script "
               f"({exc})", file=sys.stderr)
         return 2
+    if args.site_child:
+        try:
+            return site_child(args.site_child, args.site_rank,
+                              args.site_port, args.site_arg)
+        except SmokeFailure as exc:
+            print(f"chip_smoke: rank {args.site_rank} FAILED: {exc}",
+                  file=sys.stderr)
+            return 1
     device = torch.device("cuda", 0)
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -3867,10 +4442,17 @@ def main(argv=None) -> int:
         bf16 = phase_bf16(device, setup, real, real_aa, search, out_dir,
                           args.seed, REPS, ptxas)
 
+        phase("site-parallel ranks: 2 processes in a gloo group on the "
+              "card, real-size windows against one process, B1 on tail "
+              "windows, ref49 -f e and -f d through the CLI")
+        site = phase_site_parallel(device, setup, anchor_whole, search,
+                                   b1_config, smi, args.seed)
+
         phase("report")
         kernels = kernels_line(real, real_whole, search, scan, grad,
                                anchor_whole, restart, aa_cli, real_aa, fq,
-                               sev, sev_cli, cases, whole_cases, bf16)
+                               sev, sev_cli, cases, whole_cases, bf16,
+                               site)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -3884,7 +4466,8 @@ def main(argv=None) -> int:
               "real_size_whole": real_whole, "real_size_psr": real_psr,
               "aa_cli": aa_cli, "real_size_aa": real_aa, "quartets": fq,
               "real_size_quartets": real_fq, "sev": sev,
-              "sev_cli": sev_cli, "bf16": bf16, "ptxas": ptxas,
+              "sev_cli": sev_cli, "bf16": bf16, "site_parallel": site,
+              "ptxas": ptxas,
               "wall_s": time.perf_counter() - t_start}
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)

@@ -7,7 +7,8 @@ dispatched at `main` :2719-2781).
         [-m GAMMA|PSR] [-c categories] [-a] [-i radius] [-D] [-B N] [-M] \\
         [-S] [-p seed] [-Y groups | -r N] [-I N] [-e epsilon] \\
         [--newview chunk|whole] [--batch-scan auto|on|off] \\
-        [--clv-dtype same|bf16] [--auto-prot ml|bic|aic|aicc]
+        [--clv-dtype same|bf16] [--auto-prot ml|bic|aic|aicc] \\
+        [--coordinator HOST:PORT --nprocs N --procid K]
 
 Modes: `-f d` (the default) runs the RAxML SPR hill climb
 (`search/raxml_search.py`) from the `-t` tree or from the random
@@ -53,6 +54,15 @@ in float32 (the JAX package's EXAML_CLV_DTYPE=bf16): full traversals run
 kernel B1's bfloat16-storage instances; it is refused with `--newview
 whole` and on a float64 run.  `main` runs on the card in float32 unless
 the caller passes `device="cpu"` (float64 there) or a `dtype`.
+
+`--coordinator HOST:PORT --nprocs N --procid K` runs this process as rank
+K of a site-parallel run of N ranks, one process per GPU
+(parallel/launch.py): rank K runs on `cuda:(K mod device_count)`, reads
+only its own byteFile columns (`selective_read_decision`), packs them
+into its block window of the global packing and reduces every site sum
+over a gloo group.  Every rank takes the same decisions from the same
+reduced values; only rank 0 writes run files and checkpoints (the other
+ranks' workdir is DIR/.proc<K>, and they restore from DIR).
 """
 
 from __future__ import annotations
@@ -62,12 +72,16 @@ import math
 import os
 import sys
 import time
+import struct
 from typing import List
+
+import numpy as np
 
 from examl_tpu_torch import config
 from examl_tpu_torch.constants import ZMAX, ZMIN
 from examl_tpu_torch.models.lg4 import LG4Params
 from examl_tpu_torch.ops.engine import NEWVIEW_TIERS, POOLED_TIER
+from examl_tpu_torch.parallel import launch
 
 # State letters of the model file's "rate X <-> Y" and "freq pi(X)" lines.
 _STATE_LETTERS = {"DNA": "ACGT", "AA": "ARNDCQEGHILKMFPSTWYV", "BIN": "01"}
@@ -145,15 +159,21 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--auto-prot", dest="auto_prot", default="ml",
                     choices=["ml", "bic", "aic", "aicc"],
                     help="criterion for AUTO protein model selection")
+    launch.add_launch_args(ap)
     return ap
 
 
 class RunFiles:
     """Output files (reference `makeFileNames`/`printBothOpen`).  On a -R
     restart the info and log files are appended to, keeping the
-    interrupted run's history."""
+    interrupted run's history.  primary=False (a site-parallel rank other
+    than 0) writes nothing, the reference's processID == 0 gating; its
+    checkpoints live in `shared_dir`, rank 0's workdir."""
 
-    def __init__(self, workdir: str, run_id: str, append: bool = False):
+    def __init__(self, workdir: str, run_id: str, append: bool = False,
+                 primary: bool = True, shared_dir: str | None = None):
+        self.primary = primary
+        self.shared_dir = shared_dir if shared_dir is not None else workdir
         os.makedirs(workdir, exist_ok=True)
         pre = os.path.join(workdir, "ExaML_")
         self.info_path = f"{pre}info.{run_id}"
@@ -163,20 +183,26 @@ class RunFiles:
         self.treefile_path = f"{pre}TreeFile.{run_id}"
         self.quartets_path = f"{pre}quartets.{run_id}"
         self.start_time = time.time()
-        if not append:
+        if not append and primary:
             for p in (self.info_path, self.log_path):
                 open(p, "w").close()
 
     def info(self, msg: str) -> None:
+        if not self.primary:
+            return
         print(msg)
         with open(self.info_path, "a") as f:
             f.write(msg + "\n")
 
     def log_lnl(self, lnl: float) -> None:
+        if not self.primary:
+            return
         with open(self.log_path, "a") as f:
             f.write(f"{time.time() - self.start_time:.6f} {lnl:.6f}\n")
 
     def write_result(self, text: str) -> None:
+        if not self.primary:
+            return
         with open(self.result_path, "w") as f:
             f.write(text if text.endswith("\n") else text + "\n")
 
@@ -235,6 +261,14 @@ def _read_trees(path: str) -> List[str]:
     return [t.strip() + ";" for t in text.split(";") if t.strip()]
 
 
+def checkpoint_manager(args, files: RunFiles, **kwargs):
+    """The run's CheckpointManager: in rank 0's workdir, which every rank
+    restores from and only rank 0 writes to."""
+    from examl_tpu_torch.search.checkpoint import CheckpointManager
+    return CheckpointManager(files.shared_dir, args.run_id, log=files.info,
+                             primary=files.primary, **kwargs)
+
+
 def _load_constraint(args, inst):
     from examl_tpu_torch.tree.constraint import load_constraint
     with open(args.constraint_file) as f:
@@ -244,12 +278,11 @@ def _load_constraint(args, inst):
 
 def run_search(args, inst, files: RunFiles) -> int:
     """-f d / -f o: the RAxML hill climb (reference `computeBIGRAPID`)."""
-    from examl_tpu_torch.search.checkpoint import CheckpointManager
     from examl_tpu_torch.search.convergence import RfConvergence
     from examl_tpu_torch.search.raxml_search import (SearchOptions,
                                                      compute_big_rapid)
 
-    mgr = CheckpointManager(args.workdir, args.run_id, log=files.info)
+    mgr = checkpoint_manager(args, files)
     resume = None
     constraint = None
     if args.restart:
@@ -318,8 +351,9 @@ def run_search(args, inst, files: RunFiles) -> int:
     files.info(f"Likelihood of best tree: {res.likelihood:.6f}")
     files.write_result(tree.to_newick(inst.alignment.taxon_names))
     _write_per_gene_trees(args, inst, tree, files)
-    write_model_params(files.model_path, inst, tree)
-    if res.good_trees:
+    if files.primary:
+        write_model_params(files.model_path, inst, tree)
+    if res.good_trees and files.primary:
         good = os.path.join(args.workdir, f"ExaML_goodTrees.{args.run_id}")
         with open(good, "w") as f:
             for snap in res.good_trees:
@@ -333,7 +367,7 @@ def run_search(args, inst, files: RunFiles) -> int:
 def _write_per_gene_trees(args, inst, tree, files: RunFiles) -> None:
     """Under -M, write one tree per partition with that partition's own
     branch lengths (reference `printTreePerGene`, `treeIO.c:348`)."""
-    if not args.per_partition_bl:
+    if not args.per_partition_bl or not files.primary:
         return
     path = os.path.join(args.workdir,
                         f"ExaML_perGeneBranchLengths.{args.run_id}")
@@ -353,7 +387,6 @@ def run_tree_evaluation(args, inst, files: RunFiles) -> int:
     `axml.h:655-659`, restart dispatch `searchAlgo.c:1730-1749`)."""
     from examl_tpu_torch.optimize.branch import tree_evaluate
     from examl_tpu_torch.optimize.model_opt import mod_opt
-    from examl_tpu_torch.search.checkpoint import CheckpointManager
 
     if not args.tree_file:
         files.info("tree evaluation mode requires -t")
@@ -366,8 +399,7 @@ def run_tree_evaluation(args, inst, files: RunFiles) -> int:
     fast = args.mode == "e"
     # Each checkpoint embeds the accumulated results, so only the last two
     # are kept: disk use stays linear in the number of trees.
-    mgr = CheckpointManager(args.workdir, args.run_id, keep_last=2,
-                            log=files.info)
+    mgr = checkpoint_manager(args, files, keep_last=2)
     last_ckpt = [0.0]
 
     start_i = 0
@@ -426,22 +458,31 @@ def run_tree_evaluation(args, inst, files: RunFiles) -> int:
     best = max(range(len(lnls)), key=lambda i: lnls[i])
     files.info(f"Evaluated {len(lnls)} trees; best is tree {best} "
                f"with likelihood {lnls[best]:.6f}")
-    with open(files.treefile_path, "w") as f:
-        f.write("\n".join(results) + "\n")
-    write_model_params(files.model_path, inst, tree)
+    if files.primary:
+        with open(files.treefile_path, "w") as f:
+            f.write("\n".join(results) + "\n")
+        write_model_params(files.model_path, inst, tree)
     return 0
 
 
 def _packing_report(inst, files: RunFiles) -> None:
     """Startup site-packing report (the reference's `printAssignments` /
     `printLoad`, `partitionAssignment.c:461-502`; here the load is lane
-    padding per state bucket), with the SEV pool noted under -S."""
+    padding per state bucket), with the SEV pool noted under -S.  In a
+    site-parallel run the counts are those of rank 0's block window."""
     for states, bucket in sorted(inst.buckets.items()):
+        where = ""
         true_sites = int(sum(bucket.part_widths))
-        padded = bucket.num_sites
+        if bucket.is_local:
+            b0 = bucket.block_offset
+            where = (f" (rank {inst.group.rank}'s window: blocks {b0}.."
+                     f"{b0 + bucket.local_num_blocks - 1} of "
+                     f"{bucket.num_blocks})")
+            true_sites = int(np.count_nonzero(bucket.weights))
+        padded = bucket.local_num_sites
         files.info(
-            f"bucket states={states}: {bucket.num_parts} partitions, "
-            f"{true_sites} patterns -> {bucket.num_blocks} blocks x "
+            f"bucket states={states}{where}: {bucket.num_parts} partitions, "
+            f"{true_sites} patterns -> {bucket.local_num_blocks} blocks x "
             f"{bucket.lane} lanes ({padded - true_sites} padding sites, "
             f"{100.0 * (padded - true_sites) / padded:.1f}% pad)")
         if inst.save_memory:
@@ -449,13 +490,84 @@ def _packing_report(inst, files: RunFiles) -> None:
 
 
 def _sev_report(inst, files: RunFiles) -> None:
-    """Each bucket's SEV pool at the end of a -S run."""
+    """Each bucket's SEV pool at the end of a -S run (rank 0's window in a
+    site-parallel run: each rank's pool covers its own)."""
+    where = (f" (rank {inst.group.rank}'s window)" if inst.group.size > 1
+             else "")
     for states, eng in inst.engines.items():
         st = eng.sev.stats()
         files.info(
-            f"SEV bucket states={states}: {st['allocated_cells']} of "
+            f"SEV bucket states={states}{where}: {st['allocated_cells']} of "
             f"{st['dense_cells']} CLV cells allocated "
             f"({100.0 * st['saving_ratio']:.1f}% saved)")
+
+
+def selective_read_decision(model: str, is_bytefile: bool,
+                            has_auto_aa: bool, nprocs: int,
+                            save_memory: bool = False):
+    """("slice" | "whole" | "error"), reason — the per-rank data-loading
+    policy, pure so it is unit-testable without a process group:
+
+    * "slice": each rank seeks only its site blocks (readMyData,
+      `byteFile.c:278-382`) — including -m PSR, whose per-site rate
+      state stays host-global via allgathers (engine.rate_scan output;
+      one weight-window gather, instance.psr_packed_weights — the
+      reference's CAT Gatherv/Scatterv, `optimizeModel.c:2135-2254`,
+      as collectives);
+    * "whole": every rank reads the full file and keeps its window
+      (single-process runs; AUTO-protein partitions, whose BIC/AICc
+      sample sizes must be global; non-byteFile inputs);
+    * "error": currently unreachable — kept for future hard
+      incompatibilities so callers keep handling it.
+    """
+    if nprocs <= 1:
+        return "whole", "single process"
+    if not is_bytefile:
+        return "whole", "input is not a byteFile"
+    if has_auto_aa:
+        return "whole", ("AUTO protein model selection needs global "
+                         "sample sizes")
+    note = ""
+    if model == "PSR":
+        note = " (-m PSR rate state allgathers to every process)"
+    if save_memory:
+        note += " (-S gap bookkeeping follows the window)"
+    return "slice", "selective byteFile read" + note
+
+
+def _is_bytefile(path: str) -> bool:
+    from examl_tpu_torch.io.bytefile import BYTEFILE_MAGIC
+    with open(path, "rb") as f:
+        head = f.read(12)
+    return (len(head) == 12
+            and struct.unpack("<iii", head)[2] == BYTEFILE_MAGIC)
+
+
+def _load_alignment(args, group, files: RunFiles):
+    """(alignment, local_window): this rank's columns of the byteFile, or
+    the whole file (`selective_read_decision`)."""
+    from examl_tpu_torch.io.bytefile import (PROT_MODELS, read_bytefile,
+                                             read_bytefile_for_process,
+                                             read_bytefile_meta)
+    is_bf = _is_bytefile(args.bytefile)
+    has_auto = False
+    if group.size > 1 and is_bf:
+        has_auto = any(PROT_MODELS[pm.prot] == "AUTO"
+                       for pm in read_bytefile_meta(args.bytefile).parts
+                       if pm.dtype_i == 2)
+    policy, reason = selective_read_decision(
+        args.model, is_bf, has_auto, group.size, args.save_memory)
+    if policy == "error":
+        raise ValueError(reason)
+    if policy == "slice":
+        files.info(f"{reason}: rank {group.rank} of {group.size} loads "
+                   "only its site blocks")
+        return (read_bytefile_for_process(args.bytefile, group.rank,
+                                          group.size),
+                (group.rank, group.size))
+    if group.size > 1:
+        files.info(f"whole-file reads per rank ({reason})")
+    return read_bytefile(args.bytefile), None
 
 
 def run_mode(args, inst, files: RunFiles) -> int:
@@ -469,7 +581,8 @@ def run_mode(args, inst, files: RunFiles) -> int:
 
 
 def main(argv=None, device=None, dtype=None) -> int:
-    """Run the mode `-f` names; `device` defaults to the card ("cuda"),
+    """Run the mode `-f` names; `device` defaults to the card ("cuda"; a
+    rank of a site-parallel run takes `cuda:(rank mod device_count)`),
     `dtype` to the device's compute dtype (`config.default_dtype`)."""
     import torch
     ap = build_argparser()
@@ -489,6 +602,10 @@ def main(argv=None, device=None, dtype=None) -> int:
         ap.error(f"--newview {args.newview} cannot combine with -S: kernels "
                  "B1 and B2 have no pooled form, so -S runs every traversal "
                  "on the pooled wave-scan tier")
+    try:
+        launch.check_launch_args(args)
+    except ValueError as exc:
+        ap.error(str(exc))
     if dtype is None:
         dtype = config.default_dtype(torch.device(
             "cuda" if device is None else device))
@@ -500,20 +617,42 @@ def main(argv=None, device=None, dtype=None) -> int:
         ap.error(f"--newview whole cannot combine with --clv-dtype "
                  f"{args.clv_dtype}: kernel B2 has no bfloat16-storage "
                  "instance, so full traversals take the chunk tier")
-    from examl_tpu_torch.instance import PhyloInstance
-    from examl_tpu_torch.io.bytefile import read_bytefile
+    # Join the run's process group before any output: only rank 0 writes
+    # run files; the others compute alike with their workdir diverted.
+    group = launch.init_distributed(args)
+    try:
+        return _run(args, group, device, dtype, storage)
+    finally:
+        launch.shutdown(group)
 
-    files = RunFiles(args.workdir, args.run_id, append=args.restart)
+
+def _run(args, group, device, dtype, storage) -> int:
+    from examl_tpu_torch.instance import PhyloInstance
+
+    shared_dir = args.workdir
+    if group.size > 1:
+        device = launch.use_rank_device(group.rank, device)
+        if group.rank:
+            args.workdir = os.path.join(args.workdir, f".proc{group.rank}")
+    files = RunFiles(args.workdir, args.run_id, append=args.restart,
+                     primary=group.rank == 0, shared_dir=shared_dir)
     tier = args.newview or (POOLED_TIER if args.save_memory else "chunk")
     files.info(f"alignment: {args.bytefile}  mode: -f {args.mode}  "
                f"model: {args.model}  newview: {tier}")
+    if group.size > 1:
+        files.info(
+            f"site-parallel: {group.size} ranks, gloo group at tcp://"
+            f"{args.coordinator}; rank devices: " + ", ".join(
+                str(launch.rank_device(r, device))
+                for r in range(group.size)))
     try:
-        data = read_bytefile(args.bytefile)
+        data, local_window = _load_alignment(args, group, files)
     except ValueError as exc:
         files.info(f"ERROR: {exc}")
         return 1
-    files.info(f"{data.ntaxa} taxa, {data.total_patterns} patterns, "
-               f"{len(data.partitions)} partitions")
+    files.info(f"{data.ntaxa} taxa, {data.total_patterns} patterns"
+               + (" (this rank)" if local_window else "")
+               + f", {len(data.partitions)} partitions")
     inst = PhyloInstance(data, dtype=dtype, device=device,
                          use_median=args.median,
                          per_partition_branches=args.per_partition_bl,
@@ -521,7 +660,8 @@ def main(argv=None, device=None, dtype=None) -> int:
                          psr_categories=args.categories,
                          batch_scan={"auto": None, "on": True,
                                      "off": False}[args.batch_scan],
-                         save_memory=args.save_memory, clv_dtype=storage)
+                         save_memory=args.save_memory, clv_dtype=storage,
+                         local_window=local_window, group=group)
     inst.auto_prot_criterion = args.auto_prot
     files.info(f"device: {inst.device}  dtype: {inst.dtype}  clv storage: "
                f"{str(inst.storage_dtype).removeprefix('torch.')}")

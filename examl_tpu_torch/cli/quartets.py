@@ -9,11 +9,11 @@ from __future__ import annotations
 
 
 def run_quartets(args, inst, files) -> int:
-    from examl_tpu_torch.search.checkpoint import CheckpointManager
+    from examl_tpu_torch.cli.main import checkpoint_manager
     from examl_tpu_torch.search.quartets import (QuartetOptions,
                                                  compute_quartets)
 
-    mgr = CheckpointManager(args.workdir, args.run_id, log=files.info)
+    mgr = checkpoint_manager(args, files)
     resume = None
     if args.restart:
         tree = inst.random_tree(seed=args.seed)     # overwritten by restore
@@ -36,6 +36,7 @@ def run_quartets(args, inst, files) -> int:
         checkpoint_mgr=mgr,
         resume=resume)
     out = files.quartets_path
-    n = compute_quartets(inst, tree, opts, out, log=files.info)
+    n = compute_quartets(inst, tree, opts, out if files.primary else None,
+                         log=files.info)
     files.info(f"{n} quartets written to {out}")
     return 0

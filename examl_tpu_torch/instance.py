@@ -1,7 +1,8 @@
 """PhyloInstance: alignment + models + likelihood engines behind one facade.
 
-The port of the single-device `examl_tpu/instance.py`, under GAMMA or PSR
-rate heterogeneity, on dense CLV arenas or SEV pools (`-S`): owns the
+The port of `examl_tpu/instance.py`, under GAMMA or PSR
+rate heterogeneity, in one process or as one rank of a site-parallel run
+(parallel/sharding.py), on dense CLV arenas or SEV pools (`-S`): owns the
 per-partition model parameters (GTR, empirical protein matrices,
 LG4M/LG4X, AUTO's current choice), the
 per-site rate state under PSR, the packed site buckets (one engine per
@@ -12,6 +13,7 @@ state count) and the CLV orientation bookkeeping against a host `Tree`
 
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -24,20 +26,27 @@ from examl_tpu_torch.models import protein
 from examl_tpu_torch.models.gtr import ModelParams, build_model
 from examl_tpu_torch.models.lg4 import build_lg4
 from examl_tpu_torch.ops.engine import LikelihoodEngine
-from examl_tpu_torch.parallel.packing import pack_partitions
+from examl_tpu_torch.parallel.packing import (pack_partitions,
+                                              pack_partitions_local,
+                                              window_of)
+from examl_tpu_torch.parallel.sharding import SINGLE, SiteGroup
 from examl_tpu_torch.tree.topology import Node, Tree, TraversalEntry
 from examl_tpu_torch.utils import z_slots
 
 
 def packed_site_rates(bucket, per_site_rates, rate_category) -> np.ndarray:
-    """Packed per-site rate multipliers [B, lane] for a bucket (padding
-    sites keep rate 1): `perSiteRates[rateCategory]` scattered through the
-    bucket's layout."""
+    """Packed per-site rate multipliers [B, lane] for a bucket's block
+    window (padding sites keep rate 1): `perSiteRates[rateCategory]`
+    scattered through the bucket's global layout, then cut to the window
+    (the whole axis on a global bucket).  The rate state is host-global
+    on every rank, so every rank computes the same global array."""
     packed = np.ones(bucket.num_sites)
     for li, gid in enumerate(bucket.part_ids):
         packed[bucket.site_indices(li)] = \
             per_site_rates[gid][rate_category[gid]]
-    return packed.reshape(bucket.num_blocks, bucket.lane)
+    b0 = bucket.block_offset
+    return packed.reshape(bucket.num_blocks, bucket.lane)[
+        b0:b0 + bucket.local_num_blocks]
 
 
 class PhyloInstance:
@@ -50,7 +59,8 @@ class PhyloInstance:
                  psr_categories: int = 25,
                  batch_scan: Optional[bool] = None,
                  batch_thorough: Optional[bool] = None,
-                 save_memory: bool = False, clv_dtype=None):
+                 save_memory: bool = False, clv_dtype=None,
+                 local_window=None, group: SiteGroup = SINGLE):
         """newview: the engines' full-traversal tier, "chunk" (kernel B1,
         the default) or "whole" (kernel B2), see ops/engine.py.
         clv_dtype: the CLV storage of every engine's arena, scan region
@@ -72,7 +82,16 @@ class PhyloInstance:
         card, sequential on the CPU); batch_scan=False keeps both arms
         sequential, True batches the lazy arm anywhere; batch_thorough
         True / False forces the thorough arm, which batches only with one
-        state bucket and one branch slot."""
+        state bucket and one branch slot.
+        group: this rank's place on the site axis (parallel/sharding.py;
+        the world of one by default).  With more than one rank every
+        bucket holds only the rank's block window, and each engine
+        reduces its site sums over the group; the block count pads to a
+        multiple of the world size.  local_window=(procid, nprocs) says
+        that `alignment` holds only that window's columns (a sliced read,
+        io/bytefile.read_bytefile_for_process); without it a
+        multi-rank instance packs the whole alignment and cuts its
+        window out."""
         if rate_model not in ("GAMMA", "PSR"):
             raise ValueError(f"unknown rate model {rate_model!r}")
         self.rate_model = rate_model
@@ -133,8 +152,21 @@ class PhyloInstance:
                 part.datatype, freqs, rates=rates, alpha=1.0, ncat=ncat,
                 use_median=use_median))
 
-        self.buckets = pack_partitions(alignment.partitions,
-                                       block_multiple=block_multiple)
+        self.group = group
+        block_multiple = math.lcm(block_multiple, group.size)
+        if local_window is not None:
+            if tuple(local_window) != (group.rank, group.size):
+                raise ValueError(f"local window {tuple(local_window)} is "
+                                 f"not rank {group.rank} of {group.size}")
+            self.buckets = pack_partitions_local(
+                alignment.partitions, group.rank, group.size,
+                block_multiple=block_multiple)
+        else:
+            self.buckets = pack_partitions(alignment.partitions,
+                                           block_multiple=block_multiple)
+            if group.size > 1:
+                self.buckets = {s: window_of(b, group.rank, group.size)
+                                for s, b in self.buckets.items()}
         self.engines: Dict[int, LikelihoodEngine] = {}
         for states, bucket in self.buckets.items():
             branch_indices = (list(bucket.part_ids) if per_partition_branches
@@ -144,14 +176,20 @@ class PhyloInstance:
                 alignment.ntaxa, num_branch_slots=self.num_branch_slots,
                 branch_indices=branch_indices, dtype=self.dtype,
                 device=self.device, newview=newview, psr=self.psr,
-                save_memory=save_memory, clv_dtype=self.storage_dtype)
+                save_memory=save_memory, clv_dtype=self.storage_dtype,
+                group=group)
 
         # PSR per-site rate state (reference patrat / rateCategory /
         # perSiteRates, `axml.h:585-600`), host copies per partition:
         # patrat holds each site's un-snapped scan optimum, the sites
-        # evaluate under per_site_rates[rate_category].
+        # evaluate under per_site_rates[rate_category].  Sized globally
+        # on every rank, also after a sliced read: the rate scan
+        # allgathers its per-site lnLs (engine.rate_scan), so the
+        # categorization runs alike everywhere (the reference's CAT
+        # Gatherv/Scatterv, `optimizeModel.c:2135-2254`).
         if self.psr:
-            widths = [p.width for p in alignment.partitions]
+            widths = [p.global_width if p.global_width is not None
+                      else p.width for p in alignment.partitions]
             self.patrat = [np.ones(w) for w in widths]
             self.site_lhs = [np.zeros(w) for w in widths]
             self.rate_category = [np.zeros(w, dtype=np.int32)
@@ -159,6 +197,8 @@ class PhyloInstance:
             self.per_site_rates = [np.ones(1) for _ in alignment.partitions]
             self.psr_invocations = 0
             self.cat_opt_rounds = 0
+            self._psr_packed_weights: Dict[int, np.ndarray] = {}
+            self._psr_global_weights: Optional[Dict[int, np.ndarray]] = None
 
         self.per_partition_lnl = np.full(M, np.nan)
         self.likelihood = np.nan
@@ -190,15 +230,38 @@ class PhyloInstance:
             self.engines[states].set_site_rates(packed_site_rates(
                 bucket, self.per_site_rates, self.rate_category))
 
+    # The scan/categorize pipeline is host-global on every rank, but each
+    # rank's bucket holds only its window of the packed weights: one
+    # allgather of the windows (rank-ordered, they tile the axis) gives
+    # every rank the global weights for the weighted crawl and the
+    # weighted mean-rate-1 normalization.
+
     def psr_packed_weights(self, bucket) -> np.ndarray:
-        """Packed pattern weights [B, lane] of a bucket (PSR rate scan)."""
-        return np.asarray(bucket.weights, dtype=np.float64).reshape(
-            bucket.num_blocks, bucket.lane)
+        """GLOBAL packed pattern weights [B, lane] of a bucket (PSR rate
+        scan).  Weights are static, so the gather runs once per bucket
+        and is cached."""
+        cached = self._psr_packed_weights.get(bucket.states)
+        if cached is None:
+            cached = self.group.allgather_blocks(
+                np.asarray(bucket.weights, dtype=np.float64).reshape(
+                    bucket.local_num_blocks, bucket.lane))
+            self._psr_packed_weights[bucket.states] = cached
+        return cached
 
     def psr_pattern_weights(self, gid: int) -> np.ndarray:
-        """Pattern weights of partition `gid` (PSR normalization)."""
-        return np.asarray(self.alignment.partitions[gid].weights,
-                          dtype=np.float64)
+        """GLOBAL pattern weights of partition `gid` (PSR normalization;
+        the partition's own weights unless it is a sliced read)."""
+        part = self.alignment.partitions[gid]
+        if part.global_width is None:
+            return np.asarray(part.weights, dtype=np.float64)
+        if self._psr_global_weights is None:
+            self._psr_global_weights = {}
+            for bucket in self.buckets.values():
+                flat = self.psr_packed_weights(bucket).reshape(-1)
+                for li, g in enumerate(bucket.part_ids):
+                    self._psr_global_weights[g] = flat[
+                        bucket.site_indices(li)].copy()
+        return self._psr_global_weights[gid]
 
     # -- tree construction -------------------------------------------------
 

@@ -190,6 +190,22 @@ def read_bytefile_meta(path: str) -> ByteFileMeta:
                         weights_offset=weights_offset)
 
 
+def _read_columns(f, meta: ByteFileMeta, pm: BytePartMeta, lo: int,
+                  hi: int) -> np.ndarray:
+    """[ntaxa, hi-lo] codes of partition columns [lo, hi) via one seek
+    per taxon row (reference `readMyData`, `byteFile.c:278-382`)."""
+    w = pm.width
+    n = hi - lo
+    out = np.empty((meta.ntaxa, n), dtype=np.uint8)
+    for t in range(meta.ntaxa):
+        f.seek(pm.data_offset + t * w + lo)
+        row = f.read(n)
+        if len(row) != n:
+            raise ValueError("truncated byteFile")
+        out[t] = np.frombuffer(row, dtype=np.uint8)
+    return out
+
+
 def _part_from_meta(pm: BytePartMeta, patterns: np.ndarray,
                     weights: np.ndarray, col_offset: int = 0,
                     global_weight_sum: int | None = None) -> PartitionData:
@@ -244,3 +260,65 @@ def read_bytefile(path: str) -> AlignmentData:
                 pm, raw.reshape(meta.ntaxa, pm.width),
                 weights[pm.lower:pm.upper].astype(np.int64)))
     return AlignmentData(meta.taxon_names, parts)
+
+
+def read_bytefile_slice(path: str,
+                        columns: dict[int, tuple[int, int]]) -> AlignmentData:
+    """Read only the given per-partition column windows.
+
+    `columns` maps partition index -> (col_lo, col_hi) relative to the
+    partition; partitions absent from the map come back with width 0
+    (metadata — models, frequencies, names — is always global).  Host
+    memory and IO are proportional to the WINDOW, not the alignment
+    (the weights SECTION is still read whole — 4 bytes/pattern, needed
+    for process-count-invariant checkpoint fingerprints): this is the
+    reference's `readMyData` (`byteFile.c:278-382`), where each MPI rank
+    seeks and reads only its assigned site blocks."""
+    meta = read_bytefile_meta(path)
+    with open(path, "rb") as f:
+        f.seek(meta.weights_offset)
+        wbytes = f.read(4 * meta.num_pattern)
+        if len(wbytes) != 4 * meta.num_pattern:
+            raise ValueError("truncated byteFile")
+        all_weights = np.frombuffer(wbytes, dtype="<i4")
+        parts: List[PartitionData] = []
+        for gid, pm in enumerate(meta.parts):
+            lo, hi = columns.get(gid, (0, 0))
+            if not (0 <= lo <= hi <= pm.width):
+                raise ValueError(
+                    f"partition {gid}: window [{lo},{hi}) outside "
+                    f"[0,{pm.width})")
+            patterns = _read_columns(f, meta, pm, lo, hi)
+            weights = all_weights[pm.lower + lo:pm.lower + hi].astype(
+                np.int64)
+            gsum = int(all_weights[pm.lower:pm.upper].sum())
+            parts.append(_part_from_meta(pm, patterns, weights,
+                                         col_offset=lo,
+                                         global_weight_sum=gsum))
+    return AlignmentData(meta.taxon_names, parts)
+
+
+def read_bytefile_for_process(path: str, procid: int, nprocs: int,
+                              block_multiple: int | None = None
+                              ) -> AlignmentData:
+    """Read only the site columns process `procid` of `nprocs` owns.
+
+    The packed-bucket layout (parallel/packing.py) is a pure function of
+    the header metadata, so the process's block range — and its pre-image
+    in per-partition pattern columns — is computed WITHOUT touching
+    pattern data; then only those columns are seek-read.  Peak host
+    memory scales ~1/nprocs of the alignment.  `block_multiple` must
+    match the packing used at instance build (defaults to nprocs)."""
+    from examl_tpu_torch.parallel.packing import pack_layout
+
+    if not (0 <= procid < nprocs):
+        raise ValueError(f"procid {procid} outside [0, {nprocs})")
+    meta = read_bytefile_meta(path)
+    layouts = pack_layout(
+        [(gid, pm.states, pm.width) for gid, pm in enumerate(meta.parts)],
+        block_multiple=block_multiple or nprocs)
+    columns: dict[int, tuple[int, int]] = {}
+    for lay in layouts.values():
+        for gid, lo, hi in lay.process_columns(procid, nprocs):
+            columns[gid] = (lo, hi)
+    return read_bytefile_slice(path, columns)

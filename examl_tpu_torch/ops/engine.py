@@ -1,11 +1,11 @@
 """LikelihoodEngine: the CLV arena of one state-count bucket and the
 traversal / evaluation / branch-derivative entry points over it.
 
-The port of the GAMMA and PSR, single-device, dense-arena subset of
-`examl_tpu/ops/engine.py`.  The arena is `[rows, B, lane, R, K]` holding
-inner nodes only, plus slack rows for the fast path's padded chunk writes
-and one scratch row; tips live as uint8 codes with an indicator table;
-the scaler is int32 `[rows, B, lane]`.  Row assignment is a host map
+The port of the GAMMA and PSR, dense-arena and SEV subset of
+`examl_tpu/ops/engine.py`, on one device.  The arena is `[rows, B, lane,
+R, K]` holding inner nodes only, plus slack rows for the fast path's
+padded chunk writes and one scratch row; tips live as uint8 codes with
+an indicator table; the scaler is int32 `[rows, B, lane]`.  Row assignment is a host map
 (`row_map`): a full traversal relays the rows out in wave order (the
 bounded chunk layout of ops/fastpath.py, whose launch table runs through
 kernel B1 — or, with `newview="whole"`, the flat schedule of
@@ -36,6 +36,15 @@ The scaler stays dense, and the batched scan's region is carved from the
 pool.  The whole-tree gradient pass needs the dense arena, so `-S`
 smoothing takes the per-branch route (optimize/branch.py).
 
+In a site-parallel run (parallel/sharding.py) the bucket is this rank's
+window of `B_local` blocks: the arena, the scaler, the tip codes, the
+weights, the SEV pool, the scan region, the outroot arena and every
+kernel launch cover the window only, and each value the engine returns
+that sums over sites (per-partition lnL, Newton-Raphson and gradient
+derivatives, candidate lnLs) is reduced over the group once, inside the
+Newton-Raphson loop once per iteration, as the reference's Allreduce.
+The PSR rate scan allgathers its per-site result instead.
+
 With `clv_dtype=torch.bfloat16` (float32 compute only; the JAX engine's
 EXAML_CLV_DTYPE=bf16) the arena, its scan region and the SEV pool store
 bfloat16 while every computation stays float32: reads upcast after the
@@ -64,6 +73,7 @@ from examl_tpu_torch.ops.kernels import (DeviceModels, OutrootTraversal,
                                          Traversal)
 from examl_tpu_torch.ops.sev import SevState
 from examl_tpu_torch.parallel.packing import PackedBucket
+from examl_tpu_torch.parallel.sharding import SINGLE, SiteGroup
 from examl_tpu_torch.tree.topology import FlatTraversal, Tree, TraversalEntry
 from examl_tpu_torch.utils import next_pow2, z_slots
 
@@ -130,7 +140,8 @@ class LikelihoodEngine:
                  dtype: Optional[torch.dtype] = None, device=None,
                  scale_exp: Optional[int] = None, wave_width: int = 8,
                  newview: Optional[str] = None, psr: bool = False,
-                 save_memory: bool = False, clv_dtype=None):
+                 save_memory: bool = False, clv_dtype=None,
+                 group: SiteGroup = SINGLE):
         """newview selects the full-traversal tier: "chunk" (the bounded
         chunk program through kernel B1, the default) or "whole" (one
         launch of kernel B2 per traversal) — the JAX engine's
@@ -139,7 +150,10 @@ class LikelihoodEngine:
         the block-cell pool and the "pooled" tier; a kernel tier named
         with it is refused.  clv_dtype: the CLV storage dtype
         (`config.clv_storage_dtype`: None / "same", or bfloat16 with
-        float32 compute); bfloat16 with the whole tier is refused."""
+        float32 compute); bfloat16 with the whole tier is refused.
+        group: the site axis's ranks (parallel/sharding.py); the bucket
+        is this rank's block window, and every site sum the engine
+        returns is reduced over the group once."""
         if save_memory:
             if newview not in (None, POOLED_TIER):
                 raise ValueError(
@@ -188,7 +202,9 @@ class LikelihoodEngine:
         # (ensure_scan_rows).
         self._scan_cap = 0
 
-        self.B, self.lane = bucket.num_blocks, bucket.lane
+        self.group = group
+        # Every per-site tensor covers this rank's window of blocks.
+        self.B, self.lane = bucket.local_num_blocks, bucket.lane
         self.R = models[0].ncat
         self.K = bucket.states
         tier = newview_whole if newview == "whole" else newview_chunk
@@ -450,7 +466,7 @@ class LikelihoodEngine:
         out = kernels.root_log_likelihood_from(
             self.models, self.block_part, self.weights, xp, sp, xq, sq,
             self._z(z), self.num_parts, self.scale_exp, self.site_rates)
-        return out.cpu().numpy()
+        return self.group.allreduce(out.cpu().numpy())
 
     def traverse_evaluate(self, entries, p_num: int, q_num: int,
                           z: Sequence[float], full: bool = False) -> np.ndarray:
@@ -470,7 +486,8 @@ class LikelihoodEngine:
                                         self.weights, st, self._z(z),
                                         self.num_branch_slots,
                                         self.site_rates)
-        return d1.cpu().numpy(), d2.cpu().numpy()
+        d = self.group.allreduce(torch.stack([d1, d2]).cpu().numpy())
+        return d[0], d[1]
 
     def newton_branch(self, entries: List[TraversalEntry], p_num: int,
                       q_num: int, z0: np.ndarray, maxiter: int,
@@ -484,7 +501,8 @@ class LikelihoodEngine:
         return kernels.newton_raphson_branch(
             self.models, self.block_part, self.weights, st,
             np.asarray(z0, np.float64), np.full(C, maxiter, np.int64),
-            np.asarray(conv_mask, bool), C, self.site_rates)
+            np.asarray(conv_mask, bool), C, self.site_rates,
+            self.group.allreduce)
 
     # -- batched SPR radius scan (ops/scan.py) ------------------------------
 
@@ -588,7 +606,7 @@ class LikelihoodEngine:
             self._store(), self.scaler, tv, qg, upg, zc,
             self._gidx(plan.s_num), self._z(plan.zp), self.scale_exp,
             self.ntips, self.site_rates)
-        return lnls.cpu().numpy()
+        return self.group.allreduce(lnls.cpu().numpy())
 
     def batched_thorough(self, plan, nr_iterations: int):
         """The thorough-arm companion of `batched_scan`: triangle
@@ -602,8 +620,8 @@ class LikelihoodEngine:
             self.models, self.block_part, self.weights, self.tips,
             self._store(), self.scaler, tv, qg, upg, zq0,
             self._gidx(plan.s_num), self.scale_exp, self.ntips,
-            nr_iterations, self.site_rates)
-        return lnls.cpu().numpy(), es
+            nr_iterations, self.site_rates, self.group.allreduce)
+        return self.group.allreduce(lnls.cpu().numpy()), es
 
     # -- PSR rate-grid scan ----------------------------------------------
 
@@ -616,14 +634,19 @@ class LikelihoodEngine:
         lane, G, K], made for the call, replaces the reference's per-site
         `evaluatePartialGeneric` scan (`optimizeModel.c:1792-1922`).
         Under -S too the scratch arena is dense and the pool is not read
-        (the PSR optimizer caps G at 2 there)."""
+        (the PSR optimizer caps G at 2 there).  `grid` is global (every
+        rank builds the same one from the host-global patrat): the rank
+        scans its window of blocks and the result is allgathered, so
+        every rank returns the global [B, lane, G]."""
         if not self.psr:
             raise RuntimeError("the rate scan needs an engine built with "
                                "psr")
         G = grid.shape[2]
         tv = self._traversal_arrays(entries)
-        grid_dev = torch.as_tensor(np.asarray(grid, dtype=np.float64),
-                                   dtype=self.dtype, device=self.device)
+        b0 = self.bucket.block_offset
+        grid_dev = torch.as_tensor(
+            np.asarray(grid, dtype=np.float64)[b0:b0 + self.B],
+            dtype=self.dtype, device=self.device)
         clv = torch.zeros((self.num_rows, self.B, self.lane, G, self.K),
                           dtype=self.dtype, device=self.device)
         scaler = torch.zeros((self.num_rows, self.B, self.lane),
@@ -634,7 +657,7 @@ class LikelihoodEngine:
             self.models, self.block_part, self.tips, clv, scaler,
             self._gidx(p_num), self._gidx(q_num), self._z(z), grid_dev,
             self.scale_exp, self.ntips)
-        return out.cpu().numpy()
+        return self.group.allgather_blocks(out.cpu().numpy())
 
     # -- whole-tree analytic gradients (ops/gradient.py) --------------------
 
@@ -697,5 +720,5 @@ class LikelihoodEngine:
             self.scaler, out, eidx[0], eidx[1], ezd, C, self.ntips,
             self.site_rates)
         GRAD_PASSES += 1
-        d = torch.stack([d1, d2]).cpu().numpy()
+        d = self.group.allreduce(torch.stack([d1, d2]).cpu().numpy())
         return d[0], d[1]

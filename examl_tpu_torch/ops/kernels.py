@@ -567,7 +567,7 @@ def newton_raphson_branch(models: DeviceModels, block_part: torch.Tensor,
                           weights: torch.Tensor, st: torch.Tensor,
                           z0: np.ndarray, maxiters0: np.ndarray,
                           conv0: np.ndarray, num_slots: int,
-                          site_rates=None) -> np.ndarray:
+                          site_rates=None, reduce=None) -> np.ndarray:
     """Branch-length Newton-Raphson to convergence per branch slot.
 
     The iteration state lives on the host in float64 and each iteration
@@ -583,7 +583,14 @@ def newton_raphson_branch(models: DeviceModels, block_part: torch.Tensor,
     K], N independent branches solved at once (one read-back per
     iteration for the whole batch).  A lane whose slots have all
     converged is frozen while the others go on, as a `jax.vmap` of the
-    JAX loop freezes it; [C] is one lane."""
+    JAX loop freezes it; [C] is one lane.
+
+    reduce: the site-parallel sum over ranks (`SiteGroup.allreduce`)
+    applied to the stacked (d1, d2) right after every iteration's
+    read-back, the reference's per-iteration derivative Allreduce
+    (`makenewzGenericSpecial.c:1241-1248`).  The loop's exit depends on
+    those values, so every rank must see the same ones; None for one
+    process."""
     z0 = np.asarray(z0, dtype=np.float64)
     z = z0.copy()
     zprev = z0.copy()
@@ -603,8 +610,10 @@ def newton_raphson_branch(models: DeviceModels, block_part: torch.Tensor,
             models, block_part, weights, st,
             torch.as_tensor(z, dtype=st.dtype, device=st.device), num_slots,
             site_rates)
-        d1 = d1.cpu().numpy()
-        d2 = d2.cpu().numpy()
+        d = torch.stack([d1, d2]).cpu().numpy()
+        if reduce is not None:
+            d = reduce(d)
+        d1, d2 = d[0], d[1]
         active = ~outer & ~curvat
         bad = active & (d2 >= 0.0) & (z < ZMAX)
         z = np.where(bad, 0.37 * z + 0.63, z)

@@ -85,17 +85,18 @@ def scan_chunk(models, block_part, weights, tips, store, scaler, tv, qg,
 
 
 def lane_newton(models, block_part, weights, site_rates, xp, xq, z0,
-                maxiter: int) -> np.ndarray:
+                maxiter: int, reduce=None) -> np.ndarray:
     """Newton-Raphson to convergence on T independent branches, branch t
     between CLVs xp[t] and xq[t] (either may be one CLV for every t),
-    from z0 [T]; the new z [T] (float64)."""
+    from z0 [T]; the new z [T] (float64).  reduce: the derivatives' sum
+    over ranks (`kernels.newton_raphson_branch`)."""
     st = kernels.sumtable(models, block_part, xp, xq)
     T = st.shape[0]
     z0 = np.broadcast_to(np.asarray(z0, np.float64), (T,))
     return kernels.newton_raphson_branch(
         models, block_part, weights, st, z0.reshape(T, 1),
         np.full((T, 1), maxiter, np.int64), np.zeros((T, 1), bool), 1,
-        site_rates)[:, 0]
+        site_rates, reduce)[:, 0]
 
 
 def triangle(zqr, zqs, zrs):
@@ -119,7 +120,7 @@ def triangle(zqr, zqs, zrs):
 
 def thorough_chunk(models, block_part, weights, tips, store, scaler, tv, qg,
                    upg, zq0, s_idx: int, scale_exp: int, ntips: int,
-                   nr_iterations: int, site_rates=None
+                   nr_iterations: int, site_rates=None, reduce=None
                    ) -> Tuple[torch.Tensor, np.ndarray]:
     """The thorough arm's device body for one plan: the traversal tv as in
     `scan_chunk`, then per chunk of TH_CHUNK candidates three
@@ -134,7 +135,10 @@ def thorough_chunk(models, block_part, weights, tips, store, scaler, tv, qg,
     the device, e [N, 3] the smoothed z triplets).
 
     Newton derivatives do not depend on the operands' scaler counts (a
-    per-site constant factor), so only the final lnL applies them."""
+    per-site constant factor), so only the final lnL applies them.
+    reduce: the derivatives' sum over ranks (`lane_newton`); the done
+    masks come from the reduced z, so they agree on every rank.  The
+    returned lnLs are this rank's site sums: the caller reduces them."""
     kernels.traverse_store(models, block_part, tips, store, scaler, tv,
                            scale_exp, ntips, site_rates)
     xs, ss = kernels.gather_from(tips, store, scaler, s_idx, ntips)
@@ -146,7 +150,7 @@ def thorough_chunk(models, block_part, weights, tips, store, scaler, tv, qg,
 
     def nr(xp, xq, z0, maxiter):
         return lane_newton(models, block_part, weights, site_rates, xp, xq,
-                           z0, maxiter)
+                           z0, maxiter, reduce)
 
     lnls, es = [], []
     for lo in range(0, qg.shape[0], TH_CHUNK):

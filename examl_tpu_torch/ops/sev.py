@@ -29,6 +29,14 @@ traversal sequence allocates the same cell ids in the same order in both
 packages.  Cell ids are kept per device range (`free[d]`, `next_cell[d]`)
 with one range here; a sharded pool gives each device its own range of
 the block axis and its own pool region (the JAX module's design notes).
+
+In a site-parallel run each rank's pool covers its own block window: the
+engine hands it the window's tip codes, so its gap bits, cells and
+capacity are the window's.  The JAX package allgathers every device's
+capacity and dirty flag (`examl_tpu/ops/engine.py:299-324`) because one
+global SPMD program must see one pool shape; the port runs no global
+program (each rank launches its own kernels on its own window), so that
+collective has no counterpart, and ranks' pools may differ in size.
 """
 
 from __future__ import annotations

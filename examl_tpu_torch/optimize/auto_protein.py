@@ -96,7 +96,10 @@ def auto_protein(inst: PhyloInstance, tree: Tree, criterion: str = "ml",
     ntips = inst.alignment.ntaxa
     for gid in autos:
         part = inst.alignment.partitions[gid]
-        n = float(part.weights.sum())
+        # The sample size is the alignment's, also on a rank that read
+        # only its own columns.
+        n = float(part.global_weight_sum if part.global_weight_sum
+                  is not None else part.weights.sum())
         k_fixed = float(2 * ntips - 3)
         if inst.psr:
             k_fixed += len(inst.per_site_rates[gid])

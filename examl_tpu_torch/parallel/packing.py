@@ -210,3 +210,112 @@ def pack_partitions(partitions: Sequence[PartitionData],
             part_ids=[gid for gid, _ in group],
             part_offsets=offsets, part_widths=widths)
     return buckets
+
+
+def pack_partitions_local(partitions: Sequence[PartitionData],
+                          procid: int, nprocs: int,
+                          lane: int = TPU_LANE,
+                          block_multiple: int = 1
+                          ) -> Dict[int, PackedBucket]:
+    """Pack SLICED partitions (from `read_bytefile_for_process`) into the
+    LOCAL WINDOW of the global packed axis this process owns.
+
+    Each partition's `global_width`/`global_col_offset` (set by the
+    selective reader) recover the global layout, so the local arrays are
+    positioned exactly where `pack_partitions` on the full alignment
+    would put them — the per-rank half of the reference's
+    `partitionAssignment` + `readMyData` pipeline.  `block_multiple`
+    must match the global packing and be divisible by nprocs."""
+    specs = []
+    for gid, part in enumerate(partitions):
+        gw = part.global_width if part.global_width is not None else part.width
+        specs.append((gid, part.states, gw))
+    layouts = pack_layout(specs, lane=lane, block_multiple=block_multiple)
+
+    by_states: Dict[int, List[Tuple[int, PartitionData]]] = {}
+    for gid, part in enumerate(partitions):
+        by_states.setdefault(part.states, []).append((gid, part))
+
+    buckets: Dict[int, PackedBucket] = {}
+    for states, group in sorted(by_states.items()):
+        lay = layouts[states]
+        B = lay.num_blocks
+        if B % nprocs:
+            raise ValueError(
+                f"{B} blocks do not divide over {nprocs} processes; "
+                f"pack with block_multiple a multiple of nprocs")
+        b0 = procid * B // nprocs
+        b1 = (procid + 1) * B // nprocs
+        s0, s1 = b0 * lane, b1 * lane
+        total = s1 - s0
+        ntaxa = group[0][1].patterns.shape[0]
+        undet = group[0][1].datatype.undetermined_code
+
+        tip_codes = np.full((ntaxa, total), undet, dtype=np.uint8)
+        weights = np.zeros(total, dtype=np.float64)
+        site_part = np.zeros(total, dtype=np.int32)
+
+        for li, (gid, part) in enumerate(group):
+            off_g = int(lay.offsets[li])
+            w_g = int(lay.widths[li])
+            pw_g = int(lay.padded[li])
+            # padded-range intersection -> local partition id for blocks
+            plo = max(s0, off_g)
+            phi = min(s1, off_g + pw_g)
+            if phi > plo:
+                site_part[plo - s0:phi - s0] = li
+            # true-column intersection -> this process's slice of the data
+            lo = max(s0, off_g) - off_g
+            hi = min(s1, off_g + w_g) - off_g
+            if hi <= lo:
+                if part.width:
+                    raise ValueError(
+                        f"partition {gid}: slice has {part.width} columns "
+                        f"but process {procid} owns none — sliced read "
+                        f"and packing disagree (block_multiple mismatch?)")
+                continue
+            if part.global_col_offset != lo or part.width != hi - lo:
+                raise ValueError(
+                    f"partition {gid}: slice [{part.global_col_offset},"
+                    f"{part.global_col_offset + part.width}) does not "
+                    f"match process window [{lo},{hi})")
+            dest = off_g + lo - s0
+            tip_codes[:, dest:dest + hi - lo] = part.patterns
+            weights[dest:dest + hi - lo] = part.weights
+        # Trailing alignment blocks keep the last partition's id, like
+        # the global packer.
+        last_cover = min(s1, int(lay.offsets[-1]) + int(lay.padded[-1]))
+        if last_cover < s1:
+            site_part[max(last_cover - s0, 0):] = len(group) - 1
+
+        block_part = site_part.reshape(-1, lane)[:, 0].copy()
+        buckets[states] = PackedBucket(
+            states=states, lane=lane, tip_codes=tip_codes, weights=weights,
+            site_part=site_part, block_part=block_part,
+            part_ids=[gid for gid, _ in group],
+            part_offsets=lay.offsets, part_widths=lay.widths,
+            block_offset=b0, global_blocks=B)
+    return buckets
+
+
+def window_of(bucket: PackedBucket, procid: int, nprocs: int
+              ) -> PackedBucket:
+    """Block window `procid` of `nprocs` cut out of a GLOBAL bucket: the
+    same local bucket `pack_partitions_local` packs from that process's
+    sliced read (a multi-process run that read the whole file, e.g. for
+    AUTO's global sample sizes, keeps only its window)."""
+    if bucket.is_local:
+        raise ValueError("window_of needs a global bucket")
+    from examl_tpu_torch.parallel.sharding import block_window
+    B = bucket.num_blocks
+    b0, b1 = block_window(B, procid, nprocs)
+    s0, s1 = b0 * bucket.lane, b1 * bucket.lane
+    return PackedBucket(
+        states=bucket.states, lane=bucket.lane,
+        tip_codes=bucket.tip_codes[:, s0:s1].copy(),
+        weights=bucket.weights[s0:s1].copy(),
+        site_part=bucket.site_part[s0:s1].copy(),
+        block_part=bucket.block_part[b0:b1].copy(),
+        part_ids=list(bucket.part_ids),
+        part_offsets=bucket.part_offsets, part_widths=bucket.part_widths,
+        block_offset=b0, global_blocks=B)

@@ -12,8 +12,11 @@ the best-tree list.
 The port of the single-writer path of `examl_tpu/search/checkpoint.py`,
 with the same file names, magic, version, sections and fingerprint keys,
 so a checkpoint written by either package restores in the other.  The
-world size is always 1 here (`nprocs`, allowlisted on restore as in the
-JAX package).  A partition's model entry holds its rates, frequencies
+fingerprint's `nprocs` is the run's world size, allowlisted on restore
+(ELASTIC_FP_KEYS) as in the JAX package, so a checkpoint written by a
+run of two ranks restores in a run of one and the other way round; in a
+site-parallel run only rank 0 writes, and every rank restores from the
+shared file.  A partition's model entry holds its rates, frequencies
 and alpha (GTR or an empirical protein matrix, with AUTO's current
 choice in `auto_name`/`auto_freqs`, and under PSR the per-site rate
 state), or for LG4M/LG4X its name, alpha, category rates and weights.
@@ -65,7 +68,7 @@ def _fingerprint(inst: PhyloInstance) -> dict:
         "use_median": inst.use_median,
         "per_partition_branches": inst.per_partition_branches,
         "rate_model": inst.rate_model,
-        "nprocs": 1,
+        "nprocs": inst.group.size,
     }
 
 
@@ -109,13 +112,16 @@ def _restore_models(inst: PhyloInstance, blob: list) -> None:
             ncat=inst.ncat, use_median=inst.use_median)
         if inst.psr and "rate_category" in d:
             # A section whose length is not the partition's pattern count
-            # was written for another alignment layout: refuse it.
+            # (the alignment's, also on a rank that read only its own
+            # columns) was written for another alignment layout: refuse it.
             cat = np.asarray(d["rate_category"], dtype=np.int32)
-            if cat.size != part.width:
+            width = part.global_width if part.global_width is not None \
+                else part.width
+            if cat.size != width:
                 raise ValueError(
                     f"checkpoint section models[{gid}].rate_category "
                     f"carries {cat.size} sites but partition "
-                    f"'{part.name}' has {part.width} patterns")
+                    f"'{part.name}' has {width} patterns")
             inst.rate_category[gid] = cat
             inst.per_site_rates[gid] = np.asarray(d["per_site_rates"])
             inst.patrat[gid] = np.asarray(
@@ -138,7 +144,8 @@ class CheckpointManager:
     FILE_RE = re.compile(r"\.ckpt_(\d+)\.json\.gz$")
 
     def __init__(self, workdir: str, run_id: str,
-                 keep_last: Optional[int] = None, log=print):
+                 keep_last: Optional[int] = None, log=print,
+                 primary: bool = True):
         self.workdir = workdir
         self.run_id = run_id
         # keep_last: prune checkpoints older than the newest N after each
@@ -148,6 +155,10 @@ class CheckpointManager:
         # stays linear.
         self.keep_last = keep_last
         self.log = log
+        # Only rank 0 of a site-parallel run writes (into the shared
+        # workdir, which every rank restores from); the other ranks keep
+        # the counter alone.
+        self.primary = primary
         os.makedirs(workdir, exist_ok=True)
         self.counter = self._max_existing() + 1
 
@@ -196,7 +207,12 @@ class CheckpointManager:
         one atomic rename; an older checkpoint is never overwritten.
         tree_dict replaces the captured tree: quartet mode's live tree is
         a scaffold that an edge-list snapshot cannot represent, so it
-        checkpoints the comprehensive model tree instead."""
+        checkpoints the comprehensive model tree instead.  On a rank other
+        than 0 nothing is written."""
+        path = self.path_for(self.counter)
+        if not self.primary:
+            self.counter += 1
+            return path
         if tree_dict is None:
             tree_dict = TreeSnapshot.capture(
                 tree, getattr(inst, "likelihood", 0.0),
@@ -211,7 +227,6 @@ class CheckpointManager:
             "tree": tree_dict,
             "extras": extras,
         }
-        path = self.path_for(self.counter)
         tmp = path + ".tmp"
         try:
             with gzip.open(tmp, "wt") as f:

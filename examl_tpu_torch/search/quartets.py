@@ -145,8 +145,9 @@ def _quartet_sets(inst: PhyloInstance, opts: QuartetOptions):
 
 
 def compute_quartets(inst: PhyloInstance, tree: Tree, opts: QuartetOptions,
-                     out_path: str, log=lambda m: None) -> int:
-    """Optimize the model on `tree`, then score quartets into out_path.
+                     out_path: Optional[str], log=lambda m: None) -> int:
+    """Optimize the model on `tree`, then score quartets into out_path
+    (None: score without writing, a site-parallel rank other than 0).
     Returns the number of quartet sets evaluated
     (reference `computeQuartets`)."""
     start_counter = 0
@@ -154,24 +155,27 @@ def compute_quartets(inst: PhyloInstance, tree: Tree, opts: QuartetOptions,
         blob = opts.resume
         start_counter = int(blob["extras"]["quartet_counter"])
         pos = int(blob["extras"]["file_position"])
-        if not os.path.exists(out_path):
-            raise ValueError(
-                f"quartet checkpoint found but its output file {out_path} "
-                "is missing; the checkpoint records a resume position in "
-                "that file, so restart fresh (without -R) instead")
-        with open(out_path, "r+") as f:
-            f.truncate(pos)
+        if out_path is not None:
+            if not os.path.exists(out_path):
+                raise ValueError(
+                    f"quartet checkpoint found but its output file "
+                    f"{out_path} is missing; the checkpoint records a "
+                    "resume position in that file, so restart fresh "
+                    "(without -R) instead")
+            with open(out_path, "r+") as f:
+                f.truncate(pos)
         log(f"resuming quartets at set {start_counter}")
     else:
         inst.evaluate(tree, full=True)
         tree_evaluate(inst, tree, 1.0)
         mod_opt(inst, tree, opts.epsilon)
         log(f"model optimized on full tree, lnL {inst.likelihood:.6f}")
-        with open(out_path, "w") as f:
-            f.write("Taxon names and indices:\n\n")
-            for i, name in enumerate(inst.alignment.taxon_names):
-                f.write(f"{name} {i + 1}\n")
-            f.write("\n\n")
+        if out_path is not None:
+            with open(out_path, "w") as f:
+                f.write("Taxon names and indices:\n\n")
+                for i, name in enumerate(inst.alignment.taxon_names):
+                    f.write(f"{name} {i + 1}\n")
+                f.write("\n\n")
     # Snapshot the pristine comprehensive tree NOW: during the loop the
     # tree is a quartet scaffold that an edge-list snapshot cannot capture.
     base_tree_dict = TreeSnapshot.capture(
@@ -188,7 +192,7 @@ def compute_quartets(inst: PhyloInstance, tree: Tree, opts: QuartetOptions,
     buf: List[tuple] = []
 
     counter = 0
-    with open(out_path, "a") as f:
+    with open(out_path if out_path is not None else os.devnull, "a") as f:
 
         def flush() -> None:
             """Score and write buffered sets (row-identical to the

@@ -54,7 +54,10 @@ def score_chunk(eng, codes: torch.Tensor) -> torch.Tensor:
     """lnL [J] (float64, on the device) of J jobs, codes [J, 4] the
     0-based tip rows (a, b, c, d) of topology ((a,b),(c,d)): the
     16-pass NNI smoothing with a done mask (a job whose pass moved no
-    branch is frozen), then the evaluation across the d-branch."""
+    branch is frozen), then the evaluation across the d-branch.  Every
+    Newton update reduces its derivatives over the engine's site group;
+    the lnLs returned are this rank's site sums (`score_jobs` reduces
+    them)."""
     m, bp, w = eng.models, eng.block_part, eng.weights
     tipv = eng.tips.vectors[codes]                    # [J, 4, B, lane, K]
     tipv = tipv.unsqueeze(-2).expand(tipv.shape[:-1] + (eng.R, eng.K))
@@ -67,7 +70,8 @@ def score_chunk(eng, codes: torch.Tensor) -> torch.Tensor:
 
     def nr(xp, xq, z):
         """One reference update(): Newton-Raphson with maxiter 1."""
-        return lane_newton(m, bp, w, None, xp, xq, z, 1)
+        return lane_newton(m, bp, w, None, xp, xq, z, 1,
+                           eng.group.allreduce)
 
     # z[:, 0] the internal branch, z[:, 1..4] the branches to a, b, c, d;
     # each pass smooths them in the reference's order (nniSmooth's list).
@@ -119,7 +123,8 @@ def score_jobs(inst, jobs: Sequence[Tuple[int, int, int, int]]
     for lo in range(0, len(jobs), JOB_CHUNK):
         chunk = np.asarray(jobs[lo:lo + JOB_CHUNK], np.int64) - 1
         codes = torch.as_tensor(chunk, device=eng.device)
-        out[lo:lo + len(chunk)] = score_chunk(eng, codes).cpu().numpy()
+        out[lo:lo + len(chunk)] = eng.group.allreduce(
+            score_chunk(eng, codes).cpu().numpy())
         JOBS_SCORED += len(chunk)
     return out
 

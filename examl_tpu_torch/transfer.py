@@ -123,8 +123,12 @@ def install_psr_state(inst, patrat: Sequence[np.ndarray],
         cat = np.array(rate_category[gid], dtype=np.int32)
         rates = np.array(per_site_rates[gid], dtype=np.float64)
         pr = np.array(patrat[gid], dtype=np.float64)
-        if cat.shape != (part.width,) or pr.shape != (part.width,):
-            raise ValueError(f"partition {gid} has {part.width} patterns")
+        # The rate state is global, also on a rank that read only its
+        # own columns.
+        W = part.global_width if part.global_width is not None \
+            else part.width
+        if cat.shape != (W,) or pr.shape != (W,):
+            raise ValueError(f"partition {gid} has {W} patterns")
         if cat.size and not 0 <= cat.min() <= cat.max() < rates.size:
             raise ValueError(f"partition {gid}: categories out of range")
         inst.patrat[gid] = pr
