@@ -38,7 +38,13 @@ group that share the card: each rank reads its columns of the real-size
 DNA set-up and runs the main path on its block window, held against one
 process (the window's arena rows bit for bit), kernel B1 against its
 plain version on windows that end in a partial tile, and ref49 `-f e
---newview whole` and `-f d` through the CLI over two ranks.
+--newview whole` and `-f d` through the CLI over two ranks.  The fleet
+runs eight real-size DNA start jobs (f32, then bf16 storage), three
+AA + BIN ones and sixteen 64-taxon gene trees as one batch each, one B1 launch table per engine over a
+stacked arena, each job's arena rows and lnL held bit for bit to the
+job evaluated alone; 64 bootstrap replicates as one CLV pass and one
+batched reduction; and `-b`, `-N` with smoothing cycles, `--serve` and
+`-R` through the CLI.
 Every phase is fatal: any failure exits non-zero before the result
 line.
 
@@ -170,7 +176,21 @@ TAIL_TAXA, SITE_DIGEST_SEED = 64, 12345
 # units (float32 K = 2, bfloat16 K = 4 and 2).
 TAIL_INSTANCES = (("float32", 4), ("float32", 20), ("float32", 2),
                   ("bfloat16", 4), ("bfloat16", 2))
-NPHASES = 23
+# Phase 23's fleet: start jobs of a real-size DNA batch (f32 and bf16
+# storage) and of an AA + BIN batch, and bootstrap replicates; and a
+# batch of FLEET_GENE_JOBS per-gene trees (taxa, columns), the width at
+# which one tree alone is bound by launches and host time.
+FLEET_JOBS, FLEET_AA_JOBS, FLEET_REPLICATES = 8, 3, 64
+FLEET_GENE_JOBS, FLEET_GENE = 16, (64, 2048)
+# Phase 23's site sums at many partitions: the real-size DNA set-up
+# (MANY_TAXA taxa) cut into MANY_PARTS gene-sized partitions of
+# MANY_WIDTH columns (a phylogenomic matrix partitioned by gene, one
+# block each).  The segment sum alone is timed at SEGSUM_LANES lanes (one
+# branch, a gradient chunk, a wide lane batch), the Newton-Raphson
+# iteration as the median of MANY_NR_CALLS calls.
+MANY_TAXA, MANY_PARTS, MANY_WIDTH = 512, 1024, 128
+SEGSUM_LANES, MANY_NR_CALLS = (1, 32, 256), 20
+NPHASES = 24
 
 
 class SmokeFailure(RuntimeError):
@@ -539,9 +559,11 @@ def phase_kernel_vs_plain(device, blocks: dict, W: int, seed: int,
 
 
 def reset_counts() -> None:
+    from examl_tpu_torch.fleet import batch
     from examl_tpu_torch.ops import engine, newview_chunk, newview_whole
     from examl_tpu_torch.optimize import branch
     from examl_tpu_torch.search import batchscan, quartets_batch, spr
+    batch.TABLES = 0
     newview_chunk.LAUNCHES = 0
     newview_whole.LAUNCHES = 0
     newview_chunk.LAUNCHES_BY_K.clear()
@@ -563,6 +585,7 @@ def read_counts() -> dict:
     ones included, runs on the wave-scan tier and counts as partial, as
     does each batched SPR scan call; under -S every traversal, full,
     partial or a batched scan call's, counts as pooled."""
+    from examl_tpu_torch.fleet import batch
     from examl_tpu_torch.ops import engine, newview_chunk, newview_whole
     from examl_tpu_torch.optimize import branch
     from examl_tpu_torch.search import batchscan, quartets_batch, spr
@@ -578,7 +601,8 @@ def read_counts() -> dict:
             "grad_sweeps": branch.GRAD_SWEEPS,
             "insertions_scored": spr.INSERTIONS_SCORED,
             "scan_calls": batchscan.SCAN_CALLS,
-            "quartet_jobs": quartets_batch.JOBS_SCORED}
+            "quartet_jobs": quartets_batch.JOBS_SCORED,
+            "fleet_tables": batch.TABLES}
 
 
 def add_counts(a: dict, b: dict) -> dict:
@@ -1349,8 +1373,7 @@ def copy_lengths(src, dst) -> None:
 
 def timed_evaluates(inst, tree, device, reps: int):
     """One warm-up and `reps` timed full-traversal evaluates; returns
-    (lnL, wall seconds per run).  The float64 root sums use atomics on
-    the card, so repeats agree to rounding, not bit for bit."""
+    (lnL, wall seconds per run)."""
     lnl0 = inst.evaluate(tree, full=True)
     sync(device)
     walls = []
@@ -4047,6 +4070,554 @@ def phase_site_parallel(device, setup: dict, anchor_whole: dict, fd: dict,
     return out
 
 
+# -- phase 23: the fleet --------------------------------------------------------
+
+
+class FleetStop(RuntimeError):
+    """Raised by phase 23's patched checkpoint to stop a fleet run after
+    its first checkpoint, as a kill would."""
+
+
+def fleet_trees(inst, seed: int, n: int):
+    """n start jobs' random trees, from the jobs' derived seeds."""
+    from examl_tpu_torch.fleet import seeds
+    return [inst.random_tree(seeds.derive(seed, "start", k))
+            for k in range(n)]
+
+
+def arena_digests(x, rows) -> list:
+    """site_digests of arena rows of any storage dtype (the row's bits
+    read as int32 words first)."""
+    import torch
+    return site_digests(x if x.dtype == torch.int32 else
+                        x.view(torch.int32), rows)
+
+
+def fleet_rows(ev, eng, preps):
+    """The stacked arena rows the inner nodes of each job write, as
+    indices into its stacked arena, and into its own arena."""
+    import torch
+    Rj = eng.num_rows
+    own = [torch.as_tensor(p.st.row_of[eng.ntips + 1:], device=eng.device)
+           for p in preps]
+    return [j * Rj + r for j, r in enumerate(own)], own
+
+
+def fleet_split(ev, preps, lnl, device, label: str) -> dict:
+    """The same batch with the free-memory margin raised so that only
+    three jobs' stacked arenas fit: it runs in parts of three in queue
+    order, with the same lnL bit for bit."""
+    import torch
+    from examl_tpu_torch.fleet import batch
+    eng = ev.engines[0]
+    per_job = eng.num_rows * eng.B * eng.lane * (
+        eng.R * eng.K * eng.clv.element_size() + 4)
+    release_memory()
+    free, _ = torch.cuda.mem_get_info(device)
+    free += torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(
+        device)
+    margin = batch.ARENA_MARGIN
+    batch.ARENA_MARGIN = int(free - 3.5 * per_job)
+    notes = []
+    ev.log = notes.append
+    try:
+        reset_counts()
+        parted = ev.eval_batch(preps)
+        sync(device)
+        counts = read_counts()
+    finally:
+        batch.ARENA_MARGIN = margin
+        ev.log = lambda *_: None
+    parts = -(-len(preps) // 3)
+    check(np.array_equal(parted, lnl) and counts["fleet_tables"] == parts
+          and len(notes) == 1, f"{label}: the batch in parts gave "
+          f"{counts['fleet_tables']} tables ({parts} expected), lnL equal "
+          f"{np.array_equal(parted, lnl)}, notes {notes}")
+    log(f"  {label}: cut to fit the card's memory, the batch ran in {parts} "
+        f"tables with the same lnL bit for bit ({notes[0]})")
+    return {"parts": parts, "counts": counts, "note": notes[0]}
+
+
+def fleet_tree_batch(inst, trees, setup: dict, device, label: str,
+                     reps: int, time_b1: bool) -> dict:
+    """One batch of tree jobs through the BatchEvaluator (the main path:
+    every engine's jobs in one launch table), against each job evaluated
+    alone: per-row 64-bit digests of every job's slice of the stacked
+    arena and scaler equal those of its own arena, and the per-partition
+    lnL equal bit for bit.  With `time_b1`, the batch's B1 launch is timed
+    (CUDA events, the stacked table built once) against J times the
+    one-traversal bound, with the host time of building the table."""
+    import torch
+    from examl_tpu_torch.fleet import batch
+    from examl_tpu_torch.ops import fastpath, newview_chunk
+    ev = inst.batch_evaluator()
+    J = len(trees)
+    t0 = time.perf_counter()
+    preps = [ev.prepare(t) for t in trees]
+    prepare_ms = (time.perf_counter() - t0) * 1e3
+    release_memory()
+    sync(device)
+    t0 = time.perf_counter()
+    ev.eval_batch(preps)             # the first batch: arena allocation
+    sync(device)
+    first_wall = time.perf_counter() - t0
+    reset_counts()
+    sync(device)
+    t0 = time.perf_counter()
+    lnl = ev.eval_batch(preps)
+    sync(device)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    check(np.isfinite(lnl).all() and lnl.shape == (J, len(inst.models)),
+          f"{label}: batch lnL {lnl.shape} not finite")
+    want = sum(newview_chunk.table_launches(
+        e.K, e.storage_dtype, sum(len(p.st.launch) for p in preps))
+        for e in inst.engines.values()) if device.type == "cuda" else 0
+    check(counts["fleet_tables"] == len(inst.engines) and counts["b1"] ==
+          want and counts["b2"] == 0 and counts["full_traversals"] == 0,
+          f"{label}: {counts['b1']} B1 launches ({want} expected) over "
+          f"{counts['fleet_tables']} stacked tables for "
+          f"{len(inst.engines)} engines")
+    out = {"jobs": J, "lnl": lnl.sum(axis=1).tolist(), "wall_s": wall,
+           "first_wall_s": first_wall, "prepare_ms": prepare_ms,
+           "counts": counts, "engines": {}}
+    if time_b1 and device.type == "cuda":
+        out["split"] = fleet_split(ev, preps, lnl, device, label)
+    digests = []
+    for eng in inst.engines.values():
+        clv, scaler = ev._traverse(eng, preps)
+        rows, _ = fleet_rows(ev, eng, preps)
+        digests.append([(arena_digests(clv, r), site_digests(scaler, r))
+                        for r in rows])
+        e = {"K": eng.K, "storage": str(eng.storage_dtype).removeprefix(
+                 "torch."),
+             "arena_gb": (clv.numel() * clv.element_size()
+                          + scaler.numel() * 4) / 1e9,
+             "table_rows": int(sum(len(p.st.launch) for p in preps)),
+             "launches": newview_chunk.table_launches(
+                 eng.K, eng.storage_dtype,
+                 sum(len(p.st.launch) for p in preps))}
+        if time_b1:
+            Rj = eng.num_rows
+            t1 = time.perf_counter()
+            table = fastpath.stack_tables([p.st for p in preps], Rj,
+                                          eng.device)
+            sync(device)
+            e["stack_table_host_ms"] = (time.perf_counter() - t1) * 1e3
+            zs = [fastpath.refresh_z_host(p.st, p.flat, ev.C)
+                  for p in preps]
+            z = torch.as_tensor(np.stack([
+                np.concatenate([a for a, _ in zs]),
+                np.concatenate([b for _, b in zs])]), dtype=eng.dtype,
+                device=device)
+            pmat = newview_chunk.chunk_operands(eng.models, z[0], z[1])
+            u = newview_chunk.tip_products(pmat, eng.tips.table)
+            flow = newview_chunk.Dataflow(table.flow_rows, table.wait,
+                                          newview_chunk.Ready())
+            e["b1_ms"] = time_ms(lambda: newview_chunk.chunk_apply_cuda(
+                clv, scaler, eng.tips.codes, u, eng.block_part_i32,
+                table.launch, table.lidx, table.ridx, table.lcode,
+                table.rcode, pmat, eng.scale_exp, flow), device, reps)
+            b = [traversal_bound(p.flat, setup, eng) for p in preps]
+            nbytes = sum(x["bytes_per_traversal"] for x in b)
+            flops = sum(x["flops_per_traversal"] for x in b)
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = flops / F32_FLOPS * 1e3
+            e["bound_ms"] = max(bytes_ms, ops_ms)
+            e["one_traversal_bound_ms"] = b[0]["bound_ms"]
+            e["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+        del clv, scaler
+        release_memory()
+        out["engines"][str(eng.K)] = e
+    walls, cold = [], []
+    for j, tree in enumerate(trees):
+        for runs in (cold, walls):   # the first builds the job's layout
+            sync(device)
+            t1 = time.perf_counter()
+            inst.evaluate(tree, full=True)
+            sync(device)
+            runs.append(time.perf_counter() - t1)
+        for (eng, dg) in zip(inst.engines.values(), digests):
+            _, own = fleet_rows(ev, eng, [preps[j]])
+            check(arena_digests(eng.clv, own[0]) == dg[j][0]
+                  and site_digests(eng.scaler, own[0]) == dg[j][1],
+                  f"{label}: job {j}'s stacked arena rows (K={eng.K}) differ "
+                  "from its one-at-a-time arena")
+        check(np.array_equal(inst.per_partition_lnl, lnl[j]),
+              f"{label}: job {j}'s batch lnL {lnl[j].tolist()} is not its "
+              f"one-at-a-time {inst.per_partition_lnl.tolist()}")
+    out["one_at_a_time_s"] = walls
+    out["one_at_a_time_total_s"] = float(sum(walls))
+    out["one_at_a_time_cold_total_s"] = float(sum(cold))
+    log(f"  {label}: {J} jobs, B1 {counts['b1']} launch(es) over "
+        f"{counts['fleet_tables']} stacked table(s) ("
+        + ", ".join(f"K={K}: {e['table_rows']} rows, {e['arena_gb']:.2f} "
+                    f"GB" for K, e in out["engines"].items())
+        + f"); batch wall {wall * 1e3:.1f} ms (the first {first_wall * 1e3:.1f}"
+        f") against {J} evaluates {out['one_at_a_time_total_s'] * 1e3:.1f} "
+        f"ms (the first of each {sum(cold) * 1e3:.1f}); every job's rows "
+        "and lnL bit for bit as alone")
+    for K, e in out["engines"].items():
+        if "b1_ms" in e:
+            log(f"  {label} K={K}: B1 {e['b1_ms']:.3f} ms for the batch "
+                f"against {J} x {e['one_traversal_bound_ms']:.3f} = "
+                f"{e['bound_ms']:.3f} ms bound ({e['bound_by']}); the "
+                f"stacked table built in {e['stack_table_host_ms']:.1f} ms "
+                f"of host time, the jobs prepared in {prepare_ms:.1f} ms")
+    return out
+
+
+def fleet_bootstrap(inst, tree, device, n: int) -> dict:
+    """n bootstrap replicates as one weights batch (one CLV pass, one
+    batched root reduction), replicates 0-3 against one-at-a-time
+    evaluates with their weights swapped in."""
+    from examl_tpu_torch.fleet import bootstrap, seeds
+    from examl_tpu_torch.fleet.driver import FleetDriver
+    reps = [bootstrap.bootstrap_weights(inst.alignment,
+                                        seeds.derive(7, "bootstrap", k))
+            for k in range(n)]
+    ev = inst.batch_evaluator()
+    ev.eval_weights_batch(tree, reps[:2])            # warm-up
+    walls = []
+    for k in range(3):            # the first call at n replicates, then
+        if k == 1:                # two more; the counts of the last
+            reset_counts()
+        sync(device)
+        t0 = time.perf_counter()
+        lnl = ev.eval_weights_batch(tree, reps)
+        sync(device)
+        walls.append(time.perf_counter() - t0)
+    wall = float(np.median(walls[1:]))
+    eng = inst.engines[4]
+    t0 = time.perf_counter()
+    bootstrap.packed_weights_batch(eng.bucket, reps)
+    pack_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    check_tier(counts, "chunk", "bootstrap batch")
+    check(counts["full_traversals"] == 2 and np.isfinite(lnl).all(),
+          f"bootstrap batch: {counts['full_traversals']} CLV passes")
+    seq = FleetDriver(inst)._sequential_weights(tree, reps[:4])
+    rel = float(np.max(np.abs(lnl[:4] - seq) / np.abs(seq)))
+    check(rel <= 1e-12, f"bootstrap replicates 0-3 rel {rel:.3e} against "
+          "one-at-a-time evaluates")
+    out = {"replicates": n, "wall_s": wall, "first_wall_s": walls[0],
+           "ms_per_replicate": wall * 1e3 / n, "host_packing_ms": pack_ms,
+           "bitwise_0_3": bool(np.array_equal(lnl[:4], seq)),
+           "rel_0_3": rel, "counts": counts,
+           "lnl_0_3": lnl[:4].sum(axis=1).tolist()}
+    log(f"  bootstrap: {n} replicates in {wall * 1e3:.1f} ms, the median "
+        f"of 2 calls after the first at {n} ({walls[0] * 1e3:.1f} ms) "
+        f"({out['ms_per_replicate']:.3f} ms each, of which "
+        f"{pack_ms / n:.3f} packing the weights on the host; one CLV pass "
+        f"a call, B1 {counts['b1']} launch(es) in 2 calls); replicates 0-3 "
+        + ("bit for bit" if out["bitwise_0_3"] else f"rel {rel:.2e}")
+        + " as one at a time")
+    return out
+
+
+def fleet_table(path: str) -> dict:
+    rows = {}
+    for line in open(path):
+        if line.startswith("#"):
+            continue
+        jid, kind, idx, seed, cyc, lnl, status, cause, att = line.split()
+        rows[jid] = {"kind": kind, "seed": int(seed), "cycles": cyc,
+                     "lnl": float(lnl), "status": status}
+    return rows
+
+
+def fleet_cli(device, out_dir: str, fd: dict, seed: int) -> dict:
+    """-b, -N with smoothing cycles, --serve and -R through the CLI on
+    phase 7's alignment, its start tree as -t."""
+    import shutil
+    import torch
+    from examl_tpu_torch.fleet import driver
+    from examl_tpu_torch.instance import PhyloInstance
+    from examl_tpu_torch.io.bytefile import read_bytefile
+    base = os.path.join(out_dir, "fleet")
+    shutil.rmtree(base, ignore_errors=True)
+    out = {}
+
+    def run(name, argv):
+        workdir = os.path.join(base, name)
+        os.makedirs(workdir, exist_ok=True)
+        rc, wall, counts, info = run_cli(["-s", fd["aln"]] + argv, device,
+                                         workdir)
+        check(rc == 0, f"fleet CLI {name} returned {rc}")
+        check(counts["b2"] == 0 and (device.type != "cuda" or counts["b1"]
+                                     >= max(1, counts["fleet_tables"])),
+              f"fleet CLI {name}: B1 {counts['b1']} launches for "
+              f"{counts['fleet_tables']} stacked tables, B2 {counts['b2']}")
+        table = fleet_table(os.path.join(workdir, "ExaML_fleet.smoke"))
+        out[name] = {"wall_s": wall, "counts": counts, "jobs": len(table),
+                     "done": sum(r["status"] == "done"
+                                 for r in table.values())}
+        return workdir, table, info
+
+    _, tb, _ = run("bootstrap", ["-t", fd["start_tree"], "-b", "8"])
+    check(len(tb) == 8 and all(r["status"] == "done" for r in tb.values()),
+          f"-b 8: {tb}")
+    wd, tn, info = run("multistart", ["-N", "4", "--fleet-cycles", "2",
+                                      "--fleet-batch", "2"])
+    check(len(tn) == 4 and all(r["status"] == "done" and r["cycles"] ==
+                               "2/2" for r in tn.values()), f"-N 4: {tn}")
+    check(out["multistart"]["counts"]["fleet_tables"] >= 2,
+          "-N 4 --fleet-batch 2 ran no stacked table a batch")
+    # The best job's tree re-evaluated in a fresh one-process instance.
+    trees = open(os.path.join(wd, "ExaML_fleetTrees.smoke")).read().split()
+    best = max(range(4), key=lambda k: tn[f"start{k}"]["lnl"])
+    inst = PhyloInstance(read_bytefile(fd["aln"]), dtype=torch.float32,
+                         device=device)
+    lnl = inst.evaluate(inst.tree_from_newick(trees[best]), full=True)
+    want = tn[f"start{best}"]["lnl"]
+    check(abs(lnl - want) <= 1e-6 * abs(want), f"best -N job start{best} "
+          f"re-evaluates to {lnl} against its table's {want}")
+    out["multistart"]["best_reevaluated"] = [want, lnl]
+    jobs_file = os.path.join(base, "jobs.jsonl")
+    with open(jobs_file, "w") as f:
+        f.write(json.dumps({"kind": "eval", "newick": open(
+            fd["start_tree"]).read().strip()}) + "\n")
+        f.write('{"kind": "start"}\n{"kind": "bootstrap"}\n{"kind": \n'
+                '{"op": "stop"}\n')
+    _, ts, info = run("serve", ["-t", fd["start_tree"], "--serve",
+                                jobs_file, "--serve-poll", "0"])
+    check(sorted(ts) == ["bootstrap2", "eval0", "start1"]
+          and all(r["status"] == "done" for r in ts.values())
+          and "REJECTED at admission (malformed line: jobs file line 4"
+          in info, f"--serve: {ts}")
+    # -R: -N 6 --fleet-batch 2 stopped after its first checkpoint.
+    argv = ["-N", "6", "--fleet-batch", "2"]
+    workdir = os.path.join(base, "restart")
+    os.makedirs(workdir, exist_ok=True)
+    orig = driver.FleetDriver._checkpoint
+
+    def stop_after_first(self):
+        orig(self)
+        raise FleetStop("stopped after the first checkpoint")
+
+    driver.FleetDriver._checkpoint = stop_after_first
+    try:
+        run_cli(["-s", fd["aln"]] + argv, device, workdir)
+        check(False, "the stopped -N 6 run did not stop")
+    except FleetStop:
+        pass
+    finally:
+        driver.FleetDriver._checkpoint = orig
+    _, tr, info = run("restart", argv + ["-R"])
+    check(len(tr) == 6 and all(r["status"] == "done" for r in tr.values())
+          and "resumed job table — 2 of 6 jobs already done" in info
+          and out["restart"]["counts"]["fleet_tables"] == 2,
+          f"-R of the stopped -N 6 run: {tr}, "
+          f"{out['restart']['counts']['fleet_tables']} tables")
+    log("  CLI: " + "; ".join(
+        f"{k} {v['done']}/{v['jobs']} done in {v['wall_s']:.1f} s (B1 "
+        f"{v['counts']['b1']}, {v['counts']['fleet_tables']} tables)"
+        for k, v in out.items())
+        + f"; best -N tree re-evaluated {lnl!r} against {want!r}")
+    return out
+
+
+def index_add_sum(values, seg, num: int):
+    """The segment sum as one `index_add_` (atomics on the card)."""
+    import torch
+    out = torch.zeros(values.shape[:-1] + (num,), dtype=values.dtype,
+                      device=values.device)
+    return out.index_add_(values.dim() - 1, seg, values)
+
+
+def masked_sum(values, seg, num: int):
+    """The segment sum as one masked reduction over a [num, ..., S]
+    temporary."""
+    import torch
+    mine = seg == torch.arange(num, device=seg.device)[:, None]
+    mine = mine.reshape((num,) + (1,) * (values.dim() - 1) + mine.shape[1:])
+    return torch.where(mine, values, 0).sum(dim=-1).movedim(0, -1)
+
+
+def many_part_instance(setup: dict, device, per_partition: bool):
+    """The MANY_PARTS set-up's f32 chunk-tier instance, with one branch
+    slot per partition (-M) or one, and the seed's random tree."""
+    import torch
+    from examl_tpu_torch.instance import PhyloInstance
+    from examl_tpu_torch.transfer import install_model_params
+    inst = PhyloInstance(setup["ad"], dtype=torch.float32, device=device,
+                         newview="chunk",
+                         per_partition_branches=per_partition)
+    install_model_params(inst, setup["params"])
+    tree = inst.random_tree(setup["seed"])
+    for (p, _), z in zip(tree.all_branches(), setup["zs"]):
+        p.z[:] = [float(z)] * len(p.z)
+    return inst, tree
+
+
+def many_part_sums(device, seed: int, reps: int) -> dict:
+    """Every site sum at MANY_PARTS partitions: the segment sum alone
+    (both sums of a Newton-Raphson derivative, blocks to partitions to
+    -M's branch slots) at SEGSUM_LANES lanes against index_add_ and the
+    masked sum, its bits held to the CPU's and to one lane's; then with
+    -M an evaluate, one Newton-Raphson iteration (derivatives and their
+    read-back) and a whole-tree gradient pass; without -M one pruned
+    node of the batched SPR scan on each arm (lazy, thorough)."""
+    import torch
+    from examl_tpu_torch.ops import kernels
+    from examl_tpu_torch.search import spr
+    from examl_tpu_torch.utils import z_slots
+    t0 = time.perf_counter()
+    setup = real_setup(MANY_TAXA, MANY_PARTS, MANY_WIDTH, seed)
+    inst, tree = many_part_instance(setup, device, per_partition=True)
+    eng = inst.engines[4]
+    M, C = eng.num_parts, inst.num_branch_slots
+    out = {"partitions": M, "blocks": eng.B, "slots": C,
+           "patterns": setup["patterns"],
+           "setup_s": time.perf_counter() - t0, "segment_sum_ms": {}}
+    seg, slots = eng.block_part, eng.models.part_branch
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    for lanes in SEGSUM_LANES:
+        v = torch.randn((lanes, eng.B), generator=gen, dtype=torch.float64,
+                        device=device)
+        ways = {}
+        for name, fn in (("segment_reduce", kernels._segment_sum),
+                         ("index_add", index_add_sum),
+                         ("masked", masked_sum)):
+            ways[name] = time_ms(lambda fn=fn: fn(fn(v, seg, M), slots, C),
+                                 device, reps)
+        got = kernels._segment_sum(kernels._segment_sum(v, seg, M), slots, C)
+        cpu = kernels._segment_sum(kernels._segment_sum(
+            v.cpu(), seg.cpu(), M), slots.cpu(), C)
+        one = kernels._segment_sum(kernels._segment_sum(v[-1:], seg, M),
+                                   slots, C)
+        ref = index_add_sum(index_add_sum(v, seg, M), slots, C)
+        check(torch.equal(got.cpu(), cpu), f"the segment sum at {lanes} "
+              "lanes differs from the CPU's bits")
+        check(torch.equal(got[-1:], one), f"the segment sum's last lane of "
+              f"{lanes} differs from the same lane alone")
+        check(torch.allclose(got, ref, rtol=1e-12, atol=1e-9),
+              f"the segment sum at {lanes} lanes is not index_add_'s")
+        out["segment_sum_ms"][str(lanes)] = ways
+        log(f"  {M} partitions, {C} slots, {lanes} lane(s): both sums "
+            + ", ".join(f"{k} {ms:.3f} ms" for k, ms in ways.items())
+            + "; bits as the CPU's and as one lane alone")
+    lnl, walls = timed_evaluates(inst, tree, device, reps)
+    out["evaluate_ms"] = float(np.median(walls) * 1e3)
+    profile = device_breakdown(lambda: inst.evaluate(tree, full=True),
+                               device)
+    if profile["measured"]:
+        out["evaluate_profile"] = {k: profile[k] for k in (
+            "wall_ms", "busy_ms", "idle_share", "launches", "top")}
+        log(f"  -M: profiled evaluate: wall {profile['wall_ms']:.2f} ms, "
+            f"device busy {profile['busy_ms']:.2f} ms (idle share "
+            f"{profile['idle_share']:.3f}) in {profile['launches']} device "
+            "ops")
+        for r in profile["top"]:
+            log(f"    {r['ms']:9.3f} ms  {r['calls']:5d}x  {r['name']}")
+    else:
+        log(f"  -M: profiled evaluate: not measured ({profile['error']})")
+    p = tree.centroid_branch()
+    inst.evaluate(tree, full=True)
+    sumt = eng.make_sumtable(p.number, p.back.number)
+    zt = eng._z(p.z)
+
+    def derivatives():
+        d1, d2 = kernels.nr_derivatives(eng.models, eng.block_part,
+                                        eng.weights, sumt, zt, C, None)
+        return torch.stack([d1, d2]).cpu().numpy()
+
+    d = derivatives()
+    check(d.shape == (2, C) and bool(np.isfinite(d).all()),
+          f"NR derivatives {d.shape} not finite")
+    out["nr_iteration_ms"] = median_ms(derivatives, MANY_NR_CALLS)
+    flat = tree.flat_full_traversal(p)
+    root_z = z_slots(p.z, C)
+    eng.run_traversal(flat, full=True)
+    d1, _ = eng.whole_tree_gradients(flat, root_z)
+    check(d1.shape == (2 * MANY_TAXA - 3, C) and bool(np.isfinite(d1).all()),
+          f"gradients {d1.shape} not finite")
+    out["gradient_pass_ms"] = time_ms(
+        lambda: eng.whole_tree_gradients(flat, root_z), device, 2)
+    log(f"  -M: evaluate {out['evaluate_ms']:.2f} ms (lnL {lnl:.6f}), one "
+        f"NR iteration {out['nr_iteration_ms']:.3f} ms, a gradient pass "
+        f"{out['gradient_pass_ms']:.1f} ms")
+    del inst, tree, eng, sumt, d1
+    release_memory()
+    inst, tree = many_part_instance(setup, device, per_partition=False)
+    check(spr.thorough_batched_ok(inst), "the thorough arm is not batched")
+    inst.evaluate(tree, full=True)
+    slot = next(q for q in spr.dfs_slot_order(tree)
+                if not tree.is_tip(q.number)
+                and not tree.is_tip(q.next.back.number)
+                and not tree.is_tip(q.next.next.back.number))
+    out["scan"] = {}
+    for arm in ("warm-up", "lazy", "thorough"):
+        ctx = spr.SprContext(inst, thorough=arm == "thorough",
+                             do_cutoff=False)
+        ctx.start_lh = ctx.end_lh = math.inf
+        ctx.best_of_node = -math.inf
+        reset_counts()
+        sync(device)
+        t1 = time.perf_counter()
+        spr.rearrange_batched(inst, tree, ctx, slot, 1, 5,
+                              thorough=arm == "thorough")
+        sync(device)
+        wall = time.perf_counter() - t1
+        n = read_counts()["insertions_scored"]
+        check(n > 0 and math.isfinite(ctx.best_of_node),
+              f"the {arm} scan scored nothing")
+        if arm != "warm-up":
+            out["scan"][arm] = {"insertions": n, "ms_per_insertion":
+                                wall * 1e3 / n}
+    log(f"  batched SPR scan, one pruned node: lazy "
+        f"{out['scan']['lazy']['ms_per_insertion']:.3f} ms per insertion "
+        f"({out['scan']['lazy']['insertions']}), thorough "
+        f"{out['scan']['thorough']['ms_per_insertion']:.3f} "
+        f"({out['scan']['thorough']['insertions']}); set-up "
+        f"{out['setup_s']:.1f} s")
+    del inst, tree
+    release_memory()
+    return out
+
+
+def phase_fleet(device, setup: dict, fd: dict, out_dir: str, seed: int,
+                reps: int) -> dict:
+    """The fleet (-b, -N, --serve): a batch of FLEET_JOBS start jobs at real
+    size (f32 and bf16 storage), FLEET_AA_JOBS on the AA + BIN set-up (f32
+    and bf16), FLEET_GENE_JOBS per-gene trees, a real-size bootstrap
+    batch, and the CLI."""
+    import torch
+    out = {}
+    inst, tree = real_instance(setup, device, "chunk")
+    out["dna"] = fleet_tree_batch(inst, fleet_trees(inst, seed, FLEET_JOBS),
+                                  setup, device, "DNA f32", reps, True)
+    out["bootstrap"] = fleet_bootstrap(inst, tree, device, FLEET_REPLICATES)
+    del inst, tree
+    release_memory()
+    inst, _ = real_instance(setup, device, "chunk",
+                            clv_dtype=torch.bfloat16)
+    out["dna_bf16"] = fleet_tree_batch(
+        inst, fleet_trees(inst, seed, FLEET_JOBS), setup, device,
+        "DNA bf16", reps, True)
+    del inst
+    release_memory()
+    aa = aa_setup(seed)
+    for name, storage in (("aa", None), ("aa_bf16", torch.bfloat16)):
+        inst, _ = aa_instance(aa, device, "chunk", clv_dtype=storage)
+        out[name] = fleet_tree_batch(
+            inst, fleet_trees(inst, seed, FLEET_AA_JOBS), aa, device,
+            f"AA + BIN {'bf16' if storage else 'f32'}", reps, False)
+        del inst
+        release_memory()
+    gene = real_setup(FLEET_GENE[0], 1, FLEET_GENE[1], seed)
+    inst, _ = real_instance(gene, device, "chunk")
+    out["gene"] = fleet_tree_batch(
+        inst, fleet_trees(inst, seed, FLEET_GENE_JOBS), gene, device,
+        f"{FLEET_GENE[0]}-taxon genes", reps, True)
+    del inst
+    release_memory()
+    out["many_parts"] = many_part_sums(device, seed, reps)
+    out["cli"] = fleet_cli(device, out_dir, fd, seed)
+    return out
+
+
 def device_breakdown(fn, device, top: int = 8) -> dict:
     """Device time of one call of fn() by kernel, from torch.profiler:
     busy ms (sum of kernel self times), the wall ms of the call, the idle
@@ -4158,7 +4729,7 @@ def bf16_spills(ptxas: dict) -> dict:
 
 def kernels_line(real, real_whole, search, scan, grad, anchor_whole,
                  restart, aa_cli, real_aa, fq, sev, sev_cli, cases,
-                 whole_cases, bf16, site) -> list:
+                 whole_cases, bf16, site, fleet) -> list:
     """The kernels line: each kernel's row, with its instances by K; B1's
     bfloat16-storage instances in a row of their own."""
     # Each kernel's launches on the main paths of this run, each path
@@ -4171,8 +4742,11 @@ def kernels_line(real, real_whole, search, scan, grad, anchor_whole,
     # gradient-smoothed tree and of the amino-acid -f e endpoint and the
     # amino-acid model optimization included; B1 also on the dense
     # instance's path of phase 19 and the dense re-evaluation of phase
-    # 20's -S endpoint; and on phase 22's ranks: B1 on each rank's
-    # real-size path and -f d, B2 on each rank's ref49 -f e.  The PSR and
+    # 20's -S endpoint; on phase 22's ranks: B1 on each rank's
+    # real-size path and -f d, B2 on each rank's ref49 -f e; and B1 on
+    # phase 23's fleet paths (each batch of tree jobs one stacked table an
+    # engine, the bootstrap batch's CLV pass, the CLI's -b, -N, --serve
+    # and -R runs; its bf16 batches in the bf16 row).  The PSR and
     # -S paths launch neither (their traversals run on the wave-scan and
     # pooled tiers).  `by_K` splits
     # each kernel's row by instance: the launches by state count, and its
@@ -4198,6 +4772,9 @@ def kernels_line(real, real_whole, search, scan, grad, anchor_whole,
         return dict(counts, **{k: {int(K): n for K, n in counts[k].items()}
                                for k in ("b1_by_K", "b2_by_K")})
 
+    b1_paths += [fleet[w]["counts"] for w in ("dna", "aa", "gene",
+                                              "bootstrap")]
+    b1_paths += [c["counts"] for c in fleet["cli"].values()]
     b1_paths += [by_int_k(r["counts"]) for r in site["ranks"]]
     b1_paths += [by_int_k(c) for c in site["fd"]["counts"]]
     b2_paths += [by_int_k(c) for c in site["fe"]["counts"]]
@@ -4225,7 +4802,8 @@ def kernels_line(real, real_whole, search, scan, grad, anchor_whole,
     # The bfloat16 instances: launched on phase 21's real-size evaluates
     # and its -f d through the CLI; timed at real size there.
     bf_paths = [bf16["dna"]["counts"], bf16["aa"]["counts"],
-                bf16["cli_fd"]["counts"]]
+                bf16["cli_fd"]["counts"], fleet["dna_bf16"]["counts"],
+                fleet["aa_bf16"]["counts"]]
     bf_by_k = {}
     for K in STATES:
         m = bf16["dna" if K == 4 else "aa"]["kernels"][K]
@@ -4448,11 +5026,17 @@ def main(argv=None) -> int:
         site = phase_site_parallel(device, setup, anchor_whole, search,
                                    b1_config, smi, args.seed)
 
+        phase("fleet: a real-size batch of start jobs in one B1 launch "
+              "(f32, bf16; AA + BIN), a bootstrap batch, -b/-N/--serve/-R "
+              "through the CLI")
+        release_memory()
+        fleet = phase_fleet(device, setup, search, out_dir, args.seed, REPS)
+
         phase("report")
         kernels = kernels_line(real, real_whole, search, scan, grad,
                                anchor_whole, restart, aa_cli, real_aa, fq,
                                sev, sev_cli, cases, whole_cases, bf16,
-                               site)
+                               site, fleet)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -4467,6 +5051,7 @@ def main(argv=None) -> int:
               "aa_cli": aa_cli, "real_size_aa": real_aa, "quartets": fq,
               "real_size_quartets": real_fq, "sev": sev,
               "sev_cli": sev_cli, "bf16": bf16, "site_parallel": site,
+              "fleet": fleet,
               "ptxas": ptxas,
               "wall_s": time.perf_counter() - t_start}
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
@@ -4534,6 +5119,17 @@ def main(argv=None) -> int:
             "f32_run_final_lnl")},
         "cli_sev_fe": {k: bf16["cli_sev_fe"][k]["final_lnl"]
                        for k in ("f32", "bf16")}}}))
+    log(json.dumps({"fleet": {
+        **{w: {k: fleet[w][k] for k in ("jobs", "wall_s", "first_wall_s",
+                                         "one_at_a_time_total_s",
+                                         "prepare_ms", "engines")}
+           for w in ("dna", "dna_bf16", "aa", "aa_bf16", "gene")},
+        "bootstrap": {k: fleet["bootstrap"][k] for k in (
+            "replicates", "wall_s", "first_wall_s", "ms_per_replicate",
+            "host_packing_ms", "bitwise_0_3", "rel_0_3")},
+        "many_parts": fleet["many_parts"],
+        "cli": {k: {m: v[m] for m in ("wall_s", "jobs", "done")}
+                for k, v in fleet["cli"].items()}}}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -9,6 +9,10 @@ dispatched at `main` :2719-2781).
         [--newview chunk|whole] [--batch-scan auto|on|off] \\
         [--clv-dtype same|bf16] [--auto-prot ml|bic|aic|aicc] \\
         [--coordinator HOST:PORT --nprocs N --procid K]
+    python -m examl_tpu_torch.cli.main -s aln.binary -n RUN \\
+        (-b K -t tree | -N K | --serve jobs.jsonl) [--fleet-batch J] \\
+        [--fleet-cycles C] [--fleet-job-attempts A] [--serve-poll S] \\
+        [--serve-max-pending P] [-R] [-p seed]
 
 Modes: `-f d` (the default) runs the RAxML SPR hill climb
 (`search/raxml_search.py`) from the `-t` tree or from the random
@@ -28,6 +32,12 @@ into at most `-c` categories (25 by default) per partition.  Partitions
 are DNA, binary or amino-acid (GTR, an empirical matrix, LG4M/LG4X, or
 AUTO, which `mod_opt` resolves to the best matrix by `--auto-prot`'s
 criterion, ML by default), as the byteFile names them.
+
+The fleet modes replace `-f` (cli/fleet.py, fleet/): `-b K` scores K
+bootstrap weight replicates of the `-t` topology, `-N K` K random
+starting trees, and `--serve` the jobs of a JSONL file as they are
+appended; tree jobs batch through one launch of kernel B1 whatever their
+topologies, and every job lands in ExaML_fleet.RUN.
 
 Outputs in DIR: ExaML_info.RUN (progress), ExaML_log.RUN ("seconds lnL"
 rows), ExaML_modelFile.RUN (the final model, in the reference's
@@ -159,6 +169,47 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--auto-prot", dest="auto_prot", default="ml",
                     choices=["ml", "bic", "aic", "aicc"],
                     help="criterion for AUTO protein model selection")
+    f = ap.add_argument_group("fleet modes (one at a time; they replace -f)")
+    f.add_argument("-b", "--bootstrap", dest="bootstrap", type=int,
+                   default=0, metavar="K",
+                   help="evaluate K bootstrap weight replicates of the -t "
+                        "topology (site-multiplicity resampling, seeds "
+                        "derived from -p; one CLV pass and one batched "
+                        "root reduction a batch)")
+    f.add_argument("-N", "--multi-start", dest="multi_start", type=int,
+                   default=0, metavar="K",
+                   help="evaluate K random starting trees (seeds derived "
+                        "from -p), any mix of topologies in one kernel "
+                        "launch a batch; --fleet-cycles adds "
+                        "branch-length smoothing rounds per tree")
+    f.add_argument("--serve", dest="serve", default=None, metavar="JOBS",
+                   help="drain a JSONL jobs file (fleet/jobs.py format), "
+                        "polling for appended jobs until an {\"op\": "
+                        "\"stop\"} line; --serve-poll 0 drains once and "
+                        "exits")
+    f.add_argument("--serve-poll", dest="serve_poll", type=float,
+                   default=1.0,
+                   help="seconds between jobs-file polls under --serve (0 "
+                        "= drain the current contents and exit; default 1)")
+    f.add_argument("--serve-max-pending", dest="serve_max_pending",
+                   type=int, default=10000,
+                   help="stop taking new jobs-file lines while this many "
+                        "jobs are pending (default 10000)")
+    f.add_argument("--fleet-job-attempts", dest="fleet_job_attempts",
+                   type=int, default=2,
+                   help="attempts before a failing job (non-finite lnL, "
+                        "dispatch error) is quarantined to "
+                        "ExaML_fleetFailed.<run> (default 2)")
+    f.add_argument("--fleet-batch", dest="fleet_batch", type=int,
+                   default=16,
+                   help="most jobs a batch (default 16); a batch whose "
+                        "stacked arena does not fit on the card runs in "
+                        "parts")
+    f.add_argument("--fleet-cycles", dest="fleet_cycles", type=int,
+                   default=1,
+                   help="evaluation cycles per tree job; cycles after the "
+                        "first smooth branch lengths before re-scoring "
+                        "(default 1)")
     launch.add_launch_args(ap)
     return ap
 
@@ -580,6 +631,44 @@ def run_mode(args, inst, files: RunFiles) -> int:
     return run_tree_evaluation(args, inst, files)
 
 
+def fleet_mode(args) -> bool:
+    return bool(args.bootstrap or args.multi_start or args.serve)
+
+
+def _check_fleet_args(ap, args) -> None:
+    """The JAX CLI's fleet flag hygiene (one fleet mode at a time, and
+    what conflicts with the batched tier refused up front), plus the
+    port's own refusal of a fleet over several processes."""
+    if args.bootstrap < 0 or args.multi_start < 0:
+        ap.error("-b/-N replicate counts must be positive")
+    modes = sum(bool(x) for x in (args.bootstrap, args.multi_start,
+                                  args.serve))
+    if modes > 1:
+        ap.error("-b, -N and --serve are mutually exclusive fleet modes")
+    if not modes:
+        return
+    if args.mode == "q":
+        ap.error("fleet modes (-b/-N/--serve) replace the -f algorithm; "
+                 "they cannot combine with -f q")
+    if args.save_memory:
+        ap.error("fleet modes do not support -S: the SEV pool holds one "
+                 "arena per instance, so per-job arenas cannot stack")
+    if args.bootstrap and not args.tree_file:
+        ap.error("-b bootstrap replicates resample weights on a fixed "
+                 "topology: a starting tree (-t) is required")
+    if args.fleet_job_attempts < 1:
+        ap.error("--fleet-job-attempts must be at least 1")
+    if args.serve_max_pending < 1:
+        ap.error("--serve-max-pending must be at least 1")
+    if args.fleet_batch < 1:
+        ap.error("--fleet-batch must be at least 1")
+    if launch.launch_requested(args) and (args.nprocs or 1) > 1:
+        ap.error(f"fleet modes run in one process: --nprocs {args.nprocs} "
+                 "is refused (the JAX package runs a multi-process fleet "
+                 "as leased ranks, which the port does not have; run one "
+                 "fleet per card instead)")
+
+
 def main(argv=None, device=None, dtype=None) -> int:
     """Run the mode `-f` names; `device` defaults to the card ("cuda"; a
     rank of a site-parallel run takes `cuda:(rank mod device_count)`),
@@ -606,6 +695,7 @@ def main(argv=None, device=None, dtype=None) -> int:
         launch.check_launch_args(args)
     except ValueError as exc:
         ap.error(str(exc))
+    _check_fleet_args(ap, args)
     if dtype is None:
         dtype = config.default_dtype(torch.device(
             "cuda" if device is None else device))
@@ -637,7 +727,8 @@ def _run(args, group, device, dtype, storage) -> int:
     files = RunFiles(args.workdir, args.run_id, append=args.restart,
                      primary=group.rank == 0, shared_dir=shared_dir)
     tier = args.newview or (POOLED_TIER if args.save_memory else "chunk")
-    files.info(f"alignment: {args.bytefile}  mode: -f {args.mode}  "
+    mode = "fleet" if fleet_mode(args) else f"-f {args.mode}"
+    files.info(f"alignment: {args.bytefile}  mode: {mode}  "
                f"model: {args.model}  newview: {tier}")
     if group.size > 1:
         files.info(
@@ -666,7 +757,11 @@ def _run(args, group, device, dtype, storage) -> int:
     files.info(f"device: {inst.device}  dtype: {inst.dtype}  clv storage: "
                f"{str(inst.storage_dtype).removeprefix('torch.')}")
     _packing_report(inst, files)
-    rc = run_mode(args, inst, files)
+    if fleet_mode(args):
+        from examl_tpu_torch.cli.fleet import run_fleet
+        rc = run_fleet(args, inst, files)
+    else:
+        rc = run_mode(args, inst, files)
     if inst.save_memory:
         _sev_report(inst, files)
     return rc

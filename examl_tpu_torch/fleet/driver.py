@@ -1,0 +1,418 @@
+"""The fleet job-queue driver: grouped batched dispatch in one lane.
+
+The port of the single-process `examl_tpu/fleet/driver.py`.  Pending
+jobs group by their batch key — one key for every chunk-tier tree job
+(`batch.FAST_GROUP`: kernel B1 runs any mix of topologies in one
+table), the wave-scan shape under PSR, or the shared-topology weights
+group for bootstrap replicates — and the largest group dispatches
+first, at most `batch_cap` jobs a batch.
+
+The whole job table is checkpointed through CheckpointManager after
+every batch (state "FLEET", the JAX package's format), and a `-R`
+restart skips finished jobs: a kill loses at most each in-flight job's
+current cycle.
+
+FAILURE DOMAINS are job-level (fleet/quarantine.py): a raise inside a
+batched dispatch bisects to the guilty job(s), a non-finite row fails
+only its own job, each failure burns one of the job's capped attempts
+(jittered backoff between retries), and a job past its cap lands in
+the dead-letter file — healthy cohabitants keep results bit-identical
+to a clean run.  A fault of a kernel or of the card is no job's: it
+ends the run.  Finished results also append to the fsync'd per-run
+journal, so a kill loses compute, never a finished result.
+
+Left to the JAX package for now: leased gang ranks, device lanes, the
+per-job deadline that a supervisor enforces, and the observability
+gauges and ledger events.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from examl_tpu_torch.fleet import bootstrap as _bootstrap
+from examl_tpu_torch.fleet import quarantine
+from examl_tpu_torch.fleet.batch import WEIGHTS_GROUP, batch_eligible
+from examl_tpu_torch.fleet.jobs import JobSpec
+
+
+class FleetDriver:
+    def __init__(self, inst, start_tree=None, batch_cap: int = 16,
+                 cycles: int = 1, mgr=None, log=None,
+                 policy: Optional[quarantine.JobFaultPolicy] = None,
+                 journal: Optional[quarantine.ResultsJournal] = None,
+                 deadletters: Optional[quarantine.DeadLetters] = None):
+        self.inst = inst
+        self.start_tree = start_tree          # bootstrap topology (+ ckpt
+        self.batch_cap = max(1, int(batch_cap))   # scaffold)
+        self.cycles = max(1, int(cycles))
+        self.mgr = mgr
+        self.log = log or (lambda *_: None)
+        self.policy = policy or quarantine.JobFaultPolicy()
+        self.journal = journal
+        self.deadletters = deadletters
+        reason = batch_eligible(inst)
+        self.evaluator = inst.batch_evaluator()
+        if self.evaluator is not None:
+            self.evaluator.log = self.log
+        else:
+            self.log(f"fleet: batched tier unavailable ({reason}); "
+                     "jobs evaluate one at a time")
+        self.jobs: List[JobSpec] = []
+        self._trees: Dict[str, object] = {}       # job_id -> Tree
+        self._prepared: Dict[str, object] = {}    # job_id -> PreparedJob
+        self._weights: Dict[str, list] = {}       # job_id -> per-part w
+        self._keys: Dict[str, object] = {}        # job_id -> batch key
+        self._not_before: Dict[str, float] = {}   # job_id -> retry time
+        self._smoothed: Dict[str, int] = {}       # job_id -> cycle whose
+                                                  # smoothing already ran
+
+    def _evict(self, job: JobSpec) -> None:
+        """Drop a finished job's host-side state: a long-running
+        `--serve` process must not keep every completed job's tree,
+        launch table and weight arrays alive."""
+        for cache in (self._trees, self._prepared, self._weights,
+                      self._keys, self._not_before, self._smoothed):
+            cache.pop(job.job_id, None)
+
+    # -- job-table persistence (rides CheckpointManager) --------------------
+
+    def extras(self) -> dict:
+        return {"fleet": {"jobs": [j.to_dict() for j in self.jobs],
+                          "cycles": self.cycles}}
+
+    def restore_jobs(self, extras: dict, jobs=None) -> int:
+        """Merge a restored job table into `jobs` (default: the whole
+        queue), matched by job_id: finished jobs stay finished, in-flight
+        jobs keep their completed cycles and their current tree.  Returns
+        the number of jobs restored as done.
+
+        The serve loop passes each poll's FRESH specs only, so the
+        snapshot applies to every job exactly once — at the moment it
+        joins the queue."""
+        blob = (extras or {}).get("fleet") or {}
+        by_id = {d.get("job_id"): d for d in blob.get("jobs", [])}
+        done = 0
+        for job in (self.jobs if jobs is None else jobs):
+            d = by_id.get(job.job_id)
+            if d is None:
+                continue
+            rj = JobSpec.from_dict(d)
+            job.cycles_done = rj.cycles_done
+            job.lnl = rj.lnl
+            job.done = rj.done
+            job.failed = rj.failed
+            # The retry ladder resumes where it was: a restart never
+            # hands a poison job a fresh attempt budget.
+            job.attempts = max(job.attempts, rj.attempts)
+            job.cause = rj.cause or job.cause
+            job.last_error = rj.last_error or job.last_error
+            if rj.newick:
+                job.newick = rj.newick
+            done += int(job.done)
+        return done
+
+    # -- job materialization -------------------------------------------------
+
+    def _tree_for(self, job: JobSpec):
+        t = self._trees.get(job.job_id)
+        if t is not None:
+            return t
+        if job.kind == "bootstrap":
+            if self.start_tree is None:
+                raise ValueError("bootstrap jobs need a starting tree (-t)")
+            t = self.start_tree
+        elif job.newick:                       # eval job / resumed start job
+            t = self.inst.tree_from_newick(job.newick)
+        else:                                  # multi-start: derived seed
+            t = self.inst.random_tree(seed=job.seed)
+        self._trees[job.job_id] = t
+        return t
+
+    def _key_for(self, job: JobSpec):
+        if job.kind == "bootstrap":
+            self._tree_for(job)                # raises without a -t tree
+            return WEIGHTS_GROUP
+        if self.evaluator is None:
+            return ("seq", job.job_id)         # no grouping: one per batch
+        prep = self.evaluator.prepare(self._tree_for(job),
+                                      self._prepared.get(job.job_id))
+        self._prepared[job.job_id] = prep
+        return prep.key
+
+    def _weights_for(self, job: JobSpec) -> list:
+        w = self._weights.get(job.job_id)
+        if w is None:
+            w = _bootstrap.bootstrap_weights(self.inst.alignment, job.seed)
+            self._weights[job.job_id] = w
+        return w
+
+    # -- the job-level failure ladder ---------------------------------------
+
+    def _journal_job(self, job: JobSpec) -> None:
+        if self.journal is not None:
+            self.journal.append(quarantine.job_record(job))
+
+    def _quarantine(self, job: JobSpec, cause: str, error: str) -> None:
+        """Terminal failure: the job leaves the queue for the dead
+        letters — with cause, attempts and last error — and never costs
+        another dispatch."""
+        error = (error or "")[:200]
+        job.done = job.failed = True
+        job.cause = cause
+        job.last_error = error
+        self._evict(job)
+        if self.deadletters is not None:
+            self.deadletters.append(job, cause, error)
+        self._journal_job(job)
+        self.log(f"fleet: job {job.job_id} QUARANTINED ({cause} after "
+                 f"{job.attempts} attempt(s): {error})")
+
+    def _fail(self, job: JobSpec, cause: str, error) -> None:
+        """One failed attempt: burn it, then retry with jittered
+        backoff or quarantine at the cap."""
+        err = str(error)[:200]
+        job.attempts += 1
+        job.cause = cause
+        job.last_error = err
+        if job.attempts >= self.policy.max_attempts:
+            self._quarantine(job, cause, err)
+            return
+        delay = self.policy.backoff(job.job_id, job.attempts)
+        self._not_before[job.job_id] = time.time() + delay
+        self.log(f"fleet: job {job.job_id} attempt {job.attempts} "
+                 f"failed ({cause}: {err}); retrying in {delay:.2f}s")
+
+    # -- the queue loop ------------------------------------------------------
+
+    def run(self, jobs: List[JobSpec],
+            resume_extras: Optional[dict] = None) -> List[JobSpec]:
+        self.jobs = list(jobs)
+        if resume_extras:
+            restored = self.restore_jobs(resume_extras)
+            self.log(f"fleet: resumed job table — {restored} of "
+                     f"{len(self.jobs)} jobs already done")
+        self.drain()
+        return self.jobs
+
+    def pending(self) -> List[JobSpec]:
+        return [j for j in self.jobs if not j.done]
+
+    def drain(self) -> None:
+        """Run batches until no job is pending: group the ready jobs by
+        batch key and dispatch the largest group first (at most
+        `batch_cap` of its jobs).  A job that cannot even materialize (a
+        malformed eval newick, a bootstrap job without a -t tree) is
+        quarantined alone: retrying the same host-side parse cannot
+        succeed."""
+        while True:
+            pending = self.pending()
+            if not pending:
+                break
+            # Retry backoff: a job whose jittered delay has not expired
+            # is pending but not ready; with nothing ready, sleep toward
+            # the earliest retry.
+            now = time.time()
+            ready = [j for j in pending
+                     if self._not_before.get(j.job_id, 0.0) <= now]
+            if not ready:
+                wake = min(self._not_before.get(j.job_id, now)
+                           for j in pending)
+                time.sleep(min(max(wake - now, 0.01), 1.0))
+                continue
+            groups: Dict[object, List[JobSpec]] = {}
+            for job in ready:
+                key = self._keys.get(job.job_id)
+                if key is None:
+                    try:
+                        key = self._key_for(job)
+                    except Exception as exc:   # noqa: BLE001
+                        if quarantine.device_fault(exc):
+                            raise
+                        job.attempts += 1
+                        self._quarantine(job, quarantine.CAUSE_ERROR,
+                                         f"failed to materialize: {exc}")
+                        continue
+                    self._keys[job.job_id] = key
+                groups.setdefault(key, []).append(job)
+            if not groups:
+                continue                       # everything failed: re-check
+            _, members = min(groups.items(),
+                             key=lambda kv: (-len(kv[1]), str(kv[0])))
+            self._dispatch(members[:self.batch_cap])
+            if self.mgr is not None:
+                self._checkpoint()
+
+    def _checkpoint(self) -> None:
+        tree = self.start_tree
+        if tree is None:
+            live = next((self._trees[j.job_id] for j in self.jobs
+                         if j.job_id in self._trees), None)
+            tree = live if live is not None \
+                else self.inst.random_tree(seed=0)
+        self.mgr.write("FLEET", self.extras(), self.inst, tree)
+
+    # -- batch dispatch ------------------------------------------------------
+
+    def _dispatch(self, batch: List[JobSpec]) -> None:
+        """One batch through the job-level fault ladder
+        (`quarantine.isolate`): a raise anywhere in the batched dispatch
+        bisects to the guilty job(s); a device fault ends the run."""
+        def evaluate(b, nested=False):
+            try:
+                return self._evaluate_batch(b)
+            except torch.cuda.OutOfMemoryError:
+                # The halves the bisection dispatches need less memory:
+                # hand the cached blocks back first.
+                torch.cuda.empty_cache()
+                raise
+
+        self._apply_results(batch, quarantine.isolate(batch, evaluate,
+                                                      self._evaluate_leaf))
+
+    def _apply_results(self, batch: List[JobSpec], results: List) -> None:
+        for job, row, err in results:
+            if err is not None:
+                cause = (quarantine.CAUSE_POISON
+                         if isinstance(err, FloatingPointError)
+                         else quarantine.CAUSE_ERROR)
+                self._fail(job, cause, err)
+                continue
+            lnl = float(row.sum())
+            if not np.isfinite(lnl):
+                self._fail(job, quarantine.CAUSE_POISON, "non-finite lnL")
+                continue
+            job.lnl = lnl
+            # A retried job that now succeeded is healthy: stale
+            # cause/last_error of the failed attempt must not leak into
+            # a "done" row (attempts stays — it IS the retry evidence).
+            job.cause = None
+            job.last_error = None
+            job.cycles_done += 1
+            if job.kind != "bootstrap":
+                tree = self._trees.get(job.job_id)
+                if tree is not None:
+                    job.newick = tree.to_newick(
+                        self.inst.alignment.taxon_names)
+            if job.cycles_done >= job.cycles:
+                job.done = True
+                # Durable result BEFORE eviction: the journal record is
+                # what a resume reconciles against the (older, per-batch)
+                # checkpoint.
+                self._journal_job(job)
+                self._evict(job)
+
+    # -- the evaluation seams (bisectable) -----------------------------------
+
+    def _evaluate_batch(self, batch: List[JobSpec]) -> np.ndarray:
+        """One batch's per-job per-partition lnL [J, M]."""
+        if batch[0].kind == "bootstrap":
+            rows = self._dispatch_bootstrap(batch)
+        else:
+            rows = self._dispatch_trees(batch)
+        return np.asarray(rows, dtype=np.float64)
+
+    def _evaluate_leaf(self, job: JobSpec) -> np.ndarray:
+        """Bisection leaf: ONE job through the one-at-a-time path the
+        batched tier is held against (its smoothing by `smooth_tree`), so
+        a healthy job isolated out of a poisoned batch scores as in a
+        clean run."""
+        if job.kind == "bootstrap":
+            row = self._sequential_weights(
+                self._tree_for(job), [self._weights_for(job)])[0]
+        else:
+            self._smooth_if_due([job], batched=False)
+            row = self._sequential_eval(self._tree_for(job))
+        return np.asarray(row, dtype=np.float64)
+
+    def _dispatch_bootstrap(self, batch: List[JobSpec]) -> np.ndarray:
+        tree = self._tree_for(batch[0])
+        weights = [self._weights_for(j) for j in batch]
+        if self.evaluator is not None:
+            return self.evaluator.eval_weights_batch(tree, weights)
+        return self._sequential_weights(tree, weights)
+
+    def _smooth_if_due(self, batch: List[JobSpec],
+                       batched: bool = True) -> None:
+        """Branch-length smoothing for jobs entering a later cycle — AT
+        MOST ONCE per (job, cycle): smoothing mutates the tree's z, so a
+        bisection re-dispatch or a retry running it again would
+        double-smooth.  Batches smooth together (`smooth_batch`, the
+        gradient route on the chunk tier); a raise there goes down the
+        job-level ladder like any other.  A job alone (a bisection leaf),
+        or an instance on the per-branch route or without the chunk
+        tier, smooths through `smooth_tree`."""
+        later = [j for j in batch if j.cycles_done > 0
+                 and self._smoothed.get(j.job_id) != j.cycles_done]
+        if not later:
+            return
+        from examl_tpu_torch.constants import SMOOTHINGS
+        from examl_tpu_torch.optimize.branch import (grad_smooth_ineligible,
+                                                     smooth_tree)
+        remaining = list(later)
+        if (batched and self.inst.grad_smooth
+                and self.evaluator is not None and self.evaluator.fast
+                and grad_smooth_ineligible(self.inst) is None):
+            grouped = [j for j in later if j.job_id in self._prepared]
+            if grouped:
+                self.evaluator.smooth_batch(
+                    [self._prepared[j.job_id] for j in grouped], SMOOTHINGS)
+                for job in grouped:
+                    self._smoothed[job.job_id] = job.cycles_done
+                remaining = [j for j in later if j not in grouped]
+        for job in remaining:
+            tree = self._tree_for(job)
+            # Smoothing reads the engines' live arenas: a full traversal
+            # orients them to THIS tree first.
+            self.inst.evaluate(tree, full=True)
+            smooth_tree(self.inst, tree, SMOOTHINGS)
+            self._smoothed[job.job_id] = job.cycles_done
+        if self.evaluator is not None:
+            # Re-prepare AFTER smoothing: the PreparedJobs captured at
+            # grouping time hold the pre-smoothing z; the topology is
+            # unchanged, so the launch table and the key survive.
+            for job in later:
+                self._prepared[job.job_id] = self.evaluator.prepare(
+                    self._tree_for(job), self._prepared.get(job.job_id))
+
+    def _dispatch_trees(self, batch: List[JobSpec]):
+        # Later cycles smooth branch lengths before re-evaluating (the
+        # multi-start refinement loop); cycle 0 scores the tree as is.
+        self._smooth_if_due(batch)
+        if self.evaluator is not None:
+            return self.evaluator.eval_batch(
+                [self._prepared[j.job_id] for j in batch])
+        return np.stack([self._sequential_eval(self._tree_for(j))
+                         for j in batch])
+
+    # -- one at a time (SEV instances, bisection leaves) --------------------
+
+    def _sequential_eval(self, tree) -> np.ndarray:
+        self.inst.evaluate(tree, full=True)
+        return np.array(self.inst.per_partition_lnl, copy=True)
+
+    def _sequential_weights(self, tree, weights: List[list]) -> np.ndarray:
+        """Each replicate's lnL with its weights swapped into the engines
+        one at a time, after one CLV pass."""
+        self.inst.evaluate(tree, full=True)
+        out = []
+        p = tree.centroid_branch()
+        for per_part in weights:
+            row = np.full(len(self.inst.models), np.nan)
+            for eng in self.inst.engines.values():
+                saved = eng.weights
+                eng.weights = torch.as_tensor(
+                    _bootstrap.packed_weights(eng.bucket, per_part),
+                    dtype=eng.dtype, device=eng.device)
+                try:
+                    vals = eng.evaluate(p.number, p.back.number, p.z)
+                finally:
+                    eng.weights = saved
+                for li, gid in enumerate(eng.bucket.part_ids):
+                    row[gid] = vals[li]
+            out.append(row)
+        return np.stack(out)

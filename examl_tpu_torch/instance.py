@@ -273,6 +273,19 @@ class PhyloInstance:
         return Tree.random(self.alignment.taxon_names, seed,
                            self.num_branch_slots)
 
+    def batch_evaluator(self):
+        """The fleet's batched many-tree evaluator over this instance
+        (fleet/batch.py), or None where `batch.batch_eligible` gives a
+        reason; one per instance, made at the first call."""
+        ev = getattr(self, "_batch_evaluator", None)
+        if ev is None:
+            from examl_tpu_torch.fleet.batch import (BatchEvaluator,
+                                                     batch_eligible)
+            if batch_eligible(self) is not None:
+                return None
+            ev = self._batch_evaluator = BatchEvaluator(self)
+        return ev
+
     # -- CLV orientation / traversal ---------------------------------------
 
     def _collect(self, tree: Tree, slot: Node, full: bool) -> List[TraversalEntry]:

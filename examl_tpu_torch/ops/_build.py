@@ -57,6 +57,12 @@ SIGNATURES = {
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
+class KernelError(RuntimeError):
+    """A kernel that did not build, or a launch that returned a CUDA
+    error: a fault of the kernel or of the card, never of the job that
+    ran it (the fleet re-raises it instead of quarantining jobs)."""
+
+
 def nvcc_path() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -65,7 +71,7 @@ def nvcc_path() -> str:
     cand = Path(home) / "bin" / "nvcc"
     if cand.exists():
         return str(cand)
-    raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda)")
+    raise KernelError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda)")
 
 
 def sources() -> List[str]:
@@ -109,7 +115,7 @@ def build_all(names: Optional[List[str]] = None) -> Dict[str, Path]:
         msgs = "\n".join(f"--- {n} ---\n"
                          + paths[n].with_suffix(".log").read_text()
                          for n in failed)
-        raise RuntimeError(f"nvcc failed for {failed}:\n{msgs}")
+        raise KernelError(f"nvcc failed for {failed}:\n{msgs}")
     return paths
 
 

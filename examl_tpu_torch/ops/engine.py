@@ -219,6 +219,11 @@ class LikelihoodEngine:
         if branch_indices is None:
             branch_indices = [0] * self.num_parts
         self._branch_indices = list(branch_indices)
+        # The site sums (kernels._segment_sum) take both maps as runs.
+        for name, ids in (("block_part", bucket.block_part),
+                          ("branch_indices", self._branch_indices)):
+            if np.any(np.diff(np.asarray(ids)) < 0):
+                raise ValueError(f"{name} must be nondecreasing")
         self.models = stack_models(models, self._branch_indices, self.dtype,
                                    self.device, psr)
         # Per-site rate multipliers [B, lane, 1] under PSR (None selects
@@ -672,7 +677,8 @@ class LikelihoodEngine:
                 dtype=self.dtype, device=self.device)
         return self._outroot
 
-    def whole_tree_gradients(self, flat: FlatTraversal, root_z):
+    def whole_tree_gradients(self, flat: FlatTraversal, root_z, clv=None,
+                             scaler=None, row_map=None, gs=None):
         """(d1, d2) [E, C] float64: the lnL's gradient and curvature with
         respect to lz = log z for every branch of the full traversal
         `flat`, from one pre-order pass and one batched edge-derivative
@@ -683,18 +689,25 @@ class LikelihoodEngine:
         Precondition: the CLV arena is current for `flat` (a
         `run_traversal(flat, full=True)` on any tier just ran; the gather
         indices resolve through the row map that traversal installed);
-        `root_z` is the root edge's branch vector."""
+        `root_z` is the root edge's branch vector.  `clv`, `scaler` and
+        `row_map` name another arena holding flat's CLVs (a fleet job's
+        slice of a stacked arena, fleet/batch.py) in place of the
+        engine's own, `gs` the plan (default: the engine's cached one)."""
         global GRAD_PASSES
         if self.sev is not None:
             raise RuntimeError("the whole-tree gradient pass needs the "
                                "dense arena; -S SEV pools keep the "
                                "per-branch route")
+        clv = self.clv if clv is None else clv
+        scaler = self.scaler if scaler is None else scaler
+        row_map = self.row_map if row_map is None else row_map
         C = self.num_branch_slots
-        gs = self._cached(self._grad_structs, flat,
-                          lambda: gradient.build_structure(flat,
-                                                           self.wave_width))
+        if gs is None:
+            gs = self._cached(self._grad_structs, flat,
+                              lambda: gradient.build_structure(
+                                  flat, self.wave_width))
         pre, ex_rows, ey_gidx, ez = gradient.grad_arrays(
-            gs, flat, self.row_map, C, root_z)
+            gs, flat, row_map, C, root_z)
         dev = self.device
         idx = torch.from_numpy(np.stack(pre[:5])).to(dev)
         zs = torch.from_numpy(np.stack(pre[5:])).to(device=dev,
@@ -706,18 +719,23 @@ class LikelihoodEngine:
         ezd = torch.from_numpy(ez).to(device=dev, dtype=self.dtype)
         out = self._outroot_arena()
         p, q = gs.roots
-        dq, _ = kernels.gather_child(self.tips, self.clv, self.scaler,
-                                     self._gidx(q), self.ntips)
-        dp, _ = kernels.gather_child(self.tips, self.clv, self.scaler,
-                                     self._gidx(p), self.ntips)
+
+        def gidx(num: int) -> int:
+            return num - 1 if num <= self.ntips else \
+                self.ntips + int(row_map[num])
+
+        dq, _ = kernels.gather_child(self.tips, clv, scaler, gidx(q),
+                                     self.ntips)
+        dp, _ = kernels.gather_child(self.tips, clv, scaler, gidx(p),
+                                     self.ntips)
         out[p - 1] = dq.to(out.dtype)
         out[q - 1] = dp.to(out.dtype)
         kernels.outroot_pass(self.models, self.block_part, self.tips,
-                             self.clv, self.scaler, out, tvp, self.scale_exp,
+                             clv, scaler, out, tvp, self.scale_exp,
                              self.ntips, self.site_rates)
         d1, d2 = gradient.edge_gradients(
-            self.models, self.block_part, self.weights, self.tips, self.clv,
-            self.scaler, out, eidx[0], eidx[1], ezd, C, self.ntips,
+            self.models, self.block_part, self.weights, self.tips, clv,
+            scaler, out, eidx[0], eidx[1], ezd, C, self.ntips,
             self.site_rates)
         GRAD_PASSES += 1
         d = self.group.allreduce(torch.stack([d1, d2]).cpu().numpy())

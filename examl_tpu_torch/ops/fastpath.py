@@ -548,6 +548,14 @@ def refresh_z(st: FastStructure, flat, num_slots: int, dtype, device):
     vectors permuted into packed chunk-slot order (canonical swap
     applied; padding slots at z=1, replay slots repeating their source
     entry's z).  Returns (zl, zr) [P, num_slots] tensors on `device`."""
+    zl, zr = refresh_z_host(st, flat, num_slots)
+    z = torch.from_numpy(np.stack([zl, zr])).to(device=device, dtype=dtype)
+    return z[0], z[1]
+
+
+def refresh_z_host(st, flat, num_slots: int):
+    """refresh_z's (zl, zr) as float64 host arrays, for a FastStructure or
+    a JobTable."""
     zl_f = flat.zl
     zr_f = flat.zr
     if zl_f.shape[1] != num_slots:
@@ -561,8 +569,90 @@ def refresh_z(st: FastStructure, flat, num_slots: int, dtype, device):
     zr = np.ones((P, num_slots))
     zl[ok] = np.where(sw, zr_f[src], zl_f[src])
     zr[ok] = np.where(sw, zl_f[src], zr_f[src])
-    z = torch.from_numpy(np.stack([zl, zr])).to(device=device, dtype=dtype)
-    return z[0], z[1]
+    return zl, zr
+
+
+# -- many jobs' tables over one stacked arena (the fleet, fleet/batch.py) ----
+
+
+class JobTable(NamedTuple):
+    """One job's launch table and packed child arrays on the host, before
+    any upload (build_structure's arrays): the unit `stack_tables`
+    stacks.  `refresh_z_host` reads its z_src / z_swap."""
+    launch: np.ndarray          # [n, 4] int32 (kind, base, slot, real)
+    lidx: np.ndarray            # [P] int32 packed left-child arena rows
+    ridx: np.ndarray
+    lcode: np.ndarray           # [P] int32 packed 0-based tip indices
+    rcode: np.ndarray
+    row_of: np.ndarray          # [2*ntips-1] node number -> row (-1 tips)
+    z_src: np.ndarray
+    z_swap: np.ndarray
+    max_write: int
+
+
+def job_table(flat, ntips: int) -> JobTable:
+    """The bounded layout's launch table of a FlatTraversal, on the host."""
+    (layout, row_of, _base, lidx, ridx, lcode, rcode, z_src,
+     z_swap) = structure_arrays(flat, ntips)
+    return JobTable(launch_table(layout), lidx, ridx, lcode, rcode, row_of,
+                    z_src, z_swap, layout.max_write)
+
+
+class StackedTable(NamedTuple):
+    """J jobs' launch tables as one table over a stacked arena of
+    `rows_per_job` rows a job (job j's rows from j * rows_per_job) and
+    their packed slots end to end (job j's from `slot0[j]`): the launch
+    table on the host, the packed child arrays and the dataflow table on
+    the device."""
+    launch: np.ndarray          # [n, 4] int32
+    lidx: torch.Tensor          # [P] int32, stacked arena rows
+    ridx: torch.Tensor
+    lcode: torch.Tensor
+    rcode: torch.Tensor
+    flow_rows: torch.Tensor     # [n + 1, 4] int32 (dataflow_table)
+    wait: torch.Tensor          # [P] int32
+    slot0: np.ndarray           # [J + 1] first packed slot of each job
+
+
+def stack_tables(tables, rows_per_job: int, device) -> StackedTable:
+    """One launch table for J jobs' tables over a stacked arena: job j's
+    rows keep their order, `base` moves by j * rows_per_job and `slot` by
+    the earlier jobs' slot counts; a packed child index moves by j *
+    rows_per_job only where it names an inner child (the left child of
+    kind 2, the right child of kinds 1 and 2: the rows dataflow_table's
+    wait bits read), tip codes index the one shared tip array.  The
+    dataflow table is built once over the stacked arrays, so its claim
+    order, its prefix sums and its checks (no row written twice, no row
+    read before an earlier table row wrote it) hold for the whole
+    batch.  The packed arrays go to the device in one transfer."""
+    launches, packed = [], []
+    slot0 = [0]
+    for j, t in enumerate(tables):
+        if t.max_write > rows_per_job - 1:
+            raise ValueError(f"job {j}'s chunk layout writes row "
+                             f"{t.max_write} of a {rows_per_job}-row arena")
+        off = j * rows_per_job
+        P = t.lidx.shape[0]
+        kind, base, slot, real = t.launch.T.astype(np.int64)
+        slot_kind = np.full(P, -1, np.int64)
+        slot_kind[np.repeat(slot, real) + np.arange(real.sum())
+                  - np.repeat(np.cumsum(real) - real, real)] = \
+            np.repeat(kind, real)
+        launches.append(np.stack([kind, base + off, slot + slot0[-1], real],
+                                 axis=1))
+        packed.append(np.stack([
+            t.lidx + np.where(slot_kind == 2, off, 0),
+            t.ridx + np.where(slot_kind >= 1, off, 0), t.lcode, t.rcode]))
+        slot0.append(slot0[-1] + P)
+    launch = np.concatenate(launches).astype(np.int32).reshape(-1, 4)
+    lidx, ridx, lcode, rcode = np.concatenate(packed, axis=1)
+    flow_rows, wait = dataflow_table(launch, lidx, ridx)
+    dev = torch.from_numpy(np.stack([lidx, ridx, lcode, rcode, wait]).astype(
+        np.int32)).to(device)
+    return StackedTable(launch=launch, lidx=dev[0], ridx=dev[1],
+                        lcode=dev[2], rcode=dev[3],
+                        flow_rows=torch.from_numpy(flow_rows).to(device),
+                        wait=dev[4], slot0=np.asarray(slot0, np.int64))
 
 
 # -- harness view ------------------------------------------------------------

@@ -455,10 +455,22 @@ def site_likelihoods(models: DeviceModels, block_part: torch.Tensor,
 
 def _segment_sum(values: torch.Tensor, seg: torch.Tensor,
                  num: int) -> torch.Tensor:
-    """Sums of values[..., i] over segments seg[i], along the last axis."""
-    out = torch.zeros(values.shape[:-1] + (num,), dtype=values.dtype,
-                      device=values.device)
-    return out.index_add_(values.dim() - 1, seg, values)
+    """Sums of values[..., i] over segments seg[i], along the last axis;
+    seg is nondecreasing (block_part and part_branch are, by
+    construction), so segment g is one run [offsets[g], offsets[g+1]).
+
+    One segment_reduce on either device.  With the segment axis first
+    and a trailing unit axis it takes the kernel that adds each
+    segment's values one after another from 0, in index order: the bits
+    of the CPU's index_add_, the same on every run (index_add_ adds by
+    atomics on the card), and the same whatever leading axes the values
+    carry, so a job inside a fleet batch sums exactly as alone.  Cost
+    O(values), whatever the segment count."""
+    offsets = torch.searchsorted(
+        seg, torch.arange(num + 1, dtype=seg.dtype, device=seg.device))
+    out = torch.segment_reduce(values.movedim(-1, 0).unsqueeze(-1), "sum",
+                               offsets=offsets, axis=0, unsafe=True)
+    return out.squeeze(-1).movedim(0, -1)
 
 
 def per_rate_site_lnls(models: DeviceModels, block_part: torch.Tensor,
@@ -499,18 +511,35 @@ def root_log_likelihood(models: DeviceModels, block_part: torch.Tensor,
                                     site_rates)
 
 
+def root_site_terms(models: DeviceModels, block_part: torch.Tensor, xp, sp,
+                    xq, sq, z: torch.Tensor, scale_exp: int,
+                    site_rates=None) -> torch.Tensor:
+    """Each site's unweighted log likelihood at the root branch [B, lane]
+    (float64): log L plus its scaler's log 2^-E per rescale."""
+    lsite = site_likelihoods(models, block_part, xp, xq, z, site_rates)
+    _, _, log_min = scale_constants(scale_exp)
+    lsite = lsite.clamp_min(torch.finfo(lsite.dtype).tiny)
+    return torch.log(lsite).to(ACC) + (sp + sq).to(ACC) * log_min
+
+
+def weighted_root_sums(weights: torch.Tensor, terms: torch.Tensor,
+                       block_part: torch.Tensor,
+                       num_parts: int) -> torch.Tensor:
+    """Per-partition lnL [..., M] of site terms [B, lane] under pattern
+    weights [..., B, lane] (one weight vector, or a batch of them)."""
+    site_lnl = weights.to(ACC) * terms
+    return _segment_sum(site_lnl.sum(dim=-1), block_part, num_parts)
+
+
 def root_log_likelihood_from(models: DeviceModels, block_part: torch.Tensor,
                              weights: torch.Tensor, xp, sp, xq, sq,
                              z: torch.Tensor, num_parts: int,
                              scale_exp: int,
                              site_rates=None) -> torch.Tensor:
     """root_log_likelihood over pre-gathered root CLVs."""
-    lsite = site_likelihoods(models, block_part, xp, xq, z, site_rates)
-    _, _, log_min = scale_constants(scale_exp)
-    lsite = lsite.clamp_min(torch.finfo(lsite.dtype).tiny)
-    site_lnl = weights.to(ACC) * (torch.log(lsite).to(ACC)
-                                  + (sp + sq).to(ACC) * log_min)
-    return _segment_sum(site_lnl.sum(dim=1), block_part, num_parts)
+    terms = root_site_terms(models, block_part, xp, sp, xq, sq, z,
+                            scale_exp, site_rates)
+    return weighted_root_sums(weights, terms, block_part, num_parts)
 
 
 def sumtable(models: DeviceModels, block_part: torch.Tensor,
@@ -556,11 +585,11 @@ def nr_derivatives(models: DeviceModels, block_part: torch.Tensor,
     d2lnl = (d2site / lsite).to(ACC) - dlnl * dlnl
     wacc = weights.to(ACC)
     M = models.eign.shape[0]
-    d1 = _segment_sum(_segment_sum((wacc * dlnl).sum(dim=-1), block_part,
-                                   M), models.part_branch, num_slots)
-    d2 = _segment_sum(_segment_sum((wacc * d2lnl).sum(dim=-1), block_part,
-                                   M), models.part_branch, num_slots)
-    return d1, d2
+    both = torch.stack([(wacc * dlnl).sum(dim=-1),
+                        (wacc * d2lnl).sum(dim=-1)])          # [2, ..., B]
+    d = _segment_sum(_segment_sum(both, block_part, M), models.part_branch,
+                     num_slots)
+    return d[0], d[1]
 
 
 def newton_raphson_branch(models: DeviceModels, block_part: torch.Tensor,

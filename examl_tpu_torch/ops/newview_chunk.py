@@ -158,7 +158,7 @@ def tip_products(pmat: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 
 def chunk_apply(clv, scaler, codes, table, block_part, launch, lidx, ridx,
                 lcode, rcode, pmat, scale_exp: int,
-                flow: Optional[Dataflow] = None):
+                flow: Optional[Dataflow] = None, u=None):
     """Run a traversal's launch table on the arena in place (see module
     docstring).
 
@@ -168,13 +168,16 @@ def chunk_apply(clv, scaler, codes, table, block_part, launch, lidx, ridx,
     rows) and lcode/rcode (tip indices) [P] int32; pmat [P, 2, M, R, K, K];
     flow the table's Dataflow with the arena's Ready flags, which the
     dataflow route needs (the engine passes its cached structure's).  The
-    plain version and the per-chunk route read no flow.
+    plain version and the per-chunk route read no flow.  u: the tip
+    products of pmat where the caller built them (the card's route reads
+    them; by default `tip_products(pmat, table)`).
     """
     if clv.device.type == "cpu":
         return chunk_apply_plain(clv, scaler, codes, table, block_part,
                                  launch, lidx, ridx, lcode, rcode, pmat,
                                  scale_exp)
-    return chunk_apply_cuda(clv, scaler, codes, tip_products(pmat, table),
+    return chunk_apply_cuda(clv, scaler, codes,
+                            tip_products(pmat, table) if u is None else u,
                             block_part, launch, lidx, ridx, lcode, rcode,
                             pmat, scale_exp, flow)
 
@@ -339,8 +342,8 @@ def _count(clv, launched: int) -> None:
 def _raise_on(err: int, what: str) -> None:
     from examl_tpu_torch.ops import _build
     if err != 0:
-        raise RuntimeError(f"newview_chunk {what} failed: CUDA error {err} "
-                           f"({_build.error_string(err)})")
+        raise _build.KernelError(f"newview_chunk {what} failed: CUDA error "
+                                 f"{err} ({_build.error_string(err)})")
 
 
 def _launch_chunks(clv, scaler, codes, u, block_part, launch, lidx, ridx,

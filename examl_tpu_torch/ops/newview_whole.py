@@ -287,8 +287,9 @@ def whole_apply_cuda(clv, scaler, codes, tips, block_part, meta, l_code,
                  ctypes.c_double(2.0 ** scale_exp), stream,
                  ctypes.byref(grid))
     if err != 0:
-        raise RuntimeError(f"newview_whole cooperative launch failed: CUDA "
-                           f"error {err} ({_build.error_string(err)})")
+        raise _build.KernelError(
+            f"newview_whole cooperative launch failed: CUDA error {err} "
+            f"({_build.error_string(err)})")
     LAUNCHES += 1
     LAUNCHES_BY_K[K] = LAUNCHES_BY_K.get(K, 0) + 1
     LAST_GRID = grid.value

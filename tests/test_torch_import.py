@@ -47,6 +47,13 @@ def test_port_imports_no_jax_and_no_examl_tpu():
                  "examl_tpu_torch.models.protein",
                  "examl_tpu_torch.models.lg4",
                  "examl_tpu_torch.cli.main",
+                 "examl_tpu_torch.cli.fleet",
+                 "examl_tpu_torch.fleet.batch",
+                 "examl_tpu_torch.fleet.bootstrap",
+                 "examl_tpu_torch.fleet.driver",
+                 "examl_tpu_torch.fleet.jobs",
+                 "examl_tpu_torch.fleet.quarantine",
+                 "examl_tpu_torch.fleet.seeds",
                  "examl_tpu_torch.cli.parse",
                  "examl_tpu_torch.search.checkpoint",
                  "examl_tpu_torch.search.convergence",

@@ -240,3 +240,24 @@ def test_root_lnl_sumtable_and_derivatives_match(num_slots):
                                   np.zeros(num_slots, bool), num_slots)
     np.testing.assert_allclose(tz, jz, rtol=1e-10)
     assert np.all(np.abs(tz - z0) > 1e-6)      # the NR actually moved
+
+
+@pytest.mark.parametrize("lanes", [(), (1,), (5,), (3, 4)])
+def test_segment_sum_adds_each_run_in_index_order(lanes):
+    """The site sum: per segment (a run of the nondecreasing ids, empty
+    runs included) the values added one after another from 0, which is
+    index_add_'s order on the CPU, and each lane's bits the same whatever
+    leading axes it shares the call with."""
+    rng = np.random.default_rng(17)
+    seg = torch.as_tensor(np.sort(rng.choice([0, 1, 3, 4], 300)))
+    v = torch.as_tensor(rng.standard_normal(lanes + (300,)) * 1e3)
+    got = tk._segment_sum(v, seg, 6)
+    ref = torch.zeros(lanes + (6,), dtype=v.dtype).index_add_(v.dim() - 1,
+                                                              seg, v)
+    assert got.shape == lanes + (6,)
+    assert torch.equal(got, ref)
+    assert not got[..., 2].any() and not got[..., 5].any()
+    if lanes:
+        one = tk._segment_sum(v.reshape(-1, 300)[-1], seg, 6)
+        assert torch.equal(got.reshape(-1, 6)[-1], one)
+
