@@ -44,11 +44,23 @@ AA + BIN ones and sixteen 64-taxon gene trees as one batch each, one B1 launch t
 stacked arena, each job's arena rows and lnL held bit for bit to the
 job evaluated alone; 64 bootstrap replicates as one CLV pass and one
 batched reduction; and `-b`, `-N` with smoothing cycles, `--serve` and
-`-R` through the CLI.
+`-R` through the CLI.  The run's instruments and in-process resilience
+(phase 25): `-f d` with `--metrics --ledger --trace-events` (the
+artifacts parsed, the trace balanced, the dispatch counter and the
+card's peak memory held against B1's launches and the arena) and `-f e
+--profile` (B1 in the trace); the real-size evaluate with the
+instruments off, traced and profiled, in turns; `engine.nonfinite` on
+it (the wave-scan retry timed, its lnL held to the clean one);
+`mem.oom` and `mem.pressure` on the fleet batch of phase 23 (each job's
+lnL bit for bit as alone); a SIGTERM to a `-f d` process (exit 75) and
+its `-R` (phase 7's lnL).
 Every phase is fatal: any failure exits non-zero before the result
 line.
 
     python3 chip_smoke.py [--seed N]     # one card
+    python3 chip_smoke.py --host-ab DIR  # the real-size evaluate and -f d
+                                         # against the port of the tree
+                                         # at DIR, instruments off, in turns
 
 Output: progress and numbers on the earlier lines (each phase with its
 seconds); the card's name and power limit; one line {"kernels": [...]}
@@ -190,7 +202,12 @@ FLEET_GENE_JOBS, FLEET_GENE = 16, (64, 2048)
 # iteration as the median of MANY_NR_CALLS calls.
 MANY_TAXA, MANY_PARTS, MANY_WIDTH = 512, 1024, 128
 SEGSUM_LANES, MANY_NR_CALLS = (1, 32, 256), 20
-NPHASES = 24
+# Phase 25: evaluates per block of the instruments' turns, and the spans
+# timed alone for the host cost of one.
+INSTR_BLOCK, SPAN_COST_SPANS = 6, 2000
+# `--host-ab`: timed real-size evaluates and `-f d` runs on each side.
+HOST_AB_EVALUATES, HOST_AB_FD_RUNS = 40, 2
+NPHASES = 25
 
 
 class SmokeFailure(RuntimeError):
@@ -4618,6 +4635,534 @@ def phase_fleet(device, setup: dict, fd: dict, out_dir: str, seed: int,
     return out
 
 
+# -- phase 25: the run's instruments and in-process resilience -----------------
+
+
+def balanced_trace(path: str) -> dict:
+    """Span names and counts of one trace file (the port's reader), its
+    B/E pairs held balanced per (thread, name)."""
+    from examl_tpu_torch.obs import trace
+    evs = trace.read_events(path)
+    depth, names = {}, {}
+    for e in evs:
+        if e.get("ph") in ("B", "E"):
+            k = (e["tid"], e["name"])
+            depth[k] = depth.get(k, 0) + (1 if e["ph"] == "B" else -1)
+            check(depth[k] >= 0, f"{path}: E before B for {e['name']}")
+            if e["ph"] == "B":
+                names[e["name"]] = names.get(e["name"], 0) + 1
+    check(all(v == 0 for v in depth.values()),
+          f"{path}: unbalanced spans {[k for k, v in depth.items() if v]}")
+    return {"events": len(evs), "spans": names}
+
+
+def instruments_cli(device, fd: dict, base: str) -> dict:
+    """(a) -f d on phase 7's alignment with --metrics --ledger
+    --trace-events, and -f e with --profile: the artifacts parse, the
+    trace is balanced, the dispatch counter covers B1's launches, the
+    card's peak memory covers the arena, and the profile holds B1."""
+    import torch
+    from examl_tpu_torch.obs import ledger
+    out = {}
+    art = os.path.join(base, "fd_obs")
+    workdir = os.path.join(base, "fd")
+    torch.cuda.reset_peak_memory_stats(device)
+    rc, wall, counts, info = run_cli(
+        ["-s", fd["aln"], "-t", fd["start_tree"], "-i", "5", "--metrics",
+         os.path.join(art, "m.json"), "--ledger", os.path.join(art, "led"),
+         "--trace-events", os.path.join(art, "tr")], device, workdir)
+    check(rc == 0, f"-f d with the instruments returned {rc}")
+    check_tier(counts, "chunk", "-f d CLI with the instruments")
+    final = float(re.search(r"Likelihood of best tree: (\S+)",
+                            info).group(1))
+    check(abs(final - fd["final_lnl"]) <= 1e-6 * abs(fd["final_lnl"]),
+          f"-f d with the instruments ended at {final!r}, without them "
+          f"at {fd['final_lnl']!r}")
+    with open(os.path.join(art, "m.json")) as f:
+        snap = json.load(f)
+    c, g = snap["counters"], snap["gauges"]
+    check(c.get("engine.dispatch_count", 0) >= counts["b1"] > 0,
+          f"engine.dispatch_count {c.get('engine.dispatch_count')} below "
+          f"B1's {counts['b1']} launches")
+    arena = max(v for k, v in g.items()
+                if k.startswith("engine.clv_arena_bytes."))
+    check(g.get("mem.device.0.peak", 0) >= arena > 0,
+          f"mem.device.0.peak {g.get('mem.device.0.peak')} below the "
+          f"arena's {arena} bytes")
+    events = ledger.read_events(os.path.join(art, "led",
+                                             "ledger.merged.jsonl"))
+    seq = [(e["kind"], e.get("name"), e.get("status")) for e in events
+           if e["kind"] in ("run", "phase")]
+    check(seq[0] == ("run", None, "start") and seq[-1][0] == "run"
+          and ("phase", "inference (-f d)", "end") in seq,
+          f"ledger run/phase sequence {seq}")
+    tr = balanced_trace(os.path.join(art, "tr", "trace.p0.jsonl"))
+    check(any(n.startswith("engine:") for n in tr["spans"])
+          and any(n.startswith("phase:") for n in tr["spans"]),
+          f"trace spans {sorted(tr['spans'])[:20]}")
+    check(os.path.exists(os.path.join(art, "tr", "summary.json")),
+          "no trace summary.json")
+    programs = snap.get("programs", [])
+    check(any(r["family"] == "newview_chunk" for r in programs),
+          f"no newview_chunk row in the program table ({programs[:2]})")
+    out["fd"] = {"wall_s": wall, "final_lnl": final, "counts": counts,
+                 "dispatch_count": c["engine.dispatch_count"],
+                 "traffic_bytes": c.get("engine.traffic_bytes"),
+                 "sched_cache": {k: c.get(f"engine.sched_cache.{k}", 0)
+                                 for k in ("hit", "miss", "evictions")},
+                 "peak_bytes": g.get("mem.device.0.peak"),
+                 "arena_bytes": arena,
+                 "trace_events": tr["events"],
+                 "span_counts": dict(sorted(tr["spans"].items(),
+                                            key=lambda kv: -kv[1])[:12]),
+                 "ledger_events": len(events),
+                 "program_rows": len(programs),
+                 "programs": [{k: r.get(k) for k in (
+                     "family", "key", "source", "registers", "spill_stores")}
+                     for r in programs]}
+    log(f"  -f d with --metrics/--ledger/--trace-events: {wall:.1f} s "
+        f"(without {fd['wall_s']:.1f} s in phase 7), lnL {final!r}; "
+        f"dispatch_count {c['engine.dispatch_count']} >= B1 "
+        f"{counts['b1']}; peak {g.get('mem.device.0.peak', 0) / 1e6:.1f} MB >= "
+        f"arena {arena / 1e6:.1f} MB; {tr['events']} trace events, "
+        f"{len(events)} ledger events, {len(programs)} program rows")
+    prof = os.path.join(base, "fe_profile")
+    rc, wall, counts, info = run_cli(
+        ["-s", fd["aln"], "-t", fd["start_tree"], "-f", "e", "--profile",
+         prof], device, os.path.join(base, "fe"))
+    check(rc == 0, f"-f e --profile returned {rc}")
+    path = os.path.join(prof, "torch_trace.p0.json")
+    with open(path) as f:
+        text = f.read()
+    b1 = text.count("newview_flow_kernel") + text.count(
+        "newview_chunk_kernel")
+    check(b1 > 0 and counts["b1"] > 0,
+          f"the --profile trace ({len(text)} bytes) holds no kernel B1 "
+          f"launch ({counts['b1']} counted)")
+    out["fe_profile"] = {"wall_s": wall, "trace_bytes": len(text),
+                         "b1_events": b1, "b1_launches": counts["b1"]}
+    log(f"  -f e --profile: {wall:.1f} s, a {len(text) / 1e6:.1f} MB "
+        f"Chrome trace with {b1} B1 kernel events for {counts['b1']} "
+        "launches")
+    return out
+
+
+def instruments_evaluate(device, setup: dict, base: str) -> dict:
+    """(b) the real-size DNA evaluate, median ms with every instrument
+    off, with tracing and the ledger on, and under torch.profiler with
+    its annotations, in turns (off, traced, profiled, profiled, traced,
+    off; INSTR_BLOCK evaluates a block), and the host cost of one traced
+    span alone; (c) `engine.nonfinite` on it: the wave-scan retry timed
+    and its lnL held to the clean one."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from examl_tpu_torch import obs
+    from examl_tpu_torch.obs import ledger, trace
+    from examl_tpu_torch.resilience import faults
+    inst, tree = real_instance(setup, device, "chunk")
+
+    def walls(k):
+        out = []
+        for _ in range(k):
+            sync(device)
+            t0 = time.perf_counter()
+            inst.evaluate(tree, full=True)
+            sync(device)
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    clean = inst.evaluate(tree, full=True)
+    runs = {"off": [], "traced": [], "profiled": []}
+    events = spans = 0
+    reset_counts()
+    for i, mode in enumerate(("off", "traced", "profiled", "profiled",
+                              "traced", "off")):
+        if mode == "off":
+            runs[mode] += walls(INSTR_BLOCK)
+        elif mode == "traced":
+            tdir = os.path.join(base, f"eval_trace{i}")
+            shutil.rmtree(tdir, ignore_errors=True)
+            trace.enable(tdir, procid=0)
+            ledger.enable(tdir, proc=0)
+            try:
+                runs[mode] += walls(INSTR_BLOCK)
+            finally:
+                trace.finalize()
+                ledger.finalize()
+            tr = balanced_trace(os.path.join(tdir, "trace.p0.jsonl"))
+            events += tr["events"]
+            spans += sum(tr["spans"].values())
+        else:
+            obs.set_annotations(True)
+            try:
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]):
+                    runs[mode] += walls(INSTR_BLOCK)
+            finally:
+                obs.set_annotations(False)
+    counts = read_counts()
+    n = 6 * INSTR_BLOCK
+    check(counts["b1"] >= n and counts["full_traversals"] == n,
+          f"{n} evaluates counted {counts['b1']} B1 launches, "
+          f"{counts['full_traversals']} full traversals")
+    # The host cost of one traced span (a B and an E line, each written
+    # and flushed) against the shared no-op context when tracing is off.
+    span_us = {}
+    for mode in ("off", "traced"):
+        tdir = os.path.join(base, "span_cost")
+        if mode == "traced":
+            trace.enable(tdir, procid=0)
+        try:
+            t0 = time.perf_counter()
+            for _ in range(SPAN_COST_SPANS):
+                with obs.span("engine:probe"):
+                    pass
+            span_us[mode] = (time.perf_counter() - t0) * 1e6 / \
+                SPAN_COST_SPANS
+        finally:
+            trace.finalize()
+    # The bookkeeping every evaluate does with the instruments off
+    # (counters, the traffic model from the flat traversal, the no-op
+    # spans, the traffic window, the fault seams), timed alone.
+    eng = inst.engines[4]
+    flat = tree.flat_full_traversal(tree.centroid_branch())
+
+    def bookkeeping():
+        obs.inc("engine.dispatch_count")
+        obs.inc("engine.traversal_entries", flat.n)
+        nbytes = eng._traversal_traffic_bytes(flat)
+        with obs.device_span("engine:trav_eval"):
+            with obs.device_span("newview:chunk_apply"):
+                pass
+        eng._record_traffic(nbytes, "chunk", wall_s=5e-3)
+        faults.fire("engine.dispatch")
+        faults.fire("engine.nonfinite")
+
+    t0 = time.perf_counter()
+    for _ in range(SPAN_COST_SPANS):
+        bookkeeping()
+    off_us = (time.perf_counter() - t0) * 1e6 / SPAN_COST_SPANS
+    med = {k: float(np.median(v)) for k, v in runs.items()}
+    out = {"median_ms": med, "walls_ms": runs, "evaluates": n,
+           "b1_launches": counts["b1"],
+           "trace_events_per_evaluate": events / (2 * INSTR_BLOCK),
+           "spans_per_evaluate": spans / (2 * INSTR_BLOCK),
+           "span_us": span_us, "bookkeeping_us_per_evaluate": off_us}
+    log(f"  real-size evaluate in turns, median of {2 * INSTR_BLOCK} each: "
+        f"{med['off']:.3f} ms instruments off, {med['traced']:.3f} ms "
+        f"traced + ledger ({out['spans_per_evaluate']:.0f} spans an "
+        f"evaluate), {med['profiled']:.3f} ms under torch.profiler; one "
+        f"traced span {span_us['traced']:.1f} us on the host "
+        f"({span_us['off']:.2f} us off); the always-on bookkeeping "
+        f"{off_us:.1f} us an evaluate")
+    prior = os.environ.get(faults.ENV_VAR)
+    os.environ[faults.ENV_VAR] = "engine.nonfinite"
+    faults.reset()
+    obs.reset()
+    try:
+        reset_counts()
+        sync(device)
+        t0 = time.perf_counter()
+        got = inst.evaluate(tree, full=True)
+        sync(device)
+        retry_ms = (time.perf_counter() - t0) * 1e3 - med["off"]
+        counts = read_counts()
+    finally:
+        if prior is None:
+            os.environ.pop(faults.ENV_VAR, None)
+        else:
+            os.environ[faults.ENV_VAR] = prior
+        faults.reset()
+    c = obs.snapshot_counters()
+    check(c.get("engine.nonfinite_retries") == 1
+          and c.get("engine.nonfinite_recovered") == 1,
+          f"non-finite retry counters {c}")
+    check(abs(got - clean) <= 1e-6 * abs(clean),
+          f"the retried lnL {got!r} against the clean {clean!r}")
+    check(counts["partial_traversals"] == 1 and counts["b1"] >= 1,
+          f"the retry's counts {counts}: one wave-scan traversal expected "
+          "after the B1 traversal")
+    after = inst.evaluate(tree, full=True)
+    check(after == clean, f"the evaluate after the retry gave {after!r}, "
+          f"not the clean {clean!r} bit for bit")
+    out["nonfinite"] = {"clean_lnl": clean, "retried_lnl": got,
+                        "rel": abs(got - clean) / abs(clean),
+                        "retry_ms": retry_ms}
+    log(f"  engine.nonfinite: recovered on the wave-scan tier to "
+        f"{got!r} (clean {clean!r}, rel {out['nonfinite']['rel']:.2e}); "
+        f"the retry took {retry_ms:.1f} ms")
+    del inst, tree
+    release_memory()
+    return out
+
+
+def instruments_fleet(device, setup: dict, base: str, seed: int) -> dict:
+    """(d) `mem.oom` and `mem.pressure` on phase 23's batch of FLEET_JOBS
+    real-size start jobs: the injected OOM recovers by halving, the
+    pressure clamp cuts the stacked arena into the parts effective_cap
+    gives, and every job's lnL is bit for bit as alone."""
+    import torch
+    from examl_tpu_torch import obs
+    from examl_tpu_torch.fleet import jobs, quarantine
+    from examl_tpu_torch.fleet.driver import FleetDriver
+    from examl_tpu_torch.obs import ledger, programs
+    from examl_tpu_torch.resilience import faults
+    inst, _ = real_instance(setup, device, "chunk")
+    alone = {}
+    for k, spec in enumerate(jobs.make_jobs("start", FLEET_JOBS, seed)):
+        alone[spec.job_id] = inst.evaluate(inst.random_tree(seed=spec.seed),
+                                           full=True)
+    out = {}
+    prior = os.environ.get(faults.ENV_VAR)
+    sample_s = programs.MEM_SAMPLE_S
+    programs.MEM_SAMPLE_S = 0.0
+    try:
+        for name in ("mem.oom", "mem.pressure"):
+            spec = name
+            if name == "mem.pressure":
+                # A budget at 40 % of what is in use: effective_cap cuts
+                # the batch of 8 to parts of about 3.
+                release_memory()
+                used = torch.cuda.memory_allocated(device)
+                spec = f"mem.pressure:bytes={int(0.4 * used)}"
+            os.environ[faults.ENV_VAR] = spec
+            faults.reset()
+            obs.reset()
+            ldir = os.path.join(base, f"fleet_{name}")
+            shutil.rmtree(ldir, ignore_errors=True)
+            ledger.enable(ldir, proc=0)
+            reset_counts()
+            t0 = time.perf_counter()
+            try:
+                done = FleetDriver(
+                    inst, batch_cap=FLEET_JOBS,
+                    policy=quarantine.JobFaultPolicy(backoff_base=0.01)).run(
+                        jobs.make_jobs("start", FLEET_JOBS, seed))
+                sync(device)
+            finally:
+                ledger.finalize()
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+            c = obs.snapshot_counters()
+            for j in done:
+                check(j.done and not j.failed and j.lnl == alone[j.job_id],
+                      f"{spec}: job {j.job_id} lnL {j.lnl!r} against "
+                      f"{alone[j.job_id]!r} alone ({j.cause})")
+            evs = ledger.read_dir(ldir)
+            r = {"spec": spec, "wall_s": wall, "tables": counts["fleet_tables"],
+                 "b1": counts["b1"]}
+            if name == "mem.oom":
+                check(c.get("mem.oom_events") == 1
+                      and c.get("mem.oom_retries") == 1
+                      and c.get("fleet.bisect_dispatches", 0) >= 2,
+                      f"mem.oom: counters {c}")
+                r["bisect_dispatches"] = c["fleet.bisect_dispatches"]
+            else:
+                cut = [e for e in evs if e["kind"] == "mem.cap_shrunk"]
+                check(bool(cut), "mem.pressure: no mem.cap_shrunk event")
+                eff = cut[0]["effective"]
+                check(eff < FLEET_JOBS and counts["fleet_tables"] ==
+                      -(-FLEET_JOBS // eff),
+                      f"mem.pressure: effective cap {eff}, "
+                      f"{counts['fleet_tables']} tables")
+                r.update(effective_cap=eff, used_bytes=cut[0]["used_bytes"],
+                         budget_bytes=cut[0]["budget_bytes"])
+            out[name] = r
+            log(f"  {spec}: {FLEET_JOBS} jobs in {counts['fleet_tables']} "
+                f"stacked table(s), B1 {counts['b1']} launches, {wall:.1f} s; "
+                "every job's lnL bit for bit as alone"
+                + (f" (effective cap {r['effective_cap']})"
+                   if "effective_cap" in r else
+                   f" ({r['bisect_dispatches']} halving dispatches)"))
+    finally:
+        if prior is None:
+            os.environ.pop(faults.ENV_VAR, None)
+        else:
+            os.environ[faults.ENV_VAR] = prior
+        programs.MEM_SAMPLE_S = sample_s
+        faults.reset()
+    del inst
+    release_memory()
+    return out
+
+
+def instruments_sigterm(device, fd: dict, base: str) -> dict:
+    """(e) SIGTERM to a `-f d` run of the port's CLI in a process of its
+    own, as soon as it published a checkpoint: EXIT_PREEMPTED, then -R
+    ends within rel 1e-6 of the uninterrupted run (phase 7)."""
+    import signal
+    from examl_tpu_torch.resilience import exitcause
+    workdir = os.path.join(base, "sigterm")
+    shutil.rmtree(workdir, ignore_errors=True)
+    argv = ["-s", fd["aln"], "-t", fd["start_tree"], "-i", "5", "-n",
+            "smoke", "-w", workdir]
+    code = (f"import sys; sys.path.insert(0, {HERE!r}); "
+            "from examl_tpu_torch.cli.main import main; "
+            f"sys.exit(main({argv!r}))")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=HERE,
+                            stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True)
+    def published() -> bool:
+        return os.path.isdir(workdir) and bool(read_checkpoints(workdir))
+
+    try:
+        while not published():
+            check(proc.poll() is None and time.perf_counter() - t0 < 180,
+                  f"the -f d process ended ({proc.poll()}) before its "
+                  "first checkpoint")
+            time.sleep(0.05)
+        t_sig = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=180)
+        stop_s = time.perf_counter() - t_sig
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    err = proc.stderr.read()
+    check(rc == exitcause.EXIT_PREEMPTED,
+          f"SIGTERM: the -f d process exited {rc} "
+          f"{exitcause.exit_desc(rc)}, not {exitcause.EXIT_PREEMPTED}: "
+          f"{err[-2000:]}")
+    ckpts = read_checkpoints(workdir)
+    rc2, wall, counts, info = run_cli(["-s", fd["aln"], "-t",
+                                       fd["start_tree"], "-i", "5", "-R"],
+                                      device, workdir)
+    check(rc2 == 0, f"-R after the preemption returned {rc2}")
+    final = float(re.search(r"Likelihood of best tree: (\S+)",
+                            info).group(1))
+    rel = abs(final - fd["final_lnl"]) / abs(fd["final_lnl"])
+    check(rel <= 1e-6, f"-R after SIGTERM ended at {final!r}, the "
+          f"uninterrupted run at {fd['final_lnl']!r}")
+    out = {"rc": rc, "stop_s": stop_s, "checkpoints": len(ckpts),
+           "states": sorted(set(ckpts.values())), "resume_wall_s": wall,
+           "final_lnl": final, "rel": rel}
+    log(f"  SIGTERM after {len(ckpts)} checkpoint(s): exit {rc} "
+        f"(EXIT_PREEMPTED) {stop_s:.1f} s after the signal; -R ended at "
+        f"{final!r} in {wall:.1f} s (uninterrupted {fd['final_lnl']!r}, "
+        f"rel {rel:.1e})")
+    return out
+
+
+def phase_instruments(device, setup: dict, fd: dict, seed: int) -> dict:
+    """Phase 25: obs/ and resilience/ on the card, (a) to (e)."""
+    base = os.path.join(HERE, "build", "instruments")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    out = {}
+    phase_t = {}
+    for key, fn in (
+            ("cli", lambda: instruments_cli(device, fd, base)),
+            ("evaluate", lambda: instruments_evaluate(device, setup, base)),
+            ("fleet", lambda: instruments_fleet(device, setup, base, seed)),
+            ("sigterm", lambda: instruments_sigterm(device, fd, base))):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        phase_t[key] = time.perf_counter() - t0
+    out["parts_s"] = phase_t
+    return out
+
+
+
+def host_ab_child(root: str, seed: int, device=None) -> dict:
+    """One side of `--host-ab`: the port of the tree at `root` (this
+    process imports its package) with every instrument off, the
+    real-size DNA evaluate (median of HOST_AB_EVALUATES) and `-f d -i 5`
+    through the CLI on phase 7's alignment, HOST_AB_FD_RUNS times."""
+    import torch
+    import examl_tpu_torch
+    from examl_tpu_torch.io.bytefile import write_bytefile
+    from examl_tpu_torch.ops import _build
+    from examl_tpu_torch.tree.topology import Tree
+    pkg = os.path.dirname(os.path.abspath(examl_tpu_torch.__file__))
+    check(pkg == os.path.join(os.path.abspath(root), "examl_tpu_torch"),
+          f"imported {pkg}, not the package of {root}")
+    device = device or torch.device("cuda", 0)
+    _build.build_all()
+    setup = real_setup(TAXA, PARTITIONS, PART_WIDTH, seed)
+    inst, tree = real_instance(setup, device, "chunk")
+    for _ in range(3):
+        inst.evaluate(tree, full=True)
+    lnl, walls = timed_evaluates(inst, tree, device, HOST_AB_EVALUATES)
+    del inst, tree
+    release_memory()
+    base = os.path.join(root, "build", "host_ab")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    ad = synthetic_alignment(FD_TAXA, PARTITIONS, FD_WIDTH, seed)
+    aln = os.path.join(base, "fd_aln.binary")
+    write_bytefile(aln, ad)
+    start = os.path.join(base, "fd_start.nwk")
+    with open(start, "w") as f:
+        f.write(Tree.random(ad.taxon_names, seed, 1).to_newick(
+            ad.taxon_names) + "\n")
+    fd = []
+    for i in range(HOST_AB_FD_RUNS):
+        workdir = os.path.join(base, f"fd{i}")
+        os.makedirs(workdir)
+        rc, wall, _, info = run_cli(["-s", aln, "-t", start, "-i", "5"],
+                                    device, workdir)
+        check(rc == 0, f"-f d through the CLI returned {rc}")
+        fd.append({"wall_s": wall, "lnl": float(re.search(
+            r"Likelihood of best tree: (\S+)", info).group(1))})
+    return {"root": root, "lnl": lnl,
+            "evaluate_ms": [w * 1e3 for w in walls],
+            "evaluate_median_ms": float(np.median(walls)) * 1e3, "fd": fd}
+
+
+def host_ab(parent: str, seed: int) -> int:
+    """`--host-ab PARENT`: the host cost of this tree's port against the
+    port of the tree at PARENT (a `git archive` of the parent commit),
+    with every instrument off, in turns (parent, this, this, parent),
+    each side a child process of this script (`--host-ab-child`).
+    Prints both sides and writes chiprun_out/host_ab.json."""
+    parent = os.path.abspath(parent)
+    check(os.path.isdir(os.path.join(parent, "examl_tpu_torch")),
+          f"{parent} holds no examl_tpu_torch")
+    smi = nvidia_smi_line()
+    runs = []
+    for root in (parent, HERE, HERE, parent):
+        proc = subprocess.run(
+            [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+             "--seed", str(seed), "--host-ab-child", root],
+            capture_output=True, text=True, timeout=900)
+        sys.stderr.write(proc.stderr[-4000:])
+        check(proc.returncode == 0,
+              f"--host-ab-child {root} exited {proc.returncode}")
+        got = json.loads(proc.stdout.strip().splitlines()[-1])
+        got["side"] = "parent" if root == parent else "change"
+        runs.append(got)
+        log(f"  {got['side']}: evaluate median "
+            f"{got['evaluate_median_ms']:.3f} ms (min "
+            f"{min(got['evaluate_ms']):.3f}, max "
+            f"{max(got['evaluate_ms']):.3f}); -f d "
+            + ", ".join(f"{r['wall_s']:.2f} s" for r in got["fd"])
+            + f"; lnL {got['lnl']!r}, -f d {got['fd'][0]['lnl']!r}")
+    summary = {}
+    for side in ("parent", "change"):
+        mine = [r for r in runs if r["side"] == side]
+        summary[side] = {
+            "evaluate_median_ms": [r["evaluate_median_ms"] for r in mine],
+            "fd_wall_s": [f["wall_s"] for r in mine for f in r["fd"]],
+            "lnl": sorted({r["lnl"] for r in mine}),
+            "fd_lnl": sorted({f["lnl"] for r in mine for f in r["fd"]})}
+    same = (summary["parent"]["lnl"] == summary["change"]["lnl"]
+            and summary["parent"]["fd_lnl"] == summary["change"]["fd_lnl"])
+    for side, v in summary.items():
+        log(f"  {side}: evaluate medians "
+            + ", ".join(f"{x:.3f}" for x in v["evaluate_median_ms"])
+            + " ms; -f d walls "
+            + ", ".join(f"{x:.2f}" for x in v["fd_wall_s"]) + " s")
+    log(f"  lnLs the same on both sides: {same}")
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "host_ab.json"), "w") as f:
+        json.dump({"card": smi, "runs": runs, "summary": summary,
+                   "same_lnl": same}, f, indent=1)
+    print(smi)
+    return 0
+
 def device_breakdown(fn, device, top: int = 8) -> dict:
     """Device time of one call of fn() by kernel, from torch.profiler:
     busy ms (sum of kernel self times), the wall ms of the call, the idle
@@ -4882,6 +5427,9 @@ def main(argv=None) -> int:
     ap.add_argument("--site-rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--site-port", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--site-arg", help=argparse.SUPPRESS)
+    # The host cost against another tree's port (see `host_ab`).
+    ap.add_argument("--host-ab", metavar="PARENT")
+    ap.add_argument("--host-ab-child", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
@@ -4889,6 +5437,10 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda is not available; this script runs "
               "on the card only", file=sys.stderr)
         return 2
+    if args.host_ab_child:
+        sys.path.insert(0, os.path.abspath(args.host_ab_child))
+        print(json.dumps(host_ab_child(args.host_ab_child, args.seed)))
+        return 0
     sys.path.insert(0, HERE)
     try:
         from examl_tpu_torch.ops import _build
@@ -4904,6 +5456,8 @@ def main(argv=None) -> int:
             print(f"chip_smoke: rank {args.site_rank} FAILED: {exc}",
                   file=sys.stderr)
             return 1
+    if args.host_ab:
+        return host_ab(args.host_ab, args.seed)
     device = torch.device("cuda", 0)
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -5032,11 +5586,21 @@ def main(argv=None) -> int:
         release_memory()
         fleet = phase_fleet(device, setup, search, out_dir, args.seed, REPS)
 
+
         phase("report")
         kernels = kernels_line(real, real_whole, search, scan, grad,
                                anchor_whole, restart, aa_cli, real_aa, fq,
                                sev, sev_cli, cases, whole_cases, bf16,
                                site, fleet)
+
+        phase("instruments on the card: -f d with --metrics/--ledger/"
+              "--trace-events, -f e --profile, real-size evaluate off/"
+              "traced/profiled, engine.nonfinite, mem.oom and mem.pressure "
+              "on the fleet batch, SIGTERM then -R")
+        release_memory()
+        instruments = phase_instruments(device, setup, search, args.seed)
+        phase_s[last[1]] = time.perf_counter() - last[0]
+        log(f"  ({phase_s[last[1]]:.1f} s)")
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -5051,7 +5615,7 @@ def main(argv=None) -> int:
               "aa_cli": aa_cli, "real_size_aa": real_aa, "quartets": fq,
               "real_size_quartets": real_fq, "sev": sev,
               "sev_cli": sev_cli, "bf16": bf16, "site_parallel": site,
-              "fleet": fleet,
+              "fleet": fleet, "instruments": instruments,
               "ptxas": ptxas,
               "wall_s": time.perf_counter() - t_start}
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
@@ -5130,6 +5694,14 @@ def main(argv=None) -> int:
         "many_parts": fleet["many_parts"],
         "cli": {k: {m: v[m] for m in ("wall_s", "jobs", "done")}
                 for k, v in fleet["cli"].items()}}}))
+    log(json.dumps({"instruments": {
+        "evaluate_median_ms": instruments["evaluate"]["median_ms"],
+        "spans_per_evaluate": instruments["evaluate"]["spans_per_evaluate"],
+        "nonfinite_retry_ms": instruments["evaluate"]["nonfinite"][
+            "retry_ms"],
+        "fd_wall_s": instruments["cli"]["fd"]["wall_s"],
+        "fleet": instruments["fleet"], "sigterm": instruments["sigterm"],
+        "parts_s": instruments["parts_s"]}}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -107,9 +107,12 @@ def run_fleet(args, inst, files) -> int:
 
 
 def _reject_job(files, job_id, reason: str) -> None:
-    """Admission rejection: an operator line; the driver never sees the
-    spec, so a rejected job can neither crash the loop nor occupy the
-    queue."""
+    """Admission rejection: ledger event + counter + operator line — the
+    driver never sees the spec, so a rejected job can neither crash the
+    loop nor occupy the queue."""
+    from examl_tpu_torch import obs
+    obs.inc("fleet.rejected")
+    obs.ledger_event("job.rejected", job=job_id, reason=reason[:200])
     files.info("fleet: job " + (f"{job_id!r} " if job_id else "")
                + f"REJECTED at admission ({reason})")
 
@@ -122,8 +125,10 @@ def serve_loop(args, driver, files, resume):
     parse but cannot run (bad trees, duplicate ids, malformed lines) are
     rejected instead of joining the queue, and ingestion pauses while
     --serve-max-pending jobs are pending."""
+    from examl_tpu_torch import obs
     from examl_tpu_torch.fleet import quarantine
     from examl_tpu_torch.fleet.jobs import parse_jobs_lines
+    from examl_tpu_torch.resilience import heartbeat, preempt
 
     max_pending = max(1, int(getattr(args, "serve_max_pending", 10000)))
     processed = 0
@@ -202,6 +207,7 @@ def serve_loop(args, driver, files, resume):
                         driver.restore_jobs(resume, fresh)
                     files.info(f"fleet: {len(fresh)} new jobs from "
                                f"{args.serve} (queue {len(driver.jobs)})")
+                obs.gauge("fleet.jobs_total", len(driver.jobs))
             else:
                 processed = len(lines)        # whitespace/comments only
         if driver.pending():
@@ -212,6 +218,8 @@ def serve_loop(args, driver, files, resume):
             break
         if args.serve_poll <= 0:
             break
+        heartbeat.phase_beat("SERVE")
+        preempt.check_after_checkpoint(log=files.info)
         time.sleep(args.serve_poll)
     return driver.jobs
 

@@ -8,6 +8,8 @@ dispatched at `main` :2719-2781).
         [-S] [-p seed] [-Y groups | -r N] [-I N] [-e epsilon] \\
         [--newview chunk|whole] [--batch-scan auto|on|off] \\
         [--clv-dtype same|bf16] [--auto-prot ml|bic|aic|aicc] \\
+        [--metrics FILE] [--ledger DIR] [--trace-events DIR] \\
+        [--profile DIR] [--inject-fault SPEC ...] \\
         [--coordinator HOST:PORT --nprocs N --procid K]
     python -m examl_tpu_torch.cli.main -s aln.binary -n RUN \\
         (-b K -t tree | -N K | --serve jobs.jsonl) [--fleet-batch J] \\
@@ -65,6 +67,21 @@ kernel B1's bfloat16-storage instances; it is refused with `--newview
 whole` and on a float64 run.  `main` runs on the card in float32 unless
 the caller passes `device="cpu"` (float64 there) or a `dtype`.
 
+The run's instruments (obs/) and in-process resilience (resilience/), as
+in the JAX package: `--metrics FILE` writes the metrics snapshot
+(counters, gauges, timers with latency histograms, the program table) at
+exit and autoflushes it on the heartbeat's clock while the run lasts;
+`--ledger DIR` the per-rank run ledger (`ledger.p<rank>.jsonl`, merged
+into `ledger.merged.jsonl`; next to the metrics file by default);
+`--trace-events DIR` Chrome-trace span files (`trace.p<rank>.jsonl`,
+rank 0 merges `summary.json`); `--profile DIR` a torch.profiler trace of
+the inference phase (CPU, plus CUDA on the card); `--inject-fault SPEC`
+arms a fault point (resilience/faults.py).  SIGTERM/SIGINT write an
+emergency checkpoint at the next checkpoint site and exit with
+EXIT_PREEMPTED (75), resumable with `-R`; a memory budget the fleet
+cannot get under exits with EXIT_ALLOC_OOM (76).  The metrics snapshot,
+the trace and the ledger are finalized even for a failed run.
+
 `--coordinator HOST:PORT --nprocs N --procid K` runs this process as rank
 K of a site-parallel run of N ranks, one process per GPU
 (parallel/launch.py): rank K runs on `cuda:(K mod device_count)`, reads
@@ -78,6 +95,8 @@ ranks' workdir is DIR/.proc<K>, and they restore from DIR).
 from __future__ import annotations
 
 import argparse
+import contextlib
+import json
 import math
 import os
 import sys
@@ -87,11 +106,12 @@ from typing import List
 
 import numpy as np
 
-from examl_tpu_torch import config
+from examl_tpu_torch import config, obs
 from examl_tpu_torch.constants import ZMAX, ZMIN
 from examl_tpu_torch.models.lg4 import LG4Params
 from examl_tpu_torch.ops.engine import NEWVIEW_TIERS, POOLED_TIER
 from examl_tpu_torch.parallel import launch
+from examl_tpu_torch.resilience import faults, heartbeat, memgov, preempt
 
 # State letters of the model file's "rate X <-> Y" and "freq pi(X)" lines.
 _STATE_LETTERS = {"DNA": "ACGT", "AA": "ARNDCQEGHILKMFPSTWYV", "BIN": "01"}
@@ -210,6 +230,36 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="evaluation cycles per tree job; cycles after the "
                         "first smooth branch lengths before re-scoring "
                         "(default 1)")
+    o = ap.add_argument_group("instruments and fault injection")
+    o.add_argument("--inject-fault", dest="inject_fault",
+                   action="append", metavar="SPEC", default=None,
+                   help="arm a named fault-injection point (repeatable; "
+                        "resilience/faults.py): "
+                        "point[@rank=R][:after=N][:attempt=K]"
+                        "[:signal=NAME][:hang[=S]] — e.g. "
+                        "search.kill:after=10 or "
+                        "search.kill@rank=1:after=10 (rank 1 only); "
+                        "equivalent to EXAML_FAULTS entries")
+    o.add_argument("--profile", dest="profile_dir", default=None,
+                   help="write a torch.profiler trace of the inference "
+                        "phase to this directory (Chrome trace; CPU, plus "
+                        "CUDA on the card)")
+    o.add_argument("--metrics", dest="metrics_file", default=None,
+                   help="write the runtime metrics-registry snapshot "
+                        "(dispatch/compile/cache counters, phase timers) "
+                        "to this JSON file at exit (process 0 only)")
+    o.add_argument("--trace-events", dest="trace_events_dir", default=None,
+                   help="write Chrome-trace/Perfetto span events to "
+                        "per-process JSONL files in this directory "
+                        "(trace.p<procid>.jsonl; open in ui.perfetto.dev)")
+    o.add_argument("--ledger", dest="ledger_dir", default=None,
+                   help="write the append-only run ledger (phases, "
+                        "faults, checkpoint cycles, fleet jobs) to "
+                        "per-rank JSONL files in this directory "
+                        "(ledger.p<procid>.jsonl; merged into "
+                        "ledger.merged.jsonl at exit).  Defaults to the "
+                        "--metrics file's directory when --metrics is "
+                        "given")
     launch.add_launch_args(ap)
     return ap
 
@@ -234,6 +284,7 @@ class RunFiles:
         self.treefile_path = f"{pre}TreeFile.{run_id}"
         self.quartets_path = f"{pre}quartets.{run_id}"
         self.start_time = time.time()
+        self._phases = {}
         if not append and primary:
             for p in (self.info_path, self.log_path):
                 open(p, "w").close()
@@ -244,6 +295,34 @@ class RunFiles:
         print(msg)
         with open(self.info_path, "a") as f:
             f.write(msg + "\n")
+
+    # -- per-phase wall-time accounting: `phase.<name>` timers, `phase:*`
+    # spans and ledger `phase` events, as in the JAX CLI --------------------
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        t0 = time.time()
+        obs.ledger_event("phase", name=name, status="begin")
+        try:
+            with obs.span(f"phase:{name}", cat="phase"):
+                yield
+        finally:
+            dt = time.time() - t0
+            self._phases[name] = self._phases.get(name, 0.0) + dt
+            obs.observe(f"phase.{name}", dt)
+            obs.ledger_event("phase", name=name, status="end",
+                             seconds=round(dt, 3))
+
+    def report_phases(self) -> None:
+        if not self._phases:
+            return
+        total = time.time() - self.start_time
+        self.info("")
+        self.info("Wall-clock by phase:")
+        for name, dt in self._phases.items():
+            pct = 100.0 * dt / total if total > 0 else 0.0
+            self.info(f"  {name:24s} {dt:10.2f} s  ({pct:5.1f}%)")
+        self.info(f"  {'total':24s} {total:10.2f} s")
 
     def log_lnl(self, lnl: float) -> None:
         if not self.primary:
@@ -395,6 +474,9 @@ def run_search(args, inst, files: RunFiles) -> int:
         if conv is not None:
             extras = dict(extras, rf_history=conv.to_blob())
         mgr.write(state, extras, inst, tree)
+        # The checkpoint just written is coherent: a pending SIGTERM /
+        # SIGINT exits resumable here (PreemptCheckpointed).
+        preempt.check_after_checkpoint(log=files.info)
 
     res = compute_big_rapid(inst, tree, opts, convergence_cb=conv,
                             checkpoint_cb=checkpoint_cb, resume=resume)
@@ -485,13 +567,16 @@ def run_tree_evaluation(args, inst, files: RunFiles) -> int:
         inst.evaluate(tree, full=True)
 
         def ckpt_cb(state: str, extras: dict, i=i, tree=tree) -> None:
-            if time.time() - last_ckpt[0] < MID_TREE_CHECKPOINT_S:
+            # A pending preemption writes regardless of the cadence.
+            if (time.time() - last_ckpt[0] < MID_TREE_CHECKPOINT_S
+                    and not preempt.requested()):
                 return
             merged = dict(extras)
             merged.update(tree_iteration=i, results=results, lnls=lnls,
                           mid_tree=True)
             mgr.write(state, merged, inst, tree)
             last_ckpt[0] = time.time()
+            preempt.check_after_checkpoint(log=files.info)
 
         if fast and i > 0:
             tree_evaluate(inst, tree, 2.0)
@@ -506,6 +591,8 @@ def run_tree_evaluation(args, inst, files: RunFiles) -> int:
         mgr.write("MOD_OPT", {"tree_iteration": i + 1, "results": results,
                               "lnls": lnls}, inst, tree)
         last_ckpt[0] = time.time()
+        heartbeat.beat("TREE_EVAL")
+        preempt.check_after_checkpoint(log=files.info)
     best = max(range(len(lnls)), key=lambda i: lnls[i])
     files.info(f"Evaluated {len(lnls)} trees; best is tree {best} "
                f"with likelihood {lnls[best]:.6f}")
@@ -707,25 +794,150 @@ def main(argv=None, device=None, dtype=None) -> int:
         ap.error(f"--newview whole cannot combine with --clv-dtype "
                  f"{args.clv_dtype}: kernel B2 has no bfloat16-storage "
                  "instance, so full traversals take the chunk tier")
-    # Join the run's process group before any output: only rank 0 writes
-    # run files; the others compute alike with their workdir diverted.
-    group = launch.init_distributed(args)
+    if args.inject_fault:
+        try:
+            faults.parse_spec(",".join(args.inject_fault))
+        except ValueError as exc:
+            ap.error(f"--inject-fault: {exc}")
+    # One run = one record: callers invoking main() repeatedly in one
+    # process must not accumulate counters, fault hits, a heartbeat
+    # stream or a ledger across runs.
+    from examl_tpu_torch.obs import ledger as _ledger
+    from examl_tpu_torch.obs import programs as _programs
+    obs.reset()
+    _programs.reset()
+    faults.reset()
+    heartbeat.reset()
+    memgov.reset()
+    _ledger.reset()
+    prior_env = {k: os.environ.get(k) for k in (
+        faults.ENV_VAR, _ledger.ENV_VAR, heartbeat.PROCID_VAR)}
     try:
-        return _run(args, group, device, dtype, storage)
+        for spec in (args.inject_fault or []):
+            faults.arm(spec)
+        # The memory-budget knobs are read here, once per run.
+        memgov.configure(memgov.knobs_from_env())
+        # Join the run's process group before any output: only rank 0
+        # writes run files; the others compute alike with their workdir
+        # diverted.
+        group = launch.init_distributed(args)
+        try:
+            return _instrumented_run(args, group, device, dtype, storage)
+        finally:
+            launch.shutdown(group)
     finally:
-        launch.shutdown(group)
+        # Fault arming, the ledger export and the rank identity are
+        # per-run: callers in the same process inherit none of them.
+        for key, val in prior_env.items():
+            if val is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = val
 
 
-def _run(args, group, device, dtype, storage) -> int:
-    from examl_tpu_torch.instance import PhyloInstance
-
+def _instrumented_run(args, group, device, dtype, storage) -> int:
+    """The run wrapped in its instruments (the JAX CLI's run wrapper):
+    trace files, the ledger and its `run` events, the metrics autoflush
+    and exit snapshot, the log sink into ExaML_info, the heartbeat, and
+    the preemption handlers.  The snapshot, the trace and the ledger are
+    finalized in a `finally`, so a failed run leaves them too."""
+    from examl_tpu_torch.obs import ledger as _ledger
     shared_dir = args.workdir
     if group.size > 1:
         device = launch.use_rank_device(group.rank, device)
+        # Rank-targeted fault specs (`point@rank=R`) and the heartbeat
+        # read the rank from EXAML_PROCID.
+        os.environ[heartbeat.PROCID_VAR] = str(group.rank)
         if group.rank:
             args.workdir = os.path.join(args.workdir, f".proc{group.rank}")
     files = RunFiles(args.workdir, args.run_id, append=args.restart,
                      primary=group.rank == 0, shared_dir=shared_dir)
+    if args.trace_events_dir:
+        launch.enable_process_tracing(args.trace_events_dir, log=files.info)
+    if args.profile_dir or args.trace_events_dir:
+        obs.set_annotations(True)
+    ledger_dir = _ledger.default_dir(args.ledger_dir, args.metrics_file)
+    if ledger_dir:
+        lpath = obs.enable_ledger(ledger_dir, proc=group.rank)
+        if lpath:
+            # Exported so subprocesses append to the same timeline.
+            os.environ[_ledger.ENV_VAR] = ledger_dir
+            files.info(f"run ledger -> {lpath}")
+    obs.ledger_event("run", status="start", run_id=args.run_id,
+                     mode=args.mode, restart=bool(args.restart),
+                     rank=group.rank,
+                     attempt=os.environ.get(faults.ATTEMPT_VAR))
+    # Periodic --metrics flush on the heartbeat's clock: a killed process
+    # leaves its last-known counters (the exit snapshot below wins when
+    # the run ends normally).
+    if args.metrics_file and files.primary:
+        obs.set_autoflush(args.metrics_file)
+    obs.set_log_sink(files.info)
+    # SIGTERM/SIGINT only set a flag; the next checkpoint site turns it
+    # into an emergency checkpoint and EXIT_PREEMPTED (no-op off the main
+    # thread).
+    preempt_installed = preempt.install(log=obs.log)
+    launch.install_heartbeat(group, log=files.info)
+    rc = 1
+    try:
+        rc = _run(args, group, device, dtype, storage, files)
+        return rc
+    except preempt.PreemptCheckpointed as exc:
+        obs.ledger_event("run", status="preempted", signame=exc.signame)
+        files.info(f"run preempted ({exc.signame}): emergency checkpoint "
+                   "written; restart with -R to resume")
+        rc = preempt.EXIT_PREEMPTED
+        return rc
+    except memgov.MemoryBudgetExhausted as exc:
+        obs.ledger_event("run", status="alloc-oom", error=str(exc)[:200])
+        files.info(f"run stopped on device-allocator OOM: {exc} (retry "
+                   "with a lower EXAML_MEM_BUDGET_FRACTION)")
+        rc = memgov.MemoryBudgetExhausted.exit_code
+        return rc
+    finally:
+        obs.ledger_event("run", status="end", rc=rc)
+        obs.set_autoflush(None)      # the exit snapshot below is the record
+        if args.metrics_file and files.primary:
+            try:
+                with open(args.metrics_file, "w") as f:
+                    json.dump(obs.snapshot(), f, indent=2, sort_keys=True,
+                              default=str)
+                files.info(f"metrics snapshot -> {args.metrics_file}")
+            except OSError as exc:
+                files.info(f"metrics snapshot failed ({exc})")
+        obs.set_log_sink(None)
+        obs.set_annotations(False)
+        obs.finalize_tracing()
+        obs.finalize_ledger()
+        if preempt_installed:
+            preempt.uninstall()
+        heartbeat.reset()
+
+
+@contextlib.contextmanager
+def _profiled(args, rank: int, device, files: RunFiles):
+    """--profile DIR: torch.profiler over the block (CPU activity, plus
+    CUDA on the card), exported as a Chrome trace
+    DIR/torch_trace.p<rank>.json."""
+    if not args.profile_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(args.profile_dir, exist_ok=True)
+    path = os.path.join(args.profile_dir, f"torch_trace.p{rank}.json")
+    with profile(activities=acts) as prof:
+        yield
+    prof.export_chrome_trace(path)
+    files.info(f"profiler trace -> {path}")
+
+
+def _run(args, group, device, dtype, storage, files: RunFiles) -> int:
+    from examl_tpu_torch.instance import PhyloInstance
+
     tier = args.newview or (POOLED_TIER if args.save_memory else "chunk")
     mode = "fleet" if fleet_mode(args) else f"-f {args.mode}"
     files.info(f"alignment: {args.bytefile}  mode: {mode}  "
@@ -736,34 +948,43 @@ def _run(args, group, device, dtype, storage) -> int:
             f"{args.coordinator}; rank devices: " + ", ".join(
                 str(launch.rank_device(r, device))
                 for r in range(group.size)))
-    try:
-        data, local_window = _load_alignment(args, group, files)
-    except ValueError as exc:
-        files.info(f"ERROR: {exc}")
-        return 1
-    files.info(f"{data.ntaxa} taxa, {data.total_patterns} patterns"
-               + (" (this rank)" if local_window else "")
-               + f", {len(data.partitions)} partitions")
-    inst = PhyloInstance(data, dtype=dtype, device=device,
-                         use_median=args.median,
-                         per_partition_branches=args.per_partition_bl,
-                         newview=args.newview, rate_model=args.model,
-                         psr_categories=args.categories,
-                         batch_scan={"auto": None, "on": True,
-                                     "off": False}[args.batch_scan],
-                         save_memory=args.save_memory, clv_dtype=storage,
-                         local_window=local_window, group=group)
-    inst.auto_prot_criterion = args.auto_prot
-    files.info(f"device: {inst.device}  dtype: {inst.dtype}  clv storage: "
-               f"{str(inst.storage_dtype).removeprefix('torch.')}")
-    _packing_report(inst, files)
-    if fleet_mode(args):
-        from examl_tpu_torch.cli.fleet import run_fleet
-        rc = run_fleet(args, inst, files)
-    else:
-        rc = run_mode(args, inst, files)
+    with files.phase("startup (io + engines)"):
+        heartbeat.phase_beat("PARSE")
+        try:
+            data, local_window = _load_alignment(args, group, files)
+        except ValueError as exc:
+            files.info(f"ERROR: {exc}")
+            return 1
+        files.info(f"{data.ntaxa} taxa, {data.total_patterns} patterns"
+                   + (" (this rank)" if local_window else "")
+                   + f", {len(data.partitions)} partitions")
+        heartbeat.phase_beat("PACK")
+        inst = PhyloInstance(data, dtype=dtype, device=device,
+                             use_median=args.median,
+                             per_partition_branches=args.per_partition_bl,
+                             newview=args.newview, rate_model=args.model,
+                             psr_categories=args.categories,
+                             batch_scan={"auto": None, "on": True,
+                                         "off": False}[args.batch_scan],
+                             save_memory=args.save_memory,
+                             clv_dtype=storage, local_window=local_window,
+                             group=group)
+        inst.auto_prot_criterion = args.auto_prot
+        files.info(f"device: {inst.device}  dtype: {inst.dtype}  clv "
+                   "storage: "
+                   f"{str(inst.storage_dtype).removeprefix('torch.')}")
+        _packing_report(inst, files)
+    phase_name = f"inference ({mode})"
+    with _profiled(args, group.rank, inst.device, files), \
+            files.phase(phase_name):
+        if fleet_mode(args):
+            from examl_tpu_torch.cli.fleet import run_fleet
+            rc = run_fleet(args, inst, files)
+        else:
+            rc = run_mode(args, inst, files)
     if inst.save_memory:
         _sev_report(inst, files)
+    files.report_phases()
     return rc
 
 

@@ -43,8 +43,10 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from examl_tpu_torch import obs
 from examl_tpu_torch.fleet import bootstrap
 from examl_tpu_torch.ops import fastpath, gradient, kernels, newview_chunk
+from examl_tpu_torch.resilience import memgov
 from examl_tpu_torch.utils import bucket_len, next_pow2, z_slots
 
 # Batch-group keys: shared-topology weight replicates, and every
@@ -151,22 +153,31 @@ class BatchEvaluator:
     def _parts(self, eng, jobs: List[PreparedJob]) -> List[list]:
         """`jobs` cut in queue order into parts whose stacked arenas fit
         in the card's free memory less ARENA_MARGIN (one part on the
-        CPU)."""
-        if eng.device.type != "cuda" or len(jobs) == 1:
+        CPU), and under the memory governor's budget: under pressure
+        `memgov.effective_cap` shrinks the part (occupancy shrinks
+        instead of OOM), and each part's arena is an admission
+        (`memgov.admit_bytes`: a denial is counted, never a block)."""
+        if len(jobs) == 1:
             return [jobs]
         row = (eng.B * eng.lane * (eng.R * eng.K * eng.clv.element_size()
                                    + 4))
         per_job = eng.num_rows * row
-        free, _ = torch.cuda.mem_get_info(eng.device)
-        free += (torch.cuda.memory_reserved(eng.device)
-                 - torch.cuda.memory_allocated(eng.device))
-        cap = max(1, (free - ARENA_MARGIN) // per_job)
+        fit = len(jobs)
+        if eng.device.type == "cuda":
+            free, _ = torch.cuda.mem_get_info(eng.device)
+            free += (torch.cuda.memory_reserved(eng.device)
+                     - torch.cuda.memory_allocated(eng.device))
+            fit = min(fit, max(1, (free - ARENA_MARGIN) // per_job))
+        cap = memgov.effective_cap(fit)
+        memgov.admit_bytes(cap * per_job, seam="fleet.batch_arenas")
         if cap >= len(jobs):
             return [jobs]
+        why = ("the memory budget" if cap < fit
+               else f"{free / 1e9:.2f} GB free")
         self.log(f"fleet: a batch of {len(jobs)} jobs needs "
                  f"{len(jobs) * per_job / 1e9:.2f} GB of stacked arena; "
-                 f"{free / 1e9:.2f} GB free, so it runs in parts of "
-                 f"{cap} jobs in queue order")
+                 f"under {why} it runs in parts of {cap} jobs in queue "
+                 "order")
         return [jobs[i:i + cap] for i in range(0, len(jobs), cap)]
 
     def _operands(self, eng, jobs: List[PreparedJob]):
@@ -225,17 +236,19 @@ class BatchEvaluator:
         assert len({j.key for j in jobs}) == 1, \
             "batch mixes job groups (driver bug)"
         outs = []
-        for eng in self.engines:
-            if not self.fast:
-                outs.append(self._scan_rows(eng, jobs))
-                continue
-            rows = []
-            for part in self._parts(eng, jobs):
-                clv, scaler = self._traverse(eng, part)
-                rows += self._root_rows(eng, part, clv, scaler)
-                del clv, scaler
-            outs.append(torch.stack(rows))
-        return self._read_back(torch.cat(outs, dim=1))
+        obs.inc("engine.dispatch_count")
+        with obs.device_span("fleet:batch_eval", args={"jobs": len(jobs)}):
+            for eng in self.engines:
+                if not self.fast:
+                    outs.append(self._scan_rows(eng, jobs))
+                    continue
+                rows = []
+                for part in self._parts(eng, jobs):
+                    clv, scaler = self._traverse(eng, part)
+                    rows += self._root_rows(eng, part, clv, scaler)
+                    del clv, scaler
+                outs.append(torch.stack(rows))
+            return self._read_back(torch.cat(outs, dim=1))
 
     def _root_rows(self, eng, jobs, clv, scaler) -> list:
         """Each job's per-partition lnL [M_eng] at its root branch, from
@@ -354,6 +367,12 @@ class BatchEvaluator:
         assert per_job_weights
         p = tree.centroid_branch()
         self.inst.evaluate(tree, p, full=True)
+        obs.inc("engine.dispatch_count")
+        with obs.device_span("fleet:weights_eval",
+                             args={"jobs": len(per_job_weights)}):
+            return self._weights_rows(p, per_job_weights)
+
+    def _weights_rows(self, p, per_job_weights) -> np.ndarray:
         outs = []
         for eng in self.engines:
             # Converted on the device: one transfer, no host pass.

@@ -21,9 +21,17 @@ to a clean run.  A fault of a kernel or of the card is no job's: it
 ends the run.  Finished results also append to the fsync'd per-run
 journal, so a kill loses compute, never a finished result.
 
-Left to the JAX package for now: leased gang ranks, device lanes, the
-per-job deadline that a supervisor enforces, and the observability
-gauges and ledger events.
+Instrumented as the JAX driver is: `fleet.*` counters and gauges, the
+`job.start` / `job.done` / `job.failed` / `job.quarantined` /
+`batch.dispatch` ledger events, one heartbeat per batch (the fleet's
+iteration clock), and the fault seams `fleet.dispatch`, `mem.oom` and
+`fleet.job.poison`.  Under memory pressure the batch's stacked arena is
+cut into smaller parts (fleet/batch.py, `memgov.effective_cap`), and an
+allocator OOM in a batch goes through `is_oom` -> `oom_event` ->
+`evict_engine` -> the halving re-dispatch -> `oom_recovered`.
+
+Left to the JAX package for now: leased gang ranks, device lanes and the
+per-job deadline that a supervisor enforces.
 """
 
 from __future__ import annotations
@@ -34,10 +42,13 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from examl_tpu_torch import obs
 from examl_tpu_torch.fleet import bootstrap as _bootstrap
 from examl_tpu_torch.fleet import quarantine
 from examl_tpu_torch.fleet.batch import WEIGHTS_GROUP, batch_eligible
 from examl_tpu_torch.fleet.jobs import JobSpec
+from examl_tpu_torch.obs import programs as _programs
+from examl_tpu_torch.resilience import faults, heartbeat, memgov, preempt
 
 
 class FleetDriver:
@@ -70,6 +81,7 @@ class FleetDriver:
         self._not_before: Dict[str, float] = {}   # job_id -> retry time
         self._smoothed: Dict[str, int] = {}       # job_id -> cycle whose
                                                   # smoothing already ran
+        self._started: set = set()                # job ids with job.start
 
     def _evict(self, job: JobSpec) -> None:
         """Drop a finished job's host-side state: a long-running
@@ -166,6 +178,10 @@ class FleetDriver:
         job.cause = cause
         job.last_error = error
         self._evict(job)
+        obs.inc("fleet.quarantined")
+        obs.inc("fleet.jobs_failed")
+        obs.ledger_event("job.quarantined", job=job.job_id, cause=cause,
+                         attempts=job.attempts, error=error)
         if self.deadletters is not None:
             self.deadletters.append(job, cause, error)
         self._journal_job(job)
@@ -179,9 +195,12 @@ class FleetDriver:
         job.attempts += 1
         job.cause = cause
         job.last_error = err
+        obs.ledger_event("job.failed", job=job.job_id, cause=cause,
+                         attempt=job.attempts, error=err)
         if job.attempts >= self.policy.max_attempts:
             self._quarantine(job, cause, err)
             return
+        obs.inc("fleet.job_retries")
         delay = self.policy.backoff(job.job_id, job.attempts)
         self._not_before[job.job_id] = time.time() + delay
         self.log(f"fleet: job {job.job_id} attempt {job.attempts} "
@@ -196,6 +215,7 @@ class FleetDriver:
             restored = self.restore_jobs(resume_extras)
             self.log(f"fleet: resumed job table — {restored} of "
                      f"{len(self.jobs)} jobs already done")
+        obs.gauge("fleet.jobs_total", len(self.jobs))
         self.drain()
         return self.jobs
 
@@ -211,6 +231,11 @@ class FleetDriver:
         succeed."""
         while True:
             pending = self.pending()
+            obs.gauge("fleet.queue_depth", len(pending))
+            # "done" means SUCCEEDED: failed jobs leave the queue but
+            # must not read as successes.
+            obs.gauge("fleet.jobs_done",
+                      sum(1 for j in self.jobs if j.done and not j.failed))
             if not pending:
                 break
             # Retry backoff: a job whose jittered delay has not expired
@@ -222,6 +247,7 @@ class FleetDriver:
             if not ready:
                 wake = min(self._not_before.get(j.job_id, now)
                            for j in pending)
+                heartbeat.phase_beat("FLEET")
                 time.sleep(min(max(wake - now, 0.01), 1.0))
                 continue
             groups: Dict[object, List[JobSpec]] = {}
@@ -244,8 +270,13 @@ class FleetDriver:
             _, members = min(groups.items(),
                              key=lambda kv: (-len(kv[1]), str(kv[0])))
             self._dispatch(members[:self.batch_cap])
+            # Clear the in-flight declaration of the heartbeat.
+            heartbeat.phase_beat("FLEET", payload={"fleet": None})
             if self.mgr is not None:
                 self._checkpoint()
+                # The checkpoint just written is coherent: a pending
+                # SIGTERM/SIGINT exits resumable here.
+                preempt.check_after_checkpoint(log=self.log)
 
     def _checkpoint(self) -> None:
         tree = self.start_tree
@@ -261,18 +292,67 @@ class FleetDriver:
     def _dispatch(self, batch: List[JobSpec]) -> None:
         """One batch through the job-level fault ladder
         (`quarantine.isolate`): a raise anywhere in the batched dispatch
-        bisects to the guilty job(s); a device fault ends the run."""
+        bisects to the guilty job(s); a device fault ends the run.  An
+        allocator OOM of the whole batch is a memory-governor event:
+        counted, the engines' caches evicted (and the caching
+        allocator's blocks handed back), then the halving re-dispatch
+        below retries at a smaller shape."""
+        for job in batch:
+            if job.job_id not in self._started:
+                self._started.add(job.job_id)
+                obs.ledger_event("job.start", job=job.job_id,
+                                 job_kind=job.kind, index=job.index,
+                                 seed=job.seed, cycle=job.cycles_done)
+        compiles0 = obs.counter("engine.compile_count")
+        bisects0 = obs.counter("fleet.bisect_dispatches")
+        t0 = time.perf_counter()
+        obs.ledger_event("batch.dispatch", jobs=len(batch),
+                         job_kind=batch[0].kind, lane=0,
+                         ids=",".join(j.job_id for j in batch[:8]))
+        obs.inc("fleet.device_dispatches.d0")
+        obs.inc("fleet.device_jobs.d0", len(batch))
+        # The heartbeat is the fleet's iteration clock (search.kill
+        # addresses "the Nth batch"); its payload declares the batch.
+        heartbeat.beat("FLEET", payload={
+            "fleet": {"jobs": [j.job_id for j in batch]}})
+        oomed = False
+
         def evaluate(b, nested=False):
+            nonlocal oomed
             try:
                 return self._evaluate_batch(b)
-            except torch.cuda.OutOfMemoryError:
-                # The halves the bisection dispatches need less memory:
-                # hand the cached blocks back first.
-                torch.cuda.empty_cache()
+            except Exception as exc:      # noqa: BLE001 — re-raised
+                if not nested and memgov.is_oom(exc):
+                    # The whole batch ran out of memory: count it (past
+                    # the strike limit this raises MemoryBudgetExhausted,
+                    # which ends the run) and evict the engines' caches
+                    # before the halving re-dispatch.
+                    memgov.oom_event(exc, seam="fleet.dispatch")
+                    for eng in self.inst.engines.values():
+                        memgov.evict_engine(eng)
+                    oomed = True
+                elif isinstance(exc, torch.cuda.OutOfMemoryError):
+                    # The halves need less memory: hand the cached
+                    # blocks back first.
+                    torch.cuda.empty_cache()
                 raise
 
-        self._apply_results(batch, quarantine.isolate(batch, evaluate,
-                                                      self._evaluate_leaf))
+        with obs.span("fleet:dispatch", args={"jobs": len(batch)}):
+            results = quarantine.isolate(batch, evaluate,
+                                         self._evaluate_leaf)
+        if oomed:
+            memgov.oom_recovered()
+        obs.inc("fleet.batches")
+        obs.inc("fleet.trees_evaluated", len(batch))
+        self._apply_results(batch, results)
+        dt = time.perf_counter() - t0
+        obs.inc("fleet.eval_seconds", dt)
+        # Throughput from warm, clean batches only: a batch whose wall
+        # held an extension build or a bisection is no serving rate.
+        if dt > 0 and obs.counter("fleet.bisect_dispatches") == bisects0 \
+                and obs.counter("engine.compile_count") == compiles0:
+            obs.gauge("fleet.trees_per_sec", round(len(batch) / dt, 3))
+        _programs.sample_memory()
 
     def _apply_results(self, batch: List[JobSpec], results: List) -> None:
         for job, row, err in results:
@@ -293,6 +373,7 @@ class FleetDriver:
             job.cause = None
             job.last_error = None
             job.cycles_done += 1
+            obs.inc("fleet.cycles")
             if job.kind != "bootstrap":
                 tree = self._trees.get(job.job_id)
                 if tree is not None:
@@ -300,6 +381,10 @@ class FleetDriver:
                         self.inst.alignment.taxon_names)
             if job.cycles_done >= job.cycles:
                 job.done = True
+                obs.inc("fleet.jobs_done_total")
+                obs.ledger_event("job.done", job=job.job_id,
+                                 job_kind=job.kind, lnl=round(lnl, 6),
+                                 cycles=job.cycles_done)
                 # Durable result BEFORE eviction: the journal record is
                 # what a resume reconciles against the (older, per-batch)
                 # checkpoint.
@@ -309,12 +394,21 @@ class FleetDriver:
     # -- the evaluation seams (bisectable) -----------------------------------
 
     def _evaluate_batch(self, batch: List[JobSpec]) -> np.ndarray:
-        """One batch's per-job per-partition lnL [J, M]."""
+        """One batch's per-job per-partition lnL [J, M].  The fleet's
+        fault seams: `fleet.dispatch` before it, a synthetic OOM
+        (`mem.oom`) per job it holds, and the per-job poison after."""
+        faults.fire("fleet.dispatch")
+        for job in batch:
+            faults.fire("mem.oom", job=job.job_id)
         if batch[0].kind == "bootstrap":
             rows = self._dispatch_bootstrap(batch)
         else:
             rows = self._dispatch_trees(batch)
-        return np.asarray(rows, dtype=np.float64)
+        per_part = np.array(rows, dtype=np.float64)
+        for i, job in enumerate(batch):
+            if faults.fire("fleet.job.poison", job=job.job_id):
+                per_part[i] = np.nan
+        return per_part
 
     def _evaluate_leaf(self, job: JobSpec) -> np.ndarray:
         """Bisection leaf: ONE job through the one-at-a-time path the
@@ -327,7 +421,10 @@ class FleetDriver:
         else:
             self._smooth_if_due([job], batched=False)
             row = self._sequential_eval(self._tree_for(job))
-        return np.asarray(row, dtype=np.float64)
+        row = np.array(row, dtype=np.float64)
+        if faults.fire("fleet.job.poison", job=job.job_id):
+            row[:] = np.nan
+        return row
 
     def _dispatch_bootstrap(self, batch: List[JobSpec]) -> np.ndarray:
         tree = self._tree_for(batch[0])

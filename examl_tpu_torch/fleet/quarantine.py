@@ -35,7 +35,8 @@ never the batch or the run.
 
 The JAX package's supervisor hang attempts, per-rank journals and their
 tail reader belong to supervised and leased runs, which the port does
-not have yet.
+not have yet.  `isolate` counts `fleet.bisect_dispatches`; the journal
+is the `fleet.results.write` fault seam.
 """
 
 from __future__ import annotations
@@ -49,7 +50,10 @@ from typing import Callable, List, Optional, Tuple
 
 import torch
 
+from examl_tpu_torch import obs
 from examl_tpu_torch.ops._build import KernelError
+from examl_tpu_torch.resilience import faults
+from examl_tpu_torch.resilience.memgov import MemoryBudgetExhausted
 
 # Quarantine cause taxonomy (the dead-letter record's `cause` and the
 # results table's cause column):
@@ -114,15 +118,18 @@ def isolate(batch: List, evaluate: Callable, leaf: Callable,
     `evaluate(batch, nested)` runs one batched dispatch and may raise;
     `leaf(job)` evaluates ONE job through the one-at-a-time path.
     Healthy cohabitants of a poison job keep results bit-identical to a
-    clean run.  A device fault (`device_fault`) is re-raised, never
-    attributed to a job."""
+    clean run.  A device fault (`device_fault`) or an exhausted memory
+    budget is re-raised, never attributed to a job.  Every re-dispatch below the top level counts
+    `fleet.bisect_dispatches`."""
+    if _nested:
+        obs.inc("fleet.bisect_dispatches")
     try:
         if len(batch) == 1 and _nested:
             return [(batch[0], leaf(batch[0]), None)]
         rows = evaluate(batch, _nested)
         return [(job, rows[i], None) for i, job in enumerate(batch)]
     except Exception as exc:          # noqa: BLE001 — attributed below
-        if device_fault(exc):
+        if device_fault(exc) or isinstance(exc, MemoryBudgetExhausted):
             raise
         if len(batch) == 1:
             return [(batch[0], None, exc)]
@@ -181,15 +188,19 @@ class ResultsJournal:
 
     def append(self, rec: dict) -> bool:
         """Append one finished-job record; fsync before returning.
-        Returns False on an I/O failure — the checkpoint still covers the
-        job, so a full disk degrades durability instead of killing a
-        serving process."""
+        Returns False (and counts `fleet.journal_errors`) on an I/O
+        failure — the checkpoint still covers the job, so a full disk
+        degrades durability instead of killing a serving process.  The
+        `fleet.results.write` fault point models exactly that failure
+        (or, with `:signal=KILL`, dying mid-append)."""
         try:
+            faults.fire("fleet.results.write")
             if self._f is None or self._f.closed:
                 self._f = open(self.path, "a")
             _append_fsynced(self._f, rec)
             return True
-        except (OSError, ValueError) as exc:
+        except (OSError, ValueError, faults.FaultInjected) as exc:
+            obs.inc("fleet.journal_errors")
             self.log(f"fleet: results-journal append failed ({exc}); the "
                      "checkpoint remains the record for this job")
             return False

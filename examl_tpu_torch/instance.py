@@ -9,6 +9,11 @@ per-site rate state under PSR, the packed site buckets (one engine per
 state count) and the CLV orientation bookkeeping against a host `Tree`
 (reference `evaluateGeneric`, `newviewGeneric`, `makenewzGeneric`,
 `axml.h:1223-1256`).
+
+`evaluate` is the `engine.dispatch` and `engine.nonfinite` fault seams
+and carries the JAX package's non-finite guard: a NaN or infinite lnL
+from one engine is recomputed once on the wave-scan tier, and a second
+one raises.
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from examl_tpu_torch import config
+from examl_tpu_torch import config, obs
 from examl_tpu_torch.constants import ZMAX, ZMIN
 from examl_tpu_torch.io.alignment import AlignmentData
 from examl_tpu_torch.models import protein
@@ -30,6 +35,7 @@ from examl_tpu_torch.parallel.packing import (pack_partitions,
                                               pack_partitions_local,
                                               window_of)
 from examl_tpu_torch.parallel.sharding import SINGLE, SiteGroup
+from examl_tpu_torch.resilience import faults
 from examl_tpu_torch.tree.topology import Node, Tree, TraversalEntry
 from examl_tpu_torch.utils import z_slots
 
@@ -326,16 +332,22 @@ class PhyloInstance:
             p = tree.centroid_branch() if full else tree.start
         q = p.back
         if full:
-            entries = tree.flat_full_traversal(p)
+            with obs.timer("host_schedule"):
+                entries = tree.flat_full_traversal(p)
         else:
             entries = (self._collect(tree, p, full)
                        + self._collect(tree, q, full))
         per_part = self.per_partition_lnl
+        faults.fire("engine.dispatch")
         for states, eng in self.engines.items():
             if only_states is not None and states not in only_states:
                 continue
             vals = eng.traverse_evaluate(entries, p.number, q.number, p.z,
                                          full=full)
+            if faults.fire("engine.nonfinite"):
+                vals = np.full_like(np.asarray(vals, dtype=float), np.nan)
+            if not np.all(np.isfinite(vals)):
+                vals = self._nonfinite_retry(tree, eng, p, q)
             for li, gid in enumerate(eng.bucket.part_ids):
                 per_part[gid] = vals[li]
         if only_states is not None and np.isnan(per_part).any():
@@ -344,6 +356,30 @@ class PhyloInstance:
                 "per-partition lnL is uninitialized for the skipped buckets")
         self.likelihood = float(per_part.sum())
         return self.likelihood
+
+    def _nonfinite_retry(self, tree: Tree, eng, p: Node, q: Node):
+        """The non-finite guard (JAX `PhyloInstance._nonfinite_retry`): a
+        NaN or infinite lnL from one engine means poisoned CLVs, not a
+        search state.  Recompute every CLV of that engine once with one
+        full traversal on the wave-scan tier (torch ops over the arena,
+        no kernel; the engine's own tier serves the next traversal), and
+        raise if the result is still not finite: a search step taken on
+        a poisoned lnL silently corrupts the tree.  Counted as
+        engine.nonfinite_retries / .nonfinite_recovered."""
+        obs.inc("engine.nonfinite_retries")
+        obs.log(f"EXAML: non-finite lnL from the states={eng.bucket.states} "
+                "engine; recomputing once on the wave-scan tier")
+        tree.invalidate_all()
+        entries = (self._collect(tree, p, True)
+                   + self._collect(tree, q, True))
+        vals = eng.traverse_evaluate(entries, p.number, q.number, p.z)
+        if not np.all(np.isfinite(vals)):
+            raise FloatingPointError(
+                "non-finite log-likelihood persists on the wave-scan "
+                f"retry (states={eng.bucket.states}); refusing to search "
+                "on a poisoned lnL")
+        obs.inc("engine.nonfinite_recovered")
+        return vals
 
     # -- branch-length optimization (Newton-Raphson) ------------------------
 

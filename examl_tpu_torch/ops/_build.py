@@ -7,6 +7,10 @@ compiler flags, so an unchanged tree never rebuilds.  `build_all` starts
 one nvcc per missing library, all at once, and waits for them.
 
 Only sources in the repository and the CUDA toolkit's headers are used.
+
+Each library a process loads is one family of the program observatory
+(obs/programs.py: one row per kernel instance, from the ptxas log), and
+a build counts as `engine.compile_count` / `engine.compile_seconds`.
 """
 
 from __future__ import annotations
@@ -16,8 +20,12 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict, List, Optional
+
+from examl_tpu_torch import obs
+from examl_tpu_torch.obs import programs
 
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
@@ -128,8 +136,25 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded library for csrc/<name>.cu, built first if needed."""
     lib = _LIBS.get(name)
     if lib is not None:
+        if not programs.has_family(name):
+            programs.record_extension(name, "cached", 0.0, build_log(name))
         return lib
-    path = build_all([name])[name]
+    cached = _lib_path(name).exists()
+    t0 = time.perf_counter()
+    if not cached:
+        obs.ledger_event("compile", family=name, status="start")
+    with obs.span(f"compile:{name}", cat="compile"):
+        path = build_all([name])[name]
+    dt = time.perf_counter() - t0
+    if not cached:
+        obs.ledger_event("compile", family=name, status="end",
+                         seconds=round(dt, 3))
+        obs.inc("engine.compile_count")
+        obs.inc("engine.compile_seconds", dt)
+        obs.inc(f"engine.compile_seconds.{name}", dt)
+        obs.observe(f"engine.compile_seconds.{name}", dt)
+    programs.record_extension(name, "cached" if cached else "built",
+                              0.0 if cached else dt, build_log(name))
     lib = ctypes.CDLL(str(path))
     for fn, (argtypes, restype) in SIGNATURES[name].items():
         f = getattr(lib, fn)

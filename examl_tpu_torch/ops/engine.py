@@ -54,19 +54,33 @@ the whole tier is refused (B2 has no such instance, and the JAX package
 runs Pallas only with float32 storage).  Scratch arenas that live inside
 one call (the outroot arena, the PSR rate scan's) keep the compute
 dtype, as in the JAX engine.
+
+Every entry point is instrumented as the JAX engine's is (obs/): a
+`device_span` named `engine:<op>` (traverse, evaluate, trav_eval,
+derivs, sumtable, newton, grad_pass, rate_scan, spr_scan, spr_thorough),
+`engine.dispatch_count` and `engine.traversal_entries`, and the modeled
+`engine.traffic_bytes` of obs/traffic.py, all computed from host values
+(entry counts, the flat traversal's child numbers): no instrument reads
+a tensor.  Blocking entry points (those that return host values) feed
+the `dispatch` timer and the windowed `engine.achieved_gbps.<tier>.<tag>`
+gauges with their wall time: modelled bytes over host wall time, not a
+device reading.
 """
 
 from __future__ import annotations
 
+import time
+import weakref
 from collections import OrderedDict
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from examl_tpu_torch import config, datatypes
+from examl_tpu_torch import config, datatypes, obs
 from examl_tpu_torch.models.gtr import ModelParams
 from examl_tpu_torch.models.lg4 import LG4Params
+from examl_tpu_torch.obs import traffic as _traffic
 from examl_tpu_torch.ops import (fastpath, gradient, kernels, newview_chunk,
                                  newview_whole, scan)
 from examl_tpu_torch.ops.kernels import (DeviceModels, OutrootTraversal,
@@ -134,6 +148,8 @@ def stack_models(models: Sequence[ModelParams],
 
 
 class LikelihoodEngine:
+    _obs_seq = 0                # per-process engine ordinal (gauge tags)
+
     def __init__(self, bucket: PackedBucket, models: Sequence[ModelParams],
                  ntips: int, num_branch_slots: int = 1,
                  branch_indices: Optional[Sequence[int]] = None,
@@ -257,6 +273,111 @@ class LikelihoodEngine:
         # The arena's ready flags for kernel B1's dataflow launches (sized
         # at the first one).
         self.ready = newview_chunk.Ready()
+        # Traffic accounting (obs/traffic.py): the true pattern count of
+        # this rank's window and per-tier windowed achieved-GB/s
+        # accumulators fed by the blocking entry points.
+        self._patterns_true = (int(np.count_nonzero(bucket.weights))
+                               if bucket.is_local
+                               else int(np.sum(bucket.part_widths)))
+        self._itemsize = torch.empty(
+            (), dtype=self.storage_dtype).element_size()
+        self._traffic_win: Dict[str, _traffic.TrafficWindow] = {}
+        self._traffic_led: Dict[str, float] = {}
+        self._register_obs()
+
+    # -- observability ------------------------------------------------------
+
+    def _register_obs(self) -> None:
+        """Count the engine and publish its arena gauge through a
+        weakref-bound snapshot collector: zero per-dispatch cost, and
+        nothing read from the card."""
+        obs.inc("engine.instances")
+        seq = LikelihoodEngine._obs_seq
+        LikelihoodEngine._obs_seq += 1
+        self._obs_tag = f"s{self.K}.e{seq}"
+        self._update_arena_gauge()
+        ref = weakref.ref(self)
+
+        def _collect():
+            eng = ref()
+            if eng is None:
+                return False
+            eng._update_arena_gauge()
+            return True
+
+        obs.add_collector(_collect)
+
+    def _update_arena_gauge(self) -> None:
+        """Bytes of the CLV store: the dense arena with its scan region,
+        or under -S the pool."""
+        store = self.clv if self.clv is not None else \
+            (self.sev.pool if self.sev is not None else None)
+        obs.gauge(f"engine.clv_arena_bytes.{self._obs_tag}",
+                  0 if store is None else store.numel() * self._itemsize)
+
+    def _tier_for(self, entries, full: bool) -> str:
+        """The tier a traversal over `entries` runs on (the traffic
+        gauges' label)."""
+        if self.sev is not None:
+            return POOLED_TIER
+        if full and self._fast_eligible(entries):
+            return self.newview
+        return "scan"
+
+    def _traversal_traffic_bytes(self, entries) -> int:
+        """Modeled bytes of one traversal over `entries` (a
+        TraversalEntry list or a FlatTraversal): the closed form of
+        obs/traffic.py, from host arrays only."""
+        if isinstance(entries, FlatTraversal):
+            tips = int((entries.left <= self.ntips).sum()
+                       + (entries.right <= self.ntips).sum())
+            return _traffic.bytes_per_traversal_counts(
+                entries.n, tips, self._patterns_true, self.R, self.K,
+                self._itemsize)
+        return _traffic.bytes_per_traversal(
+            entries, self.ntips, self._patterns_true, self.R, self.K,
+            self._itemsize)
+
+    def _scan_plan_traffic_bytes(self, plan) -> int:
+        """Modeled bytes of one batched-scan call: the orientation fixes
+        plus the uppass entries, each writing one scan row and reading
+        its two child refs (a non-slot ref v <= ntips is a tip)."""
+        up = plan.up_entries
+        tips = sum(1 for e in up for kind, v in (e.left, e.right)
+                   if kind != "slot" and v <= self.ntips)
+        return (self._traversal_traffic_bytes(list(plan.down_entries))
+                + _traffic.bytes_per_traversal_counts(
+                    len(up), tips, self._patterns_true, self.R, self.K,
+                    self._itemsize))
+
+    def _record_traffic(self, nbytes: int, tier: str,
+                        wall_s: Optional[float] = None) -> None:
+        """Account one call's modeled bytes; a blocking call (wall_s
+        given) also lands in the `dispatch` timer and feeds the windowed
+        achieved-GB/s gauge: modelled bytes over host wall time, not a
+        device reading, so no regime verdict goes with it."""
+        obs.inc("engine.traffic_bytes", nbytes)
+        if wall_s is None:
+            return
+        obs.observe("dispatch", wall_s)
+        win = self._traffic_win.get(tier)
+        if win is None:
+            win = self._traffic_win[tier] = _traffic.TrafficWindow()
+        out = win.add(nbytes, wall_s, 1)
+        if out is None:
+            return
+        gbps, _, n = out
+        obs.gauge(f"engine.achieved_gbps.{tier}.{self._obs_tag}",
+                  round(gbps, 3))
+        from examl_tpu_torch.obs import programs as _programs
+        _programs.sample_memory()
+        now = time.time()
+        if now - self._traffic_led.get(tier, 0.0) >= \
+                _traffic.LEDGER_EVENT_INTERVAL_S:
+            self._traffic_led[tier] = now
+            obs.ledger_event("traffic.window", tier=tier,
+                             gbps=round(gbps, 3), dispatches=n,
+                             source="model")
 
     # -- construction helpers ---------------------------------------------
 
@@ -360,17 +481,25 @@ class LikelihoodEngine:
 
     @staticmethod
     def _cached(cache: "OrderedDict[bytes, object]", flat: FlatTraversal,
-                build):
+                build, counter: Optional[str] = None):
         """The entry of `cache` for flat's topology signature (topology +
         root edge only, so a stale entry can never be served), built on a
-        miss; the least recently used of more than SCHED_CACHE_CAP goes."""
+        miss; the least recently used of more than SCHED_CACHE_CAP goes.
+        `counter` names the cache's hit / miss / evictions counters."""
         st = cache.get(flat.topo_key)
         if st is not None:
             cache.move_to_end(flat.topo_key)
+            if counter:
+                obs.inc(counter + ".hit")
             return st
-        st = cache[flat.topo_key] = build()
+        if counter:
+            obs.inc(counter + ".miss")
+        with obs.timer("host_schedule"):
+            st = cache[flat.topo_key] = build()
         while len(cache) > SCHED_CACHE_CAP:
             cache.popitem(last=False)
+            if counter:
+                obs.inc(counter + ".evictions")
         return st
 
     def _build_structure(self, flat: FlatTraversal):
@@ -389,7 +518,8 @@ class LikelihoodEngine:
         fastpath.FastStructure on the chunk tier, a
         newview_whole.WholeStructure on the whole tier."""
         return self._cached(self._sched_cache, flat,
-                            lambda: self._build_structure(flat))
+                            lambda: self._build_structure(flat),
+                            "engine.sched_cache")
 
     def _install_row_map(self, st) -> None:
         self.row_map[:st.row_of.shape[0]] = st.row_of
@@ -435,6 +565,18 @@ class LikelihoodEngine:
     def run_traversal(self, entries, full: bool = False) -> None:
         """Recompute CLVs for `entries` — a TraversalEntry list, or a
         `FlatTraversal` (full traversals take the `newview` tier)."""
+        if not len(entries):
+            return
+        obs.inc("engine.dispatch_count")
+        obs.inc("engine.traversal_entries", len(entries))
+        self._record_traffic(self._traversal_traffic_bytes(entries),
+                             self._tier_for(entries, full))
+        with obs.device_span("engine:traverse",
+                             args={"entries": len(entries),
+                                   "full": bool(full)}):
+            self._traverse(entries, full)
+
+    def _traverse(self, entries, full: bool) -> None:
         global FULL_TRAVERSALS, PARTIAL_TRAVERSALS, POOLED_TRAVERSALS
         if not len(entries):
             return
@@ -466,6 +608,12 @@ class LikelihoodEngine:
 
     def evaluate(self, p_num: int, q_num: int, z: Sequence[float]) -> np.ndarray:
         """Per-partition lnL [M] at branch (p,q); CLVs must be current."""
+        obs.inc("engine.dispatch_count")
+        with obs.device_span("engine:evaluate"):
+            return self._evaluate(p_num, q_num, z)
+
+    def _evaluate(self, p_num: int, q_num: int,
+                  z: Sequence[float]) -> np.ndarray:
         xp, sp = self._gather(p_num)
         xq, sq = self._gather(q_num)
         out = kernels.root_log_likelihood_from(
@@ -475,39 +623,67 @@ class LikelihoodEngine:
 
     def traverse_evaluate(self, entries, p_num: int, q_num: int,
                           z: Sequence[float], full: bool = False) -> np.ndarray:
-        """Traversal then root evaluation at (p, q)."""
-        self.run_traversal(entries, full=full)
-        return self.evaluate(p_num, q_num, z)
+        """Traversal then root evaluation at (p, q).  The lnL comes back to
+        the host, so the call's wall time covers the traversal: a full
+        traversal feeds the achieved-GB/s window."""
+        obs.inc("engine.dispatch_count")
+        obs.inc("engine.traversal_entries", len(entries))
+        nbytes = self._traversal_traffic_bytes(entries) if len(entries) \
+            else 0
+        t0 = time.perf_counter()
+        with obs.device_span("engine:trav_eval",
+                             args={"entries": len(entries),
+                                   "full": bool(full)}):
+            self._traverse(entries, full)
+            out = self._evaluate(p_num, q_num, z)
+        self._record_traffic(
+            nbytes, self._tier_for(entries, full),
+            wall_s=(time.perf_counter() - t0) if full and len(entries)
+            else None)
+        return out
 
     # -- branch derivatives ----------------------------------------------
 
     def make_sumtable(self, p_num: int, q_num: int) -> torch.Tensor:
+        obs.inc("engine.dispatch_count")
+        with obs.device_span("engine:sumtable"):
+            return self._sumtable(p_num, q_num)
+
+    def _sumtable(self, p_num: int, q_num: int) -> torch.Tensor:
         xp, _ = self._gather(p_num)
         xq, _ = self._gather(q_num)
         return kernels.sumtable(self.models, self.block_part, xp, xq)
 
     def branch_derivatives(self, st: torch.Tensor, z: Sequence[float]):
-        d1, d2 = kernels.nr_derivatives(self.models, self.block_part,
-                                        self.weights, st, self._z(z),
-                                        self.num_branch_slots,
-                                        self.site_rates)
-        d = self.group.allreduce(torch.stack([d1, d2]).cpu().numpy())
+        obs.inc("engine.dispatch_count")
+        with obs.device_span("engine:derivs"):
+            d1, d2 = kernels.nr_derivatives(self.models, self.block_part,
+                                            self.weights, st, self._z(z),
+                                            self.num_branch_slots,
+                                            self.site_rates)
+            d = self.group.allreduce(torch.stack([d1, d2]).cpu().numpy())
         return d[0], d[1]
 
     def newton_branch(self, entries: List[TraversalEntry], p_num: int,
                       q_num: int, z0: np.ndarray, maxiter: int,
                       conv_mask: Optional[np.ndarray] = None) -> np.ndarray:
         """Partial traversal + sumtable + NR to convergence; new z [C]."""
-        self.run_traversal(entries)
+        obs.inc("engine.dispatch_count")
+        obs.inc("engine.newton_dispatches")
+        obs.inc("engine.traversal_entries", len(entries))
+        self._record_traffic(self._traversal_traffic_bytes(entries), "scan")
         C = self.num_branch_slots
         if conv_mask is None:
             conv_mask = np.zeros(C, dtype=bool)
-        st = self.make_sumtable(p_num, q_num)
-        return kernels.newton_raphson_branch(
-            self.models, self.block_part, self.weights, st,
-            np.asarray(z0, np.float64), np.full(C, maxiter, np.int64),
-            np.asarray(conv_mask, bool), C, self.site_rates,
-            self.group.allreduce)
+        with obs.device_span("engine:newton",
+                             args={"entries": len(entries)}):
+            self._traverse(entries, False)
+            st = self._sumtable(p_num, q_num)
+            return kernels.newton_raphson_branch(
+                self.models, self.block_part, self.weights, st,
+                np.asarray(z0, np.float64), np.full(C, maxiter, np.int64),
+                np.asarray(conv_mask, bool), C, self.site_rates,
+                self.group.allreduce)
 
     # -- batched SPR radius scan (ops/scan.py) ------------------------------
 
@@ -587,6 +763,11 @@ class LikelihoodEngine:
         under -S, where the orientation fixes' cells are allocated
         first)."""
         global PARTIAL_TRAVERSALS, POOLED_TRAVERSALS
+        obs.inc("engine.dispatch_count")
+        obs.inc("engine.traversal_entries",
+                len(plan.down_entries) + len(plan.up_entries))
+        self._record_traffic(self._scan_plan_traffic_bytes(plan),
+                             POOLED_TIER if self.sev is not None else "scan")
         if self.sev is not None:
             self.sev.update_for_entries(plan.down_entries)
             POOLED_TRAVERSALS += 1
@@ -603,15 +784,17 @@ class LikelihoodEngine:
         this engine's per-candidate lnL sums [N] (float64)."""
         tv, qg, upg = self._scan_setup(plan)
         C = self.num_branch_slots
-        zc = torch.as_tensor(np.stack([z_slots(c.z, C)
-                                       for c in plan.candidates]),
-                             dtype=self.dtype, device=self.device)
-        lnls = scan.scan_chunk(
-            self.models, self.block_part, self.weights, self.tips,
-            self._store(), self.scaler, tv, qg, upg, zc,
-            self._gidx(plan.s_num), self._z(plan.zp), self.scale_exp,
-            self.ntips, self.site_rates)
-        return self.group.allreduce(lnls.cpu().numpy())
+        with obs.device_span("engine:spr_scan",
+                             args={"candidates": len(plan.candidates)}):
+            zc = torch.as_tensor(np.stack([z_slots(c.z, C)
+                                           for c in plan.candidates]),
+                                 dtype=self.dtype, device=self.device)
+            lnls = scan.scan_chunk(
+                self.models, self.block_part, self.weights, self.tips,
+                self._store(), self.scaler, tv, qg, upg, zc,
+                self._gidx(plan.s_num), self._z(plan.zp), self.scale_exp,
+                self.ntips, self.site_rates)
+            return self.group.allreduce(lnls.cpu().numpy())
 
     def batched_thorough(self, plan, nr_iterations: int):
         """The thorough-arm companion of `batched_scan`: triangle
@@ -621,12 +804,14 @@ class LikelihoodEngine:
         tv, qg, upg = self._scan_setup(plan)
         zq0 = np.array([float(np.asarray(c.q_slot.z, np.float64)[0])
                         for c in plan.candidates])
-        lnls, es = scan.thorough_chunk(
-            self.models, self.block_part, self.weights, self.tips,
-            self._store(), self.scaler, tv, qg, upg, zq0,
-            self._gidx(plan.s_num), self.scale_exp, self.ntips,
-            nr_iterations, self.site_rates, self.group.allreduce)
-        return self.group.allreduce(lnls.cpu().numpy()), es
+        with obs.device_span("engine:spr_thorough",
+                             args={"candidates": len(plan.candidates)}):
+            lnls, es = scan.thorough_chunk(
+                self.models, self.block_part, self.weights, self.tips,
+                self._store(), self.scaler, tv, qg, upg, zq0,
+                self._gidx(plan.s_num), self.scale_exp, self.ntips,
+                nr_iterations, self.site_rates, self.group.allreduce)
+            return self.group.allreduce(lnls.cpu().numpy()), es
 
     # -- PSR rate-grid scan ----------------------------------------------
 
@@ -646,6 +831,13 @@ class LikelihoodEngine:
         if not self.psr:
             raise RuntimeError("the rate scan needs an engine built with "
                                "psr")
+        obs.inc("engine.dispatch_count")
+        obs.inc("engine.traversal_entries", len(entries))
+        with obs.device_span("engine:rate_scan",
+                             args={"entries": len(entries)}):
+            return self._rate_scan(entries, p_num, q_num, z, grid)
+
+    def _rate_scan(self, entries, p_num, q_num, z, grid) -> np.ndarray:
         G = grid.shape[2]
         tv = self._traversal_arrays(entries)
         b0 = self.bucket.block_offset
@@ -693,7 +885,6 @@ class LikelihoodEngine:
         `row_map` name another arena holding flat's CLVs (a fleet job's
         slice of a stacked arena, fleet/batch.py) in place of the
         engine's own, `gs` the plan (default: the engine's cached one)."""
-        global GRAD_PASSES
         if self.sev is not None:
             raise RuntimeError("the whole-tree gradient pass needs the "
                                "dense arena; -S SEV pools keep the "
@@ -701,11 +892,30 @@ class LikelihoodEngine:
         clv = self.clv if clv is None else clv
         scaler = self.scaler if scaler is None else scaler
         row_map = self.row_map if row_map is None else row_map
-        C = self.num_branch_slots
         if gs is None:
             gs = self._cached(self._grad_structs, flat,
                               lambda: gradient.build_structure(
                                   flat, self.wave_width))
+        obs.inc("engine.dispatch_count")
+        obs.inc("engine.grad_pass_dispatches")
+        itemsize = clv.element_size()
+        tips = int((flat.left <= self.ntips).sum()
+                   + (flat.right <= self.ntips).sum())
+        nbytes = _traffic.bytes_per_grad_pass(
+            flat.n, tips, 2 * flat.n + 1, self._patterns_true, self.R,
+            self.K, itemsize)
+        t0 = time.perf_counter()
+        with obs.device_span("engine:grad_pass",
+                             args={"entries": flat.n}):
+            d = self._grad_pass(flat, root_z, clv, scaler, row_map, gs)
+        dt = time.perf_counter() - t0
+        obs.observe("engine.grad_pass", dt)
+        self._record_traffic(nbytes, "grad", wall_s=dt)
+        return d[0], d[1]
+
+    def _grad_pass(self, flat, root_z, clv, scaler, row_map, gs):
+        global GRAD_PASSES
+        C = self.num_branch_slots
         pre, ex_rows, ey_gidx, ez = gradient.grad_arrays(
             gs, flat, row_map, C, root_z)
         dev = self.device
@@ -738,5 +948,4 @@ class LikelihoodEngine:
             scaler, out, eidx[0], eidx[1], ezd, C, self.ntips,
             self.site_rates)
         GRAD_PASSES += 1
-        d = self.group.allreduce(torch.stack([d1, d2]).cpu().numpy())
-        return d[0], d[1]
+        return self.group.allreduce(torch.stack([d1, d2]).cpu().numpy())

@@ -57,6 +57,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from examl_tpu_torch import obs
 from examl_tpu_torch.ops import kernels
 
 LAUNCHES = 0
@@ -172,14 +173,16 @@ def chunk_apply(clv, scaler, codes, table, block_part, launch, lidx, ridx,
     products of pmat where the caller built them (the card's route reads
     them; by default `tip_products(pmat, table)`).
     """
-    if clv.device.type == "cpu":
-        return chunk_apply_plain(clv, scaler, codes, table, block_part,
-                                 launch, lidx, ridx, lcode, rcode, pmat,
-                                 scale_exp)
-    return chunk_apply_cuda(clv, scaler, codes,
-                            tip_products(pmat, table) if u is None else u,
-                            block_part, launch, lidx, ridx, lcode, rcode,
-                            pmat, scale_exp, flow)
+    with obs.device_span("newview:chunk_apply",
+                         args={"rows": int(len(launch))}):
+        if clv.device.type == "cpu":
+            return chunk_apply_plain(clv, scaler, codes, table, block_part,
+                                     launch, lidx, ridx, lcode, rcode, pmat,
+                                     scale_exp)
+        return chunk_apply_cuda(clv, scaler, codes,
+                                tip_products(pmat, table) if u is None
+                                else u, block_part, launch, lidx, ridx,
+                                lcode, rcode, pmat, scale_exp, flow)
 
 
 def apply_chunk_plain(clv, scaler, codes, table, block_part, kind: int,

@@ -38,6 +38,7 @@ from typing import Dict, List, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from examl_tpu_torch import obs
 from examl_tpu_torch.ops import kernels
 from examl_tpu_torch.ops.newview_chunk import (_check, chunk_operands,
                                                tip_products)
@@ -189,12 +190,15 @@ def whole_apply(clv, scaler, codes, table, block_part, meta, l_code,
     [ntips, B, lane] uint8; table [C, K]; block_part [B] int32; meta
     [E, 8], l_code / r_code [E] and wave_start [nwaves + 1] int32; pmat
     [E, 2, M, R, K, K]."""
-    if clv.device.type == "cpu":
-        return whole_apply_plain(clv, scaler, codes, table, block_part, meta,
-                                 l_code, r_code, wave_start, pmat, scale_exp)
-    return whole_apply_cuda(clv, scaler, codes, tip_operand(pmat, table),
-                            block_part, meta, l_code, r_code, wave_start,
-                            pmat, scale_exp)
+    with obs.device_span("newview:whole_apply",
+                         args={"entries": int(len(meta))}):
+        if clv.device.type == "cpu":
+            return whole_apply_plain(clv, scaler, codes, table, block_part,
+                                     meta, l_code, r_code, wave_start, pmat,
+                                     scale_exp)
+        return whole_apply_cuda(clv, scaler, codes, tip_operand(pmat, table),
+                                block_part, meta, l_code, r_code, wave_start,
+                                pmat, scale_exp)
 
 
 def whole_apply_plain(clv, scaler, codes, table, block_part, meta, l_code,

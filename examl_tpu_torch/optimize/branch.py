@@ -31,6 +31,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from examl_tpu_torch import obs
 from examl_tpu_torch.constants import DELTAZ, SMOOTHINGS, ZMAX, ZMIN
 from examl_tpu_torch.instance import PhyloInstance
 from examl_tpu_torch.ops import gradient
@@ -158,6 +159,7 @@ def gradient_smooth_tree(inst: PhyloInstance, tree: Tree,
     C = inst.num_branch_slots
     scale = prev_step = None
     for _ in range(max(1, 4 * maxtimes)):
+        d0 = obs.counter("engine.dispatch_count")
         inst.partition_smoothed[:] = True
         slots, d1, d2 = tree_gradients(inst, tree)
         z0 = np.clip(np.stack([z_slots(s.z, C) for s in slots]),
@@ -180,6 +182,9 @@ def gradient_smooth_tree(inst: PhyloInstance, tree: Tree,
         for i, s in enumerate(slots):
             s.z[:] = zapp[i].tolist()
         GRAD_SWEEPS += 1
+        obs.gauge("engine.dispatches_per_smoothing_round",
+                  obs.counter("engine.dispatch_count") - d0)
+        obs.inc("optimize.grad_smooth_sweeps")
         if _all_smoothed(inst):
             return True
     return False
@@ -195,14 +200,18 @@ def smooth_tree(inst: PhyloInstance, tree: Tree, maxtimes: int) -> None:
     every branch."""
     inst.partition_converged[:] = False
     if inst.grad_smooth and grad_smooth_ineligible(inst) is None:
-        gradient_smooth_tree(inst, tree, maxtimes)
+        if not gradient_smooth_tree(inst, tree, maxtimes):
+            obs.inc("optimize.grad_smooth_unconverged")
         inst.partition_converged[:] = False
         return
     p = tree.start
     while maxtimes > 0:
         maxtimes -= 1
+        d0 = obs.counter("engine.dispatch_count")
         inst.partition_smoothed[:] = True
         smooth_subtree(inst, tree, p.back)
+        obs.gauge("engine.dispatches_per_smoothing_round",
+                  obs.counter("engine.dispatch_count") - d0)
         if _all_smoothed(inst):
             break
     inst.partition_converged[:] = False

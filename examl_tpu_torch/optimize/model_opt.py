@@ -23,6 +23,7 @@ from typing import Callable, List, Sequence
 
 import numpy as np
 
+from examl_tpu_torch import obs
 from examl_tpu_torch.constants import ALPHA_MAX, ALPHA_MIN, RATE_MAX, RATE_MIN
 from examl_tpu_torch.instance import PhyloInstance
 from examl_tpu_torch.models.gtr import (n_exchange, with_alpha, with_freqs,
@@ -36,6 +37,7 @@ from examl_tpu_torch.optimize.brent import minimize_vector
 from examl_tpu_torch.optimize.psr import (MAX_CAT_ROUNDS,
                                           optimize_rate_categories,
                                           refine_category_rates)
+from examl_tpu_torch.resilience import heartbeat
 from examl_tpu_torch.tree.topology import Tree
 
 MODEL_EPSILON = 0.0001
@@ -249,25 +251,32 @@ def mod_opt(inst: PhyloInstance, tree: Tree, likelihood_epsilon: float,
             p.auto for p in inst.alignment.partitions):
         auto_protein_fn = partial(auto_protein,
                                   criterion=inst.auto_prot_criterion)
+    rounds = 0
     while max_rounds > 0:
         max_rounds -= 1
         current = inst.likelihood
-        opt_rates(inst, tree)
-        if auto_protein_fn is not None:
-            auto_protein_fn(inst, tree)
-        tree_evaluate(inst, tree, 0.0625)
-        opt_freqs(inst, tree)
-        tree_evaluate(inst, tree, 0.0625)
-        if inst.psr:
-            if inst.cat_opt_rounds < MAX_CAT_ROUNDS:
-                optimize_rate_categories(inst, tree)
-                inst.cat_opt_rounds += 1
+        rounds += 1
+        obs.inc("search.model_opt_rounds")
+        # Optimizer rounds are search-loop iterations too: a wedge inside
+        # one must freeze the liveness clock (resilience/heartbeat.py).
+        heartbeat.beat("MOD_OPT")
+        with obs.span("opt:model_opt_round", args={"round": rounds}):
+            opt_rates(inst, tree)
+            if auto_protein_fn is not None:
+                auto_protein_fn(inst, tree)
+            tree_evaluate(inst, tree, 0.0625)
+            opt_freqs(inst, tree)
+            tree_evaluate(inst, tree, 0.0625)
+            if inst.psr:
+                if inst.cat_opt_rounds < MAX_CAT_ROUNDS:
+                    optimize_rate_categories(inst, tree)
+                    inst.cat_opt_rounds += 1
+                else:
+                    refine_category_rates(inst, tree)
             else:
-                refine_category_rates(inst, tree)
-        else:
-            opt_alphas(inst, tree)
-            opt_lg4x(inst, tree)
-            tree_evaluate(inst, tree, 0.1)
+                opt_alphas(inst, tree)
+                opt_lg4x(inst, tree)
+                tree_evaluate(inst, tree, 0.1)
         if checkpoint_cb is not None:
             checkpoint_cb("MOD_OPT", {})
         if abs(current - inst.likelihood) <= likelihood_epsilon:

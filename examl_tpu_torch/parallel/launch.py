@@ -17,6 +17,8 @@ and starts nothing.
 from __future__ import annotations
 
 import datetime
+import os
+from typing import Optional
 
 import torch
 
@@ -114,3 +116,37 @@ def use_rank_device(rank: int, device=None) -> torch.device:
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     return dev
+
+
+def install_heartbeat(group: SiteGroup,
+                      log=lambda msg: None) -> Optional[str]:
+    """Point this process's search-loop heartbeat at a PER-RANK file
+    (resilience/heartbeat.py, `$EXAML_HEARTBEAT_FILE`): rank 0 keeps the
+    configured path, rank k > 0 appends `.p<k>`, so one wedged rank is
+    never masked by its peers' beats.  Call after `init_distributed`, so
+    the rank is the group's."""
+    from examl_tpu_torch.resilience import heartbeat
+
+    base = os.environ.get(heartbeat.ENV_VAR)
+    if not base:
+        return None
+    path = heartbeat.install(heartbeat.rank_path(base, group.rank))
+    log(f"heartbeat -> {path}")
+    return path
+
+
+def enable_process_tracing(trace_dir: str,
+                           log=lambda msg: None) -> Optional[str]:
+    """Open this process's span-trace file under `trace_dir`, named by
+    rank (`trace.p<rank>.jsonl`, the rank resolved from the process
+    group that `init_distributed` joined) so the ranks never share a
+    writer; rank 0 merges a cross-rank `summary.json` when it exits."""
+    from examl_tpu_torch import obs
+
+    try:
+        path = obs.enable_tracing(trace_dir)
+    except OSError as exc:
+        log(f"trace events disabled ({exc})")
+        return None
+    log(f"trace events -> {path}")
+    return path

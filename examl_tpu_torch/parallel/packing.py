@@ -24,6 +24,7 @@ import numpy as np
 
 from examl_tpu_torch.constants import TPU_LANE
 from examl_tpu_torch.io.alignment import PartitionData
+from examl_tpu_torch.resilience import heartbeat
 
 
 @dataclass
@@ -179,6 +180,9 @@ def pack_partitions(partitions: Sequence[PartitionData],
 
     buckets: Dict[int, PackedBucket] = {}
     for states, group in sorted(by_states.items()):
+        # Liveness per bucket: packing a large alignment is host work a
+        # stall detector must not read as a wedge.
+        heartbeat.phase_beat("PACK")
         ntaxa = group[0][1].patterns.shape[0]
         undet = group[0][1].datatype.undetermined_code
         lay = layouts[states]
@@ -238,6 +242,7 @@ def pack_partitions_local(partitions: Sequence[PartitionData],
 
     buckets: Dict[int, PackedBucket] = {}
     for states, group in sorted(by_states.items()):
+        heartbeat.phase_beat("PACK")
         lay = layouts[states]
         B = lay.num_blocks
         if B % nprocs:

@@ -43,6 +43,7 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
+from examl_tpu_torch import obs
 from examl_tpu_torch.constants import ZMAX, ZMIN
 from examl_tpu_torch.tree.topology import Node, Tree
 from examl_tpu_torch.utils import z_slots
@@ -205,9 +206,13 @@ def run_plan(inst, tree: Tree, plan: ScanPlan) -> np.ndarray:
     one engine call per state bucket."""
     global SCAN_CALLS
     SCAN_CALLS += 1
-    total = np.zeros(len(plan.candidates), dtype=np.float64)
-    for eng in inst.engines.values():
-        total += np.asarray(eng.batched_scan(plan), dtype=np.float64)
+    N = len(plan.candidates)
+    obs.inc("search.scan_dispatches")
+    obs.inc("search.scan_candidates", N)
+    total = np.zeros(N, dtype=np.float64)
+    with obs.span("search:spr_batched_scan", args={"candidates": N}):
+        for eng in inst.engines.values():
+            total += np.asarray(eng.batched_scan(plan), dtype=np.float64)
     return total
 
 
@@ -221,5 +226,9 @@ def run_plan_thorough(inst, tree: Tree, plan: ScanPlan
 
     global SCAN_CALLS
     SCAN_CALLS += 1
+    obs.inc("search.scan_dispatches")
+    obs.inc("search.scan_candidates", len(plan.candidates))
     (eng,) = inst.engines.values()
-    return eng.batched_thorough(plan, SPR_NR_ITERATIONS)
+    with obs.span("search:spr_batched_thorough",
+                  args={"candidates": len(plan.candidates)}):
+        return eng.batched_thorough(plan, SPR_NR_ITERATIONS)

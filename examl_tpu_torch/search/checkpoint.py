@@ -33,9 +33,11 @@ from typing import Optional
 
 import numpy as np
 
+from examl_tpu_torch import obs
 from examl_tpu_torch.instance import PhyloInstance
 from examl_tpu_torch.models.gtr import build_model
 from examl_tpu_torch.models.lg4 import LG4Params
+from examl_tpu_torch.resilience import faults
 from examl_tpu_torch.search.snapshots import TreeSnapshot
 from examl_tpu_torch.transfer import lg4_from_params
 from examl_tpu_torch.tree.topology import Tree
@@ -208,9 +210,14 @@ class CheckpointManager:
         tree_dict replaces the captured tree: quartet mode's live tree is
         a scaffold that an edge-list snapshot cannot represent, so it
         checkpoints the comprehensive model tree instead.  On a rank other
-        than 0 nothing is written."""
+        than 0 nothing is written.  The `checkpoint.write` fault seam sits
+        between the tmp write and the publish (on every rank, as in the
+        JAX package's gang path): a raise models a full disk, a
+        `:signal=KILL` dying mid-write, and either way the previously
+        published checkpoint stays intact."""
         path = self.path_for(self.counter)
         if not self.primary:
+            faults.fire("checkpoint.write")
             self.counter += 1
             return path
         if tree_dict is None:
@@ -232,14 +239,17 @@ class CheckpointManager:
             with gzip.open(tmp, "wt") as f:
                 json.dump(blob, f)
             self._fsync_file(tmp)
+            faults.fire("checkpoint.write")
             os.replace(tmp, path)
-        except OSError:
+        except (OSError, faults.FaultInjected):
             try:
                 os.unlink(tmp)
             except OSError:
                 pass
             raise
         self._fsync_dir()
+        obs.ledger_event("checkpoint.publish", cycle=self.counter,
+                         state=state)
         self.counter += 1
         self._prune()
         return path
@@ -279,6 +289,9 @@ class CheckpointManager:
             try:
                 return self._restore_one(inst, tree, p)
             except CorruptCheckpoint as exc:
+                obs.inc("checkpoint.corrupt_skipped")
+                obs.ledger_event("checkpoint.corrupt_skipped", cycle=n,
+                                 error=str(exc)[:200])
                 self.log(f"checkpoint {p} unreadable ({exc}); falling back "
                          "to the next-newest checkpoint")
         if nums:

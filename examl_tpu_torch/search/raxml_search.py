@@ -7,8 +7,8 @@ thorough two-phase cycle, and radius escalation schedule are preserved;
 checkpoint writes and RF-convergence checks are injected via callbacks so
 the checkpoint and bipartition subsystems stay decoupled.
 
-The port of `examl_tpu/search/raxml_search.py` without its tracing spans,
-counters and supervisor heartbeats; `rearrange` is `spr.rearrange_auto`
+The port of `examl_tpu/search/raxml_search.py`, with its `search:*` spans,
+`search.*` counters and heartbeats; `rearrange` is `spr.rearrange_auto`
 (the batched scan on the card, the sequential arm on the CPU).
 """
 
@@ -17,10 +17,12 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional
 
+from examl_tpu_torch import obs
 from examl_tpu_torch.constants import UNLIKELY
 from examl_tpu_torch.instance import PhyloInstance
 from examl_tpu_torch.optimize.branch import tree_evaluate
 from examl_tpu_torch.optimize.model_opt import mod_opt
+from examl_tpu_torch.resilience import heartbeat
 from examl_tpu_torch.search.snapshots import BestList, InfoList
 from examl_tpu_torch.search.spr import (SprContext, dfs_slot_order,
                                         rearrange_auto as rearrange,
@@ -62,6 +64,18 @@ def tree_optimize_rapid(inst: PhyloInstance, tree: Tree, ctx: SprContext,
                         bt: BestList, best_ml: Optional[BestList],
                         ilist: InfoList) -> float:
     """One SPR cycle over all nodes (reference `treeOptimizeRapid`)."""
+    obs.inc("search.spr_cycles")
+    with obs.span("search:spr_cycle",
+                  args={"mintrav": mintrav, "maxtrav": maxtrav,
+                        "thorough": bool(ctx.thorough)}):
+        return _tree_optimize_rapid(inst, tree, ctx, mintrav, maxtrav, bt,
+                                    best_ml, ilist)
+
+
+def _tree_optimize_rapid(inst: PhyloInstance, tree: Tree, ctx: SprContext,
+                         mintrav: int, maxtrav: int,
+                         bt: BestList, best_ml: Optional[BestList],
+                         ilist: InfoList) -> float:
     slots = dfs_slot_order(tree)
     maxtrav = min(maxtrav, tree.ntips - 3)
     ilist.reset()
@@ -82,6 +96,9 @@ def tree_optimize_rapid(inst: PhyloInstance, tree: Tree, ctx: SprContext,
         ctx.lh_dec = 0
 
     for p in slots:
+        # Liveness beat per SPR slot: every beat proves the previous
+        # slot's dispatches returned.
+        heartbeat.beat("SPR_THOROUGH" if ctx.thorough else "SPR_LAZY")
         ctx.best_of_node = UNLIKELY
         if not rearrange(inst, tree, ctx, p, mintrav, maxtrav):
             continue
@@ -104,6 +121,7 @@ def tree_optimize_rapid(inst: PhyloInstance, tree: Tree, ctx: SprContext,
         # Thorough re-pass over the best lazy-insertion origins (iList).
         ctx.thorough = True
         for p in ilist.active_nodes():
+            heartbeat.beat("SPR_REPASS")
             ctx.best_of_node = UNLIKELY
             if not rearrange(inst, tree, ctx, p, mintrav, maxtrav):
                 continue
@@ -128,6 +146,13 @@ def determine_rearrangement_setting(inst: PhyloInstance, tree: Tree,
     """Scan radii 5,10,...,25 on the starting tree; return the smallest
     radius attaining the best lnL (reference
     `determineRearrangementSetting`)."""
+    with obs.span("search:radius_autotune"):
+        return _determine_rearrangement_setting(
+            inst, tree, ctx, opts, best_t, bt, best_ml, checkpoint_cb)
+
+
+def _determine_rearrangement_setting(inst, tree, ctx, opts, best_t, bt,
+                                     best_ml, checkpoint_cb=None) -> int:
     maxtrav, best_trav = 5, 5
     start_lh = inst.likelihood
     impr = True
@@ -144,6 +169,7 @@ def determine_rearrangement_setting(inst: PhyloInstance, tree: Tree,
         maxtrav = min(maxtrav, tree.ntips - 3)
         ctx.start_lh = ctx.end_lh = inst.likelihood
         for p in dfs_slot_order(tree):
+            heartbeat.beat("REARR_SETTING")
             ctx.best_of_node = UNLIKELY
             if rearrange(inst, tree, ctx, p, 1, maxtrav):
                 if ctx.end_lh > ctx.start_lh:
@@ -285,6 +311,8 @@ def compute_big_rapid(inst: PhyloInstance, tree: Tree,
                     break
 
             fast_iterations += 1
+            obs.inc("search.fast_cycles")
+            heartbeat.beat("FAST_SPRS")
             tree_evaluate(inst, tree, 1.0)
             best_t.save(tree, inst.likelihood)
             opts.log(f"fast cycle {fast_iterations} start "
@@ -332,6 +360,8 @@ def compute_big_rapid(inst: PhyloInstance, tree: Tree,
                     res.converged_by_rf = True
                     break
             thorough_iterations += 1
+            obs.inc("search.thorough_cycles")
+            heartbeat.beat("SLOW_SPRS")
         else:
             rearr_max += STEPWIDTH
             rearr_min += STEPWIDTH

@@ -20,6 +20,7 @@ import numpy as np
 
 from examl_tpu_torch.constants import DEFAULTZ, ZMAX, ZMIN
 from examl_tpu_torch.io.newick import NewickNode, format_newick, parse_newick
+from examl_tpu_torch.resilience import heartbeat
 
 
 class Node:
@@ -213,7 +214,13 @@ class Tree:
             trees exceed the recursion limit (SURVEY §6)."""
             done: Dict[int, Node] = {}
             stack: List[Tuple[NewickNode, bool]] = [(nw, False)]
+            steps = 0
             while stack:
+                steps += 1
+                if not (steps & 0xFFFF):
+                    # Liveness during a large build: a stall detector
+                    # must see setup phases breathing.
+                    heartbeat.phase_beat("PARSE")
                 n, expanded = stack.pop()
                 if n.is_leaf:
                     try:
@@ -267,7 +274,9 @@ class Tree:
         branches = [(center, center.back),
                     (center.next, center.next.back),
                     (center.next.next, center.next.next.back)]
-        for num in order[3:]:
+        for step, num in enumerate(order[3:]):
+            if not (step & 0xFFFF):
+                heartbeat.phase_beat("PARSE")
             i = int(rng.integers(len(branches)))
             p, q = branches[i]
             inner = tree.new_inner()
@@ -407,6 +416,7 @@ class Tree:
         ntips = self.ntips
         n_inner = self._next_inner - ntips - 1
         q = p.back
+        heartbeat.phase_beat("SCHEDULE")
         # 1. Extraction: canonical slot triples -> neighbor numbers
         #    (tight loop, tiny body; flat int list -> one np.fromiter).
         nodep = self.nodep
@@ -420,6 +430,8 @@ class Tree:
             s2 = s1.next
             extend((s0.back.number, s1.back.number, s2.back.number))
             sappend(s0)
+            if not (num & 0xFFFF):
+                heartbeat.phase_beat("SCHEDULE")
         nb = np.fromiter(nb_flat, np.int64, 3 * n_inner).reshape(-1, 3)
         # 2. Rooting: frontier BFS from the edge endpoints assigns each
         #    inner node the slot index facing the root edge.
@@ -458,6 +470,7 @@ class Tree:
         parent_nums = ar + ntips + 1
         # 4. ASAP wave order (vectorized Kahn).
         order, wave_sizes = _wave_order(parent_nums, left, right)
+        heartbeat.phase_beat("SCHEDULE")
         # 5. The z-read plan: the slot objects owning each sorted entry's
         #    two branch vectors (z lists may be REBOUND by hookup, so the
         #    cache holds the slots, not the lists).
