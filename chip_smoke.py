@@ -53,7 +53,15 @@ instruments off, traced and profiled, in turns; `engine.nonfinite` on
 it (the wave-scan retry timed, its lnL held to the clean one);
 `mem.oom` and `mem.pressure` on the fleet batch of phase 23 (each job's
 lnL bit for bit as alone); a SIGTERM to a `-f d` process (exit 75) and
-its `-R` (phase 7's lnL).
+its `-R` (phase 7's lnL).  Supervision (phase 26): `python -m
+examl_tpu_torch.cli.main --supervise` on 64 taxa of the real-size DNA
+set-up, its child SIGKILLed at its first checkpoint (the time to recover,
+split; no extension rebuilt; the supervisor never in nvidia-smi's compute
+apps); a kill, a heartbeat stall and a SIGTERM on phase 7's alignment,
+each resumed to the unsupervised lnLs bit for bit; `--launch 2` (a gloo
+gang on the card) with a rank killed and with a checkpoint publish
+killed; the 8-job real-size fleet as two leased ranks, one killed; a
+fleet job that blows `--fleet-job-deadline`.
 Every phase is fatal: any failure exits non-zero before the result
 line.
 
@@ -140,8 +148,9 @@ GRAD_RTOL = 1e-3        # f32 against f64 whole-tree d1, of max |d1|
 REAL_SMOOTH_FACTOR = 0.25
 # -f e through the CLI on amino-acid and binary data: AA_TAXA taxa, five
 # amino-acid partitions of AA_CLI_WIDTH columns and a binary one of
-# BIN_CLI_WIDTH.
-AA_TAXA, AA_CLI_WIDTH, BIN_CLI_WIDTH = 24, 200, 400
+# BIN_CLI_WIDTH (taxa cut from 24 by the script's time limit: AUTO's scans
+# took 95-145 s there).
+AA_TAXA, AA_CLI_WIDTH, BIN_CLI_WIDTH = 16, 200, 400
 AA_LETTERS = "ARNDCQEGHILKMFPSTWYV"
 # The real-size amino-acid instance: AA_REAL_TAXA taxa, four amino-acid
 # partitions of AA_REAL_WIDTH patterns (one per model) and a binary one of
@@ -207,7 +216,16 @@ SEGSUM_LANES, MANY_NR_CALLS = (1, 32, 256), 20
 INSTR_BLOCK, SPAN_COST_SPANS = 6, 2000
 # `--host-ab`: timed real-size evaluates and `-f d` runs on each side.
 HOST_AB_EVALUATES, HOST_AB_FD_RUNS = 40, 2
-NPHASES = 25
+# Phase 26, supervision: part (a)'s supervised -f e runs on SUP_TAXA taxa
+# of the real-size DNA set-up at its full width (TAXA cut by the script's
+# time: 512 taxa do not finish a -f e and its restart in the part's
+# 150 s, 128 took 125 s of a 1,028 s run); (b)(ii)'s stall window (10 s, not the CPU test's 3: (b)-(e) run
+# side by side, and a restarted child's first launches must not read as a
+# stall), (d)'s lease ttl and (e)'s job deadline, in seconds; every
+# supervised run or rank is stopped after SUP_TIMEOUT_S.
+SUP_TAXA, SUP_STALL_S, SUP_TTL_S, SUP_DEADLINE_S = 64, 10.0, 5.0, 5.0
+SUP_TIMEOUT_S = 240
+NPHASES = 26
 
 
 class SmokeFailure(RuntimeError):
@@ -4087,7 +4105,7 @@ def phase_site_parallel(device, setup: dict, anchor_whole: dict, fd: dict,
     return out
 
 
-# -- phase 23: the fleet --------------------------------------------------------
+# -- phase 23: the fleet ------------------------------------------------------
 
 
 class FleetStop(RuntimeError):
@@ -4635,7 +4653,7 @@ def phase_fleet(device, setup: dict, fd: dict, out_dir: str, seed: int,
     return out
 
 
-# -- phase 25: the run's instruments and in-process resilience -----------------
+# -- phase 25: the run's instruments and in-process resilience ----------------
 
 
 def balanced_trace(path: str) -> dict:
@@ -5063,6 +5081,603 @@ def phase_instruments(device, setup: dict, fd: dict, seed: int) -> dict:
     out["parts_s"] = phase_t
     return out
 
+
+
+# -- phase 26: supervision ----------------------------------------------------
+
+# The port's CLI as a user starts it: its own process, on the card.
+CLI_CMD = [sys.executable, "-m", "examl_tpu_torch.cli.main"]
+
+
+class SupRun:
+    """One `python -m examl_tpu_torch.cli.main ARGV` process (a
+    supervisor, or a leased rank), its output in WORKDIR/stdout.txt.
+    `stop()` ends it and every process its ledger says it spawned (each
+    child runs in a process group of its own)."""
+
+    def __init__(self, argv, workdir: str, env=None):
+        os.makedirs(workdir, exist_ok=True)
+        self.workdir = workdir
+        with open(os.path.join(workdir, "stdout.txt"), "a") as out:
+            self.proc = subprocess.Popen(
+                CLI_CMD + argv, cwd=HERE, stdout=out,
+                stderr=subprocess.STDOUT,
+                env=dict(os.environ, PYTHONPATH=HERE, **(env or {})))
+        self.t0 = time.time()
+
+    def wait(self, what: str, timeout: float = SUP_TIMEOUT_S) -> int:
+        try:
+            return self.proc.wait(timeout=max(1.0, self.t0 + timeout
+                                              - time.time()))
+        except subprocess.TimeoutExpired:
+            self.stop()
+            raise SmokeFailure(f"{what}: ran past {timeout:.0f} s")
+
+    def tail(self) -> str:
+        with open(os.path.join(self.workdir, "stdout.txt")) as f:
+            return f.read()[-3000:]
+
+    def stop(self) -> None:
+        import signal
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        for ev in sup_events(self.workdir):
+            if ev.get("kind") == "supervisor.spawn":
+                try:
+                    os.killpg(ev["pid"], signal.SIGKILL)
+                except OSError:
+                    pass
+
+
+def sup_events(ledger_dir: str) -> list:
+    """Every process's ledger events in `ledger_dir`, in time order."""
+    from examl_tpu_torch.obs import ledger
+    return ledger.read_dir(ledger_dir)
+
+
+def sup_snapshot(workdir: str) -> dict:
+    with open(os.path.join(workdir, "m.json")) as f:
+        return json.load(f)
+
+
+def sup_lnls(workdir: str) -> list:
+    """The tree lnLs of a -f e run's newest checkpoint (JSON floats:
+    exact)."""
+    import gzip
+    nums = [int(m.group(1)) for n in os.listdir(workdir)
+            if (m := re.match(r"ExaML_binaryCheckpoint\.smoke\.ckpt_(\d+)"
+                              r"\.json\.gz$", n))]
+    with gzip.open(os.path.join(
+            workdir, f"ExaML_binaryCheckpoint.smoke.ckpt_{max(nums)}"
+            ".json.gz"), "rt") as f:
+        return json.load(f)["extras"]["lnls"]
+
+
+def sup_journal(workdir: str, done_only: bool = True) -> dict:
+    """{job id: lnL} of every results journal of a fleet run."""
+    from examl_tpu_torch.fleet import quarantine
+    return {r["job_id"]: r["lnl"] for r in quarantine.read_all_journals(
+        workdir, "smoke") if not (done_only and r.get("failed"))}
+
+
+def sup_kernels(snap: dict, attempts=()) -> dict:
+    """B1 and B2 launches a run's processes counted in their metrics:
+    the final snapshot plus each killed attempt's last autoflush."""
+    out = {}
+    for fam in ("newview_chunk", "newview_whole"):
+        key = f"kernel.{fam}.launches"
+        out[fam] = snap.get("counters", {}).get(key, 0) + sum(
+            (a.get("partial_counters") or {}).get(key, 0)
+            for a in attempts)
+    return out
+
+
+def sup_check_b1(snap: dict, what: str, attempts=()) -> dict:
+    k = sup_kernels(snap, attempts)
+    check(k["newview_chunk"] > 0 and k["newview_whole"] == 0,
+          f"{what}: B1 {k['newview_chunk']} launches, B2 "
+          f"{k['newview_whole']} (every rung runs kernel B1)")
+    return k
+
+
+def sup_reference(device, argv, workdir: str, fleet: bool = False):
+    """An unsupervised run in this process (the one-process reference),
+    with the run's search beats recorded in order."""
+    from examl_tpu_torch.resilience import heartbeat
+    states = []
+    orig = heartbeat.beat
+
+    def counting(state="", payload=None):
+        states.append(state)
+        return orig(state, payload)
+
+    heartbeat.beat = counting
+    try:
+        rc, wall, counts, info = run_cli(argv, device, workdir)
+    finally:
+        heartbeat.beat = orig
+    check(rc == 0, f"reference run {argv} returned {rc}")
+    if fleet:
+        check(counts["b2"] == 0 and (device.type != "cuda" or counts["b1"]
+                                     >= max(1, counts["fleet_tables"])),
+              f"reference {workdir}: B1 {counts['b1']} launches for "
+              f"{counts['fleet_tables']} stacked tables, B2 {counts['b2']}")
+    else:
+        check_tier(counts, "chunk", f"reference {workdir}")
+    return states, counts, wall
+
+
+def sup_argv(aln: str, workdir: str, *extra) -> list:
+    return ["-s", aln, "-n", "smoke", "-w", workdir, "--metrics",
+            os.path.join(workdir, "m.json")] + list(extra)
+
+
+def sup_causes(snap: dict) -> list:
+    return [a["cause"] for a in snap["resilience"]["attempts"]]
+
+
+def supervision_recover(device, setup: dict, seed: int, smi: str) -> dict:
+    """(a) and (f): a supervised -f e on SUP_TAXA taxa of the real-size
+    DNA set-up at full width; its child SIGKILLed once the first
+    checkpoint is published; the time to recover, split from the ledger;
+    and, while the children run, the supervisor holds no CUDA context."""
+    import signal
+    from examl_tpu_torch.io.alignment import AlignmentData, PartitionData
+    from examl_tpu_torch.io.bytefile import write_bytefile
+    from examl_tpu_torch.resilience import exitcause
+    from examl_tpu_torch.resilience import supervisor as sup
+    from examl_tpu_torch.tree.topology import Tree
+    base = os.path.join(HERE, "build", "supervision", "recover")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    ad = setup["ad"]
+    names = ad.taxon_names[:SUP_TAXA]
+    aln = os.path.join(base, "real_cut.binary")
+    write_bytefile(aln, AlignmentData(names, [PartitionData(
+        name=p.name, datatype=p.datatype, model_name=p.model_name,
+        patterns=np.ascontiguousarray(p.patterns[:SUP_TAXA]),
+        weights=p.weights, empirical_freqs=p.empirical_freqs,
+        use_empirical_freqs=True, optimize_freqs=False)
+        for p in ad.partitions]))
+    tree = os.path.join(base, "start.nwk")
+    with open(tree, "w") as f:
+        f.write(Tree.random(names, seed, 1).to_newick(names) + "\n")
+    work = os.path.join(base, "run")
+    run = SupRun(sup_argv(aln, work, "-t", tree, "-f", "e", "--supervise",
+                          "--supervise-backoff", "0.5"), work)
+    seen, child_pids, maps_clean = set(), set(), []
+    try:
+        t_death = None
+        while run.proc.poll() is None:
+            check(time.time() - run.t0 < SUP_TIMEOUT_S,
+                  "(a) the supervised -f e ran past its time")
+            res = subprocess.run(
+                ["nvidia-smi", "--query-compute-apps=pid",
+                 "--format=csv,noheader"], capture_output=True, text=True,
+                timeout=60)
+            check(res.returncode == 0, f"(f) nvidia-smi failed: "
+                  f"{res.stderr.strip()}")
+            seen |= {int(x) for x in res.stdout.split() if x.isdigit()}
+            with open(f"/proc/{run.proc.pid}/maps") as f:
+                maps = f.read()
+            maps_clean.append("libcuda" not in maps
+                              and "libtorch" not in maps)
+            child_pids |= {ev["pid"] for ev in sup_events(work)
+                           if ev.get("kind") == "supervisor.spawn"}
+            if t_death is None and sup.checkpoint_glob(work, "smoke"):
+                (child,) = child_pids
+                os.kill(child, signal.SIGKILL)
+                t_death = time.time()
+            time.sleep(0.5)
+        rc = run.wait("(a)")
+    finally:
+        run.stop()
+    check(rc == 0, f"(a) the supervised -f e exited {rc}: {run.tail()}")
+    check(t_death is not None, "(a) the child finished before its first "
+          "checkpoint was published")
+    check(run.proc.pid not in seen and all(maps_clean),
+          f"(f) the supervisor (pid {run.proc.pid}) held a CUDA context: "
+          f"nvidia-smi listed {sorted(seen)}; maps clean {maps_clean}")
+    snap = sup_snapshot(work)
+    att = snap["resilience"]["attempts"]
+    check(sup_causes(snap) == [exitcause.CAUSE_OOM_KILL, exitcause.CAUSE_OK]
+          and att[1]["resumed"], f"(a) attempts {att}")
+    kernels = sup_check_b1(snap, "(a)", att)
+    evs = sup_events(work)
+    spawn = next(e for e in evs if e["kind"] == "supervisor.spawn"
+                 and e.get("attempt") == 1)
+    t_spawn = spawn["ts"] / 1e6
+    mine = [e for e in evs if e.get("proc") == 0 and e["ts"] / 1e6
+            > t_spawn]
+    loads = [e for e in mine if e["kind"] == "extension.load"]
+    check((loads or device.type != "cuda")
+          and not any(e["built"] for e in loads)
+          and not any(e["kind"] == "compile" for e in evs),
+          f"(a) an attempt built an extension: {loads}")
+    st = [e["ts"] / 1e6 for e in mine if e["kind"] == "phase"
+          and e["name"].startswith("startup")]
+    restore = next(e for e in mine if e["kind"] == "checkpoint.restore")
+    t_restore = restore["ts"] / 1e6
+    beat = next(e for e in mine if e["kind"] == "search.state"
+                and e["ts"] / 1e6 >= t_restore
+                and e["state"] not in ("PARSE", "PACK", "SCHEDULE"))
+    marks = [("detection and backoff", t_death, t_spawn),
+             ("process start, import torch, parse", t_spawn, st[0]),
+             ("CUDA context, byteFile read and packing, engines", st[0],
+              st[1]),
+             ("to the restore", st[1], t_restore - restore["seconds"]),
+             ("restore (extension loads inside)",
+              t_restore - restore["seconds"], t_restore),
+             ("first iteration, to its beat", t_restore,
+              beat["ts"] / 1e6)]
+    split = {name: b - a for name, a, b in marks}
+    ext_s = sum(e["seconds"] for e in loads)
+    total = beat["ts"] / 1e6 - t_death
+    out = {"taxa": SUP_TAXA, "patterns": setup["patterns"],
+           "recover_s": total, "split_s": split, "extension_load_s": ext_s,
+           "extension_loads": [(e["family"], e["seconds"]) for e in loads],
+           "first_beat_state": beat["state"], "attempts": att,
+           "kernels": kernels, "nvidia_smi_pids": sorted(seen),
+           "child_pids": sorted(child_pids),
+           "children_listed": sorted(child_pids & seen),
+           "supervisor_pid": run.proc.pid, "wall_s": time.time() - run.t0,
+           "device": smi}
+    log(f"  (a) -f e on {SUP_TAXA} taxa x {setup['patterns']} patterns, "
+        f"supervised; child SIGKILLed at its first checkpoint; time to "
+        f"recover {total:.2f} s to the first {beat['state']} beat: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
+        + f" (extension loads {ext_s:.3f} s, none built); B1 "
+        f"{kernels['newview_chunk']} launches; run wall "
+        f"{out['wall_s']:.1f} s [{smi}]")
+    log(f"  (f) supervisor pid {run.proc.pid}: never in nvidia-smi's "
+        f"compute apps ({len(seen)} pids seen, the children's "
+        f"{sorted(child_pids & seen) or 'not among them'}), no libcuda or "
+        "libtorch in its maps")
+    return out
+
+
+def side_by_side(parts: dict) -> tuple:
+    """Run each of `parts` ({name: fn}) in a thread of its own (their work
+    is in subprocesses); ({name: result}, {name: wall s}); the first
+    failure is raised once all have ended."""
+    import threading
+    out, errors, walls = {}, {}, {}
+
+    def run(name, fn):
+        t = time.perf_counter()
+        try:
+            out[name] = fn()
+        except BaseException as exc:          # noqa: BLE001 — re-raised
+            errors[name] = exc
+        walls[name] = time.perf_counter() - t
+
+    threads = [threading.Thread(target=run, args=item)
+               for item in parts.items()]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if errors:
+        name, exc = next(iter(errors.items()))
+        raise SmokeFailure(f"{name}: {exc}")
+    return out, walls
+
+
+def supervision_single(device, fd: dict, base: str, seed: int) -> dict:
+    """(b): (i)-(iii) of tests/test_torch_supervisor.py on phase 7's
+    alignment, -f e over three trees, side by side; each fault lands at
+    the first tree's end, so every resume starts at a tree boundary and
+    the final lnLs are bit for bit the unsupervised run's."""
+    import signal
+    from examl_tpu_torch.resilience import exitcause
+    aln, trees = fd["aln"], os.path.join(base, "trees.nwk")
+    want = fd["sup_lnls"]
+    k = fd["sup_first_tree_beats"]
+
+    def supervised(name, *extra):
+        work = os.path.join(base, name)
+        run = SupRun(sup_argv(aln, work, "-t", trees, "-f", "e",
+                              "--supervise", "--supervise-backoff", "0.5")
+                     + list(extra), work)
+        try:
+            rc = run.wait(f"(b) {name}")
+        finally:
+            run.stop()
+        check(rc == 0, f"(b) {name} exited {rc}: {run.tail()}")
+        return work, sup_snapshot(work), time.time() - run.t0
+
+    def kill():
+        work, snap, wall = supervised("kill", "--inject-fault",
+                                      f"search.kill:after={k}")
+        att = snap["resilience"]["attempts"]
+        check(sup_causes(snap) == [exitcause.CAUSE_OOM_KILL,
+                                   exitcause.CAUSE_OK]
+              and att[1]["resumed"] and sup_lnls(work) == want,
+              f"(b)(i) attempts {att}, lnLs {sup_lnls(work)} against "
+              f"{want}")
+        return {"wall_s": wall, "kernels": sup_check_b1(snap, "(b)(i)",
+                                                        att)}
+
+    def stall():
+        work, snap, wall = supervised(
+            "stall", "--supervise-stall", str(SUP_STALL_S),
+            "--inject-fault", f"heartbeat.stall:after={k}",
+            "--inject-fault", f"search.kill:after={k + 1}:hang=600")
+        att = snap["resilience"]["attempts"]
+        evs = sup_events(work)
+        kill = next(e for e in evs if e["kind"] == "supervisor.kill")
+        spawns = [e for e in evs if e["kind"] == "supervisor.spawn"]
+        check(sup_causes(snap) == [exitcause.CAUSE_HANG_KILL,
+                                   exitcause.CAUSE_OK]
+              and att[1]["pins"] == {"--newview": "chunk"}
+              and spawns[1]["pins"] == ["--newview"]
+              and kill["reason"] == "heartbeat-stall"
+              and sup_lnls(work) == want,
+              f"(b)(ii) attempts {att}, kill {kill}, lnLs "
+              f"{sup_lnls(work)}")
+        return {"wall_s": wall, "beat_age_at_kill_s": kill["beat_age_s"],
+                "kill_to_respawn_s": (spawns[1]["ts"] - kill["ts"]) / 1e6,
+                "kernels": sup_check_b1(snap, "(b)(ii)", att)}
+
+    def sigterm():
+        work = os.path.join(base, "term")
+        argv = sup_argv(aln, work, "-t", trees, "-f", "e", "--supervise",
+                        "--supervise-backoff", "0.5")
+        run = SupRun(argv + ["--inject-fault",
+                             f"search.kill:after={k}:hang=5"], work)
+        try:
+            while not os.path.exists(os.path.join(
+                    work, "ExaML_binaryCheckpoint.smoke.ckpt_1.json.gz")):
+                check(run.proc.poll() is None and time.time() - run.t0
+                      < SUP_TIMEOUT_S, "(b)(iii) no first-tree checkpoint")
+                time.sleep(0.05)
+            t_sig = time.time()
+            run.proc.send_signal(signal.SIGTERM)
+            rc = run.wait("(b)(iii)")
+        finally:
+            run.stop()
+        check(rc == exitcause.EXIT_PREEMPTED, f"(b)(iii) SIGTERM: the "
+              f"supervisor exited {rc}: {run.tail()}")
+        stop_s = time.time() - t_sig
+        rerun = SupRun(argv, work)
+        try:
+            rc = rerun.wait("(b)(iii) rerun")
+        finally:
+            rerun.stop()
+        snap = sup_snapshot(work)
+        check(rc == 0 and snap["resilience"]["attempts"][0]["resumed"]
+              and sup_lnls(work) == want,
+              f"(b)(iii) rerun exited {rc}, lnLs {sup_lnls(work)}")
+        return {"stop_s": stop_s,
+                "kernels": sup_check_b1(snap, "(b)(iii)")}
+
+    out, walls = side_by_side({"kill": kill, "stall": stall,
+                               "sigterm": sigterm})
+    out["parts_s"] = walls
+    return out
+
+
+def supervision_gang(device, fd: dict, base: str) -> dict:
+    """(c): --launch 2, a real gloo gang on the one card: rank 1 killed as
+    it stages the second tree's cycle; beside it, a gang whose second
+    publish is killed (checkpoint.publish:signal=KILL), after which the
+    restore falls back a cycle.  Both end within rel 1e-6 (f32, two
+    ranks' site sums) of the one process."""
+    from examl_tpu_torch.resilience import exitcause
+    trees = os.path.join(base, "trees.nwk")
+    want = fd["sup_lnls"]
+
+    def gang(name, spec):
+        work = os.path.join(base, name)
+        run = SupRun(sup_argv(fd["aln"], work, "-t", trees, "-f", "e",
+                              "--launch", "2", "--supervise-backoff", "0.5",
+                              "--supervise-stall", "120", "--inject-fault",
+                              spec), work)
+        try:
+            rc = run.wait(f"(c) {name}")
+        finally:
+            run.stop()
+        check(rc == 0, f"(c) {name} exited {rc}: {run.tail()}")
+        snap = sup_snapshot(work)
+        att = snap["resilience"]["attempts"]
+        got = sup_lnls(work)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        check(len(att) == 2 and att[1]["cause"] == exitcause.CAUSE_OK
+              and att[0]["cause"] == exitcause.CAUSE_OOM_KILL
+              and att[1]["resumed"] and len(got) == len(want)
+              and rel <= 1e-6, f"(c) {name}: attempts {att}, lnLs {got} "
+              f"against {want} (rel {rel:.2e})")
+        evs = sup_events(work)
+        t_kill = next(e for e in evs if e["kind"] == "supervisor.kill")[
+            "ts"] / 1e6
+        back = [e["ts"] / 1e6 for e in evs if e["kind"] ==
+                "checkpoint.restore" and e["ts"] / 1e6 > t_kill]
+        check(len(back) == 2, f"(c) {name}: {len(back)} rank restores")
+        gc = [e for e in evs if e["kind"] == "checkpoint.gc"]
+        if name == "rank_kill":
+            check(att[0]["rank"] == 1, f"(c) blamed rank {att[0]['rank']}")
+        else:
+            check(gc and snap["counters"].get(
+                "checkpoint.partial_cycles_gced", 0) >= 1,
+                f"(c) publish_kill: no partial cycle collected ({gc})")
+        info = open(os.path.join(work, "ExaML_info.smoke")).read()
+        return {"rel": rel, "blamed_rank": att[0]["rank"],
+                "gang_restart_s": max(back) - t_kill,
+                "restart_at": re.findall(r"restart at tree (\d+)", info),
+                "collected_cycles": [e["cycles"] for e in gc],
+                "kernels": sup_check_b1(snap, f"(c) {name}", att)}
+
+    out, walls = side_by_side({
+        "rank_kill": lambda: gang(
+            "rank_kill", "checkpoint.write@rank=1:after=2:signal=KILL"),
+        "publish_kill": lambda: gang(
+            "publish_kill", "checkpoint.publish:after=2:signal=KILL")})
+    out["parts_s"] = walls
+    return out
+
+
+def supervision_leased(device, real_aln: str, base: str,
+                       want: dict) -> dict:
+    """(d): phase 23's 8-job real-size DNA fleet as two leased ranks
+    (--nprocs 2 --procid K, --fleet-lease-ttl SUP_TTL_S), rank 1 killed at
+    its first batch: every job lands once, bit for bit as one process."""
+    work = os.path.join(base, "leased")
+    argv = sup_argv(real_aln, work, "-N", str(FLEET_JOBS), "--fleet-batch",
+                    "2", "--fleet-lease-ttl", str(SUP_TTL_S), "--ledger",
+                    work, "--inject-fault", "search.kill@rank=1:after=1",
+                    "--inject-fault", "fleet.job.hang:job=start0:hang=2")
+    ranks = [SupRun(argv + ["--nprocs", "2", "--procid", str(r)],
+                    os.path.join(work, f"r{r}")) for r in range(2)]
+    try:
+        rcs = [r.wait(f"(d) rank {k}") for k, r in enumerate(ranks)]
+    finally:
+        for r in ranks:
+            r.stop()
+    check(rcs == [0, -9], f"(d) leased ranks exited {rcs}: "
+          f"{ranks[0].tail()}")
+    evs = sup_events(work)
+    done = [e["job"] for e in evs if e["kind"] == "job.done"]
+    got = sup_journal(work)
+    check(sorted(done) == sorted(want) and got == want,
+          f"(d) jobs done {sorted(done)}; lnLs {got} against {want}")
+    death = next(e["ts"] / 1e6 for e in evs if e["kind"] == "fault"
+                 and e.get("proc") == 1)
+    reaps = [e for e in evs if e["kind"] == "lease.reap"]
+    check(reaps and all(e["proc"] == 0 and e["from_rank"] == 1
+                        for e in reaps), f"(d) reaps {reaps}")
+    reaped = {e["job"] for e in reaps}
+    done_t = {e["job"]: e["ts"] / 1e6 for e in evs if e["kind"] == "job.done"}
+    cost = {j: done_t[j] - death for j in sorted(reaped)}
+    return {"reaped": sorted(reaped), "death_to_reap_s": [
+        e["ts"] / 1e6 - death for e in reaps], "death_to_done_s": cost,
+        "done_by_rank": {str(p): sum(1 for e in evs if e["kind"] ==
+                                     "job.done" and e["proc"] == p)
+                         for p in (0, 1)},
+        "kernels": sup_check_b1(sup_snapshot(work), "(d) rank 0")}
+
+
+def supervision_deadline(device, fd: dict, base: str, want: dict) -> dict:
+    """(e): -N 6 --fleet-batch 2 --fleet-job-deadline SUP_DEADLINE_S, start3
+    hanging in every attempt: two fleet-job-stuck kills, no retry used
+    (the budget is 0), start3 quarantined, the other jobs bit for bit."""
+    from examl_tpu_torch.fleet import quarantine
+    from examl_tpu_torch.resilience import exitcause
+    work = os.path.join(base, "deadline")
+    run = SupRun(sup_argv(fd["aln"], work, "-N", "6", "--fleet-batch", "2",
+                          "--fleet-job-deadline", str(SUP_DEADLINE_S),
+                          "--supervise", "--supervise-retries", "0",
+                          "--supervise-backoff", "0.5", "--inject-fault",
+                          "fleet.job.hang:job=start3:attempt=*"), work)
+    try:
+        rc = run.wait("(e)")
+    finally:
+        run.stop()
+    snap = sup_snapshot(work)
+    stuck = exitcause.CAUSE_FLEET_JOB_STUCK
+    dead = quarantine.DeadLetters(os.path.join(
+        work, "ExaML_fleetFailed.smoke")).read()
+    check(rc == 0 and sup_causes(snap) == [stuck, stuck, exitcause.CAUSE_OK]
+          and snap["resilience"]["fleet_hang_attempts"] == {"start2": 1,
+                                                            "start3": 2}
+          and [(d["job_id"], d["cause"]) for d in dead] == [("start3",
+                                                             "hang")]
+          and sup_journal(work) == {j: v for j, v in want.items()
+                                    if j != "start3"},
+          f"(e) rc {rc}, attempts {snap['resilience']['attempts']}, "
+          f"dead letters {dead}, lnLs {sup_journal(work)}")
+    evs = sup_events(work)
+    kills = [e for e in evs if e["kind"] == "supervisor.kill"]
+    return {"kills": len(kills), "wall_s": time.time() - run.t0,
+            "kernels": sup_check_b1(snap, "(e)",
+                                    snap["resilience"]["attempts"])}
+
+
+def phase_supervision(device, setup: dict, fd: dict, seed: int,
+                      smi: str) -> dict:
+    """Phase 26: the supervisor, the gang checkpoint and the leased fleet
+    ranks on the card.  (a) with (f) runs alone (its times are the
+    recovery's); the one-process references run next in this process;
+    then (b)-(e) side by side (their work is in subprocesses)."""
+    from examl_tpu_torch.io.bytefile import read_bytefile
+    from examl_tpu_torch.tree.topology import Tree
+    t0 = time.perf_counter()
+    out = {"recover": supervision_recover(device, setup, seed, smi)}
+    base = os.path.join(HERE, "build", "supervision", "small")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    names = read_bytefile(fd["aln"]).taxon_names
+    with open(os.path.join(base, "trees.nwk"), "w") as f:
+        f.write(open(fd["start_tree"]).read().strip() + "\n")
+        for k in (1, 2):
+            f.write(Tree.random(names, seed + k, 1).to_newick(names) + "\n")
+    ref = os.path.join(base, "ref_fe")
+    states, _, _ = sup_reference(device, ["-s", fd["aln"], "-t",
+                                          os.path.join(base, "trees.nwk"),
+                                          "-f", "e"], ref)
+    fd = dict(fd, sup_lnls=sup_lnls(ref),
+              sup_first_tree_beats=states.index("TREE_EVAL") + 1)
+    ref_n6 = os.path.join(base, "ref_n6")
+    sup_reference(device, ["-s", fd["aln"], "-N", "6", "--fleet-batch", "2"],
+                  ref_n6, fleet=True)
+    real_aln = os.path.join(HERE, "build", "site_parallel", "real.binary")
+    ref_n8 = os.path.join(base, "ref_n8")
+    sup_reference(device, ["-s", real_aln, "-N", str(FLEET_JOBS),
+                           "--fleet-batch", "2"], ref_n8, fleet=True)
+    release_memory()
+    out["references_s"] = (time.perf_counter() - t0
+                           - out["recover"]["wall_s"])
+    res, walls = side_by_side({
+        "single": lambda: supervision_single(device, fd, base, seed),
+        "gang": lambda: supervision_gang(device, fd, base),
+        "leased": lambda: supervision_leased(
+            device, real_aln, base, sup_journal(ref_n8)),
+        "deadline": lambda: supervision_deadline(
+            device, fd, base, sup_journal(ref_n6))})
+    out.update(res)
+    out["parts_s"] = walls
+    out["wall_s"] = time.perf_counter() - t0
+    s, g, d, e = (out[k] for k in ("single", "gang", "leased", "deadline"))
+    log(f"  (b) on phase 7's alignment, -f e over 3 trees, lnLs bit for bit "
+        f"as unsupervised: (i) search.kill resumed in "
+        f"{s['kill']['wall_s']:.1f} s; (ii) stall window {SUP_STALL_S:.0f} s: "
+        f"killed at beat age {s['stall']['beat_age_at_kill_s']} s, "
+        f"respawned {s['stall']['kill_to_respawn_s']:.2f} s later on rung 1; "
+        f"(iii) SIGTERM: exit 75 {s['sigterm']['stop_s']:.2f} s after the "
+        "signal, the rerun resumed")
+    log(f"  (c) --launch 2 (gloo): rank {g['rank_kill']['blamed_rank']} "
+        f"killed, gang back (both ranks restored) "
+        f"{g['rank_kill']['gang_restart_s']:.2f} s after the kill, rel "
+        f"{g['rank_kill']['rel']:.1e}; checkpoint.publish kill: cycles "
+        f"{g['publish_kill']['collected_cycles']} collected, back in "
+        f"{g['publish_kill']['gang_restart_s']:.2f} s, rel "
+        f"{g['publish_kill']['rel']:.1e}")
+    log(f"  (d) {FLEET_JOBS} real-size jobs on two leased ranks (ttl "
+        f"{SUP_TTL_S:.0f} s), rank 1 killed: jobs done by rank "
+        f"{d['done_by_rank']}, {len(d['reaped'])} leases reaped "
+        + ", ".join(f"{x:.2f}" for x in d["death_to_reap_s"])
+        + " s after the death, their jobs done "
+        + ", ".join(f"{j} {x:.2f}" for j, x in d["death_to_done_s"].items())
+        + " s after; every job once, bit for bit")
+    log(f"  (e) deadline {SUP_DEADLINE_S:.0f} s: {e['kills']} job-stuck kills,"
+        f" start3 quarantined, no retry used, {e['wall_s']:.1f} s")
+    kern = {"(a)": [out["recover"]["kernels"]],
+            "(b)": [s[k]["kernels"] for k in ("kill", "stall", "sigterm")],
+            "(c)": [g[k]["kernels"] for k in ("rank_kill", "publish_kill")],
+            "(d)": [d["kernels"]], "(e)": [e["kernels"]]}
+    b1 = {p: sum(k["newview_chunk"] for k in ks) for p, ks in kern.items()}
+    out["b1_launches"] = b1
+    out["b2_launches"] = sum(k["newview_whole"] for ks in kern.values()
+                             for k in ks)
+    log(f"  the children's launches (their --metrics snapshots, killed "
+        f"attempts' last flushes included; a leased rank 1 writes none): "
+        f"B1 {sum(b1.values())} ("
+        + ", ".join(f"{p} {n}" for p, n in b1.items())
+        + f"), B2 {out['b2_launches']}")
+    log(f"  parts run side by side: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in walls.items())
+        + f"; phase wall {out['wall_s']:.1f} s [{smi}]")
+    return out
 
 
 def host_ab_child(root: str, seed: int, device=None) -> dict:
@@ -5599,6 +6214,14 @@ def main(argv=None) -> int:
               "on the fleet batch, SIGTERM then -R")
         release_memory()
         instruments = phase_instruments(device, setup, search, args.seed)
+
+        phase("supervision: --supervise (a child SIGKILLed, the time to "
+              "recover; kill, stall, SIGTERM), --launch 2 (a rank killed, "
+              "a publish killed), leased ranks, a job deadline; the "
+              "supervisor holds no CUDA context")
+        release_memory()
+        supervision = phase_supervision(device, setup, search, args.seed,
+                                        smi)
         phase_s[last[1]] = time.perf_counter() - last[0]
         log(f"  ({phase_s[last[1]]:.1f} s)")
     except SmokeFailure as exc:
@@ -5616,7 +6239,7 @@ def main(argv=None) -> int:
               "real_size_quartets": real_fq, "sev": sev,
               "sev_cli": sev_cli, "bf16": bf16, "site_parallel": site,
               "fleet": fleet, "instruments": instruments,
-              "ptxas": ptxas,
+              "supervision": supervision, "ptxas": ptxas,
               "wall_s": time.perf_counter() - t_start}
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
@@ -5702,6 +6325,18 @@ def main(argv=None) -> int:
         "fd_wall_s": instruments["cli"]["fd"]["wall_s"],
         "fleet": instruments["fleet"], "sigterm": instruments["sigterm"],
         "parts_s": instruments["parts_s"]}}))
+    log(json.dumps({"supervision": {
+        "recover": {k: supervision["recover"][k] for k in (
+            "taxa", "recover_s", "split_s", "extension_load_s",
+            "first_beat_state", "wall_s")},
+        "stall": supervision["single"]["stall"],
+        "sigterm_stop_s": supervision["single"]["sigterm"]["stop_s"],
+        "gang_restart_s": {k: supervision["gang"][k]["gang_restart_s"]
+                           for k in ("rank_kill", "publish_kill")},
+        "leased": {k: supervision["leased"][k] for k in (
+            "death_to_reap_s", "death_to_done_s", "done_by_rank")},
+        "parts_s": supervision["parts_s"],
+        "wall_s": supervision["wall_s"]}}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

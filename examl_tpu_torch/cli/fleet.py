@@ -5,15 +5,21 @@ The port of `examl_tpu/cli/main.py`'s `run_fleet`, `_serve_loop` and
 (fleet/driver.py) with per-job checkpoints (state FLEET, `-R` resume
 through the normal CheckpointManager, in the JAX package's format),
 job-level fault domains (fleet/quarantine.py) and a durable per-job
-results journal reconciled at resume.  It writes the JAX package's
-result files: ExaML_fleet.RUN (one row per job: id, kind, index, seed,
-cycles, lnL, status, cause, attempts), ExaML_fleetTrees.RUN (each
-finished tree job's tree), ExaML_fleetJournal.RUN and
-ExaML_fleetFailed.RUN.
+results journal reconciled at resume.  Under a leased gang (`--launch N`
+with a fleet mode, or ranks started by hand with `--nprocs N --procid
+K`), every rank runs its own driver over the shared workdir: jobs are
+held under per-rank leases (fleet/lease.py), each rank journals to its
+own `.r<k>` file, and no checkpoints are written (the ranks are not in
+lockstep; the fsynced journals are the record, and `-R` reconciles all
+of them).  It writes the JAX package's result files: ExaML_fleet.RUN
+(one row per job: id, kind, index, seed, cycles, lnL, status, cause,
+attempts), ExaML_fleetTrees.RUN (each finished tree job's tree),
+ExaML_fleetJournal.RUN and ExaML_fleetFailed.RUN.
 """
 
 from __future__ import annotations
 
+import glob
 import os
 import time
 
@@ -21,25 +27,64 @@ import time
 def run_fleet(args, inst, files) -> int:
     from examl_tpu_torch.cli.main import _read_trees, checkpoint_manager
     from examl_tpu_torch.fleet import jobs as jobs_mod
+    from examl_tpu_torch.fleet import lease as lease_mod
     from examl_tpu_torch.fleet import quarantine
     from examl_tpu_torch.fleet.driver import FleetDriver
 
-    mgr = checkpoint_manager(args, files, keep_last=2)
+    gang = getattr(args, "_gang", None)
+    rank, world, shared_dir = (gang if gang is not None
+                               else (0, 1, args.workdir))
+    leased = gang is not None
+    board = None
+    peer_journals = None
+    if leased:
+        mgr = None
+        board = lease_mod.LeaseBoard(
+            lease_mod.lease_dir(shared_dir, args.run_id), rank,
+            ttl_s=args.fleet_lease_ttl,
+            attempt=int(os.environ.get("EXAML_RESTART_COUNT", "0") or 0))
+        # Incremental reads: the absorb loop polls the journals for the
+        # rank's whole life.
+        peer_journals = quarantine.JournalTail(shared_dir,
+                                               args.run_id).records
+        files.info(f"fleet: leased serving rank {rank} of {world} (lease "
+                   f"board {board.path}, ttl {args.fleet_lease_ttl:.0f}s)")
+    else:
+        mgr = checkpoint_manager(args, files, keep_last=2)
+    suffix = f".r{rank}" if leased else ""
     journal = quarantine.ResultsJournal(
-        quarantine.journal_path(args.workdir, args.run_id), log=files.info)
+        quarantine.journal_path(shared_dir, args.run_id,
+                                rank if leased else None), log=files.info)
     deadletters = quarantine.DeadLetters(
-        os.path.join(args.workdir, f"ExaML_fleetFailed.{args.run_id}"),
+        os.path.join(shared_dir, f"ExaML_fleetFailed.{args.run_id}{suffix}"),
         log=files.info)
     if not args.restart:
         # A fresh run reusing a run id must not inherit an abandoned
         # run's journal or dead letters: a later -R would reconcile the
         # old records as done and skip jobs whose inputs changed.
-        for stale in (journal.path, deadletters.path):
+        stale_files = [journal.path, deadletters.path]
+        if leased and rank == 0:
+            # Rank 0 also clears what no rank of this world will write:
+            # an unleased run's base files and the journals of ranks
+            # beyond this world.  The other ranks clear their own.
+            for pat in (f"ExaML_fleetJournal.{args.run_id}",
+                        f"ExaML_fleetFailed.{args.run_id}"):
+                stale_files.append(os.path.join(shared_dir, pat))
+                for p in glob.glob(os.path.join(shared_dir, pat + ".r*")):
+                    try:
+                        r = int(p.rsplit(".r", 1)[1])
+                    except ValueError:
+                        continue
+                    if r >= world:
+                        stale_files.append(p)
+        for stale in stale_files:
             try:
                 os.unlink(stale)
             except OSError:
                 pass
-    policy = quarantine.JobFaultPolicy(max_attempts=args.fleet_job_attempts)
+    policy = quarantine.JobFaultPolicy(
+        max_attempts=args.fleet_job_attempts,
+        deadline_s=args.fleet_job_deadline)
     start_tree = None
     if args.tree_file:
         start_tree = inst.tree_from_newick(_read_trees(args.tree_file)[0])
@@ -47,7 +92,15 @@ def run_fleet(args, inst, files) -> int:
         files.info(f"starting tree lnL {inst.likelihood:.6f}")
         files.log_lnl(inst.likelihood)
     resume = None
-    if args.restart:
+    if args.restart and leased:
+        # A leased rank resumes from the merged journals alone (no
+        # checkpoints exist on purpose); a rank restarted before any job
+        # finished starts serving against the board.
+        journal_recs = quarantine.read_all_journals(shared_dir, args.run_id)
+        resume = quarantine.reconcile_extras({}, journal_recs)
+        files.info(f"restart (leased rank {rank}): {len(journal_recs)} "
+                   "journal record(s) reconciled across ranks")
+    elif args.restart:
         scaffold = (start_tree if start_tree is not None
                     else inst.random_tree(seed=args.seed))
         # The journal is read here, before the driver's first checkpoint
@@ -80,7 +133,12 @@ def run_fleet(args, inst, files) -> int:
                          batch_cap=args.fleet_batch,
                          cycles=args.fleet_cycles, mgr=mgr, log=files.info,
                          policy=policy, journal=journal,
-                         deadletters=deadletters)
+                         deadletters=deadletters, leases=board,
+                         peer_journals=peer_journals)
+    if board is not None:
+        # Keepalive: a long batch must not let this rank's leases expire
+        # under it.
+        board.start_keepalive()
     try:
         if args.serve:
             jobs = serve_loop(args, driver, files, resume)
@@ -102,6 +160,11 @@ def run_fleet(args, inst, files) -> int:
                            f"{args.fleet_cycles} cycle(s) each")
             jobs = driver.run(jobs, resume)
     finally:
+        if board is not None:
+            # Release whatever this rank still holds (a stop line with
+            # jobs in retry backoff, an exception): a lease left behind
+            # would make the peers wait out the ttl for jobs nobody owns.
+            board.close()
         journal.close()
     return write_fleet_results(args, files, jobs)
 
@@ -205,6 +268,7 @@ def serve_loop(args, driver, files, resume):
                         # The snapshot applies to the FRESH specs only:
                         # each job sees it once, as it joins the queue.
                         driver.restore_jobs(resume, fresh)
+                    driver.apply_hang_attempts(fresh)
                     files.info(f"fleet: {len(fresh)} new jobs from "
                                f"{args.serve} (queue {len(driver.jobs)})")
                 obs.gauge("fleet.jobs_total", len(driver.jobs))

@@ -10,11 +10,15 @@ dispatched at `main` :2719-2781).
         [--clv-dtype same|bf16] [--auto-prot ml|bic|aic|aicc] \\
         [--metrics FILE] [--ledger DIR] [--trace-events DIR] \\
         [--profile DIR] [--inject-fault SPEC ...] \\
-        [--coordinator HOST:PORT --nprocs N --procid K]
+        [--coordinator HOST:PORT --nprocs N --procid K] \\
+        [--supervise [--supervise-retries R] [--supervise-stall S] \\
+         [--supervise-backoff B]] [--launch N [--launch-emulate] \\
+         [--launch-min-ranks M]]
     python -m examl_tpu_torch.cli.main -s aln.binary -n RUN \\
         (-b K -t tree | -N K | --serve jobs.jsonl) [--fleet-batch J] \\
         [--fleet-cycles C] [--fleet-job-attempts A] [--serve-poll S] \\
-        [--serve-max-pending P] [-R] [-p seed]
+        [--serve-max-pending P] [--fleet-job-deadline S] \\
+        [--fleet-lease-ttl T] [--nprocs N --procid K] [-R] [-p seed]
 
 Modes: `-f d` (the default) runs the RAxML SPR hill climb
 (`search/raxml_search.py`) from the `-t` tree or from the random
@@ -89,7 +93,29 @@ only its own byteFile columns (`selective_read_decision`), packs them
 into its block window of the global packing and reduces every site sum
 over a gloo group.  Every rank takes the same decisions from the same
 reduced values; only rank 0 writes run files and checkpoints (the other
-ranks' workdir is DIR/.proc<K>, and they restore from DIR).
+ranks' workdir is DIR/.proc<K>, and they restore from DIR).  With a fleet
+mode, `--nprocs N --procid K` makes this process a LEASED rank instead
+(fleet/lease.py): it joins no process group, and the ranks share the
+queue through per-job leases in DIR.
+
+Supervision (resilience/supervisor.py): `--supervise` makes this process
+a thin watcher that never imports torch and runs the whole run as a
+killable child (`python -m examl_tpu_torch.cli.main`, on the card): a
+crash, or a heartbeat stall longer than `--supervise-stall` seconds,
+restarts it from the newest checkpoint with `-R`, at most
+`--supervise-retries` times, with jittered backoff from
+`--supervise-backoff` seconds and a degradation ladder of flags
+(`--newview chunk`, then also `--batch-scan off`); a preemption (exit 75)
+resumes without using a retry, and a SIGTERM to the watcher preempts the
+child.  `--launch N` spawns and watches N ranks (a gloo group on
+127.0.0.1, or with `--launch-emulate` N independent ranks): any rank's
+death restarts the gang from the newest coordinated (two-phase)
+checkpoint, and a rank that keeps dying shrinks it, down to
+`--launch-min-ranks`.  With a fleet mode the ranks are leased and
+restart alone.  `--fleet-job-deadline S` declares each fleet batch's
+deadline to the supervisor, which kills a batch that overruns it as
+`fleet-job-stuck` without using a retry (its jobs pay attempts);
+`--fleet-lease-ttl` is how long a leased rank's lease lives unrenewed.
 """
 
 from __future__ import annotations
@@ -106,10 +132,13 @@ from typing import List
 
 import numpy as np
 
-from examl_tpu_torch import config, obs
-from examl_tpu_torch.constants import ZMAX, ZMIN
-from examl_tpu_torch.models.lg4 import LG4Params
-from examl_tpu_torch.ops.engine import NEWVIEW_TIERS, POOLED_TIER
+# This module imports no torch at its top: the supervisor's parent parses
+# the command line here and must never load torch (the CUDA context is the
+# child's).  Everything that needs torch imports it inside `main`, after
+# the routing to the supervisor.
+from examl_tpu_torch import obs
+from examl_tpu_torch.constants import (CLV_STORAGE_NAMES, NEWVIEW_TIERS,
+                                       POOLED_TIER, ZMAX, ZMIN)
 from examl_tpu_torch.parallel import launch
 from examl_tpu_torch.resilience import faults, heartbeat, memgov, preempt
 
@@ -182,7 +211,7 @@ def build_argparser() -> argparse.ArgumentParser:
                     help="SPR scan: batched on the card and sequential on "
                          "the CPU (auto), or forced on / off")
     ap.add_argument("--clv-dtype", dest="clv_dtype", default="same",
-                    choices=list(config.CLV_STORAGE_NAMES),
+                    choices=list(CLV_STORAGE_NAMES),
                     help="CLV storage: the compute dtype (same) or "
                          "bfloat16 with float32 compute (bf16); not with "
                          "--newview whole")
@@ -230,6 +259,64 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="evaluation cycles per tree job; cycles after the "
                         "first smooth branch lengths before re-scoring "
                         "(default 1)")
+    f.add_argument("--fleet-job-deadline", dest="fleet_job_deadline",
+                   type=float, default=0.0,
+                   help="wall-clock seconds one batched fleet dispatch may "
+                        "take before a --supervise parent kills the "
+                        "attempt as job-stuck (no run-level retry used; "
+                        "repeat offenders are quarantined); 0 disables "
+                        "the deadline (default)")
+    f.add_argument("--fleet-lease-ttl", dest="fleet_lease_ttl", type=float,
+                   default=60.0,
+                   help="leased fleet ranks (--launch N or --nprocs N "
+                        "--procid K with a fleet mode): seconds a rank's "
+                        "job lease lives without renewal; a dead rank's "
+                        "leases expire after this and the other ranks "
+                        "reap them (default 60)")
+    s = ap.add_argument_group("supervision")
+    s.add_argument("--supervise", dest="supervise", action="store_true",
+                   help="self-healing supervision: run the whole run as a "
+                        "killable child, watch its heartbeat, and on a "
+                        "crash or stall restart it from the newest "
+                        "checkpoint with capped retries, backoff and a "
+                        "degradation ladder (--newview chunk, then "
+                        "--batch-scan off: kernel B1 on every rung); "
+                        "SIGTERM/SIGINT preemptions resume without using "
+                        "a retry")
+    s.add_argument("--supervise-retries", dest="supervise_retries",
+                   type=int, default=3,
+                   help="most failure restarts under --supervise "
+                        "(preemption resumes are not counted; default 3)")
+    s.add_argument("--supervise-stall", dest="supervise_stall", type=float,
+                   default=300.0,
+                   help="seconds without a heartbeat before the supervisor "
+                        "declares a wedge and kills the child (default "
+                        "300; 0 disables stall detection)")
+    s.add_argument("--supervise-backoff", dest="supervise_backoff",
+                   type=float, default=2.0,
+                   help="base seconds of the supervisor's exponential "
+                        "restart backoff (default 2)")
+    s.add_argument("--launch", dest="launch", type=int, default=None,
+                   metavar="N",
+                   help="gang mode: the supervisor spawns all N ranks "
+                        "itself (a gloo group on 127.0.0.1, every rank on "
+                        "the card), watches their heartbeats, and on a "
+                        "rank death, a straggler or a collective wedge "
+                        "restarts the WHOLE gang from the newest "
+                        "coordinated checkpoint (the --supervise-* flags "
+                        "apply gang-wide); a rank that keeps dying "
+                        "shrinks the gang to N-1 (down to "
+                        "--launch-min-ranks).  With a fleet mode the "
+                        "ranks are leased and restart alone")
+    s.add_argument("--launch-emulate", dest="launch_emulate",
+                   action="store_true",
+                   help="spawn the --launch gang WITHOUT a process group: "
+                        "N independent single-process ranks that follow "
+                        "the same rank, heartbeat and checkpoint contract")
+    s.add_argument("--launch-min-ranks", dest="launch_min_ranks", type=int,
+                   default=1,
+                   help="elastic-resume floor: never shrink the gang below "
+                        "this many ranks (default 1)")
     o = ap.add_argument_group("instruments and fault injection")
     o.add_argument("--inject-fault", dest="inject_fault",
                    action="append", metavar="SPEC", default=None,
@@ -350,6 +437,7 @@ def write_model_params(path: str, inst, tree) -> None:
     names its matrix (AUTO's choice for an AUTO partition; an LG4 model's
     rate lines are its first category's matrix), LG4X adds its free
     category rates and weights."""
+    from examl_tpu_torch.models.lg4 import LG4Params
     with open(path, "w") as f:
         for gid, (part, m) in enumerate(
                 zip(inst.alignment.partitions, inst.models)):
@@ -393,8 +481,15 @@ def _read_trees(path: str) -> List[str]:
 
 def checkpoint_manager(args, files: RunFiles, **kwargs):
     """The run's CheckpointManager: in rank 0's workdir, which every rank
-    restores from and only rank 0 writes to."""
+    restores from.  The ranks of a gang that a supervisor spawned share
+    the two-phase manager there (every rank stages, the cycle publishes
+    once all have); otherwise only rank 0 writes."""
     from examl_tpu_torch.search.checkpoint import CheckpointManager
+    gang = getattr(args, "_gang", None)
+    if gang is not None:
+        rank, size, shared = gang
+        return CheckpointManager(shared, args.run_id, log=files.info,
+                                 gang_rank=rank, gang_size=size, **kwargs)
     return CheckpointManager(files.shared_dir, args.run_id, log=files.info,
                              primary=files.primary, **kwargs)
 
@@ -534,6 +629,12 @@ def run_tree_evaluation(args, inst, files: RunFiles) -> int:
     # are kept: disk use stays linear in the number of trees.
     mgr = checkpoint_manager(args, files, keep_last=2)
     last_ckpt = [0.0]
+    # Gang ranks skip the wall-clock mid-tree cadence: a cycle's number
+    # is each rank's write COUNT, and a per-rank clock would let the
+    # counts drift apart until no cycle's halves meet.  They checkpoint
+    # per finished tree; a pending preemption still stages at once (an
+    # incomplete cycle never publishes, and at most this tree is redone).
+    gang = getattr(args, "_gang", None) is not None
 
     start_i = 0
     results = []
@@ -568,6 +669,8 @@ def run_tree_evaluation(args, inst, files: RunFiles) -> int:
 
         def ckpt_cb(state: str, extras: dict, i=i, tree=tree) -> None:
             # A pending preemption writes regardless of the cadence.
+            if gang and not preempt.requested():
+                return
             if (time.time() - last_ckpt[0] < MID_TREE_CHECKPOINT_S
                     and not preempt.requested()):
                 return
@@ -724,8 +827,11 @@ def fleet_mode(args) -> bool:
 
 def _check_fleet_args(ap, args) -> None:
     """The JAX CLI's fleet flag hygiene (one fleet mode at a time, and
-    what conflicts with the batched tier refused up front), plus the
-    port's own refusal of a fleet over several processes."""
+    what conflicts with the batched tier refused up front), and its
+    routing of ranks started by hand: with a fleet mode, `--nprocs N
+    --procid K` makes a LEASED rank that joins no process group (the
+    jobs are independent), so the launch flags are cleared here and the
+    rank identity rides `args._fleet_rank` into the run."""
     if args.bootstrap < 0 or args.multi_start < 0:
         ap.error("-b/-N replicate counts must be positive")
     modes = sum(bool(x) for x in (args.bootstrap, args.multi_start,
@@ -745,24 +851,51 @@ def _check_fleet_args(ap, args) -> None:
                  "topology: a starting tree (-t) is required")
     if args.fleet_job_attempts < 1:
         ap.error("--fleet-job-attempts must be at least 1")
+    if args.fleet_job_deadline < 0:
+        ap.error("--fleet-job-deadline must be >= 0")
     if args.serve_max_pending < 1:
         ap.error("--serve-max-pending must be at least 1")
     if args.fleet_batch < 1:
         ap.error("--fleet-batch must be at least 1")
-    if launch.launch_requested(args) and (args.nprocs or 1) > 1:
-        ap.error(f"fleet modes run in one process: --nprocs {args.nprocs} "
-                 "is refused (the JAX package runs a multi-process fleet "
-                 "as leased ranks, which the port does not have; run one "
-                 "fleet per card instead)")
+    if args.fleet_lease_ttl <= 0:
+        ap.error("--fleet-lease-ttl must be positive")
+    if args.launch is None and launch.launch_requested(args):
+        if (args.nprocs or 1) > 1 and args.procid is None:
+            # Two ranks sharing slot 0 would steal each other's live
+            # leases through the own-rank reclaim path.
+            ap.error("fleet ranks never join a collective process group; "
+                     "every rank needs an explicit id: use --nprocs N "
+                     "--procid K per rank (or --launch N, which spawns "
+                     "the ranks itself)")
+        if args.coordinator is not None and args.procid is None:
+            ap.error("fleet ranks never join a collective process group; "
+                     "use --nprocs N --procid K per rank (or --launch N, "
+                     "which spawns the ranks)")
+        args._fleet_rank = (args.procid or 0, args.nprocs or 1)
+        args.nprocs = args.coordinator = args.procid = None
+
+
+def _check_supervisor_args(ap, args) -> None:
+    if args.launch is None:
+        return
+    if args.launch < 1:
+        ap.error("--launch requires at least 1 rank")
+    if launch.launch_requested(args) or args.procid is not None:
+        ap.error("--launch spawns every rank itself (it supplies "
+                 "--coordinator/--nprocs/--procid per rank); it cannot be "
+                 "combined with --nprocs/--procid/--coordinator")
 
 
 def main(argv=None, device=None, dtype=None) -> int:
     """Run the mode `-f` names; `device` defaults to the card ("cuda"; a
     rank of a site-parallel run takes `cuda:(rank mod device_count)`),
-    `dtype` to the device's compute dtype (`config.default_dtype`)."""
-    import torch
+    `dtype` to the device's compute dtype (`config.default_dtype`).
+    Under `--supervise` or `--launch` this process only watches: its
+    children run `python -m examl_tpu_torch.cli.main` on the card, and
+    `device` and `dtype` are not passed on."""
+    raw_argv = list(sys.argv[1:] if argv is None else argv)
     ap = build_argparser()
-    args = ap.parse_args(argv)
+    args = ap.parse_args(raw_argv)
     # The reference's quartet flag-combination checks (axml.c:1206-1222):
     # -Y and -r belong to -f q only, and are mutually exclusive.
     if args.quartet_file and args.mode != "q":
@@ -778,11 +911,31 @@ def main(argv=None, device=None, dtype=None) -> int:
         ap.error(f"--newview {args.newview} cannot combine with -S: kernels "
                  "B1 and B2 have no pooled form, so -S runs every traversal "
                  "on the pooled wave-scan tier")
+    _check_supervisor_args(ap, args)
+    _check_fleet_args(ap, args)
     try:
         launch.check_launch_args(args)
     except ValueError as exc:
         ap.error(str(exc))
-    _check_fleet_args(ap, args)
+    if args.inject_fault:
+        try:
+            faults.parse_spec(",".join(args.inject_fault))
+        except ValueError as exc:
+            ap.error(f"--inject-fault: {exc}")
+    if args.launch is not None:
+        # Gang mode: this process becomes the torch-free gang supervisor,
+        # and every rank is a killable child (--supervise is implied).
+        from examl_tpu_torch.resilience import supervisor
+        return supervisor.launch_gang(raw_argv, args, log=print)
+    if args.supervise:
+        # The whole run (faults, kernels, search) happens in killable
+        # children; the child gets the argv minus the supervisor flags.
+        from examl_tpu_torch.resilience import supervisor
+        return supervisor.supervise(raw_argv, args, log=print)
+
+    import torch
+
+    from examl_tpu_torch import config
     if dtype is None:
         dtype = config.default_dtype(torch.device(
             "cuda" if device is None else device))
@@ -794,11 +947,6 @@ def main(argv=None, device=None, dtype=None) -> int:
         ap.error(f"--newview whole cannot combine with --clv-dtype "
                  f"{args.clv_dtype}: kernel B2 has no bfloat16-storage "
                  "instance, so full traversals take the chunk tier")
-    if args.inject_fault:
-        try:
-            faults.parse_spec(",".join(args.inject_fault))
-        except ValueError as exc:
-            ap.error(f"--inject-fault: {exc}")
     # One run = one record: callers invoking main() repeatedly in one
     # process must not accumulate counters, fault hits, a heartbeat
     # stream or a ledger across runs.
@@ -811,10 +959,18 @@ def main(argv=None, device=None, dtype=None) -> int:
     memgov.reset()
     _ledger.reset()
     prior_env = {k: os.environ.get(k) for k in (
-        faults.ENV_VAR, _ledger.ENV_VAR, heartbeat.PROCID_VAR)}
+        faults.ENV_VAR, _ledger.ENV_VAR, heartbeat.PROCID_VAR,
+        heartbeat.GANG_VAR)}
     try:
         for spec in (args.inject_fault or []):
             faults.arm(spec)
+        fleet_rank = getattr(args, "_fleet_rank", None)
+        if fleet_rank is not None:
+            # A leased rank started by hand publishes the rank contract
+            # through the variables a gang supervisor exports.
+            os.environ[heartbeat.PROCID_VAR] = str(fleet_rank[0])
+            if fleet_rank[1] > 1:
+                os.environ[heartbeat.GANG_VAR] = str(fleet_rank[1])
         # The memory-budget knobs are read here, once per run.
         memgov.configure(memgov.knobs_from_env())
         # Join the run's process group before any output: only rank 0
@@ -843,29 +999,38 @@ def _instrumented_run(args, group, device, dtype, storage) -> int:
     finalized in a `finally`, so a failed run leaves them too."""
     from examl_tpu_torch.obs import ledger as _ledger
     shared_dir = args.workdir
-    if group.size > 1:
-        device = launch.use_rank_device(group.rank, device)
+    # The rank: the process group's, or, for a rank of an emulated gang or
+    # a leased fleet rank (no group), the one its launcher exported.
+    gang_size = heartbeat.env_gang_size()
+    rank = group.rank if group.size > 1 else (
+        heartbeat.env_rank() if gang_size else 0)
+    if group.size > 1 or rank:
+        device = launch.use_rank_device(rank, device)
         # Rank-targeted fault specs (`point@rank=R`) and the heartbeat
         # read the rank from EXAML_PROCID.
-        os.environ[heartbeat.PROCID_VAR] = str(group.rank)
-        if group.rank:
-            args.workdir = os.path.join(args.workdir, f".proc{group.rank}")
+        os.environ[heartbeat.PROCID_VAR] = str(rank)
+        if rank:
+            args.workdir = os.path.join(args.workdir, f".proc{rank}")
+    # A gang a supervisor spawned (or leased ranks) shares one directory:
+    # coordinated checkpoints, leases and journals live there.
+    args._gang = ((rank, gang_size, shared_dir)
+                  if gang_size and gang_size > 1 else None)
     files = RunFiles(args.workdir, args.run_id, append=args.restart,
-                     primary=group.rank == 0, shared_dir=shared_dir)
+                     primary=rank == 0, shared_dir=shared_dir)
     if args.trace_events_dir:
         launch.enable_process_tracing(args.trace_events_dir, log=files.info)
     if args.profile_dir or args.trace_events_dir:
         obs.set_annotations(True)
     ledger_dir = _ledger.default_dir(args.ledger_dir, args.metrics_file)
     if ledger_dir:
-        lpath = obs.enable_ledger(ledger_dir, proc=group.rank)
+        lpath = obs.enable_ledger(ledger_dir, proc=rank)
         if lpath:
             # Exported so subprocesses append to the same timeline.
             os.environ[_ledger.ENV_VAR] = ledger_dir
             files.info(f"run ledger -> {lpath}")
     obs.ledger_event("run", status="start", run_id=args.run_id,
                      mode=args.mode, restart=bool(args.restart),
-                     rank=group.rank,
+                     rank=rank,
                      attempt=os.environ.get(faults.ATTEMPT_VAR))
     # Periodic --metrics flush on the heartbeat's clock: a killed process
     # leaves its last-known counters (the exit snapshot below wins when
@@ -877,10 +1042,10 @@ def _instrumented_run(args, group, device, dtype, storage) -> int:
     # into an emergency checkpoint and EXIT_PREEMPTED (no-op off the main
     # thread).
     preempt_installed = preempt.install(log=obs.log)
-    launch.install_heartbeat(group, log=files.info)
+    launch.install_heartbeat(rank, log=files.info)
     rc = 1
     try:
-        rc = _run(args, group, device, dtype, storage, files)
+        rc = _run(args, group, rank, device, dtype, storage, files)
         return rc
     except preempt.PreemptCheckpointed as exc:
         obs.ledger_event("run", status="preempted", signame=exc.signame)
@@ -935,7 +1100,8 @@ def _profiled(args, rank: int, device, files: RunFiles):
     files.info(f"profiler trace -> {path}")
 
 
-def _run(args, group, device, dtype, storage, files: RunFiles) -> int:
+def _run(args, group, rank, device, dtype, storage,
+         files: RunFiles) -> int:
     from examl_tpu_torch.instance import PhyloInstance
 
     tier = args.newview or (POOLED_TIER if args.save_memory else "chunk")
@@ -975,7 +1141,7 @@ def _run(args, group, device, dtype, storage, files: RunFiles) -> int:
                    f"{str(inst.storage_dtype).removeprefix('torch.')}")
         _packing_report(inst, files)
     phase_name = f"inference ({mode})"
-    with _profiled(args, group.rank, inst.device, files), \
+    with _profiled(args, rank, inst.device, files), \
             files.phase(phase_name):
         if fleet_mode(args):
             from examl_tpu_torch.cli.fleet import run_fleet

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from examl_tpu_torch.constants import CLV_STORAGE_NAMES
+
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
@@ -38,9 +40,6 @@ def scale_exponent(dtype: torch.dtype) -> int:
     device.  bfloat16 CLV storage keeps its compute dtype's E (bfloat16 has
     float32's exponent range)."""
     return 256 if dtype == torch.float64 else 32
-
-
-CLV_STORAGE_NAMES = ("same", "bf16")
 
 
 def clv_storage_dtype(compute: torch.dtype, requested=None) -> torch.dtype:

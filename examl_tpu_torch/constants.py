@@ -43,3 +43,11 @@ BRAK_TINY = 1.0e-20
 MAX_LOCAL_SMOOTHING_ITERATIONS = 10   # ref `iterations`
 DEFAULT_RATEGORIES = 25               # PSR/CAT default category count
 TPU_LANE = 128                        # site-block lane width (VPU lane count)
+
+# Full-traversal tiers the CLI's --newview names (kernel B1 or B2), the
+# tier every traversal takes under -S, and the CLV storage choices of
+# --clv-dtype.  They live here, away from torch, because the CLI's parser
+# is also the supervisor's, and a supervising parent never imports torch.
+NEWVIEW_TIERS = ("chunk", "whole")
+POOLED_TIER = "pooled"          # every traversal under save_memory (-S)
+CLV_STORAGE_NAMES = ("same", "bf16")

@@ -21,29 +21,48 @@ to a clean run.  A fault of a kernel or of the card is no job's: it
 ends the run.  Finished results also append to the fsync'd per-run
 journal, so a kill loses compute, never a finished result.
 
+LEASED RANKS (fleet/lease.py): with a lease board, every rank of a
+leased fleet runs its own driver over the same queue.  A rank dispatches
+only the jobs it holds a lease on (it claims free ones, at most two
+batches ahead), absorbs the results its peers journaled (a job finished
+by any rank finishes everywhere, with no second `job.done`), reaps the
+expired leases of a dead rank after a jittered backoff, and fences every
+completion (`still_mine`) so a lease reaped under a slow holder never
+counts a job twice.
+
+THE PER-JOB DEADLINE: with `--fleet-job-deadline S`, the beat before a
+batch declares its jobs and a wall-clock deadline S ahead; a supervisor
+that sees the deadline pass kills the process as `fleet-job-stuck` and
+exports each stuck job's hang attempts to the retry
+(`apply_hang_attempts`): a job at its cap is quarantined, the others
+re-dispatch one at a time, so the job that hangs is the one that pays.
+
 Instrumented as the JAX driver is: `fleet.*` counters and gauges, the
 `job.start` / `job.done` / `job.failed` / `job.quarantined` /
 `batch.dispatch` ledger events, one heartbeat per batch (the fleet's
-iteration clock), and the fault seams `fleet.dispatch`, `mem.oom` and
-`fleet.job.poison`.  Under memory pressure the batch's stacked arena is
-cut into smaller parts (fleet/batch.py, `memgov.effective_cap`), and an
-allocator OOM in a batch goes through `is_oom` -> `oom_event` ->
-`evict_engine` -> the halving re-dispatch -> `oom_recovered`.
+iteration clock), and the fault seams `fleet.dispatch`,
+`fleet.job.hang`, `mem.oom` and `fleet.job.poison`.  Under memory
+pressure the batch's stacked arena is cut into smaller parts
+(fleet/batch.py, `memgov.effective_cap`), and an allocator OOM in a
+batch goes through `is_oom` -> `oom_event` -> `evict_engine` -> the
+halving re-dispatch -> `oom_recovered`.
 
-Left to the JAX package for now: leased gang ranks, device lanes and the
-per-job deadline that a supervisor enforces.
+Left to the JAX package for now: device lanes (one evaluator lane per
+card).
 """
 
 from __future__ import annotations
 
+import os
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from examl_tpu_torch import obs
 from examl_tpu_torch.fleet import bootstrap as _bootstrap
+from examl_tpu_torch.fleet import lease as _lease
 from examl_tpu_torch.fleet import quarantine
 from examl_tpu_torch.fleet.batch import WEIGHTS_GROUP, batch_eligible
 from examl_tpu_torch.fleet.jobs import JobSpec
@@ -56,7 +75,9 @@ class FleetDriver:
                  cycles: int = 1, mgr=None, log=None,
                  policy: Optional[quarantine.JobFaultPolicy] = None,
                  journal: Optional[quarantine.ResultsJournal] = None,
-                 deadletters: Optional[quarantine.DeadLetters] = None):
+                 deadletters: Optional[quarantine.DeadLetters] = None,
+                 leases: Optional[_lease.LeaseBoard] = None,
+                 peer_journals: Optional[Callable[[], list]] = None):
         self.inst = inst
         self.start_tree = start_tree          # bootstrap topology (+ ckpt
         self.batch_cap = max(1, int(batch_cap))   # scaffold)
@@ -66,6 +87,12 @@ class FleetDriver:
         self.policy = policy or quarantine.JobFaultPolicy()
         self.journal = journal
         self.deadletters = deadletters
+        # A leased rank's board, and the reader of every rank's journal.
+        self.leases = leases
+        self.peer_journals = peer_journals
+        self._reap_after: Dict[str, float] = {}
+        self._reap_tries: Dict[str, int] = {}
+        self._last_absorb = 0.0
         reason = batch_eligible(inst)
         self.evaluator = inst.batch_evaluator()
         if self.evaluator is not None:
@@ -82,6 +109,8 @@ class FleetDriver:
         self._smoothed: Dict[str, int] = {}       # job_id -> cycle whose
                                                   # smoothing already ran
         self._started: set = set()                # job ids with job.start
+        self._solo: set = set()                   # deadline suspects:
+                                                  # dispatched one at a time
 
     def _evict(self, job: JobSpec) -> None:
         """Drop a finished job's host-side state: a long-running
@@ -90,6 +119,7 @@ class FleetDriver:
         for cache in (self._trees, self._prepared, self._weights,
                       self._keys, self._not_before, self._smoothed):
             cache.pop(job.job_id, None)
+        self._solo.discard(job.job_id)
 
     # -- job-table persistence (rides CheckpointManager) --------------------
 
@@ -127,6 +157,38 @@ class FleetDriver:
                 job.newick = rj.newick
             done += int(job.done)
         return done
+
+    def apply_hang_attempts(self, jobs: Optional[List[JobSpec]] = None
+                            ) -> None:
+        """Fold the supervisor's EXAML_FLEET_HANG_ATTEMPTS export into the
+        job table: a job the supervisor killed for blowing its batch's
+        deadline carries those attempts here, and one at or past the
+        policy cap is quarantined BEFORE it can hang the resumed fleet
+        again."""
+        counts = quarantine.parse_hang_attempts(
+            os.environ.get(quarantine.ENV_HANG_ATTEMPTS))
+        if not counts:
+            return
+        for job in (self.jobs if jobs is None else jobs):
+            n = counts.get(job.job_id)
+            if not n or job.done:
+                continue
+            job.attempts = max(job.attempts, n)
+            if job.attempts >= self.policy.max_attempts:
+                self._quarantine(
+                    job, quarantine.CAUSE_HANG,
+                    f"exceeded the per-job deadline in {job.attempts} "
+                    "attempt(s) (supervisor hang-attempt record)")
+            else:
+                # A deadline kill names the whole stuck batch (nobody can
+                # see inside a hung dispatch), so the suspects
+                # re-dispatch ONE AT A TIME: an innocent cohabitant
+                # completes alone, the job that hangs hangs alone and is
+                # quarantined at the cap.
+                self._solo.add(job.job_id)
+                self.log(f"fleet: job {job.job_id} is a deadline suspect "
+                         f"(attempt {job.attempts}); re-dispatching it "
+                         "alone")
 
     # -- job materialization -------------------------------------------------
 
@@ -185,6 +247,8 @@ class FleetDriver:
         if self.deadletters is not None:
             self.deadletters.append(job, cause, error)
         self._journal_job(job)
+        if self.leases is not None:
+            self.leases.release(job.job_id)
         self.log(f"fleet: job {job.job_id} QUARANTINED ({cause} after "
                  f"{job.attempts} attempt(s): {error})")
 
@@ -215,6 +279,7 @@ class FleetDriver:
             restored = self.restore_jobs(resume_extras)
             self.log(f"fleet: resumed job table — {restored} of "
                      f"{len(self.jobs)} jobs already done")
+        self.apply_hang_attempts()
         obs.gauge("fleet.jobs_total", len(self.jobs))
         self.drain()
         return self.jobs
@@ -230,6 +295,11 @@ class FleetDriver:
         quarantined alone: retrying the same host-side parse cannot
         succeed."""
         while True:
+            if self.leases is not None:
+                # A leased rank first absorbs its peers' journaled
+                # results and renews the leases it holds.
+                self._absorb_remote()
+                self._renew_leases()
             pending = self.pending()
             obs.gauge("fleet.queue_depth", len(pending))
             # "done" means SUCCEEDED: failed jobs leave the queue but
@@ -244,11 +314,14 @@ class FleetDriver:
             now = time.time()
             ready = [j for j in pending
                      if self._not_before.get(j.job_id, 0.0) <= now]
+            if self.leases is not None:
+                ready = self._lease_ready(ready, now)
             if not ready:
                 wake = min(self._not_before.get(j.job_id, now)
                            for j in pending)
                 heartbeat.phase_beat("FLEET")
-                time.sleep(min(max(wake - now, 0.01), 1.0))
+                floor = 0.25 if self.leases is not None else 0.01
+                time.sleep(min(max(wake - now, floor), 1.0))
                 continue
             groups: Dict[object, List[JobSpec]] = {}
             for job in ready:
@@ -264,6 +337,8 @@ class FleetDriver:
                                          f"failed to materialize: {exc}")
                         continue
                     self._keys[job.job_id] = key
+                if job.job_id in self._solo:
+                    key = ("solo", job.job_id)
                 groups.setdefault(key, []).append(job)
             if not groups:
                 continue                       # everything failed: re-check
@@ -277,6 +352,12 @@ class FleetDriver:
                 # The checkpoint just written is coherent: a pending
                 # SIGTERM/SIGINT exits resumable here.
                 preempt.check_after_checkpoint(log=self.log)
+            elif self.leases is not None:
+                # A leased rank checkpoints nothing (its fsynced journal
+                # is the record, and its peers are not in lockstep), but
+                # everything it finished is journaled: a pending
+                # preemption exits resumable here too.
+                preempt.check_after_checkpoint(log=self.log)
 
     def _checkpoint(self) -> None:
         tree = self.start_tree
@@ -286,6 +367,129 @@ class FleetDriver:
             tree = live if live is not None \
                 else self.inst.random_tree(seed=0)
         self.mgr.write("FLEET", self.extras(), self.inst, tree)
+
+    # -- lease bookkeeping (the rank-level fault domain) --------------------
+
+    def _absorb_remote(self) -> None:
+        """Fold the peers' journaled results into the job table: a job
+        any rank finished (done OR quarantined) finishes here too,
+        WITHOUT a second `job.done` (the finishing rank emitted it).  An
+        absorbed job is no longer pending, so its stale lease is scrubbed
+        instead of reaped and re-dispatched."""
+        if self.peer_journals is None:
+            return
+        now = time.time()
+        if now - self._last_absorb < 0.5:
+            return
+        self._last_absorb = now
+        try:
+            recs = self.peer_journals()
+        except OSError:
+            return
+        by_id = {r.get("job_id"): r for r in recs if r.get("done")}
+        for job in self.jobs:
+            if job.done:
+                continue
+            rec = by_id.get(job.job_id)
+            if rec is None:
+                continue
+            rj = JobSpec.from_dict({k: v for k, v in rec.items()
+                                    if k != "t"})
+            job.cycles_done = rj.cycles_done
+            job.lnl = rj.lnl
+            job.done = True
+            job.failed = rj.failed
+            job.attempts = max(job.attempts, rj.attempts)
+            job.cause = rj.cause
+            job.last_error = rj.last_error
+            if rj.newick:
+                job.newick = rj.newick
+            obs.inc("fleet.jobs_absorbed")
+            self._evict(job)
+            self._reap_after.pop(job.job_id, None)
+            if self.leases is not None:
+                self.leases.scrub(job.job_id)
+
+    def _renew_leases(self) -> None:
+        for jid in self.leases.held():
+            self.leases.renew(jid)
+
+    def _lease_ready(self, ready: List[JobSpec],
+                     now: float) -> List[JobSpec]:
+        """The leased view of the ready set: only jobs THIS rank holds a
+        lease on may dispatch.  Free jobs are claimed (at most two
+        batches' worth, so one rank never hogs the queue), live foreign
+        leases wait, and expired ones (a dead rank's in-flight jobs) are
+        reaped after a jittered backoff, so the surviving ranks never
+        stampede the steal."""
+        out: List[JobSpec] = []
+        cap = 2 * self.batch_cap
+        held = set(self.leases.held())
+        nheld = len(held)
+        claimed = False
+        for job in ready:
+            jid = job.job_id
+            if jid in held:
+                out.append(job)
+                continue
+            if nheld >= cap:
+                continue
+            state = self.leases.expired(jid)
+            if state is None:                      # free: claim it
+                if self.leases.acquire(jid):
+                    out.append(job)
+                    claimed = True
+                    nheld += 1
+                continue
+            if state is False:
+                if self.leases.stale_own(jid):
+                    # A dead predecessor in THIS rank slot held it: the
+                    # restarted rank reclaims its own lost jobs now
+                    # instead of idling out the ttl.
+                    if self.leases.reap(jid, own=True):
+                        self.log(f"fleet: reclaimed own stale lease for "
+                                 f"{jid} (restarted rank)")
+                        out.append(job)
+                        claimed = True
+                        nheld += 1
+                continue                           # live foreign lease
+            due = self._reap_after.get(jid)
+            if due is None:
+                att = self._reap_tries.get(jid, 0) + 1
+                self._reap_tries[jid] = att
+                self._reap_after[jid] = now + _lease.reap_backoff(
+                    jid, self.leases.rank, att)
+                continue
+            if now < due:
+                continue
+            self._reap_after.pop(jid, None)
+            if self.leases.reap(jid):
+                self.log(f"fleet: reaped expired lease for {jid} (its "
+                         "rank died or stalled); re-dispatching")
+                out.append(job)
+                claimed = True
+                nheld += 1
+        if claimed:
+            # A finishing rank journals BEFORE it releases, so a job just
+            # claimed has its result visible now if it ever finished:
+            # re-read the journals (past the rate limit) and drop the
+            # claimed jobs that are done before one dispatch happens.
+            self._last_absorb = 0.0
+            self._absorb_remote()
+            out = [j for j in out if not j.done]
+        return out
+
+    def _fenced(self, job: JobSpec) -> bool:
+        """True when a leased job's completion must be DISCARDED: its
+        lease expired under this rank and another rank reaped it during
+        the dispatch.  The reaper owns the job now."""
+        if self.leases is None or self.leases.still_mine(job.job_id):
+            return False
+        obs.inc("fleet.leases_lost")
+        self.log(f"fleet: lease for {job.job_id} was reaped during the "
+                 "dispatch; discarding this result (the reaper owns the "
+                 "job)")
+        return True
 
     # -- batch dispatch ------------------------------------------------------
 
@@ -312,9 +516,13 @@ class FleetDriver:
         obs.inc("fleet.device_dispatches.d0")
         obs.inc("fleet.device_jobs.d0", len(batch))
         # The heartbeat is the fleet's iteration clock (search.kill
-        # addresses "the Nth batch"); its payload declares the batch.
-        heartbeat.beat("FLEET", payload={
-            "fleet": {"jobs": [j.job_id for j in batch]}})
+        # addresses "the Nth batch"); its payload declares the batch and,
+        # with a per-job deadline, the wall-clock time a supervisor kills
+        # it at.
+        declared = {"jobs": [j.job_id for j in batch]}
+        if self.policy.deadline_s > 0:
+            declared["deadline"] = time.time() + self.policy.deadline_s
+        heartbeat.beat("FLEET", payload={"fleet": declared})
         oomed = False
 
         def evaluate(b, nested=False):
@@ -356,6 +564,11 @@ class FleetDriver:
 
     def _apply_results(self, batch: List[JobSpec], results: List) -> None:
         for job, row, err in results:
+            if self._fenced(job):
+                # The reaper owns this job: no attempt burned, no result
+                # recorded; it completes once, on the reaper's rank, and
+                # comes back here through the journals.
+                continue
             if err is not None:
                 cause = (quarantine.CAUSE_POISON
                          if isinstance(err, FloatingPointError)
@@ -389,6 +602,11 @@ class FleetDriver:
                 # what a resume reconciles against the (older, per-batch)
                 # checkpoint.
                 self._journal_job(job)
+                if self.leases is not None:
+                    # Journal first, THEN release: a kill between the two
+                    # leaves an expired lease whose reap finds the job in
+                    # the journal, absorbed, never re-run.
+                    self.leases.release(job.job_id)
                 self._evict(job)
 
     # -- the evaluation seams (bisectable) -----------------------------------
@@ -399,6 +617,9 @@ class FleetDriver:
         (`mem.oom`) per job it holds, and the per-job poison after."""
         faults.fire("fleet.dispatch")
         for job in batch:
+            # A real sleep, not beat suppression: the deadline declared
+            # just before the dispatch goes stale as in a genuine hang.
+            faults.fire("fleet.job.hang", job=job.job_id)
             faults.fire("mem.oom", job=job.job_id)
         if batch[0].kind == "bootstrap":
             rows = self._dispatch_bootstrap(batch)

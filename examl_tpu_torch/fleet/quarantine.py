@@ -16,8 +16,13 @@ never the batch or the run.
   "quarantined" jobs, and `isolate` re-raises it.  An allocator
   out-of-memory error is a job fault: the halves need less memory.
 
-* **Per-job retry ladder** (`JobFaultPolicy`): capped attempts with a
-  blake2b-jittered exponential backoff keyed on the job id.
+* **Per-job retry and deadline ladder** (`JobFaultPolicy`): capped
+  attempts with the supervisor's blake2b-jittered `backoff_delay` keyed
+  on the job id, and a wall-clock per-batch deadline that the driver
+  declares in its heartbeat: a `--supervise` parent kills a job-stuck
+  attempt WITHOUT consuming a run-level retry and exports
+  `EXAML_FLEET_HANG_ATTEMPTS` (`parse_hang_attempts`), so the resumed
+  driver quarantines the repeat offender.
 
 * **Dead-letter records** (`DeadLetters`): a quarantined job lands in
   `ExaML_fleetFailed.<run>` (one JSON object per line: cause, attempts,
@@ -27,26 +32,26 @@ never the batch or the run.
   append to an fsync'd per-run JSONL (`ExaML_fleetJournal.<run>`) whose
   reader skips a torn final line, so a kill loses at most the in-flight
   batch's compute, never a finished result; `-R` resume reconciles
-  journal ∪ checkpoint (`reconcile_extras`).
+  journal ∪ checkpoint (`reconcile_extras`).  Leased ranks write one
+  journal each (`.r<k>`), read together (`read_all_journals`) or
+  incrementally (`JournalTail`).
 
 * **Admission control** (`admission_error`): `--serve` specs that parse
   but cannot run (bad tree strings, bootstrap without a starting tree)
   are rejected at admission instead of poisoning the queue.
 
-The JAX package's supervisor hang attempts, per-rank journals and their
-tail reader belong to supervised and leased runs, which the port does
-not have yet.  `isolate` counts `fleet.bisect_dispatches`; the journal
-is the `fleet.results.write` fault seam.
+`isolate` counts `fleet.bisect_dispatches`; the journal is the
+`fleet.results.write` fault seam.
 """
 
 from __future__ import annotations
 
-import hashlib
+import glob
 import json
 import os
 import time
 from dataclasses import dataclass
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -54,41 +59,60 @@ from examl_tpu_torch import obs
 from examl_tpu_torch.ops._build import KernelError
 from examl_tpu_torch.resilience import faults
 from examl_tpu_torch.resilience.memgov import MemoryBudgetExhausted
+from examl_tpu_torch.resilience.supervisor import backoff_delay
+
+# Env var the supervisor exports to a retry after a fleet-job-stuck
+# kill: "jobid=count,jobid=count"; the driver bumps those jobs' attempts
+# and quarantines any at or past the policy cap.
+ENV_HANG_ATTEMPTS = "EXAML_FLEET_HANG_ATTEMPTS"
 
 # Quarantine cause taxonomy (the dead-letter record's `cause` and the
 # results table's cause column):
 CAUSE_POISON = "poison"     # non-finite lnL past the retry ladder
 CAUSE_ERROR = "error"       # dispatch raised / job failed to materialize
-
-
-def backoff_delay(base: float, retry: int, key: str = "",
-                  cap: float = 60.0) -> float:
-    """Exponential backoff with deterministic jitter (the JAX package's
-    `resilience/supervisor.backoff_delay`): the jitter fraction in
-    [0.5, 1.0) is drawn from a blake2b hash of (key, retry), so a delay
-    sequence is reproducible while distinct keys decorrelate.  The cap
-    bounds both the raw exponential and the jittered result."""
-    raw = min(cap, base * (2 ** max(0, int(retry) - 1)))
-    h = int.from_bytes(hashlib.blake2b(f"{key}:{retry}".encode(),
-                                       digest_size=8).digest(), "big")
-    return min(cap, raw * (0.5 + 0.5 * h / 2.0 ** 64))
+CAUSE_HANG = "hang"         # per-job deadline kills (the supervisor's)
 
 
 @dataclass
 class JobFaultPolicy:
-    """The per-job retry ladder: `max_attempts` caps how many times one
-    job may fail (poison lnL, dispatch raise) before it is quarantined;
-    between attempts the job backs off with jitter keyed on its id, so a
-    queue of retrying jobs never synchronizes and a test can pin the
-    exact delay sequence."""
+    """The per-job retry and deadline ladder: `max_attempts` caps how
+    many times one job may fail (poison lnL, dispatch raise, deadline
+    kill) before it is quarantined; between attempts the job backs off
+    with jitter keyed on its id, so a queue of retrying jobs never
+    synchronizes and a test can pin the exact delay sequence.
+    `deadline_s` is the wall-clock budget of one batched dispatch before
+    a `--supervise` parent declares the batch's jobs stuck (0: no
+    declaration, the stall window applies)."""
 
     max_attempts: int = 2
+    deadline_s: float = 0.0
     backoff_base: float = 0.25
     backoff_cap: float = 5.0
 
     def backoff(self, job_id: str, attempt: int) -> float:
         return backoff_delay(self.backoff_base, attempt, key=job_id,
                              cap=self.backoff_cap)
+
+
+def parse_hang_attempts(text: Optional[str]) -> Dict[str, int]:
+    """Parse the EXAML_FLEET_HANG_ATTEMPTS export ("id=n,id=n").
+    Malformed entries are dropped: a garbled value degrades to no
+    evidence, never a crashed resume."""
+    out: Dict[str, int] = {}
+    for item in (text or "").split(","):
+        item = item.strip()
+        if not item:
+            continue
+        jid, sep, val = item.partition("=")
+        if not sep or not jid:
+            continue
+        try:
+            n = int(val)
+        except ValueError:
+            continue
+        if n > 0:
+            out[jid] = n
+    return out
 
 
 def device_fault(exc: BaseException) -> bool:
@@ -141,9 +165,73 @@ def isolate(batch: List, evaluate: Callable, leaf: Callable,
 # -- durable results journal -------------------------------------------------
 
 
-def journal_path(workdir: str, run_id: str) -> str:
-    """The results journal of a run: `ExaML_fleetJournal.<run>`."""
-    return os.path.join(workdir, f"ExaML_fleetJournal.{run_id}")
+def journal_path(workdir: str, run_id: str,
+                 rank: Optional[int] = None) -> str:
+    """The results journal of a run: `ExaML_fleetJournal.<run>`, or a
+    leased rank's own, `.r<k>` (concurrent ranks never interleave
+    appends in one file; readers merge the set)."""
+    base = os.path.join(workdir, f"ExaML_fleetJournal.{run_id}")
+    return base if rank is None else f"{base}.r{rank}"
+
+
+def _journal_paths(workdir: str, run_id: str) -> List[str]:
+    """The base journal and every `.r<k>` rank journal (two globs: a bare
+    `<run>*` would also match another run whose id extends this one)."""
+    base = journal_path(workdir, run_id)
+    return sorted(set(glob.glob(base) + glob.glob(base + ".r*")))
+
+
+def read_all_journals(workdir: str, run_id: str) -> List[dict]:
+    """Every rank's journal records, merged."""
+    recs: List[dict] = []
+    for p in _journal_paths(workdir, run_id):
+        recs.extend(r for r in read_records(p) if r.get("job_id"))
+    return recs
+
+
+class JournalTail:
+    """Incremental reader over a run's journals: a serving rank polls
+    them twice a second for its whole life, and re-parsing every record
+    from byte 0 each tick would be quadratic over a long run.  The
+    journals are append-only, so this keeps a byte offset per file and
+    parses only the tail; an incomplete final line (no newline yet: a
+    read in the middle of an append) is NOT consumed.  A file that SHRANK
+    (a fresh run recreated it) is re-read from 0; absorbing a record
+    twice is harmless."""
+
+    def __init__(self, workdir: str, run_id: str):
+        self.workdir = workdir
+        self.run_id = run_id
+        self._offsets: Dict[str, int] = {}
+        self._records: Dict[str, dict] = {}   # job_id -> newest record
+
+    def records(self) -> List[dict]:
+        for path in _journal_paths(self.workdir, self.run_id):
+            off = self._offsets.get(path, 0)
+            try:
+                if os.path.getsize(path) < off:
+                    off = 0               # truncated or recreated
+                with open(path, "rb") as f:
+                    f.seek(off)
+                    chunk = f.read()
+            except OSError:
+                continue
+            if not chunk:
+                continue
+            complete, _, torn = chunk.rpartition(b"\n")
+            if complete:
+                for line in complete.split(b"\n"):
+                    line = line.strip()
+                    if not line:
+                        continue
+                    try:
+                        rec = json.loads(line)
+                    except ValueError:
+                        continue          # a garbage line is consumed
+                    if isinstance(rec, dict) and rec.get("job_id"):
+                        self._records[rec["job_id"]] = rec
+            self._offsets[path] = off + len(chunk) - len(torn)
+        return list(self._records.values())
 
 
 def read_records(path: str) -> List[dict]:

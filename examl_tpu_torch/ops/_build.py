@@ -9,8 +9,9 @@ one nvcc per missing library, all at once, and waits for them.
 Only sources in the repository and the CUDA toolkit's headers are used.
 
 Each library a process loads is one family of the program observatory
-(obs/programs.py: one row per kernel instance, from the ptxas log), and
-a build counts as `engine.compile_count` / `engine.compile_seconds`.
+(obs/programs.py: one row per kernel instance, from the ptxas log) and
+one `extension.load` ledger event, and a build counts as
+`engine.compile_count` / `engine.compile_seconds`.
 """
 
 from __future__ import annotations
@@ -161,6 +162,10 @@ def library(name: str) -> ctypes.CDLL:
         f.argtypes = argtypes
         f.restype = restype
     _LIBS[name] = lib
+    # One event per library a process loads, built or not: a restarted
+    # run's recovery time splits on it.
+    obs.ledger_event("extension.load", family=name, built=not cached,
+                     seconds=round(time.perf_counter() - t0, 4))
     return lib
 
 

@@ -78,6 +78,7 @@ import numpy as np
 import torch
 
 from examl_tpu_torch import config, datatypes, obs
+from examl_tpu_torch.constants import NEWVIEW_TIERS, POOLED_TIER
 from examl_tpu_torch.models.gtr import ModelParams
 from examl_tpu_torch.models.lg4 import LG4Params
 from examl_tpu_torch.obs import traffic as _traffic
@@ -91,8 +92,6 @@ from examl_tpu_torch.parallel.sharding import SINGLE, SiteGroup
 from examl_tpu_torch.tree.topology import FlatTraversal, Tree, TraversalEntry
 from examl_tpu_torch.utils import next_pow2, z_slots
 
-NEWVIEW_TIERS = ("chunk", "whole")
-POOLED_TIER = "pooled"          # every traversal under save_memory (-S)
 # Full traversals dispatched on either kernel tier, partial traversals
 # run on the wave-scan tier, traversals of the pooled tier (-S: full and
 # partial, the batched scan's included), the launch-table rows the chunk

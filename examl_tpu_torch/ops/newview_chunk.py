@@ -40,7 +40,8 @@ inner child, so holding the kernel against it also holds u.  On a CUDA
 tensor it launches or raises; nothing falls back.  `LAUNCHES` counts kernel
 launches (and nothing else), so a run can show that its path went
 through the kernel; `LAUNCHES_BY_K` counts the same launches by state
-count and `LAUNCHES_BY_DTYPE` by the arena's storage dtype.
+count, `LAUNCHES_BY_DTYPE` by the arena's storage dtype, and the metrics
+counter `kernel.newview_chunk.launches` in a process's snapshot.
 
 The arena may store bfloat16 with float32 compute (the engine's
 `clv_dtype`, the JAX package's EXAML_CLV_DTYPE=bf16): P, the tip
@@ -340,6 +341,9 @@ def _count(clv, launched: int) -> None:
     LAUNCHES_BY_K[K] = LAUNCHES_BY_K.get(K, 0) + launched
     name = str(clv.dtype).removeprefix("torch.")
     LAUNCHES_BY_DTYPE[name] = LAUNCHES_BY_DTYPE.get(name, 0) + launched
+    # The same count in the metrics registry: a process's --metrics
+    # snapshot (a supervised child's) carries its launches.
+    obs.inc("kernel.newview_chunk.launches", launched)
 
 
 def _raise_on(err: int, what: str) -> None:

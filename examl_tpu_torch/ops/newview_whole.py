@@ -26,7 +26,8 @@ once per traversal, whose rows are a tip's y; at K <= 4 the [C, K] table,
 whose rows the kernel contracts with P as the plain version does.  On a
 CUDA tensor it launches or raises; nothing falls back.  `LAUNCHES` counts
 kernel launches and nothing else (`LAUNCHES_BY_K` the same by state
-count); `LAST_GRID` is the cooperative grid of the last launch, in
+count, the metrics counter `kernel.newview_whole.launches` in a process's
+snapshot); `LAST_GRID` is the cooperative grid of the last launch, in
 blocks.
 """
 
@@ -296,5 +297,6 @@ def whole_apply_cuda(clv, scaler, codes, tips, block_part, meta, l_code,
             f"({_build.error_string(err)})")
     LAUNCHES += 1
     LAUNCHES_BY_K[K] = LAUNCHES_BY_K.get(K, 0) + 1
+    obs.inc("kernel.newview_whole.launches")
     LAST_GRID = grid.value
     return clv, scaler

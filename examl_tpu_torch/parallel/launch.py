@@ -12,6 +12,10 @@ tcp://HOST:PORT), runs on `cuda:(K mod device_count)` and holds block
 window K of the packed site axis (parallel/sharding.py).  No flags keep
 the single-process path: `init_distributed` returns `sharding.SINGLE`
 and starts nothing.
+
+This module imports torch only inside the functions that need it: the
+CLI's parser takes its flags from here, and a supervising parent parses
+the command line without loading torch.
 """
 
 from __future__ import annotations
@@ -19,10 +23,6 @@ from __future__ import annotations
 import datetime
 import os
 from typing import Optional
-
-import torch
-
-from examl_tpu_torch.parallel.sharding import SINGLE, SiteGroup
 
 # Minutes a collective or the rendezvous waits for a peer before it
 # raises.  A rank that died or raised closes its connections and its
@@ -68,10 +68,11 @@ def check_launch_args(args) -> None:
                          "HOST:PORT")
 
 
-def init_distributed(args) -> SiteGroup:
+def init_distributed(args):
     """Join the run's process group when the flags ask for one; the world
     of one otherwise.  Raises when the group cannot form within
     GROUP_TIMEOUT_MINUTES: nothing carries on in one process."""
+    from examl_tpu_torch.parallel.sharding import SINGLE, SiteGroup
     check_launch_args(args)
     if not launch_requested(args) or (args.nprocs == 1
                                       and args.coordinator is None):
@@ -85,7 +86,7 @@ def init_distributed(args) -> SiteGroup:
     return SiteGroup(rank, args.nprocs, dist.group.WORLD)
 
 
-def shutdown(group: SiteGroup) -> None:
+def shutdown(group) -> None:
     """Leave the process group `init_distributed` joined (no-op for the
     world of one).  The group drops its handle too: a gloo group whose
     last reference dies only at interpreter exit can abort the process
@@ -96,9 +97,10 @@ def shutdown(group: SiteGroup) -> None:
     group.process_group = None
 
 
-def rank_device(rank: int, device=None) -> torch.device:
+def rank_device(rank: int, device=None):
     """The device of rank `rank`: `cuda:(rank mod device_count)` unless
     the caller names a device (`cpu`, or a card by index)."""
+    import torch
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and dev.index is None:
         if not torch.cuda.is_available():
@@ -109,28 +111,29 @@ def rank_device(rank: int, device=None) -> torch.device:
     return dev
 
 
-def use_rank_device(rank: int, device=None) -> torch.device:
+def use_rank_device(rank: int, device=None):
     """`rank_device`, made the process's current card, so that kernels
     launched through ctypes run on it."""
+    import torch
     dev = rank_device(rank, device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     return dev
 
 
-def install_heartbeat(group: SiteGroup,
-                      log=lambda msg: None) -> Optional[str]:
+def install_heartbeat(rank: int, log=lambda msg: None) -> Optional[str]:
     """Point this process's search-loop heartbeat at a PER-RANK file
     (resilience/heartbeat.py, `$EXAML_HEARTBEAT_FILE`): rank 0 keeps the
     configured path, rank k > 0 appends `.p<k>`, so one wedged rank is
-    never masked by its peers' beats.  Call after `init_distributed`, so
-    the rank is the group's."""
+    never masked by its peers' beats.  `rank` is the process group's
+    rank, or the gang rank a supervisor exported (`EXAML_PROCID`) for a
+    rank that joins no group."""
     from examl_tpu_torch.resilience import heartbeat
 
     base = os.environ.get(heartbeat.ENV_VAR)
     if not base:
         return None
-    path = heartbeat.install(heartbeat.rank_path(base, group.rank))
+    path = heartbeat.install(heartbeat.rank_path(base, rank))
     log(f"heartbeat -> {path}")
     return path
 

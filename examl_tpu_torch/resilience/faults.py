@@ -28,11 +28,15 @@ Points the port has (seam -> default action):
     engine.dispatch    instance.evaluate, before dispatch     -> raise
     engine.nonfinite   instance.evaluate, poisons lnL to NaN  -> flag
     checkpoint.write   CheckpointManager.write, pre-publish   -> raise
+    checkpoint.publish gang checkpoint, staged -> publish     -> raise
     search.kill        heartbeat.beat (per search iteration)  -> signal KILL
     heartbeat.stall    heartbeat.beat, sticky beat suppressor -> flag
     fleet.dispatch     fleet driver, before a batch dispatch  -> raise
     fleet.job.poison   fleet dispatch, poisons ONE job's lnL  -> flag (sticky)
+    fleet.job.hang     fleet dispatch while job ID is batched -> hang
     fleet.results.write  fleet results-journal append         -> raise
+    fleet.lease.write  lease-board publish (stage/fsync)      -> raise
+    fleet.lease.reap   expired-lease reap steal               -> raise
     mem.oom            fleet dispatch, synthetic OOM          -> raise
     mem.pressure       memgov budget clamp (bytes=N)          -> flag (sticky)
 
@@ -65,28 +69,29 @@ POINTS = {
     "engine.dispatch": "raise at the engine dispatch boundary",
     "engine.nonfinite": "poison the dispatched log-likelihood with NaN",
     "checkpoint.write": "fail a checkpoint write before publish",
+    "checkpoint.publish": "fail/kill between a fully-staged gang "
+                          "checkpoint cycle and its publish rename",
     "search.kill": "signal self at the Nth search-loop heartbeat",
     "heartbeat.stall": "stop emitting heartbeats (sticky)",
     "fleet.dispatch": "raise at the fleet batched-dispatch boundary",
     "fleet.job.poison": "poison one fleet job's lnL to NaN (job=ID; "
                         "sticky — a poison job stays poison on retry)",
+    "fleet.job.hang": "hang the fleet dispatch while job ID is batched",
     "fleet.results.write": "fail a fleet results-journal append",
+    "fleet.lease.write": "fail a job-lease publish (stage/fsync seam)",
+    "fleet.lease.reap": "fail an expired-lease reap steal mid-flight",
     "mem.oom": "raise a synthetic out-of-memory error at a dispatch seam",
     "mem.pressure": "clamp the memory governor's budget to N bytes "
                     "(bytes=N; sticky — pressure persists once applied)",
 }
 
 # The JAX package's points whose seams the port does not have yet, with
-# the work that brings each (ROADMAP A10).
+# the work that brings each (ROADMAP A10c).
 NOT_YET_PORTED = {
     "compile.hang": "the extension bank (ops/bank.py)",
-    "checkpoint.publish": "the supervised gang checkpoint",
     "bank.worker": "the extension bank (ops/bank.py)",
     "bank.export.write": "the extension bank (ops/export_bank.py)",
     "bank.export.load": "the extension bank (ops/export_bank.py)",
-    "fleet.job.hang": "the fleet's per-job deadline",
-    "fleet.lease.write": "the fleet lease board (fleet/lease.py)",
-    "fleet.lease.reap": "the fleet lease board (fleet/lease.py)",
 }
 
 _DEFAULT_ACTION = {
@@ -94,6 +99,7 @@ _DEFAULT_ACTION = {
     "engine.nonfinite": ("flag", None),
     "heartbeat.stall": ("flag", None),
     "fleet.job.poison": ("flag", None),
+    "fleet.job.hang": ("hang", 3600.0),
     "mem.pressure": ("flag", None),
 }
 

@@ -206,3 +206,13 @@ def rank_path(base: str, rank: int) -> str:
     """Rank `rank`'s heartbeat file for a watcher of `base` (rank 0
     keeps the base path; peers suffix `.p<rank>`)."""
     return base if rank == 0 else f"{base}.p{rank}"
+
+
+def gang_paths(base: str, nranks: int) -> list:
+    return [rank_path(base, k) for k in range(nranks)]
+
+
+def gang_ages(base: str, nranks: int) -> list:
+    """Per-rank beat ages for the gang watcher (None = that rank has
+    never published a beat)."""
+    return [age(p) for p in gang_paths(base, nranks)]

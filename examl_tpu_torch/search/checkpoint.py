@@ -9,17 +9,33 @@ gzipped JSON: edge-list tree snapshots, raw model parameters
 (rates/freqs/alpha; eigensystems are recomputed), search counters, and
 the best-tree list.
 
-The port of the single-writer path of `examl_tpu/search/checkpoint.py`,
-with the same file names, magic, version, sections and fingerprint keys,
-so a checkpoint written by either package restores in the other.  The
-fingerprint's `nprocs` is the run's world size, allowlisted on restore
-(ELASTIC_FP_KEYS) as in the JAX package, so a checkpoint written by a
-run of two ranks restores in a run of one and the other way round; in a
-site-parallel run only rank 0 writes, and every rank restores from the
-shared file.  A partition's model entry holds its rates, frequencies
-and alpha (GTR or an empirical protein matrix, with AUTO's current
-choice in `auto_name`/`auto_freqs`, and under PSR the per-site rate
-state), or for LG4M/LG4X its name, alpha, category rates and weights.
+The port of `examl_tpu/search/checkpoint.py`, with the same file names,
+magic, version, sections and fingerprint keys, so a checkpoint written
+by either package restores in the other.  The fingerprint's `nprocs` is
+the run's world size (the gang's, when a supervisor spawned the ranks),
+allowlisted on restore (ELASTIC_FP_KEYS) as in the JAX package, so a
+checkpoint written by a run of two ranks restores in a run of one and
+the other way round.  In a site-parallel run started by hand only rank 0
+writes, and every rank restores from the shared file.
+
+GANG RUNS (`--launch N`, resilience/supervisor.py) make a checkpoint
+cycle a TWO-PHASE COMMIT: every rank fsyncs a staging record into the
+shared workdir (rank 0 the full blob, the others small attest markers
+stamped with the supervisor's attempt), and the published
+`.ckpt_N.json.gz` appears, by one atomic rename of rank 0's fsynced
+blob, only once EVERY rank of the current attempt has staged cycle N.  A
+gang killed in the middle of a cycle never serves a checkpoint some rank
+did not reach; the partial cycle is collected at restore
+(`checkpoint.partial_cycles_gced`) and the restore falls back to the
+newest complete one.  The `checkpoint.publish` fault seam sits between
+the complete staging and the rename.
+
+A partition's model entry holds its rates, frequencies and alpha (GTR or
+an empirical protein matrix, with AUTO's current choice in
+`auto_name`/`auto_freqs`, and under PSR the per-site rate state), or for
+LG4M/LG4X its name, alpha, category rates and weights; a restore gives
+back the frequencies bit for bit (`_exact_freqs`), so a run resumed at a
+tree boundary goes on exactly as the uninterrupted one.
 """
 
 from __future__ import annotations
@@ -29,13 +45,16 @@ import gzip
 import json
 import os
 import re
+import time
+from dataclasses import replace
 from typing import Optional
 
 import numpy as np
 
 from examl_tpu_torch import obs
 from examl_tpu_torch.instance import PhyloInstance
-from examl_tpu_torch.models.gtr import build_model
+from examl_tpu_torch.constants import FREQ_MIN
+from examl_tpu_torch.models.gtr import build_model, eigen_gtr
 from examl_tpu_torch.models.lg4 import LG4Params
 from examl_tpu_torch.resilience import faults
 from examl_tpu_torch.search.snapshots import TreeSnapshot
@@ -48,6 +67,26 @@ CKPT_MAGIC = "examl-tpu-checkpoint"
 # Fingerprint keys allowed to DIFFER between write and restore (the JAX
 # package's elastic-resume allowlist); everything else must match.
 ELASTIC_FP_KEYS = frozenset({"nprocs"})
+
+
+def _world_size(inst: PhyloInstance) -> int:
+    """The world size a fingerprint records: the gang's when a gang
+    supervisor spawned this process (`EXAML_GANG_RANKS`, real and
+    emulated gangs alike), else the process group's."""
+    env = os.environ.get("EXAML_GANG_RANKS")
+    if env:
+        try:
+            return max(1, int(env))
+        except ValueError:
+            pass
+    return inst.group.size
+
+
+def _gang_attempt() -> int:
+    """The supervisor attempt this process belongs to: stage markers are
+    stamped with it, so a dead attempt's leftovers can never complete a
+    new attempt's cycle."""
+    return faults._attempt()
 
 
 class CorruptCheckpoint(ValueError):
@@ -70,7 +109,7 @@ def _fingerprint(inst: PhyloInstance) -> dict:
         "use_median": inst.use_median,
         "per_partition_branches": inst.per_partition_branches,
         "rate_model": inst.rate_model,
-        "nprocs": inst.group.size,
+        "nprocs": _world_size(inst),
     }
 
 
@@ -98,6 +137,20 @@ def _models_blob(inst: PhyloInstance) -> list:
     return out
 
 
+def _exact_freqs(model, stored) -> object:
+    """`model` with the checkpoint's frequencies bit for bit.  They were
+    normalized once when the model was built, and `build_model`
+    normalizes again, which can move them by an ulp: a run resumed at a
+    tree boundary would then part from the uninterrupted run in the last
+    bits.  Frequencies that are not already normalized stay as built."""
+    stored = np.asarray(stored, dtype=np.float64)
+    if np.array_equal(model.freqs, stored) or stored.min() < FREQ_MIN \
+            or not np.allclose(model.freqs, stored, rtol=1e-12, atol=0):
+        return model
+    eign, ev, ei = eigen_gtr(model.rates, stored)
+    return replace(model, freqs=stored, eign=eign, ev=ev, ei=ei)
+
+
 def _restore_models(inst: PhyloInstance, blob: list) -> None:
     for gid, d in enumerate(blob):
         part = inst.alignment.partitions[gid]
@@ -108,10 +161,11 @@ def _restore_models(inst: PhyloInstance, blob: list) -> None:
             inst.auto_prot_models[gid] = d["auto_name"]
         if d.get("auto_freqs"):
             inst.auto_prot_freqs[gid] = d["auto_freqs"]
-        inst.models[gid] = build_model(
+        model = build_model(
             part.datatype, np.asarray(d["freqs"]),
             rates=np.asarray(d["rates"]), alpha=d["alpha"],
             ncat=inst.ncat, use_median=inst.use_median)
+        inst.models[gid] = _exact_freqs(model, d["freqs"])
         if inst.psr and "rate_category" in d:
             # A section whose length is not the partition's pattern count
             # (the alignment's, also on a rank that read only its own
@@ -144,10 +198,12 @@ class CheckpointManager:
     """
 
     FILE_RE = re.compile(r"\.ckpt_(\d+)\.json\.gz$")
+    STAGE_RE = re.compile(r"\.ckpt_(\d+)\.stage\.(blob|r\d+)$")
 
     def __init__(self, workdir: str, run_id: str,
                  keep_last: Optional[int] = None, log=print,
-                 primary: bool = True):
+                 primary: bool = True, gang_rank: int = 0,
+                 gang_size: int = 1):
         self.workdir = workdir
         self.run_id = run_id
         # keep_last: prune checkpoints older than the newest N after each
@@ -161,6 +217,11 @@ class CheckpointManager:
         # workdir, which every rank restores from); the other ranks keep
         # the counter alone.
         self.primary = primary
+        # Gang runs: `workdir` is the SHARED gang directory (lockstep
+        # keeps the ranks' counters aligned), writes take the two-phase
+        # stage/publish path, and only published cycles restore.
+        self.gang_rank = int(gang_rank)
+        self.gang_size = max(1, int(gang_size))
         os.makedirs(workdir, exist_ok=True)
         self.counter = self._max_existing() + 1
 
@@ -168,6 +229,21 @@ class CheckpointManager:
         return os.path.join(self.workdir,
                             f"ExaML_binaryCheckpoint.{self.run_id}"
                             ".ckpt_*.json.gz")
+
+    def _stage_pattern(self) -> str:
+        return os.path.join(self.workdir,
+                            f"ExaML_binaryCheckpoint.{self.run_id}"
+                            ".ckpt_*.stage.*")
+
+    def _stage_blob(self, n: int) -> str:
+        return os.path.join(self.workdir,
+                            f"ExaML_binaryCheckpoint.{self.run_id}"
+                            f".ckpt_{n}.stage.blob")
+
+    def _stage_marker(self, n: int, rank: int) -> str:
+        return os.path.join(self.workdir,
+                            f"ExaML_binaryCheckpoint.{self.run_id}"
+                            f".ckpt_{n}.stage.r{rank}")
 
     def _numbers(self) -> list:
         return [int(m.group(1)) for f in glob.glob(self._pattern())
@@ -209,22 +285,36 @@ class CheckpointManager:
         one atomic rename; an older checkpoint is never overwritten.
         tree_dict replaces the captured tree: quartet mode's live tree is
         a scaffold that an edge-list snapshot cannot represent, so it
-        checkpoints the comprehensive model tree instead.  On a rank other
-        than 0 nothing is written.  The `checkpoint.write` fault seam sits
-        between the tmp write and the publish (on every rank, as in the
-        JAX package's gang path): a raise models a full disk, a
-        `:signal=KILL` dying mid-write, and either way the previously
-        published checkpoint stays intact."""
+        checkpoints the comprehensive model tree instead.  A gang manager
+        (gang_size > 1) takes the two-phase path (`_write_gang`); on a
+        rank other than 0 of a run started by hand nothing is written.
+        The `checkpoint.write` fault seam sits between the tmp write and
+        the publish (on every rank, as in the JAX package's gang path): a
+        raise models a full disk, a `:signal=KILL` dying mid-write, and
+        either way the previously published checkpoint stays intact."""
+        if self.gang_size > 1:
+            return self._write_gang(state, extras, inst, tree, tree_dict)
         path = self.path_for(self.counter)
         if not self.primary:
             faults.fire("checkpoint.write")
             self.counter += 1
             return path
+        self._write_blob(path, self._blob(state, extras, inst, tree,
+                                          tree_dict))
+        self._fsync_dir()
+        obs.ledger_event("checkpoint.publish", cycle=self.counter,
+                         state=state)
+        self.counter += 1
+        self._prune()
+        return path
+
+    def _blob(self, state: str, extras: dict, inst: PhyloInstance,
+              tree: Tree, tree_dict: Optional[dict]) -> dict:
         if tree_dict is None:
             tree_dict = TreeSnapshot.capture(
                 tree, getattr(inst, "likelihood", 0.0),
                 with_key=False).to_dict()
-        blob = {
+        return {
             "magic": CKPT_MAGIC,
             "version": CKPT_VERSION,
             "state": state,
@@ -234,6 +324,10 @@ class CheckpointManager:
             "tree": tree_dict,
             "extras": extras,
         }
+
+    def _write_blob(self, path: str, blob: dict) -> None:
+        """Gzip `blob` to a tmp beside `path`, fsync it, fire the
+        `checkpoint.write` seam, then rename it to `path`."""
         tmp = path + ".tmp"
         try:
             with gzip.open(tmp, "wt") as f:
@@ -247,28 +341,139 @@ class CheckpointManager:
             except OSError:
                 pass
             raise
+
+    # -- gang two-phase commit ----------------------------------------------
+
+    def _write_gang(self, state: str, extras: dict, inst: PhyloInstance,
+                    tree: Tree, tree_dict: Optional[dict]) -> str:
+        """Phase 1 of a gang checkpoint cycle: STAGE.  Rank 0 fsyncs the
+        full blob to `.ckpt_N.stage.blob`; every rank then fsyncs its
+        attest marker `.ckpt_N.stage.r<k>`, stamped with the attempt.
+        Phase 2 (`_try_publish`) follows; the last rank to stage finds
+        the set complete, so nobody blocks."""
+        n = self.counter
+        if self.gang_rank == 0:
+            self._write_blob(self._stage_blob(n), self._blob(
+                state, extras, inst, tree, tree_dict))
+        else:
+            faults.fire("checkpoint.write")
+        marker = self._stage_marker(n, self.gang_rank)
+        tmp = f"{marker}.tmp.{os.getpid()}"
+        rec = {"rank": self.gang_rank, "cycle": n,
+               "attempt": _gang_attempt(), "pid": os.getpid(),
+               "t": time.time()}
+        try:
+            with open(tmp, "w") as f:
+                json.dump(rec, f)
+            self._fsync_file(tmp)
+            os.replace(tmp, marker)
+        except OSError:
+            try:
+                os.unlink(tmp)
+            except OSError:
+                pass
+            raise
         self._fsync_dir()
-        obs.ledger_event("checkpoint.publish", cycle=self.counter,
-                         state=state)
         self.counter += 1
+        self._try_publish(n)
+        return self.path_for(n)
+
+    def _read_marker(self, path: str) -> Optional[dict]:
+        try:
+            with open(path) as f:
+                return json.load(f)
+        except (OSError, ValueError):
+            return None
+
+    def _try_publish(self, n: int) -> bool:
+        """Phase 2: PUBLISH cycle `n` iff rank 0's blob and EVERY rank's
+        current-attempt marker are staged.  Ranks stage a cycle once, so
+        the last to stage sees the complete set; racing publishers are
+        harmless (the rename has one winner, and the loser's
+        FileNotFoundError means "already published")."""
+        blob = self._stage_blob(n)
+        if not os.path.exists(blob):
+            return False
+        attempt = _gang_attempt()
+        for k in range(self.gang_size):
+            rec = self._read_marker(self._stage_marker(n, k))
+            if rec is None or rec.get("attempt") != attempt:
+                return False
+        # `checkpoint.publish:signal=KILL` models a gang that dies
+        # between the two phases: restore falls back a cycle.
+        faults.fire("checkpoint.publish")
+        try:
+            # The blob was fsynced when staged: this renames durable
+            # bytes.
+            os.replace(blob, self.path_for(n))
+        except FileNotFoundError:
+            return True               # a peer won the publish race
+        self._fsync_dir()
+        for k in range(self.gang_size):
+            try:
+                os.unlink(self._stage_marker(n, k))
+            except OSError:
+                pass
+        obs.inc("checkpoint.gang_publishes")
+        obs.ledger_event("checkpoint.publish", cycle=n,
+                         rank=self.gang_rank, world=self.gang_size)
         self._prune()
-        return path
+        return True
+
+    def gc_partial_cycles(self) -> int:
+        """Remove every staging leftover (no cycle is in flight at
+        restore time) and count the cycles that never published: the
+        evidence of a gang killed mid-cycle
+        (`checkpoint.partial_cycles_gced`).  Leftover markers of a
+        published cycle (its publisher killed while unlinking) go
+        silently: that cycle committed."""
+        published = set(self._numbers())
+        partial = set()
+        for f in glob.glob(self._stage_pattern()):
+            m = self.STAGE_RE.search(f)
+            if m and int(m.group(1)) not in published:
+                partial.add(int(m.group(1)))
+            try:
+                os.unlink(f)
+            except OSError:
+                pass
+        if partial:
+            obs.inc("checkpoint.partial_cycles_gced", len(partial))
+            obs.ledger_event("checkpoint.gc", cycles=sorted(partial))
+            self.log(f"garbage-collected {len(partial)} partially staged "
+                     f"checkpoint cycle(s) {sorted(partial)} (a gang "
+                     "killed mid-cycle); restoring the newest complete "
+                     "cycle")
+        return len(partial)
 
     def _prune(self) -> None:
         """Remove every on-disk index older than the newest keep_last (a
         crash between publish and prune, or a keep_last that shrank
-        across a restart, leaves older files that this sweep catches)."""
+        across a restart, leaves older files that this sweep catches).
+        Staging leftovers age out on the same cutoff."""
         if self.keep_last is None:
             return
         cutoff = self.counter - self.keep_last
-        for n in self._numbers():
-            if n < cutoff:
-                try:
-                    os.remove(self.path_for(n))
-                except FileNotFoundError:
-                    pass
+        for pattern, regex in ((self._pattern(), self.FILE_RE),
+                               (self._stage_pattern(), self.STAGE_RE)):
+            for f in glob.glob(pattern):
+                m = regex.search(f)
+                if m and int(m.group(1)) < cutoff:
+                    try:
+                        os.remove(f)
+                    except FileNotFoundError:
+                        pass
+
+    def callback(self, inst: PhyloInstance, tree: Tree):
+        def cb(state: str, extras: dict) -> None:
+            self.write(state, extras, inst, tree)
+        return cb
 
     # -- restore ------------------------------------------------------------
+
+    def latest_path(self) -> Optional[str]:
+        n = self._max_existing()
+        return self.path_for(n) if n >= 0 else None
 
     def restore(self, inst: PhyloInstance, tree: Tree,
                 path: Optional[str] = None) -> Optional[dict]:
@@ -283,6 +488,13 @@ class CheckpointManager:
         flags)."""
         if path is not None:
             return self._restore_one(inst, tree, path)
+        # Two-phase hygiene: sweep staging leftovers BEFORE choosing a
+        # cycle, so a gang killed between stage and publish resumes from
+        # the newest COMPLETE cycle.  Rank 0 only: the ranks restore at
+        # independent moments, and a slow rank's restore must not unlink
+        # a cycle a fast one has already re-staged.
+        if self.gang_rank == 0:
+            self.gc_partial_cycles()
         nums = sorted(self._numbers(), reverse=True)
         for n in nums:
             p = self.path_for(n)
@@ -301,6 +513,7 @@ class CheckpointManager:
 
     def _restore_one(self, inst: PhyloInstance, tree: Tree,
                      path: str) -> dict:
+        t0 = time.perf_counter()
         try:
             with gzip.open(path, "rt") as f:
                 blob = json.load(f)
@@ -334,4 +547,7 @@ class CheckpointManager:
         _restore_models(inst, blob["models"])
         TreeSnapshot.from_dict(blob["tree"]).restore_into(tree)
         inst.evaluate(tree, full=True)
+        obs.ledger_event("checkpoint.restore", cycle=blob.get("counter"),
+                         state=blob["state"],
+                         seconds=round(time.perf_counter() - t0, 4))
         return {"state": blob["state"], "extras": blob["extras"]}

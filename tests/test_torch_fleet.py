@@ -592,14 +592,18 @@ def test_cli_fleet_flag_checks(cli_inputs, tmp_path, capsys):
     for argv in (["-b", "2", "-N", "2"], ["-b", "2"],
                  ["-b", "2", "-t", start, "-S"], ["-N", "2", "-f", "q"],
                  ["-b", "-5", "-t", start], ["-N", "2", "--fleet-batch", "0"],
+                 ["-N", "2", "--fleet-job-deadline", "-1"],
+                 ["-N", "2", "--fleet-lease-ttl", "0"],
                  ["-N", "2", "--coordinator", "127.0.0.1:1", "--nprocs",
-                  "2", "--procid", "0"]):
+                  "2"]):
         with pytest.raises(SystemExit):
             main(["-s", aln, "-n", "X", "-w", str(tmp_path)] + argv,
                  device="cpu")
         err = capsys.readouterr().err
         assert "error:" in err
-    assert "--nprocs 2 is refused" in err
+    # A fleet over several processes is a set of leased ranks (JAX's
+    # routing), each with its own explicit id.
+    assert "every rank needs an explicit id" in err
 
 
 @pytest.mark.parametrize("writer", ["jax", "port"])
