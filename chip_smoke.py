@@ -61,9 +61,26 @@ apps); a kill, a heartbeat stall and a SIGTERM on phase 7's alignment,
 each resumed to the unsupervised lnLs bit for bit; `--launch 2` (a gloo
 gang on the card) with a rank killed and with a checkpoint publish
 killed; the 8-job real-size fleet as two leased ranks, one killed; a
-fleet job that blows `--fleet-job-deadline`.
-Every phase is fatal: any failure exits non-zero before the result
-line.
+fleet job that blows `--fleet-job-deadline`.  The extension bank (phase
+27; phase 2's build already runs in its workers and records each
+library's cold build seconds), side by side on 8 taxa x 1,024 columns
+of its own: `-f e --bank --compile-timeout 5` with `compile.hang` armed
+on a cold relocated build directory (the B1 worker killed at the
+deadline, `newview_chunk` degraded in the manifest, the run ends on
+`--newview scan` with no B1 launch, its lnL against the same run with
+`--newview chunk`); a truncated copy of the library that built fastest
+under `EXAML_EXPORT_BANK=require` (ExportBankRequired) and `on`
+(quarantined, rebuilt, the run succeeds); `--supervise -f e` with
+`compile.hang:signal=SEGV` on every attempt (rungs 1-3 climbed, rung 3
+bit for bit as the unsupervised kernel-free run, no B1 launch); and the
+B1 wedge check, one dataflow launch whose only row waits on its own
+output rows, in a child process killed after 20 s.
+Phases 9, 15, 17, 20 and 27 time no kernel and run as side phases:
+each in a process of its own (`--side-child`), 9, 15 and 20 started
+after phase 5, 17 and 27 after phase 8, while the script runs phases
+6-8; all are joined before phase 10, and each prints its lines in its
+own place.  Every phase is fatal: any failure exits non-zero before the
+result line.
 
     python3 chip_smoke.py [--seed N]     # one card
     python3 chip_smoke.py --host-ab DIR  # the real-size evaluate and -f d
@@ -225,7 +242,23 @@ HOST_AB_EVALUATES, HOST_AB_FD_RUNS = 40, 2
 # supervised run or rank is stopped after SUP_TIMEOUT_S.
 SUP_TAXA, SUP_STALL_S, SUP_TTL_S, SUP_DEADLINE_S = 64, 10.0, 5.0, 5.0
 SUP_TIMEOUT_S = 240
-NPHASES = 26
+# Phase 27, the extension bank: the opening build's deadline per library
+# (phase 2 builds through bank workers), (b)'s --compile-timeout, and the
+# B1 wedge check's limit (its kernel traps after ~2^34 cycles, ~9 s).
+BANK_BUILD_TIMEOUT_S, BANK_TIMEOUT_S, WEDGE_CHECK_S = 600.0, 5.0, 20.0
+# Side phases: the host-bound CLI phases 9, 15 and 20 start side by side
+# after phase 5, each in a process of its own, while this process runs
+# phases 6-8; phases 17 and 27 start so after phase 8.  None of them
+# times a kernel, and no kernel is timed while they run: all are joined
+# before phase 10, each stopped after SIDE_TIMEOUT_S.  SIDE_THREADS caps
+# each one's CPU threads.
+SIDE_EARLY, SIDE_LATE = ("psr49", "aa_cli", "sev_cli"), ("quartets", "bank")
+SIDE_PHASES = SIDE_EARLY + SIDE_LATE
+SIDE_TIMEOUT_S, SIDE_THREADS = 600, 2
+# Its (b)-(d) run on FD_TAXA taxa x PARTITIONS x BANK_WIDTH columns of
+# its own (phase 7's alignment cut to a quarter: the script's time).
+BANK_WIDTH = 256
+NPHASES = 27
 
 
 class SmokeFailure(RuntimeError):
@@ -957,6 +990,99 @@ def run_cli(argv, device, workdir: str):
     with open(os.path.join(workdir, "ExaML_info.smoke")) as f:
         info = f.read()
     return rc, wall, counts, info
+
+
+def side_phase(name: str, device, out_dir: str, seed: int) -> dict:
+    """One of SIDE_PHASES, run here (in its `--side-child` process); the
+    late ones read what they need of earlier phases from side_inputs.pkl."""
+    import pickle
+    if name == "psr49":
+        return phase_ref49_psr(device, out_dir)
+    if name == "aa_cli":
+        return phase_aa_cli(device, out_dir, seed)
+    if name == "sev_cli":
+        return phase_sev_cli(device, out_dir, seed)
+    with open(os.path.join(out_dir, "side_inputs.pkl"), "rb") as f:
+        inputs = pickle.load(f)
+    if name == "quartets":
+        return phase_quartets(device, out_dir, inputs["search"])
+    return phase_bank(device, inputs["bank_report"], inputs["bank_wall"],
+                      inputs["smi"], seed)
+
+
+def side_spawn(names, out_dir: str, seed: int, inputs=None) -> dict:
+    """Each side phase of `names` in a `--side-child` process of its own
+    group, started now: {name: (process, start)}.  Its output goes to
+    side_<name>.log in `out_dir`, its result to side_<name>.pkl; `inputs`
+    ({name: value} of earlier phases), if given, to side_inputs.pkl
+    first."""
+    import pickle
+    if inputs is not None:
+        path = os.path.join(out_dir, "side_inputs.pkl")
+        with open(path + ".tmp", "wb") as f:
+            pickle.dump(inputs, f)
+        os.replace(path + ".tmp", path)
+    procs = {}
+    for name in names:
+        with open(os.path.join(out_dir, f"side_{name}.log"), "w") as f:
+            procs[name] = (subprocess.Popen(
+                [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                 "--side-child", name, "--seed", str(seed)], cwd=HERE,
+                stdout=f, stderr=subprocess.STDOUT, start_new_session=True,
+                env=dict(os.environ, OMP_NUM_THREADS=str(SIDE_THREADS))),
+                time.perf_counter())
+    return procs
+
+
+def side_wait(procs: dict, out_dir: str) -> dict:
+    """{name: (result, wall s, its output)} of every side phase, polled
+    until each has ended; one that fails, or outlives SIDE_TIMEOUT_S from
+    its start, fails the phase at once."""
+    import pickle
+    out = {}
+    while len(out) < len(procs):
+        for name, (proc, t0) in procs.items():
+            if name in out:
+                continue
+            wall = time.perf_counter() - t0
+            if proc.poll() is None:
+                check(wall < SIDE_TIMEOUT_S, f"side phase {name} ran past "
+                      f"{SIDE_TIMEOUT_S} s")
+                continue
+            with open(os.path.join(out_dir, f"side_{name}.log")) as f:
+                text = f.read().rstrip("\n")
+            check(proc.returncode == 0, f"side phase {name} exited "
+                  f"{proc.returncode}: {text[-3000:]}")
+            with open(os.path.join(out_dir, f"side_{name}.pkl"), "rb") as f:
+                out[name] = (pickle.load(f), wall, text)
+        time.sleep(0.2)
+    return out
+
+
+def side_stop(procs: dict) -> None:
+    """Stop every side phase still running, with its group."""
+    import signal
+    for proc, _ in procs.values():
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+
+
+def side_child(name: str, out_dir: str, seed: int) -> int:
+    """A `--side-child` process: run side phase `name` on the card and
+    pickle its result beside its log."""
+    import pickle
+    import torch
+    try:
+        res = side_phase(name, torch.device("cuda", 0), out_dir, seed)
+    except SmokeFailure as exc:
+        print(f"chip_smoke: side phase {name} FAILED: {exc}", flush=True)
+        return 1
+    path = os.path.join(out_dir, f"side_{name}.pkl")
+    with open(path + ".tmp", "wb") as f:
+        pickle.dump(res, f)
+    os.replace(path + ".tmp", path)
+    return 0
 
 
 def reevaluate(workdir: str, aln: str, dtype, device):
@@ -5680,6 +5806,371 @@ def phase_supervision(device, setup: dict, fd: dict, seed: int,
     return out
 
 
+def bank_build(log_fn) -> tuple:
+    """Phase 2's build, through the extension bank (part (a) of phase 27):
+    both libraries in bank workers on the checkout's build directory (cold
+    in a fresh checkout), each one's seconds recorded.  Returns (report,
+    wall s)."""
+    from examl_tpu_torch.ops import _build, bank
+    t0 = time.perf_counter()
+    report = bank.run_bank(argparse.Namespace(
+        mode="d", model="GAMMA", save_memory=False, newview="whole",
+        compile_timeout=BANK_BUILD_TIMEOUT_S), log=log_fn)
+    wall = time.perf_counter() - t0
+    check(sorted(report) == _build.sources()
+          and all(r["status"] == "banked" for r in report.values()),
+          f"the opening bank did not bank every library: {report}")
+    return report, wall
+
+
+def wedge_child() -> int:
+    """The B1 wedge check's child (`--wedge-child`): one dataflow launch
+    of kernel B1 over a one-row table whose entries wait on their own
+    output rows, so the dependency can never become ready.  The operands
+    are zeros (the entries never compute) and go straight to
+    `chunk_apply_cuda`, so the launch comes as early as the process
+    allows.  Prints the launch's wall time, then one JSON line with the
+    outcome (a KernelError, another error, or none) and the seconds from
+    the launch; a hang is the parent's timeout."""
+    t_start = time.time()
+    import torch
+    from examl_tpu_torch.ops import newview_chunk
+    device = torch.device("cuda", 0)
+    dtype, K, R, M, C, L, B, W, ntips = (torch.float32, 4, 4, 1, 16, 128,
+                                         64, 4, 4)
+    check(newview_chunk.ROUTE[(K, dtype)] == "flow",
+          "B1's f32 K = 4 instance is not on the dataflow route")
+    base = 2 * W
+    i32 = dict(dtype=torch.int32, device=device)
+    clv = torch.zeros((base + W + 1, B, L, R, K), dtype=dtype,
+                      device=device)
+    flow = newview_chunk.Dataflow(
+        torch.as_tensor([(2, base, 0, 0), (0, 0, 0, W)], **i32),
+        torch.ones(W, **i32), newview_chunk.Ready())
+    args = (clv, torch.zeros(clv.shape[:3], **i32),
+            torch.zeros((ntips, B, L), dtype=torch.uint8, device=device),
+            torch.zeros((W, 2, M, C, R, K), dtype=dtype, device=device),
+            torch.zeros(B, **i32), np.asarray([(2, base, 0, W)], np.int32),
+            torch.arange(base, base + W, **i32),     # its own output rows
+            torch.arange(0, W, **i32), torch.zeros(W, **i32),
+            torch.zeros(W, **i32),
+            torch.zeros((W, 2, M, R, K, K), dtype=dtype, device=device), 32)
+    print(json.dumps({"launch_at": time.time(),
+                      "start_to_launch_s": time.time() - t_start}),
+          flush=True)
+    t0 = time.perf_counter()
+    out = {"outcome": "returned"}
+    try:
+        newview_chunk.chunk_apply_cuda(*args, flow)
+        torch.cuda.synchronize(device)
+    except Exception as exc:                  # noqa: BLE001 — the outcome
+        out = {"outcome": type(exc).__name__, "error": str(exc)[:300]}
+    out["seconds"] = time.perf_counter() - t0
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def bank_wedge_check(base: str) -> dict:
+    """The B1 wedge check (ROADMAP §C): `wedge_child` in a process of its
+    own, killed with its group after WEDGE_CHECK_S seconds."""
+    import signal
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, os.path.join(HERE,
+                                                          "chip_smoke.py"),
+                             "--wedge-child"], cwd=HERE,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True,
+                            env=dict(os.environ, PYTHONPATH=HERE))
+    try:
+        out, err = proc.communicate(timeout=WEDGE_CHECK_S)
+        killed = False
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        killed = True
+    t_end = time.time()
+    lines = [json.loads(x) for x in out.splitlines() if x.startswith("{")]
+    res = {"outcome": "hang" if killed else f"exit {proc.returncode}",
+           "error": err[-300:]}
+    for x in lines:
+        res.update(x)
+    if killed:
+        res["outcome"] = "hang"
+        if "launch_at" in res:
+            res["seconds"] = t_end - res["launch_at"]
+    res["killed"] = killed
+    res["wall_s"] = time.perf_counter() - t0
+    res["returncode"] = proc.returncode
+    with open(os.path.join(base, "wedge.json"), "w") as f:
+        json.dump(res, f)
+    return res
+
+
+def bank_run(argv, workdir: str, env=None, timeout: float = 300) -> dict:
+    """One `python -m examl_tpu_torch.cli.main` run to its end (argv
+    without -n/-w/--metrics): rc, wall, output, metrics snapshot."""
+    os.makedirs(workdir, exist_ok=True)
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        CLI_CMD + argv + ["-n", "smoke", "-w", workdir, "--metrics",
+                          os.path.join(workdir, "m.json")],
+        cwd=HERE, capture_output=True, text=True, timeout=timeout,
+        env=dict(os.environ, PYTHONPATH=HERE, **(env or {})))
+    out = {"rc": res.returncode, "wall_s": time.perf_counter() - t0,
+           "output": res.stdout[-3000:] + res.stderr[-3000:]}
+    try:
+        out["snap"] = sup_snapshot(workdir)
+    except OSError:
+        out["snap"] = {}
+    return out
+
+
+def bank_wedged(base: str, fd: dict) -> dict:
+    """(b): -f e on the phase's alignment (ref49 until the script's time
+    limit cut it) with --bank --compile-timeout BANK_TIMEOUT_S and
+    compile.hang armed, on a cold relocated build directory: the B1
+    worker is killed at the deadline, newview_chunk recorded as degraded,
+    the run ends on --newview scan without a B1 launch; its lnL against
+    the same run with --newview chunk (side by side).  The f64 check of
+    its endpoint is `bank_f64`'s."""
+    from examl_tpu_torch.ops import bank
+    cold = os.path.join(base, "cold_b")
+    argv = ["-s", fd["aln"], "-t", fd["start_tree"], "-f", "e"]
+    res, walls = side_by_side({
+        "bank": lambda: bank_run(argv + [
+            "--bank", "--compile-timeout", str(BANK_TIMEOUT_S),
+            "--inject-fault", "compile.hang"], os.path.join(base, "b_bank"),
+            env={"EXAML_BUILD_DIR": cold}),
+        "chunk": lambda: bank_run(argv + ["--newview", "chunk"],
+                                  os.path.join(base, "b_chunk"))})
+    b, c = res["bank"], res["chunk"]
+    check(b["rc"] == 0 and c["rc"] == 0, f"(b) runs exited {b['rc']}, "
+          f"{c['rc']}: {b['output'][-1500:]} {c['output'][-1500:]}")
+    work = os.path.join(base, "b_bank")
+    with open(os.path.join(work, "ExaML_info.smoke")) as f:
+        info = f.read()
+    counters = b["snap"]["counters"]
+    bank_s = b["snap"]["timers"]["bank.wall_seconds"]["total_s"]
+    man = bank.load_manifest(cold)
+    check("ERROR: bank: CUDA library 'newview_chunk' timeout" in info
+          and "newview: scan" in info
+          and counters.get("bank.timeouts") == 1
+          and counters.get("bank.fallbacks") == 1
+          and bank.manifest_degraded_families(man) == {"newview_chunk"}
+          and BANK_TIMEOUT_S <= bank_s < BANK_TIMEOUT_S + 2.5,
+          f"(b) not degraded as expected: bank {bank_s} s, counters "
+          f"{ {k: v for k, v in counters.items() if k.startswith('bank')} },"
+          f" manifest {man}")
+    b1 = counters.get("kernel.newview_chunk.launches", 0)
+    c1 = c["snap"]["counters"].get("kernel.newview_chunk.launches", 0)
+    check(b1 == 0 and c1 > 0, f"(b) B1 launches: scan {b1}, chunk {c1}")
+    lnl = {k: float(open(os.path.join(base, d, "ExaML_log.smoke")).read()
+                    .split()[-1]) for k, d in (("scan", "b_bank"),
+                                               ("chunk", "b_chunk"))}
+    rel = abs(lnl["scan"] - lnl["chunk"]) / abs(lnl["chunk"])
+    check(rel <= 1e-6, f"(b) lnL scan {lnl['scan']!r}, chunk "
+          f"{lnl['chunk']!r} (rel {rel:.2e})")
+    return {"bank_s": bank_s, "deadline_s": BANK_TIMEOUT_S, "lnl": lnl,
+            "rel": rel, "b1_launches": {"scan": b1, "chunk": c1},
+            "walls_s": walls, "manifest": man["families"], "work": work}
+
+
+def bank_f64(device, fd: dict, b: dict) -> float:
+    """(b)'s endpoint in f64 on the card from the run's own files (its
+    tree under its model), held to the lnL it logged (abs 2e-3, phase
+    7's budget for its re-evaluations)."""
+    import torch
+    from examl_tpu_torch.instance import PhyloInstance
+    from examl_tpu_torch.io.bytefile import read_bytefile
+    from examl_tpu_torch.transfer import install_model_params
+    inst = PhyloInstance(read_bytefile(fd["aln"]), dtype=torch.float64,
+                         device=device, newview="scan")
+    install_model_params(inst, [(p.rates, p.freqs, p.alpha) for p in
+                                refmodel().parse_model_file(os.path.join(
+                                    b["work"], "ExaML_modelFile.smoke"))])
+    with open(os.path.join(b["work"], "ExaML_TreeFile.smoke")) as f:
+        f64 = inst.evaluate(inst.tree_from_newick(f.read()), full=True)
+    check(abs(f64 - b["lnl"]["scan"]) <= 2e-3,
+          f"(b) f64 {f64!r} against the logged {b['lnl']['scan']!r}")
+    return f64
+
+
+def bank_truncated_copy(d: str, family: str):
+    """A build directory `d` holding a copy of `family`'s library cut to
+    half its bytes, with the library's manifest entry: (path, full
+    size)."""
+    from examl_tpu_torch.ops import _build, export_bank
+    os.makedirs(d)
+    src = _build._lib_path(family)
+    dst = os.path.join(d, src.name)
+    shutil.copyfile(src.with_suffix(".log"),
+                    os.path.join(d, src.with_suffix(".log").name))
+    entry = export_bank.read_manifest(src.parent)["exports"][src.name]
+    with export_bank.updating_manifest(d) as doc:
+        doc["exports"] = {src.name: entry}
+    with open(src, "rb") as f:
+        data = f.read()
+    with open(dst, "wb") as f:
+        f.write(data[:len(data) // 2])
+    return dst, len(data)
+
+
+def bank_quarantine(base: str, fd: dict, family: str) -> dict:
+    """(c): a copy of `family`'s library, truncated, in a relocated build
+    directory with its manifest entry: EXAML_EXPORT_BANK=require raises
+    ExportBankRequired; on a second such copy, =on quarantines and
+    rebuilds it and the run succeeds."""
+    from examl_tpu_torch.ops import export_bank
+    argv = ["-s", fd["aln"], "-t", fd["start_tree"], "-f", "e"] + (
+        ["--newview", "whole"] if family == "newview_whole" else [])
+    copies = {m: bank_truncated_copy(os.path.join(base, f"c_{m}_kernels"),
+                                     family) for m in ("require", "on")}
+    res, _ = side_by_side({m: (lambda m=m: bank_run(
+        argv, os.path.join(base, f"c_{m}"),
+        env={"EXAML_BUILD_DIR": os.path.dirname(copies[m][0]),
+             "EXAML_EXPORT_BANK": m})) for m in copies})
+    req, on = res["require"], res["on"]
+    check(req["rc"] != 0 and "ExportBankRequired" in req["output"],
+          f"(c) require: rc {req['rc']}: {req['output'][-1500:]}")
+    dst, size = copies["on"]
+    c = on["snap"].get("counters", {})
+    launches = c.get(f"kernel.{family}.launches", 0)
+    check(on["rc"] == 0 and c.get("bank.export.rejected.digest") == 1
+          and c.get("bank.export.quarantined") == 1
+          and c.get("engine.compile_count") == 1 and launches > 0
+          and os.path.exists(dst + export_bank.QUARANTINE_SUFFIX)
+          and os.path.getsize(dst) == size,
+          f"(c) on: rc {on['rc']}, counters "
+          f"{ {k: v for k, v in c.items() if 'bank' in k or 'compile' in k} }"
+          f": {on['output'][-1500:]}")
+    return {"family": family, "require_wall_s": req["wall_s"],
+            "on_wall_s": on["wall_s"],
+            "rebuild_s": c.get(f"engine.compile_seconds.{family}"),
+            "launches": launches}
+
+
+def bank_supervised(fd: dict, work: str) -> int:
+    run = SupRun(sup_argv(fd["aln"], work, "-t", fd["start_tree"], "-f", "e",
+                          "--supervise", "--supervise-backoff", "0.1",
+                          "--inject-fault",
+                          "compile.hang:signal=SEGV:attempt=*"), work)
+    try:
+        return run.wait("(d)")
+    finally:
+        run.stop()
+
+
+def bank_rung3(fd: dict, base: str) -> dict:
+    """(d): --supervise -f e with compile.hang:signal=SEGV on every
+    attempt: each kernel rung crashes at its first B1 load, the run
+    climbs rungs 1-3 and ends on rung 3 bit for bit as the unsupervised
+    kernel-free run (a process of its own, side by side); no B1 launch
+    on rung 3."""
+    from examl_tpu_torch.resilience import exitcause
+    from examl_tpu_torch.resilience import supervisor as sup
+    work = os.path.join(base, "d_sup")
+    ref = os.path.join(base, "d_ref")
+    t0 = time.time()
+    res, _ = side_by_side({
+        "sup": lambda: bank_supervised(fd, work),
+        "ref": lambda: bank_run(["-s", fd["aln"], "-t", fd["start_tree"],
+                                 "-f", "e", "--newview", "scan",
+                                 "--batch-scan", "off", "--grad-smooth",
+                                 "off"], ref)})
+    r = res["ref"]
+    rk = r["snap"].get("counters", {})
+    check(r["rc"] == 0 and not rk.get("kernel.newview_chunk.launches")
+          and not rk.get("kernel.newview_whole.launches"),
+          f"(d) reference: rc {r['rc']}: {r['output'][-1500:]}")
+    ref_lnls = sup_lnls(ref)
+    with open(os.path.join(work, "stdout.txt")) as f:
+        tail = f.read()[-3000:]
+    check(res["sup"] == 0, f"(d) the supervised -f e exited {res['sup']}: "
+          f"{tail}")
+    snap = sup_snapshot(work)
+    att = snap["resilience"]["attempts"]
+    check(sup_causes(snap) == [exitcause.CAUSE_CRASH] * 3
+          + [exitcause.CAUSE_OK]
+          and [a["degrade_level"] for a in att] == [0, 1, 2, 3]
+          and att[-1]["pins"] == sup.DEGRADE_LADDER[3]
+          and sup_lnls(work) == ref_lnls,
+          f"(d) attempts {att}, lnLs {sup_lnls(work)} against {ref_lnls}")
+    k = sup_kernels(snap)
+    k_all = sup_kernels(snap, att)
+    check(k["newview_chunk"] == 0 and k_all["newview_chunk"] == 0
+          and k_all["newview_whole"] == 0,
+          f"(d) B1/B2 launches: rung 3 {k}, all attempts {k_all}")
+    return {"wall_s": time.time() - t0, "causes": sup_causes(snap),
+            "attempt_s": [a["seconds"] for a in att], "kernels": k_all}
+
+
+def phase_bank(device, bank_report: dict, bank_wall: float, smi: str,
+               seed: int) -> dict:
+    """Phase 27: the extension bank and the supervisor's last rung on the
+    card.  (a) is the opening build (phase 2) through bank workers; then
+    (b), (c), (d) and the B1 wedge check side by side (their work is in
+    subprocesses) on a small alignment of this phase's own, and (b)'s
+    endpoint checked in f64 here."""
+    from examl_tpu_torch.io.bytefile import write_bytefile
+    from examl_tpu_torch.tree.topology import Tree
+    t0 = time.perf_counter()
+    base = os.path.join(HERE, "build", "bank_smoke")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    ad = synthetic_alignment(FD_TAXA, PARTITIONS, BANK_WIDTH, seed)
+    fd = {"aln": os.path.join(base, "aln.binary"),
+          "start_tree": os.path.join(base, "start.nwk")}
+    write_bytefile(fd["aln"], ad)
+    with open(fd["start_tree"], "w") as f:
+        f.write(Tree.random(ad.taxon_names, seed, 1).to_newick(
+            ad.taxon_names) + "\n")
+    cold = {f: {"seconds": r["seconds"], "built": r["built"]}
+            for f, r in bank_report.items()}
+    smaller = min(cold, key=lambda f: cold[f]["seconds"])
+    log(f"  (a) the opening build through bank workers, {bank_wall:.1f} s: "
+        + ", ".join(f"{f} {'built' if r['built'] else 'found built'} in "
+                    f"{r['seconds']:.1f} s" for f, r in cold.items())
+        + f" [{smi}]")
+    res, walls = side_by_side({
+        "wedged": lambda: bank_wedged(base, fd),
+        "quarantine": lambda: bank_quarantine(base, fd, smaller),
+        "rung3": lambda: bank_rung3(fd, base),
+        "wedge_check": lambda: bank_wedge_check(base)})
+    res["wedged"]["f64_lnl"] = bank_f64(device, fd, res["wedged"])
+    out = dict(res, cold_build=cold, cold_wall_s=bank_wall, parts_s=walls,
+               taxa=FD_TAXA, columns=PARTITIONS * BANK_WIDTH,
+               wall_s=time.perf_counter() - t0)
+    b, c, d, w = (res[k] for k in ("wedged", "quarantine", "rung3",
+                                   "wedge_check"))
+    log(f"  (b) -f e --bank --compile-timeout {BANK_TIMEOUT_S:g} with "
+        f"compile.hang: the B1 worker killed, bank phase {b['bank_s']:.2f} s;"
+        f" newview_chunk degraded in the manifest; ended on --newview scan "
+        f"with {b['b1_launches']['scan']} B1 launches: lnL "
+        f"{b['lnl']['scan']!r} against --newview chunk {b['lnl']['chunk']!r}"
+        f" (rel {b['rel']:.2e}, {b['b1_launches']['chunk']} B1 launches), "
+        f"f64 from its files {b['f64_lnl']!r}")
+    log(f"  (c) {c['family']} truncated: require raised ExportBankRequired "
+        f"({c['require_wall_s']:.1f} s); on quarantined and rebuilt it "
+        f"({c['rebuild_s']:.1f} s of nvcc), the run {c['on_wall_s']:.1f} s "
+        f"with {c['launches']} launches")
+    log(f"  (d) --supervise with compile.hang:signal=SEGV on every attempt: "
+        f"causes {d['causes']}, attempts "
+        + ", ".join(f"{x:.1f}" for x in d["attempt_s"])
+        + f" s; rung 3 bit for bit as unsupervised, B1 "
+        f"{d['kernels']['newview_chunk']} launches, B2 "
+        f"{d['kernels']['newview_whole']}")
+    log(f"  B1 wedge check (a dataflow row waiting on its own rows): "
+        f"{w['outcome']}" + (f" after {w['seconds']:.1f} s"
+                             if "seconds" in w else "")
+        + (f" ({w.get('error', '')[:120]})" if w.get("error") else "")
+        + f"; wall {w['wall_s']:.1f} s")
+    log(f"  parts run side by side on {FD_TAXA} taxa x {PARTITIONS} x "
+        f"{BANK_WIDTH} columns: " + ", ".join(
+            f"{k} {v:.1f} s" for k, v in walls.items())
+        + f"; phase wall {out['wall_s']:.1f} s [{smi}]")
+    return out
+
+
 def host_ab_child(root: str, seed: int, device=None) -> dict:
     """One side of `--host-ab`: the port of the tree at `root` (this
     process imports its package) with every instrument off, the
@@ -6045,7 +6536,15 @@ def main(argv=None) -> int:
     # The host cost against another tree's port (see `host_ab`).
     ap.add_argument("--host-ab", metavar="PARENT")
     ap.add_argument("--host-ab-child", help=argparse.SUPPRESS)
+    # The B1 wedge check's child (phase 27).
+    ap.add_argument("--wedge-child", action="store_true",
+                    help=argparse.SUPPRESS)
+    # One of the side phases (started by the script itself).
+    ap.add_argument("--side-child", choices=SIDE_PHASES,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.wedge_child:
+        return wedge_child()
 
     import torch
     if not torch.cuda.is_available():
@@ -6076,9 +6575,20 @@ def main(argv=None) -> int:
     device = torch.device("cuda", 0)
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
+    if args.side_child:
+        return side_child(args.side_child, out_dir, args.seed)
     t_start = time.perf_counter()
     phase_s = {}
     last = [time.perf_counter(), None]
+    side_procs = {}
+
+    def side_log(side: dict, name: str) -> dict:
+        """Side phase `name`'s output, printed in its own place."""
+        res, wall, text = side[name]
+        log(text)
+        log(f"  ran in a process of its own, joined before phase 10: "
+            f"{wall:.1f} s from its start to its end")
+        return res
 
     def phase(title: str) -> None:
         """Close the running phase (log its seconds) and open the next."""
@@ -6096,8 +6606,9 @@ def main(argv=None) -> int:
             f"CUDA {torch.version.cuda}")
 
         phase("build")
-        _build.build_all()
-        log(f"  built {_build.sources()}")
+        bank_report, bank_wall = bank_build(log)
+        log(f"  built {_build.sources()} in bank workers ({bank_wall:.1f} "
+            "s)")
         ptxas = {name: ptxas_lines(_build.build_log(name))
                  for name in _build.sources()}
         for name, lines in ptxas.items():
@@ -6130,6 +6641,11 @@ def main(argv=None) -> int:
         phase("ref49, chunk tier: anchors, makenewz, smooth_tree")
         anchor = phase_anchor(device)
 
+        side_procs.update(side_spawn(SIDE_EARLY, out_dir, args.seed))
+        log(f"  phases 9, 15 and 20 started in processes of their own, side "
+            f"by side with phases 6-8 (pids "
+            f"{[p.pid for p, _ in side_procs.values()]})")
+
         phase("ref49, whole tier: anchors, -f e through the CLI")
         anchor_whole = phase_ref49_whole(device, out_dir)
 
@@ -6138,9 +6654,15 @@ def main(argv=None) -> int:
 
         phase("-R restart of -f d, whole tier")
         restart = phase_restart(device, out_dir, search)
+        side_procs.update(side_spawn(SIDE_LATE, out_dir, args.seed, {
+            "search": search, "bank_report": bank_report,
+            "bank_wall": bank_wall, "smi": smi}))
+        log(f"  phases 17 and 27 started in processes of their own (pids "
+            f"{[side_procs[n][0].pid for n in SIDE_LATE]})")
 
         phase("ref49 -m PSR -f e through the CLI, wave-scan tier, f32")
-        psr49 = phase_ref49_psr(device, out_dir)
+        side = side_wait(side_procs, out_dir)
+        psr49 = side_log(side, "psr49")
 
         phase("real size, chunk tier")
         setup = real_setup(TAXA, PARTITIONS, PART_WIDTH, args.seed)
@@ -6164,14 +6686,14 @@ def main(argv=None) -> int:
 
         phase("AA + BIN -f e through the CLI (WAG, LG+F, LG4M, LG4X, "
               "AUTO), chunk tier, f32")
-        aa_cli = phase_aa_cli(device, out_dir, args.seed)
+        aa_cli = side_log(side, "aa_cli")
 
         phase("real size, amino-acid and binary data, both tiers")
         real_aa = phase_real_aa(device, args.seed, REPS)
 
         phase("-f q through the CLI (batched and sequential scorers), "
               "chunk tier, f32")
-        fq = phase_quartets(device, out_dir, search)
+        fq = side_log(side, "quartets")
 
         phase("real size, quartet scorers (batched and sequential), chunk "
               "tier, f32")
@@ -6182,7 +6704,7 @@ def main(argv=None) -> int:
         sev = phase_sev(device, args.seed, SEV_REPS)
 
         phase("-S through the CLI: -f d, -R, -m PSR -f e, -f q; f32")
-        sev_cli = phase_sev_cli(device, out_dir, args.seed)
+        sev_cli = side_log(side, "sev_cli")
 
         phase("bfloat16 CLV storage: B1's bf16 instances vs plain, real "
               "size DNA and AA + BIN, -f d and -S -f e through the CLI")
@@ -6222,11 +6744,19 @@ def main(argv=None) -> int:
         release_memory()
         supervision = phase_supervision(device, setup, search, args.seed,
                                         smi)
+
+        phase("extension bank: the opening build's seconds per library, a "
+              "wedged build degraded to --newview scan, a truncated library "
+              "under EXAML_EXPORT_BANK=require and on, the supervisor's "
+              "rung 3, the B1 wedge check")
+        bank_phase = side_log(side, "bank")
         phase_s[last[1]] = time.perf_counter() - last[0]
         log(f"  ({phase_s[last[1]]:.1f} s)")
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
+    finally:
+        side_stop(side_procs)
 
     report = {"device": smi, "phase_s": phase_s, "b1_config": b1_config,
               "kernel_cases": cases, "b1_routes": b1_routes,
@@ -6239,7 +6769,8 @@ def main(argv=None) -> int:
               "real_size_quartets": real_fq, "sev": sev,
               "sev_cli": sev_cli, "bf16": bf16, "site_parallel": site,
               "fleet": fleet, "instruments": instruments,
-              "supervision": supervision, "ptxas": ptxas,
+              "supervision": supervision, "bank": bank_phase,
+              "ptxas": ptxas,
               "wall_s": time.perf_counter() - t_start}
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
@@ -6337,6 +6868,15 @@ def main(argv=None) -> int:
             "death_to_reap_s", "death_to_done_s", "done_by_rank")},
         "parts_s": supervision["parts_s"],
         "wall_s": supervision["wall_s"]}}))
+    log(json.dumps({"bank": {
+        "cold_build": bank_phase["cold_build"],
+        "cold_wall_s": bank_phase["cold_wall_s"],
+        "wedged": {k: bank_phase["wedged"][k] for k in (
+            "bank_s", "deadline_s", "lnl", "rel", "f64_lnl", "b1_launches")},
+        "quarantine": bank_phase["quarantine"],
+        "rung3": bank_phase["rung3"],
+        "wedge_check": bank_phase["wedge_check"],
+        "parts_s": bank_phase["parts_s"], "wall_s": bank_phase["wall_s"]}}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

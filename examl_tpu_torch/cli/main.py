@@ -6,8 +6,9 @@ dispatched at `main` :2719-2781).
         [-t tree | -g constraint | -R] [-w DIR] [-f d|o|e|E|q] \\
         [-m GAMMA|PSR] [-c categories] [-a] [-i radius] [-D] [-B N] [-M] \\
         [-S] [-p seed] [-Y groups | -r N] [-I N] [-e epsilon] \\
-        [--newview chunk|whole] [--batch-scan auto|on|off] \\
-        [--clv-dtype same|bf16] [--auto-prot ml|bic|aic|aicc] \\
+        [--newview chunk|whole|scan] [--grad-smooth on|off] \\
+        [--batch-scan auto|on|off] [--clv-dtype same|bf16] \\
+        [--auto-prot ml|bic|aic|aicc] [--bank] [--compile-timeout S] \\
         [--metrics FILE] [--ledger DIR] [--trace-events DIR] \\
         [--profile DIR] [--inject-fault SPEC ...] \\
         [--coordinator HOST:PORT --nprocs N --procid K] \\
@@ -60,8 +61,11 @@ tier, with no newview kernel, as the JAX package runs it; the info file
 reports each bucket's pool and, at the end, the cells it allocated.
 
 `--newview` selects the full-traversal tier: `chunk` (kernel B1, the
-default) or `whole` (kernel B2, one launch per traversal); `-S` takes
-neither.  `--batch-scan` selects the
+default), `whole` (kernel B2, one launch per traversal) or `scan` (the
+wave-scan tier of torch ops, no kernel: the JAX package's
+EXAML_FAST_TRAVERSAL=0); `-S` takes none of them.  `--grad-smooth off`
+smooths full trees branch by branch instead of by whole-tree gradients
+(the JAX package's EXAML_GRAD_SMOOTH=0).  `--batch-scan` selects the
 SPR search's scan: `auto` (the default) batches it where the arenas live
 on the card and keeps it sequential on the CPU, `on` / `off` force it
 (`PhyloInstance(batch_scan=...)`).  `--clv-dtype bf16` stores the CLV
@@ -70,6 +74,20 @@ in float32 (the JAX package's EXAML_CLV_DTYPE=bf16): full traversals run
 kernel B1's bfloat16-storage instances; it is refused with `--newview
 whole` and on a float64 run.  `main` runs on the card in float32 unless
 the caller passes `device="cpu"` (float64 there) or a `dtype`.
+
+`--bank` builds the run's CUDA libraries before start-up in killable
+worker processes (ops/bank.py), each with a deadline of
+`--compile-timeout` seconds (180 by default): a build that outlives it
+is killed, recorded as degraded in the build directory's
+`bank_manifest.json`, logged as an ERROR, and the run continues on the
+next route down (`--newview whole` -> `chunk` -> `scan`).  Without
+`--bank` a build is in-process and only warned about past the deadline,
+and a failed build raises.  `EXAML_EXPORT_BANK=off|on|require` sets how
+a built library is trusted: by its hashed name (off, the default),
+verified against its manifest entry and quarantined and rebuilt when it
+does not match (on), or never built at all (require: a run that would
+need a build fails).  `EXAML_BUILD_DIR` moves the build directory
+(default `build/torch_kernels/` beside the package).
 
 The run's instruments (obs/) and in-process resilience (resilience/), as
 in the JAX package: `--metrics FILE` writes the metrics snapshot
@@ -105,7 +123,8 @@ crash, or a heartbeat stall longer than `--supervise-stall` seconds,
 restarts it from the newest checkpoint with `-R`, at most
 `--supervise-retries` times, with jittered backoff from
 `--supervise-backoff` seconds and a degradation ladder of flags
-(`--newview chunk`, then also `--batch-scan off`); a preemption (exit 75)
+(`--newview chunk`, then also `--batch-scan off`, then the kernel-free
+`--newview scan --batch-scan off --grad-smooth off`); a preemption (exit 75)
 resumes without using a retry, and a SIGTERM to the watcher preempts the
 child.  `--launch N` spawns and watches N ranks (a gloo group on
 127.0.0.1, or with `--launch-emulate` N independent ranks): any rank's
@@ -139,6 +158,7 @@ import numpy as np
 from examl_tpu_torch import obs
 from examl_tpu_torch.constants import (CLV_STORAGE_NAMES, NEWVIEW_TIERS,
                                        POOLED_TIER, ZMAX, ZMIN)
+from examl_tpu_torch.ops import _build, bank, export_bank
 from examl_tpu_torch.parallel import launch
 from examl_tpu_torch.resilience import faults, heartbeat, memgov, preempt
 
@@ -205,7 +225,13 @@ def build_argparser() -> argparse.ArgumentParser:
                     help="output directory")
     ap.add_argument("--newview", default=None, choices=NEWVIEW_TIERS,
                     help="full-traversal tier: chunk (kernel B1, the "
-                         "default) or whole (kernel B2); not with -S")
+                         "default), whole (kernel B2) or scan (the "
+                         "wave-scan tier, no kernel); not with -S")
+    ap.add_argument("--grad-smooth", dest="grad_smooth", default="on",
+                    choices=["on", "off"],
+                    help="full-tree branch smoothing by whole-tree "
+                         "gradients (on, the default) or branch by branch "
+                         "(off)")
     ap.add_argument("--batch-scan", dest="batch_scan", default="auto",
                     choices=["auto", "on", "off"],
                     help="SPR scan: batched on the card and sequential on "
@@ -280,7 +306,9 @@ def build_argparser() -> argparse.ArgumentParser:
                         "crash or stall restart it from the newest "
                         "checkpoint with capped retries, backoff and a "
                         "degradation ladder (--newview chunk, then "
-                        "--batch-scan off: kernel B1 on every rung); "
+                        "--batch-scan off, then --newview scan "
+                        "--grad-smooth off: the last rung runs no "
+                        "kernel); "
                         "SIGTERM/SIGINT preemptions resume without using "
                         "a retry")
     s.add_argument("--supervise-retries", dest="supervise_retries",
@@ -317,6 +345,20 @@ def build_argparser() -> argparse.ArgumentParser:
                    default=1,
                    help="elastic-resume floor: never shrink the gang below "
                         "this many ranks (default 1)")
+    b = ap.add_argument_group("kernel builds")
+    b.add_argument("--bank", dest="bank", action="store_true",
+                   help="build every CUDA library this run will load "
+                        "before start-up, one killable worker process "
+                        "each; a build past --compile-timeout is killed "
+                        "and the run degrades to the next route down "
+                        "(--newview whole -> chunk -> scan) instead of "
+                        "wedging")
+    b.add_argument("--compile-timeout", dest="compile_timeout",
+                   type=float, default=180.0,
+                   help="per-library build deadline in seconds: hard "
+                        "(kill + the next route down) for --bank workers, "
+                        "a logged warning for an in-process build "
+                        "(default 180)")
     o = ap.add_argument_group("instruments and fault injection")
     o.add_argument("--inject-fault", dest="inject_fault",
                    action="append", metavar="SPEC", default=None,
@@ -911,6 +953,14 @@ def main(argv=None, device=None, dtype=None) -> int:
         ap.error(f"--newview {args.newview} cannot combine with -S: kernels "
                  "B1 and B2 have no pooled form, so -S runs every traversal "
                  "on the pooled wave-scan tier")
+    if args.compile_timeout <= 0:
+        ap.error("--compile-timeout must be positive")
+    # EXAML_EXPORT_BANK is read at every library load; a typo must stop
+    # the run here, not minutes in.
+    try:
+        export_bank.mode()
+    except ValueError as exc:
+        ap.error(str(exc))
     _check_supervisor_args(ap, args)
     _check_fleet_args(ap, args)
     try:
@@ -960,10 +1010,12 @@ def main(argv=None, device=None, dtype=None) -> int:
     _ledger.reset()
     prior_env = {k: os.environ.get(k) for k in (
         faults.ENV_VAR, _ledger.ENV_VAR, heartbeat.PROCID_VAR,
-        heartbeat.GANG_VAR)}
+        heartbeat.GANG_VAR, _build.TIMEOUT_VAR)}
     try:
         for spec in (args.inject_fault or []):
             faults.arm(spec)
+        # The in-process build watchdog's threshold (ops/_build.py).
+        os.environ[_build.TIMEOUT_VAR] = repr(float(args.compile_timeout))
         fleet_rank = getattr(args, "_fleet_rank", None)
         if fleet_rank is not None:
             # A leased rank started by hand publishes the rank contract
@@ -1104,6 +1156,15 @@ def _run(args, group, rank, device, dtype, storage,
          files: RunFiles) -> int:
     from examl_tpu_torch.instance import PhyloInstance
 
+    bank.reset()
+    if args.bank:
+        # The run's CUDA libraries, built before any engine in killable
+        # workers with a deadline; a wedged family pins args.newview one
+        # route down.  Then every rank waits for its peers' builds.
+        with files.phase("bank (build)"):
+            report = bank.run_bank(args, log=files.info)
+            launch.bank_barrier(args, group, report, log=files.info)
+            bank.warm_instance(report, files.info)
     tier = args.newview or (POOLED_TIER if args.save_memory else "chunk")
     mode = "fleet" if fleet_mode(args) else f"-f {args.mode}"
     files.info(f"alignment: {args.bytefile}  mode: {mode}  "
@@ -1128,7 +1189,9 @@ def _run(args, group, rank, device, dtype, storage,
         inst = PhyloInstance(data, dtype=dtype, device=device,
                              use_median=args.median,
                              per_partition_branches=args.per_partition_bl,
-                             newview=args.newview, rate_model=args.model,
+                             newview=args.newview,
+                             grad_smooth=args.grad_smooth == "on",
+                             rate_model=args.model,
                              psr_categories=args.categories,
                              batch_scan={"auto": None, "on": True,
                                          "off": False}[args.batch_scan],

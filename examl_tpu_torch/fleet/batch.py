@@ -20,9 +20,9 @@ bit (the parity the tests pin).
   whatever its topology, since B1 compiles nothing per shape: the
   port's counterpart of both the JAX package's per-profile `_fast_fn`
   and its mixed-profile `launch_universal`.  No job count is padded.
-* SCAN groups: under PSR, jobs group by the JAX package's wave-scan
-  shape and each job's traversal runs on the wave-scan tier, one job
-  after another (there is no kernel there).
+* SCAN groups: under PSR or `newview="scan"`, jobs group by the JAX
+  package's wave-scan shape and each job's traversal runs on the
+  wave-scan tier, one job after another (there is no kernel there).
 * WEIGHTS batches: bootstrap replicates on a fixed topology share one
   ordinary CLV pass, then one batched root reduction over their weight
   vectors (pattern weights enter only there).

@@ -68,7 +68,9 @@ class PhyloInstance:
                  save_memory: bool = False, clv_dtype=None,
                  local_window=None, group: SiteGroup = SINGLE):
         """newview: the engines' full-traversal tier, "chunk" (kernel B1,
-        the default) or "whole" (kernel B2), see ops/engine.py.
+        the default), "whole" (kernel B2) or "scan" (the wave-scan tier,
+        no kernel: the JAX package's EXAML_FAST_TRAVERSAL=0), see
+        ops/engine.py.
         clv_dtype: the CLV storage of every engine's arena, scan region
         and SEV pool, None / "same" (the compute dtype) or bfloat16
         ("bf16", torch.bfloat16) with float32 compute, the JAX package's

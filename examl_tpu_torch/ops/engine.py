@@ -18,8 +18,13 @@ only, with instances for R = 4 rates of K = 2 (binary), 4 (DNA) and 20
 (amino-acid: GTR, empirical matrices, LG4M/LG4X) states.  An engine on
 the card whose (R, K) has no instance is refused when it is built (the
 CLI always uses R = 4; only ncat != 4 from Python reaches that), never
-sent to another tier.  `whole_tree_gradients` gives every branch's
-derivatives from one pre-order pass over the current arena
+sent to another tier.  With `newview="scan"` every traversal, full ones
+included, takes the wave-scan tier and the engine loads no CUDA library:
+the kernel-free route (the JAX engine's `force_scan`,
+EXAML_FAST_TRAVERSAL=0), which the supervisor's last rung and the
+extension bank's degraded `newview_chunk` fall back to.
+`whole_tree_gradients` gives every branch's derivatives from one
+pre-order pass over the current arena
 (ops/gradient.py), `rate_scan` every site's lnL under a grid of
 candidate rates (PSR), and `batched_scan` / `batched_thorough` every
 candidate insertion of a pruned node (ops/scan.py), their uppass
@@ -158,10 +163,11 @@ class LikelihoodEngine:
                  save_memory: bool = False, clv_dtype=None,
                  group: SiteGroup = SINGLE):
         """newview selects the full-traversal tier: "chunk" (the bounded
-        chunk program through kernel B1, the default) or "whole" (one
+        chunk program through kernel B1, the default), "whole" (one
         launch of kernel B2 per traversal) — the JAX engine's
-        EXAML_PALLAS=1 | whole.  psr: per-site rates (CAT); every
-        traversal then takes the wave-scan tier.  save_memory: SEV (-S),
+        EXAML_PALLAS=1 | whole — or "scan" (the wave-scan tier, no
+        kernel; its EXAML_FAST_TRAVERSAL=0).  psr: per-site rates (CAT);
+        every traversal then takes the wave-scan tier.  save_memory: SEV (-S),
         the block-cell pool and the "pooled" tier; a kernel tier named
         with it is refused.  clv_dtype: the CLV storage dtype
         (`config.clv_storage_dtype`: None / "same", or bfloat16 with
@@ -200,7 +206,7 @@ class LikelihoodEngine:
         self.wave_width = wave_width
         self.num_parts = bucket.num_parts
         self.n_inner = max(ntips - 2, 1)
-        self.fast_slack = (0 if psr or save_memory
+        self.fast_slack = (0 if psr or save_memory or newview == "scan"
                            else fastpath.slack_rows(ntips))
         self.num_rows = self.n_inner + self.fast_slack + 1
         self.scratch_row = self.num_rows - 1
@@ -224,6 +230,7 @@ class LikelihoodEngine:
         self.K = bucket.states
         tier = newview_whole if newview == "whole" else newview_chunk
         if (self.device.type == "cuda" and not psr and not save_memory
+                and newview != "scan"
                 and not tier.supported(self.R, self.K, self.storage_dtype)):
             raise ValueError(
                 f"kernel {'B2' if newview == 'whole' else 'B1'} has no "
@@ -475,8 +482,8 @@ class LikelihoodEngine:
     # -- chunk-tier full traversals (ops/fastpath.py + kernel B1) ------------
 
     def _fast_eligible(self, entries) -> bool:
-        return not self.psr and isinstance(entries, FlatTraversal) and \
-            entries.n == self.n_inner
+        return not self.psr and self.newview != "scan" and \
+            isinstance(entries, FlatTraversal) and entries.n == self.n_inner
 
     @staticmethod
     def _cached(cache: "OrderedDict[bytes, object]", flat: FlatTraversal,

@@ -97,6 +97,30 @@ def shutdown(group) -> None:
     group.process_group = None
 
 
+def bank_barrier(args, group, report, log=lambda msg: None) -> None:
+    """Line the ranks up after `--bank` (ops/bank.py; the JAX package's
+    `bank_barrier`, the reference's MPI_Barrier after per-rank set-up).
+    The ranks of one host share the build directory, and a build holds
+    its library's lock file there, so each library is built once: here
+    every rank first waits until no peer still holds the lock of a
+    library it banked, then, in a process group, passes a barrier on the
+    group's gloo channel before the first collective.  The ranks of an
+    emulated gang and leased fleet ranks (no group) only wait for the
+    locks.  A single process falls through."""
+    from examl_tpu_torch.ops import _build
+    ranked = (getattr(args, "_gang", None) is not None
+              or getattr(args, "_fleet_rank", None) is not None)
+    if group.size <= 1 and not ranked:
+        return
+    for fam, r in report.items():
+        if r.get("status") == "banked":
+            _build.await_build(fam, timeout=_build.compile_timeout())
+    if group.size > 1:
+        import torch.distributed as dist
+        dist.barrier(group=group.process_group)
+        log(f"bank: {group.size} ranks banked (barrier passed)")
+
+
 def rank_device(rank: int, device=None):
     """The device of rank `rank`: `cuda:(rank mod device_count)` unless
     the caller names a device (`cpu`, or a card by index)."""

@@ -1,11 +1,12 @@
 """Deterministic fault injection (stdlib-only by contract).
 
-The port of `examl_tpu/resilience/faults.py`: the same spec grammar, hit
-counting, attempt gating and sticky points.  Every recovery path of the
-port — checkpoint fallback, non-finite retry, preemption, the fleet's
-job quarantine and OOM halving — is testable on the CPU without waiting
-for the card to misbehave: arming a point makes its seam fail exactly
-the way the observed failure mode does.
+The port of `examl_tpu/resilience/faults.py`: the same spec grammar, the
+same points, hit counting, attempt gating and sticky points.  Every
+recovery path of the port — checkpoint fallback, non-finite retry,
+preemption, the fleet's job quarantine and OOM halving, the bank's
+worker kill and the build watchdog's bark — is testable on the CPU
+without waiting for the card to misbehave: arming a point makes its
+seam fail exactly the way the observed failure mode does.
 
 Arming (comma-separated specs, via `EXAML_FAULTS` or `--inject-fault`):
 
@@ -27,8 +28,12 @@ Points the port has (seam -> default action):
 
     engine.dispatch    instance.evaluate, before dispatch     -> raise
     engine.nonfinite   instance.evaluate, poisons lnL to NaN  -> flag
+    compile.hang       _build.library, a library's first load -> hang
     checkpoint.write   CheckpointManager.write, pre-publish   -> raise
     checkpoint.publish gang checkpoint, staged -> publish     -> raise
+    bank.worker        ops/bank worker, at family start       -> signal KILL
+    bank.export.write  export_bank.publish, before the rename -> raise
+    bank.export.load   export_bank.verify, before the read    -> raise
     search.kill        heartbeat.beat (per search iteration)  -> signal KILL
     heartbeat.stall    heartbeat.beat, sticky beat suppressor -> flag
     fleet.dispatch     fleet driver, before a batch dispatch  -> raise
@@ -39,9 +44,6 @@ Points the port has (seam -> default action):
     fleet.lease.reap   expired-lease reap steal               -> raise
     mem.oom            fleet dispatch, synthetic OOM          -> raise
     mem.pressure       memgov budget clamp (bytes=N)          -> flag (sticky)
-
-The JAX package's other points (NOT_YET_PORTED) name seams the port
-does not have yet; arming one fails at parse time, never silently.
 
 `flag` points have no side effect here — `fire()` returns True and the
 seam implements the failure (NaN substitution, beat suppression).
@@ -68,9 +70,17 @@ ATTEMPT_VAR = "EXAML_RESTART_COUNT"
 POINTS = {
     "engine.dispatch": "raise at the engine dispatch boundary",
     "engine.nonfinite": "poison the dispatched log-likelihood with NaN",
+    "compile.hang": "hang inside a library's first load (its build "
+                    "included)",
     "checkpoint.write": "fail a checkpoint write before publish",
     "checkpoint.publish": "fail/kill between a fully-staged gang "
                           "checkpoint cycle and its publish rename",
+    "bank.worker": "kill/hang a bank build worker at family start",
+    "bank.export.write": "fail a built library's publish (survivable: "
+                         "the library lands, only its manifest entry is "
+                         "lost)",
+    "bank.export.load": "fail a built library's verification (survivable: "
+                        "the library is rebuilt)",
     "search.kill": "signal self at the Nth search-loop heartbeat",
     "heartbeat.stall": "stop emitting heartbeats (sticky)",
     "fleet.dispatch": "raise at the fleet batched-dispatch boundary",
@@ -85,16 +95,9 @@ POINTS = {
                     "(bytes=N; sticky — pressure persists once applied)",
 }
 
-# The JAX package's points whose seams the port does not have yet, with
-# the work that brings each (ROADMAP A10c).
-NOT_YET_PORTED = {
-    "compile.hang": "the extension bank (ops/bank.py)",
-    "bank.worker": "the extension bank (ops/bank.py)",
-    "bank.export.write": "the extension bank (ops/export_bank.py)",
-    "bank.export.load": "the extension bank (ops/export_bank.py)",
-}
-
 _DEFAULT_ACTION = {
+    "compile.hang": ("hang", 3600.0),
+    "bank.worker": ("signal", "KILL"),
     "search.kill": ("signal", "KILL"),
     "engine.nonfinite": ("flag", None),
     "heartbeat.stall": ("flag", None),
@@ -126,8 +129,7 @@ def parse_spec(text: str) -> Dict[str, FaultSpec]:
     """Parse an EXAML_FAULTS value into {point: FaultSpec}.
 
     Unknown points raise ValueError — a typo'd injection that silently
-    never fires would make a chaos test pass vacuously — and so do the
-    JAX package's points the port has no seam for yet.
+    never fires would make a chaos test pass vacuously.
     """
     specs: Dict[str, FaultSpec] = {}
     for item in (text or "").split(","):
@@ -136,11 +138,6 @@ def parse_spec(text: str) -> Dict[str, FaultSpec]:
             continue
         fields = item.split(":")
         point, _, ranktag = fields[0].partition("@")
-        if point in NOT_YET_PORTED:
-            raise ValueError(
-                f"fault point {point!r} is not yet ported: the port has "
-                f"no seam for it until {NOT_YET_PORTED[point]} is ported "
-                "(known: " + ", ".join(sorted(POINTS)) + ")")
         if point not in POINTS:
             raise ValueError(
                 f"unknown fault point {point!r} (known: "

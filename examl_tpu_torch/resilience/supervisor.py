@@ -39,12 +39,18 @@ once, then recover.
 
 THE LADDER.  The JAX package pins environment switches (its whole-tree
 Pallas kernel off, then its universal interpreter, then its scan tier).
-The port's routes are CLI flags, and its floor is kernel B1: the chunk
-tier is the one full-traversal route the port has outside PSR and `-S`,
-and it has no universal interpreter.  So rung 1 appends `--newview
-chunk` (B2 -> B1, the counterpart of leaving the whole-tree kernel) and
-rung 2 also `--batch-scan off` (the counterpart of the last rung's
-EXAML_BATCH_SCAN=0 / EXAML_BATCH_THOROUGH=0).  No rung leaves B1.
+The port's routes are CLI flags, and it has no universal interpreter.
+So rung 1 appends `--newview chunk` (B2 -> B1, the counterpart of
+leaving the whole-tree kernel), rung 2 also `--batch-scan off` (the
+sequential SPR scan), and rung 3, the floor, leaves the kernels:
+`--newview scan --batch-scan off --grad-smooth off` runs every traversal
+on the wave-scan tier of torch ops and loads no CUDA library (the
+counterpart of the JAX last rung's EXAML_FAST_TRAVERSAL=0,
+EXAML_BATCH_SCAN=0, EXAML_BATCH_THOROUGH=0, EXAML_GRAD_SMOOTH=0).  A
+fault in B1 itself (a launch that wedges the card, a library whose load
+crashes the process) thus ends on rung 3 instead of retrying B1 until
+the retries run out.  Under `-S` (which takes no `--newview`) a rung
+keeps its other flags.
 
 `--launch N` (GangSupervisor, below) extends the contract to several
 processes: the supervisor spawns all N ranks, watches the per-rank
@@ -72,11 +78,13 @@ from examl_tpu_torch.resilience import exitcause, heartbeat
 
 # Degradation ladder, in escalation order: CLI flags appended to the
 # child's argv (a key starting with "--" is a flag, any other key an
-# environment variable).  Every rung runs full traversals on kernel B1.
+# environment variable).  Rungs 1-2 run full traversals on kernel B1, the
+# last runs no kernel.
 DEGRADE_LADDER = (
     {},
     {"--newview": "chunk"},
     {"--newview": "chunk", "--batch-scan": "off"},
+    {"--newview": "scan", "--batch-scan": "off", "--grad-smooth": "off"},
 )
 
 DEFAULT_RETRIES = 3

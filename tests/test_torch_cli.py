@@ -326,3 +326,38 @@ def test_psr_tree_evaluation_end_to_end(tmp_path):
         tree = inst.tree_from_newick(newicks[i])
         assert inst.evaluate(tree, full=True) == pytest.approx(logged[i],
                                                                abs=1e-3)
+
+
+@pytest.mark.parametrize("grad", ["on", "off"])
+def test_scan_route_and_grad_smooth_flags(tmp_path, grad):
+    """`--newview scan` runs every traversal on the wave-scan tier (no
+    full traversal is dispatched to a kernel tier) and ends within 1e-9
+    of the chunk tier's run; `--grad-smooth off` takes the per-branch
+    route (no gradient sweep), `on` the gradient route."""
+    from examl_tpu_torch.ops import engine
+    from examl_tpu_torch.optimize import branch
+    aln, trees = _inputs(tmp_path)
+    lnls = {}
+    for tier in ("scan", "chunk"):
+        out = tmp_path / tier
+        full0, sweeps0 = engine.FULL_TRAVERSALS, branch.GRAD_SWEEPS
+        assert main(["-s", aln, "-t", trees, "-n", "T", "-w", str(out),
+                     "-f", "e", "--newview", tier, "--grad-smooth", grad],
+                    device="cpu") == 0
+        assert (engine.FULL_TRAVERSALS == full0) == (tier == "scan")
+        assert (branch.GRAD_SWEEPS > sweeps0) == (grad == "on")
+        assert f"newview: {tier}" in (out / "ExaML_info.T").read_text()
+        lnls[tier] = [float(x) for x in
+                      (out / "ExaML_log.T").read_text().split()[1::2]]
+    np.testing.assert_allclose(lnls["scan"], lnls["chunk"], rtol=1e-9)
+
+
+@pytest.mark.parametrize("extra", [["--newview", "scan", "-S"],
+                                   ["--compile-timeout", "-1"],
+                                   ["--grad-smooth", "maybe"]])
+def test_scan_and_bank_flag_refusals(tmp_path, extra):
+    aln, trees = _inputs(tmp_path)
+    with pytest.raises(SystemExit) as ei:
+        main(["-s", aln, "-t", trees, "-n", "T", "-w", str(tmp_path)]
+             + extra, device="cpu")
+    assert ei.value.code == 2

@@ -1,7 +1,8 @@
 """The port's package boundary: importing every module of examl_tpu_torch
 pulls in neither JAX nor any module of examl_tpu, and leaves TF32 off; the
-modules a supervising parent loads (the supervisor, the lease board and
-the CLI's front) import no torch either, and the instance no
+modules a supervising parent loads (the supervisor, the lease board, the
+CLI's front and the extension bank its workers run) import no torch
+either, and the instance no
 `scipy.stats` (its discrete-gamma rates equal `scipy.stats`' bit for
 bit)."""
 
@@ -42,6 +43,8 @@ def test_port_imports_no_jax_and_no_examl_tpu():
                  "examl_tpu_torch.ops.newview_chunk",
                  "examl_tpu_torch.ops.newview_whole",
                  "examl_tpu_torch.ops.gradient",
+                 "examl_tpu_torch.ops.bank",
+                 "examl_tpu_torch.ops.export_bank",
                  "examl_tpu_torch.ops.sev",
                  "examl_tpu_torch.optimize.branch",
                  "examl_tpu_torch.optimize.brent",
@@ -80,6 +83,8 @@ import json, sys
 import examl_tpu_torch.cli.main
 import examl_tpu_torch.resilience.supervisor
 import examl_tpu_torch.fleet.lease
+import examl_tpu_torch.ops.bank
+import examl_tpu_torch.ops.export_bank
 print(json.dumps(sorted(k for k in sys.modules
                         if k.split(".")[0] in ("torch", "jax", "jaxlib",
                                                "examl_tpu"))))

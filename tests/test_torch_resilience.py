@@ -18,8 +18,10 @@ the JAX package's (examl_tpu/resilience/), on the CPU, with one card case.
   recovered, a second non-finite result raises; `checkpoint.write` keeps
   the last published checkpoint and `-R` ends at the uninterrupted `-f d`
   lnL; a SIGTERM sent to a `-f d` subprocess exits with EXIT_PREEMPTED and
-  `-R` ends at the uninterrupted lnL (rtol 1e-10); an unported point is a
-  usage error;
+  `-R` ends at the uninterrupted lnL (rtol 1e-10); an unknown point is a
+  usage error; `compile.hang` fires at a library's first load in a
+  process, and the four points the extension bank brought parse as
+  JAX's;
 * the fleet: `fleet.job.poison:job=ID` quarantines that job alone, as the
   JAX driver does; `mem.oom` in a batch recovers by halving with every
   job's lnL bit for bit as alone; `mem.pressure:bytes=N` cuts the batch
@@ -139,8 +141,8 @@ def test_parse_spec_rejects_as_jax(text):
 
 
 # The JAX points the port had no seam for before its supervisor, gang
-# checkpoint and lease board came: the bank's stay refused, the others now
-# parse as JAX parses them.
+# checkpoint, lease board and extension bank came: each now parses as JAX
+# parses it, and the port's point set is JAX's.
 LATER_POINTS = ("bank.export.load", "bank.export.write", "bank.worker",
                 "checkpoint.publish", "compile.hang", "fleet.job.hang",
                 "fleet.lease.reap", "fleet.lease.write")
@@ -149,19 +151,45 @@ LATER_POINTS = ("bank.export.load", "bank.export.write", "bank.worker",
 @pytest.mark.parametrize("point", LATER_POINTS)
 def test_unported_points_are_refused(point):
     _, jf, _ = _jr()
-    assert point in jf.POINTS                  # a real JAX point ...
-    if point in faults.NOT_YET_PORTED:
-        with pytest.raises(ValueError, match="not yet ported"):
-            faults.parse_spec(f"{point}:after=2")  # ... the port refuses
-    else:
-        assert point in faults.POINTS
-        ours = faults.parse_spec(f"{point}:after=2")[point]
-        assert vars(ours) == vars(jf.parse_spec(f"{point}:after=2")[point])
-    assert set(faults.NOT_YET_PORTED) == {"compile.hang", "bank.worker",
-                                          "bank.export.write",
-                                          "bank.export.load"}
-    assert set(faults.POINTS) | set(faults.NOT_YET_PORTED) == \
-        set(jf.POINTS)
+    assert point in jf.POINTS and point in faults.POINTS
+    for text in (f"{point}:after=2", f"{point}:attempt=*:signal=SEGV",
+                 f"{point}@rank=1:hang=5"):
+        ours = faults.parse_spec(text)[point]
+        assert vars(ours) == vars(jf.parse_spec(text)[point])
+    assert not hasattr(faults, "NOT_YET_PORTED")
+    assert set(faults.POINTS) == set(jf.POINTS)
+
+
+def test_compile_hang_fires_at_a_librarys_first_load(tmp_path,
+                                                     monkeypatch):
+    """`compile.hang` is the seam of a library's first load in a process
+    (the JAX engine's first-call compile monitor): armed to raise, the
+    first load raises before the library is read; once loaded, a
+    library is served without passing the seam again."""
+    import shutil
+    syms = sorted({f for fns in _build.SIGNATURES.values() for f in fns})
+    (tmp_path / "stub.c").write_text("".join(
+        f"int {s}(void) {{ return 0; }}\n" for s in syms))
+    monkeypatch.setenv(_build.BUILD_DIR_VAR, str(tmp_path / "kernels"))
+    path = _build._lib_path("newview_chunk")
+    path.parent.mkdir()
+    subprocess.run([shutil.which("cc") or shutil.which("gcc"), "-shared",
+                    "-fPIC", "-o", str(path), str(tmp_path / "stub.c")],
+                   check=True)
+    monkeypatch.setenv(faults.ENV_VAR, "compile.hang:raise:after=1")
+    faults.reset()
+    obs.reset()
+    try:
+        with pytest.raises(faults.FaultInjected):
+            _build.library("newview_chunk")
+        lib = _build.library("newview_chunk")     # the spec fired once
+        monkeypatch.setenv(faults.ENV_VAR, "compile.hang:raise")
+        faults.reset()                            # armed afresh
+        assert _build.library("newview_chunk") is lib
+        assert obs.snapshot_counters()["faults.fired.compile.hang"] == 1
+    finally:
+        _build._LIBS.pop(path, None)
+        faults.reset()
 
 
 def _fire_log(mod, monkeypatch, env, attempts, calls):
@@ -485,12 +513,14 @@ def test_sigterm_preempts_a_subprocess_and_resumes(cli_case):
 
 
 def test_unported_fault_point_is_a_usage_error(cli_case, capsys):
+    """Every JAX point is ported now: an unknown point (here a misspelt
+    one) is the usage error."""
     tmp, (aln, trees) = cli_case
     with pytest.raises(SystemExit) as ei:
-        _cli(["-s", aln, "-t", trees, "--inject-fault", "compile.hang"],
+        _cli(["-s", aln, "-t", trees, "--inject-fault", "compile.hangs"],
              tmp / "usage")
     assert ei.value.code == exitcause.EXIT_USAGE
-    assert "not yet ported" in capsys.readouterr().err
+    assert "unknown fault point 'compile.hangs'" in capsys.readouterr().err
 
 
 # -- the fleet ---------------------------------------------------------------

@@ -3,11 +3,13 @@ the JAX package's, on the CPU.
 
 * `backoff_delay`, `classify_stall` and `child_argv` (over the port's flag
   set) give the JAX package's results on the same inputs;
-* the degradation ladder: every rung names a tier of NEWVIEW_TIERS and
-  stays on kernel B1 (`--newview chunk`), rung 2 is reached within
-  `--supervise-retries 1`, `-S` keeps its rung's other flags, an
-  allocator OOM halves the memory pin and an `error` exit (a kernel or
-  CUDA error) pins nothing;
+* the degradation ladder: every rung names a tier of NEWVIEW_TIERS,
+  rungs 0-2 stay on kernel B1 (`--newview chunk`) and rung 3 runs no
+  kernel (`--newview scan --batch-scan off --grad-smooth off`, the JAX
+  ladder's last rung), the floor is reached within `--supervise-retries
+  1`, `-S` keeps its rung's other flags, an allocator OOM halves the
+  memory pin and an `error` exit (a kernel or CUDA error) pins nothing;
+  a stub child that crashes on every kernel rung walks all four rungs;
 * a process that runs `Supervisor` over a stub child never imports torch;
   a gang of stub ranks whose rank 1 keeps crashing shrinks to one rank;
 * end to end through the child-command hook (the child is the port's CLI
@@ -114,18 +116,25 @@ def _supervisor(tmp_path, argv=("-s", "a", "-n", "T"), **kw):
 
 
 def test_every_rung_stays_on_kernel_b1():
+    """Rungs 0-2 stay on kernel B1; rung 3, the floor, leaves it for the
+    wave-scan tier, as the JAX ladder's last rung leaves its kernels."""
     ap = build_argparser()
+    tiers = []
     for rung in sup.DEGRADE_LADDER:
         flags = [t for k, v in rung.items() for t in (k, v)]
         args = ap.parse_args(["-s", "a", "-n", "T"] + flags)
         assert (args.newview or "chunk") in NEWVIEW_TIERS
-        assert args.newview in (None, "chunk")        # never leaves B1
-    assert sup.DEGRADE_LADDER[-1] == {"--newview": "chunk",
-                                      "--batch-scan": "off"}
+        tiers.append((args.newview, args.batch_scan, args.grad_smooth))
+    assert tiers == [(None, "auto", "on"), ("chunk", "auto", "on"),
+                     ("chunk", "off", "on"), ("scan", "off", "off")]
+    jladder = _jsup().DEGRADE_LADDER
+    assert len(sup.DEGRADE_LADDER) == len(jladder) == 4
+    assert jladder[-1]["EXAML_FAST_TRAVERSAL"] == "0" and \
+        jladder[-1]["EXAML_GRAD_SMOOTH"] == "0"
 
 
-@pytest.mark.parametrize("retries,levels", [(1, [2, 2]), (2, [1, 2]),
-                                            (3, [1, 2, 2])])
+@pytest.mark.parametrize("retries,levels", [(1, [3, 3]), (2, [2, 3]),
+                                            (3, [1, 2, 3])])
 def test_escalation_reaches_the_floor_within_the_budget(tmp_path, retries,
                                                         levels):
     s = _supervisor(tmp_path, max_retries=retries)
@@ -135,7 +144,8 @@ def test_escalation_reaches_the_floor_within_the_budget(tmp_path, retries,
         seen.append(s.degrade_level)
     assert seen == levels
     argv = s._attempt_argv()
-    assert argv[-4:] == ["--newview", "chunk", "--batch-scan", "off"]
+    assert argv[-6:] == ["--newview", "scan", "--batch-scan", "off",
+                         "--grad-smooth", "off"]
     # A kernel or CUDA error in the child exits `error`: retried on the
     # same rung, never "healed" by a quieter route.
     s2 = _supervisor(tmp_path, max_retries=retries)
@@ -148,14 +158,15 @@ def test_save_memory_rungs_and_the_memory_pin(tmp_path, monkeypatch):
     s = _supervisor(tmp_path, argv=("-s", "a", "-n", "T", "-S"),
                     max_retries=1)
     s._escalate(exitcause.CAUSE_SIGILL)
-    assert s._pins() == {"--batch-scan": "off"}      # -S takes no --newview
+    assert s._pins() == {"--batch-scan": "off",      # -S takes no --newview
+                         "--grad-smooth": "off"}
     build_argparser().parse_args(s._attempt_argv())
     fractions = []
     for _ in range(6):
         s._escalate(exitcause.CAUSE_ALLOC_OOM)
         fractions.append(float(s._env_pins()["EXAML_MEM_BUDGET_FRACTION"]))
     assert fractions == [0.45, 0.225, 0.1125, 0.05625, 0.05, 0.05]
-    assert s.degrade_level == 2                       # OOM pins no rung
+    assert s.degrade_level == 3                       # OOM pins no rung
 
 
 def test_checkpoint_glob_is_the_managers_naming(tmp_path):
@@ -200,8 +211,27 @@ def test_supervisor_parent_never_imports_torch(tmp_path):
     assert res.returncode == 0, res.stderr
     out = json.loads(res.stdout.strip().splitlines()[-1])
     assert out == {"rc": 0, "causes": ["sigill", "ok"],
-                   "argv": ["-n", "T", "--newview", "chunk", "--batch-scan",
-                            "off"], "loaded": []}
+                   "argv": ["-n", "T", "--newview", "scan", "--batch-scan",
+                            "off", "--grad-smooth", "off"], "loaded": []}
+
+
+def test_the_ladder_walks_all_four_rungs(tmp_path):
+    """A child that crashes at once on every kernel rung (as one whose
+    first load of kernel B1 faults does) climbs rungs 1, 2 and 3 within
+    the default three retries and ends on the kernel-free rung."""
+    child = ("import os, signal, sys; "
+             "'scan' in sys.argv or os.kill(os.getpid(), signal.SIGSEGV)")
+    s = sup.Supervisor(["-n", "T"], str(tmp_path), "T", backoff=0.0,
+                       log=lambda m: None,
+                       metrics_file=str(tmp_path / "m.json"),
+                       child_cmd=[sys.executable, "-c", child])
+    assert s.max_retries == 3 and s.run() == 0
+    assert [a["cause"] for a in s.attempts] == [exitcause.CAUSE_CRASH] * 3 \
+        + [exitcause.CAUSE_OK]
+    assert [a["degrade_level"] for a in s.attempts] == [0, 1, 2, 3]
+    assert [a["pins"] for a in s.attempts] == list(sup.DEGRADE_LADDER)
+    assert s._last_argv[-6:] == ["--newview", "scan", "--batch-scan", "off",
+                                 "--grad-smooth", "off"]
 
 
 def test_a_rank_that_keeps_dying_shrinks_the_gang(tmp_path):
@@ -381,4 +411,4 @@ def test_usage_error_is_not_retried(case):
     res = _attempts(out)
     assert [a["cause"] for a in res["attempts"]] == [exitcause.CAUSE_USAGE]
     assert faults.parse_spec("checkpoint.publish") and \
-        "checkpoint.publish" not in faults.NOT_YET_PORTED
+        "checkpoint.publish" in faults.POINTS
