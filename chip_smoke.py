@@ -74,12 +74,22 @@ under `EXAML_EXPORT_BANK=require` (ExportBankRequired) and `on`
 `compile.hang:signal=SEGV` on every attempt (rungs 1-3 climbed, rung 3
 bit for bit as the unsupervised kernel-free run, no B1 launch); and the
 B1 wedge check, one dataflow launch whose only row waits on its own
-output rows, in a child process killed after 20 s.
-Phases 9, 15, 17, 20 and 27 time no kernel and run as side phases:
-each in a process of its own (`--side-child`), 9, 15 and 20 started
-after phase 5, 17 and 27 after phase 8, while the script runs phases
-6-8; all are joined before phase 10, and each prints its lines in its
-own place.  Every phase is fatal: any failure exits non-zero before the
+output rows, in a child process killed after 20 s.  The fleet's tree
+axis (phase 28, run right after phase 23 on its real-size DNA instance
+and prepared jobs): the driver over two lanes that share the card
+(`devices=[cuda:0, cuda:0]`, each lane its own stream and ready flags)
+on phase 23's 8 jobs as two batches of 4, every lnL bit for bit phase
+23's with one dispatch and one B1 launch per lane, the round against
+the same batches on one lane in turns; a MeshShard on a 1x2 fabric of
+the card twice (slices 4/4, bit for bit); a PSR fleet on two lanes bit
+for bit one lane; and through the CLI `-N 6` with `--fleet-devices 0`
+and `--mesh 1x1` against plain `-N 6`, and `-N 4 --mesh 1x2` refused
+("needs 2 devices").
+Phases 9, 15, 17, 20 and 27 and phase 28's CLI part time no kernel and
+run as side phases: each in a process of its own (`--side-child`), 9,
+15 and 20 started after phase 5, 17, 27 and 28's CLI part after phase
+8, while the script runs phases 6-8; all are joined before phase 10,
+and each prints its lines in its own place.  Every phase is fatal: any failure exits non-zero before the
 result line.
 
     python3 chip_smoke.py [--seed N]     # one card
@@ -248,17 +258,29 @@ SUP_TIMEOUT_S = 240
 BANK_BUILD_TIMEOUT_S, BANK_TIMEOUT_S, WEDGE_CHECK_S = 600.0, 5.0, 20.0
 # Side phases: the host-bound CLI phases 9, 15 and 20 start side by side
 # after phase 5, each in a process of its own, while this process runs
-# phases 6-8; phases 17 and 27 start so after phase 8.  None of them
+# phases 6-8; phases 17 and 27 and part (d) of phase 28 start so after
+# phase 8.  None of them
 # times a kernel, and no kernel is timed while they run: all are joined
 # before phase 10, each stopped after SIDE_TIMEOUT_S.  SIDE_THREADS caps
 # each one's CPU threads.
-SIDE_EARLY, SIDE_LATE = ("psr49", "aa_cli", "sev_cli"), ("quartets", "bank")
+SIDE_EARLY, SIDE_LATE = (("psr49", "aa_cli", "sev_cli"),
+                         ("quartets", "bank", "lanes_cli"))
 SIDE_PHASES = SIDE_EARLY + SIDE_LATE
 SIDE_TIMEOUT_S, SIDE_THREADS = 600, 2
 # Its (b)-(d) run on FD_TAXA taxa x PARTITIONS x BANK_WIDTH columns of
 # its own (phase 7's alignment cut to a quarter: the script's time).
 BANK_WIDTH = 256
-NPHASES = 27
+# Phase 28, the fleet's tree axis: phase 23's FLEET_JOBS real-size DNA
+# jobs as batches of LANE_BATCH on two lanes that share the card (and on
+# a 1x2 fabric of the card twice), the round against one lane timed in
+# LANE_TURNS turns; a PSR fleet of LANE_PSR_JOBS start jobs on phase 7's
+# alignment; its CLI part (d) runs with the side phases of phase 8 (-N
+# LANE_CLI_JOBS, and -N 4 on a 1x2 mesh).
+LANE_BATCH, LANE_TURNS, LANE_PSR_JOBS, LANE_CLI_JOBS = 4, 3, 6, 6
+NPHASES = 28
+# The phases in the order they run: phase 28 runs right after phase 23,
+# on its real-size instance and prepared jobs.
+PHASE_ORDER = list(range(1, 24)) + [28] + list(range(24, 28))
 
 
 class SmokeFailure(RuntimeError):
@@ -1006,6 +1028,8 @@ def side_phase(name: str, device, out_dir: str, seed: int) -> dict:
         inputs = pickle.load(f)
     if name == "quartets":
         return phase_quartets(device, out_dir, inputs["search"])
+    if name == "lanes_cli":
+        return lanes_cli(device, out_dir, inputs["search"])
     return phase_bank(device, inputs["bank_report"], inputs["bank_wall"],
                       inputs["smi"], seed)
 
@@ -4300,14 +4324,15 @@ def fleet_split(ev, preps, lnl, device, label: str) -> dict:
 
 
 def fleet_tree_batch(inst, trees, setup: dict, device, label: str,
-                     reps: int, time_b1: bool) -> dict:
+                     reps: int, time_b1: bool, keep=None) -> dict:
     """One batch of tree jobs through the BatchEvaluator (the main path:
     every engine's jobs in one launch table), against each job evaluated
     alone: per-row 64-bit digests of every job's slice of the stacked
     arena and scaler equal those of its own arena, and the per-partition
     lnL equal bit for bit.  With `time_b1`, the batch's B1 launch is timed
     (CUDA events, the stacked table built once) against J times the
-    one-traversal bound, with the host time of building the table."""
+    one-traversal bound, with the host time of building the table.
+    `keep` (a dict) receives the prepared jobs and their lnL."""
     import torch
     from examl_tpu_torch.fleet import batch
     from examl_tpu_torch.ops import fastpath, newview_chunk
@@ -4407,6 +4432,8 @@ def fleet_tree_batch(inst, trees, setup: dict, device, label: str,
         check(np.array_equal(inst.per_partition_lnl, lnl[j]),
               f"{label}: job {j}'s batch lnL {lnl[j].tolist()} is not its "
               f"one-at-a-time {inst.per_partition_lnl.tolist()}")
+    if keep is not None:
+        keep.update(preps=preps, lnl=lnl)
     out["one_at_a_time_s"] = walls
     out["one_at_a_time_total_s"] = float(sum(walls))
     out["one_at_a_time_cold_total_s"] = float(sum(cold))
@@ -4739,17 +4766,19 @@ def many_part_sums(device, seed: int, reps: int) -> dict:
 
 
 def phase_fleet(device, setup: dict, fd: dict, out_dir: str, seed: int,
-                reps: int) -> dict:
+                reps: int, keep: dict) -> dict:
     """The fleet (-b, -N, --serve): a batch of FLEET_JOBS start jobs at real
     size (f32 and bf16 storage), FLEET_AA_JOBS on the AA + BIN set-up (f32
     and bf16), FLEET_GENE_JOBS per-gene trees, a real-size bootstrap
-    batch, and the CLI."""
+    batch, and the CLI.  `keep` receives the real-size f32 DNA instance,
+    its prepared jobs and their lnL, for phase 28."""
     import torch
     out = {}
     inst, tree = real_instance(setup, device, "chunk")
     out["dna"] = fleet_tree_batch(inst, fleet_trees(inst, seed, FLEET_JOBS),
-                                  setup, device, "DNA f32", reps, True)
+                                  setup, device, "DNA f32", reps, True, keep)
     out["bootstrap"] = fleet_bootstrap(inst, tree, device, FLEET_REPLICATES)
+    keep["inst"] = inst
     del inst, tree
     release_memory()
     inst, _ = real_instance(setup, device, "chunk",
@@ -4776,6 +4805,230 @@ def phase_fleet(device, setup: dict, fd: dict, out_dir: str, seed: int,
     release_memory()
     out["many_parts"] = many_part_sums(device, seed, reps)
     out["cli"] = fleet_cli(device, out_dir, fd, seed)
+    return out
+
+
+# -- phase 28: the fleet's tree axis --------------------------------------------
+
+
+def lanes_round(lanes, parts):
+    """One round: every lane's batch admitted, then launched, then each
+    collected (the driver's `_dispatch_round` without its ladder)."""
+    adms = [lane.admit(p) for lane, p in zip(lanes, parts)]
+    pend = [lane.launch_eval(p, a) for lane, p, a in zip(lanes, parts, adms)]
+    return np.concatenate([lane.collect(q) for lane, q in zip(lanes, pend)])
+
+
+def lanes_turns(lanes, preps, lnl, device) -> dict:
+    """The round of two lanes against the same batches one after another
+    on one lane, in LANE_TURNS turns (the order alternating), each result
+    bit for bit phase 23's."""
+    cut = [preps[:LANE_BATCH], preps[LANE_BATCH:]]
+    walls = {"two_lanes": [], "one_lane": []}
+
+    def one_lane():
+        return np.concatenate([lanes[0].eval_batch(p) for p in cut])
+
+    runs = {"two_lanes": lambda: lanes_round(lanes, cut),
+            "one_lane": one_lane}
+    for turn in range(LANE_TURNS):
+        for name in (("two_lanes", "one_lane") if turn % 2 == 0
+                     else ("one_lane", "two_lanes")):
+            sync(device)
+            t0 = time.perf_counter()
+            rows = runs[name]()
+            sync(device)
+            walls[name].append(time.perf_counter() - t0)
+            check(np.array_equal(rows, lnl), f"lanes, {name} turn {turn}: "
+                  "lnL differs from phase 23's")
+    return walls
+
+
+def phase_lanes(device, keep: dict, fd: dict, side_cli: dict,
+                seed: int) -> dict:
+    """Phase 28: the fleet's tree axis on the card.  (a) the driver over
+    two lanes that share the card (`devices=[cuda:0, cuda:0]`: the
+    primary evaluator and a DeviceShard, each its own stream and ready
+    flags) on phase 23's FLEET_JOBS real-size start jobs as two batches of
+    LANE_BATCH: every lnL bit for bit phase 23's, one dispatch and one B1
+    launch per lane; then the round against one lane in turns.  (b) a
+    MeshShard on a 1x2 fabric of the card twice over the same jobs as one
+    batch: 4 + 4 jobs, bit for bit.  (c) a PSR fleet of LANE_PSR_JOBS on
+    phase 7's alignment over two lanes, bit for bit one lane.  (d) the CLI
+    (run beside phase 8)."""
+    import torch
+    from examl_tpu_torch import obs
+    from examl_tpu_torch.fleet import jobs, shard
+    from examl_tpu_torch.fleet.driver import FleetDriver
+    from examl_tpu_torch.instance import PhyloInstance
+    from examl_tpu_torch.io.bytefile import read_bytefile
+    from examl_tpu_torch.parallel.sharding import (fabric_sharding,
+                                                   make_fabric_mesh)
+    inst, preps, lnl = keep["inst"], keep["preps"], keep["lnl"]
+    J = len(preps)
+    out = {}
+    release_memory()
+    # (a) the driver over two lanes sharing the card.
+    notes = []
+    obs.reset()
+    reset_counts()
+    sync(device)
+    t0 = time.perf_counter()
+    drv = FleetDriver(inst, batch_cap=LANE_BATCH, devices=[device, device],
+                      log=notes.append)
+    done = drv.run(jobs.make_jobs("start", J, seed))
+    sync(device)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    c = obs.snapshot()["counters"]
+    check(all(j.done and not j.failed for j in done)
+          and [j.lnl for j in done] == [float(r.sum()) for r in lnl],
+          "lanes (a): the two-lane fleet's lnL "
+          f"{[j.lnl for j in done]} is not phase 23's "
+          f"{[float(r.sum()) for r in lnl]}")
+    per_lane = [c.get(f"fleet.device_dispatches.d{k}", 0) for k in (0, 1)]
+    check(len(drv.shards) == 2 and per_lane == [1, 1]
+          and counts["fleet_tables"] == 2 and counts["b1"] == 2
+          * b1_per_table(inst.engines[4], sum(
+              len(p.st.launch) for p in preps[:LANE_BATCH])),
+          f"lanes (a): {len(drv.shards)} lanes, dispatches {per_lane}, "
+          f"{counts['fleet_tables']} tables, B1 {counts['b1']} launches")
+    lanes = drv.shards.shards
+    streams = {id(lane.stream) for lane in lanes}
+    flags = [id(r) for lane in lanes for r in lane._ready.values()]
+    check((len(streams) == 2 or device.type != "cuda")
+          and len(flags) == len(set(flags)),
+          "lanes (a): the two lanes share a stream or ready flags")
+    out["lanes"] = {"jobs": J, "wall_s": wall, "counts": counts,
+                    "dispatches": per_lane, "note": [n for n in notes
+                                                     if "lane" in n]}
+    log(f"  (a) two lanes sharing {device} ({notes[-1] if notes else ''}): "
+        f"{J} real-size jobs as 2 batches of {LANE_BATCH} in one round, "
+        f"{wall:.2f} s through the driver, B1 {counts['b1']} launches over "
+        f"{counts['fleet_tables']} tables, dispatches {per_lane}; every lnL "
+        "bit for bit phase 23's")
+    walls = lanes_turns(lanes, preps, lnl, device)
+    out["turns"] = walls
+    log("  (a) the round of both lanes against the two batches one after "
+        f"another on one lane, {LANE_TURNS} turns: two lanes "
+        + ", ".join(f"{w * 1e3:.1f}" for w in walls["two_lanes"])
+        + " ms; one lane " + ", ".join(f"{w * 1e3:.1f}"
+                                       for w in walls["one_lane"])
+        + " ms; every result bit for bit phase 23's")
+    del drv, lanes
+    release_memory()
+    # (b) a 1x2 fabric of the card twice.
+    obs.reset()
+    reset_counts()
+    ms = shard.MeshShard(inst, fabric_sharding(make_fabric_mesh(
+        1, 2, [device, device])))
+    sync(device)
+    t0 = time.perf_counter()
+    rows = ms.eval_batch(preps)
+    sync(device)
+    mwall = time.perf_counter() - t0
+    mcounts = read_counts()
+    c = obs.snapshot()["counters"]
+    slice_jobs = [c.get(f"fleet.mesh_slice_jobs.t{k}", 0) for k in (0, 1)]
+    check(np.array_equal(rows, lnl), "lanes (b): the 1x2 fabric's lnL "
+          "differs from phase 23's")
+    check(slice_jobs == [J // 2, J - J // 2] and mcounts["b1"] == 2
+          * b1_per_table(inst.engines[4], sum(
+              len(p.st.launch) for p in preps[:J // 2]))
+          and c.get("fleet.mesh_batches") == 1,
+          f"lanes (b): slice jobs {slice_jobs}, B1 {mcounts['b1']}")
+    out["mesh"] = {"wall_s": mwall, "counts": mcounts,
+                   "slice_jobs": slice_jobs}
+    log(f"  (b) MeshShard on a 1x2 fabric of [[{device}, {device}]]: one "
+        f"batch of {J} cut {slice_jobs[0]}/{slice_jobs[1]}, {mwall * 1e3:.1f}"
+        f" ms (the first batch on its slices), B1 {mcounts['b1']} launches; "
+        "every lnL bit for bit phase 23's")
+    del ms, rows
+    release_memory()
+    # (c) a PSR fleet over two lanes.
+    data = read_bytefile(fd["aln"])
+    psr = {}
+    reset_counts()
+    for name, devs in (("one_lane", 1), ("two_lanes", [device, device])):
+        pinst = PhyloInstance(data, dtype=torch.float32, device=device,
+                              rate_model="PSR")
+        t0 = time.perf_counter()
+        res = FleetDriver(pinst, batch_cap=LANE_PSR_JOBS // 2,
+                          devices=devs).run(
+            jobs.make_jobs("start", LANE_PSR_JOBS, seed))
+        sync(device)
+        psr[name] = {"lnl": [j.lnl for j in res],
+                     "wall_s": time.perf_counter() - t0}
+        check(all(j.done and not j.failed for j in res),
+              f"lanes (c): PSR {name} left jobs undone")
+    pcounts = read_counts()
+    check(psr["one_lane"]["lnl"] == psr["two_lanes"]["lnl"]
+          and pcounts["b1"] == 0 and pcounts["partial_traversals"]
+          == 2 * LANE_PSR_JOBS,
+          f"lanes (c): PSR two lanes {psr['two_lanes']['lnl']} against one "
+          f"{psr['one_lane']['lnl']}; B1 {pcounts['b1']}, "
+          f"{pcounts['partial_traversals']} wave-scan traversals")
+    out["psr"] = dict(psr, counts=pcounts)
+    log(f"  (c) PSR: {LANE_PSR_JOBS} start jobs on phase 7's alignment over "
+        f"two lanes {psr['two_lanes']['wall_s']:.2f} s, one lane "
+        f"{psr['one_lane']['wall_s']:.2f} s (first calls included); lnL bit "
+        "for bit, no B1 launch")
+    out["cli"] = side_cli
+    return out
+
+
+def lanes_cli(device, out_dir: str, fd: dict) -> dict:
+    """Phase 28 (d), a side phase: -N LANE_CLI_JOBS plain, with
+    --fleet-devices 0 (one lane a visible card) and with --mesh 1x1 on
+    phase 7's alignment, their results equal; -N 4 --mesh 1x2 returns 1
+    with the device arithmetic where fewer than two cards are visible."""
+    import shutil
+    import torch
+    from examl_tpu_torch.fleet import quarantine
+    base = os.path.join(out_dir, "lanes")
+    shutil.rmtree(base, ignore_errors=True)
+    out = {}
+    ref = None
+    for name, extra in (("plain", []), ("devices0", ["--fleet-devices", "0"]),
+                        ("mesh1x1", ["--mesh", "1x1"])):
+        workdir = os.path.join(base, name)
+        os.makedirs(workdir, exist_ok=True)
+        rc, wall, counts, info = run_cli(
+            ["-s", fd["aln"], "-N", str(LANE_CLI_JOBS)] + extra, device,
+            workdir)
+        table = fleet_table(os.path.join(workdir, "ExaML_fleet.smoke"))
+        lnls = {r["job_id"]: r["lnl"] for r in quarantine.read_records(
+            os.path.join(workdir, "ExaML_fleetJournal.smoke"))}
+        check(rc == 0 and len(table) == LANE_CLI_JOBS and all(
+            r["status"] == "done" for r in table.values()),
+            f"lanes CLI {name}: rc {rc}, table {table}")
+        check(counts["fleet_tables"] > 0 and (
+            device.type != "cuda" or counts["b1"] >= counts["fleet_tables"]),
+              f"lanes CLI {name}: B1 {counts['b1']} for "
+              f"{counts['fleet_tables']} tables")
+        if ref is None:
+            ref = (table, lnls)
+        check(table == ref[0] and lnls == ref[1], f"lanes CLI {name}: "
+              f"results differ from -N {LANE_CLI_JOBS}'s")
+        out[name] = {"wall_s": wall, "counts": counts,
+                     "lanes": info.count("device lane")}
+    workdir = os.path.join(base, "mesh1x2")
+    os.makedirs(workdir, exist_ok=True)
+    rc, wall, counts, info = run_cli(["-s", fd["aln"], "-N", "4", "--mesh",
+                                      "1x2"], device, workdir)
+    if torch.cuda.device_count() < 2:
+        check(rc == 1 and "ERROR: mesh 1x2 needs 2 devices" in info,
+              f"lanes CLI --mesh 1x2 on one card: rc {rc}")
+    else:
+        check(rc == 0, f"lanes CLI --mesh 1x2: rc {rc}")
+    out["mesh1x2"] = {"rc": rc, "wall_s": wall, "counts": counts,
+                      "error": next((ln for ln in info.splitlines()
+                                     if "ERROR" in ln), None)}
+    log(f"  (d) CLI on phase 7's alignment: -N {LANE_CLI_JOBS} "
+        + "; ".join(f"{k} {v['wall_s']:.1f} s (B1 {v['counts']['b1']})"
+                    for k, v in out.items() if k != "mesh1x2")
+        + " with equal results tables and journals; -N 4 --mesh 1x2 "
+        f"returned {rc}: {out['mesh1x2']['error']}")
     return out
 
 
@@ -6380,7 +6633,7 @@ def bf16_spills(ptxas: dict) -> dict:
 
 def kernels_line(real, real_whole, search, scan, grad, anchor_whole,
                  restart, aa_cli, real_aa, fq, sev, sev_cli, cases,
-                 whole_cases, bf16, site, fleet) -> list:
+                 whole_cases, bf16, site, fleet, lanes) -> list:
     """The kernels line: each kernel's row, with its instances by K; B1's
     bfloat16-storage instances in a row of their own."""
     # Each kernel's launches on the main paths of this run, each path
@@ -6397,7 +6650,8 @@ def kernels_line(real, real_whole, search, scan, grad, anchor_whole,
     # real-size path and -f d, B2 on each rank's ref49 -f e; and B1 on
     # phase 23's fleet paths (each batch of tree jobs one stacked table an
     # engine, the bootstrap batch's CLV pass, the CLI's -b, -N, --serve
-    # and -R runs; its bf16 batches in the bf16 row).  The PSR and
+    # and -R runs; its bf16 batches in the bf16 row), and on phase 28's
+    # (the two-lane fleet, the 1x2 fabric, the CLI runs).  The PSR and
     # -S paths launch neither (their traversals run on the wave-scan and
     # pooled tiers).  `by_K` splits
     # each kernel's row by instance: the launches by state count, and its
@@ -6426,6 +6680,8 @@ def kernels_line(real, real_whole, search, scan, grad, anchor_whole,
     b1_paths += [fleet[w]["counts"] for w in ("dna", "aa", "gene",
                                               "bootstrap")]
     b1_paths += [c["counts"] for c in fleet["cli"].values()]
+    b1_paths += [lanes[k]["counts"] for k in ("lanes", "mesh", "psr")]
+    b1_paths += [c["counts"] for c in lanes["cli"].values()]
     b1_paths += [by_int_k(r["counts"]) for r in site["ranks"]]
     b1_paths += [by_int_k(c) for c in site["fd"]["counts"]]
     b2_paths += [by_int_k(c) for c in site["fe"]["counts"]]
@@ -6597,7 +6853,7 @@ def main(argv=None) -> int:
             phase_s[last[1]] = now - last[0]
             log(f"  ({now - last[0]:.1f} s)")
         last[:] = [now, title]
-        log(f"[{len(phase_s) + 1}/{NPHASES}] {title}")
+        log(f"[{PHASE_ORDER[len(phase_s)]}/{NPHASES}] {title}")
 
     try:
         phase("device")
@@ -6657,7 +6913,8 @@ def main(argv=None) -> int:
         side_procs.update(side_spawn(SIDE_LATE, out_dir, args.seed, {
             "search": search, "bank_report": bank_report,
             "bank_wall": bank_wall, "smi": smi}))
-        log(f"  phases 17 and 27 started in processes of their own (pids "
+        log(f"  phases 17 and 27 and phase 28's CLI part started in "
+            f"processes of their own (pids "
             f"{[side_procs[n][0].pid for n in SIDE_LATE]})")
 
         phase("ref49 -m PSR -f e through the CLI, wave-scan tier, f32")
@@ -6721,14 +6978,24 @@ def main(argv=None) -> int:
               "(f32, bf16; AA + BIN), a bootstrap batch, -b/-N/--serve/-R "
               "through the CLI")
         release_memory()
-        fleet = phase_fleet(device, setup, search, out_dir, args.seed, REPS)
+        lanes_in = {}
+        fleet = phase_fleet(device, setup, search, out_dir, args.seed, REPS,
+                            lanes_in)
 
+        phase("fleet lanes and the tree axis: two lanes sharing the card "
+              "and a 1x2 fabric on phase 23's real-size jobs, a PSR fleet on "
+              "two lanes, --fleet-devices 0 / --mesh 1x1 / --mesh 1x2 "
+              "through the CLI")
+        lanes = phase_lanes(device, lanes_in, search,
+                            side_log(side, "lanes_cli"), args.seed)
+        del lanes_in
+        release_memory()
 
         phase("report")
         kernels = kernels_line(real, real_whole, search, scan, grad,
                                anchor_whole, restart, aa_cli, real_aa, fq,
                                sev, sev_cli, cases, whole_cases, bf16,
-                               site, fleet)
+                               site, fleet, lanes)
 
         phase("instruments on the card: -f d with --metrics/--ledger/"
               "--trace-events, -f e --profile, real-size evaluate off/"
@@ -6768,7 +7035,7 @@ def main(argv=None) -> int:
               "aa_cli": aa_cli, "real_size_aa": real_aa, "quartets": fq,
               "real_size_quartets": real_fq, "sev": sev,
               "sev_cli": sev_cli, "bf16": bf16, "site_parallel": site,
-              "fleet": fleet, "instruments": instruments,
+              "fleet": fleet, "lanes": lanes, "instruments": instruments,
               "supervision": supervision, "bank": bank_phase,
               "ptxas": ptxas,
               "wall_s": time.perf_counter() - t_start}
@@ -6848,6 +7115,13 @@ def main(argv=None) -> int:
         "many_parts": fleet["many_parts"],
         "cli": {k: {m: v[m] for m in ("wall_s", "jobs", "done")}
                 for k, v in fleet["cli"].items()}}}))
+    log(json.dumps({"lanes": {
+        "lanes_wall_s": lanes["lanes"]["wall_s"], "turns": lanes["turns"],
+        "mesh": {k: lanes["mesh"][k] for k in ("wall_s", "slice_jobs")},
+        "psr_wall_s": {k: lanes["psr"][k]["wall_s"]
+                       for k in ("one_lane", "two_lanes")},
+        "cli": {k: {m: v[m] for m in ("wall_s", "rc") if m in v}
+                for k, v in lanes["cli"].items()}}}))
     log(json.dumps({"instruments": {
         "evaluate_median_ms": instruments["evaluate"]["median_ms"],
         "spans_per_evaluate": instruments["evaluate"]["spans_per_evaluate"],

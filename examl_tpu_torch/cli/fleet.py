@@ -134,7 +134,8 @@ def run_fleet(args, inst, files) -> int:
                          cycles=args.fleet_cycles, mgr=mgr, log=files.info,
                          policy=policy, journal=journal,
                          deadletters=deadletters, leases=board,
-                         peer_journals=peer_journals)
+                         peer_journals=peer_journals,
+                         devices=args.fleet_devices)
     if board is not None:
         # Keepalive: a long batch must not let this rank's leases expire
         # under it.

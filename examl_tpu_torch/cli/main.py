@@ -19,7 +19,8 @@ dispatched at `main` :2719-2781).
         (-b K -t tree | -N K | --serve jobs.jsonl) [--fleet-batch J] \\
         [--fleet-cycles C] [--fleet-job-attempts A] [--serve-poll S] \\
         [--serve-max-pending P] [--fleet-job-deadline S] \\
-        [--fleet-lease-ttl T] [--nprocs N --procid K] [-R] [-p seed]
+        [--fleet-lease-ttl T] [--fleet-devices D | --mesh 1xT] \\
+        [--single-device] [--nprocs N --procid K] [-R] [-p seed]
 
 Modes: `-f d` (the default) runs the RAxML SPR hill climb
 (`search/raxml_search.py`) from the `-t` tree or from the random
@@ -44,7 +45,12 @@ The fleet modes replace `-f` (cli/fleet.py, fleet/): `-b K` scores K
 bootstrap weight replicates of the `-t` topology, `-N K` K random
 starting trees, and `--serve` the jobs of a JSONL file as they are
 appended; tree jobs batch through one launch of kernel B1 whatever their
-topologies, and every job lands in ExaML_fleet.RUN.
+topologies, and every job lands in ExaML_fleet.RUN.  `--fleet-devices D`
+cuts up to one batch a round per lane on D cards (0 = every visible
+card; fleet/shard.py), `--mesh 1xT` (or EXAML_MESH) cuts each batch over
+the T tree slices of a likelihood fabric, and `--single-device` keeps
+the run on one card.  A mesh with S > 1 site shards is refused: the
+in-process site axis is not ported.
 
 Outputs in DIR: ExaML_info.RUN (progress), ExaML_log.RUN ("seconds lnL"
 rows), ExaML_modelFile.RUN (the final model, in the reference's
@@ -285,6 +291,13 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="evaluation cycles per tree job; cycles after the "
                         "first smooth branch lengths before re-scoring "
                         "(default 1)")
+    f.add_argument("--fleet-devices", dest="fleet_devices", type=int,
+                   default=1,
+                   help="tree-axis lanes: cut up to one batch a round per "
+                        "lane and round-robin the groups over them, one "
+                        "lane per card (0 = every visible card; default 1 "
+                        "= one lane; a card that fails its lane's init "
+                        "degrades the set, never aborts)")
     f.add_argument("--fleet-job-deadline", dest="fleet_job_deadline",
                    type=float, default=0.0,
                    help="wall-clock seconds one batched fleet dispatch may "
@@ -867,27 +880,84 @@ def fleet_mode(args) -> bool:
     return bool(args.bootstrap or args.multi_start or args.serve)
 
 
+def _check_mesh_args(ap, args, fleet_modes: int):
+    """The declared (sites, tree) fabric's flag hygiene, at argument time
+    (the JAX CLI's): the spec parses, and every (S, T) combination that
+    cannot compose is named.  Returns (S, T), or None without a mesh."""
+    spec = launch.mesh_spec_requested(args)
+    if spec is None:
+        return None
+    from examl_tpu_torch.parallel.sharding import parse_mesh_spec
+    try:
+        shape = parse_mesh_spec(spec)
+    except ValueError as exc:
+        ap.error(f"--mesh: {exc}")
+    s, t = shape
+    if args.single_device and shape != (1, 1):
+        ap.error("--mesh SxT declares a device mesh; it cannot combine "
+                 "with --single-device (use --mesh 1x1 for an explicit "
+                 "single-device run)")
+    if t > 1 and not fleet_modes:
+        ap.error(f"mesh {s}x{t}: the tree axis batches independent fleet "
+                 "jobs, so T>1 needs a fleet mode (-b/-N/--serve); a single "
+                 f"-f search uses --mesh {s}x1")
+    if args.save_memory and t > 1:
+        ap.error(f"mesh {s}x{t} cannot compose with -S: the SEV pool holds "
+                 "ONE arena per instance, so per-job arenas cannot stack "
+                 f"along the tree axis — only Sx1 meshes support -S (use "
+                 f"--mesh {s}x1 without a fleet mode)")
+    return shape
+
+
+def _refuse_site_axis(ap, mesh_shape) -> None:
+    """After the JAX CLI's own mesh checks: a mesh with S > 1 site shards
+    needs the in-process site axis, which the port does not have yet."""
+    if mesh_shape is not None and mesh_shape[0] > 1:
+        ap.error(f"mesh {mesh_shape[0]}x{mesh_shape[1]}: the in-process "
+                 "site axis (S > 1) is not ported (ROADMAP A15, site axis); "
+                 f"use --mesh 1x{mesh_shape[1]}, or site-parallel ranks "
+                 "with --nprocs")
+
+
 def _check_fleet_args(ap, args) -> None:
     """The JAX CLI's fleet flag hygiene (one fleet mode at a time, and
     what conflicts with the batched tier refused up front), and its
     routing of ranks started by hand: with a fleet mode, `--nprocs N
     --procid K` makes a LEASED rank that joins no process group (the
     jobs are independent), so the launch flags are cleared here and the
-    rank identity rides `args._fleet_rank` into the run."""
+    rank identity rides `args._fleet_rank` into the run.  A fleet
+    without a mesh pins `--single-device`: its lanes come from
+    `--fleet-devices`."""
     if args.bootstrap < 0 or args.multi_start < 0:
         ap.error("-b/-N replicate counts must be positive")
     modes = sum(bool(x) for x in (args.bootstrap, args.multi_start,
                                   args.serve))
     if modes > 1:
         ap.error("-b, -N and --serve are mutually exclusive fleet modes")
+    mesh_shape = _check_mesh_args(ap, args, modes)
     if not modes:
+        _refuse_site_axis(ap, mesh_shape)
         return
     if args.mode == "q":
         ap.error("fleet modes (-b/-N/--serve) replace the -f algorithm; "
                  "they cannot combine with -f q")
     if args.save_memory:
-        ap.error("fleet modes do not support -S: the SEV pool holds one "
-                 "arena per instance, so per-job arenas cannot stack")
+        # The shape is named, so the operator sees that the mesh was
+        # considered and cannot compose, not that routing is missing.
+        s_sh = mesh_shape[0] if mesh_shape else 1
+        t_sh = mesh_shape[1] if mesh_shape else "J"
+        ap.error(f"fleet modes do not support -S: the (S={s_sh}, T={t_sh}) "
+                 "combination cannot compose because the SEV pool holds one "
+                 "arena per instance and per-job arenas cannot stack along "
+                 "the tree axis; drop -S, or run Sx1 site sharding without "
+                 "a fleet mode")
+    if mesh_shape is not None and args.fleet_devices != 1:
+        ap.error("--mesh and --fleet-devices are mutually exclusive: the "
+                 "fabric's tree axis replaces the per-device lane "
+                 "round-robin (T slices of one mesh instead of whole-device "
+                 "lanes)")
+    if args.fleet_devices < 0:
+        ap.error("--fleet-devices must be >= 0 (0 = all local)")
     if args.bootstrap and not args.tree_file:
         ap.error("-b bootstrap replicates resample weights on a fixed "
                  "topology: a starting tree (-t) is required")
@@ -915,6 +985,9 @@ def _check_fleet_args(ap, args) -> None:
                      "which spawns the ranks)")
         args._fleet_rank = (args.procid or 0, args.nprocs or 1)
         args.nprocs = args.coordinator = args.procid = None
+    _refuse_site_axis(ap, mesh_shape)
+    if mesh_shape is None:
+        args.single_device = True
 
 
 def _check_supervisor_args(ap, args) -> None:
@@ -1186,6 +1259,15 @@ def _run(args, group, rank, device, dtype, storage,
                    + (" (this rank)" if local_window else "")
                    + f", {len(data.partitions)} partitions")
         heartbeat.phase_beat("PACK")
+        try:
+            sharding = launch.select_sharding(args, args.save_memory,
+                                              log=files.info)
+        except ValueError as exc:
+            # A declared mesh the visible cards cannot hold (--mesh 1x2 on
+            # one card), or an in-process site axis: a configuration
+            # error with the arithmetic, not a traceback.
+            files.info(f"ERROR: {exc}")
+            return 1
         inst = PhyloInstance(data, dtype=dtype, device=device,
                              use_median=args.median,
                              per_partition_branches=args.per_partition_bl,
@@ -1197,7 +1279,7 @@ def _run(args, group, rank, device, dtype, storage,
                                          "off": False}[args.batch_scan],
                              save_memory=args.save_memory,
                              clv_dtype=storage, local_window=local_window,
-                             group=group)
+                             group=group, sharding=sharding)
         inst.auto_prot_criterion = args.auto_prot
         files.info(f"device: {inst.device}  dtype: {inst.dtype}  clv "
                    "storage: "

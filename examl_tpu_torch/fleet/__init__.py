@@ -1,6 +1,6 @@
 """examl_tpu_torch.fleet — many-tree batched evaluation and the job-queue
 driver behind the CLI's `-b K`, `-N K` and `--serve` (the port of
-`examl_tpu/fleet/`, in one process and one lane).
+`examl_tpu/fleet/`, in one process, over one lane or several).
 
 ExaML users run fleets of independent analyses — bootstrap replicates,
 multi-start searches, per-gene trees — and a small analysis alone fills
@@ -19,8 +19,11 @@ little of a wide card.  Pieces:
                  `--fleet-cycles`;
 * `jobs`       — job specs and the JSONL jobs-file format (admission
                  schema included);
+* `shard`      — the tree axis: a lane per device (`DeviceShard`,
+                 `ShardSet`) and the `1xT` fabric's tree slices
+                 (`MeshShard`);
 * `driver`     — the grouped work queue with per-job checkpoints and
-                 `-R` resume;
+                 `-R` resume, one round of batches over the lanes;
 * `quarantine` — job-level fault domains: poison-job bisection, the
                  per-job retry ladder, dead letters, the fsync'd results
                  journal with journal ∪ checkpoint resume, and `--serve`

@@ -34,10 +34,24 @@ bit (the parity the tests pin).
 A stacked arena that would not fit in the card's free memory is cut:
 the batch runs as consecutive parts in queue order (the evaluator's
 `log` says so), with the same results.
+
+LAUNCH AND COLLECT: `eval_batch` is `collect(launch_eval(jobs))`.
+`launch_eval` enqueues the whole batch on the evaluator's own CUDA
+stream and records an event, without a host sync (every host-to-device
+copy is asynchronous, `fastpath.upload`: the stacked tables, the branch
+vectors, the root branches' gather indices and z); `collect` waits on
+the event and reads the rows back once.  So the lanes of
+fleet/shard.py, each an evaluator with its own stream, ready flags and
+constants, all launch before any collects.  Every engine constant the
+batch reads goes through `_const`, which a lane overrides with its own
+device's copies.  The memory a batch needs is decided before the
+launch (`admit`): the stacked arena's parts, reserved on the lane's
+device (`memgov.reserve`) until the launch allocates them.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import List, Optional
 
 import numpy as np
@@ -45,7 +59,8 @@ import torch
 
 from examl_tpu_torch import obs
 from examl_tpu_torch.fleet import bootstrap
-from examl_tpu_torch.ops import fastpath, gradient, kernels, newview_chunk
+from examl_tpu_torch.ops import (engine as _engine, fastpath, gradient,
+                                 kernels, newview_chunk)
 from examl_tpu_torch.resilience import memgov
 from examl_tpu_torch.utils import bucket_len, next_pow2, z_slots
 
@@ -80,6 +95,45 @@ class PreparedJob:
                               # reused while the topology holds)
 
 
+class Admission:
+    """A batch's stacked arenas admitted on its lane's device: per engine
+    (by state count) the sizes of the parts, in queue order, that its jobs
+    are cut into to fit, and the bytes held there (`memgov.reserve`) until
+    the launch allocates them or `release` (idempotent) gives them up.
+    Sizes, not jobs: a job may be prepared again (smoothed) between its
+    admission and its launch."""
+
+    __slots__ = ("parts", "device", "nbytes")
+
+    def __init__(self, parts: dict, device, nbytes: int):
+        self.parts = parts
+        self.device = device
+        self.nbytes = int(nbytes)
+        memgov.reserve(device, self.nbytes)
+
+    def release(self) -> None:
+        memgov.unreserve(self.device, self.nbytes)
+        self.nbytes = 0
+
+
+class PendingBatch:
+    """A launched, not yet collected batch: its per-job rows on the
+    device (columns in the evaluator's `columns` order; a MeshShard's:
+    its slices' PendingBatches), the evaluator lane that launched it,
+    and the event recorded after the rows on the lane's stream (None on
+    the CPU).  Everything else the launch allocated was allocated on the
+    lane's stream, so the caching allocator hands it out again only to
+    work queued after it there."""
+
+    __slots__ = ("jobs", "out", "ev", "done")
+
+    def __init__(self, jobs, out, ev, done=None):
+        self.jobs = jobs
+        self.out = out
+        self.ev = ev
+        self.done = done
+
+
 def batch_eligible(inst) -> Optional[str]:
     """None when the instance can take the batched tier, else the reason
     it cannot (the driver then evaluates jobs one at a time)."""
@@ -106,13 +160,45 @@ class BatchEvaluator:
         self.fast = not eng.psr and eng.fast_slack > 0
         self.wave_width = eng.wave_width
         self.log = log or (lambda *_: None)
+        # The lane: its device (the instance's for the primary), its own
+        # CUDA stream (made at the first launch) and its index in the
+        # driver's counters.
+        self.device = _indexed(inst.device)
+        self.index = 0
+        self.seam = "fleet.batch_arenas"
+        self.stream = None
         # The stacked arenas' ready flags, one set per engine (the
-        # engine's own flags belong to its own arena).
+        # engine's own flags belong to its own arena), for the launches on
+        # the lane's stream, and a second set for those on any other
+        # (`_flags`): two launches in flight never share one.
         self._ready = {states: newview_chunk.Ready()
                        for states in inst.engines}
+        self._default_ready = {states: newview_chunk.Ready()
+                               for states in inst.engines}
         # Partition id of each column of a batch's [J, M] result.
         self.columns = [gid for e in self.engines
                         for gid in e.bucket.part_ids]
+
+    def _const(self, eng, name: str):
+        """One engine constant (models, tips, block_part, block_part_i32,
+        weights, site_rates) as this evaluator's launches read it: the
+        engine's own; a DeviceShard (fleet/shard.py) overrides this with
+        its device's copies."""
+        return getattr(eng, name)
+
+    @contextlib.contextmanager
+    def _on_lane(self):
+        """Everything inside runs on this lane's stream (its allocations
+        belong to that stream), after the work already queued on the
+        device's current stream.  A no-op on the CPU."""
+        if self.device.type != "cuda":
+            yield
+            return
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(self.device)
+        self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self.stream):
+            yield
 
     # -- preparation / grouping --------------------------------------------
 
@@ -159,17 +245,18 @@ class BatchEvaluator:
         (`memgov.admit_bytes`: a denial is counted, never a block)."""
         if len(jobs) == 1:
             return [jobs]
-        row = (eng.B * eng.lane * (eng.R * eng.K * eng.clv.element_size()
-                                   + 4))
-        per_job = eng.num_rows * row
+        per_job = self._job_bytes(eng)
+        dev = self.device if eng.device.type == self.device.type \
+            else eng.device
         fit = len(jobs)
-        if eng.device.type == "cuda":
-            free, _ = torch.cuda.mem_get_info(eng.device)
-            free += (torch.cuda.memory_reserved(eng.device)
-                     - torch.cuda.memory_allocated(eng.device))
+        if dev.type == "cuda":
+            free, _ = torch.cuda.mem_get_info(dev)
+            free += (torch.cuda.memory_reserved(dev)
+                     - torch.cuda.memory_allocated(dev)
+                     - memgov.reserved_bytes(dev))
             fit = min(fit, max(1, (free - ARENA_MARGIN) // per_job))
         cap = memgov.effective_cap(fit)
-        memgov.admit_bytes(cap * per_job, seam="fleet.batch_arenas")
+        memgov.admit_bytes(cap * per_job, seam=self.seam, device=dev)
         if cap >= len(jobs):
             return [jobs]
         why = ("the memory budget" if cap < fit
@@ -180,6 +267,27 @@ class BatchEvaluator:
                  "order")
         return [jobs[i:i + cap] for i in range(0, len(jobs), cap)]
 
+    @staticmethod
+    def _job_bytes(eng) -> int:
+        """One job's rows of a stacked arena and its scaler."""
+        return eng.num_rows * eng.B * eng.lane * (
+            eng.R * eng.K * eng.clv.element_size() + 4)
+
+    def admit(self, jobs: List[PreparedJob]) -> Admission:
+        """The batch's arenas admitted on this lane's device, before its
+        launch: per engine the parts `_parts` cuts (free memory read
+        here, less what other lanes reserved on the card), and the
+        largest part's bytes reserved until the launch.  Wave-scan
+        batches stack nothing."""
+        if not self.fast:
+            return Admission({K: [len(jobs)] for K in self.inst.engines},
+                             self.device, 0)
+        parts = {eng.K: [len(p) for p in self._parts(eng, jobs)]
+                 for eng in self.engines}
+        nbytes = max(max(parts[eng.K]) * self._job_bytes(eng)
+                     for eng in self.engines)
+        return Admission(parts, self.device, nbytes)
+
     def _operands(self, eng, jobs: List[PreparedJob]):
         """The stacked table's P [sum P_j, 2, M, R, K, K] and, on the card,
         its tip products: every job's branch vectors go to the device in
@@ -189,87 +297,164 @@ class BatchEvaluator:
         (measured on the H100 at 512 taxa: last-bit differences), and
         each job's P must be the bits of its own traversal."""
         zs = [fastpath.refresh_z_host(j.st, j.flat, self.C) for j in jobs]
-        z = torch.from_numpy(np.stack([
+        z = fastpath.upload(np.stack([
             np.concatenate([a for a, _ in zs]),
-            np.concatenate([b for _, b in zs])])).to(device=eng.device,
-                                                     dtype=eng.dtype)
+            np.concatenate([b for _, b in zs])]), self.device, eng.dtype)
         sizes = [a.shape[0] for a, _ in zs]
-        pms = [newview_chunk.chunk_operands(eng.models, zl, zr)
+        models = self._const(eng, "models")
+        pms = [newview_chunk.chunk_operands(models, zl, zr)
                for zl, zr in zip(z[0].split(sizes), z[1].split(sizes))]
         u = None
-        if eng.device.type == "cuda":
-            u = torch.cat([newview_chunk.tip_products(p, eng.tips.table)
+        if self.device.type == "cuda":
+            table = self._const(eng, "tips").table
+            u = torch.cat([newview_chunk.tip_products(p, table)
                            for p in pms])
         return torch.cat(pms), u
+
+    def _flags(self) -> dict:
+        """The ready flags of a launch on the current stream: the lane's
+        own on its stream, another set on any other (a stacked table on
+        the default stream, as batched smoothing runs, while this lane's
+        batch may be in flight)."""
+        if self.stream is not None and \
+                torch.cuda.current_stream(self.device) == self.stream:
+            return self._ready
+        return self._default_ready
 
     def _traverse(self, eng, jobs: List[PreparedJob]):
         """Every job's full traversal through one launch table over a
         stacked arena [J * Rj, B, lane, R, K] (kernel B1 on the card, its
-        plain version on the CPU).  Returns (clv, scaler).  The arena is
-        not cleared: the table writes every row that anything reads."""
+        plain version on the CPU), on the current stream.  Returns (clv,
+        scaler).  The arena is not cleared: the table writes every row
+        that anything reads."""
         global TABLES
         Rj = eng.num_rows
-        table = fastpath.stack_tables([j.st for j in jobs], Rj, eng.device)
+        table = fastpath.stack_tables([j.st for j in jobs], Rj, self.device)
         pmat, u = self._operands(eng, jobs)
+        tips = self._const(eng, "tips")
         rows = len(jobs) * Rj
         clv = torch.empty((rows, eng.B, eng.lane, eng.R, eng.K),
-                          dtype=eng.storage_dtype, device=eng.device)
+                          dtype=eng.storage_dtype, device=self.device)
         scaler = torch.empty((rows, eng.B, eng.lane), dtype=torch.int32,
-                             device=eng.device)
+                             device=self.device)
         newview_chunk.chunk_apply(
-            clv, scaler, eng.tips.codes, eng.tips.table, eng.block_part_i32,
-            table.launch, table.lidx, table.ridx, table.lcode, table.rcode,
-            pmat, eng.scale_exp,
+            clv, scaler, tips.codes, tips.table,
+            self._const(eng, "block_part_i32"), table.launch, table.lidx,
+            table.ridx, table.lcode, table.rcode, pmat, eng.scale_exp,
             newview_chunk.Dataflow(table.flow_rows, table.wait,
-                                   self._ready[eng.K]), u)
+                                   self._flags()[eng.K]), u)
         TABLES += 1
         return clv, scaler
 
     # -- tree batches --------------------------------------------------------
 
     def eval_batch(self, jobs: List[PreparedJob]) -> np.ndarray:
-        """Per-job per-partition lnL [J, M] for one same-key batch: per
-        engine one stacked table (per part, where the arena must be
-        cut), then each job's root reduction on its slice; read back
-        once."""
+        """Per-job per-partition lnL [J, M] for one same-key batch:
+        `collect(launch_eval(jobs))`."""
+        return self.collect(self.launch_eval(jobs))
+
+    def launch_eval(self, jobs: List[PreparedJob],
+                    admission: Optional[Admission] = None) -> PendingBatch:
+        """Enqueue one same-key batch on this lane without a host sync:
+        per engine one stacked table per admitted part (`admit`, made here
+        by default) and each job's root reduction on its slice of the
+        arena, or on the wave-scan tier each job's traversal and root
+        reduction on an arena of the lane's own; then an event on the
+        lane's stream.  Every host-to-device copy is asynchronous
+        (`fastpath.upload`)."""
         assert jobs, "empty batch"
         assert len({j.key for j in jobs}) == 1, \
             "batch mixes job groups (driver bug)"
-        outs = []
-        obs.inc("engine.dispatch_count")
-        with obs.device_span("fleet:batch_eval", args={"jobs": len(jobs)}):
-            for eng in self.engines:
-                if not self.fast:
-                    outs.append(self._scan_rows(eng, jobs))
-                    continue
-                rows = []
-                for part in self._parts(eng, jobs):
-                    clv, scaler = self._traverse(eng, part)
-                    rows += self._root_rows(eng, part, clv, scaler)
-                    del clv, scaler
-                outs.append(torch.stack(rows))
-            return self._read_back(torch.cat(outs, dim=1))
+        if admission is None:
+            admission = self.admit(jobs)
+        try:
+            obs.inc("engine.dispatch_count")
+            with obs.device_span("fleet:batch_eval",
+                                 args={"jobs": len(jobs)}), self._on_lane():
+                outs = []
+                for eng in self.engines:
+                    if not self.fast:
+                        outs.append(self._scan_rows(eng, jobs))
+                        continue
+                    rows, i = [], 0
+                    for n in admission.parts[eng.K]:
+                        part, i = jobs[i:i + n], i + n
+                        clv, scaler = self._traverse(eng, part)
+                        rows += self._root_rows(eng, part, clv, scaler)
+                        del clv, scaler
+                    outs.append(torch.stack(rows))
+                out = torch.cat(outs, dim=1)
+                done = None
+                if self.stream is not None:
+                    done = torch.cuda.Event()
+                    done.record(self.stream)
+        finally:
+            admission.release()
+        return PendingBatch(jobs, out, self, done)
+
+    def collect(self, pending: PendingBatch) -> np.ndarray:
+        """A launched batch's per-job per-partition lnL [J, M]: wait for
+        its event, then read its rows back once."""
+        if pending.done is not None:
+            pending.done.synchronize()
+        with self._on_lane():
+            return self._read_back(pending.out)
+
+    def _roots(self, eng, jobs, gidx):
+        """Every job's root branch on the device, two transfers: the
+        gather indices [J, 2] and the branch vectors [J, C]."""
+        idx = fastpath.upload(np.asarray(
+            [[gidx(j, j.p.number), gidx(j, j.p.back.number)] for j in jobs],
+            dtype=np.int64), self.device)
+        z = fastpath.upload(np.stack([z_slots(j.z, eng.num_branch_slots)
+                                      for j in jobs]).astype(np.float64),
+                            self.device, eng.dtype)
+        return idx, z
 
     def _root_rows(self, eng, jobs, clv, scaler) -> list:
         """Each job's per-partition lnL [M_eng] at its root branch, from
         its slice of the stacked arena (the engine's `evaluate`)."""
         Rj = eng.num_rows
+        idx, z = self._roots(eng, jobs, self._gidx)
+        models, block_part, weights, tips, site_rates = (
+            self._const(eng, n) for n in ("models", "block_part", "weights",
+                                          "tips", "site_rates"))
         out = []
-        for i, job in enumerate(jobs):
+        for i in range(len(jobs)):
             v = slice(i * Rj, (i + 1) * Rj)
             out.append(kernels.root_log_likelihood(
-                eng.models, eng.block_part, eng.weights, eng.tips, clv[v],
-                scaler[v], self._gidx(job, job.p.number),
-                self._gidx(job, job.p.back.number), eng._z(job.z),
-                eng.num_parts, eng.scale_exp, eng.ntips, eng.site_rates))
+                models, block_part, weights, tips, clv[v], scaler[v],
+                idx[i, 0], idx[i, 1], z[i], eng.num_parts, eng.scale_exp,
+                eng.ntips, site_rates))
         return out
 
     def _scan_rows(self, eng, jobs) -> torch.Tensor:
-        """PSR: each job's traversal and root reduction on the engine's
-        wave-scan tier, one job after another."""
-        return torch.from_numpy(np.stack([
-            eng.traverse_evaluate(j.flat, j.p.number, j.p.back.number, j.z,
-                                  full=True) for j in jobs]))
+        """PSR (and `newview="scan"`): each job's traversal on the wave-scan
+        tier (the engine's schedule, through its row map) and its root
+        reduction, one job after another, on an arena of the lane's own,
+        never the engine's (two lanes must not write one arena): the
+        arithmetic of the engine's `traverse_evaluate`."""
+        idx, z = self._roots(eng, jobs, lambda j, num: eng._gidx(num))
+        models, block_part, weights, tips, site_rates = (
+            self._const(eng, n) for n in ("models", "block_part", "weights",
+                                          "tips", "site_rates"))
+        clv = torch.zeros((eng.num_rows, eng.B, eng.lane, eng.R, eng.K),
+                          dtype=eng.storage_dtype, device=self.device)
+        scaler = torch.zeros((eng.num_rows, eng.B, eng.lane),
+                             dtype=torch.int32, device=self.device)
+        out = []
+        for i, j in enumerate(jobs):
+            _engine.PARTIAL_TRAVERSALS += 1
+            tv = eng._traversal_arrays(j.flat.to_entries(),
+                                       device=self.device)
+            kernels.traverse_store(models, block_part, tips,
+                                   kernels.DenseArena(clv), scaler, tv,
+                                   eng.scale_exp, eng.ntips, site_rates)
+            out.append(kernels.root_log_likelihood(
+                models, block_part, weights, tips, clv, scaler, idx[i, 0],
+                idx[i, 1], z[i], eng.num_parts, eng.scale_exp, eng.ntips,
+                site_rates))
+        return torch.stack(out)
 
     def _read_back(self, out: torch.Tensor) -> np.ndarray:
         """A batch's per-job per-partition lnL [J, M] from its device rows
@@ -386,3 +571,12 @@ class BatchEvaluator:
             outs.append(kernels.weighted_root_sums(w, terms, eng.block_part,
                                                    eng.num_parts))
         return self._read_back(torch.cat(outs, dim=1))
+
+
+def _indexed(device) -> torch.device:
+    """A card named with its index (`cuda` -> `cuda:<current>`), so that
+    one card has one name in the lanes' reservations and counters."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev

@@ -1,4 +1,4 @@
-"""The fleet job-queue driver: grouped batched dispatch in one lane.
+"""The fleet job-queue driver: grouped batched dispatch over device lanes.
 
 The port of the single-process `examl_tpu/fleet/driver.py`.  Pending
 jobs group by their batch key — one key for every chunk-tier tree job
@@ -47,8 +47,15 @@ pressure the batch's stacked arena is cut into smaller parts
 batch goes through `is_oom` -> `oom_event` -> `evict_engine` -> the
 halving re-dispatch -> `oom_recovered`.
 
-Left to the JAX package for now: device lanes (one evaluator lane per
-card).
+DEVICE LANES (fleet/shard.py): with `devices` other than 1 the driver
+holds a ShardSet, the primary evaluator plus one DeviceShard per further
+card, and each drain round cuts up to one batch per lane, largest group
+first, under `memgov.effective_cap`.  A round admits every lane's arena
+first (`admit`: reserved on its card), launches every lane (each on its
+own stream, no host sync), then collects each and runs it through the
+job-level fault ladder (`_isolate_launched`: the launched outcome stands
+in for the ladder's first dispatch).  On a `1xT` fabric the instance's
+evaluator is a MeshShard, one lane whose batches span the T tree slices.
 """
 
 from __future__ import annotations
@@ -77,7 +84,12 @@ class FleetDriver:
                  journal: Optional[quarantine.ResultsJournal] = None,
                  deadletters: Optional[quarantine.DeadLetters] = None,
                  leases: Optional[_lease.LeaseBoard] = None,
-                 peer_journals: Optional[Callable[[], list]] = None):
+                 peer_journals: Optional[Callable[[], list]] = None,
+                 devices=1):
+        """devices: the fleet's lanes: 1 (one lane, the instance's
+        evaluator), 0 (a lane per visible card), N (the first N cards), or
+        from Python an explicit device list, which may name one card more
+        than once (lanes that share it)."""
         self.inst = inst
         self.start_tree = start_tree          # bootstrap topology (+ ckpt
         self.batch_cap = max(1, int(batch_cap))   # scaffold)
@@ -100,6 +112,26 @@ class FleetDriver:
         else:
             self.log(f"fleet: batched tier unavailable ({reason}); "
                      "jobs evaluate one at a time")
+        # The tree axis over devices: one lane per surviving device, or
+        # the single lane of the plain evaluator.
+        from examl_tpu_torch.fleet.shard import MeshShard, ShardSet
+        explicit = not isinstance(devices, int)
+        if self.evaluator is not None and (explicit or devices != 1):
+            self.shards = ShardSet(
+                inst, self.evaluator, log=self.log,
+                max_devices=0 if explicit else devices,
+                devices=list(devices) if explicit else None)
+        else:
+            self.shards = None
+        if isinstance(self.evaluator, MeshShard):
+            shape = (f"{self.evaluator.site_shards}x"
+                     f"{self.evaluator.tree_shards}")
+            self.log(f"fleet: batches dispatch on the {shape} likelihood "
+                     "fabric (each batch's jobs cut over its tree slices: "
+                     + ", ".join(str(s.device)
+                                 for s in self.evaluator.slices) + ")")
+            if self.leases is not None:
+                self.leases.mesh = shape
         self.jobs: List[JobSpec] = []
         self._trees: Dict[str, object] = {}       # job_id -> Tree
         self._prepared: Dict[str, object] = {}    # job_id -> PreparedJob
@@ -342,9 +374,30 @@ class FleetDriver:
                 groups.setdefault(key, []).append(job)
             if not groups:
                 continue                       # everything failed: re-check
-            _, members = min(groups.items(),
-                             key=lambda kv: (-len(kv[1]), str(kv[0])))
-            self._dispatch(members[:self.batch_cap])
+            # Up to one batch per lane, largest group first (a deep group
+            # splits over the lanes: the jobs are independent), round-robin
+            # over the lanes, at most the governor's cap each over several
+            # lanes (under memory pressure the batches shrink instead of
+            # running out of memory; one lane's batch is cut into parts
+            # under it, `BatchEvaluator._parts`).
+            nlanes = self._lanes()
+            cap = memgov.effective_cap(self.batch_cap) if nlanes > 1 \
+                else self.batch_cap
+            batches: List = []
+            for key, members in sorted(groups.items(), key=lambda kv: (
+                    -len(kv[1]), str(kv[0]))):
+                for i in range(0, len(members), cap):
+                    batches.append((key, members[i:i + cap]))
+                    if len(batches) >= nlanes:
+                        break
+                if len(batches) >= nlanes:
+                    break
+            if len(batches) == 1:
+                self._dispatch(batches[0][1])
+            else:
+                self._dispatch_round([
+                    (self.shards.shard_for(key, lane), batch)
+                    for lane, (key, batch) in enumerate(batches)])
             # Clear the in-flight declaration of the heartbeat.
             heartbeat.phase_beat("FLEET", payload={"fleet": None})
             if self.mgr is not None:
@@ -423,7 +476,7 @@ class FleetDriver:
         reaped after a jittered backoff, so the surviving ranks never
         stampede the steal."""
         out: List[JobSpec] = []
-        cap = 2 * self.batch_cap
+        cap = 2 * self._lanes() * self.batch_cap
         held = set(self.leases.held())
         nheld = len(held)
         claimed = False
@@ -493,74 +546,137 @@ class FleetDriver:
 
     # -- batch dispatch ------------------------------------------------------
 
+    def _lanes(self) -> int:
+        return len(self.shards) if self.shards is not None else 1
+
     def _dispatch(self, batch: List[JobSpec]) -> None:
-        """One batch through the job-level fault ladder
-        (`quarantine.isolate`): a raise anywhere in the batched dispatch
-        bisects to the guilty job(s); a device fault ends the run.  An
-        allocator OOM of the whole batch is a memory-governor event:
-        counted, the engines' caches evicted (and the caching
-        allocator's blocks handed back), then the halving re-dispatch
-        below retries at a smaller shape."""
-        for job in batch:
-            if job.job_id not in self._started:
-                self._started.add(job.job_id)
-                obs.ledger_event("job.start", job=job.job_id,
-                                 job_kind=job.kind, index=job.index,
-                                 seed=job.seed, cycle=job.cycles_done)
+        """One batch: a round of one lane."""
+        shard = (self.shards.shard_for(self._keys.get(batch[0].job_id), 0)
+                 if self.shards is not None else self.evaluator)
+        self._dispatch_round([(shard, batch)])
+
+    def _dispatch_round(self, assignments: List) -> None:
+        """One drain round of (lane, batch) pairs: ADMIT every lane's
+        stacked arena (its card's free memory read before any lane of the
+        round allocates, each reservation counted by the next), LAUNCH
+        every lane (no host sync: lanes on distinct cards run at once),
+        then collect each batch and run it through the job-level fault
+        ladder.  A failed launch or collect takes the same quarantine
+        bisection as a synchronous raise; a device fault ends the run."""
+        for _, batch in assignments:
+            for job in batch:
+                if job.job_id not in self._started:
+                    self._started.add(job.job_id)
+                    obs.ledger_event("job.start", job=job.job_id,
+                                     job_kind=job.kind, index=job.index,
+                                     seed=job.seed, cycle=job.cycles_done)
         compiles0 = obs.counter("engine.compile_count")
         bisects0 = obs.counter("fleet.bisect_dispatches")
         t0 = time.perf_counter()
-        obs.ledger_event("batch.dispatch", jobs=len(batch),
-                         job_kind=batch[0].kind, lane=0,
-                         ids=",".join(j.job_id for j in batch[:8]))
-        obs.inc("fleet.device_dispatches.d0")
-        obs.inc("fleet.device_jobs.d0", len(batch))
-        # The heartbeat is the fleet's iteration clock (search.kill
-        # addresses "the Nth batch"); its payload declares the batch and,
-        # with a per-job deadline, the wall-clock time a supervisor kills
-        # it at.
-        declared = {"jobs": [j.job_id for j in batch]}
-        if self.policy.deadline_s > 0:
-            declared["deadline"] = time.time() + self.policy.deadline_s
-        heartbeat.beat("FLEET", payload={"fleet": declared})
-        oomed = False
 
-        def evaluate(b, nested=False):
-            nonlocal oomed
-            try:
-                return self._evaluate_batch(b)
-            except Exception as exc:      # noqa: BLE001 — re-raised
-                if not nested and memgov.is_oom(exc):
-                    # The whole batch ran out of memory: count it (past
-                    # the strike limit this raises MemoryBudgetExhausted,
-                    # which ends the run) and evict the engines' caches
-                    # before the halving re-dispatch.
-                    memgov.oom_event(exc, seam="fleet.dispatch")
-                    for eng in self.inst.engines.values():
-                        memgov.evict_engine(eng)
-                    oomed = True
-                elif isinstance(exc, torch.cuda.OutOfMemoryError):
-                    # The halves need less memory: hand the cached
-                    # blocks back first.
-                    torch.cuda.empty_cache()
-                raise
+        def declare(batch):
+            """The in-flight declaration is per BATCH, also in a round of
+            several lanes: the launch and collect loops are sequential
+            host code, so declaring the batch the host is about to block
+            on keeps a deadline kill on that batch's jobs alone."""
+            fl = {"jobs": [j.job_id for j in batch]}
+            if self.policy.deadline_s > 0:
+                fl["deadline"] = time.time() + self.policy.deadline_s
+            return {"fleet": fl}
 
-        with obs.span("fleet:dispatch", args={"jobs": len(batch)}):
-            results = quarantine.isolate(batch, evaluate,
-                                         self._evaluate_leaf)
-        if oomed:
-            memgov.oom_recovered()
-        obs.inc("fleet.batches")
-        obs.inc("fleet.trees_evaluated", len(batch))
-        self._apply_results(batch, results)
+        admissions = [self._admit(shard, batch)
+                      for shard, batch in assignments]
+        launches = []
+        try:
+            for (shard, batch), adm in zip(assignments, admissions):
+                lane = getattr(shard, "index", 0)
+                obs.ledger_event("batch.dispatch", jobs=len(batch),
+                                 job_kind=batch[0].kind, lane=lane,
+                                 ids=",".join(j.job_id for j in batch[:8]))
+                obs.inc(f"fleet.device_dispatches.d{lane}")
+                obs.inc(f"fleet.device_jobs.d{lane}", len(batch))
+                # The heartbeat is the fleet's iteration clock (search.kill
+                # addresses "the Nth batch"): one beat per batch.
+                heartbeat.beat("FLEET", payload=declare(batch))
+                try:
+                    launches.append(self._launch_batch(batch, shard, adm))
+                except Exception as exc:  # noqa: BLE001 — attributed
+                    launches.append(exc)  # through the bisection below
+        finally:
+            for adm in admissions:
+                if adm is not None:
+                    adm.release()
+        njobs = 0
+        for (shard, batch), launched in zip(assignments, launches):
+            if len(assignments) > 1:
+                # Narrow the declaration to the batch this collect blocks
+                # on (a re-publish, not an iteration).
+                heartbeat.phase_beat("FLEET", payload=declare(batch))
+            with obs.span("fleet:dispatch", args={"jobs": len(batch)}):
+                results = self._isolate_launched(batch, launched, shard)
+            njobs += len(batch)
+            obs.inc("fleet.batches")
+            obs.inc("fleet.trees_evaluated", len(batch))
+            self._apply_results(batch, results)
         dt = time.perf_counter() - t0
         obs.inc("fleet.eval_seconds", dt)
-        # Throughput from warm, clean batches only: a batch whose wall
-        # held an extension build or a bisection is no serving rate.
+        # Throughput from warm, clean rounds only: a round whose wall held
+        # an extension build or a bisection is no serving rate.
         if dt > 0 and obs.counter("fleet.bisect_dispatches") == bisects0 \
                 and obs.counter("engine.compile_count") == compiles0:
-            obs.gauge("fleet.trees_per_sec", round(len(batch) / dt, 3))
-        _programs.sample_memory()
+            obs.gauge("fleet.trees_per_sec", round(njobs / dt, 3))
+        # Memory telemetry over every lane's device, once a round.
+        lanes = (self.shards.devices() if self.shards is not None else
+                 [s.device for s in getattr(self.evaluator, "slices", ())])
+        _programs.sample_memory(devices=lanes or None)
+
+    def _admit(self, shard, batch: List[JobSpec]):
+        """The lane's admission of a tree batch's arenas (None for
+        bootstrap batches and for jobs one at a time)."""
+        if shard is None or batch[0].kind == "bootstrap":
+            return None
+        return shard.admit([self._prepared[j.job_id] for j in batch])
+
+    def _isolate_launched(self, batch: List[JobSpec], launched,
+                          shard) -> List:
+        """Resolve one launched batch through the quarantine ladder without
+        re-running the clean path: the already-launched outcome (its
+        collected rows, or the exception its launch or collect raised)
+        stands in for the ladder's first dispatch
+        (`quarantine.isolate_launched`), so the fault-hit counters tick
+        as in the one-dispatch flow.  An allocator OOM of the whole batch
+        is a memory-governor event: counted, the engines' caches evicted
+        (and the caching allocator's blocks handed back), then the halving
+        re-dispatch retries at a smaller shape."""
+        if isinstance(launched, Exception):
+            outcome = launched
+        else:
+            try:
+                outcome = self._finish_batch(batch, launched)
+            except Exception as exc:      # noqa: BLE001 — attributed below
+                outcome = exc
+        oomed = isinstance(outcome, Exception) and memgov.is_oom(outcome)
+        if oomed:
+            # Past the strike limit this raises MemoryBudgetExhausted,
+            # which ends the run.
+            memgov.oom_event(outcome, seam="fleet.dispatch")
+            for eng in self.inst.engines.values():
+                memgov.evict_engine(eng)
+
+        def evaluate(b, nested):
+            try:
+                return self._evaluate_batch(b, shard)
+            except torch.cuda.OutOfMemoryError:
+                # The halves need less memory: hand the cached blocks
+                # back first.
+                torch.cuda.empty_cache()
+                raise
+
+        results = quarantine.isolate_launched(batch, outcome, evaluate,
+                                              self._evaluate_leaf)
+        if oomed:
+            memgov.oom_recovered()
+        return results
 
     def _apply_results(self, batch: List[JobSpec], results: List) -> None:
         for job, row, err in results:
@@ -611,10 +727,19 @@ class FleetDriver:
 
     # -- the evaluation seams (bisectable) -----------------------------------
 
-    def _evaluate_batch(self, batch: List[JobSpec]) -> np.ndarray:
-        """One batch's per-job per-partition lnL [J, M].  The fleet's
-        fault seams: `fleet.dispatch` before it, a synthetic OOM
-        (`mem.oom`) per job it holds, and the per-job poison after."""
+    def _evaluate_batch(self, batch: List[JobSpec],
+                        shard=None) -> np.ndarray:
+        """One batch's per-job per-partition lnL [J, M], launched and
+        collected at once (the bisection's re-dispatches)."""
+        return self._finish_batch(batch, self._launch_batch(batch, shard))
+
+    def _launch_batch(self, batch: List[JobSpec], shard=None,
+                      admission=None):
+        """Enqueue one batch on a lane.  The fleet's fault seams live here:
+        `fleet.dispatch` before it, and per job `fleet.job.hang` and a
+        synthetic OOM (`mem.oom`).  Returns a PendingBatch (collected in
+        `_finish_batch`) or the host rows of the synchronous paths
+        (bootstrap weights, jobs one at a time)."""
         faults.fire("fleet.dispatch")
         for job in batch:
             # A real sleep, not beat suppression: the deadline declared
@@ -622,10 +747,16 @@ class FleetDriver:
             faults.fire("fleet.job.hang", job=job.job_id)
             faults.fire("mem.oom", job=job.job_id)
         if batch[0].kind == "bootstrap":
-            rows = self._dispatch_bootstrap(batch)
-        else:
-            rows = self._dispatch_trees(batch)
-        per_part = np.array(rows, dtype=np.float64)
+            return self._dispatch_bootstrap(batch)
+        return self._dispatch_trees(batch, shard, admission)
+
+    def _finish_batch(self, batch: List[JobSpec], launched) -> np.ndarray:
+        """Collect one launched batch (the lane's blocking read-back), then
+        the per-job poison seam (`fleet.job.poison`)."""
+        from examl_tpu_torch.fleet.batch import PendingBatch
+        if isinstance(launched, PendingBatch):
+            launched = launched.ev.collect(launched)
+        per_part = np.array(launched, dtype=np.float64)
         for i, job in enumerate(batch):
             if faults.fire("fleet.job.poison", job=job.job_id):
                 per_part[i] = np.nan
@@ -697,13 +828,16 @@ class FleetDriver:
                 self._prepared[job.job_id] = self.evaluator.prepare(
                     self._tree_for(job), self._prepared.get(job.job_id))
 
-    def _dispatch_trees(self, batch: List[JobSpec]):
+    def _dispatch_trees(self, batch: List[JobSpec], shard=None,
+                        admission=None):
         # Later cycles smooth branch lengths before re-evaluating (the
         # multi-start refinement loop); cycle 0 scores the tree as is.
+        # Smoothing runs on the primary evaluator, before the launch.
         self._smooth_if_due(batch)
-        if self.evaluator is not None:
-            return self.evaluator.eval_batch(
-                [self._prepared[j.job_id] for j in batch])
+        ev = shard if shard is not None else self.evaluator
+        if ev is not None:
+            return ev.launch_eval([self._prepared[j.job_id] for j in batch],
+                                  admission)
         return np.stack([self._sequential_eval(self._tree_for(j))
                          for j in batch])
 

@@ -84,6 +84,10 @@ class LeaseBoard:
         self.attempt = int(attempt)     # supervisor restart count: a
         # restarted rank's fresh leases are distinguishable from its
         # dead incarnation's in the evidence trail.
+        # The fabric's "SxT" (set by the driver when the rank dispatches on
+        # a likelihood fabric): lease records then say which mesh shape
+        # held a job.
+        self.mesh: Optional[str] = None
         self._nonce = 0
         # job_id -> {nonce, deadline} we last published.  Guarded by
         # `_mu`: the KEEPALIVE thread (below) renews concurrently with
@@ -119,6 +123,8 @@ class LeaseBoard:
         rec = {"job_id": job_id, "rank": self.rank,
                "attempt": self.attempt,
                "deadline": time.time() + self.ttl_s, "nonce": nonce}
+        if self.mesh:
+            rec["mesh"] = self.mesh
         return rec
 
     def _stage_fsync(self, job_id: str, rec: dict) -> str:

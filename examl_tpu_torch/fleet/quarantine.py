@@ -162,6 +162,26 @@ def isolate(batch: List, evaluate: Callable, leaf: Callable,
             + isolate(batch[mid:], evaluate, leaf, _nested=True))
 
 
+def isolate_launched(batch: List, outcome, evaluate: Callable,
+                     leaf: Callable) -> List[Tuple[object, object, object]]:
+    """`isolate` for a batch already launched and collected: `outcome`,
+    its rows or the exception its launch or collect raised, stands in
+    for the ladder's first top-level dispatch, so a clean batch is not
+    run again and the bisection below a failed one (and its
+    `fleet.bisect_dispatches`) runs as after a dispatch of its own."""
+    first = [outcome]
+
+    def dispatch(b, nested):
+        if not nested and first:
+            out = first.pop()
+            if isinstance(out, BaseException):
+                raise out
+            return out
+        return evaluate(b, nested)
+
+    return isolate(batch, dispatch, leaf)
+
+
 # -- durable results journal -------------------------------------------------
 
 

@@ -66,7 +66,8 @@ class PhyloInstance:
                  batch_scan: Optional[bool] = None,
                  batch_thorough: Optional[bool] = None,
                  save_memory: bool = False, clv_dtype=None,
-                 local_window=None, group: SiteGroup = SINGLE):
+                 local_window=None, group: SiteGroup = SINGLE,
+                 sharding=None):
         """newview: the engines' full-traversal tier, "chunk" (kernel B1,
         the default), "whole" (kernel B2) or "scan" (the wave-scan tier,
         no kernel: the JAX package's EXAML_FAST_TRAVERSAL=0), see
@@ -99,7 +100,18 @@ class PhyloInstance:
         that `alignment` holds only that window's columns (a sliced read,
         io/bytefile.read_bytefile_for_process); without it a
         multi-rank instance packs the whole alignment and cuts its
-        window out."""
+        window out.
+        sharding: a (sites, tree) fabric of parallel/sharding.py
+        (`make_fabric_mesh` + `fabric_sharding`; the CLI's `--mesh 1xT`):
+        the fleet's batches then run through a MeshShard over its T tree
+        slices (fleet/shard.py).  Only S = 1 fabrics: the in-process site
+        axis is not ported; a fabric of T > 1 with save_memory raises."""
+        if sharding is not None and sharding.site_shards > 1:
+            raise ValueError(
+                f"a {sharding.site_shards}x{sharding.tree_shards} mesh: the "
+                "in-process site axis (S > 1) is not ported (ROADMAP A15, "
+                "site axis); only 1xT fabrics run here")
+        self.sharding = sharding
         if rate_model not in ("GAMMA", "PSR"):
             raise ValueError(f"unknown rate model {rate_model!r}")
         self.rate_model = rate_model
@@ -185,7 +197,7 @@ class PhyloInstance:
                 branch_indices=branch_indices, dtype=self.dtype,
                 device=self.device, newview=newview, psr=self.psr,
                 save_memory=save_memory, clv_dtype=self.storage_dtype,
-                group=group)
+                group=group, sharding=sharding)
 
         # PSR per-site rate state (reference patrat / rateCategory /
         # perSiteRates, `axml.h:585-600`), host copies per partition:
@@ -284,14 +296,20 @@ class PhyloInstance:
     def batch_evaluator(self):
         """The fleet's batched many-tree evaluator over this instance
         (fleet/batch.py), or None where `batch.batch_eligible` gives a
-        reason; one per instance, made at the first call."""
+        reason; one per instance, made at the first call.  On a fabric
+        (`sharding`) the MeshShard evaluator: each batch's jobs cut over
+        the tree slices (fleet/shard.py)."""
         ev = getattr(self, "_batch_evaluator", None)
         if ev is None:
             from examl_tpu_torch.fleet.batch import (BatchEvaluator,
                                                      batch_eligible)
             if batch_eligible(self) is not None:
                 return None
-            ev = self._batch_evaluator = BatchEvaluator(self)
+            if self.sharding is not None and self.sharding.is_fabric:
+                from examl_tpu_torch.fleet.shard import MeshShard
+                ev = self._batch_evaluator = MeshShard(self)
+            else:
+                ev = self._batch_evaluator = BatchEvaluator(self)
         return ev
 
     # -- CLV orientation / traversal ---------------------------------------

@@ -220,8 +220,9 @@ def sample_memory(devices=None, force: bool = False) -> bool:
     MEM_SAMPLE_S.  Without an initialized
     card the host resident set lands in `mem.host.rss`; only when even
     that is missing does `program.analysis_missing.memory_stats` count
-    an absent sample.  `devices` are card indices (default: every
-    card).  Returns True when a sample was taken."""
+    an absent sample.  `devices` are card indices or torch devices (the
+    fleet passes its lanes'; default: every card; a CPU device samples
+    the host).  Returns True when a sample was taken."""
     now = time.monotonic()
     with _lock:
         last = _STATE["mem_last"]
@@ -230,17 +231,18 @@ def sample_memory(devices=None, force: bool = False) -> bool:
         _STATE["mem_last"] = now
     reg = _metrics.registry()
     cuda = _cuda()
+    cards = None if devices is None else sorted(
+        {d if isinstance(d, int) else (d.index or 0) for d in devices
+         if isinstance(d, int) or d.type == "cuda"})
     try:
-        if cuda is None:
+        if cuda is None or cards == []:
             rss = host_rss_bytes()
             if rss is None:
                 reg.inc("program.analysis_missing.memory_stats")
             else:
                 reg.gauge("mem.host.rss", int(rss))
             return True
-        if devices is None:
-            devices = range(cuda.device_count())
-        for k in devices:
+        for k in (range(cuda.device_count()) if cards is None else cards):
             stats = cuda.memory_stats(k)
             _, total = cuda.mem_get_info(k)
             reg.gauge(f"mem.device.{k}.in_use",

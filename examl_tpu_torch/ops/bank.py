@@ -285,8 +285,37 @@ def run_bank(args, log=lambda msg: None,
             obs.inc("bank.errors")
             log(f"bank: {fam} FAILED ({r.get('error')})")
     _apply_degradations(report, args, log)
+    decl = _declared_mesh(args)
+    if decl is not None:
+        # A --mesh run's layouts are declared: the manifest records them
+        # beside every family's verdict.
+        for r in report.values():
+            r["mesh_declared"] = decl
+        obs.inc("bank.mesh_declared", len(report))
+        log(f"bank: declared {decl['site_shards']}x{decl['tree_shards']} "
+            "fabric shardings recorded in the manifest for every family")
     _save_manifest(report, log)
     return report
+
+
+def _declared_mesh(args) -> Optional[dict]:
+    """The run's declared (S, T) fabric record for the manifest
+    (`sharding.declared_fabric_specs`), or None when no `--mesh` /
+    EXAML_MESH fabric is requested (1x1 counts as none) or the spec is
+    malformed (the CLI's error to raise).  Device-free."""
+    try:
+        from examl_tpu_torch.parallel.launch import mesh_spec_requested
+        from examl_tpu_torch.parallel.sharding import (declared_fabric_specs,
+                                                       parse_mesh_spec)
+        spec = mesh_spec_requested(args)
+        if not spec:
+            return None
+        s, t = parse_mesh_spec(spec)
+    except Exception:                 # noqa: BLE001 — not the bank's error
+        return None
+    if (s, t) == (1, 1):
+        return None
+    return declared_fabric_specs(s, t)
 
 
 def _is_wedge(r: dict) -> bool:

@@ -161,7 +161,7 @@ class LikelihoodEngine:
                  scale_exp: Optional[int] = None, wave_width: int = 8,
                  newview: Optional[str] = None, psr: bool = False,
                  save_memory: bool = False, clv_dtype=None,
-                 group: SiteGroup = SINGLE):
+                 group: SiteGroup = SINGLE, sharding=None):
         """newview selects the full-traversal tier: "chunk" (the bounded
         chunk program through kernel B1, the default), "whole" (one
         launch of kernel B2 per traversal) — the JAX engine's
@@ -174,7 +174,20 @@ class LikelihoodEngine:
         float32 compute); bfloat16 with the whole tier is refused.
         group: the site axis's ranks (parallel/sharding.py); the bucket
         is this rank's block window, and every site sum the engine
-        returns is reduced over the group once."""
+        returns is reduced over the group once.  sharding: the run's
+        (sites, tree) fabric (parallel/sharding.py), for its gauges; the
+        engine's tensors stay on `device`, since the fleet's lanes copy
+        what they read (fleet/shard.py)."""
+        if save_memory and sharding is not None \
+                and sharding.tree_shards > 1:
+            # The CLI names this (S, T) combination; this is the
+            # backstop for callers from Python.
+            raise ValueError(
+                f"-S cannot compose with a {sharding.site_shards}x"
+                f"{sharding.tree_shards} fabric: the SEV pool holds one "
+                "arena per instance, so per-job arenas cannot stack along "
+                "the tree axis (Sx1 only)")
+        self.sharding = sharding
         if save_memory:
             if newview not in (None, POOLED_TIER):
                 raise ValueError(
@@ -302,6 +315,11 @@ class LikelihoodEngine:
         LikelihoodEngine._obs_seq += 1
         self._obs_tag = f"s{self.K}.e{seq}"
         self._update_arena_gauge()
+        if self.sharding is not None:
+            # The declared mesh's axes (instance-wide: every engine of a
+            # run shares the mesh).
+            obs.gauge("engine.mesh_site_shards", self.sharding.site_shards)
+            obs.gauge("engine.mesh_tree_shards", self.sharding.tree_shards)
         ref = weakref.ref(self)
 
         def _collect():
@@ -439,13 +457,15 @@ class LikelihoodEngine:
         return self.ntips + int(self.row_map[num])
 
     def _traversal_arrays(self, entries: List[TraversalEntry],
-                          parent_row=None, gidx=None) -> Traversal:
+                          parent_row=None, gidx=None,
+                          device=None) -> Traversal:
         """Wave-schedule entries into [L, W]: waves wider than
         `wave_width` split over several steps (their entries are
         independent), narrow waves pad to W with scratch-row entries.
         parent_row(entry) / gidx(id) map an entry's parent to its arena row
         and a child id to its gather index: by default through the row
-        map; the batched SPR scan also targets its scan region."""
+        map; the batched SPR scan also targets its scan region.  `device`:
+        where the arrays go (the engine's by default; a fleet lane's)."""
         parent_row = parent_row or (lambda e: self.row_map[e.parent])
         gidx = gidx or self._gidx
         raw = Tree.schedule_waves(entries)
@@ -466,10 +486,9 @@ class LikelihoodEngine:
                 right[li, wi] = gidx(e.right)
                 zl[li, wi, :] = z_slots(e.zl, C)
                 zr[li, wi, :] = z_slots(e.zr, C)
-        idx = torch.from_numpy(np.stack([parent, left, right])).to(
-            self.device)
-        z = torch.from_numpy(np.stack([zl, zr])).to(device=self.device,
-                                                    dtype=self.dtype)
+        device = self.device if device is None else device
+        idx = fastpath.upload(np.stack([parent, left, right]), device)
+        z = fastpath.upload(np.stack([zl, zr]), device, self.dtype)
         return Traversal(parent=idx[0], left=idx[1], right=idx[2],
                          zl=z[0], zr=z[1])
 

@@ -614,6 +614,21 @@ class StackedTable(NamedTuple):
     slot0: np.ndarray           # [J + 1] first packed slot of each job
 
 
+def upload(array, device, dtype=None) -> torch.Tensor:
+    """A host array on `device` (then in `dtype`) without a host sync: on
+    a card through pinned memory and an asynchronous copy on the current
+    stream (a copy from pageable memory waits for everything queued on
+    the stream), so a fleet lane enqueues a whole batch before any of it
+    runs.  The caching host allocator keeps the pinned buffer until the
+    copy is done."""
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    if torch.device(device).type == "cuda":
+        t = t.pin_memory().to(device, non_blocking=True)
+    else:
+        t = t.to(device)
+    return t if dtype is None else t.to(dtype)
+
+
 def stack_tables(tables, rows_per_job: int, device) -> StackedTable:
     """One launch table for J jobs' tables over a stacked arena: job j's
     rows keep their order, `base` moves by j * rows_per_job and `slot` by
@@ -624,7 +639,8 @@ def stack_tables(tables, rows_per_job: int, device) -> StackedTable:
     dataflow table is built once over the stacked arrays, so its claim
     order, its prefix sums and its checks (no row written twice, no row
     read before an earlier table row wrote it) hold for the whole
-    batch.  The packed arrays go to the device in one transfer."""
+    batch.  The packed arrays go to the device in one transfer, with no
+    host sync (`upload`)."""
     launches, packed = [], []
     slot0 = [0]
     for j, t in enumerate(tables):
@@ -647,11 +663,11 @@ def stack_tables(tables, rows_per_job: int, device) -> StackedTable:
     launch = np.concatenate(launches).astype(np.int32).reshape(-1, 4)
     lidx, ridx, lcode, rcode = np.concatenate(packed, axis=1)
     flow_rows, wait = dataflow_table(launch, lidx, ridx)
-    dev = torch.from_numpy(np.stack([lidx, ridx, lcode, rcode, wait]).astype(
-        np.int32)).to(device)
+    dev = upload(np.stack([lidx, ridx, lcode, rcode, wait]).astype(
+        np.int32), device)
     return StackedTable(launch=launch, lidx=dev[0], ridx=dev[1],
                         lcode=dev[2], rcode=dev[3],
-                        flow_rows=torch.from_numpy(flow_rows).to(device),
+                        flow_rows=upload(flow_rows, device),
                         wait=dev[4], slot0=np.asarray(slot0, np.int64))
 
 

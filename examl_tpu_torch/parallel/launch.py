@@ -13,6 +13,10 @@ window K of the packed site axis (parallel/sharding.py).  No flags keep
 the single-process path: `init_distributed` returns `sharding.SINGLE`
 and starts nothing.
 
+`--mesh SxT` / `EXAML_MESH` declares the (sites, tree) fabric of
+parallel/sharding.py, and `select_sharding` turns the flags into it: the
+fleet's tree axis over T cards (fleet/shard.py), or None for one card.
+
 This module imports torch only inside the functions that need it: the
 CLI's parser takes its flags from here, and a supervising parent parses
 the command line without loading torch.
@@ -39,6 +43,18 @@ def add_launch_args(parser) -> None:
                    help="number of ranks (processes) in the run")
     g.add_argument("--procid", type=int, default=None,
                    help="this process's rank, 0 <= procid < nprocs")
+    g.add_argument("--single-device", action="store_true",
+                   help="keep the run on one card even when several are "
+                        "visible")
+    g.add_argument("--mesh", dest="mesh", default=None, metavar="SxT",
+                   help="declared (sites, tree) likelihood fabric: S site "
+                        "shards per tree slice, T tree slices, on S*T "
+                        "cards; T>1 requires a fleet mode (-b/-N/--serve) "
+                        "and cuts each batch's jobs into T slices, one "
+                        "launch table each on its slice's card.  Only S=1 "
+                        "runs here (the in-process site axis is not "
+                        "ported).  EXAML_MESH=SxT is the env equivalent "
+                        "(the flag wins)")
 
 
 def launch_requested(args) -> bool:
@@ -177,3 +193,43 @@ def enable_process_tracing(trace_dir: str,
         return None
     log(f"trace events -> {path}")
     return path
+
+
+def mesh_spec_requested(args) -> Optional[str]:
+    """The raw SxT mesh spec in force, or None: the --mesh flag wins over
+    EXAML_MESH."""
+    flag = getattr(args, "mesh", None)
+    if flag:
+        return flag
+    return os.environ.get("EXAML_MESH") or None
+
+
+def select_sharding(args, save_memory: bool = False,
+                    log=lambda msg: None):
+    """The run's fabric, or None for one card: None without a mesh (the
+    port runs one card a process; fleet lanes come from --fleet-devices),
+    with --single-device, and for 1x1; the (sites, tree) fabric of
+    parallel/sharding.py for 1xT.  A mesh the visible cards cannot hold
+    raises ValueError("... needs N devices ..."), as S > 1 does: the
+    in-process site axis is not ported (ROADMAP A15, site axis).  With
+    `save_memory` the engines refuse a fabric of T > 1 (the CLI refuses it
+    first)."""
+    from examl_tpu_torch.parallel.sharding import (fabric_sharding,
+                                                   make_fabric_mesh,
+                                                   parse_mesh_spec)
+    spec = mesh_spec_requested(args)
+    if spec is None or getattr(args, "single_device", False):
+        return None
+    s, t = parse_mesh_spec(spec)
+    if s == t == 1:
+        return None
+    if s > 1:
+        raise ValueError(
+            f"mesh {s}x{t}: the in-process site axis (S > 1: each tree's "
+            "site blocks over several cards in one process) is not ported "
+            "yet (ROADMAP A15, site axis); run S=1 with tree slices, or "
+            "site-parallel ranks with --nprocs")
+    sh = fabric_sharding(make_fabric_mesh(s, t))
+    log(f"likelihood fabric {s}x{t}: {t} tree slice(s) on "
+        + ", ".join(str(d) for d in sh.tree_devices()))
+    return sh

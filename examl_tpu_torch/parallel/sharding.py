@@ -22,11 +22,15 @@ whatever order the transport combines in: every host decision taken
 from a reduced value (a Newton-Raphson exit, Brent's next probe, an SPR
 acceptance) is taken alike on every rank.  `SINGLE`, the world of one,
 returns its inputs unchanged, so a single-process run pays nothing.
+
+Below the group: the (sites, tree) fabric's records, the declared
+layouts the JAX package's `--mesh SxT` builds, of which the port runs
+the tree axis (S = 1).
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -98,3 +102,211 @@ class SiteGroup:
 
 # The world of one: a single-process run.
 SINGLE = SiteGroup()
+
+
+# -- the (sites, tree) fabric ------------------------------------------------
+#
+# The JAX package declares a 2-D `jax.sharding.Mesh` over (sites, tree):
+# each tree slice of S devices holds the whole model and its site shards,
+# and the fleet's stacked per-job leaves are partitioned over the T tree
+# slices.  The port keeps the mesh as a plain record (an S x T array of
+# torch devices and the axis names) and runs the tree axis itself:
+# `fleet/shard.py: MeshShard` cuts each batch's jobs into T slices, one
+# launch table each on its slice's device and stream.  The in-process
+# site axis (S > 1: one engine op per card, or ranks as threads) is not
+# ported yet; `parallel/launch.py: select_sharding` refuses it.
+
+TREE_AXIS = "tree"
+
+
+class PartitionSpec(tuple):
+    """The JAX package's `PartitionSpec` as a declaration only: a tuple of
+    axis names (None for an unsharded dimension) whose str() is
+    `jax.sharding.PartitionSpec`'s, so the declared-specs record is the
+    JAX package's, string for string."""
+
+    def __new__(cls, *axes):
+        return super().__new__(cls, axes)
+
+    def __repr__(self) -> str:
+        return "PartitionSpec" + tuple.__repr__(self)
+
+    __str__ = __repr__
+
+
+P = PartitionSpec
+
+
+class Mesh:
+    """A device mesh: `devices`, an array of torch devices of one shape per
+    axis (S x T for the fabric, S for the 1-D site mesh), and the axis
+    names.  A device may stand more than once (lanes that share a card;
+    only the Python API builds such a mesh)."""
+
+    def __init__(self, devices, axis_names):
+        self.devices = np.asarray(devices, dtype=object)
+        self.axis_names = tuple(axis_names)
+        if self.devices.ndim != len(self.axis_names):
+            raise ValueError(f"a {self.devices.ndim}-D device array for "
+                             f"axes {self.axis_names}")
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.devices.shape))
+
+
+class SiteSharding:
+    """The layout of every engine tensor over a mesh, as the JAX
+    package's `SiteSharding` declares it: the CLV arena and the scaler
+    with blocks on axis 1, weights and block_part with blocks on axis 0,
+    models replicated.  The specs never name the tree axis: each tree
+    slice holds the engine state whole (for S = 1, on its one device)."""
+
+    def __init__(self, mesh: Mesh):
+        self.mesh = mesh
+        self.clv = P(None, SITE_AXIS)
+        self.scaler = P(None, SITE_AXIS)
+        self.sites = P(SITE_AXIS)
+        self.blocks = P(SITE_AXIS)
+        self.replicated = P()
+
+    @property
+    def num_devices(self) -> int:
+        """The site-axis extent: the divisor of the packed block axis.
+        The tree axis does not split blocks."""
+        return int(self.mesh.shape[SITE_AXIS])
+
+    @property
+    def site_shards(self) -> int:
+        return self.num_devices
+
+    @property
+    def tree_shards(self) -> int:
+        return int(self.mesh.shape.get(TREE_AXIS, 1))
+
+    @property
+    def is_fabric(self) -> bool:
+        """True when the mesh carries the tree axis (even T = 1)."""
+        return TREE_AXIS in self.mesh.axis_names
+
+    def tree_devices(self) -> list:
+        """The device of each tree slice (site shard 0 of the slice)."""
+        if not self.is_fabric:
+            return [self.mesh.devices.flat[0]]
+        return list(self.mesh.devices[0])
+
+
+def visible_devices() -> list:
+    """Every visible card, `cuda:0 .. cuda:n-1` (none without CUDA)."""
+    import torch
+    if not torch.cuda.is_available():
+        return []
+    return [torch.device("cuda", k)
+            for k in range(torch.cuda.device_count())]
+
+
+def make_mesh(devices: Optional[Sequence] = None,
+              n_devices: Optional[int] = None) -> Mesh:
+    """1-D mesh over the site axis (default: every visible card)."""
+    if devices is None:
+        devices = visible_devices()
+    devices = list(devices)
+    if n_devices is not None:
+        devices = devices[:n_devices]
+    return Mesh(devices, (SITE_AXIS,))
+
+
+def site_sharding(mesh: Mesh) -> SiteSharding:
+    return SiteSharding(mesh)
+
+
+def default_site_sharding(n_devices: Optional[int] = None) -> SiteSharding:
+    return site_sharding(make_mesh(n_devices=n_devices))
+
+
+def parse_mesh_spec(spec: str) -> Tuple[int, int]:
+    """`--mesh SxT` / `EXAML_MESH=SxT` -> (site_shards, tree_shards).
+    Accepts 'x' or 'X' as the separator; both axes must be positive."""
+    text = str(spec).strip().lower()
+    parts = text.split("x")
+    if len(parts) != 2:
+        raise ValueError(
+            f"mesh spec {spec!r} is not SxT (e.g. 2x2: 2 site shards "
+            "x 2 tree shards)")
+    try:
+        s, t = int(parts[0]), int(parts[1])
+    except ValueError:
+        raise ValueError(f"mesh spec {spec!r}: both axes must be integers")
+    if s < 1 or t < 1:
+        raise ValueError(f"mesh spec {spec!r}: both axes must be >= 1")
+    return s, t
+
+
+def make_fabric_mesh(site_shards: int, tree_shards: int,
+                     devices: Optional[Sequence] = None) -> Mesh:
+    """The 2-D (sites, tree) mesh: S*T devices (default: the visible
+    cards) reshaped with the site axis outermost.  An explicit `devices`
+    list may name one card more than once (lanes that share it)."""
+    if devices is None:
+        devices = visible_devices()
+    devices = list(devices)
+    need = site_shards * tree_shards
+    if need > len(devices):
+        raise ValueError(
+            f"mesh {site_shards}x{tree_shards} needs {need} devices; "
+            f"only {len(devices)} visible (pass the devices from Python, "
+            "or shrink the mesh)")
+    arr = np.empty(need, dtype=object)
+    arr[:] = devices[:need]
+    return Mesh(arr.reshape(site_shards, tree_shards),
+                (SITE_AXIS, TREE_AXIS))
+
+
+def fabric_sharding(mesh: Mesh) -> SiteSharding:
+    """Engine-tensor layouts over the fabric: `site_sharding`'s specs
+    (the tree axis replicates the engine state), declared on the 2-D
+    mesh."""
+    return site_sharding(mesh)
+
+
+def declared_specs(sharding: SiteSharding) -> dict:
+    """The mesh's declared-sharding record for `bank_manifest.json`: axis
+    names, mesh shape and per-leaf PartitionSpecs, JSON-ready and equal
+    to the JAX package's for the same mesh."""
+    leaf_specs = {
+        "clv": str(sharding.clv),
+        "scaler": str(sharding.scaler),
+        "sites": str(sharding.sites),
+        "blocks": str(sharding.blocks),
+        "replicated": str(sharding.replicated),
+    }
+    if sharding.is_fabric:
+        leaf_specs["fleet_jobs"] = str(P(TREE_AXIS))
+        leaf_specs["fleet_clv"] = str(P(TREE_AXIS, None, SITE_AXIS))
+    return {
+        "axis_names": list(sharding.mesh.axis_names),
+        "mesh_shape": [int(d) for d in sharding.mesh.devices.shape],
+        "site_shards": sharding.site_shards,
+        "tree_shards": sharding.tree_shards,
+        "leaf_specs": leaf_specs,
+    }
+
+
+def declared_fabric_specs(site_shards: int, tree_shards: int) -> dict:
+    """`declared_specs` of an (S, T) fabric without building the mesh
+    (the bank stamps its manifest before any device is touched)."""
+    return {
+        "axis_names": [SITE_AXIS, TREE_AXIS],
+        "mesh_shape": [int(site_shards), int(tree_shards)],
+        "site_shards": int(site_shards),
+        "tree_shards": int(tree_shards),
+        "leaf_specs": {
+            "clv": str(P(None, SITE_AXIS)),
+            "scaler": str(P(None, SITE_AXIS)),
+            "sites": str(P(SITE_AXIS)),
+            "blocks": str(P(SITE_AXIS)),
+            "replicated": str(P()),
+            "fleet_jobs": str(P(TREE_AXIS)),
+            "fleet_clv": str(P(TREE_AXIS, None, SITE_AXIS)),
+        },
+    }

@@ -19,7 +19,9 @@ Seams that consult it:
 * the fleet drain's batch cap (`effective_cap`): under pressure the
   drain cuts smaller batches — occupancy shrinks instead of OOM;
 * the fleet's stacked batch arenas (`admit_bytes`): counted denials,
-  never a block.
+  never a block; a lane's arena is reserved on its device from its
+  admission to its launch (`reserve`), so the lanes of one round that
+  share a card count each other's arenas.
 
 The recovery half: `is_oom()` classifies a caught dispatch exception (a
 `torch.cuda.OutOfMemoryError` or the injected `mem.oom` fault; never a
@@ -78,6 +80,8 @@ def knobs_from_env() -> Knobs:
 
 
 _STATE = {"strikes": 0, "knobs": Knobs()}
+# Bytes reserved per device (str) by admitted, not yet allocated arenas.
+_RESERVED: Dict[str, int] = {}
 
 
 class MemoryBudgetExhausted(RuntimeError):
@@ -92,6 +96,7 @@ def reset() -> None:
     """Clear strike state and the run's knobs (one CLI run = one
     escalation ladder)."""
     _STATE.update(strikes=0, knobs=Knobs())
+    _RESERVED.clear()
 
 
 def configure(knobs: Knobs) -> None:
@@ -226,13 +231,42 @@ def _sample() -> None:
     programs.sample_memory()
 
 
+def reserve(device, nbytes: int) -> None:
+    """Hold `nbytes` on `device` for an arena that is admitted but not yet
+    allocated (a fleet lane's stacked arena between its admission and its
+    launch): `reserved_bytes` counts it until `unreserve`.  Every lane of
+    a round is admitted before any launches, so two lanes on one card
+    that each read its free memory before the other allocates see each
+    other here."""
+    if nbytes > 0:
+        key = str(device)
+        _RESERVED[key] = _RESERVED.get(key, 0) + int(nbytes)
+
+
+def unreserve(device, nbytes: int) -> None:
+    if nbytes > 0:
+        key = str(device)
+        left = _RESERVED.get(key, 0) - int(nbytes)
+        if left > 0:
+            _RESERVED[key] = left
+        else:
+            _RESERVED.pop(key, None)
+
+
+def reserved_bytes(device) -> int:
+    """Bytes reserved on `device` by admitted arenas not yet allocated."""
+    return _RESERVED.get(str(device), 0)
+
+
 def admit_bytes(predicted: Optional[int], seam: str,
-                knobs: Optional[Knobs] = None) -> bool:
+                knobs: Optional[Knobs] = None, device=None) -> bool:
     """One admission decision.  A missing prediction or missing budget
     admits (counting `mem.admission_unknown` for the former) — the
     governor turns absent telemetry into evidence, never into a
     blocked dispatch.  A denial only COUNTS here (`mem.admission_
-    denials`); the seam owns its reaction (shrink, proceed)."""
+    denials`); the seam owns its reaction (shrink, proceed).  With
+    `device`, the arenas reserved there and not yet allocated count as
+    used."""
     _sample()
     g = _gauges()
     budget = budget_bytes(g, knobs)
@@ -241,7 +275,10 @@ def admit_bytes(predicted: Optional[int], seam: str,
     if predicted is None:
         inc("mem.admission_unknown")
         return True
-    ok, _ = admit_math(predicted, used_bytes(g), budget)
+    used = used_bytes(g)
+    if device is not None:
+        used += reserved_bytes(device)
+    ok, _ = admit_math(predicted, used, budget)
     if not ok:
         inc("mem.admission_denials")
         _ledger("mem.admission_denied", seam=seam,

@@ -480,7 +480,8 @@ def test_device_faults_are_not_job_faults():
         quarantine.isolate([1, 2, 3], evaluate, lambda j: None)
     inst = _port()
     drv = FleetDriver(inst, batch_cap=4)
-    drv.evaluator.eval_batch = lambda preps: (_ for _ in ()).throw(
+    drv.evaluator.launch_eval = lambda preps, admission=None: (
+        _ for _ in ()).throw(
         _build.KernelError("newview_chunk dataflow launch failed"))
     with pytest.raises(_build.KernelError):
         drv.run(jobs.make_jobs("start", 2, 7))

@@ -1,8 +1,9 @@
 """The port's package boundary: importing every module of examl_tpu_torch
 pulls in neither JAX nor any module of examl_tpu, and leaves TF32 off; the
 modules a supervising parent loads (the supervisor, the lease board, the
-CLI's front and the extension bank its workers run) import no torch
-either, and the instance no
+CLI's front, parallel/launch.py and parallel/sharding.py, and the
+extension bank its workers run) import no torch either, and the instance
+no
 `scipy.stats` (its discrete-gamma rates equal `scipy.stats`' bit for
 bit)."""
 
@@ -62,6 +63,7 @@ def test_port_imports_no_jax_and_no_examl_tpu():
                  "examl_tpu_torch.fleet.quarantine",
                  "examl_tpu_torch.fleet.lease",
                  "examl_tpu_torch.fleet.seeds",
+                 "examl_tpu_torch.fleet.shard",
                  "examl_tpu_torch.resilience.supervisor",
                  "examl_tpu_torch.cli.parse",
                  "examl_tpu_torch.search.checkpoint",
@@ -96,6 +98,23 @@ def test_supervisor_lease_board_and_cli_front_import_no_torch():
     res = subprocess.run([sys.executable, "-c", TORCH_FREE], cwd=ROOT,
                          env=env, capture_output=True, text=True,
                          timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert json.loads(res.stdout.strip().splitlines()[-1]) == []
+
+
+def test_parallel_launch_and_sharding_import_no_torch():
+    """The CLI's parser takes the launch flags (--mesh, --single-device)
+    from parallel/launch.py in a supervising parent too, and the bank
+    stamps the declared fabric from parallel/sharding.py in its workers:
+    neither loads torch at import."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run(
+        [sys.executable, "-c", "import json, sys; "
+         "import examl_tpu_torch.parallel.launch, "
+         "examl_tpu_torch.parallel.sharding; print(json.dumps(sorted(k for "
+         "k in sys.modules if k.split('.')[0] in ('torch', 'jax', "
+         "'jaxlib', 'examl_tpu'))))"], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert json.loads(res.stdout.strip().splitlines()[-1]) == []
 
