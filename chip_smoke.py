@@ -84,18 +84,31 @@ the same batches on one lane in turns; a MeshShard on a 1x2 fabric of
 the card twice (slices 4/4, bit for bit); a PSR fleet on two lanes bit
 for bit one lane; and through the CLI `-N 6` with `--fleet-devices 0`
 and `--mesh 1x1` against plain `-N 6`, and `-N 4 --mesh 1x2` refused
-("needs 2 devices").
-Phases 9, 15, 17, 20 and 27 and phase 28's CLI part time no kernel and
-run as side phases: each in a process of its own (`--side-child`), 9,
-15 and 20 started after phase 5, 17, 27 and 28's CLI part after phase
-8, while the script runs phases 6-8; all are joined before phase 10,
-and each prints its lines in its own place.  Every phase is fatal: any failure exits non-zero before the
+("needs 2 devices").  The site axis (phase 29, run right after phase 22
+on its one-process instance): two site shards of one tree in this
+process on a 2x1 fabric of the card twice (each shard its own thread,
+stream and window; parallel/shards.py), the real-size DNA set-up on B1
+and on B2, each launched once a shard, the lnL bit for bit phase 22's
+two ranks and each shard's arena rows against its window of the
+one-process arena; `-S` on phase 19's set and bf16 storage on 2x1; and,
+beside phases 6-8, ref49's anchors and `-f e --newview whole` through
+the CLI with `--mesh 2x1`, PSR's evaluate, gradient smoothing and a
+categorization round on 2x1 against one card, `--mesh 2x1` refused on
+the card as it is and phase 7's `-f d` again with no mesh, bit for bit.
+Phases 9, 15, 17, 20 and 27 and the side parts of phases 28 and 29 time
+no kernel and run as side phases: each in a process of its own
+(`--side-child`), 9, 15, 20 and 29 (b) started after phase 5, 17, 27,
+28 (d) and 29 (e) after phase 8, while the script runs phases 6-8; all
+are joined before phase 10, and each prints its lines in its own
+place.  Every phase is fatal: any failure exits non-zero before the
 result line.
 
     python3 chip_smoke.py [--seed N]     # one card
     python3 chip_smoke.py --host-ab DIR  # the real-size evaluate and -f d
                                          # against the port of the tree
                                          # at DIR, instruments off, in turns
+    python3 chip_smoke.py --site-psr     # ref49 -m PSR -f e through the CLI
+                                         # on one card, then on 2x1 of it
 
 Output: progress and numbers on the earlier lines (each phase with its
 seconds); the card's name and power limit; one line {"kernels": [...]}
@@ -110,6 +123,7 @@ report is written as JSON beside the script (see `main`).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -256,15 +270,15 @@ SUP_TIMEOUT_S = 240
 # (phase 2 builds through bank workers), (b)'s --compile-timeout, and the
 # B1 wedge check's limit (its kernel traps after ~2^34 cycles, ~9 s).
 BANK_BUILD_TIMEOUT_S, BANK_TIMEOUT_S, WEDGE_CHECK_S = 600.0, 5.0, 20.0
-# Side phases: the host-bound CLI phases 9, 15 and 20 start side by side
-# after phase 5, each in a process of its own, while this process runs
-# phases 6-8; phases 17 and 27 and part (d) of phase 28 start so after
-# phase 8.  None of them
+# Side phases: the host-bound CLI phases 9, 15 and 20 and part (b) of
+# phase 29 start side by side after phase 5, each in a process of its own,
+# while this process runs phases 6-8; phases 17 and 27, part (d) of phase
+# 28 and part (e) of phase 29 start so after phase 8.  None of them
 # times a kernel, and no kernel is timed while they run: all are joined
 # before phase 10, each stopped after SIDE_TIMEOUT_S.  SIDE_THREADS caps
 # each one's CPU threads.
-SIDE_EARLY, SIDE_LATE = (("psr49", "aa_cli", "sev_cli"),
-                         ("quartets", "bank", "lanes_cli"))
+SIDE_EARLY, SIDE_LATE = (("psr49", "aa_cli", "sev_cli", "site_ref49"),
+                         ("quartets", "bank", "lanes_cli", "site_cli"))
 SIDE_PHASES = SIDE_EARLY + SIDE_LATE
 SIDE_TIMEOUT_S, SIDE_THREADS = 600, 2
 # Its (b)-(d) run on FD_TAXA taxa x PARTITIONS x BANK_WIDTH columns of
@@ -277,10 +291,16 @@ BANK_WIDTH = 256
 # alignment; its CLI part (d) runs with the side phases of phase 8 (-N
 # LANE_CLI_JOBS, and -N 4 on a 1x2 mesh).
 LANE_BATCH, LANE_TURNS, LANE_PSR_JOBS, LANE_CLI_JOBS = 4, 3, 6, 6
-NPHASES = 28
-# The phases in the order they run: phase 28 runs right after phase 23,
-# on its real-size instance and prepared jobs.
-PHASE_ORDER = list(range(1, 24)) + [28] + list(range(24, 28))
+# Phase 29, the site axis: SHARDS site shards of one tree in this process
+# on a SHARDS x 1 fabric of the card twice, each evaluate timed over
+# SHARD_REPS; its lnLs within SHARD_RTOL of one card's.  Its parts (b)
+# and (e) run as a side phase beside phase 8.
+SHARDS, SHARD_REPS, SHARD_RTOL = 2, 3, 1e-6
+NPHASES = 29
+# The phases in the order they run: phase 29 runs right after phase 22,
+# on its one-process instance, and phase 28 right after phase 23, on its
+# real-size instance and prepared jobs.
+PHASE_ORDER = list(range(1, 23)) + [29, 23, 28] + list(range(24, 28))
 
 
 class SmokeFailure(RuntimeError):
@@ -1024,12 +1044,16 @@ def side_phase(name: str, device, out_dir: str, seed: int) -> dict:
         return phase_aa_cli(device, out_dir, seed)
     if name == "sev_cli":
         return phase_sev_cli(device, out_dir, seed)
+    if name == "site_ref49":
+        return site_ref49(device, out_dir)
     with open(os.path.join(out_dir, "side_inputs.pkl"), "rb") as f:
         inputs = pickle.load(f)
     if name == "quartets":
         return phase_quartets(device, out_dir, inputs["search"])
     if name == "lanes_cli":
         return lanes_cli(device, out_dir, inputs["search"])
+    if name == "site_cli":
+        return site_cli(device, out_dir, inputs["search"])
     return phase_bank(device, inputs["bank_report"], inputs["bank_wall"],
                       inputs["smi"], seed)
 
@@ -3117,7 +3141,7 @@ def sev_setup(seed: int) -> dict:
             "alignment_s": time.perf_counter() - t0}
 
 
-def phase_sev(device, seed: int, reps: int):
+def phase_sev(device, seed: int, reps: int, keep: dict):
     """SEV memory saving at real width: one -S instance (the pooled tier)
     and one dense instance (the chunk tier, B1), both f32, on the gappy
     set-up's data and tree.  Each instance's path (built, evaluated,
@@ -3130,10 +3154,10 @@ def phase_sev(device, seed: int, reps: int):
     instance's at rel SEV_RTOL, each slot's best move must be the same on
     both (or tie within SEV_RTOL), the saving above SEV_MIN_SAVING, the
     pool below the dense arena, and the -S path launches neither B1 nor
-    B2."""
+    B2.  The set-up goes into `keep` (phase 29 reads it)."""
     import torch
     from examl_tpu_torch.search import batchscan, spr
-    setup = sev_setup(seed)
+    setup = keep["sev"] = sev_setup(seed)
     release_memory()
     out = {"taxa": SEV_TAXA, "parts": SEV_PARTS,
            "patterns": setup["patterns"],
@@ -4078,12 +4102,15 @@ def site_rel(a, b) -> float:
 
 
 def phase_site_parallel(device, setup: dict, anchor_whole: dict, fd: dict,
-                        b1_config: list, smi: str, seed: int) -> dict:
+                        b1_config: list, smi: str, seed: int,
+                        keep: dict) -> dict:
     """Two ranks (processes) in a gloo group over 127.0.0.1 share the one
     card, rank r on cuda:(r mod device_count): the real-size DNA set-up
     as a byteFile, each rank reading only its columns, against the one
     process; B1 against its plain version on windows with a tail; and
-    the CLI's ref49 -f e (whole tier) and -f d over two ranks."""
+    the CLI's ref49 -f e (whole tier) and -f d over two ranks.  The
+    one-process instance and its tree go into `keep` (phase 29 reads
+    its arena)."""
     import torch
     from examl_tpu_torch.io.bytefile import read_bytefile, write_bytefile
     from examl_tpu_torch.parallel.sharding import block_window
@@ -4124,8 +4151,8 @@ def phase_site_parallel(device, setup: dict, anchor_whole: dict, fd: dict,
         windows = [block_window(B, r, SITE_RANKS)
                    for r in range(SITE_RANKS)]
         one = site_path(inst, tree, device, windows)
+        keep["one"] = (inst, site_tree(inst, cfg))
         del inst, tree
-        release_memory()
         real = site_spawn("real", json.dumps(cfg), ports[2])
         ranks = site_wait(real, "real-size ranks")
         fe_res = site_wait(fe, "ref49 -f e ranks")
@@ -4213,7 +4240,7 @@ def phase_site_parallel(device, setup: dict, anchor_whole: dict, fd: dict,
            "one_process": {k: one[k] for k in ("lnl", "counts")},
            "ranks": [{k: res[k] for k in (
                "rank", "device", "blocks", "block_offset", "columns",
-               "setup_s", "lnl", "counts", "b1_ms", "allreduce_ms",
+               "setup_s", "lnl", "pp", "counts", "b1_ms", "allreduce_ms",
                "nr_iteration_ms", "nr_iteration_allreduce_ms",
                "collectives", "tails")} for res in ranks],
            "rel": rel, "tail_tiles": tail,
@@ -5029,6 +5056,392 @@ def lanes_cli(device, out_dir: str, fd: dict) -> dict:
                     for k, v in out.items() if k != "mesh1x2")
         + " with equal results tables and journals; -N 4 --mesh 1x2 "
         f"returned {rc}: {out['mesh1x2']['error']}")
+    return out
+
+
+# -- phase 29: the site axis, site shards of one tree on the card -------------
+
+
+def shard_mesh(device):
+    """The SHARDS x 1 fabric of the card named SHARDS times: the site
+    shards share it, each on its own thread and stream."""
+    from examl_tpu_torch.parallel.sharding import (fabric_sharding,
+                                                   make_fabric_mesh)
+    return fabric_sharding(make_fabric_mesh(SHARDS, 1, [device] * SHARDS))
+
+
+def check_sharded(counts: dict, tier: str, path: str) -> None:
+    """A path of SHARDS site shards launches its tier's kernel once a shard
+    for each full traversal (counted once, as one card counts it), the
+    other kernel never; the pooled tier launches neither."""
+    per = {"chunk": ("b1", "b2"), "whole": ("b2", "b1")}.get(tier)
+    if per is None:
+        check(counts["b1"] == counts["b2"] == 0
+              and counts["pooled_traversals"] > 0,
+              f"{path}: B1 {counts['b1']}, B2 {counts['b2']} launches for "
+              f"{counts['pooled_traversals']} pooled traversals")
+        return
+    on, off = per
+    check(counts[off] == 0 and counts[on] == SHARDS * counts[
+        "full_traversals"] > 0, f"{path}: {counts[on]} {on.upper()} "
+          f"launches ({off.upper()} {counts[off]}) for "
+          f"{counts['full_traversals']} full traversals of {SHARDS} shards")
+
+
+def shard_rows(inst, one, device, what: str) -> list:
+    """Each shard's inner-node arena rows and scalers against the one-card
+    instance's rows of the shard's block window (compare_arenas: scalers
+    equal, rows within B1's tolerance), and whether they are the same
+    bits (site_digests)."""
+    import torch
+    eng1 = one.engines[4]
+    ntaxa = one.alignment.ntaxa
+    rows1 = torch.as_tensor(eng1.row_map[ntaxa + 1:], device=device)
+    out = []
+    for r, e in enumerate(inst.engines[4].shards):
+        b0, b1 = e.bucket.block_offset, e.bucket.block_offset + e.B
+        rows = torch.as_tensor(e.row_map[ntaxa + 1:], device=device)
+        worst = [0.0, 0.0, 0]
+        for lo in range(0, rows.shape[0], 32):
+            rel, err, n = compare_arenas(
+                e.clv[rows[lo:lo + 32]], eng1.clv[rows1[lo:lo + 32], b0:b1],
+                e.scaler[rows[lo:lo + 32]],
+                eng1.scaler[rows1[lo:lo + 32], b0:b1], f"{what} shard {r}")
+            worst = [max(worst[0], rel), max(worst[1], err), worst[2] + n]
+        same = (site_digests(e.clv, rows)
+                == site_digests(eng1.clv[:, b0:b1], rows1))
+        out.append({"blocks": [b0, b1], "max_rel_err": worst[0],
+                    "max_abs_err": worst[1], "differing_cells": worst[2],
+                    "bitwise": bool(same)})
+    return out
+
+
+def sharded_instance(ad, setup: dict, device, **kw):
+    """The real-size f32 instance of `ad` on the shard mesh of the card,
+    the set-up's models and its random tree with the set-up's lengths."""
+    import torch
+    from examl_tpu_torch.instance import PhyloInstance
+    from examl_tpu_torch.transfer import install_model_params
+    inst = PhyloInstance(ad, dtype=torch.float32, device=device,
+                         sharding=shard_mesh(device), **kw)
+    install_model_params(inst, [(np.asarray(r), np.asarray(f), float(a))
+                                for r, f, a in setup["params"]])
+    return inst, site_tree(inst, setup)
+
+
+def sharded_path(inst, tree, device, tier: str, what: str) -> dict:
+    """One full evaluate of a sharded instance with its counts (read just
+    after it), then SHARD_REPS timed ones."""
+    reset_counts()
+    lnl = inst.evaluate(tree, full=True)
+    sync(device)
+    counts = read_counts()
+    check_sharded(counts, tier, what)
+    again, walls = timed_evaluates(inst, tree, device, SHARD_REPS)
+    check(again == lnl, f"{what}: lnL {again!r} after {lnl!r}")
+    return {"lnl": lnl, "pp": inst.per_partition_lnl.tolist(),
+            "counts": counts, "evaluate_ms": float(np.median(walls) * 1e3)}
+
+
+def phase_site_axis(device, setup: dict, real: dict, real_whole: dict,
+                    site: dict, keep: dict, sev: dict, bf16: dict,
+                    smi: str) -> dict:
+    """Phase 29: SHARDS site shards of one tree in this process on a
+    SHARDS x 1 fabric of the card twice (parallel/shards.py).  (a) the
+    real-size DNA set-up on the chunk tier: B1 once a shard, the lnL and
+    per-partition lnL bit for bit phase 22's two gloo ranks over the same
+    windows and within rel SHARD_RTOL of one card (phase 10), each
+    shard's arena rows against the rows of its window of phase 22's
+    one-process arena (`keep["one"]`, packed as the shards pack, on the
+    alignment it read); then the whole tier, B2 once a
+    shard, within SHARD_RTOL of phase 13; the evaluate's wall against one
+    card's, a finding.  (c) -S on phase 19's gappy set (`keep["sev"]`):
+    the pooled lnL
+    within SHARD_RTOL of phase 19's dense lnL, no kernel, each shard's
+    pool region.  (d) bfloat16 storage: B1's bf16 instance once a shard,
+    within BF16_RTOL of the f32 lnL.  ((b) and (e) run as the side phases
+    `site_ref49` and `site_cli`.)"""
+    import torch
+    t0 = time.perf_counter()
+    one, tree1 = keep.pop("one")
+    sev_in = keep.pop("sev")
+    ad = one.alignment
+    out = {"shards": SHARDS, "devices": [str(device)] * SHARDS,
+           "device": smi}
+    # (a) the chunk tier against one card and phase 22's ranks.
+    lnl1, walls1 = timed_evaluates(one, tree1, device, SHARD_REPS)
+    inst, tree = sharded_instance(ad, setup, device, newview="chunk")
+    chunk = sharded_path(inst, tree, device, "chunk", "2x1 chunk tier")
+    windows = shard_rows(inst, one, device, "2x1 chunk tier")
+    del one, tree1, inst, tree
+    release_memory()
+    ranks = site["ranks"]
+    check(chunk["lnl"] == ranks[0]["lnl"] and chunk["pp"] == ranks[0]["pp"],
+          f"2x1 lnL {chunk['lnl']!r} {chunk['pp']} against phase 22's "
+          f"ranks' {ranks[0]['lnl']!r} {ranks[0]['pp']}")
+    rel = abs(chunk["lnl"] - real["lnl"]) / abs(real["lnl"])
+    check(rel <= SHARD_RTOL, f"2x1 lnL {chunk['lnl']!r} against one card's "
+          f"{real['lnl']!r} (rel {rel:.2e})")
+    chunk.update(one_card_lnl=real["lnl"], rel_one_card=rel,
+                 one_card_packed_lnl=lnl1, windows=windows,
+                 one_card_evaluate_ms=float(np.median(walls1) * 1e3))
+    out["chunk"] = chunk
+    inst, tree = sharded_instance(ad, setup, device, newview="whole")
+    whole = sharded_path(inst, tree, device, "whole", "2x1 whole tier")
+    del inst, tree
+    release_memory()
+    whole["rel_one_card"] = abs(whole["lnl"] - real_whole["lnl"]) / abs(
+        real_whole["lnl"])
+    check(whole["rel_one_card"] <= SHARD_RTOL, f"2x1 whole-tier lnL "
+          f"{whole['lnl']!r} against one card's {real_whole['lnl']!r}")
+    out["whole"] = whole
+    # (d) bfloat16 storage on the chunk tier.
+    inst, tree = sharded_instance(ad, setup, device, newview="chunk",
+                                  clv_dtype=torch.bfloat16)
+    low = sharded_path(inst, tree, device, "chunk", "2x1 bf16")
+    del inst, tree
+    release_memory()
+    check(low["counts"]["b1_by_dtype"].get("bfloat16", 0) == SHARDS,
+          f"2x1 bf16: B1 launches by dtype {low['counts']['b1_by_dtype']}")
+    low["rel_f32"] = abs(low["lnl"] - chunk["lnl"]) / abs(chunk["lnl"])
+    low["rel_one_card_bf16"] = abs(low["lnl"] - bf16["dna"]["lnl"]) / abs(
+        bf16["dna"]["lnl"])
+    check(low["rel_f32"] <= BF16_RTOL, f"2x1 bf16 lnL {low['lnl']!r} against "
+          f"f32 {chunk['lnl']!r} (rel {low['rel_f32']:.2e})")
+    out["bf16"] = low
+    # (c) -S on phase 19's gappy set.
+    inst, tree = sharded_instance(sev_in["ad"], sev_in, device,
+                                  save_memory=True)
+    pooled = sharded_path(inst, tree, device, "pooled", "2x1 -S")
+    dense_lnl = sev["dense"]["lnl"]
+    pooled["rel_dense"] = abs(pooled["lnl"] - dense_lnl) / abs(dense_lnl)
+    check(pooled["rel_dense"] <= SHARD_RTOL, f"2x1 -S lnL {pooled['lnl']!r} "
+          f"against the dense one-card {dense_lnl!r}")
+    pooled["regions"] = [{
+        "pool_bytes": e.sev.pool.numel() * e.sev.pool.element_size(),
+        "cap": e.sev.cap, **e.sev.stats()}
+        for e in inst.engines[4].shards]
+    check(len({r["cap"] for r in pooled["regions"]}) == 1,
+          f"2x1 -S: region capacities {pooled['regions']}")
+    del inst, tree
+    release_memory()
+    out["sev"] = pooled
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"  (a) real size on {SHARDS}x1 of {device} twice: chunk tier lnL "
+        f"{chunk['lnl']!r}, bit for bit phase 22's ranks, rel "
+        f"{chunk['rel_one_card']:.2e} of one card; B1 "
+        f"{chunk['counts']['b1']} launches for "
+        f"{chunk['counts']['full_traversals']} full traversal(s)")
+    for r, w in enumerate(windows):
+        log(f"    shard {r}: blocks {w['blocks'][0]}..{w['blocks'][1] - 1}, "
+            f"rows against one card's window: scalers equal, max rel err "
+            f"{w['max_rel_err']:.2e}, "
+            + ("bit for bit" if w["bitwise"] else
+               f"{w['differing_cells']} differing cells"))
+    log(f"    whole tier lnL {whole['lnl']!r}, rel "
+        f"{whole['rel_one_card']:.2e} of one card; B2 "
+        f"{whole['counts']['b2']} launches for "
+        f"{whole['counts']['full_traversals']} full traversal(s)")
+    log(f"    evaluate wall (median of {SHARD_REPS}; a finding, the shards "
+        f"share one card): 2x1 chunk {chunk['evaluate_ms']:.2f} ms, whole "
+        f"{whole['evaluate_ms']:.2f} ms; one card (packed as the shards) "
+        f"{chunk['one_card_evaluate_ms']:.2f} ms [{smi}]")
+    log(f"  (c) -S on phase 19's set: pooled lnL {pooled['lnl']!r}, rel "
+        f"{pooled['rel_dense']:.2e} of the dense one-card lnL, no kernel; "
+        "pool regions " + ", ".join(
+            f"{r['pool_bytes'] / 1e9:.3f} GB ({r['allocated_cells']} of "
+            f"{r['dense_cells']} cells)" for r in pooled["regions"])
+        + f"; evaluate {pooled['evaluate_ms']:.1f} ms")
+    log(f"  (d) bf16 storage: lnL {low['lnl']!r}, rel {low['rel_f32']:.2e} "
+        f"of f32, rel {low['rel_one_card_bf16']:.2e} of phase 21's one "
+        f"card; B1 bf16 {low['counts']['b1']} launches")
+    return out
+
+
+class CardTwice:
+    """The CLI's visible cards named as the card SHARDS times, for a with
+    block: `--mesh SHARDSx1` then builds its fabric on the one card."""
+
+    def __init__(self, device):
+        self.devices = [device] * SHARDS
+
+    def __enter__(self):
+        from examl_tpu_torch.parallel import sharding
+        self.saved = sharding.visible_devices
+        sharding.visible_devices = lambda: list(self.devices)
+        return self
+
+    def __exit__(self, *exc):
+        from examl_tpu_torch.parallel import sharding
+        sharding.visible_devices = self.saved
+        return False
+
+
+def site_ref49(device, out_dir: str) -> dict:
+    """Phase 29 (b), a side phase: ref49 on a SHARDS x 1 fabric of the card
+    twice.  The anchor (the reference's model) on both tiers within 2e-3
+    of the reference binary; `-f e --newview whole --mesh SHARDSx1`
+    through the CLI (CardTwice), its endpoint at least the reference's
+    less modOpt's epsilon (and, checked in the main process, within
+    SHARD_RTOL of phase 6's one-card endpoint); and PSR from phase 9's
+    start (f32, the wave-scan tier, no
+    kernel): an evaluate, a gradient tree_evaluate and one categorization
+    round, each lnL within SHARD_RTOL of the same steps on one card.
+    (The whole `-m PSR -f e` on 2x1 outruns the side phases' window: it
+    runs alone under `--site-psr`, phase 9 on one card.)"""
+    import shutil
+    import torch
+    from examl_tpu_torch.instance import PhyloInstance
+    from examl_tpu_torch.io.bytefile import read_bytefile
+    from examl_tpu_torch.optimize.branch import tree_evaluate
+    from examl_tpu_torch.optimize.psr import optimize_rate_categories
+    from examl_tpu_torch.transfer import install_model_params
+    base = os.path.join(out_dir, "site_ref49")
+    shutil.rmtree(base, ignore_errors=True)
+    out = {"anchors": {}}
+    aln = os.path.join(REF49, "aln49.binary")
+    with open(os.path.join(REF49, "TreeFile")) as f:
+        newick = f.read()
+    params = refmodel().parse_model_file(os.path.join(REF49, "modelFile"))
+    for tier in ("chunk", "whole"):
+        reset_counts()
+        inst = PhyloInstance(read_bytefile(aln), dtype=torch.float32,
+                             device=device, newview=tier,
+                             sharding=shard_mesh(device))
+        install_model_params(inst, [(p.rates, p.freqs, p.alpha)
+                                    for p in params])
+        lnl = inst.evaluate(inst.tree_from_newick(newick), full=True)
+        sync(device)
+        counts = read_counts()
+        check_sharded(counts, tier, f"ref49 2x1 {tier} anchor")
+        check(abs(lnl - LNL_REF_BINARY) <= 2e-3, f"ref49 2x1 {tier} anchor "
+              f"{lnl} against {LNL_REF_BINARY}")
+        out["anchors"][tier] = {"lnl": lnl, "counts": counts}
+        del inst
+    workdir = os.path.join(base, "fe")
+    os.makedirs(workdir)
+    with CardTwice(device):
+        rc, wall, counts, info = run_cli(
+            ["-s", aln, "-t", os.path.join(REF49, "TreeFile"), "-f", "e",
+             "--newview", "whole", "--mesh", f"{SHARDS}x1"], device, workdir)
+    check(rc == 0, f"ref49 2x1 -f e returned {rc}")
+    check(f"likelihood fabric {SHARDS}x1: {SHARDS} site shard(s)" in info,
+          "ref49 2x1 -f e logged no fabric")
+    check_sharded(counts, "whole", "ref49 2x1 -f e")
+    with open(os.path.join(workdir, "ExaML_log.smoke")) as f:
+        final = float(f.read().split()[-1])
+    floor = LNL_REF_BINARY - MODOPT_EPSILON
+    check(final >= floor, f"ref49 2x1 -f e endpoint {final} below {floor}")
+    out["fe"] = {"final_lnl": final, "wall_s": wall, "counts": counts}
+    psr = {}
+    for name, kw in (("one", {}), ("2x1", {"sharding": shard_mesh(device)})):
+        inst = PhyloInstance(read_bytefile(aln), dtype=torch.float32,
+                             device=device, rate_model="PSR", **kw)
+        tree = inst.tree_from_newick(newick)
+        reset_counts()
+        t0 = time.perf_counter()
+        steps = [inst.evaluate(tree, full=True),
+                 tree_evaluate(inst, tree, REAL_SMOOTH_FACTOR),
+                 optimize_rate_categories(inst, tree)]
+        sync(device)
+        counts = read_counts()
+        check(counts["b1"] == counts["b2"] == 0, f"ref49 PSR {name}: "
+              f"{counts}")
+        psr[name] = {"lnl": steps, "wall_s": time.perf_counter() - t0,
+                     "categories": [len(r) for r in inst.per_site_rates]}
+        del inst, tree
+    psr["rel"] = max(abs(a - b) / abs(b) for a, b in zip(
+        psr["2x1"]["lnl"], psr["one"]["lnl"]))
+    check(psr["rel"] <= SHARD_RTOL, f"ref49 PSR on 2x1 {psr['2x1']['lnl']} "
+          f"against one card {psr['one']['lnl']}")
+    out["psr"] = psr
+    log(f"  (b) ref49 on {SHARDS}x1 of the card twice: anchors chunk "
+        f"{out['anchors']['chunk']['lnl']!r}, whole "
+        f"{out['anchors']['whole']['lnl']!r} (reference {LNL_REF_BINARY}); "
+        f"-f e --newview whole through the CLI {final!r} (floor {floor}) in "
+        f"{wall:.1f} s, B2 {counts['b2']} launches for "
+        f"{out['fe']['counts']['full_traversals']} full traversals")
+    log(f"    PSR, evaluate / tree_evaluate / a categorization round: "
+        f"{psr['2x1']['lnl']} in {psr['2x1']['wall_s']:.1f} s against one "
+        f"card's {psr['one']['lnl']} in {psr['one']['wall_s']:.1f} s (rel "
+        f"{psr['rel']:.2e}); categories {psr['2x1']['categories']} and "
+        f"{psr['one']['categories']}")
+    return out
+
+
+def site_psr(device, out_dir: str) -> dict:
+    """`--site-psr`: ref49 `-m PSR -f e` through the CLI from the initial
+    model (phase 9's run), on one card and then with `--mesh SHARDSx1` on
+    the card twice (CardTwice), one after the other: each endpoint at
+    least PERF.md's PSR bound, no kernel launched, the 2x1 endpoint within
+    SHARD_RTOL of one card's; each wall."""
+    import shutil
+    base = os.path.join(out_dir, "site_psr")
+    shutil.rmtree(base, ignore_errors=True)
+    argv = ["-s", os.path.join(REF49, "aln49.binary"), "-t",
+            os.path.join(REF49, "TreeFile"), "-f", "e", "-m", "PSR"]
+    floor = LNL_REF_PSR - PSR_MARGIN
+    out = {"device": nvidia_smi_line(), "floor": floor}
+    for name, extra in (("one", []), ("2x1", ["--mesh", f"{SHARDS}x1"])):
+        workdir = os.path.join(base, name)
+        os.makedirs(workdir)
+        with (CardTwice(device) if extra else contextlib.nullcontext()):
+            rc, wall, counts, info = run_cli(argv + extra, device, workdir)
+        check(rc == 0, f"ref49 -m PSR -f e ({name}) returned {rc}")
+        check(counts["b1"] == counts["b2"] == 0, f"ref49 PSR ({name}): "
+              f"B1 {counts['b1']}, B2 {counts['b2']} launches")
+        with open(os.path.join(workdir, "ExaML_log.smoke")) as f:
+            final = float(f.read().split()[-1])
+        check(final >= floor, f"ref49 -m PSR -f e ({name}) endpoint {final} "
+              f"below {floor}")
+        out[name] = {"final_lnl": final, "wall_s": wall,
+                     "fabric": "likelihood fabric" in info}
+        log(f"  ref49 -m PSR -f e ({name}): {final!r} in {wall:.1f} s")
+    out["rel"] = abs(out["2x1"]["final_lnl"] - out["one"]["final_lnl"]) / abs(
+        out["one"]["final_lnl"])
+    check(out["2x1"]["fabric"] and out["rel"] <= SHARD_RTOL,
+          f"ref49 -m PSR -f e on 2x1 {out['2x1']['final_lnl']!r} against one "
+          f"card's {out['one']['final_lnl']!r}")
+    return out
+
+
+def site_cli(device, out_dir: str, fd: dict) -> dict:
+    """Phase 29 (e), a side phase: the CLI on the card as it is.  `--mesh
+    SHARDSx1` returns 1 with the device arithmetic where fewer cards are
+    visible, and phase 7's `-f d` with no mesh logs no sharding and ends
+    at phase 7's lnL bit for bit."""
+    import shutil
+    import torch
+    base = os.path.join(out_dir, "site_cli")
+    shutil.rmtree(base, ignore_errors=True)
+    out = {}
+    workdir = os.path.join(base, "refused")
+    os.makedirs(workdir)
+    rc, _, _, info = run_cli(["-s", fd["aln"], "-t", fd["start_tree"], "-i",
+                              "5", "--mesh", f"{SHARDS}x1"], device, workdir)
+    if torch.cuda.device_count() < SHARDS:
+        check(rc == 1 and f"ERROR: mesh {SHARDS}x1 needs {SHARDS} devices"
+              in info, f"--mesh {SHARDS}x1 on one card: rc {rc}")
+    out["refused"] = {"rc": rc, "error": next(
+        (ln for ln in info.splitlines() if "ERROR" in ln), None)}
+    workdir = os.path.join(base, "fd")
+    os.makedirs(workdir)
+    rc, wall, counts, info = run_cli(["-s", fd["aln"], "-t",
+                                      fd["start_tree"], "-i", "5"], device,
+                                     workdir)
+    final = float(re.search(r"Likelihood of best tree: (\S+)",
+                            info).group(1))
+    if torch.cuda.device_count() < 2:
+        check(rc == 0 and final == fd["final_lnl"] and not re.search(
+            r"site axis sharded|likelihood fabric|site shard", info),
+            f"-f d with no mesh on one card: rc {rc}, {final!r} against "
+            f"phase 7's {fd['final_lnl']!r}")
+        check_tier(counts, "chunk", "-f d with no mesh")
+    out["fd"] = {"final_lnl": final, "wall_s": wall, "counts": counts}
+    log(f"  (e) --mesh {SHARDS}x1 on the card as it is: rc "
+        f"{out['refused']['rc']}, {out['refused']['error']}; -f d with no "
+        f"mesh {final!r} (phase 7 {fd['final_lnl']!r}) in {wall:.1f} s, no "
+        "sharding logged")
     return out
 
 
@@ -6633,7 +7046,7 @@ def bf16_spills(ptxas: dict) -> dict:
 
 def kernels_line(real, real_whole, search, scan, grad, anchor_whole,
                  restart, aa_cli, real_aa, fq, sev, sev_cli, cases,
-                 whole_cases, bf16, site, fleet, lanes) -> list:
+                 whole_cases, bf16, site, fleet, lanes, site_axis) -> list:
     """The kernels line: each kernel's row, with its instances by K; B1's
     bfloat16-storage instances in a row of their own."""
     # Each kernel's launches on the main paths of this run, each path
@@ -6651,7 +7064,10 @@ def kernels_line(real, real_whole, search, scan, grad, anchor_whole,
     # phase 23's fleet paths (each batch of tree jobs one stacked table an
     # engine, the bootstrap batch's CLV pass, the CLI's -b, -N, --serve
     # and -R runs; its bf16 batches in the bf16 row), and on phase 28's
-    # (the two-lane fleet, the 1x2 fabric, the CLI runs).  The PSR and
+    # (the two-lane fleet, the 1x2 fabric, the CLI runs); and on phase 29's
+    # site shards (B1 and B2 once a shard on the real-size evaluate, B1's
+    # bf16 instance, the ref49 anchors and B2 on its -f e through the CLI,
+    # B1 on the -f d run with no mesh).  The PSR and
     # -S paths launch neither (their traversals run on the wave-scan and
     # pooled tiers).  `by_K` splits
     # each kernel's row by instance: the launches by state count, and its
@@ -6685,6 +7101,12 @@ def kernels_line(real, real_whole, search, scan, grad, anchor_whole,
     b1_paths += [by_int_k(r["counts"]) for r in site["ranks"]]
     b1_paths += [by_int_k(c) for c in site["fd"]["counts"]]
     b2_paths += [by_int_k(c) for c in site["fe"]["counts"]]
+    ref49 = site_axis["ref49"]
+    b1_paths += [site_axis["chunk"]["counts"],
+                 ref49["anchors"]["chunk"]["counts"],
+                 site_axis["cli"]["fd"]["counts"]]
+    b2_paths += [site_axis["whole"]["counts"],
+                 ref49["anchors"]["whole"]["counts"], ref49["fe"]["counts"]]
 
     def by_k(key, paths, dna, tier, checks):
         """Each instance's launches on the main paths, its real-size time
@@ -6710,7 +7132,7 @@ def kernels_line(real, real_whole, search, scan, grad, anchor_whole,
     # and its -f d through the CLI; timed at real size there.
     bf_paths = [bf16["dna"]["counts"], bf16["aa"]["counts"],
                 bf16["cli_fd"]["counts"], fleet["dna_bf16"]["counts"],
-                fleet["aa_bf16"]["counts"]]
+                fleet["aa_bf16"]["counts"], site_axis["bf16"]["counts"]]
     bf_by_k = {}
     for K in STATES:
         m = bf16["dna" if K == 4 else "aa"]["kernels"][K]
@@ -6791,6 +7213,8 @@ def main(argv=None) -> int:
     ap.add_argument("--site-arg", help=argparse.SUPPRESS)
     # The host cost against another tree's port (see `host_ab`).
     ap.add_argument("--host-ab", metavar="PARENT")
+    # ref49 -m PSR -f e on one card and on 2x1 of it, alone (`site_psr`).
+    ap.add_argument("--site-psr", action="store_true")
     ap.add_argument("--host-ab-child", help=argparse.SUPPRESS)
     # The B1 wedge check's child (phase 27).
     ap.add_argument("--wedge-child", action="store_true",
@@ -6831,6 +7255,13 @@ def main(argv=None) -> int:
     device = torch.device("cuda", 0)
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
+    if args.site_psr:
+        try:
+            print(json.dumps({"site_psr": site_psr(device, out_dir)}))
+        except SmokeFailure as exc:
+            print(f"chip_smoke: --site-psr FAILED: {exc}", file=sys.stderr)
+            return 1
+        return 0
     if args.side_child:
         return side_child(args.side_child, out_dir, args.seed)
     t_start = time.perf_counter()
@@ -6958,7 +7389,8 @@ def main(argv=None) -> int:
 
         phase("-S at real width: the SEV pool against the dense arena "
               "(pooled tier, chunk tier), f32")
-        sev = phase_sev(device, args.seed, SEV_REPS)
+        keep = {}
+        sev = phase_sev(device, args.seed, SEV_REPS, keep)
 
         phase("-S through the CLI: -f d, -R, -m PSR -f e, -f q; f32")
         sev_cli = side_log(side, "sev_cli")
@@ -6972,7 +7404,24 @@ def main(argv=None) -> int:
               "card, real-size windows against one process, B1 on tail "
               "windows, ref49 -f e and -f d through the CLI")
         site = phase_site_parallel(device, setup, anchor_whole, search,
-                                   b1_config, smi, args.seed)
+                                   b1_config, smi, args.seed, keep)
+
+        phase("the site axis: 2 site shards of one tree in this process on "
+              "a 2x1 fabric of the card twice, real size on B1 and B2 "
+              "against phase 22's ranks and one card, -S, bf16; ref49 and "
+              "the CLI beside phases 6-8")
+        site_axis = phase_site_axis(device, setup, real, real_whole, site,
+                                    keep, sev, bf16, smi)
+        site_axis["ref49"] = side_log(side, "site_ref49")
+        site_axis["cli"] = side_log(side, "site_cli")
+        fe = site_axis["ref49"]["fe"]
+        fe["rel_one_card"] = abs(fe["final_lnl"] - anchor_whole[
+            "fe_final_lnl"]) / abs(anchor_whole["fe_final_lnl"])
+        check(fe["rel_one_card"] <= SHARD_RTOL, f"ref49 -f e on 2x1 "
+              f"{fe['final_lnl']!r} against phase 6's one card "
+              f"{anchor_whole['fe_final_lnl']!r}")
+        del keep
+        release_memory()
 
         phase("fleet: a real-size batch of start jobs in one B1 launch "
               "(f32, bf16; AA + BIN), a bootstrap batch, -b/-N/--serve/-R "
@@ -6995,7 +7444,7 @@ def main(argv=None) -> int:
         kernels = kernels_line(real, real_whole, search, scan, grad,
                                anchor_whole, restart, aa_cli, real_aa, fq,
                                sev, sev_cli, cases, whole_cases, bf16,
-                               site, fleet, lanes)
+                               site, fleet, lanes, site_axis)
 
         phase("instruments on the card: -f d with --metrics/--ledger/"
               "--trace-events, -f e --profile, real-size evaluate off/"
@@ -7035,7 +7484,8 @@ def main(argv=None) -> int:
               "aa_cli": aa_cli, "real_size_aa": real_aa, "quartets": fq,
               "real_size_quartets": real_fq, "sev": sev,
               "sev_cli": sev_cli, "bf16": bf16, "site_parallel": site,
-              "fleet": fleet, "lanes": lanes, "instruments": instruments,
+              "fleet": fleet, "lanes": lanes, "site_axis": site_axis,
+              "instruments": instruments,
               "supervision": supervision, "bank": bank_phase,
               "ptxas": ptxas,
               "wall_s": time.perf_counter() - t_start}
@@ -7122,6 +7572,19 @@ def main(argv=None) -> int:
                        for k in ("one_lane", "two_lanes")},
         "cli": {k: {m: v[m] for m in ("wall_s", "rc") if m in v}
                 for k, v in lanes["cli"].items()}}}))
+    log(json.dumps({"site_axis": {
+        **{t: {k: site_axis[t][k] for k in ("lnl", "evaluate_ms")}
+           for t in ("chunk", "whole", "bf16", "sev")},
+        "one_card_evaluate_ms": site_axis["chunk"]["one_card_evaluate_ms"],
+        "rel_one_card": {t: site_axis[t]["rel_one_card"]
+                         for t in ("chunk", "whole")},
+        "pool_bytes": [r["pool_bytes"] for r in site_axis["sev"]["regions"]],
+        "fe_2x1": {m: site_axis["ref49"]["fe"][m]
+                   for m in ("final_lnl", "wall_s")},
+        "psr_2x1": site_axis["ref49"]["psr"],
+        "fd_no_mesh": {m: site_axis["cli"]["fd"][m]
+                       for m in ("final_lnl", "wall_s")},
+        "wall_s": site_axis["wall_s"]}}))
     log(json.dumps({"instruments": {
         "evaluate_median_ms": instruments["evaluate"]["median_ms"],
         "spans_per_evaluate": instruments["evaluate"]["spans_per_evaluate"],

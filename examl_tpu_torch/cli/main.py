@@ -49,8 +49,14 @@ topologies, and every job lands in ExaML_fleet.RUN.  `--fleet-devices D`
 cuts up to one batch a round per lane on D cards (0 = every visible
 card; fleet/shard.py), `--mesh 1xT` (or EXAML_MESH) cuts each batch over
 the T tree slices of a likelihood fabric, and `--single-device` keeps
-the run on one card.  A mesh with S > 1 site shards is refused: the
-in-process site axis is not ported.
+the run on one card.  A fleet over site shards (a mesh with S > 1) is
+refused: it is not ported.
+
+Without `--single-device` a run of the other modes splits its packed
+site blocks over every visible card when there are two or more (one
+process, a site shard per card: parallel/shards.py), as the JAX
+package's does; `--mesh Sx1` takes the first S cards.  With one card
+the run is the single-card run.
 
 Outputs in DIR: ExaML_info.RUN (progress), ExaML_log.RUN ("seconds lnL"
 rows), ExaML_modelFile.RUN (the final model, in the reference's
@@ -765,7 +771,8 @@ def _packing_report(inst, files: RunFiles) -> None:
     """Startup site-packing report (the reference's `printAssignments` /
     `printLoad`, `partitionAssignment.c:461-502`; here the load is lane
     padding per state bucket), with the SEV pool noted under -S.  In a
-    site-parallel run the counts are those of rank 0's block window."""
+    site-parallel run the counts are those of rank 0's block window; site
+    shards in one process add each shard's window and card."""
     for states, bucket in sorted(inst.buckets.items()):
         where = ""
         true_sites = int(sum(bucket.part_widths))
@@ -781,21 +788,30 @@ def _packing_report(inst, files: RunFiles) -> None:
             f"{true_sites} patterns -> {bucket.local_num_blocks} blocks x "
             f"{bucket.lane} lanes ({padded - true_sites} padding sites, "
             f"{100.0 * (padded - true_sites) / padded:.1f}% pad)")
+        if inst.site_shards > 1:
+            for r, eng in enumerate(inst.engines[states].shards):
+                b0 = eng.bucket.block_offset
+                files.info(f"  site shard {r} on {eng.device}: blocks "
+                           f"{b0}..{b0 + eng.B - 1}")
         if inst.save_memory:
             files.info("  SEV (-S) pool active for this bucket")
 
 
 def _sev_report(inst, files: RunFiles) -> None:
     """Each bucket's SEV pool at the end of a -S run (rank 0's window in a
-    site-parallel run: each rank's pool covers its own)."""
+    site-parallel run: each rank's pool covers its own; each site shard's
+    pool region in one process)."""
     where = (f" (rank {inst.group.rank}'s window)" if inst.group.size > 1
              else "")
     for states, eng in inst.engines.items():
-        st = eng.sev.stats()
-        files.info(
-            f"SEV bucket states={states}{where}: {st['allocated_cells']} of "
-            f"{st['dense_cells']} CLV cells allocated "
-            f"({100.0 * st['saving_ratio']:.1f}% saved)")
+        for r, shard in enumerate(eng.shards):
+            st = shard.sev.stats()
+            if inst.site_shards > 1:
+                where = f" (site shard {r}'s region)"
+            files.info(
+                f"SEV bucket states={states}{where}: {st['allocated_cells']}"
+                f" of {st['dense_cells']} CLV cells allocated "
+                f"({100.0 * st['saving_ratio']:.1f}% saved)")
 
 
 def selective_read_decision(model: str, is_bytefile: bool,
@@ -909,14 +925,24 @@ def _check_mesh_args(ap, args, fleet_modes: int):
     return shape
 
 
-def _refuse_site_axis(ap, mesh_shape) -> None:
-    """After the JAX CLI's own mesh checks: a mesh with S > 1 site shards
-    needs the in-process site axis, which the port does not have yet."""
+def _refuse_fleet_site_axis(ap, mesh_shape) -> None:
+    """After the JAX CLI's own mesh checks: a fleet over a mesh with S > 1
+    site shards (A15c) is not ported."""
     if mesh_shape is not None and mesh_shape[0] > 1:
-        ap.error(f"mesh {mesh_shape[0]}x{mesh_shape[1]}: the in-process "
-                 "site axis (S > 1) is not ported (ROADMAP A15, site axis); "
-                 f"use --mesh 1x{mesh_shape[1]}, or site-parallel ranks "
-                 "with --nprocs")
+        s, t = mesh_shape
+        ap.error(f"mesh {s}x{t}: a fleet over site shards (S > 1) is not "
+                 "ported (ROADMAP A15c); fleet modes run whole-card lanes "
+                 f"(--fleet-devices) or tree slices (--mesh 1x{t})")
+
+
+def _refuse_ranks_with_site_axis(ap, args, mesh_shape) -> None:
+    """A declared site axis runs in one process; the ranks of `--nprocs N
+    > 1` (a process group) hold one card each."""
+    if mesh_shape is not None and mesh_shape[0] > 1 and \
+            launch.launch_requested(args) and (args.nprocs or 1) > 1:
+        ap.error(f"mesh {mesh_shape[0]}x{mesh_shape[1]} splits the sites "
+                 "over cards in one process; it cannot combine with "
+                 "--nprocs ranks, which hold one card each")
 
 
 def _check_fleet_args(ap, args) -> None:
@@ -936,7 +962,7 @@ def _check_fleet_args(ap, args) -> None:
         ap.error("-b, -N and --serve are mutually exclusive fleet modes")
     mesh_shape = _check_mesh_args(ap, args, modes)
     if not modes:
-        _refuse_site_axis(ap, mesh_shape)
+        _refuse_ranks_with_site_axis(ap, args, mesh_shape)
         return
     if args.mode == "q":
         ap.error("fleet modes (-b/-N/--serve) replace the -f algorithm; "
@@ -985,7 +1011,7 @@ def _check_fleet_args(ap, args) -> None:
                      "which spawns the ranks)")
         args._fleet_rank = (args.procid or 0, args.nprocs or 1)
         args.nprocs = args.coordinator = args.procid = None
-    _refuse_site_axis(ap, mesh_shape)
+    _refuse_fleet_site_axis(ap, mesh_shape)
     if mesh_shape is None:
         args.single_device = True
 
@@ -1261,11 +1287,11 @@ def _run(args, group, rank, device, dtype, storage,
         heartbeat.phase_beat("PACK")
         try:
             sharding = launch.select_sharding(args, args.save_memory,
-                                              log=files.info)
+                                              log=files.info, device=device)
         except ValueError as exc:
-            # A declared mesh the visible cards cannot hold (--mesh 1x2 on
-            # one card), or an in-process site axis: a configuration
-            # error with the arithmetic, not a traceback.
+            # A declared mesh the visible cards cannot hold (--mesh 2x1 on
+            # one card): a configuration error with the arithmetic, not a
+            # traceback.
             files.info(f"ERROR: {exc}")
             return 1
         inst = PhyloInstance(data, dtype=dtype, device=device,

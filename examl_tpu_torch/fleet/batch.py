@@ -141,6 +141,9 @@ def batch_eligible(inst) -> Optional[str]:
         return "-S SEV pools hold one arena per instance"
     if inst.group.size > 1:
         return "site-parallel ranks hold one block window each"
+    if inst.site_shards > 1:
+        return ("site shards hold one block window each (a fleet over "
+                "site shards is ROADMAP A15c)")
     return None
 
 

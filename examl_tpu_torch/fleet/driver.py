@@ -89,7 +89,13 @@ class FleetDriver:
         """devices: the fleet's lanes: 1 (one lane, the instance's
         evaluator), 0 (a lane per visible card), N (the first N cards), or
         from Python an explicit device list, which may name one card more
-        than once (lanes that share it)."""
+        than once (lanes that share it).  An instance over site shards
+        (`--mesh Sx1`, S > 1) is refused: a fleet over site shards is not
+        ported (ROADMAP A15c)."""
+        if getattr(inst, "site_shards", 1) > 1:
+            raise ValueError(
+                f"a fleet over {inst.site_shards} site shards is not ported "
+                "(ROADMAP A15c): build the fleet's instance on one card")
         self.inst = inst
         self.start_tree = start_tree          # bootstrap topology (+ ckpt
         self.batch_cap = max(1, int(batch_cap))   # scaffold)

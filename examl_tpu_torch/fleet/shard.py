@@ -100,8 +100,8 @@ class MeshShard(BatchEvaluator):
                              "py: make_fabric_mesh)")
         if sh.site_shards != 1:
             raise ValueError(
-                f"mesh {sh.site_shards}x{sh.tree_shards}: the in-process "
-                "site axis is not ported (ROADMAP A15, site axis)")
+                f"mesh {sh.site_shards}x{sh.tree_shards}: a fleet over site "
+                "shards (S > 1) is not ported (ROADMAP A15c)")
         self.mesh = sh.mesh
         self.site_shards = sh.site_shards
         self.tree_shards = sh.tree_shards

@@ -2,7 +2,8 @@
 
 The port of `examl_tpu/instance.py`, under GAMMA or PSR
 rate heterogeneity, in one process or as one rank of a site-parallel run
-(parallel/sharding.py), on dense CLV arenas or SEV pools (`-S`): owns the
+(parallel/sharding.py), on one card or over the site shards of an `Sx1`
+mesh (parallel/shards.py), on dense CLV arenas or SEV pools (`-S`): owns the
 per-partition model parameters (GTR, empirical protein matrices,
 LG4M/LG4X, AUTO's current choice), the
 per-site rate state under PSR, the packed site buckets (one engine per
@@ -101,16 +102,30 @@ class PhyloInstance:
         io/bytefile.read_bytefile_for_process); without it a
         multi-rank instance packs the whole alignment and cuts its
         window out.
-        sharding: a (sites, tree) fabric of parallel/sharding.py
-        (`make_fabric_mesh` + `fabric_sharding`; the CLI's `--mesh 1xT`):
-        the fleet's batches then run through a MeshShard over its T tree
-        slices (fleet/shard.py).  Only S = 1 fabrics: the in-process site
-        axis is not ported; a fabric of T > 1 with save_memory raises."""
-        if sharding is not None and sharding.site_shards > 1:
-            raise ValueError(
-                f"a {sharding.site_shards}x{sharding.tree_shards} mesh: the "
-                "in-process site axis (S > 1) is not ported (ROADMAP A15, "
-                "site axis); only 1xT fabrics run here")
+        sharding: a site mesh or a (sites, tree) fabric of
+        parallel/sharding.py (`make_mesh` + `site_sharding`, or
+        `make_fabric_mesh` + `fabric_sharding`; the CLI's default over
+        several cards, `--mesh Sx1`, `--mesh 1xT`).  S > 1 site shards:
+        every bucket's blocks pad to a multiple of S and split into S
+        windows, one engine each on its card of the site axis, run
+        together by a ShardPool (parallel/shards.py; `self.engines` holds
+        ShardedEngines); `device` is then the first shard's card.  T > 1
+        tree slices: the fleet's batches run through a MeshShard
+        (fleet/shard.py).  Both at once (ROADMAP A15c), a site mesh in a
+        rank of a site-parallel run, and T > 1 with save_memory
+        raise."""
+        self.site_shards = sharding.site_shards if sharding else 1
+        if self.site_shards > 1:
+            if sharding.tree_shards > 1:
+                raise ValueError(
+                    f"a {self.site_shards}x{sharding.tree_shards} mesh: a "
+                    "fleet over site shards (S > 1 and T > 1) is not "
+                    "ported (ROADMAP A15c); use Sx1 or 1xT")
+            if group.size > 1 or local_window is not None:
+                raise ValueError(
+                    "site shards in one process cannot split a rank's "
+                    "window of a site-parallel run: each rank holds one "
+                    "card")
         self.sharding = sharding
         if rate_model not in ("GAMMA", "PSR"):
             raise ValueError(f"unknown rate model {rate_model!r}")
@@ -123,6 +138,13 @@ class PhyloInstance:
         self.save_memory = save_memory       # SEV mode (ops/sev.py)
         self.batch_scan = batch_scan
         self.batch_thorough = batch_thorough
+        self.shard_pool = None
+        if self.site_shards > 1:
+            from examl_tpu_torch.parallel.shards import ShardPool
+            devices = [config.resolve_device(d)
+                       for d in sharding.site_devices()]
+            device = devices[0]
+            self.shard_pool = ShardPool(devices)
         self.device = config.resolve_device(device)
         self.dtype = dtype if dtype is not None else \
             config.default_dtype(self.device)
@@ -173,7 +195,8 @@ class PhyloInstance:
                 use_median=use_median))
 
         self.group = group
-        block_multiple = math.lcm(block_multiple, group.size)
+        block_multiple = math.lcm(block_multiple, group.size,
+                                  self.site_shards)
         if local_window is not None:
             if tuple(local_window) != (group.rank, group.size):
                 raise ValueError(f"local window {tuple(local_window)} is "
@@ -191,13 +214,27 @@ class PhyloInstance:
         for states, bucket in self.buckets.items():
             branch_indices = (list(bucket.part_ids) if per_partition_branches
                               else [0] * bucket.num_parts)
-            self.engines[states] = LikelihoodEngine(
-                bucket, [self.models[g] for g in bucket.part_ids],
-                alignment.ntaxa, num_branch_slots=self.num_branch_slots,
-                branch_indices=branch_indices, dtype=self.dtype,
-                device=self.device, newview=newview, psr=self.psr,
-                save_memory=save_memory, clv_dtype=self.storage_dtype,
-                group=group, sharding=sharding)
+            bucket_models = [self.models[g] for g in bucket.part_ids]
+
+            def engine(window, device, group):
+                return LikelihoodEngine(
+                    window, bucket_models, alignment.ntaxa,
+                    num_branch_slots=self.num_branch_slots,
+                    branch_indices=branch_indices, dtype=self.dtype,
+                    device=device, newview=newview, psr=self.psr,
+                    save_memory=save_memory, clv_dtype=self.storage_dtype,
+                    group=group, sharding=sharding)
+
+            if self.shard_pool is None:
+                self.engines[states] = engine(bucket, self.device, group)
+                continue
+            # Each shard's engine is made on its own thread, so that its
+            # tensors are allocated on its card and stream.
+            from examl_tpu_torch.parallel.shards import ShardedEngine
+            pool = self.shard_pool
+            self.engines[states] = ShardedEngine(pool, pool.run(
+                lambda r: engine(window_of(bucket, r, pool.size),
+                                 pool.devices[r], pool.groups[r])), bucket)
 
         # PSR per-site rate state (reference patrat / rateCategory /
         # perSiteRates, `axml.h:585-600`), host copies per partition:

@@ -26,26 +26,67 @@ This module is the flat facade the rest of the port imports:
     obs.inc("engine.dispatch_count")
     with obs.device_span("engine:traverse", args={"entries": n}):
         ...
+
+A thread may be made quiet (`set_quiet`): the facade's counters, gauges,
+timers, spans and ledger events are then no-ops on it.  The site shards
+of one process (parallel/shards.py) run an engine op on S threads, and
+every shard but rank 0 runs quiet, so an op is counted, timed and traced
+once, as on one card.  A kernel wrapper's launch count goes to the
+registry itself (`registry().inc`) and counts every launch.
 """
 
 from __future__ import annotations
 
 import sys
+import threading
 from typing import Callable, Optional
 
+from examl_tpu_torch.obs import ledger as _ledger
 from examl_tpu_torch.obs import metrics as _metrics
+from examl_tpu_torch.obs import trace as _trace
 from examl_tpu_torch.obs import traffic  # noqa: F401  (shared roofline model)
 from examl_tpu_torch.obs.ledger import (  # noqa: F401
     enable as enable_ledger, enabled as ledger_enabled,
-    event as ledger_event, finalize as finalize_ledger,
-    merge as merge_ledger, read_events as read_ledger)
+    finalize as finalize_ledger, merge as merge_ledger,
+    read_events as read_ledger)
 from examl_tpu_torch.obs.metrics import (  # noqa: F401
     maybe_autoflush, set_autoflush)
 from examl_tpu_torch.obs.timing import time_dispatch  # noqa: F401
 from examl_tpu_torch.obs.trace import (  # noqa: F401
-    device_span, enable as enable_tracing, enabled as tracing_enabled,
-    finalize as finalize_tracing, instant, merge_summary, read_events,
-    set_annotations, span)
+    enable as enable_tracing, enabled as tracing_enabled,
+    finalize as finalize_tracing, merge_summary, read_events,
+    set_annotations)
+
+# -- quiet threads ------------------------------------------------------------
+
+_thread = threading.local()
+
+
+def set_quiet(on: bool) -> None:
+    """Turn this thread's instruments off (on=True) or back on."""
+    _thread.quiet = bool(on)
+
+
+def quiet() -> bool:
+    return getattr(_thread, "quiet", False)
+
+
+def span(name: str, cat: str = "host", args: Optional[dict] = None):
+    return _trace._NULL if quiet() else _trace.span(name, cat, args)
+
+
+def device_span(name: str, args: Optional[dict] = None):
+    return _trace._NULL if quiet() else _trace.device_span(name, args)
+
+
+def instant(name: str, args: Optional[dict] = None) -> None:
+    if not quiet():
+        _trace.instant(name, args)
+
+
+def ledger_event(kind: str, **fields) -> None:
+    if not quiet():
+        _ledger.event(kind, **fields)
 
 # -- metrics facade ---------------------------------------------------------
 
@@ -55,7 +96,8 @@ def registry() -> _metrics.MetricsRegistry:
 
 
 def inc(name: str, value: float = 1) -> None:
-    _metrics.registry().inc(name, value)
+    if not quiet():
+        _metrics.registry().inc(name, value)
 
 
 def counter(name: str) -> float:
@@ -63,15 +105,17 @@ def counter(name: str) -> float:
 
 
 def gauge(name: str, value: float) -> None:
-    _metrics.registry().gauge(name, value)
+    if not quiet():
+        _metrics.registry().gauge(name, value)
 
 
 def observe(name: str, seconds: float) -> None:
-    _metrics.registry().observe(name, seconds)
+    if not quiet():
+        _metrics.registry().observe(name, seconds)
 
 
 def timer(name: str):
-    return _metrics.registry().timer(name)
+    return _trace._NULL if quiet() else _metrics.registry().timer(name)
 
 
 def add_collector(fn: Callable[[], bool]) -> None:

@@ -94,6 +94,7 @@ SIGNATURES = {
 
 # Loaded libraries by path (a relocated build directory loads its own).
 _LIBS: Dict[Path, ctypes.CDLL] = {}
+_LOAD_LOCK = threading.RLock()
 
 
 class KernelError(RuntimeError):
@@ -331,13 +332,30 @@ def _build_one(name: str, mode: str, why: str,
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded library for csrc/<name>.cu, built first if needed (and,
-    under EXAML_EXPORT_BANK=on|require, verified first)."""
+    under EXAML_EXPORT_BANK=on|require, verified first).  The site shards
+    of one process (parallel/shards.py) may ask from several threads at
+    once: the first loads it, the others wait for it."""
     path = _lib_path(name)
     lib = _LIBS.get(path)
     if lib is not None:
         if not programs.has_family(name):
             programs.record_extension(name, "cached", 0.0, build_log(name))
         return lib
+    with _LOAD_LOCK:
+        lib = _LIBS.get(path)
+        if lib is not None:
+            return lib
+        # The load is the process's, whichever shard's thread comes first:
+        # its compile counters and ledger event are recorded even there.
+        quiet = obs.quiet()
+        obs.set_quiet(False)
+        try:
+            return _load(name, path)
+        finally:
+            obs.set_quiet(quiet)
+
+
+def _load(name: str, path: Path) -> ctypes.CDLL:
     t0 = time.perf_counter()
     with _first_load(name):
         mode = export_bank.mode()

@@ -48,7 +48,10 @@ kernel launch cover the window only, and each value the engine returns
 that sums over sites (per-partition lnL, Newton-Raphson and gradient
 derivatives, candidate lnLs) is reduced over the group once, inside the
 Newton-Raphson loop once per iteration, as the reference's Allreduce.
-The PSR rate scan allgathers its per-site result instead.
+The PSR rate scan allgathers its per-site result instead.  The ranks
+are processes (gloo, `SiteGroup`) or the site shards of one process,
+one engine a card, each on its own thread (`ThreadSiteGroup`,
+parallel/shards.py: `ShardedEngine` runs each op on every shard).
 
 With `clv_dtype=torch.bfloat16` (float32 compute only; the JAX engine's
 EXAML_CLV_DTYPE=bf16) the arena, its scan region and the SEV pool store
@@ -74,6 +77,7 @@ device reading.
 
 from __future__ import annotations
 
+import itertools
 import time
 import weakref
 from collections import OrderedDict
@@ -93,7 +97,8 @@ from examl_tpu_torch.ops.kernels import (DeviceModels, OutrootTraversal,
                                          Traversal)
 from examl_tpu_torch.ops.sev import SevState
 from examl_tpu_torch.parallel.packing import PackedBucket
-from examl_tpu_torch.parallel.sharding import SINGLE, SiteGroup
+from examl_tpu_torch.parallel.sharding import (SINGLE, SiteGroup,
+                                               ThreadSiteGroup)
 from examl_tpu_torch.tree.topology import FlatTraversal, Tree, TraversalEntry
 from examl_tpu_torch.utils import next_pow2, z_slots
 
@@ -101,7 +106,8 @@ from examl_tpu_torch.utils import next_pow2, z_slots
 # run on the wave-scan tier, traversals of the pooled tier (-S: full and
 # partial, the batched scan's included), the launch-table rows the chunk
 # tier dispatched, and whole-tree gradient passes (plain counts, read by
-# chip_smoke.py beside each kernel's launch count).
+# chip_smoke.py beside each kernel's launch count).  Counted once per op,
+# as the instruments are: a quiet site shard does not count (`_tally`).
 FULL_TRAVERSALS = 0
 PARTIAL_TRAVERSALS = 0
 POOLED_TRAVERSALS = 0
@@ -109,6 +115,13 @@ CHUNK_LAUNCH_ROWS = 0
 GRAD_PASSES = 0
 # Entries kept per topology-keyed cache (layouts, gradient plans).
 SCHED_CACHE_CAP = 8
+
+
+def _tally(name: str, n: int = 1) -> None:
+    """Add n to the module count `name` unless this thread is quiet (a
+    site shard other than rank 0, parallel/shards.py)."""
+    if not obs.quiet():
+        globals()[name] += n
 
 
 def stack_models(models: Sequence[ModelParams],
@@ -152,7 +165,7 @@ def stack_models(models: Sequence[ModelParams],
 
 
 class LikelihoodEngine:
-    _obs_seq = 0                # per-process engine ordinal (gauge tags)
+    _obs_seq = itertools.count()   # per-process engine ordinal (gauge tags)
 
     def __init__(self, bucket: PackedBucket, models: Sequence[ModelParams],
                  ntips: int, num_branch_slots: int = 1,
@@ -175,8 +188,9 @@ class LikelihoodEngine:
         group: the site axis's ranks (parallel/sharding.py); the bucket
         is this rank's block window, and every site sum the engine
         returns is reduced over the group once.  sharding: the run's
-        (sites, tree) fabric (parallel/sharding.py), for its gauges; the
-        engine's tensors stay on `device`, since the fleet's lanes copy
+        (sites, tree) fabric (parallel/sharding.py), for its gauges.  An
+        engine is one site shard's: its tensors live on `device` (the
+        shard's card, or the instance's one), and the fleet's lanes copy
         what they read (fleet/shard.py)."""
         if save_memory and sharding is not None \
                 and sharding.tree_shards > 1:
@@ -277,10 +291,16 @@ class LikelihoodEngine:
         self.tips = self._build_tip_state()
         if save_memory:
             self.clv = None
+            # The site shards of one process agree their pool regions'
+            # capacity (ops/sev.py); ranks in processes do not.
             self.sev = SevState(bucket.tip_codes,
                                 self._datatype().undetermined_code,
                                 self.num_rows, self.B, self.lane, self.R,
-                                self.K, self.storage_dtype, self.device)
+                                self.K, self.storage_dtype, self.device,
+                                cap_reduce=(group.allmax
+                                            if isinstance(group,
+                                                          ThreadSiteGroup)
+                                            else None))
         else:
             self.sev = None
             self.clv = torch.zeros((self.num_rows, self.B, self.lane,
@@ -311,8 +331,7 @@ class LikelihoodEngine:
         weakref-bound snapshot collector: zero per-dispatch cost, and
         nothing read from the card."""
         obs.inc("engine.instances")
-        seq = LikelihoodEngine._obs_seq
-        LikelihoodEngine._obs_seq += 1
+        seq = next(LikelihoodEngine._obs_seq)
         self._obs_tag = f"s{self.K}.e{seq}"
         self._update_arena_gauge()
         if self.sharding is not None:
@@ -416,6 +435,18 @@ class LikelihoodEngine:
             self.bucket.tip_codes.astype(np.uint8).reshape(
                 self.ntips, self.B, self.lane), device=self.device)
         return kernels.tip_state(codes, table)
+
+    # -- the site shards (one here; parallel/shards.py: ShardedEngine) -----
+
+    @property
+    def shards(self) -> List["LikelihoodEngine"]:
+        """The engine of every site shard of this bucket: this one."""
+        return [self]
+
+    def on_shards(self, fn, *args):
+        """fn(engine, *args) on every site shard, the result of one (all
+        return the same value): here the call itself."""
+        return fn(self, *args)
 
     def set_models(self, models: Sequence[ModelParams]) -> None:
         self.models = stack_models(models, self._branch_indices, self.dtype,
@@ -556,12 +587,11 @@ class LikelihoodEngine:
         instance of the arena's storage dtype, one dataflow launch reading
         the structure's dataflow table and this arena's ready flags, or one
         launch a row); installs the wave-ordered row map it wrote."""
-        global CHUNK_LAUNCH_ROWS
         st = self._structure(flat)
         zl, zr = fastpath.refresh_z(st, flat, self.num_branch_slots,
                                     self.dtype, self.device)
         pmat = newview_chunk.chunk_operands(self.models, zl, zr)
-        CHUNK_LAUNCH_ROWS += st.launch.shape[0]
+        _tally("CHUNK_LAUNCH_ROWS", st.launch.shape[0])
         newview_chunk.chunk_apply(self.clv, self.scaler, self.tips.codes,
                                   self.tips.table, self.block_part_i32,
                                   st.launch, st.lidx, st.ridx, st.lcode,
@@ -602,19 +632,18 @@ class LikelihoodEngine:
             self._traverse(entries, full)
 
     def _traverse(self, entries, full: bool) -> None:
-        global FULL_TRAVERSALS, PARTIAL_TRAVERSALS, POOLED_TRAVERSALS
         if not len(entries):
             return
         if self.sev is not None:
             if isinstance(entries, FlatTraversal):
                 entries = entries.to_entries()
-            POOLED_TRAVERSALS += 1
+            _tally("POOLED_TRAVERSALS")
             self.sev.update_for_entries(entries)
             self.sev.sync()
             self._run_scan(entries)
             return
         if full and self._fast_eligible(entries):
-            FULL_TRAVERSALS += 1
+            _tally("FULL_TRAVERSALS")
             if self.newview == "whole":
                 self._run_whole(entries)
             else:
@@ -622,7 +651,7 @@ class LikelihoodEngine:
             return
         if isinstance(entries, FlatTraversal):
             entries = entries.to_entries()
-        PARTIAL_TRAVERSALS += 1
+        _tally("PARTIAL_TRAVERSALS")
         self._run_scan(entries)
 
     # -- evaluation ----------------------------------------------------------
@@ -787,7 +816,6 @@ class LikelihoodEngine:
         its uppass entries; counted as one partial traversal (a pooled one
         under -S, where the orientation fixes' cells are allocated
         first)."""
-        global PARTIAL_TRAVERSALS, POOLED_TRAVERSALS
         obs.inc("engine.dispatch_count")
         obs.inc("engine.traversal_entries",
                 len(plan.down_entries) + len(plan.up_entries))
@@ -795,9 +823,9 @@ class LikelihoodEngine:
                              POOLED_TIER if self.sev is not None else "scan")
         if self.sev is not None:
             self.sev.update_for_entries(plan.down_entries)
-            POOLED_TRAVERSALS += 1
+            _tally("POOLED_TRAVERSALS")
         else:
-            PARTIAL_TRAVERSALS += 1
+            _tally("PARTIAL_TRAVERSALS")
         base = self.ensure_scan_rows(len(plan.up_entries))
         tv = self._scan_traversal_arrays(plan.down_entries, plan.up_entries,
                                          base)
@@ -939,7 +967,6 @@ class LikelihoodEngine:
         return d[0], d[1]
 
     def _grad_pass(self, flat, root_z, clv, scaler, row_map, gs):
-        global GRAD_PASSES
         C = self.num_branch_slots
         pre, ex_rows, ey_gidx, ez = gradient.grad_arrays(
             gs, flat, row_map, C, root_z)
@@ -972,5 +999,5 @@ class LikelihoodEngine:
             self.models, self.block_part, self.weights, self.tips, clv,
             scaler, out, eidx[0], eidx[1], ezd, C, self.ntips,
             self.site_rates)
-        GRAD_PASSES += 1
+        _tally("GRAD_PASSES")
         return self.group.allreduce(torch.stack([d1, d2]).cpu().numpy())

@@ -41,7 +41,10 @@ tensor it launches or raises; nothing falls back.  `LAUNCHES` counts kernel
 launches (and nothing else), so a run can show that its path went
 through the kernel; `LAUNCHES_BY_K` counts the same launches by state
 count, `LAUNCHES_BY_DTYPE` by the arena's storage dtype, and the metrics
-counter `kernel.newview_chunk.launches` in a process's snapshot.
+counter `kernel.newview_chunk.launches` in a process's snapshot.  The
+site shards of one process launch from threads of their own
+(parallel/shards.py): the counts take a lock and count every shard's
+launches.
 
 The arena may store bfloat16 with float32 compute (the engine's
 `clv_dtype`, the JAX package's EXAML_CLV_DTYPE=bf16): P, the tip
@@ -53,6 +56,7 @@ once, after the rescale.  The plain version does the same with `.to`.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -64,6 +68,7 @@ from examl_tpu_torch.ops import kernels
 LAUNCHES = 0
 LAUNCHES_BY_K: dict = {}     # the same launches by state count K
 LAUNCHES_BY_DTYPE: dict = {}  # ... and by storage dtype ("bfloat16", ...)
+_COUNT_LOCK = threading.Lock()
 
 # (R, K) instantiated in csrc/newview_chunk.cu: GAMMA's four rates over
 # binary, DNA and amino-acid states, each for every storage dtype below.
@@ -337,13 +342,15 @@ def chunk_apply_cuda(clv, scaler, codes, u, block_part, launch, lidx,
 def _count(clv, launched: int) -> None:
     global LAUNCHES
     K = clv.shape[-1]
-    LAUNCHES += launched
-    LAUNCHES_BY_K[K] = LAUNCHES_BY_K.get(K, 0) + launched
     name = str(clv.dtype).removeprefix("torch.")
-    LAUNCHES_BY_DTYPE[name] = LAUNCHES_BY_DTYPE.get(name, 0) + launched
+    with _COUNT_LOCK:
+        LAUNCHES += launched
+        LAUNCHES_BY_K[K] = LAUNCHES_BY_K.get(K, 0) + launched
+        LAUNCHES_BY_DTYPE[name] = LAUNCHES_BY_DTYPE.get(name, 0) + launched
     # The same count in the metrics registry: a process's --metrics
-    # snapshot (a supervised child's) carries its launches.
-    obs.inc("kernel.newview_chunk.launches", launched)
+    # snapshot (a supervised child's) carries its launches, a quiet
+    # shard's too.
+    obs.registry().inc("kernel.newview_chunk.launches", launched)
 
 
 def _raise_on(err: int, what: str) -> None:

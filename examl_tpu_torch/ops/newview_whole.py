@@ -29,11 +29,20 @@ kernel launches and nothing else (`LAUNCHES_BY_K` the same by state
 count, the metrics counter `kernel.newview_whole.launches` in a process's
 snapshot); `LAST_GRID` is the cooperative grid of the last launch, in
 blocks.
+
+The grid is sized to the whole card's occupancy, and its blocks wait for
+each other at every wave's grid barrier, so two such grids can never be
+resident at once.  The site shards of one process (parallel/shards.py)
+may share a card and launch from streams of their own, so B2's launches
+on one card are chained: each waits on an event of the card's previous
+B2 launch (`_after_previous`), whatever its stream.  The counts take a
+lock and count every shard's launches.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict, List, NamedTuple, Tuple
 
 import numpy as np
@@ -49,6 +58,10 @@ from examl_tpu_torch.utils import z_slots
 LAUNCHES = 0
 LAUNCHES_BY_K: dict = {}     # the same launches by state count K
 LAST_GRID = 0
+# The event of each card's last B2 launch, and the lock that orders the
+# launches of several threads on one card (`_after_previous`).
+_LAST_ON_CARD: dict = {}
+_CARD_LOCK = threading.Lock()
 
 # (R, K) instantiated in csrc/newview_whole.cu: GAMMA's four rates over
 # binary, DNA and amino-acid states.
@@ -282,21 +295,32 @@ def whole_apply_cuda(clv, scaler, codes, tips, block_part, meta, l_code,
     fn = (lib.examl_newview_whole_f32 if clv.dtype == torch.float32
           else lib.examl_newview_whole_f64)
     grid = ctypes.c_int(0)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
+    stream = torch.cuda.current_stream(dev)
+    with _CARD_LOCK, torch.cuda.device(dev):
+        _after_previous(stream)
         err = fn(clv.data_ptr(), scaler.data_ptr(), codes.data_ptr(),
                  tips.data_ptr(), block_part.data_ptr(),
                  meta.data_ptr(), l_code.data_ptr(), r_code.data_ptr(),
                  wave_start.data_ptr(), pmat.data_ptr(), nwaves, B, L, M,
                  C, R, K, ctypes.c_double(2.0 ** (-scale_exp)),
-                 ctypes.c_double(2.0 ** scale_exp), stream,
+                 ctypes.c_double(2.0 ** scale_exp), stream.cuda_stream,
                  ctypes.byref(grid))
+        if err == 0:
+            _LAST_ON_CARD[stream.device_index] = stream.record_event()
+            LAUNCHES += 1
+            LAUNCHES_BY_K[K] = LAUNCHES_BY_K.get(K, 0) + 1
+            LAST_GRID = grid.value
     if err != 0:
         raise _build.KernelError(
             f"newview_whole cooperative launch failed: CUDA error {err} "
             f"({_build.error_string(err)})")
-    LAUNCHES += 1
-    LAUNCHES_BY_K[K] = LAUNCHES_BY_K.get(K, 0) + 1
-    obs.inc("kernel.newview_whole.launches")
-    LAST_GRID = grid.value
+    obs.registry().inc("kernel.newview_whole.launches")
     return clv, scaler
+
+
+def _after_previous(stream) -> None:
+    """Make `stream` wait for the last B2 launch on its card (held under
+    _CARD_LOCK, so the chain is in launch order)."""
+    prev = _LAST_ON_CARD.get(stream.device_index)
+    if prev is not None:
+        stream.wait_event(prev)

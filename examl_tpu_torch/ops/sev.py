@@ -31,12 +31,16 @@ with one range here; a sharded pool gives each device its own range of
 the block axis and its own pool region (the JAX module's design notes).
 
 In a site-parallel run each rank's pool covers its own block window: the
-engine hands it the window's tip codes, so its gap bits, cells and
-capacity are the window's.  The JAX package allgathers every device's
-capacity and dirty flag (`examl_tpu/ops/engine.py:299-324`) because one
-global SPMD program must see one pool shape; the port runs no global
-program (each rank launches its own kernels on its own window), so that
-collective has no counterpart, and ranks' pools may differ in size.
+engine hands it the window's tip codes, so its gap bits and cells are
+the window's.  The site shards of one process (parallel/shards.py) are
+the JAX package's per-device pool regions: each shard's pool is the
+region of its card, with the region's cell ids, and the shards agree
+one region capacity on every sync (`cap_reduce`: the largest shard's
+need, one collective each sync), as the JAX package's `cap_reduce` and
+its uniform regions do (`examl_tpu/ops/engine.py:296-325`,
+`examl_tpu/ops/sev.py:84-125`).  Its dirty flag needs no agreement
+here: each shard uploads its own slot maps.  Ranks in processes keep
+pools of their own sizes (no collective per traversal over gloo).
 """
 
 from __future__ import annotations
@@ -59,8 +63,12 @@ class SevState:
 
     def __init__(self, tip_codes: np.ndarray, undetermined_code: int,
                  num_rows: int, B: int, lane: int, R: int, K: int,
-                 dtype: torch.dtype, device):
+                 dtype: torch.dtype, device, cap_reduce=None):
+        """cap_reduce(cells) -> the cell count every region of the pool
+        must hold (a site shard's: the largest over the shards); called
+        on every sync."""
         self.B, self.lane, self.R, self.K = B, lane, R, K
+        self._cap_reduce = cap_reduce
         self.dtype = dtype
         self.device = device
         # One device range; the per-range lists are what a sharded pool
@@ -155,8 +163,11 @@ class SevState:
     def sync(self) -> None:
         """Grow the pool if needed (to max(64, 1.3 x cells + 8): the cells
         already held are copied into the new pool, so cell ids stay
-        valid) and re-upload the slot maps if they changed."""
+        valid) and re-upload the slot maps if they changed.  A site
+        shard's cell count is first agreed over the shards."""
         max_next = max(self.next_cell)
+        if self._cap_reduce is not None:
+            max_next = self._cap_reduce(max_next)
         if self.pool is None or max_next > self.cap:
             new_cap = max(64, int(max_next * 1.3) + 8)
             new_pool = torch.zeros((new_cap, self.lane, self.R, self.K),

@@ -14,8 +14,12 @@ the single-process path: `init_distributed` returns `sharding.SINGLE`
 and starts nothing.
 
 `--mesh SxT` / `EXAML_MESH` declares the (sites, tree) fabric of
-parallel/sharding.py, and `select_sharding` turns the flags into it: the
+parallel/sharding.py, and `select_sharding` turns the flags into it:
+S site shards of one tree in this process (parallel/shards.py), the
 fleet's tree axis over T cards (fleet/shard.py), or None for one card.
+Without a mesh a run on the card shards its site axis over every
+visible card when there are two or more, as the JAX package's does; a
+rank of `--nprocs N > 1` keeps its one card.
 
 This module imports torch only inside the functions that need it: the
 CLI's parser takes its flags from here, and a supervising parent parses
@@ -49,12 +53,12 @@ def add_launch_args(parser) -> None:
     g.add_argument("--mesh", dest="mesh", default=None, metavar="SxT",
                    help="declared (sites, tree) likelihood fabric: S site "
                         "shards per tree slice, T tree slices, on S*T "
-                        "cards; T>1 requires a fleet mode (-b/-N/--serve) "
-                        "and cuts each batch's jobs into T slices, one "
-                        "launch table each on its slice's card.  Only S=1 "
-                        "runs here (the in-process site axis is not "
-                        "ported).  EXAML_MESH=SxT is the env equivalent "
-                        "(the flag wins)")
+                        "cards; Sx1 splits each tree's sites over S cards "
+                        "in this process; T>1 requires a fleet mode "
+                        "(-b/-N/--serve) and cuts each batch's jobs into T "
+                        "slices, one launch table each on its slice's "
+                        "card.  S>1 with T>1 is not ported.  EXAML_MESH=SxT "
+                        "is the env equivalent (the flag wins)")
 
 
 def launch_requested(args) -> bool:
@@ -205,31 +209,62 @@ def mesh_spec_requested(args) -> Optional[str]:
 
 
 def select_sharding(args, save_memory: bool = False,
-                    log=lambda msg: None):
-    """The run's fabric, or None for one card: None without a mesh (the
-    port runs one card a process; fleet lanes come from --fleet-devices),
-    with --single-device, and for 1x1; the (sites, tree) fabric of
-    parallel/sharding.py for 1xT.  A mesh the visible cards cannot hold
-    raises ValueError("... needs N devices ..."), as S > 1 does: the
-    in-process site axis is not ported (ROADMAP A15, site axis).  With
-    `save_memory` the engines refuse a fabric of T > 1 (the CLI refuses it
-    first)."""
+                    log=lambda msg: None, device=None):
+    """The run's sharding, or None for one card.  A declared mesh
+    (`--mesh SxT` / EXAML_MESH): None for 1x1, else the (sites, tree)
+    fabric of parallel/sharding.py over the first S*T visible cards
+    (`Sx1`: S site shards of each tree, parallel/shards.py; `1xT`: the
+    fleet's tree slices); S > 1 with T > 1 raises (ROADMAP A15c), and so
+    does a mesh the visible cards cannot hold ("... needs N devices
+    ..."), both ValueError.  Without a mesh: a 1-D site mesh over every
+    visible card when there are two or more (the JAX package's default;
+    -S shards too: a pool region per card), None for a rank of `--nprocs
+    N > 1` or of a supervised gang (each rank keeps its card) and for a
+    run whose `device` is the CPU.  --single-device gives None either way (the CLI refuses it with
+    a mesh other than 1x1)."""
     from examl_tpu_torch.parallel.sharding import (fabric_sharding,
                                                    make_fabric_mesh,
-                                                   parse_mesh_spec)
+                                                   make_mesh,
+                                                   parse_mesh_spec,
+                                                   site_sharding,
+                                                   visible_devices)
     spec = mesh_spec_requested(args)
-    if spec is None or getattr(args, "single_device", False):
+    if getattr(args, "single_device", False):
         return None
-    s, t = parse_mesh_spec(spec)
-    if s == t == 1:
+    if spec is not None:
+        s, t = parse_mesh_spec(spec)
+        if s == t == 1:
+            return None
+        if s > 1 and t > 1:
+            raise ValueError(
+                f"mesh {s}x{t}: a fleet over site shards (S > 1 and T > 1: "
+                "each tree slice's jobs with their sites over S cards) is "
+                f"not ported (ROADMAP A15c); run --mesh {s}x1 for one "
+                f"tree's sites, or --mesh 1x{t} for the fleet's tree axis")
+        sh = fabric_sharding(make_fabric_mesh(s, t))
+        if save_memory:
+            log(f"-S (SEV) sharded: per-device CLV pool regions over {s} "
+                f"devices (mesh {s}x{t})")
+        else:
+            log(f"likelihood fabric {s}x{t}: {s} site shard(s) x {t} tree "
+                f"slice(s) on " + ", ".join(
+                    str(d) for d in sh.mesh.devices.flat))
+        return sh
+    if (getattr(args, "nprocs", None) or 1) > 1 or \
+            getattr(args, "_gang", None) is not None:
         return None
-    if s > 1:
-        raise ValueError(
-            f"mesh {s}x{t}: the in-process site axis (S > 1: each tree's "
-            "site blocks over several cards in one process) is not ported "
-            "yet (ROADMAP A15, site axis); run S=1 with tree slices, or "
-            "site-parallel ranks with --nprocs")
-    sh = fabric_sharding(make_fabric_mesh(s, t))
-    log(f"likelihood fabric {s}x{t}: {t} tree slice(s) on "
-        + ", ".join(str(d) for d in sh.tree_devices()))
+    if device is not None:
+        import torch
+        if torch.device(device).type == "cpu":
+            return None
+    devices = visible_devices()
+    if len(devices) <= 1:
+        return None
+    sh = site_sharding(make_mesh(devices))
+    if save_memory:
+        log(f"-S (SEV) sharded: per-device CLV pool regions over "
+            f"{len(devices)} devices")
+    else:
+        log(f"site axis sharded over {len(devices)} devices (1 process): "
+            + ", ".join(str(d) for d in devices))
     return sh

@@ -12,6 +12,9 @@ no compiler that partitions it, so the port runs one process per rank:
 rank r holds the contiguous block window `window(B)` of every bucket
 (parallel/packing.py: `pack_partitions_local`, `window_of`) and the
 engine reduces each site sum once, through the rank's `SiteGroup`.
+In one process the same windows run as site shards, one engine set a
+card, each on a thread of its own (parallel/shards.py), and their
+`ThreadSiteGroup`s meet on a shared board instead of gloo.
 
 The reductions run on host float64 arrays over gloo: every reduction
 point already reads its result back to the host (lnL [M], NR d1/d2
@@ -23,13 +26,15 @@ from a reduced value (a Newton-Raphson exit, Brent's next probe, an SPR
 acceptance) is taken alike on every rank.  `SINGLE`, the world of one,
 returns its inputs unchanged, so a single-process run pays nothing.
 
-Below the group: the (sites, tree) fabric's records, the declared
+Below the groups: the (sites, tree) fabric's records, the declared
 layouts the JAX package's `--mesh SxT` builds, of which the port runs
-the tree axis (S = 1).
+the site axis (`Sx1`, parallel/shards.py) and the tree axis (`1xT`,
+fleet/shard.py).
 """
 
 from __future__ import annotations
 
+import threading
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -92,6 +97,13 @@ class SiteGroup:
             out += p
         return out
 
+    def allmax(self, value: int) -> int:
+        """The largest of every rank's integer `value`."""
+        if self.size == 1:
+            return value
+        return int(max(p[0] for p in self._allgather(
+            np.asarray([value], dtype=np.int64))))
+
     def allgather_blocks(self, a: np.ndarray) -> np.ndarray:
         """Every rank's block window of `a` (blocks on axis 0), tiled in
         rank order: the global array."""
@@ -104,17 +116,64 @@ class SiteGroup:
 SINGLE = SiteGroup()
 
 
+class ShardBoard:
+    """The exchange of the site shards of one process: a slot per rank
+    and a barrier.  A shard that raises aborts the barrier, so every peer
+    waiting in a collective raises `threading.BrokenBarrierError` at
+    once; a peer that never comes breaks it after `timeout` seconds."""
+
+    def __init__(self, size: int, timeout: Optional[float] = None):
+        self.slots: List[Optional[np.ndarray]] = [None] * size
+        self.barrier = threading.Barrier(size, timeout=timeout)
+
+    def exchange(self, rank: int, a: np.ndarray) -> List[np.ndarray]:
+        """Every rank's `a`, in rank order.  The second wait keeps a slot
+        until every rank has read the board."""
+        self.slots[rank] = a
+        self.barrier.wait()
+        parts = list(self.slots)
+        self.barrier.wait()
+        return parts
+
+    def abort(self) -> None:
+        self.barrier.abort()
+
+    def reset(self) -> None:
+        """Make an aborted board usable again (every shard has returned)."""
+        self.barrier.reset()
+        self.slots = [None] * len(self.slots)
+
+
+class ThreadSiteGroup(SiteGroup):
+    """A site shard's place on the axis when the shards are threads of
+    one process: `SiteGroup`'s interface and arithmetic (an allgather,
+    then the sum in rank order on every shard), over a `ShardBoard`.  So
+    an `Sx1` instance reduces to the same bits as S gloo ranks over the
+    same windows."""
+
+    def __init__(self, rank: int, size: int, board: ShardBoard):
+        super().__init__(rank, 1)
+        self.size = size
+        self.board = board
+
+    def _allgather(self, a: np.ndarray) -> List[np.ndarray]:
+        self.collectives += 1
+        return self.board.exchange(self.rank, np.array(a, copy=True))
+
+
 # -- the (sites, tree) fabric ------------------------------------------------
 #
 # The JAX package declares a 2-D `jax.sharding.Mesh` over (sites, tree):
 # each tree slice of S devices holds the whole model and its site shards,
 # and the fleet's stacked per-job leaves are partitioned over the T tree
 # slices.  The port keeps the mesh as a plain record (an S x T array of
-# torch devices and the axis names) and runs the tree axis itself:
-# `fleet/shard.py: MeshShard` cuts each batch's jobs into T slices, one
-# launch table each on its slice's device and stream.  The in-process
-# site axis (S > 1: one engine op per card, or ranks as threads) is not
-# ported yet; `parallel/launch.py: select_sharding` refuses it.
+# torch devices and the axis names) and runs each axis itself.  The
+# site axis (`Sx1`): one engine set per card, a thread each, over its
+# block window, the site sums reduced through `ThreadSiteGroup`s
+# (parallel/shards.py).  The tree axis (`1xT`): `fleet/shard.py:
+# MeshShard` cuts each batch's jobs into T slices, one launch table each
+# on its slice's device and stream.  Both at once (S > 1 and T > 1, a
+# fleet over site shards) is not ported (ROADMAP A15c).
 
 TREE_AXIS = "tree"
 
@@ -140,8 +199,8 @@ P = PartitionSpec
 class Mesh:
     """A device mesh: `devices`, an array of torch devices of one shape per
     axis (S x T for the fabric, S for the 1-D site mesh), and the axis
-    names.  A device may stand more than once (lanes that share a card;
-    only the Python API builds such a mesh)."""
+    names.  A device may stand more than once (site shards or lanes that
+    share a card; only the Python API builds such a mesh)."""
 
     def __init__(self, devices, axis_names):
         self.devices = np.asarray(devices, dtype=object)
@@ -188,6 +247,12 @@ class SiteSharding:
     def is_fabric(self) -> bool:
         """True when the mesh carries the tree axis (even T = 1)."""
         return TREE_AXIS in self.mesh.axis_names
+
+    def site_devices(self) -> list:
+        """The device of each site shard (of tree slice 0)."""
+        if not self.is_fabric:
+            return list(self.mesh.devices)
+        return list(self.mesh.devices[:, 0])
 
     def tree_devices(self) -> list:
         """The device of each tree slice (site shard 0 of the slice)."""

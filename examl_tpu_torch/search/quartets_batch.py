@@ -122,11 +122,15 @@ def score_jobs(inst, jobs: Sequence[Tuple[int, int, int, int]]
     out = np.zeros(len(jobs))
     for lo in range(0, len(jobs), JOB_CHUNK):
         chunk = np.asarray(jobs[lo:lo + JOB_CHUNK], np.int64) - 1
-        codes = torch.as_tensor(chunk, device=eng.device)
-        out[lo:lo + len(chunk)] = eng.group.allreduce(
-            score_chunk(eng, codes).cpu().numpy())
+        out[lo:lo + len(chunk)] = eng.on_shards(_score_reduced, chunk)
         JOBS_SCORED += len(chunk)
     return out
+
+
+def _score_reduced(eng, chunk: np.ndarray) -> np.ndarray:
+    """`score_chunk` of a site shard's engine, reduced over its group."""
+    codes = torch.as_tensor(chunk, device=eng.device)
+    return eng.group.allreduce(score_chunk(eng, codes).cpu().numpy())
 
 
 def three_topology_jobs(t1: int, t2: int, t3: int, t4: int

@@ -1,11 +1,11 @@
 """The port's package boundary: importing every module of examl_tpu_torch
 pulls in neither JAX nor any module of examl_tpu, and leaves TF32 off; the
 modules a supervising parent loads (the supervisor, the lease board, the
-CLI's front, parallel/launch.py and parallel/sharding.py, and the
-extension bank its workers run) import no torch either, and the instance
-no
-`scipy.stats` (its discrete-gamma rates equal `scipy.stats`' bit for
-bit)."""
+CLI's front, parallel/launch.py, parallel/sharding.py and
+parallel/shards.py, and the extension bank its workers run) import no
+torch either (nor does the site shards' in-process group when it
+reduces), and the instance no `scipy.stats` (its discrete-gamma rates
+equal `scipy.stats`' bit for bit)."""
 
 import json
 import os
@@ -64,6 +64,7 @@ def test_port_imports_no_jax_and_no_examl_tpu():
                  "examl_tpu_torch.fleet.lease",
                  "examl_tpu_torch.fleet.seeds",
                  "examl_tpu_torch.fleet.shard",
+                 "examl_tpu_torch.parallel.shards",
                  "examl_tpu_torch.resilience.supervisor",
                  "examl_tpu_torch.cli.parse",
                  "examl_tpu_torch.search.checkpoint",
@@ -106,17 +107,59 @@ def test_parallel_launch_and_sharding_import_no_torch():
     """The CLI's parser takes the launch flags (--mesh, --single-device)
     from parallel/launch.py in a supervising parent too, and the bank
     stamps the declared fabric from parallel/sharding.py in its workers:
-    neither loads torch at import."""
+    neither loads torch at import, nor does parallel/shards.py."""
     env = dict(os.environ, PYTHONPATH=ROOT)
     res = subprocess.run(
         [sys.executable, "-c", "import json, sys; "
          "import examl_tpu_torch.parallel.launch, "
-         "examl_tpu_torch.parallel.sharding; print(json.dumps(sorted(k for "
+         "examl_tpu_torch.parallel.sharding, "
+         "examl_tpu_torch.parallel.shards; print(json.dumps(sorted(k for "
          "k in sys.modules if k.split('.')[0] in ('torch', 'jax', "
          "'jaxlib', 'examl_tpu'))))"], cwd=ROOT, env=env,
         capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert json.loads(res.stdout.strip().splitlines()[-1]) == []
+
+
+# Three site shards' groups on one board, each on a thread, reduce and
+# gather without torch, JAX or the JAX package.
+THREAD_GROUP = r"""
+import json, sys, threading
+import numpy as np
+from examl_tpu_torch.parallel.sharding import ShardBoard, ThreadSiteGroup
+board = ShardBoard(3, timeout=60)
+groups = [ThreadSiteGroup(r, 3, board) for r in range(3)]
+parts = [np.array([0.1, 1e16]) * (r + 1) + r for r in range(3)]
+out = [None] * 3
+
+def run(r):
+    g = groups[r]
+    out[r] = (g.allreduce(parts[r]).tolist(),
+              g.allgather_blocks(np.full((1, 2), r)).tolist(),
+              g.allmax(10 * r + 1), g.window(6), g.collectives)
+
+ts = [threading.Thread(target=run, args=(r,)) for r in range(3)]
+[t.start() for t in ts]
+[t.join() for t in ts]
+want = (parts[0] + parts[1] + parts[2]).tolist()
+print(json.dumps({"out": out, "want": want, "leaked": sorted(
+    k for k in sys.modules
+    if k.split(".")[0] in ("torch", "jax", "jaxlib", "examl_tpu"))}))
+"""
+
+
+def test_thread_site_group_reduces_in_rank_order_without_torch():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", THREAD_GROUP], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+    got = json.loads(res.stdout.strip().splitlines()[-1])
+    assert got["leaked"] == []
+    for r, (total, blocks, mx, window, n) in enumerate(got["out"]):
+        assert total == got["want"]           # the rank-ordered sum's bits
+        assert blocks == [[0, 0], [1, 1], [2, 2]]
+        assert (mx, window, n) == (21, [2 * r, 2 * r + 2], 3)
 
 
 def test_gamma_rates_need_no_scipy_stats():

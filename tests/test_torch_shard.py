@@ -336,17 +336,23 @@ def test_bank_declared_mesh_equals_jax(monkeypatch):
 
 
 def test_select_sharding():
+    """None for one card (no mesh, 1x1, --single-device); an Sx1 mesh is
+    the site axis (tests/test_torch_site_axis.py runs it), and S > 1
+    with T > 1 is refused, naming ROADMAP A15c."""
     from examl_tpu_torch.parallel import launch
     ns = lambda **kw: argparse.Namespace(**dict(  # noqa: E731
         dict(mesh=None, single_device=False), **kw))
-    assert launch.select_sharding(ns()) is None
+    if torch.cuda.device_count() < 2:
+        assert launch.select_sharding(ns()) is None
+    assert launch.select_sharding(ns(), device="cpu") is None
     assert launch.select_sharding(ns(mesh="1x1")) is None
     assert launch.select_sharding(ns(mesh="1x2", single_device=True)) is None
-    with pytest.raises(ValueError, match="site axis.*ROADMAP A15"):
-        launch.select_sharding(ns(mesh="2x1"))
+    with pytest.raises(ValueError, match="S > 1 and T > 1.*ROADMAP A15c"):
+        launch.select_sharding(ns(mesh="2x2"))
     if torch.cuda.device_count() < 2:
-        with pytest.raises(ValueError, match="needs 2 devices"):
-            launch.select_sharding(ns(mesh="1x2"))
+        for spec in ("1x2", "2x1"):
+            with pytest.raises(ValueError, match="needs 2 devices"):
+                launch.select_sharding(ns(mesh=spec))
 
 
 # -- the CLI --------------------------------------------------------------------
@@ -404,9 +410,10 @@ def _journal(workdir):
 
 def test_cli_mesh_runs_and_refuses_what_the_cards_cannot_hold(tmp_path,
                                                                capsys):
-    """--mesh 1x1 is the single-device run; --mesh 1x2 without two cards
-    logs the device arithmetic and returns 1; a mesh with S > 1 is
-    refused at argument time, naming the missing site axis."""
+    """--mesh 1x1 is the single-device run; --mesh 1x2 and --mesh 2x1
+    without two cards log the device arithmetic and return 1; a fleet on
+    a mesh with S > 1 is refused at argument time, naming ROADMAP A15c
+    (a fleet over site shards)."""
     from examl_tpu_torch.cli.main import main
     aln = _aln(tmp_path)
     runs = {}
@@ -421,10 +428,17 @@ def test_cli_mesh_runs_and_refuses_what_the_cards_cannot_hold(tmp_path,
                  "1x2"], device="cpu") == 1
     info = open(os.path.join(wd, "ExaML_info.X")).read()
     assert "ERROR: mesh 1x2 needs 2 devices" in info
-    for extra in (["-N", "3", "--mesh", "2x1"], ["--mesh", "2x1"]):
+    if torch.cuda.device_count() < 2:
+        wd = str(tmp_path / "refused21")
+        assert main(["-s", aln, "-n", "X", "-w", wd, "--mesh", "2x1"],
+                    device="cpu") == 1
+        info = open(os.path.join(wd, "ExaML_info.X")).read()
+        assert "ERROR: mesh 2x1 needs 2 devices" in info
+    for extra in (["-N", "3", "--mesh", "2x1"],
+                  ["--serve", wd + "/jobs.jsonl", "--mesh", "4x1"]):
         code, msg = _refusal(main, ["-s", aln, "-n", "X", "-w", wd] + extra,
                              capsys)
-        assert code == 2 and "site axis" in msg and "ROADMAP A15" in msg
+        assert code == 2 and "site shards" in msg and "ROADMAP A15c" in msg
 
 
 def test_fleet_restart_on_two_lanes_resumes_bit_for_bit(tmp_path,
@@ -477,13 +491,20 @@ def test_fleet_restart_on_two_lanes_resumes_bit_for_bit(tmp_path,
 
 def test_sev_fabric_engine_guard():
     """Callers from Python hit the engines' backstop: SEV pools cannot
-    stack per-job arenas along a tree axis; a site axis is refused by
-    the instance (not ported); 1x1 composes with -S."""
+    stack per-job arenas along a tree axis; a fleet over site shards is
+    refused by the instance (A15c); Sx1 composes with -S (a pool region
+    per site shard), as 1x1 does, and neither has a batched tier."""
     data = _data(12, 300, 7)
     with pytest.raises(ValueError, match="1x2 fabric"):
         _port(data, save_memory=True, sharding=_fabric(1, 2))
-    with pytest.raises(ValueError, match="site axis"):
-        _port(data, save_memory=True, sharding=_fabric(2, 1))
+    with pytest.raises(ValueError, match="ROADMAP A15c"):
+        _port(data, save_memory=True, sharding=_fabric(2, 2))
+    sharded = _port(data, save_memory=True, sharding=_fabric(2, 1))
+    ref = _port(data, save_memory=True)
+    assert sharded.evaluate(sharded.random_tree(seed=3), full=True) == \
+        pytest.approx(ref.evaluate(ref.random_tree(seed=3), full=True),
+                      rel=1e-12)
+    assert sharded.batch_evaluator() is None
     inst = _port(data, save_memory=True, sharding=_fabric(1, 1))
     ref = _port(data, save_memory=True)
     assert inst.evaluate(inst.random_tree(seed=3), full=True) == \
