@@ -95,10 +95,20 @@ beside phases 6-8, ref49's anchors and `-f e --newview whole` through
 the CLI with `--mesh 2x1`, PSR's evaluate, gradient smoothing and a
 categorization round on 2x1 against one card, `--mesh 2x1` refused on
 the card as it is and phase 7's `-f d` again with no mesh, bit for bit.
-Phases 9, 15, 17, 20 and 27 and the side parts of phases 28 and 29 time
-no kernel and run as side phases: each in a process of its own
-(`--side-child`), 9, 15, 20 and 29 (b) started after phase 5, 17, 27,
-28 (d) and 29 (e) after phase 8, while the script runs phases 6-8; all
+The fleet over site shards (phase 30, run right after phase 28 on phase
+23's prepared jobs): a MeshShard on a 2x2 fabric of the card four times
+(two tree slices of two site lanes each; fleet/shard.py) over a 2x1
+instance of the real-size set-up, phase 23's 8 DNA jobs and 3 AA + BIN
+jobs each as one batch, B1 once a lane and engine, every row bit for
+bit the 2x1 evaluate and within 1e-6 of one card; batched smoothing of
+phase 23's 16 gene trees on one card, 2x1 and 2x2 (the same sweeps,
+d1/d2 bit for bit 2x1 = 2x2); 64 bootstrap replicates and a PSR fleet
+on 2x2 bit for bit 2x1; and `-N 4 --mesh 2x2` refused on the card as it
+is ("needs 4 devices").  Phases 9, 15, 17, 20 and 27 and the side parts
+of phases 28, 29 and 30 time no kernel and run as side phases: each in
+a process of its own (`--side-child`), 9, 15, 20 and 29 (b) started
+after phase 5, 17, 27, 28 (d), 29 (e) and 30 (f) after phase 8, while
+the script runs phases 6-8; all
 are joined before phase 10, and each prints its lines in its own
 place.  Every phase is fatal: any failure exits non-zero before the
 result line.
@@ -296,11 +306,17 @@ LANE_BATCH, LANE_TURNS, LANE_PSR_JOBS, LANE_CLI_JOBS = 4, 3, 6, 6
 # SHARD_REPS; its lnLs within SHARD_RTOL of one card's.  Its parts (b)
 # and (e) run as a side phase beside phase 8.
 SHARDS, SHARD_REPS, SHARD_RTOL = 2, 3, 1e-6
-NPHASES = 29
+# Phase 30, the fleet over site shards: a SHARDS x 2 fabric of the card
+# named four times over phase 23's jobs; its batched smoothing of the gene
+# trees runs MESH_SMOOTHINGS smoothings (at most 4 x that many sweeps; the
+# fleet's default 32 would take the phase past its time); its part (f)
+# runs in the side phase `site_cli`.
+MESH_SMOOTHINGS = 2
+NPHASES = 30
 # The phases in the order they run: phase 29 runs right after phase 22,
-# on its one-process instance, and phase 28 right after phase 23, on its
-# real-size instance and prepared jobs.
-PHASE_ORDER = list(range(1, 23)) + [29, 23, 28] + list(range(24, 28))
+# on its one-process instance, and phases 28 and 30 right after phase 23,
+# on its prepared jobs.
+PHASE_ORDER = list(range(1, 23)) + [29, 23, 28, 30] + list(range(24, 28))
 
 
 class SmokeFailure(RuntimeError):
@@ -1553,19 +1569,20 @@ def real_setup(ntaxa: int, parts: int, width: int, seed: int) -> dict:
 
 def real_instance(setup: dict, device, newview, dtype=None,
                   rate_model: str = "GAMMA", save_memory: bool = False,
-                  clv_dtype=None):
+                  clv_dtype=None, sharding=None):
     """The real-size instance on one tier (f32 unless `dtype` says; the
     pooled tier under save_memory, newview None; CLVs stored in
-    `clv_dtype`), its models, and the seed's random tree with the set-up's
-    branch lengths.  Under PSR the models keep their rates and frequencies
-    with one rate category."""
+    `clv_dtype`; on one card or over `sharding`'s site shards), its
+    models, and the seed's random tree with the set-up's branch lengths.
+    Under PSR the models keep their rates and frequencies with one rate
+    category."""
     import torch
     from examl_tpu_torch.instance import PhyloInstance
     from examl_tpu_torch.transfer import install_model_params
     inst = PhyloInstance(setup["ad"], dtype=dtype or torch.float32,
                          device=device, newview=newview,
                          rate_model=rate_model, save_memory=save_memory,
-                         clv_dtype=clv_dtype)
+                         clv_dtype=clv_dtype, sharding=sharding)
     install_model_params(inst, setup["params"])
     tree = inst.random_tree(setup["seed"])
     for (p, _), z in zip(tree.all_branches(), setup["zs"]):
@@ -2480,10 +2497,11 @@ def aa_setup(seed: int) -> dict:
             "alignment_s": time.perf_counter() - t0}
 
 
-def aa_instance(setup: dict, device, newview: str, clv_dtype=None):
+def aa_instance(setup: dict, device, newview: str, clv_dtype=None,
+                sharding=None):
     """The real-size amino-acid + binary instance on one tier (f32, CLVs
-    stored in `clv_dtype`) with the set-up's models and the seed's random
-    tree."""
+    stored in `clv_dtype`; on one card or over `sharding`'s site shards)
+    with the set-up's models and the seed's random tree."""
     from examl_tpu_torch.instance import PhyloInstance
     from examl_tpu_torch.models.gtr import with_alpha
     from examl_tpu_torch.models.lg4 import (LG4Params, lg4_with_alpha,
@@ -2491,7 +2509,8 @@ def aa_instance(setup: dict, device, newview: str, clv_dtype=None):
                                             lg4x_with_weights)
     import torch
     inst = PhyloInstance(setup["ad"], dtype=torch.float32, device=device,
-                         newview=newview, clv_dtype=clv_dtype)
+                         newview=newview, clv_dtype=clv_dtype,
+                         sharding=sharding)
     for gid, a in enumerate(setup["alphas"]):
         m = inst.models[gid]
         if isinstance(m, LG4Params):
@@ -5406,10 +5425,11 @@ def site_psr(device, out_dir: str) -> dict:
 
 
 def site_cli(device, out_dir: str, fd: dict) -> dict:
-    """Phase 29 (e), a side phase: the CLI on the card as it is.  `--mesh
-    SHARDSx1` returns 1 with the device arithmetic where fewer cards are
-    visible, and phase 7's `-f d` with no mesh logs no sharding and ends
-    at phase 7's lnL bit for bit."""
+    """Phase 29 (e) and phase 30 (f), a side phase: the CLI on the card as
+    it is.  `--mesh SHARDSx1`, and a fleet's `-N 4 --mesh SHARDSx2`,
+    return 1 with the device arithmetic where fewer cards are visible,
+    and phase 7's `-f d` with no mesh logs no sharding and ends at phase
+    7's lnL bit for bit."""
     import shutil
     import torch
     base = os.path.join(out_dir, "site_cli")
@@ -5423,6 +5443,19 @@ def site_cli(device, out_dir: str, fd: dict) -> dict:
         check(rc == 1 and f"ERROR: mesh {SHARDS}x1 needs {SHARDS} devices"
               in info, f"--mesh {SHARDS}x1 on one card: rc {rc}")
     out["refused"] = {"rc": rc, "error": next(
+        (ln for ln in info.splitlines() if "ERROR" in ln), None)}
+    # Phase 30 (f): a fleet over site shards, -N 4 on a 2x2 mesh.
+    workdir = os.path.join(base, "refused_mesh")
+    os.makedirs(workdir)
+    rc, _, _, info = run_cli(["-s", fd["aln"], "-N", "4", "--mesh",
+                              f"{SHARDS}x2"], device, workdir)
+    if torch.cuda.device_count() < 2 * SHARDS:
+        check(rc == 1 and f"ERROR: mesh {SHARDS}x2 needs {2 * SHARDS} "
+              "devices" in info, f"-N 4 --mesh {SHARDS}x2 on one card: rc "
+              f"{rc}")
+    else:
+        check(rc == 0, f"-N 4 --mesh {SHARDS}x2: rc {rc}")
+    out["mesh"] = {"rc": rc, "error": next(
         (ln for ln in info.splitlines() if "ERROR" in ln), None)}
     workdir = os.path.join(base, "fd")
     os.makedirs(workdir)
@@ -5439,9 +5472,252 @@ def site_cli(device, out_dir: str, fd: dict) -> dict:
         check_tier(counts, "chunk", "-f d with no mesh")
     out["fd"] = {"final_lnl": final, "wall_s": wall, "counts": counts}
     log(f"  (e) --mesh {SHARDS}x1 on the card as it is: rc "
-        f"{out['refused']['rc']}, {out['refused']['error']}; -f d with no "
+        f"{out['refused']['rc']}, {out['refused']['error']}; phase 30 (f) "
+        f"-N 4 --mesh {SHARDS}x2: rc {out['mesh']['rc']}, "
+        f"{out['mesh']['error']}; -f d with no "
         f"mesh {final!r} (phase 7 {fd['final_lnl']!r}) in {wall:.1f} s, no "
         "sharding logged")
+    return out
+
+
+# -- phase 30: the fleet over site shards --------------------------------------
+
+
+def mesh_fabric(device, t: int):
+    """The SHARDS x t fabric of the card named SHARDS * t times."""
+    from examl_tpu_torch.parallel.sharding import (fabric_sharding,
+                                                   make_fabric_mesh)
+    return fabric_sharding(make_fabric_mesh(SHARDS, t,
+                                            [device] * (SHARDS * t)))
+
+
+def mesh_sweeps(ev, preps, maxtimes: int) -> dict:
+    """One smooth_batch on `ev`, with every sweep's (d1, d2) recorded."""
+    sweeps = []
+    grad = ev._grad_batch
+
+    def recorded(jobs):
+        d = grad(jobs)
+        sweeps.append(d)
+        return d
+    ev._grad_batch = recorded
+    try:
+        t0 = time.perf_counter()
+        converged = ev.smooth_batch(preps, maxtimes)
+        wall = time.perf_counter() - t0
+    finally:
+        del ev._grad_batch
+    return {"sweeps": sweeps, "converged": converged, "wall_s": wall,
+            "z": np.array([[p.z[0] for p, _ in j.tree.all_branches()]
+                           for j in preps])}
+
+
+def mesh_batch(inst, trees, device, label: str, one_lnl) -> dict:
+    """Tree jobs as one batch on the SHARDS x 2 MeshShard over the SHARDS x
+    1 instance `inst` (the card named four times): the batch once (its
+    arenas allocated), then with its counts: B1 once a lane and engine
+    (one dataflow table each), each slice half the jobs; every job's
+    per-partition lnL bit for bit its evaluate on `inst` and within
+    SHARD_RTOL of one card's (`one_lnl`, per job); the same batch on the
+    SHARDS x 1 evaluator, bit for bit."""
+    from examl_tpu_torch import obs
+    from examl_tpu_torch.fleet import shard
+    ev22 = shard.MeshShard(inst, mesh_fabric(device, 2))
+    ev21 = inst.batch_evaluator()
+    J = len(trees)
+    preps = [ev22.prepare(t) for t in trees]
+    walls = {}
+    for name, ev in (("2x2", ev22), ("2x1", ev21)):
+        release_memory()
+        sync(device)
+        t0 = time.perf_counter()
+        first = ev.eval_batch(preps)
+        sync(device)
+        walls[f"{name}_first_s"] = time.perf_counter() - t0
+        obs.reset()
+        reset_counts()
+        sync(device)
+        t0 = time.perf_counter()
+        rows = ev.eval_batch(preps)
+        sync(device)
+        walls[f"{name}_s"] = time.perf_counter() - t0
+        counts = read_counts()
+        c = obs.snapshot()["counters"]
+        check(np.array_equal(rows, first), f"{label} {name}: the second "
+              "batch differs from the first")
+        if name == "2x2":
+            rows22, counts22 = rows, counts
+            slice_jobs = [c.get(f"fleet.mesh_slice_jobs.t{k}", 0)
+                          for k in (0, 1)]
+        else:
+            check(np.array_equal(rows, rows22), f"{label}: the 2x1 batch "
+                  "differs from the 2x2 batch")
+    half = -(-J // 2)
+    want = sum(SHARDS * b1_per_table(e.shards[0], sum(
+        len(p.st.launch) for p in part)) for e in inst.engines.values()
+        for part in (preps[:half], preps[half:])) \
+        if device.type == "cuda" else 0
+    check(slice_jobs == [half, J - half] and counts22["b1"] == want
+          and counts22["fleet_tables"] == 2 * SHARDS * len(inst.engines)
+          and counts22["b2"] == 0, f"{label} 2x2: slice jobs {slice_jobs}, "
+          f"B1 {counts22['b1']} ({want} expected), "
+          f"{counts22['fleet_tables']} tables")
+    for j, tree in enumerate(trees):
+        inst.evaluate(tree, full=True)
+        check(np.array_equal(inst.per_partition_lnl, rows22[j]),
+              f"{label}: job {j}'s 2x2 row {rows22[j].tolist()} is not its "
+              f"2x1 evaluate {inst.per_partition_lnl.tolist()}")
+    rel = np.abs(rows22.sum(axis=1) - np.asarray(one_lnl)) / np.abs(
+        np.asarray(one_lnl))
+    check(float(rel.max()) <= SHARD_RTOL, f"{label}: rel {rel.max():.2e} "
+          "of one card's batch rows")
+    del ev22, ev21
+    release_memory()
+    return {"jobs": J, "slice_jobs": slice_jobs, "counts": counts22,
+            "lnl": rows22.sum(axis=1).tolist(), "rel_one_card":
+            float(rel.max()), **walls}
+
+
+def phase_mesh(device, setup: dict, keep: dict, fleet: dict, lanes: dict,
+               fd: dict, smi: str, seed: int) -> dict:
+    """Phase 30: the fleet over site shards on a SHARDS x 2 fabric of the
+    card named four times (fleet/shard.py: a MeshShard of two tree slices,
+    each a SiteLanes of SHARDS shard lanes).  (a) phase 23's FLEET_JOBS
+    real-size DNA start jobs as one batch (`mesh_batch`) over a SHARDS x 1
+    instance of the set-up, the walls beside phase 28's 1x2 and phase 23's
+    one lane; (b) phase 23's FLEET_AA_JOBS AA + BIN jobs, so (K = 20, 2);
+    (c) batched smoothing of FLEET_GENE_JOBS gene trees on one card, 2x1
+    and 2x2: the same sweeps, branches within SHARD_RTOL of one card, every
+    sweep's d1/d2 bit for bit between 2x1 and 2x2; (d) FLEET_REPLICATES
+    bootstrap weight batches on 2x2, bit for bit 2x1; (e) phase 28's PSR
+    fleet of LANE_PSR_JOBS (wave-scan groups) through the driver on 2x2,
+    bit for bit 2x1.  ((f) runs in the side phase `site_cli`.)"""
+    import torch
+    from examl_tpu_torch.fleet import bootstrap, jobs, seeds, shard
+    from examl_tpu_torch.fleet.driver import FleetDriver
+    from examl_tpu_torch.instance import PhyloInstance
+    from examl_tpu_torch.io.bytefile import read_bytefile
+    t0 = time.perf_counter()
+    out = {"device": smi}
+    # (a) the real-size DNA batch.
+    inst, tree = real_instance(setup, device, "chunk",
+                               sharding=mesh_fabric(device, 1))
+    trees = [p.tree for p in keep["preps"]]
+    out["dna"] = mesh_batch(inst, trees, device, "mesh DNA",
+                            keep["lnl"].sum(axis=1))
+    out["dna"].update(one_lane_s=fleet["dna"]["wall_s"],
+                      mesh_1x2_s=lanes["mesh"]["wall_s"])
+    # (d) bootstrap weights on the same instance.
+    reps = [bootstrap.bootstrap_weights(inst.alignment,
+                                        seeds.derive(7, "bootstrap", k))
+            for k in range(FLEET_REPLICATES)]
+    ev22 = shard.MeshShard(inst, mesh_fabric(device, 2))
+    w = {}
+    reset_counts()
+    for name, ev in (("2x2", ev22), ("2x1", inst.batch_evaluator())):
+        sync(device)
+        t1 = time.perf_counter()
+        w[name] = ev.eval_weights_batch(tree, reps)
+        sync(device)
+        w[f"{name}_s"] = time.perf_counter() - t1
+    wcounts = read_counts()
+    check(np.array_equal(w["2x2"], w["2x1"]) and np.isfinite(w["2x2"]).all()
+          and wcounts["b1"] == (2 * SHARDS if device.type == "cuda"
+                                 else 0), "mesh bootstrap: 2x2 "
+          f"{w['2x2'][:2].tolist()} against 2x1 {w['2x1'][:2].tolist()}, "
+          f"B1 {wcounts['b1']}")
+    out["bootstrap"] = {"replicates": FLEET_REPLICATES, "counts": wcounts,
+                        "wall_2x2_s": w["2x2_s"], "wall_2x1_s": w["2x1_s"]}
+    del inst, tree, ev22, ev, w
+    release_memory()
+    # (b) the AA + BIN batch.
+    aa = aa_setup(seed)
+    inst, _ = aa_instance(aa, device, "chunk",
+                          sharding=mesh_fabric(device, 1))
+    out["aa"] = mesh_batch(inst, fleet_trees(inst, seed, FLEET_AA_JOBS),
+                           device, "mesh AA + BIN", fleet["aa"]["lnl"])
+    del inst, aa
+    release_memory()
+    # (c) batched smoothing of the gene trees.
+    gene = real_setup(FLEET_GENE[0], 1, FLEET_GENE[1], seed)
+    runs = {}
+    for name, sharding in (("one", None), ("2x1", mesh_fabric(device, 1)),
+                           ("2x2", mesh_fabric(device, 2))):
+        ginst, _ = real_instance(gene, device, "chunk", sharding=sharding)
+        ev = ginst.batch_evaluator()
+        preps = [ev.prepare(t) for t in fleet_trees(ginst, seed,
+                                                    FLEET_GENE_JOBS)]
+        reset_counts()
+        runs[name] = mesh_sweeps(ev, preps, MESH_SMOOTHINGS)
+        runs[name]["counts"] = read_counts()
+        del ginst, ev, preps
+    n = {k: len(r["sweeps"]) for k, r in runs.items()}
+    zrel = float(np.max(np.abs(runs["2x2"]["z"] - runs["one"]["z"])
+                        / np.abs(runs["one"]["z"])))
+    same = n["2x1"] == n["2x2"] and all(
+        np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+        for a, b in zip(runs["2x1"]["sweeps"], runs["2x2"]["sweeps"]))
+    check(n["one"] == n["2x1"] == n["2x2"] and same and zrel <= SHARD_RTOL
+          and np.array_equal(runs["2x1"]["z"], runs["2x2"]["z"]),
+          f"mesh smoothing: sweeps {n}, d1/d2 2x1 = 2x2 {same}, branches "
+          f"rel {zrel:.2e} of one card")
+    out["smoothing"] = {"jobs": FLEET_GENE_JOBS, "sweeps": n, "z_rel": zrel,
+                        "wall_s": {k: r["wall_s"] for k, r in runs.items()},
+                        "counts": runs["2x2"]["counts"]}
+    del runs
+    release_memory()
+    # (e) the PSR fleet through the driver.
+    data = read_bytefile(fd["aln"])
+    psr = {}
+    reset_counts()
+    for name, t in (("2x1", 1), ("2x2", 2)):
+        pinst = PhyloInstance(data, dtype=torch.float32, device=device,
+                              rate_model="PSR", sharding=mesh_fabric(device,
+                                                                     t))
+        t1 = time.perf_counter()
+        res = FleetDriver(pinst, batch_cap=LANE_PSR_JOBS).run(
+            jobs.make_jobs("start", LANE_PSR_JOBS, seed))
+        sync(device)
+        psr[name] = {"lnl": [j.lnl for j in res],
+                     "wall_s": time.perf_counter() - t1}
+        check(all(j.done and not j.failed for j in res),
+              f"mesh PSR {name}: jobs left undone")
+        del pinst
+    pcounts = read_counts()
+    check(psr["2x1"]["lnl"] == psr["2x2"]["lnl"] and pcounts["b1"] == 0
+          and pcounts["partial_traversals"] == 2 * SHARDS * LANE_PSR_JOBS,
+          f"mesh PSR: 2x2 {psr['2x2']['lnl']} against 2x1 "
+          f"{psr['2x1']['lnl']}; B1 {pcounts['b1']}, "
+          f"{pcounts['partial_traversals']} wave-scan traversals")
+    out["psr"] = dict(psr, counts=pcounts)
+    release_memory()
+    out["wall_s"] = time.perf_counter() - t0
+    for k in ("dna", "aa"):
+        r = out[k]
+        log(f"  ({'a' if k == 'dna' else 'b'}) {r['jobs']} {k.upper()} jobs "
+            f"as one batch on 2x2 of {device} four times: slices "
+            f"{r['slice_jobs'][0]}/{r['slice_jobs'][1]}, B1 "
+            f"{r['counts']['b1']} launches over {r['counts']['fleet_tables']}"
+            f" tables; every row bit for bit the 2x1 evaluate, rel "
+            f"{r['rel_one_card']:.2e} of one card; batch {r['2x2_s'] * 1e3:.1f}"
+            f" ms (first {r['2x2_first_s'] * 1e3:.1f}), 2x1 "
+            f"{r['2x1_s'] * 1e3:.1f} ms (first {r['2x1_first_s'] * 1e3:.1f})"
+            + (f"; one lane {r['one_lane_s'] * 1e3:.1f} ms (phase 23), 1x2 "
+               f"{r['mesh_1x2_s'] * 1e3:.1f} ms (phase 28, its first batch)"
+               if k == "dna" else "") + f" [{smi}]")
+    sm = out["smoothing"]
+    log(f"  (c) smooth_batch of {FLEET_GENE_JOBS} gene trees ({FLEET_GENE[0]}"
+        f" taxa x {FLEET_GENE[1]} columns): {sm['sweeps']['2x2']} sweeps on "
+        f"one card, 2x1 and 2x2, d1/d2 bit for bit 2x1 = 2x2, branches rel "
+        f"{sm['z_rel']:.2e} of one card; "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in sm["wall_s"].items()))
+    b = out["bootstrap"]
+    log(f"  (d) {FLEET_REPLICATES} bootstrap replicates on 2x2 bit for bit "
+        f"2x1: {b['wall_2x2_s'] * 1e3:.1f} ms against "
+        f"{b['wall_2x1_s'] * 1e3:.1f} ms, B1 {b['counts']['b1']}")
+    log(f"  (e) PSR: {LANE_PSR_JOBS} start jobs through the driver on 2x2 "
+        f"{psr['2x2']['wall_s']:.2f} s, 2x1 {psr['2x1']['wall_s']:.2f} s "
+        "(first calls included); lnL bit for bit, no B1 launch")
     return out
 
 
@@ -7046,7 +7322,8 @@ def bf16_spills(ptxas: dict) -> dict:
 
 def kernels_line(real, real_whole, search, scan, grad, anchor_whole,
                  restart, aa_cli, real_aa, fq, sev, sev_cli, cases,
-                 whole_cases, bf16, site, fleet, lanes, site_axis) -> list:
+                 whole_cases, bf16, site, fleet, lanes, site_axis,
+                 mesh) -> list:
     """The kernels line: each kernel's row, with its instances by K; B1's
     bfloat16-storage instances in a row of their own."""
     # Each kernel's launches on the main paths of this run, each path
@@ -7067,7 +7344,9 @@ def kernels_line(real, real_whole, search, scan, grad, anchor_whole,
     # (the two-lane fleet, the 1x2 fabric, the CLI runs); and on phase 29's
     # site shards (B1 and B2 once a shard on the real-size evaluate, B1's
     # bf16 instance, the ref49 anchors and B2 on its -f e through the CLI,
-    # B1 on the -f d run with no mesh).  The PSR and
+    # B1 on the -f d run with no mesh); and B1 on phase 30's fleet over site
+    # shards (once a lane and engine a 2x2 batch, DNA and AA + BIN; the
+    # weights batches' CLV passes; the smoothing sweeps).  The PSR and
     # -S paths launch neither (their traversals run on the wave-scan and
     # pooled tiers).  `by_K` splits
     # each kernel's row by instance: the launches by state count, and its
@@ -7107,6 +7386,8 @@ def kernels_line(real, real_whole, search, scan, grad, anchor_whole,
                  site_axis["cli"]["fd"]["counts"]]
     b2_paths += [site_axis["whole"]["counts"],
                  ref49["anchors"]["whole"]["counts"], ref49["fe"]["counts"]]
+    b1_paths += [mesh[k]["counts"] for k in ("dna", "aa", "bootstrap",
+                                             "smoothing")]
 
     def by_k(key, paths, dna, tier, checks):
         """Each instance's launches on the main paths, its real-size time
@@ -7437,6 +7718,15 @@ def main(argv=None) -> int:
               "through the CLI")
         lanes = phase_lanes(device, lanes_in, search,
                             side_log(side, "lanes_cli"), args.seed)
+
+        phase("the fleet over site shards: a 2x2 fabric of the card four "
+              "times over phase 23's real-size DNA and AA + BIN jobs, "
+              "batched smoothing, bootstrap weights and a PSR fleet against "
+              "2x1 and one card")
+        lanes_in.pop("inst")
+        release_memory()
+        mesh = phase_mesh(device, setup, lanes_in, fleet, lanes, search,
+                          smi, args.seed)
         del lanes_in
         release_memory()
 
@@ -7444,7 +7734,7 @@ def main(argv=None) -> int:
         kernels = kernels_line(real, real_whole, search, scan, grad,
                                anchor_whole, restart, aa_cli, real_aa, fq,
                                sev, sev_cli, cases, whole_cases, bf16,
-                               site, fleet, lanes, site_axis)
+                               site, fleet, lanes, site_axis, mesh)
 
         phase("instruments on the card: -f d with --metrics/--ledger/"
               "--trace-events, -f e --profile, real-size evaluate off/"
@@ -7485,6 +7775,7 @@ def main(argv=None) -> int:
               "real_size_quartets": real_fq, "sev": sev,
               "sev_cli": sev_cli, "bf16": bf16, "site_parallel": site,
               "fleet": fleet, "lanes": lanes, "site_axis": site_axis,
+              "mesh": mesh,
               "instruments": instruments,
               "supervision": supervision, "bank": bank_phase,
               "ptxas": ptxas,
@@ -7585,6 +7876,16 @@ def main(argv=None) -> int:
         "fd_no_mesh": {m: site_axis["cli"]["fd"][m]
                        for m in ("final_lnl", "wall_s")},
         "wall_s": site_axis["wall_s"]}}))
+    log(json.dumps({"mesh": {
+        **{k: {m: mesh[k][m] for m in (
+            "jobs", "slice_jobs", "2x2_s", "2x2_first_s", "2x1_s",
+            "2x1_first_s", "rel_one_card")} for k in ("dna", "aa")},
+        "smoothing": {m: mesh["smoothing"][m] for m in (
+            "sweeps", "z_rel", "wall_s")},
+        "bootstrap": {m: mesh["bootstrap"][m] for m in (
+            "wall_2x2_s", "wall_2x1_s")},
+        "psr_wall_s": {k: mesh["psr"][k]["wall_s"] for k in ("2x1", "2x2")},
+        "wall_s": mesh["wall_s"]}}))
     log(json.dumps({"instruments": {
         "evaluate_median_ms": instruments["evaluate"]["median_ms"],
         "spans_per_evaluate": instruments["evaluate"]["spans_per_evaluate"],

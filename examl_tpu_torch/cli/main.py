@@ -19,7 +19,7 @@ dispatched at `main` :2719-2781).
         (-b K -t tree | -N K | --serve jobs.jsonl) [--fleet-batch J] \\
         [--fleet-cycles C] [--fleet-job-attempts A] [--serve-poll S] \\
         [--serve-max-pending P] [--fleet-job-deadline S] \\
-        [--fleet-lease-ttl T] [--fleet-devices D | --mesh 1xT] \\
+        [--fleet-lease-ttl T] [--fleet-devices D | --mesh SxT] \\
         [--single-device] [--nprocs N --procid K] [-R] [-p seed]
 
 Modes: `-f d` (the default) runs the RAxML SPR hill climb
@@ -47,10 +47,10 @@ starting trees, and `--serve` the jobs of a JSONL file as they are
 appended; tree jobs batch through one launch of kernel B1 whatever their
 topologies, and every job lands in ExaML_fleet.RUN.  `--fleet-devices D`
 cuts up to one batch a round per lane on D cards (0 = every visible
-card; fleet/shard.py), `--mesh 1xT` (or EXAML_MESH) cuts each batch over
-the T tree slices of a likelihood fabric, and `--single-device` keeps
-the run on one card.  A fleet over site shards (a mesh with S > 1) is
-refused: it is not ported.
+card; fleet/shard.py), `--mesh SxT` (or EXAML_MESH) cuts each batch over
+the T tree slices of a likelihood fabric, each slice's jobs with their
+sites over its S cards, and `--single-device` keeps the run on one
+card.
 
 Without `--single-device` a run of the other modes splits its packed
 site blocks over every visible card when there are two or more (one
@@ -925,16 +925,6 @@ def _check_mesh_args(ap, args, fleet_modes: int):
     return shape
 
 
-def _refuse_fleet_site_axis(ap, mesh_shape) -> None:
-    """After the JAX CLI's own mesh checks: a fleet over a mesh with S > 1
-    site shards (A15c) is not ported."""
-    if mesh_shape is not None and mesh_shape[0] > 1:
-        s, t = mesh_shape
-        ap.error(f"mesh {s}x{t}: a fleet over site shards (S > 1) is not "
-                 "ported (ROADMAP A15c); fleet modes run whole-card lanes "
-                 f"(--fleet-devices) or tree slices (--mesh 1x{t})")
-
-
 def _refuse_ranks_with_site_axis(ap, args, mesh_shape) -> None:
     """A declared site axis runs in one process; the ranks of `--nprocs N
     > 1` (a process group) hold one card each."""
@@ -1011,7 +1001,6 @@ def _check_fleet_args(ap, args) -> None:
                      "which spawns the ranks)")
         args._fleet_rank = (args.procid or 0, args.nprocs or 1)
         args.nprocs = args.coordinator = args.procid = None
-    _refuse_fleet_site_axis(ap, mesh_shape)
     if mesh_shape is None:
         args.single_device = True
 

@@ -140,36 +140,50 @@ def batch_eligible(inst) -> Optional[str]:
     if inst.save_memory:
         return "-S SEV pools hold one arena per instance"
     if inst.group.size > 1:
-        return "site-parallel ranks hold one block window each"
-    if inst.site_shards > 1:
-        return ("site shards hold one block window each (a fleet over "
-                "site shards is ROADMAP A15c)")
+        return "multi-process sharded arenas cannot stack per job"
     return None
 
 
 class BatchEvaluator:
     """Batched evaluation over one PhyloInstance (all engines).  `log`
-    receives the note of a batch cut to fit the card's memory."""
+    receives the note of a batch cut to fit the card's memory.
 
-    def __init__(self, inst, log=None):
+    `shard`: over an instance of S > 1 site shards, the evaluator of
+    shard `shard`'s engines alone, on its card: its rows are that
+    window's partial sums, which fleet/shard.py's `SiteLanes` adds up
+    over the shards (an instance over site shards batches through
+    `inst.batch_evaluator()`)."""
+
+    def __init__(self, inst, log=None, shard: Optional[int] = None):
         reason = batch_eligible(inst)
         if reason is not None:
             raise ValueError(f"batched tier unavailable: {reason}")
+        if shard is None and inst.site_shards > 1:
+            raise ValueError(
+                f"an instance over {inst.site_shards} site shards batches "
+                "one lane a shard (inst.batch_evaluator(): SiteLanes or "
+                "MeshShard, fleet/shard.py)")
         self.inst = inst
-        self.engines = list(inst.engines.values())
+        self.shard = shard
+        self.engines = [e.shards[shard or 0] for e in inst.engines.values()]
         eng = self.engines[0]
         self.ntips = eng.ntips
         self.C = inst.num_branch_slots
         self.fast = not eng.psr and eng.fast_slack > 0
         self.wave_width = eng.wave_width
         self.log = log or (lambda *_: None)
-        # The lane: its device (the instance's for the primary), its own
-        # CUDA stream (made at the first launch) and its index in the
+        # The lane: its device (the instance's, or its shard's, for the
+        # primary), its own CUDA stream (made at the first launch), the
+        # stream whose work its launches wait for besides the caller's
+        # (a site shard's worker stream, `after`), and its index in the
         # driver's counters.
-        self.device = _indexed(inst.device)
+        self.device = _indexed(eng.device)
         self.index = 0
         self.seam = "fleet.batch_arenas"
         self.stream = None
+        self.after = None
+        if shard and inst.shard_pool is not None:
+            self.after = inst.shard_pool.streams[shard]
         # The stacked arenas' ready flags, one set per engine (the
         # engine's own flags belong to its own arena), for the launches on
         # the lane's stream, and a second set for those on any other
@@ -200,6 +214,8 @@ class BatchEvaluator:
         if self.stream is None:
             self.stream = torch.cuda.Stream(self.device)
         self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        if self.after is not None:
+            self.stream.wait_stream(self.after)
         with torch.cuda.stream(self.stream):
             yield
 
@@ -398,10 +414,15 @@ class BatchEvaluator:
     def collect(self, pending: PendingBatch) -> np.ndarray:
         """A launched batch's per-job per-partition lnL [J, M]: wait for
         its event, then read its rows back once."""
+        return self._scatter(self._host_rows(pending))
+
+    def _host_rows(self, pending: PendingBatch) -> np.ndarray:
+        """A launched batch's device rows on the host, as computed (the
+        columns of `columns`): wait for its event, then one read-back."""
         if pending.done is not None:
             pending.done.synchronize()
         with self._on_lane():
-            return self._read_back(pending.out)
+            return pending.out.cpu().numpy()
 
     def _roots(self, eng, jobs, gidx):
         """Every job's root branch on the device, two transfers: the
@@ -459,10 +480,9 @@ class BatchEvaluator:
                 site_rates))
         return torch.stack(out)
 
-    def _read_back(self, out: torch.Tensor) -> np.ndarray:
-        """A batch's per-job per-partition lnL [J, M] from its device rows
-        (columns in `columns` order), read back once."""
-        vals = out.cpu().numpy()
+    def _scatter(self, vals: np.ndarray) -> np.ndarray:
+        """Per-job per-partition lnL [J, M] from a batch's host rows
+        (columns in `columns` order)."""
         per_part = np.full((vals.shape[0], len(self.inst.models)), np.nan)
         per_part[:, self.columns] = vals
         return per_part
@@ -474,10 +494,21 @@ class BatchEvaluator:
         stacked post-order, then each job's whole-tree gradient pass on
         its slice (the tree's branch vectors re-read: smoothing moves
         them between sweeps)."""
+        self._grad_plans(jobs)
+        return self._grad_rows(jobs)
+
+    def _grad_plans(self, jobs: List[PreparedJob]) -> None:
+        """Each job's traversal with its current branch vectors, and its
+        gradient plan (kept while the topology holds)."""
         for j in jobs:
             j.flat = j.tree.flat_full_traversal(j.p)
             if j.gs is None:
                 j.gs = gradient.build_structure(j.flat, self.wave_width)
+
+    def _grad_rows(self, jobs: List[PreparedJob]):
+        """`_grad_batch` after `_grad_plans`: each engine's gradient pass
+        reduces its sums over the engine's group (a site shard's over
+        the shards, so every shard runs this at once)."""
         d1 = d2 = None
         for eng in self.engines:
             eng._outroot_arena()          # allocated before _parts measures
@@ -561,6 +592,11 @@ class BatchEvaluator:
             return self._weights_rows(p, per_job_weights)
 
     def _weights_rows(self, p, per_job_weights) -> np.ndarray:
+        return self._scatter(self._weights_host(p, per_job_weights))
+
+    def _weights_host(self, p, per_job_weights) -> np.ndarray:
+        """The weights batch's rows [J, columns] from the engines' live
+        arenas (current for the tree at p), read back once."""
         outs = []
         for eng in self.engines:
             # Converted on the device: one transfer, no host pass.
@@ -573,7 +609,7 @@ class BatchEvaluator:
                 eng.scale_exp, eng.site_rates)
             outs.append(kernels.weighted_root_sums(w, terms, eng.block_part,
                                                    eng.num_parts))
-        return self._read_back(torch.cat(outs, dim=1))
+        return torch.cat(outs, dim=1).cpu().numpy()
 
 
 def _indexed(device) -> torch.device:

@@ -60,12 +60,16 @@ def packed_weights(bucket, per_part: List[np.ndarray]) -> np.ndarray:
 
 def packed_weights_batch(bucket, per_job: List[List[np.ndarray]]
                          ) -> np.ndarray:
-    """`packed_weights` of J replicates at once: [J, B, lane].  A
-    partition's patterns are one run of the padded axis
-    (`bucket.site_indices`), so each is one slice assignment."""
+    """`packed_weights` of J replicates at once: [J, B, lane], B the
+    bucket's block window (the whole axis on a global bucket; a site
+    shard's or a rank's window of it).  A partition's patterns are one
+    run of the padded axis (`bucket.site_indices`), so each is one slice
+    assignment."""
     packed = np.zeros((len(per_job), bucket.num_sites))
     for li, gid in enumerate(bucket.part_ids):
         o = int(bucket.part_offsets[li])
         packed[:, o:o + int(bucket.part_widths[li])] = np.stack(
             [w[gid] for w in per_job])
-    return packed.reshape(len(per_job), bucket.num_blocks, bucket.lane)
+    b0 = bucket.block_offset
+    return packed.reshape(len(per_job), bucket.num_blocks, bucket.lane)[
+        :, b0:b0 + bucket.local_num_blocks]

@@ -54,8 +54,10 @@ first, under `memgov.effective_cap`.  A round admits every lane's arena
 first (`admit`: reserved on its card), launches every lane (each on its
 own stream, no host sync), then collects each and runs it through the
 job-level fault ladder (`_isolate_launched`: the launched outcome stands
-in for the ladder's first dispatch).  On a `1xT` fabric the instance's
-evaluator is a MeshShard, one lane whose batches span the T tree slices.
+in for the ladder's first dispatch).  On an `SxT` fabric the instance's
+evaluator is a MeshShard, one lane whose batches span the T tree slices
+and each slice's S site shards; over site shards (S > 1) whole-card
+lanes are refused.
 """
 
 from __future__ import annotations
@@ -73,6 +75,7 @@ from examl_tpu_torch.fleet import lease as _lease
 from examl_tpu_torch.fleet import quarantine
 from examl_tpu_torch.fleet.batch import WEIGHTS_GROUP, batch_eligible
 from examl_tpu_torch.fleet.jobs import JobSpec
+from examl_tpu_torch.fleet.shard import lane_devices
 from examl_tpu_torch.obs import programs as _programs
 from examl_tpu_torch.resilience import faults, heartbeat, memgov, preempt
 
@@ -89,13 +92,19 @@ class FleetDriver:
         """devices: the fleet's lanes: 1 (one lane, the instance's
         evaluator), 0 (a lane per visible card), N (the first N cards), or
         from Python an explicit device list, which may name one card more
-        than once (lanes that share it).  An instance over site shards
-        (`--mesh Sx1`, S > 1) is refused: a fleet over site shards is not
-        ported (ROADMAP A15c)."""
-        if getattr(inst, "site_shards", 1) > 1:
+        than once (lanes that share it).  Over an instance of site shards
+        (`--mesh SxT`, S > 1) the fleet's lanes are the fabric's (its
+        evaluator's site lanes and tree slices), and whole-card lanes are
+        refused: such a lane needs the whole tree's constants on one
+        card, and the shards hold windows of them."""
+        if getattr(inst, "site_shards", 1) > 1 and \
+                (not isinstance(devices, int) or devices != 1):
             raise ValueError(
-                f"a fleet over {inst.site_shards} site shards is not ported "
-                "(ROADMAP A15c): build the fleet's instance on one card")
+                f"whole-card fleet lanes over an instance of "
+                f"{inst.site_shards} site shards: a whole-card lane needs "
+                "the whole tree's constants on one card, and the shards "
+                "hold windows of them; the fabric's tree slices are the "
+                "fleet's lanes (--mesh SxT)")
         self.inst = inst
         self.start_tree = start_tree          # bootstrap topology (+ ckpt
         self.batch_cap = max(1, int(batch_cap))   # scaffold)
@@ -134,8 +143,10 @@ class FleetDriver:
                      f"{self.evaluator.tree_shards}")
             self.log(f"fleet: batches dispatch on the {shape} likelihood "
                      "fabric (each batch's jobs cut over its tree slices: "
-                     + ", ".join(str(s.device)
-                                 for s in self.evaluator.slices) + ")")
+                     + ", ".join(
+                         f"t{k} " + "+".join(str(d) for d in lane_devices(s))
+                         for k, s in enumerate(self.evaluator.slices))
+                     + ")")
             if self.leases is not None:
                 self.leases.mesh = shape
         self.jobs: List[JobSpec] = []
@@ -633,7 +644,8 @@ class FleetDriver:
             obs.gauge("fleet.trees_per_sec", round(njobs / dt, 3))
         # Memory telemetry over every lane's device, once a round.
         lanes = (self.shards.devices() if self.shards is not None else
-                 [s.device for s in getattr(self.evaluator, "slices", ())])
+                 [d for s in getattr(self.evaluator, "slices", ())
+                  for d in lane_devices(s)])
         _programs.sample_memory(devices=lanes or None)
 
     def _admit(self, shard, batch: List[JobSpec]):
@@ -667,7 +679,8 @@ class FleetDriver:
             # which ends the run.
             memgov.oom_event(outcome, seam="fleet.dispatch")
             for eng in self.inst.engines.values():
-                memgov.evict_engine(eng)
+                for shard in eng.shards:
+                    memgov.evict_engine(shard)
 
         def evaluate(b, nested):
             try:
@@ -859,17 +872,22 @@ class FleetDriver:
         self.inst.evaluate(tree, full=True)
         out = []
         p = tree.centroid_branch()
+
+        def swapped(eng, per_part):
+            saved = eng.weights
+            eng.weights = torch.as_tensor(
+                _bootstrap.packed_weights(eng.bucket, per_part),
+                dtype=eng.dtype, device=eng.device)
+            try:
+                return eng.evaluate(p.number, p.back.number, p.z)
+            finally:
+                eng.weights = saved
+
         for per_part in weights:
             row = np.full(len(self.inst.models), np.nan)
             for eng in self.inst.engines.values():
-                saved = eng.weights
-                eng.weights = torch.as_tensor(
-                    _bootstrap.packed_weights(eng.bucket, per_part),
-                    dtype=eng.dtype, device=eng.device)
-                try:
-                    vals = eng.evaluate(p.number, p.back.number, p.z)
-                finally:
-                    eng.weights = saved
+                # On every site shard at once: the evaluate reduces.
+                vals = eng.on_shards(swapped, per_part)
                 for li, gid in enumerate(eng.bucket.part_ids):
                     row[gid] = vals[li]
             out.append(row)

@@ -2,10 +2,10 @@
 
 The port of `examl_tpu/instance.py`, under GAMMA or PSR
 rate heterogeneity, in one process or as one rank of a site-parallel run
-(parallel/sharding.py), on one card or over the site shards of an `Sx1`
-mesh (parallel/shards.py), on dense CLV arenas or SEV pools (`-S`): owns the
-per-partition model parameters (GTR, empirical protein matrices,
-LG4M/LG4X, AUTO's current choice), the
+(parallel/sharding.py), on one card or over the site shards of a mesh's
+first tree slice (parallel/shards.py), on dense CLV arenas or SEV pools
+(`-S`): owns the per-partition model parameters (GTR, empirical protein
+matrices, LG4M/LG4X, AUTO's current choice), the
 per-site rate state under PSR, the packed site buckets (one engine per
 state count) and the CLV orientation bookkeeping against a host `Tree`
 (reference `evaluateGeneric`, `newviewGeneric`, `makenewzGeneric`,
@@ -111,16 +111,13 @@ class PhyloInstance:
         together by a ShardPool (parallel/shards.py; `self.engines` holds
         ShardedEngines); `device` is then the first shard's card.  T > 1
         tree slices: the fleet's batches run through a MeshShard
-        (fleet/shard.py).  Both at once (ROADMAP A15c), a site mesh in a
-        rank of a site-parallel run, and T > 1 with save_memory
-        raise."""
+        (fleet/shard.py).  Both at once: this instance is the `Sx1` one
+        over tree slice 0's S cards, and the MeshShard's slices k >= 1
+        copy its shards' constants to theirs.  A site mesh in a rank of
+        a site-parallel run, and T > 1 with save_memory (the engines'
+        check), raise."""
         self.site_shards = sharding.site_shards if sharding else 1
         if self.site_shards > 1:
-            if sharding.tree_shards > 1:
-                raise ValueError(
-                    f"a {self.site_shards}x{sharding.tree_shards} mesh: a "
-                    "fleet over site shards (S > 1 and T > 1) is not "
-                    "ported (ROADMAP A15c); use Sx1 or 1xT")
             if group.size > 1 or local_window is not None:
                 raise ValueError(
                     "site shards in one process cannot split a rank's "
@@ -335,7 +332,8 @@ class PhyloInstance:
         (fleet/batch.py), or None where `batch.batch_eligible` gives a
         reason; one per instance, made at the first call.  On a fabric
         (`sharding`) the MeshShard evaluator: each batch's jobs cut over
-        the tree slices (fleet/shard.py)."""
+        the tree slices, and each slice's over its site shards; over the
+        site shards of a 1-D mesh the SiteLanes (fleet/shard.py)."""
         ev = getattr(self, "_batch_evaluator", None)
         if ev is None:
             from examl_tpu_torch.fleet.batch import (BatchEvaluator,
@@ -344,9 +342,13 @@ class PhyloInstance:
                 return None
             if self.sharding is not None and self.sharding.is_fabric:
                 from examl_tpu_torch.fleet.shard import MeshShard
-                ev = self._batch_evaluator = MeshShard(self)
+                ev = MeshShard(self)
+            elif self.site_shards > 1:
+                from examl_tpu_torch.fleet.shard import SiteLanes
+                ev = SiteLanes(self)
             else:
-                ev = self._batch_evaluator = BatchEvaluator(self)
+                ev = BatchEvaluator(self)
+            self._batch_evaluator = ev
         return ev
 
     # -- CLV orientation / traversal ---------------------------------------

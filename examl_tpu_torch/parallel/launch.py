@@ -56,9 +56,10 @@ def add_launch_args(parser) -> None:
                         "cards; Sx1 splits each tree's sites over S cards "
                         "in this process; T>1 requires a fleet mode "
                         "(-b/-N/--serve) and cuts each batch's jobs into T "
-                        "slices, one launch table each on its slice's "
-                        "card.  S>1 with T>1 is not ported.  EXAML_MESH=SxT "
-                        "is the env equivalent (the flag wins)")
+                        "slices, one launch table each on every card of "
+                        "its slice (e.g. --mesh 2x2 on 4 cards).  "
+                        "EXAML_MESH=SxT is the env equivalent (the flag "
+                        "wins)")
 
 
 def launch_requested(args) -> bool:
@@ -212,16 +213,17 @@ def select_sharding(args, save_memory: bool = False,
                     log=lambda msg: None, device=None):
     """The run's sharding, or None for one card.  A declared mesh
     (`--mesh SxT` / EXAML_MESH): None for 1x1, else the (sites, tree)
-    fabric of parallel/sharding.py over the first S*T visible cards
-    (`Sx1`: S site shards of each tree, parallel/shards.py; `1xT`: the
-    fleet's tree slices); S > 1 with T > 1 raises (ROADMAP A15c), and so
-    does a mesh the visible cards cannot hold ("... needs N devices
-    ..."), both ValueError.  Without a mesh: a 1-D site mesh over every
-    visible card when there are two or more (the JAX package's default;
-    -S shards too: a pool region per card), None for a rank of `--nprocs
-    N > 1` or of a supervised gang (each rank keeps its card) and for a
-    run whose `device` is the CPU.  --single-device gives None either way (the CLI refuses it with
-    a mesh other than 1x1)."""
+    fabric of parallel/sharding.py over the first S*T visible cards, the
+    site axis outermost (S site shards of each tree, parallel/shards.py;
+    T tree slices of the fleet's batches, fleet/shard.py; both at once
+    for a fleet over site shards); a mesh the visible cards cannot hold
+    raises ValueError ("... needs N devices ...").  Without a mesh: a
+    1-D site mesh over every visible card when there are two or more
+    (the JAX package's default; -S shards too: a pool region per card),
+    None for a rank of `--nprocs N > 1` or of a supervised gang (each
+    rank keeps its card) and for a run whose `device` is the CPU.
+    --single-device gives None either way (the CLI refuses it with a
+    mesh other than 1x1)."""
     from examl_tpu_torch.parallel.sharding import (fabric_sharding,
                                                    make_fabric_mesh,
                                                    make_mesh,
@@ -235,12 +237,6 @@ def select_sharding(args, save_memory: bool = False,
         s, t = parse_mesh_spec(spec)
         if s == t == 1:
             return None
-        if s > 1 and t > 1:
-            raise ValueError(
-                f"mesh {s}x{t}: a fleet over site shards (S > 1 and T > 1: "
-                "each tree slice's jobs with their sites over S cards) is "
-                f"not ported (ROADMAP A15c); run --mesh {s}x1 for one "
-                f"tree's sites, or --mesh 1x{t} for the fleet's tree axis")
         sh = fabric_sharding(make_fabric_mesh(s, t))
         if save_memory:
             log(f"-S (SEV) sharded: per-device CLV pool regions over {s} "

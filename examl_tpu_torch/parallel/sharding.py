@@ -27,9 +27,9 @@ acceptance) is taken alike on every rank.  `SINGLE`, the world of one,
 returns its inputs unchanged, so a single-process run pays nothing.
 
 Below the groups: the (sites, tree) fabric's records, the declared
-layouts the JAX package's `--mesh SxT` builds, of which the port runs
-the site axis (`Sx1`, parallel/shards.py) and the tree axis (`1xT`,
-fleet/shard.py).
+layouts the JAX package's `--mesh SxT` builds; the port runs the site
+axis in parallel/shards.py and the tree axis, over the site shards of
+each slice, in fleet/shard.py.
 """
 
 from __future__ import annotations
@@ -168,12 +168,12 @@ class ThreadSiteGroup(SiteGroup):
 # and the fleet's stacked per-job leaves are partitioned over the T tree
 # slices.  The port keeps the mesh as a plain record (an S x T array of
 # torch devices and the axis names) and runs each axis itself.  The
-# site axis (`Sx1`): one engine set per card, a thread each, over its
-# block window, the site sums reduced through `ThreadSiteGroup`s
-# (parallel/shards.py).  The tree axis (`1xT`): `fleet/shard.py:
-# MeshShard` cuts each batch's jobs into T slices, one launch table each
-# on its slice's device and stream.  Both at once (S > 1 and T > 1, a
-# fleet over site shards) is not ported (ROADMAP A15c).
+# site axis: one engine set per card of tree slice 0, a thread each,
+# over its block window, the site sums reduced through
+# `ThreadSiteGroup`s (parallel/shards.py).  The tree axis:
+# `fleet/shard.py: MeshShard` cuts each batch's jobs into T slices, one
+# launch table each on every card of its slice (`slice_devices`), a
+# lane per site shard whose rows the slice sums in rank order.
 
 TREE_AXIS = "tree"
 
@@ -250,15 +250,17 @@ class SiteSharding:
 
     def site_devices(self) -> list:
         """The device of each site shard (of tree slice 0)."""
+        return self.slice_devices(0)
+
+    def slice_devices(self, k: int) -> list:
+        """The device of each site shard of tree slice k
+        (`mesh.devices[:, k]`; the site devices on a 1-D mesh, k = 0)."""
+        if not 0 <= k < self.tree_shards:
+            raise ValueError(f"tree slice {k} outside [0, "
+                             f"{self.tree_shards})")
         if not self.is_fabric:
             return list(self.mesh.devices)
-        return list(self.mesh.devices[:, 0])
-
-    def tree_devices(self) -> list:
-        """The device of each tree slice (site shard 0 of the slice)."""
-        if not self.is_fabric:
-            return [self.mesh.devices.flat[0]]
-        return list(self.mesh.devices[0])
+        return list(self.mesh.devices[:, k])
 
 
 def visible_devices() -> list:

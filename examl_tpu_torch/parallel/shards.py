@@ -61,15 +61,17 @@ class _Call:
         self.done = threading.Event()
 
 
-def _serve(rank: int, inbox, board: ShardBoard, dev) -> None:
-    """Worker `rank`'s loop: its card current, its own stream, its
-    instruments quiet; a call that raises aborts the board."""
+def _serve(rank: int, inbox, board: ShardBoard, dev, streams: list) -> None:
+    """Worker `rank`'s loop: its card current, its own stream (published
+    in `streams`), its instruments quiet; a call that raises aborts the
+    board."""
     import torch
     obs.set_quiet(True)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
         stream = torch.cuda.Stream(dev)
         torch.cuda.set_stream(stream)
+        streams[rank] = stream
     while True:
         call = inbox.get()
         if call is None:
@@ -97,13 +99,17 @@ class ShardPool:
         self.groups = [ThreadSiteGroup(r, self.size, self.board)
                        for r in range(self.size)]
         self._inbox = [queue.SimpleQueue() for _ in range(self.size)]
+        # Each worker's CUDA stream (None for rank 0, which runs on the
+        # caller's, and on the CPU): the work a shard's ops queued there
+        # is what a fleet lane over the shard waits for.
+        self.streams: List = [None] * self.size
         self._threads = []
         for r in range(1, self.size):
             # The thread holds the pool's parts, not the pool: a pool
             # nothing else holds is collected and stops its threads.
             t = threading.Thread(
                 target=_serve, args=(r, self._inbox[r], self.board,
-                                     self.devices[r]),
+                                     self.devices[r], self.streams),
                 daemon=True, name=f"site-shard-{r}")
             t.start()
             self._threads.append(t)

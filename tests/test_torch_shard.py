@@ -335,10 +335,11 @@ def test_bank_declared_mesh_equals_jax(monkeypatch):
     assert tdecl(ns(None)) is None and tdecl(ns("1x1")) is None
 
 
-def test_select_sharding():
-    """None for one card (no mesh, 1x1, --single-device); an Sx1 mesh is
-    the site axis (tests/test_torch_site_axis.py runs it), and S > 1
-    with T > 1 is refused, naming ROADMAP A15c."""
+def test_select_sharding(monkeypatch):
+    """None for one card (no mesh, 1x1, --single-device); a mesh the
+    visible cards cannot hold raises with the device arithmetic, SxT with
+    S > 1 and T > 1 (a fleet over site shards) as any other; over four
+    cards 2x2 is the (sites, tree) fabric of the first four."""
     from examl_tpu_torch.parallel import launch
     ns = lambda **kw: argparse.Namespace(**dict(  # noqa: E731
         dict(mesh=None, single_device=False), **kw))
@@ -347,12 +348,18 @@ def test_select_sharding():
     assert launch.select_sharding(ns(), device="cpu") is None
     assert launch.select_sharding(ns(mesh="1x1")) is None
     assert launch.select_sharding(ns(mesh="1x2", single_device=True)) is None
-    with pytest.raises(ValueError, match="S > 1 and T > 1.*ROADMAP A15c"):
-        launch.select_sharding(ns(mesh="2x2"))
+    if torch.cuda.device_count() < 4:
+        with pytest.raises(ValueError, match="mesh 2x2 needs 4 devices"):
+            launch.select_sharding(ns(mesh="2x2"))
     if torch.cuda.device_count() < 2:
         for spec in ("1x2", "2x1"):
             with pytest.raises(ValueError, match="needs 2 devices"):
                 launch.select_sharding(ns(mesh=spec))
+    cards = [CPU] * 4
+    monkeypatch.setattr(tsh, "visible_devices", lambda: cards)
+    sh = launch.select_sharding(ns(mesh="2x2"))
+    assert sh.is_fabric and (sh.site_shards, sh.tree_shards) == (2, 2)
+    assert [sh.slice_devices(k) for k in (0, 1)] == [cards[:2], cards[:2]]
 
 
 # -- the CLI --------------------------------------------------------------------
@@ -411,9 +418,9 @@ def _journal(workdir):
 def test_cli_mesh_runs_and_refuses_what_the_cards_cannot_hold(tmp_path,
                                                                capsys):
     """--mesh 1x1 is the single-device run; --mesh 1x2 and --mesh 2x1
-    without two cards log the device arithmetic and return 1; a fleet on
-    a mesh with S > 1 is refused at argument time, naming ROADMAP A15c
-    (a fleet over site shards)."""
+    without two cards log the device arithmetic and return 1, and so do
+    the fleet modes on a mesh with S > 1 (a fleet over site shards: no
+    argument-time refusal, as in the JAX CLI)."""
     from examl_tpu_torch.cli.main import main
     aln = _aln(tmp_path)
     runs = {}
@@ -434,11 +441,16 @@ def test_cli_mesh_runs_and_refuses_what_the_cards_cannot_hold(tmp_path,
                     device="cpu") == 1
         info = open(os.path.join(wd, "ExaML_info.X")).read()
         assert "ERROR: mesh 2x1 needs 2 devices" in info
-    for extra in (["-N", "3", "--mesh", "2x1"],
-                  ["--serve", wd + "/jobs.jsonl", "--mesh", "4x1"]):
-        code, msg = _refusal(main, ["-s", aln, "-n", "X", "-w", wd] + extra,
-                             capsys)
-        assert code == 2 and "site shards" in msg and "ROADMAP A15c" in msg
+    for k, (extra, need) in enumerate((
+            (["-N", "3", "--mesh", "2x1"], 2),
+            (["--serve", wd + "/jobs.jsonl", "--mesh", "4x1"], 4))):
+        if torch.cuda.device_count() >= need:
+            continue
+        wd_k = str(tmp_path / f"fleet{k}")
+        assert main(["-s", aln, "-n", "X", "-w", wd_k] + extra,
+                    device="cpu") == 1
+        info = open(os.path.join(wd_k, "ExaML_info.X")).read()
+        assert f"ERROR: mesh {extra[-1]} needs {need} devices" in info
 
 
 def test_fleet_restart_on_two_lanes_resumes_bit_for_bit(tmp_path,
@@ -491,13 +503,14 @@ def test_fleet_restart_on_two_lanes_resumes_bit_for_bit(tmp_path,
 
 def test_sev_fabric_engine_guard():
     """Callers from Python hit the engines' backstop: SEV pools cannot
-    stack per-job arenas along a tree axis; a fleet over site shards is
-    refused by the instance (A15c); Sx1 composes with -S (a pool region
-    per site shard), as 1x1 does, and neither has a batched tier."""
+    stack per-job arenas along a tree axis, on 1xT as on SxT (each site
+    shard's engine raises it); Sx1 composes with -S (a pool region per
+    site shard), as 1x1 does, and neither has a batched tier."""
     data = _data(12, 300, 7)
     with pytest.raises(ValueError, match="1x2 fabric"):
         _port(data, save_memory=True, sharding=_fabric(1, 2))
-    with pytest.raises(ValueError, match="ROADMAP A15c"):
+    with pytest.raises(ValueError, match="-S cannot compose with a 2x2 "
+                       "fabric"):
         _port(data, save_memory=True, sharding=_fabric(2, 2))
     sharded = _port(data, save_memory=True, sharding=_fabric(2, 1))
     ref = _port(data, save_memory=True)

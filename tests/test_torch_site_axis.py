@@ -520,15 +520,25 @@ def test_select_sharding_as_jax(monkeypatch, spec):
         assert launch.select_sharding(args, False) is None
 
 
-def test_select_sharding_refuses_a_fleet_over_site_shards(monkeypatch):
+def test_select_sharding_builds_a_fleet_over_site_shards(monkeypatch):
+    """Eight visible cards: --mesh 2x2 is the JAX package's 2x2 fabric
+    (the declared specs), and an instance on it is the 2x1 one over tree
+    slice 0's two cards, whose batches run through a 2x2 MeshShard."""
+    from examl_tpu.parallel import launch as jlaunch
+    from examl_tpu.parallel import sharding as jsh
+    from examl_tpu_torch.fleet.shard import MeshShard
     from examl_tpu_torch.parallel import launch
     monkeypatch.setattr(tsh, "visible_devices", lambda: [CPU] * 8)
-    with pytest.raises(ValueError, match="ROADMAP A15c"):
-        launch.select_sharding(argparse.Namespace(mesh="2x2"), False)
-    with pytest.raises(ValueError, match="ROADMAP A15c"):
-        PhyloInstance(tbuild(*_seqs(8, 120, 4)), dtype=torch.float64,
-                      device="cpu", sharding=tsh.fabric_sharding(
-                          tsh.make_fabric_mesh(2, 2, [CPU] * 4)))
+    args = argparse.Namespace(mesh="2x2", single_device=False)
+    ours = launch.select_sharding(args, False)
+    assert tsh.declared_specs(ours) == jsh.declared_specs(
+        jlaunch.select_sharding(args, False))
+    inst = PhyloInstance(tbuild(*_seqs(8, 120, 4)), dtype=torch.float64,
+                         device="cpu", sharding=ours)
+    assert inst.site_shards == 2 and inst.shard_pool.size == 2
+    ev = inst.batch_evaluator()
+    assert isinstance(ev, MeshShard)
+    assert (ev.site_shards, ev.tree_shards) == (2, 2)
 
 
 def _refusal(main, argv, capsys):
@@ -542,15 +552,16 @@ def _refusal(main, argv, capsys):
     (["--mesh", "2x2"], None),                          # T>1, no fleet
     (["--mesh", "2x1", "--single-device"], None),
     (["--mesh", "4x2", "-S", "-N", "4"], None),         # SEV x T>1
-    (["--mesh", "2x1", "-N", "4"], "ROADMAP A15c"),     # fleet x S>1
+    (["--mesh", "2x2", "-N", "4", "--fleet-devices", "0"], None),
     (["--mesh", "2x1", "--nprocs", "2", "--procid", "0", "--coordinator",
       "127.0.0.1:1"], "cannot combine with --nprocs"),
 ])
 def test_cli_mesh_checks(tmp_path, capsys, extra, port_only):
     """Argument-time refusals (exit 2 before the dummy -s path is read):
-    the JAX CLI's message where both packages refuse, the port's own
-    where only the port does (a fleet over site shards, A15c; site shards
-    inside a rank of a process group)."""
+    the JAX CLI's message where both packages refuse (a fleet over site
+    shards is refused only with whole-card lanes, as there), the port's
+    own where only the port does (site shards inside a rank of a process
+    group)."""
     from examl_tpu_torch.cli.main import main as tmain
     base = ["-s", str(tmp_path / "missing.binary"), "-n", "X",
             "-w", str(tmp_path)]
