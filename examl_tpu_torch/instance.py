@@ -263,11 +263,14 @@ class PhyloInstance:
     # -- model push --------------------------------------------------------
 
     def push_models(self, only_states=None) -> None:
-        for states, bucket in self.buckets.items():
-            if only_states is not None and states not in only_states:
-                continue
-            self.engines[states].set_models(
-                [self.models[g] for g in bucket.part_ids])
+        with obs.span("models:push") as sp:
+            if sp:
+                sp.note(partitions=len(self.models))
+            for states, bucket in self.buckets.items():
+                if only_states is not None and states not in only_states:
+                    continue
+                self.engines[states].set_models(
+                    [self.models[g] for g in bucket.part_ids])
 
     def set_model(self, gid: int, model: ModelParams, push: bool = True) -> None:
         self.models[gid] = model
@@ -387,11 +390,20 @@ class PhyloInstance:
         valid because their parameters and the tree are unchanged.  Callers
         must finish with an unrestricted evaluate before changing topology.
         """
+        with obs.span("instance:evaluate") as sp:
+            if sp:
+                sp.note(full=bool(full), engines=sum(
+                    only_states is None or s in only_states
+                    for s in self.engines))
+            return self._evaluate(tree, p, full, only_states)
+
+    def _evaluate(self, tree: Tree, p: Optional[Node], full: bool,
+                  only_states) -> float:
         if p is None:
             p = tree.centroid_branch() if full else tree.start
         q = p.back
         if full:
-            with obs.timer("host_schedule"):
+            with obs.timer("host_schedule"), obs.span("engine:schedule"):
                 entries = tree.flat_full_traversal(p)
         else:
             entries = (self._collect(tree, p, full)

@@ -19,6 +19,7 @@ from dataclasses import dataclass, replace
 
 import numpy as np
 
+from examl_tpu_torch import obs
 from examl_tpu_torch.constants import FREQ_MIN, RATE_MAX, RATE_MIN
 from examl_tpu_torch.datatypes import DataType
 from examl_tpu_torch.models.gamma import gamma_category_rates
@@ -117,20 +118,24 @@ def build_model(dt: DataType, freqs: np.ndarray,
 
 
 def with_rates(m: ModelParams, rates: np.ndarray) -> ModelParams:
-    rates = sanitize_rates(rates)
-    eign, ev, ei = eigen_gtr(rates, m.freqs)
-    return replace(m, rates=rates, eign=eign, ev=ev, ei=ei)
+    with obs.span("models:eigen"):
+        rates = sanitize_rates(rates)
+        eign, ev, ei = eigen_gtr(rates, m.freqs)
+        return replace(m, rates=rates, eign=eign, ev=ev, ei=ei)
 
 
 def with_freqs(m: ModelParams, freqs: np.ndarray) -> ModelParams:
-    freqs = sanitize_freqs(freqs)
-    eign, ev, ei = eigen_gtr(m.rates, freqs)
-    return replace(m, freqs=freqs, eign=eign, ev=ev, ei=ei)
+    with obs.span("models:eigen"):
+        freqs = sanitize_freqs(freqs)
+        eign, ev, ei = eigen_gtr(m.rates, freqs)
+        return replace(m, freqs=freqs, eign=eign, ev=ev, ei=ei)
 
 
 def with_alpha(m: ModelParams, alpha: float) -> ModelParams:
-    return replace(m, alpha=float(alpha),
-                   gamma_rates=gamma_category_rates(alpha, m.ncat, m.use_median))
+    with obs.span("models:gamma_rates"):
+        return replace(m, alpha=float(alpha),
+                       gamma_rates=gamma_category_rates(alpha, m.ncat,
+                                                        m.use_median))
 
 
 def transition_matrix(m: ModelParams, t: float, rate: float = 1.0) -> np.ndarray:

@@ -8,15 +8,16 @@ port's artifacts.  Dependency-free pieces (no torch, no numpy at import):
   timers with log-bucketed latency histograms (`obs.hist`) — always on,
   dict-update cheap — plus a heartbeat-ticked periodic snapshot flush
   so a killed process leaves its last-known counters behind;
-* a **span tracer** (`obs.trace`): Chrome-trace/Perfetto-compatible
-  per-process JSONL files, off unless `--trace-events` enables it,
-  with `torch.profiler.record_function` scopes so host spans line up
-  with a `--profile` trace;
+* a **span tracer** (`obs.trace`): spans that record only while
+  someone traces the process (`--trace-events`, `--profile`, or any
+  torch.profiler session), kept in memory for readers, each with a
+  `torch.profiler` twin of its name on the profiler's clock, and, under
+  `--trace-events`, Chrome-trace/Perfetto-compatible per-process JSONL
+  files;
 * a **run ledger** (`obs.ledger`): append-only per-rank JSONL event
   stream (phases, faults, checkpoint publishes, memory-governor and
   fleet decisions), merged into one ordered timeline at exit;
-* the shared **traffic model** (`obs.traffic`) and a **dispatch-timing
-  helper** (`obs.timing`);
+* the shared **traffic model** (`obs.traffic`);
 * the **program observatory** (`obs.programs`): one row per CUDA
   extension instance, and device-memory gauges.
 
@@ -26,6 +27,10 @@ This module is the flat facade the rest of the port imports:
     obs.inc("engine.dispatch_count")
     with obs.device_span("engine:traverse", args={"entries": n}):
         ...
+    with obs.device_span("engine:operands") as sp:
+        ...
+        if sp:                        # counts only where a span records
+            sp.note(p_bytes=nbytes)
 
 A thread may be made quiet (`set_quiet`): the facade's counters, gauges,
 timers, spans and ledger events are then no-ops on it.  The site shards
@@ -51,7 +56,6 @@ from examl_tpu_torch.obs.ledger import (  # noqa: F401
     read_events as read_ledger)
 from examl_tpu_torch.obs.metrics import (  # noqa: F401
     maybe_autoflush, set_autoflush)
-from examl_tpu_torch.obs.timing import time_dispatch  # noqa: F401
 from examl_tpu_torch.obs.trace import (  # noqa: F401
     enable as enable_tracing, enabled as tracing_enabled,
     finalize as finalize_tracing, merge_summary, read_events,
@@ -59,7 +63,11 @@ from examl_tpu_torch.obs.trace import (  # noqa: F401
 
 # -- quiet threads ------------------------------------------------------------
 
-_thread = threading.local()
+class _ThreadFlags(threading.local):
+    quiet = False      # a class default: reading it raises nothing
+
+
+_thread = _ThreadFlags()
 
 
 def set_quiet(on: bool) -> None:
@@ -68,15 +76,17 @@ def set_quiet(on: bool) -> None:
 
 
 def quiet() -> bool:
-    return getattr(_thread, "quiet", False)
+    return _thread.quiet
 
 
 def span(name: str, cat: str = "host", args: Optional[dict] = None):
-    return _trace._NULL if quiet() else _trace.span(name, cat, args)
+    s = _trace.span(name, cat, args)
+    return _trace._NULL if s is not _trace._NULL and quiet() else s
 
 
 def device_span(name: str, args: Optional[dict] = None):
-    return _trace._NULL if quiet() else _trace.device_span(name, args)
+    s = _trace.device_span(name, args)
+    return _trace._NULL if s is not _trace._NULL and quiet() else s
 
 
 def instant(name: str, args: Optional[dict] = None) -> None:

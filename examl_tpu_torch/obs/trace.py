@@ -1,32 +1,44 @@
-"""Span tracer: Chrome-trace / Perfetto-compatible JSONL event files.
+"""Span tracer: an in-memory span recorder on the profiler's clock, and
+Chrome-trace / Perfetto-compatible JSONL event files.
 
 The port of `examl_tpu/obs/trace.py`: the same files, layout and
 readers, so the JAX package's `read_events` / `merge_summary` and
 `tools/run_report.py` read the port's traces.
 
-Off by default and zero-cost when off: `span()` returns a shared no-op
-context unless tracing was enabled (by `enable(dir, procid)`, which the
-CLI's `--trace-events` calls).
+A span records only while someone traces the process: the trace file is
+open (`enable(dir, procid)`, which the CLI's `--trace-events` calls),
+annotations are on (`set_annotations`, the CLI's `--profile`), or a
+torch.profiler session is active (`torch._C._autograd._profiler_enabled()`).
+Otherwise `span()` / `device_span()` return the shared no-op `_NULL`
+after that one check.
 
-* spans are B/E *pairs*, flushed per event — a process that dies or
-  wedges inside a span leaves an unmatched "B" naming it as the file's
-  last line;
-* one file per process, named by procid (`trace.p<procid>.jsonl`), so
-  the ranks of a site-parallel run never interleave writers; process 0
-  merges a cross-process `summary.json` at exit;
-* the file is a streaming Chrome-trace JSON array: a `[` header, one
-  event object per line each terminated by a comma, closed with a
-  metadata event + `]` at finalize.  Perfetto and chrome://tracing load
-  both the finalized file and a crash-truncated one (the format is
-  specified to tolerate a missing terminator).
+* **The recorder** keeps every recorded span in memory (`Recorder`): its
+  name, start and end stamps, thread, the index of its parent span on
+  the same thread, the index of its root span (so the spans of one probe
+  or one prune share a root) and its `args`, the counts taken at that
+  boundary (`note()` adds those known only inside the span).  The buffer
+  has a fixed number of slots, allocated at the first span; a full
+  buffer counts the spans it drops.  Nothing is written per span:
+  readers take `recorded()` and `self_time()`.
+* **One clock with the profiler**: while a profiler session is active
+  every span, host or device, enters a `record_function` twin of its
+  name, so the profiler's trace holds the program's spans.  The recorder
+  stamps with `time.time_ns()` just inside the twin: the trace file's
+  clock and the epoch clock of the profiler's events.
+* **The trace file** (`--trace-events`) stays the crash sink: spans are
+  B/E *pairs*, flushed per event, so a process that dies or wedges
+  inside a span leaves an unmatched "B" naming it as the file's last
+  line; one file per process, named by procid (`trace.p<procid>.jsonl`),
+  so the ranks of a site-parallel run never interleave writers; process
+  0 merges a cross-process `summary.json` at exit.  The file is a
+  streaming Chrome-trace JSON array: a `[` header, one event object per
+  line each terminated by a comma, closed with a metadata event + `]` at
+  finalize.  Perfetto and chrome://tracing load both the finalized file
+  and a crash-truncated one.  Timestamps are epoch microseconds, so
+  traces from different processes of one job line up on a shared axis.
 
-Timestamps are epoch microseconds (`time.time_ns() // 1000`) so traces
-from different processes of one job line up on a shared axis.
-
-`device_span()` additionally enters a `torch.profiler.record_function`
-scope (when annotations are on: tracing enabled or `--profile` active)
-so host spans line up with the kernels in a torch.profiler trace.
-Nothing here reads a tensor: a span costs host time only.
+Nothing here reads a tensor or imports torch: a span costs host time
+only, and the profiler check binds to torch once torch is imported.
 """
 
 from __future__ import annotations
@@ -37,7 +49,7 @@ import os
 import sys
 import threading
 import time
-from typing import Optional
+from typing import List, NamedTuple, Optional, Sequence
 
 
 class _NullContext:
@@ -49,16 +61,53 @@ class _NullContext:
     def __exit__(self, *exc):
         return False
 
+    def __bool__(self):
+        return False
+
+    def note(self, **counts) -> None:
+        pass
+
 
 _NULL = _NullContext()
 
 _lock = threading.Lock()
 _writer: Optional["TraceWriter"] = None
 _annotate = False
+# Recording without a profiler session: the trace file is open or
+# annotations are on.
+_forced = False
 
 
 def _now_us() -> int:
     return time.time_ns() // 1000
+
+
+def _profiler_check() -> bool:
+    """Whether a torch.profiler session is active.  Until torch is
+    imported there is none; then `_profiling` binds to torch's own check
+    (about 70 ns a call)."""
+    global _profiling
+    torch = sys.modules.get("torch")
+    if torch is None:
+        return False
+    _profiling = torch._C._autograd._profiler_enabled
+    return _profiling()
+
+
+_profiling = _profiler_check
+_twin_type = None
+
+
+def _twin(name: str):
+    """The profiler's record_function scope of `name`: the C++ fast scope
+    where torch has one (its stamps sit within a microsecond or two of
+    the recorder's), else `torch.profiler.record_function`."""
+    global _twin_type
+    if _twin_type is None:
+        import torch
+        _twin_type = getattr(torch._C._profiler, "_RecordFunctionFast",
+                             torch.profiler.record_function)
+    return _twin_type(name)
 
 
 class TraceWriter:
@@ -102,58 +151,187 @@ class TraceWriter:
             self._f.close()
 
 
+# -- the in-memory recorder -------------------------------------------------
+
+CAPACITY = 1 << 16
+
+
+class Span(NamedTuple):
+    """One recorded span; stamps are epoch ns (`time.time_ns()`)."""
+    index: int
+    name: str
+    start: int
+    end: int
+    thread: int
+    parent: int                  # enclosing span on the thread, -1 at a root
+    root: int                    # outermost enclosing span (itself at a root)
+    args: Optional[dict]
+
+    @property
+    def duration(self) -> int:
+        return self.end - self.start
+
+
+class Recorder:
+    """`capacity` span slots, one list per field, filled in order.  A span
+    takes its slot when it opens and stamps its end when it closes; once
+    every slot is taken, further spans are counted in `dropped` and not
+    kept (their children attach to the nearest kept ancestor)."""
+
+    def __init__(self, capacity: int = CAPACITY) -> None:
+        self.capacity = capacity
+        self._name: list = [None] * capacity
+        self._start = [0] * capacity
+        self._end = [0] * capacity
+        self._thread = [0] * capacity
+        self._parent = [-1] * capacity
+        self._root = [-1] * capacity
+        self._args: list = [None] * capacity
+        self._lock = threading.Lock()
+        self._local = threading.local()     # each thread's open spans
+        self.n = 0
+        self.dropped = 0
+
+    def open(self, name: str, args: Optional[dict]) -> int:
+        """Take a slot for a span about to start (`stamp` sets its
+        start); returns its index, -1 when the buffer is full."""
+        with self._lock:
+            i = self.n
+            if i >= self.capacity:
+                self.dropped += 1
+                return -1
+            self.n = i + 1
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        parent = stack[-1] if stack else -1
+        self._name[i] = name
+        self._thread[i] = threading.get_ident()
+        self._parent[i] = parent
+        self._root[i] = self._root[parent] if parent >= 0 else i
+        self._args[i] = args
+        stack.append(i)
+        return i
+
+    def stamp(self, i: int, t: int) -> None:
+        if i >= 0:
+            self._start[i] = t
+
+    def close(self, i: int, t: int, args: Optional[dict]) -> None:
+        if i < 0:
+            return
+        self._end[i] = t
+        self._args[i] = args
+        stack = self._local.stack
+        if stack[-1] == i:
+            stack.pop()
+        else:                               # closed out of order
+            stack.remove(i)
+
+    def spans(self) -> List[Span]:
+        """Every closed span, in the order they opened."""
+        return [Span(i, self._name[i], self._start[i], self._end[i],
+                     self._thread[i], self._parent[i], self._root[i],
+                     self._args[i])
+                for i in range(min(self.n, self.capacity)) if self._end[i]]
+
+
+_recorder: Optional[Recorder] = None
+
+
+def recorder() -> Recorder:
+    """This process's recorder, made at its first span."""
+    global _recorder
+    with _lock:
+        if _recorder is None:
+            _recorder = Recorder()
+        return _recorder
+
+
+def recorded() -> List[Span]:
+    """The spans recorded so far, closed ones only, in opening order."""
+    r = _recorder
+    return r.spans() if r is not None else []
+
+
+def dropped() -> int:
+    """Spans not kept because the buffer was full."""
+    r = _recorder
+    return r.dropped if r is not None else 0
+
+
+def reset_recorder(capacity: Optional[int] = None) -> None:
+    """Forget every recorded span; the next buffer has `capacity` slots
+    (CAPACITY by default, allocated at the next span).  Spans open now
+    close into the buffer they opened in."""
+    global _recorder
+    with _lock:
+        _recorder = None if capacity is None else Recorder(capacity)
+
+
+def self_time(spans: Sequence[Span], span: Span) -> int:
+    """`span`'s duration in ns less the part of it that its child spans
+    (those in `spans` whose parent it is) cover."""
+    covered, reach = 0, span.start
+    for s, e in sorted((c.start, c.end) for c in spans
+                       if c.parent == span.index):
+        s, e = max(s, reach), min(e, span.end)
+        if e > s:
+            covered += e - s
+            reach = e
+    return span.duration - covered
+
+
 class _Span:
-    __slots__ = ("_name", "_cat", "_args", "_writer")
+    """A recorded span: the profiler twin (while a session is active),
+    the recorder's slot and, with the trace file open, its B/E pair."""
 
-    def __init__(self, writer: TraceWriter, name: str, cat: str, args):
-        self._writer = writer
-        self._name = name
-        self._cat = cat
-        self._args = args
+    __slots__ = ("name", "cat", "args", "_rec", "_i", "_tw")
+
+    def __init__(self, name: str, cat: str, args: Optional[dict]):
+        self.name = name
+        self.cat = cat
+        self.args = args
+
+    def note(self, **counts) -> None:
+        """Add counts taken inside the span to its args."""
+        self.args = counts if self.args is None else {**self.args, **counts}
+
+    # The recorder's stamps are the innermost step on either side, and
+    # the twin's the next: a span's duration leaves out the recorder's own
+    # bookkeeping and the trace file's writes, and the twin's stamps lie
+    # within a few microseconds of the recorder's.
 
     def __enter__(self):
-        w = self._writer
-        ev = {"ph": "B", "name": self._name, "cat": self._cat,
-              "pid": w.procid, "tid": w.tid(), "ts": _now_us()}
-        if self._args:
-            ev["args"] = self._args
-        w.event(ev)
+        rec = self._rec = _recorder or recorder()
+        i = self._i = rec.open(self.name, self.args)
+        w = _writer
+        if w is not None:
+            ev = {"ph": "B", "name": self.name, "cat": self.cat,
+                  "pid": w.procid, "tid": w.tid(), "ts": _now_us()}
+            if self.args:
+                ev["args"] = self.args
+            w.event(ev)
+        tw = None
+        if _profiling():
+            tw = _twin(self.name)
+            tw.__enter__()
+        self._tw = tw
+        rec.stamp(i, time.time_ns())
         return self
 
     def __exit__(self, *exc):
-        w = self._writer
-        w.event({"ph": "E", "name": self._name, "cat": self._cat,
-                 "pid": w.procid, "tid": w.tid(), "ts": _now_us()})
-        return False
-
-
-class _DeviceSpan(_Span):
-    """Host span + torch.profiler.record_function scope, so the host
-    trace and a torch.profiler trace share span names."""
-
-    __slots__ = ("_tm",)
-
-    def __enter__(self):
-        self._tm = None
-        if _annotate:
-            try:
-                import torch
-                self._tm = torch.profiler.record_function(self._name)
-                self._tm.__enter__()
-            except Exception:
-                self._tm = None
-        if self._writer is not None:
-            super().__enter__()
-        return self
-
-    def __exit__(self, *exc):
-        if self._writer is not None:
-            super().__exit__(*exc)
-        if self._tm is not None:
-            try:
-                self._tm.__exit__(*exc)
-            except Exception:
-                pass
+        t = time.time_ns()
+        if self._tw is not None:
+            self._tw.__exit__(*exc)
+        self._rec.close(self._i, t, self.args)
+        w = _writer
+        if w is not None:
+            ev = {"ph": "E", "name": self.name, "cat": self.cat,
+                  "pid": w.procid, "tid": w.tid(), "ts": _now_us()}
+            if self.args:
+                ev["args"] = self.args
+            w.event(ev)
         return False
 
 
@@ -179,10 +357,15 @@ def _default_procid() -> int:
     return 0
 
 
+def _refresh_forced() -> None:
+    global _forced
+    _forced = _writer is not None or _annotate
+
+
 def enable(trace_dir: str, procid: Optional[int] = None) -> str:
     """Open this process's trace file under `trace_dir`; returns its
     path.  Idempotent: re-enabling returns the existing file."""
-    global _writer, _annotate
+    global _writer
     with _lock:
         if _writer is not None:
             return _writer.path
@@ -191,7 +374,7 @@ def enable(trace_dir: str, procid: Optional[int] = None) -> str:
         os.makedirs(trace_dir, exist_ok=True)
         path = os.path.join(trace_dir, f"trace.p{procid}.jsonl")
         _writer = TraceWriter(path, procid)
-        _annotate = True
+        _refresh_forced()
         atexit.register(finalize)
         return path
 
@@ -201,27 +384,27 @@ def enabled() -> bool:
 
 
 def set_annotations(on: bool) -> None:
-    """Turn record_function scopes on/off independently of the JSONL
-    writer (the CLI sets this under --profile so a torch.profiler trace
-    gets named scopes even without --trace-events)."""
+    """Record spans without the JSONL writer (the CLI sets this under
+    --profile, whose torch.profiler session then gets every span as a
+    named scope)."""
     global _annotate
     _annotate = on
+    _refresh_forced()
 
 
 def span(name: str, cat: str = "host", args: Optional[dict] = None):
-    """A host-side span context manager; no-op unless tracing is on."""
-    if _writer is None:
+    """A host-side span context manager; no-op unless someone traces."""
+    if not (_forced or _profiling()):
         return _NULL
-    return _Span(_writer, name, cat, args)
+    return _Span(name, cat, args)
 
 
 def device_span(name: str, args: Optional[dict] = None):
-    """A span around a device dispatch: host trace event +
-    record_function (annotations may be on without the JSONL writer,
-    under --profile)."""
-    if _writer is None and not _annotate:
+    """A span around a device dispatch (category "dispatch" in the trace
+    file); no-op unless someone traces."""
+    if not (_forced or _profiling()):
         return _NULL
-    return _DeviceSpan(_writer, name, "dispatch", args)
+    return _Span(name, "dispatch", args)
 
 
 def instant(name: str, args: Optional[dict] = None) -> None:
@@ -303,6 +486,7 @@ def finalize() -> None:
     with _lock:
         w = _writer
         _writer = None
+        _refresh_forced()
     if w is None:
         return
     w.close()

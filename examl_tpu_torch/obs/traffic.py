@@ -1,4 +1,4 @@
-"""The ONE bytes-per-traversal traffic model + regime classifier.
+"""The ONE bytes-per-traversal traffic model.
 
 The port of `examl_tpu/obs/traffic.py`, its arithmetic unchanged: the
 model PERF.md quotes for every kernel's bound, and the one the engine
@@ -10,14 +10,11 @@ Model: per traversal entry one CLV row written, each non-tip child's CLV
 row read, scaler rows alongside (int32/lane), tip children read 1-byte
 code rows; P matrices / tip tables are O(states^2) noise.
 
-Regime classification: a traversal whose wall time sits at `program_ops
-x launch-latency` is DISPATCH-BOUND — its GB/s is a launch-floor
-artifact, not a bandwidth measurement.  The classifier is the JAX
-package's, with its TPU launch latency as the default, kept so the two
-packages' verdicts on the same numbers agree; the port's engine does not
-publish a verdict (its launches per traversal do not follow an XLA
-program count, and its GB/s gauge is modelled bytes over host wall
-time, not a device reading).
+The JAX package also classifies a measurement's regime against its TPU
+launch floor; the port publishes no verdict (its launches per traversal
+do not follow an XLA program count, and its GB/s gauge is modelled
+bytes over host wall time, not a device reading), so it has no
+classifier.
 
 stdlib only — report tools import this with no torch on the path.
 """
@@ -27,18 +24,10 @@ from __future__ import annotations
 import numbers
 from typing import Optional
 
-# The JAX package's per-op launch latency on the TPU (its default for
-# the dependent-kernel floor); not a figure of the card.
-DEFAULT_LAUNCH_LATENCY_S = 45e-6
-
 # Minimum seconds between `traffic.window` ledger events per tier: the
 # gauges always carry the latest window; the ledger gets periodic
 # samples, not one line per window.
 LEDGER_EVENT_INTERVAL_S = 30.0
-
-# wall / launch-floor ratio below which a measurement is called
-# dispatch-bound.
-DISPATCH_BOUND_RATIO = 3.0
 
 # A window closes after this many blocking dispatches or this many
 # seconds of their wall time, whichever comes first.
@@ -100,36 +89,16 @@ def bytes_per_traversal(entries, ntips: int, patterns: int, R: int,
         K, itemsize)
 
 
-def classify_regime(wall_s: float, program_ops: int,
-                    launch_latency: Optional[float] = None) -> dict:
-    """Verdict for one traversal measurement: where does `wall_s` sit
-    against the `program_ops x launch-latency` floor?
-
-    Returns {"regime": "dispatch-bound" | "bandwidth-meaningful",
-    "launch_floor_s", "floor_ratio"} — floor_ratio is wall/floor, so a
-    ratio near 1 means the number measures launch latency, not HBM."""
-    lat = DEFAULT_LAUNCH_LATENCY_S if launch_latency is None \
-        else launch_latency
-    floor = max(1, int(program_ops)) * lat
-    ratio = (wall_s / floor) if floor > 0 else float("inf")
-    regime = ("dispatch-bound" if ratio < DISPATCH_BOUND_RATIO
-              else "bandwidth-meaningful")
-    return {"regime": regime, "launch_floor_s": floor,
-            "floor_ratio": round(ratio, 3)}
-
-
 class TrafficWindow:
     """Windowed achieved-GB/s accumulator for the engine's timed
     (blocking) dispatch path: per blocked dispatch `add()` records
-    (bytes, wall seconds, program ops); once `min_dispatches` have
-    accumulated or `min_wall_s` has been spanned, `add()` returns the
-    window verdict — (gbps, regime dict, dispatches) — and resets.
-    Windowing keeps the gauge honest (a single warm dispatch after a
-    compile would otherwise swing it) and cheap (one division per
-    window, not per dispatch)."""
+    (bytes, wall seconds); once `min_dispatches` have accumulated or
+    `min_wall_s` has been spanned, `add()` returns the window —
+    (gbps, dispatches) — and resets.  Windowing keeps the gauge honest
+    (a single warm dispatch after a compile would otherwise swing it)
+    and cheap (one division per window, not per dispatch)."""
 
-    __slots__ = ("min_dispatches", "min_wall_s", "bytes", "wall",
-                 "ops", "n")
+    __slots__ = ("min_dispatches", "min_wall_s", "bytes", "wall", "n")
 
     def __init__(self, min_dispatches: int = WINDOW_DISPATCHES,
                  min_wall_s: float = WINDOW_WALL_S) -> None:
@@ -137,14 +106,11 @@ class TrafficWindow:
         self.min_wall_s = min_wall_s
         self.bytes = 0
         self.wall = 0.0
-        self.ops = 0
         self.n = 0
 
-    def add(self, nbytes: int, wall_s: float,
-            program_ops: int) -> Optional[tuple]:
+    def add(self, nbytes: int, wall_s: float) -> Optional[tuple]:
         self.bytes += int(nbytes)
         self.wall += float(wall_s)
-        self.ops += int(program_ops)
         self.n += 1
         if self.n < self.min_dispatches and self.wall < self.min_wall_s:
             return None
@@ -152,8 +118,6 @@ class TrafficWindow:
             self.__init__(self.min_dispatches, self.min_wall_s)
             return None
         gbps = self.bytes / self.wall / 1e9
-        regime = classify_regime(self.wall / self.n,
-                                 max(1, self.ops // self.n))
         n = self.n
         self.__init__(self.min_dispatches, self.min_wall_s)
-        return gbps, regime, n
+        return gbps, n

@@ -117,6 +117,18 @@ GRAD_PASSES = 0
 SCHED_CACHE_CAP = 8
 
 
+def _note_operands(sp, pmat: torch.Tensor, codes: int) -> None:
+    """A traversal's P build on its span, from shapes: the P matrices
+    pmat [P, 2, M, R, K, K] (one K x K a slot, side, partition and
+    category) and the bytes of P and of the tip products [P, 2, M, codes,
+    R, K] that the card's route builds from it (codes 0 where none are
+    built)."""
+    P, _, M, R, K, _ = pmat.shape
+    n = pmat.numel() + P * 2 * M * codes * R * K
+    sp.note(p_matrices=pmat.numel() // (K * K),
+            p_bytes=n * pmat.element_size())
+
+
 def _tally(name: str, n: int = 1) -> None:
     """Add n to the module count `name` unless this thread is quiet (a
     site shard other than rank 0, parallel/shards.py)."""
@@ -152,16 +164,19 @@ def stack_models(models: Sequence[ModelParams],
             return np.asarray(m.rate_weights)
         return np.full(R, 1.0 / R)
 
-    return DeviceModels(
-        eign=arr([per_cat(m, "eign") for m in models]),
-        ev=arr([per_cat(m, "ev") for m in models]),
-        ei=arr([per_cat(m, "ei") for m in models]),
-        freqs=arr([per_cat(m, "freqs") for m in models]),
-        gamma_rates=arr([m.gamma_rates for m in models]),
-        rate_weights=arr([weights_of(m) for m in models]),
-        part_branch=torch.as_tensor(np.asarray(branch_indices, np.int64),
-                                    device=device),
-    )
+    with obs.span("models:stack") as sp:
+        if sp:
+            sp.note(partitions=len(models))
+        return DeviceModels(
+            eign=arr([per_cat(m, "eign") for m in models]),
+            ev=arr([per_cat(m, "ev") for m in models]),
+            ei=arr([per_cat(m, "ei") for m in models]),
+            freqs=arr([per_cat(m, "freqs") for m in models]),
+            gamma_rates=arr([m.gamma_rates for m in models]),
+            rate_weights=arr([weights_of(m) for m in models]),
+            part_branch=torch.as_tensor(np.asarray(branch_indices, np.int64),
+                                        device=device),
+        )
 
 
 class LikelihoodEngine:
@@ -406,10 +421,10 @@ class LikelihoodEngine:
         win = self._traffic_win.get(tier)
         if win is None:
             win = self._traffic_win[tier] = _traffic.TrafficWindow()
-        out = win.add(nbytes, wall_s, 1)
+        out = win.add(nbytes, wall_s)
         if out is None:
             return
-        gbps, _, n = out
+        gbps, n = out
         obs.gauge(f"engine.achieved_gbps.{tier}.{self._obs_tag}",
                   round(gbps, 3))
         from examl_tpu_torch.obs import programs as _programs
@@ -542,21 +557,24 @@ class LikelihoodEngine:
         root edge only, so a stale entry can never be served), built on a
         miss; the least recently used of more than SCHED_CACHE_CAP goes.
         `counter` names the cache's hit / miss / evictions counters."""
-        st = cache.get(flat.topo_key)
-        if st is not None:
-            cache.move_to_end(flat.topo_key)
+        with obs.span("engine:schedule") as sp:
+            st = cache.get(flat.topo_key)
+            if sp:
+                sp.note(hit=int(st is not None))
+            if st is not None:
+                cache.move_to_end(flat.topo_key)
+                if counter:
+                    obs.inc(counter + ".hit")
+                return st
             if counter:
-                obs.inc(counter + ".hit")
+                obs.inc(counter + ".miss")
+            with obs.timer("host_schedule"):
+                st = cache[flat.topo_key] = build()
+            while len(cache) > SCHED_CACHE_CAP:
+                cache.popitem(last=False)
+                if counter:
+                    obs.inc(counter + ".evictions")
             return st
-        if counter:
-            obs.inc(counter + ".miss")
-        with obs.timer("host_schedule"):
-            st = cache[flat.topo_key] = build()
-        while len(cache) > SCHED_CACHE_CAP:
-            cache.popitem(last=False)
-            if counter:
-                obs.inc(counter + ".evictions")
-        return st
 
     def _build_structure(self, flat: FlatTraversal):
         if self.newview == "whole":
@@ -588,9 +606,14 @@ class LikelihoodEngine:
         the structure's dataflow table and this arena's ready flags, or one
         launch a row); installs the wave-ordered row map it wrote."""
         st = self._structure(flat)
-        zl, zr = fastpath.refresh_z(st, flat, self.num_branch_slots,
-                                    self.dtype, self.device)
-        pmat = newview_chunk.chunk_operands(self.models, zl, zr)
+        with obs.device_span("engine:operands") as sp:
+            zl, zr = fastpath.refresh_z(st, flat, self.num_branch_slots,
+                                        self.dtype, self.device)
+            pmat = newview_chunk.chunk_operands(self.models, zl, zr)
+            if sp:
+                # chunk_apply builds the tip products on the card only.
+                _note_operands(sp, pmat, 0 if self.clv.device.type == "cpu"
+                               else self.tips.table.shape[0])
         _tally("CHUNK_LAUNCH_ROWS", st.launch.shape[0])
         newview_chunk.chunk_apply(self.clv, self.scaler, self.tips.codes,
                                   self.tips.table, self.block_part_i32,
@@ -668,12 +691,19 @@ class LikelihoodEngine:
 
     def _evaluate(self, p_num: int, q_num: int,
                   z: Sequence[float]) -> np.ndarray:
-        xp, sp = self._gather(p_num)
-        xq, sq = self._gather(q_num)
-        out = kernels.root_log_likelihood_from(
-            self.models, self.block_part, self.weights, xp, sp, xq, sq,
-            self._z(z), self.num_parts, self.scale_exp, self.site_rates)
-        return self.group.allreduce(out.cpu().numpy())
+        with obs.device_span("engine:root"):
+            # The first gather uploads its index by a blocking copy (torch
+            # synchronizes the stream before it): the host waits there for
+            # the traversal queued before.
+            with obs.device_span("engine:upload"):
+                xp, sp = self._gather(p_num)
+            xq, sq = self._gather(q_num)
+            out = kernels.root_log_likelihood_from(
+                self.models, self.block_part, self.weights, xp, sp, xq, sq,
+                self._z(z), self.num_parts, self.scale_exp, self.site_rates)
+        with obs.device_span("engine:readback"):
+            out = out.cpu().numpy()
+        return self.group.allreduce(out)
 
     def traverse_evaluate(self, entries, p_num: int, q_num: int,
                           z: Sequence[float], full: bool = False) -> np.ndarray:
@@ -816,20 +846,28 @@ class LikelihoodEngine:
         its uppass entries; counted as one partial traversal (a pooled one
         under -S, where the orientation fixes' cells are allocated
         first)."""
-        obs.inc("engine.dispatch_count")
-        obs.inc("engine.traversal_entries",
-                len(plan.down_entries) + len(plan.up_entries))
-        self._record_traffic(self._scan_plan_traffic_bytes(plan),
-                             POOLED_TIER if self.sev is not None else "scan")
-        if self.sev is not None:
-            self.sev.update_for_entries(plan.down_entries)
-            _tally("POOLED_TRAVERSALS")
-        else:
-            _tally("PARTIAL_TRAVERSALS")
-        base = self.ensure_scan_rows(len(plan.up_entries))
-        tv = self._scan_traversal_arrays(plan.down_entries, plan.up_entries,
-                                         base)
-        return (tv,) + self._scan_dispatch_arrays(plan, base)
+        with obs.device_span("engine:scan_setup") as sp:
+            rows = self.scaler.shape[0] if sp else 0
+            obs.inc("engine.dispatch_count")
+            obs.inc("engine.traversal_entries",
+                    len(plan.down_entries) + len(plan.up_entries))
+            self._record_traffic(
+                self._scan_plan_traffic_bytes(plan),
+                POOLED_TIER if self.sev is not None else "scan")
+            if self.sev is not None:
+                self.sev.update_for_entries(plan.down_entries)
+                _tally("POOLED_TRAVERSALS")
+            else:
+                _tally("PARTIAL_TRAVERSALS")
+            base = self.ensure_scan_rows(len(plan.up_entries))
+            tv = self._scan_traversal_arrays(plan.down_entries,
+                                             plan.up_entries, base)
+            out = (tv,) + self._scan_dispatch_arrays(plan, base)
+            if sp:
+                sp.note(down=len(plan.down_entries),
+                        up=len(plan.up_entries),
+                        grew=self.scaler.shape[0] - rows)
+            return out
 
     def batched_scan(self, plan) -> np.ndarray:
         """The orientation fixes, the uppass traversal and every
@@ -847,7 +885,9 @@ class LikelihoodEngine:
                 self._store(), self.scaler, tv, qg, upg, zc,
                 self._gidx(plan.s_num), self._z(plan.zp), self.scale_exp,
                 self.ntips, self.site_rates)
-            return self.group.allreduce(lnls.cpu().numpy())
+            with obs.device_span("engine:readback"):
+                lnls = lnls.cpu().numpy()
+            return self.group.allreduce(lnls)
 
     def batched_thorough(self, plan, nr_iterations: int):
         """The thorough-arm companion of `batched_scan`: triangle

@@ -29,6 +29,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from examl_tpu_torch import obs
 from examl_tpu_torch.constants import DEFAULTZ, SMOOTHINGS, UNLIKELY, ZMAX, ZMIN
 from examl_tpu_torch.instance import PhyloInstance
 from examl_tpu_torch.optimize.branch import local_smooth
@@ -428,7 +429,14 @@ def rearrange_batched(inst: PhyloInstance, tree: Tree, ctx: SprContext,
     """
     if maxtrav < 1 or mintrav > maxtrav:
         return False
+    with obs.span("search:rearrange"):
+        return _rearrange_batched(inst, tree, ctx, p, mintrav, maxtrav,
+                                  thorough)
 
+
+def _rearrange_batched(inst: PhyloInstance, tree: Tree, ctx: SprContext,
+                       p: Node, mintrav: int, maxtrav: int,
+                       thorough: bool) -> bool:
     def scan_one(prune: Node, mintrav_: int) -> None:
         global INSERTIONS_SCORED
         p1 = prune.next.back
@@ -436,9 +444,13 @@ def rearrange_batched(inst: PhyloInstance, tree: Tree, ctx: SprContext,
         p1z = list(p1.z)
         p2z = list(p2.z)
         remove_node(inst, tree, ctx, prune)
-        plan = batchscan.plan_for_endpoints(
-            inst, tree, prune, p1, p2, mintrav_, maxtrav,
-            ctx.constraint, ctx.pruned_clusters)
+        with obs.span("search:plan") as sp:
+            plan = batchscan.plan_for_endpoints(
+                inst, tree, prune, p1, p2, mintrav_, maxtrav,
+                ctx.constraint, ctx.pruned_clusters)
+            if sp:
+                sp.note(candidates=0 if plan is None
+                        else len(plan.candidates))
         if plan is not None:
             if thorough:
                 lnls, es = batchscan.run_plan_thorough(inst, tree, plan)
